@@ -1,0 +1,18 @@
+"""ludwig_tpu_torch: the PyTorch + CUDA port of ludwig_tpu.
+
+A second package beside the JAX one, which stays the reference.  Plain
+tensor code is PyTorch on an explicit device; the fused collide+stream
+kernels are hand-written CUDA for Hopper (csrc/fused_lb.cu), each with a
+plain PyTorch twin that the CPU takes.  This package imports neither JAX
+nor ludwig_tpu.
+"""
+
+__version__ = "0.1.0"
+
+from ludwig_tpu_torch.lattice import LatticeModel, lb_model, model_from_name
+from ludwig_tpu_torch.lb import (LBConfig, initial_from_hydro, initial_rest,
+                                 make_step)
+from ludwig_tpu_torch.ops.collide import (CollisionParams, RelaxationScheme,
+                                          collide, equilibrium)
+from ludwig_tpu_torch.ops.stream import stream, stream_bounce_back
+from ludwig_tpu_torch.runtime import RunTime

@@ -1,0 +1,269 @@
+// Fused collide + stream kernels for Hopper (sm_90a), D3Q15/19/27, f32/f64.
+//
+// Replaces the Pallas TPU kernels of ludwig_tpu/ops/fused.py:
+//   fused_step_kernel   <- _fused_kernel  (ops/fused.py:429), one step
+//   fusedn_step_kernel  <- _fusedn_kernel (ops/fused.py:902), n steps/pass
+//
+// Both compute f'_q(x) = C(f)_q(x - c_q): a local moment-space collision C
+// (M10/BGK/TRT through per-ghost rates, global body force, even/odd
+// factorised transforms, increment or absolute back transform) followed
+// by a periodic pull stream, on the unpadded state (nvel, X, Y, Z) with z
+// fastest.  The collision is lb_generated.h, straight-line code generated
+// at build time from the port's Python twin and lattice.py tables
+// (ops/_cuda.py), so both kernels and the twin share one expression tree.
+//
+// Bound on this card: memory.  One step must read and write every value
+// once: 2 * nvel * sizeof(T) bytes per site (152 B for D3Q19 in f32)
+// against ~1.6 flop/B of collision arithmetic, far below the H100's
+// ~20 flop/B balance point in f32.
+//
+// fused_step_kernel: one thread per site, z fastest.  The thread reads its
+// site's nvel values (coalesced across the warp), collides in registers
+// and pushes C(f)_q to (x + c_q) mod L in a second buffer - one read and
+// one write per value, no collision recomputed.  Push of C is the same
+// stored state as the TPU kernel's pull of C (pull-then-collide per site
+// would compute C(S(f)), a different state).
+//
+// fusedn_step_kernel: temporal blocking.  A block owns an output tile
+// (BX, BY, BZ) and walks n steps over windows that start n sites wider on
+// every side and shrink by one per step; step s collides its whole window
+// and keeps only values that land in the next window.  The intermediate
+// windows live in shared memory when a block's pair of them fits the
+// opt-in limit, otherwise in a per-block global scratch (L2-resident for
+// the recently touched part).  It aims at (1 + halo) / n of the
+// single-step HBM traffic per step, at the price of recomputing the halo
+// collisions; each value is the same collide of the same inputs as in n
+// single-step launches, so the results are equal to them.
+//
+// Offsets are 64-bit: nvel*X*Y*Z passes 2^31 at 512^3.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "lb_generated.h"
+
+constexpr int kThreads = 256;
+
+template <typename T>
+struct LBParams {
+  T rt, rtb;            // shear and bulk relaxation rates
+  T fx, fy, fz;         // global body force
+  T g[LB_NGHOST];       // per-ghost factor on m_g (general variants)
+};
+
+template <typename T>
+static LBParams<T> make_params(const double* par) {
+  LBParams<T> p;
+  p.rt = static_cast<T>(par[0]);
+  p.rtb = static_cast<T>(par[1]);
+  p.fx = static_cast<T>(par[2]);
+  p.fy = static_cast<T>(par[3]);
+  p.fz = static_cast<T>(par[4]);
+  for (int i = 0; i < LB_NGHOST; ++i) p.g[i] = static_cast<T>(par[5 + i]);
+  return p;
+}
+
+template <typename T, int DELTA, int PROJ, typename Emit>
+__device__ __forceinline__ void lb_collide(const T* f, const LBParams<T>& p,
+                                           Emit& emit) {
+  if constexpr (DELTA && PROJ) {
+    lb_collide_d1_p1<T>(f, p, emit);
+  } else if constexpr (DELTA) {
+    lb_collide_d1_p0<T>(f, p, emit);
+  } else if constexpr (PROJ) {
+    lb_collide_d0_p1<T>(f, p, emit);
+  } else {
+    lb_collide_d0_p0<T>(f, p, emit);
+  }
+}
+
+// i in [-n, 2n): one conditional add or subtract
+__device__ __forceinline__ int wrap1(int i, int n) {
+  return i < 0 ? i + n : (i >= n ? i - n : i);
+}
+
+// any i
+__device__ __forceinline__ int wrapn(int i, int n) {
+  const int r = i % n;
+  return r < 0 ? r + n : r;
+}
+
+template <typename T, int DELTA, int PROJ>
+__global__ void __launch_bounds__(kThreads)
+fused_step_kernel(const T* __restrict__ fin, T* __restrict__ fout, int X,
+                  int Y, int Z, LBParams<T> p) {
+  const int64_t nsite = static_cast<int64_t>(X) * Y * Z;
+  const int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (s >= nsite) return;
+  const int z = static_cast<int>(s % Z);
+  const int64_t r = s / Z;
+  const int y = static_cast<int>(r % Y);
+  const int x = static_cast<int>(r / Y);
+  T f[LB_NVEL];
+#pragma unroll
+  for (int q = 0; q < LB_NVEL; ++q) f[q] = fin[q * nsite + s];
+  auto emit = [&](int q, int cx, int cy, int cz, T v) {
+    const int64_t d =
+        (static_cast<int64_t>(wrap1(x + cx, X)) * Y + wrap1(y + cy, Y)) * Z +
+        wrap1(z + cz, Z);
+    fout[q * nsite + d] = v;
+  };
+  lb_collide<T, DELTA, PROJ>(f, p, emit);
+}
+
+template <typename T, int DELTA, int PROJ>
+__global__ void __launch_bounds__(kThreads)
+fusedn_step_kernel(const T* __restrict__ fin, T* __restrict__ fout, int X,
+                   int Y, int Z, int nsteps, int BX, int BY, int BZ,
+                   T* scratch, int64_t per_block, LBParams<T> p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* bufA = scratch ? scratch + static_cast<int64_t>(blockIdx.x) * per_block
+                    : reinterpret_cast<T*>(smem_raw);
+  const int64_t volA =
+      nsteps >= 2 ? static_cast<int64_t>(BX + 2 * (nsteps - 1)) *
+                        (BY + 2 * (nsteps - 1)) * (BZ + 2 * (nsteps - 1))
+                  : 0;
+  T* bufB = bufA + LB_NVEL * volA;
+  const int64_t nsite = static_cast<int64_t>(X) * Y * Z;
+  const int ntx = (X + BX - 1) / BX, nty = (Y + BY - 1) / BY,
+            ntz = (Z + BZ - 1) / BZ;
+  const int64_t ntiles = static_cast<int64_t>(ntx) * nty * ntz;
+
+  for (int64_t tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int tz = static_cast<int>(tile % ntz);
+    const int64_t tr = tile / ntz;
+    const int ty = static_cast<int>(tr % nty);
+    const int tx = static_cast<int>(tr / nty);
+    const int x0 = tx * BX, y0 = ty * BY, z0 = tz * BZ;
+    const T* src = nullptr;  // step 0 reads the global state
+    T* dst = bufA;
+    for (int st = 0; st < nsteps; ++st) {
+      const int hs = nsteps - st;  // halo of the source window
+      const int sx = BX + 2 * hs, sy = BY + 2 * hs, sz = BZ + 2 * hs;
+      const int dx = sx - 2, dy = sy - 2, dz = sz - 2;
+      const int64_t svol = static_cast<int64_t>(sx) * sy * sz;
+      const int64_t dvol = static_cast<int64_t>(dx) * dy * dz;
+      const bool last = st == nsteps - 1;
+      for (int64_t i = threadIdx.x; i < svol; i += blockDim.x) {
+        const int lz = static_cast<int>(i % sz);
+        const int64_t li = i / sz;
+        const int ly = static_cast<int>(li % sy);
+        const int lx = static_cast<int>(li / sy);
+        T f[LB_NVEL];
+        if (src == nullptr) {
+          const int64_t g =
+              (static_cast<int64_t>(wrapn(x0 - hs + lx, X)) * Y +
+               wrapn(y0 - hs + ly, Y)) * Z +
+              wrapn(z0 - hs + lz, Z);
+#pragma unroll
+          for (int q = 0; q < LB_NVEL; ++q) f[q] = fin[q * nsite + g];
+        } else {
+#pragma unroll
+          for (int q = 0; q < LB_NVEL; ++q) f[q] = src[q * svol + i];
+        }
+        auto emit = [&](int q, int cx, int cy, int cz, T v) {
+          // destination in the next window (one site narrower per side)
+          const int ax = lx + cx - 1, ay = ly + cy - 1, az = lz + cz - 1;
+          if (ax < 0 || ax >= dx || ay < 0 || ay >= dy || az < 0 ||
+              az >= dz)
+            return;
+          if (last) {
+            const int gx = x0 + ax, gy = y0 + ay, gz = z0 + az;
+            if (gx < X && gy < Y && gz < Z)  // ragged edge tiles
+              fout[q * nsite +
+                   (static_cast<int64_t>(gx) * Y + gy) * Z + gz] = v;
+          } else {
+            dst[q * dvol + (static_cast<int64_t>(ax) * dy + ay) * dz + az] =
+                v;
+          }
+        };
+        lb_collide<T, DELTA, PROJ>(f, p, emit);
+      }
+      __syncthreads();
+      src = dst;
+      dst = dst == bufA ? bufB : bufA;
+    }
+  }
+}
+
+template <typename T, int DELTA, int PROJ>
+static int launch_step(const void* fin, void* fout, int X, int Y, int Z,
+                       const double* par, cudaStream_t stream) {
+  const int64_t nsite = static_cast<int64_t>(X) * Y * Z;
+  const int64_t blocks = (nsite + kThreads - 1) / kThreads;
+  fused_step_kernel<T, DELTA, PROJ><<<static_cast<unsigned>(blocks),
+                                      kThreads, 0, stream>>>(
+      static_cast<const T*>(fin), static_cast<T*>(fout), X, Y, Z,
+      make_params<T>(par));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int DELTA, int PROJ>
+static int launch_stepn(const void* fin, void* fout, int X, int Y, int Z,
+                        int nsteps, int BX, int BY, int BZ, void* scratch,
+                        long long per_block, int grid, int smem,
+                        const double* par, cudaStream_t stream) {
+  auto kernel = fusedn_step_kernel<T, DELTA, PROJ>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(fin), static_cast<T*>(fout), X, Y, Z, nsteps, BX,
+      BY, BZ, static_cast<T*>(scratch), per_block, make_params<T>(par));
+  return static_cast<int>(cudaGetLastError());
+}
+
+#define LB_DISPATCH(F, ...)                                              \
+  do {                                                                   \
+    if (is_f64) {                                                        \
+      if (delta) {                                                       \
+        return proj ? F<double, 1, 1>(__VA_ARGS__)                       \
+                    : F<double, 1, 0>(__VA_ARGS__);                      \
+      }                                                                  \
+      return proj ? F<double, 0, 1>(__VA_ARGS__)                         \
+                  : F<double, 0, 0>(__VA_ARGS__);                        \
+    }                                                                    \
+    if (delta) {                                                         \
+      return proj ? F<float, 1, 1>(__VA_ARGS__) : F<float, 1, 0>(__VA_ARGS__); \
+    }                                                                    \
+    return proj ? F<float, 0, 1>(__VA_ARGS__) : F<float, 0, 0>(__VA_ARGS__);   \
+  } while (0)
+
+extern "C" {
+
+int lb_nvel(void) { return LB_NVEL; }
+
+int lb_device_info(int device, int* sms, int* smem_optin) {
+  cudaError_t e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                         device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaDeviceGetAttribute(smem_optin,
+                             cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return static_cast<int>(e);
+}
+
+int lb_fused_step(int is_f64, int delta, int proj, const void* fin,
+                  void* fout, int X, int Y, int Z, const double* par,
+                  void* stream, int device) {
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  LB_DISPATCH(launch_step, fin, fout, X, Y, Z, par, s);
+}
+
+int lb_fusedn_step(int is_f64, int delta, int proj, const void* fin,
+                   void* fout, int X, int Y, int Z, int nsteps, int BX,
+                   int BY, int BZ, void* scratch, long long per_block,
+                   int grid, int smem, const double* par, void* stream,
+                   int device) {
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  LB_DISPATCH(launch_stepn, fin, fout, X, Y, Z, nsteps, BX, BY, BZ, scratch,
+              per_block, grid, smem, par, s);
+}
+
+}  // extern "C"

@@ -1,0 +1,145 @@
+"""Single-fluid lattice Boltzmann: configuration, state, step, initialisation.
+
+PyTorch port of ludwig_tpu/lb.py for the plain-fluid path (ref:
+src/model.c, src/ludwig.c:530-970).  The state is one distribution tensor
+f (nvel, NX, NY, NZ) on an explicit device; a step is collide ->
+stream(+bounce-back), run eagerly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ludwig_tpu_torch.lattice import LatticeModel, lb_model
+from ludwig_tpu_torch.ops.collide import (CollisionParams, RelaxationScheme,
+                                          collide, equilibrium,
+                                          unrolled_matvec)
+from ludwig_tpu_torch.ops.stream import stream_bounce_back, wall_solid_mask
+
+DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+@dataclasses.dataclass(frozen=True)
+class LBConfig:
+    """Static configuration for a plain-fluid run."""
+
+    size: Tuple[int, int, int]
+    nvel: int = 19
+    eta_shear: float = 1.0 / 6.0
+    eta_bulk: Optional[float] = None
+    rho0: float = 1.0
+    scheme: RelaxationScheme = RelaxationScheme.M10
+    ghost_modes_on: bool = True
+    force_global: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    walls: Tuple[bool, bool, bool] = (False, False, False)
+    wall_u: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    dtype: str = "float32"
+    noise: Optional[object] = None   # isothermal fluctuations: not ported
+    device: str = "cpu"
+
+    def __post_init__(self):
+        if self.dtype not in DTYPES:
+            raise ValueError(f"dtype must be one of {sorted(DTYPES)}, "
+                             f"got {self.dtype!r}")
+        if self.noise is not None:
+            raise NotImplementedError(
+                "isothermal fluctuations (noise) not ported yet, "
+                "see ROADMAP")
+
+    @property
+    def model(self) -> LatticeModel:
+        return lb_model(self.nvel)
+
+    @property
+    def tdtype(self) -> torch.dtype:
+        return DTYPES[self.dtype]
+
+    def collision_params(self) -> CollisionParams:
+        eta_b = self.eta_bulk if self.eta_bulk is not None else self.eta_shear
+        return CollisionParams(
+            model=self.model, eta_shear=self.eta_shear, eta_bulk=eta_b,
+            rho0=self.rho0, scheme=self.scheme,
+            ghost_modes_on=self.ghost_modes_on,
+            force_global=self.force_global)
+
+
+def initial_rest(cfg: LBConfig) -> torch.Tensor:
+    """Fluid uniformly at rest: f = wv * rho0 (ref: model.c lb_init_rest_f).
+    Built on the device, one broadcast of the weights."""
+    model = cfg.model
+    w = torch.as_tensor(np.asarray(model.wv, np.float64) * cfg.rho0,
+                        dtype=cfg.tdtype, device=cfg.device)
+    return w.reshape(-1, 1, 1, 1).expand(
+        (model.nvel,) + tuple(cfg.size)).contiguous()
+
+
+def initial_from_hydro(cfg: LBConfig, rho, u) -> torch.Tensor:
+    """Equilibrium distributions from prescribed (rho, u) fields."""
+    rho = torch.as_tensor(rho, dtype=cfg.tdtype, device=cfg.device)
+    u = torch.as_tensor(u, dtype=cfg.tdtype, device=cfg.device)
+    return equilibrium(cfg.model, rho, u).contiguous()
+
+
+def solid_mask(cfg: LBConfig):
+    """Solid mask of the plane walls, or None without walls (porous
+    media are not ported yet)."""
+    if not any(cfg.walls):
+        return None
+    return torch.as_tensor(wall_solid_mask(cfg.size, cfg.walls),
+                           device=cfg.device)
+
+
+def _not_ported(le, open_bc):
+    if le is not None:
+        raise NotImplementedError("Lees-Edwards planes not ported yet, "
+                                  "see ROADMAP")
+    if open_bc is not None:
+        raise NotImplementedError("open boundaries not ported yet, "
+                                  "see ROADMAP")
+
+
+def make_step(cfg: LBConfig, solid=None, force_field=None, le=None,
+              open_bc=None):
+    """Single-fluid step: step(f, t=0, force=force_field) -> (f', rho, u).
+    t is the timestep counter (kept for the fluctuation and Lees-Edwards
+    hooks of the JAX package, not ported yet)."""
+    _not_ported(le, open_bc)
+    params = cfg.collision_params()
+    model = cfg.model
+    fluid = None if solid is None else torch.logical_not(solid)
+    wall_u = cfg.wall_u if any(v != 0.0 for v in cfg.wall_u) else None
+
+    def step(f, t=0, force=force_field):
+        del t
+        f_post, rho, u = collide(f, params, force=force, fluid_mask=fluid)
+        f_new = stream_bounce_back(f_post, model, solid=solid,
+                                   wall_u=wall_u, rho0=cfg.rho0)
+        return f_new, rho, u
+
+    return step
+
+
+def make_nstep(cfg: LBConfig, solid=None, force_field=None, le=None,
+               open_bc=None):
+    """n steps in a loop: nstep(f, n, t0=0) -> f."""
+    step = make_step(cfg, solid=solid, force_field=force_field, le=le,
+                     open_bc=open_bc)
+
+    def nstep(f, n, t0=0):
+        for k in range(n):
+            f, _, _ = step(f, t0 + k)
+        return f
+
+    return nstep
+
+
+def hydro_fields(f: torch.Tensor, model: LatticeModel):
+    """(rho, momentum-density g) straight from distributions."""
+    fl = [f[p] for p in range(model.nvel)]
+    rho = sum(fl)
+    g = torch.stack(unrolled_matvec(model.cv.T.astype(np.float64), fl))
+    return rho, g

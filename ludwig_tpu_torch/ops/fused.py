@@ -1,0 +1,417 @@
+"""Fused collide + stream: one collision and one pull stream per pass.
+
+PyTorch port of ludwig_tpu/ops/fused.py.  The TPU kernels
+``_fused_kernel`` and ``_fusedn_kernel`` become the hand-written CUDA
+kernels of ``csrc/fused_lb.cu``; their plain PyTorch twins live here.
+Every public function takes the twin for a tensor on the CPU, launches
+the kernel for a tensor on a CUDA device, and raises on anything else.
+
+The state is the unpadded ``(nvel, X, Y, Z)`` array, C-contiguous with z
+fastest.  Periodicity comes from index arithmetic (``torch.roll`` in the
+twins, wrapped indices in the kernels), so there are no pads.
+
+The collision arithmetic is the JAX package's: mode transforms unrolled
+with the model's constants (zeros skipped, +/-1 folded) and factorised
+over +/-c velocity pairs - every mode has definite parity under
+c -> -c, so the forward transform acts on even/odd half-sums and the back
+transform shares one even and one odd accumulation per pair
+(f'_q = E + O, f'_-q = E - O).  The same Python functions below build
+the twins' tensor expressions and, traced with symbols, the kernels'
+C++ code (ops/_cuda.py), so twin and kernel evaluate one expression tree.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from functools import lru_cache
+
+import torch
+
+from ludwig_tpu_torch.lattice import LatticeModel, lb_model
+from ludwig_tpu_torch.ops import _cuda
+from ludwig_tpu_torch.ops.collide import CollisionParams, _triu_pairs
+
+NSTEPS_MAX = 8   # deepest temporal blocking fusedn_step accepts
+
+
+@lru_cache(maxsize=None)
+def _eo_tables_nvel(nvel: int):
+    model = lb_model(nvel)
+    n = model.nvel
+    cv, ma = model.cv, model.ma
+    idx = {tuple(int(c) for c in cv[q]): q for q in range(n)}
+    anti = tuple(idx[tuple(-int(c) for c in cv[q])] for q in range(n))
+    par = []
+    for m in range(n):
+        even = all(float(ma[m, anti[q]]) == float(ma[m, q])
+                   for q in range(n))
+        odd = all(float(ma[m, anti[q]]) == -float(ma[m, q])
+                  for q in range(n))
+        if even == odd:
+            raise ValueError(f"mode {m} has no definite c-parity")
+        par.append(1 if even else -1)
+    mi = model.mi
+    for q in range(n):
+        for m in range(n):
+            if float(mi[anti[q], m]) != par[m] * float(mi[q, m]):
+                raise ValueError("mi rows are not +/-c symmetric")
+    return anti, tuple(par)
+
+
+def _eo_tables(model: LatticeModel):
+    """(anti, par): antipode index per velocity, +/-1 parity per mode.
+
+    Every mode row of `ma` is a polynomial of definite parity in c
+    (ma[m, anti[q]] == par[m] * ma[m, q]), hence mi[anti[q], m] ==
+    par[m] * mi[q, m] (verified exactly at table-build time)."""
+    return _eo_tables_nvel(model.nvel)
+
+
+def _eo_matvec(model: LatticeModel, fl):
+    """modes = ma @ fl, factorised over +/-c pairs: even modes act on
+    e_q = f_q + f_{-q}, odd modes on o_q = f_q - f_{-q}.  Unrolled
+    (zeros skipped, +/-1 folded) with ~half the multiply-add terms of a
+    plain unrolled product."""
+    anti, par = _eo_tables(model)
+    n = model.nvel
+    ma = model.ma
+    e, o = {}, {}
+    for q in range(n):
+        if anti[q] > q:
+            e[q] = fl[q] + fl[anti[q]]
+            o[q] = fl[q] - fl[anti[q]]
+    out = []
+    for m in range(n):
+        acc = None
+        for q in range(n):
+            qb = anti[q]
+            if qb < q:
+                continue
+            coef = float(ma[m, q])
+            if coef == 0.0:
+                continue
+            src = fl[q] if qb == q else (e[q] if par[m] > 0 else o[q])
+            term = src if coef == 1.0 else (
+                -src if coef == -1.0 else coef * src)
+            acc = term if acc is None else acc + term
+        out.append(acc)
+    return out
+
+
+def _assemble_eo(model: LatticeModel, modes, emit):
+    """Back transform f'_q = sum_m mi[q, m] modes[m] for ALL velocities,
+    factorised over +/-c pairs: one even-mode sum E and one odd-mode
+    sum O per pair, then emit(E + O, q) and emit(E - O, -q)."""
+    anti, par = _eo_tables(model)
+    mi = model.mi
+    for q in range(model.nvel):
+        qb = anti[q]
+        if qb < q:
+            continue
+        E = O = None
+        for m in range(model.nvel):
+            coef = float(mi[q, m])
+            if coef == 0.0 or isinstance(modes[m], float):
+                continue
+            term = modes[m] if coef == 1.0 else (
+                -modes[m] if coef == -1.0 else coef * modes[m])
+            if par[m] > 0:
+                E = term if E is None else E + term
+            else:
+                O = term if O is None else O + term
+        if qb == q:
+            emit(E, q)  # rest velocity: odd-mode coefficients are 0
+        else:
+            emit(E + O, q)
+            emit(E - O, qb)
+
+
+def _assemble_eo_deltas(model: LatticeModel, fl, deltas, emit):
+    """Back transform in increment form: f'_q = f_q + sum_m mi[q, m]
+    delta_m, factorised over +/-c pairs like _assemble_eo.  Constant
+    (python float) nonzero deltas - the global body force - are folded
+    as scalars."""
+    anti, par = _eo_tables(model)
+    mi = model.mi
+    for q in range(model.nvel):
+        qb = anti[q]
+        if qb < q:
+            continue
+        E = O = None
+        for m in range(model.nvel):
+            coef = float(mi[q, m])
+            if coef == 0.0 or (isinstance(deltas[m], float)
+                               and deltas[m] == 0.0):
+                continue
+            term = deltas[m] if coef == 1.0 else (
+                -deltas[m] if coef == -1.0 else coef * deltas[m])
+            if par[m] > 0:
+                E = term if E is None else E + term
+            else:
+                O = term if O is None else O + term
+        if qb == q:
+            emit(fl[q] if E is None else fl[q] + E, q)
+        else:
+            hi = fl[q] if E is None and O is None else (
+                fl[q] + (E if O is None else (O if E is None else E + O)))
+            lo = fl[qb] if E is None and O is None else (
+                fl[qb] + ((E if O is None else (-O if E is None
+                                                else E - O))))
+            emit(hi, q)
+            emit(lo, qb)
+
+
+def _relax_modes(model: LatticeModel, fl, rt, rtb, ftot, has_f, gcoef,
+                 delta: bool):
+    """Post-collision modes (delta=False) or mode increments
+    delta_m = m'_m - m_m (delta=True), plus u.
+
+    The algebra of ludwig_tpu's _collide_modes / _collide_mode_deltas.
+    rt, rtb are the shear and bulk rates, ftot the per-axis force (a
+    float, a tensor or a symbol), has_f which axes carry one, gcoef the
+    per-ghost factor applied to m_g (1 - rtau_g, or -rtau_g in the
+    increment form); a float 0.0 factor projects the ghost out
+    structurally.  In the increment form the conserved modes have delta
+    exactly zero (density) or the bare force (momentum), which keeps the
+    conserved content of f out of the back-transform rounding
+    (ACCURACY.md f32 conservation study)."""
+    ndim = model.ndim
+    m = _eo_matvec(model, fl)
+    rho = m[0]
+    rrho = 1.0 / rho
+    u = [rrho * (m[1 + a] + 0.5 * ftot[a]) for a in range(ndim)]
+
+    pairs = _triu_pairs(ndim)
+    s = {p: m[1 + ndim + i] for i, p in enumerate(pairs)}
+    seq = {p: rho * u[p[0]] * u[p[1]] for p in pairs}
+    tr_s = sum(s[(a, a)] for a in range(ndim))
+    tr_seq = sum(seq[(a, a)] for a in range(ndim))
+    rdim = 1.0 / ndim
+
+    if delta:
+        out = [0.0] + [ftot[a] if has_f[a] else 0.0 for a in range(ndim)]
+    else:
+        tr_post = tr_s - rtb * (tr_s - tr_seq)
+        out = [rho] + [m[1 + a] + ftot[a] if has_f[a] else m[1 + a]
+                       for a in range(ndim)]
+    for (a, b) in pairs:
+        dev = s[(a, b)] - (tr_s * rdim if a == b else 0.0)
+        dev_eq = seq[(a, b)] - (tr_seq * rdim if a == b else 0.0)
+        if delta:
+            v = -rt * (dev - dev_eq)
+            if a == b:
+                v = v - rdim * rtb * (tr_s - tr_seq)
+        else:
+            v = dev - rt * (dev - dev_eq)
+            if a == b:
+                v = v + rdim * tr_post
+        if has_f[a] or has_f[b]:
+            v = v + (2.0 - rt) * (u[a] * ftot[b] + ftot[a] * u[b])
+        out.append(v)
+    for g, coef in zip(range(model.nhydro, model.nvel), gcoef):
+        structural_zero = isinstance(coef, float) and coef == 0.0
+        out.append(0.0 if structural_zero else m[g] * coef)
+    return out, u
+
+
+def _ghost_coefs(model: LatticeModel, params: CollisionParams, delta: bool):
+    """Per-ghost factors on m_g: 1 - rtau_g (absolute form), -rtau_g
+    (increment form)."""
+    rtau_g = params.rtau_ghost
+    return [(-float(rtau_g[g]) if delta else 1.0 - float(rtau_g[g]))
+            for g in range(model.nhydro, model.nvel)]
+
+
+def _collide_modes(model: LatticeModel, params: CollisionParams, fl,
+                   force=None):
+    """Post-collision modes from a list of per-velocity tensors; `force`
+    an optional [fx, fy, fz] per-site body force.  Returns (modes, u)."""
+    return _collide(model, params, fl, force, delta=False)
+
+
+def _collide_mode_deltas(model: LatticeModel, params: CollisionParams, fl,
+                         force=None):
+    """Post-collision mode INCREMENTS delta_m = m'_m - m_m, plus u."""
+    return _collide(model, params, fl, force, delta=True)
+
+
+def _collide(model, params, fl, force, delta):
+    ndim = model.ndim
+    fg = [float(v) for v in params.force_global[:ndim]]
+    if force is None:
+        ftot = fg
+        has_f = [bool(v) for v in fg]
+    else:
+        ftot = [force[a] + fg[a] if fg[a] else force[a]
+                for a in range(ndim)]
+        has_f = [True] * ndim
+    return _relax_modes(model, fl, params.rtau_shear, params.rtau_bulk,
+                        ftot, has_f, _ghost_coefs(model, params, delta),
+                        delta)
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    """Output tile of the n-step kernel (x, y, z sites per tile).
+
+    Each tile is computed from a window widened by n sites on every side
+    and shrinking by one per inner step; the single-step kernel runs one
+    thread per site and needs no tile.  (16, 16, 32) was the fastest of
+    seven tiles for n = 1..4 at 256^3 D3Q19 f32 on an H100 (PERF.md)."""
+    BX: int = 16
+    BY: int = 16
+    BZ: int = 32
+
+
+def _check_state(f: torch.Tensor, model: LatticeModel):
+    if f.dim() != 4 or f.shape[0] != model.nvel:
+        raise ValueError(f"state must be (nvel={model.nvel}, X, Y, Z), "
+                         f"got {tuple(f.shape)}")
+    if f.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"state must be float32 or float64, got {f.dtype}")
+    if not f.is_contiguous():
+        raise ValueError("state must be C-contiguous (z fastest)")
+
+
+def _fused_step_plain(f: torch.Tensor, model: LatticeModel,
+                      params: CollisionParams, delta: bool) -> torch.Tensor:
+    """Twin of the single-step kernel: collide every site, then pull-
+    stream each assembled velocity with torch.roll."""
+    fl = [f[q] for q in range(model.nvel)]
+    out = [None] * model.nvel
+    cvs = [tuple(int(c) for c in model.cv[q]) for q in range(model.nvel)]
+
+    def emit(acc, q):
+        shift = cvs[q]
+        dims = tuple(d for d in range(3) if shift[d])
+        out[q] = (torch.roll(acc, tuple(shift[d] for d in dims), dims)
+                  if dims else acc)
+
+    if delta:
+        modes, _u = _collide_mode_deltas(model, params, fl)
+        _assemble_eo_deltas(model, fl, modes, emit)
+    else:
+        modes, _u = _collide_modes(model, params, fl)
+        _assemble_eo(model, modes, emit)
+    return torch.stack(out)
+
+
+def _fusedn_step_plain(f: torch.Tensor, model: LatticeModel,
+                       params: CollisionParams, nsteps: int,
+                       plan: FusedPlan, delta: bool) -> torch.Tensor:
+    """Twin of the n-step kernel, on the kernel's own plan: per output
+    tile, gather a window widened by n sites (periodic indices), run n
+    collide+stream steps on windows that shrink by one site per side per
+    step, and write the tile.  Equal to n single steps bitwise."""
+    nvel, X, Y, Z = f.shape
+    H = nsteps
+    BX, BY, BZ = plan.BX, plan.BY, plan.BZ
+    cvs = [tuple(int(c) for c in model.cv[q]) for q in range(nvel)]
+    collide_fn = _collide_mode_deltas if delta else _collide_modes
+    out = torch.empty_like(f)
+
+    def wrapped(start, count, period):
+        return torch.remainder(torch.arange(start, start + count,
+                                            device=f.device), period)
+
+    for x0 in range(0, X, BX):
+        ix = wrapped(x0 - H, BX + 2 * H, X)
+        for y0 in range(0, Y, BY):
+            iy = wrapped(y0 - H, BY + 2 * H, Y)
+            for z0 in range(0, Z, BZ):
+                iz = wrapped(z0 - H, BZ + 2 * H, Z)
+                win = f[:, ix][:, :, iy][:, :, :, iz]
+                fl = [win[q] for q in range(nvel)]
+                for s in range(H):
+                    halo = H - 1 - s     # halo of this step's output
+                    shape = (BX + 2 * halo, BY + 2 * halo, BZ + 2 * halo)
+                    nxt = [None] * nvel
+
+                    def emit(acc, q, shape=shape, nxt=nxt):
+                        cx, cy, cz = cvs[q]
+                        nxt[q] = acc[1 - cx:1 - cx + shape[0],
+                                     1 - cy:1 - cy + shape[1],
+                                     1 - cz:1 - cz + shape[2]]
+
+                    modes, _u = collide_fn(model, params, fl)
+                    if delta:
+                        _assemble_eo_deltas(model, fl, modes, emit)
+                    else:
+                        _assemble_eo(model, modes, emit)
+                    fl = nxt
+                nx, ny, nz = min(BX, X - x0), min(BY, Y - y0), min(BZ, Z - z0)
+                out[:, x0:x0 + nx, y0:y0 + ny, z0:z0 + nz] = torch.stack(
+                    fl)[:, :nx, :ny, :nz]
+    return out
+
+
+def fused_step(f: torch.Tensor, model: LatticeModel,
+               params: CollisionParams, plan: FusedPlan = FusedPlan(),
+               noise=None, t=0, delta: bool = True) -> torch.Tensor:
+    """One fused collide+stream step; returns the new state.
+
+    `delta` (default True on this production path) selects the
+    conservation-hardened increment-form back transform.  `plan` is
+    accepted for signature parity with fusedn_step; the single-step
+    kernel has no tile.  `noise`/`t` are the in-kernel fluctuation hooks
+    of the JAX package, not ported yet."""
+    del plan, t
+    if noise is not None:
+        raise NotImplementedError(
+            "in-kernel fluctuations (FusedNoise) not ported yet, "
+            "see ROADMAP")
+    _check_state(f, model)
+    if f.device.type == "cpu":
+        return _fused_step_plain(f, model, params, delta)
+    if f.device.type == "cuda":
+        return _cuda.fused_step(f, model, params, delta)
+    raise ValueError(f"no fused_step for device {f.device}")
+
+
+def fusedn_step(f: torch.Tensor, model: LatticeModel,
+                params: CollisionParams, nsteps: int,
+                plan: FusedPlan = FusedPlan(),
+                delta: bool = False) -> torch.Tensor:
+    """n fused collide+stream steps in one pass (temporal blocking);
+    equal to n fused_step calls with the same `delta`."""
+    if not 1 <= nsteps <= NSTEPS_MAX:
+        raise ValueError(f"nsteps must be in [1, {NSTEPS_MAX}] "
+                         f"(got {nsteps})")
+    if min(plan.BX, plan.BY, plan.BZ) < 1:
+        raise ValueError(f"bad tile {plan}")
+    _check_state(f, model)
+    if f.device.type == "cpu":
+        return _fusedn_step_plain(f, model, params, nsteps, plan, delta)
+    if f.device.type == "cuda":
+        return _cuda.fusedn_step(f, model, params, nsteps, plan, delta)
+    raise ValueError(f"no fusedn_step for device {f.device}")
+
+
+def make_fused_nstep(model: LatticeModel, params: CollisionParams,
+                     plan: FusedPlan = FusedPlan(), noise=None,
+                     delta: bool = True):
+    """n-step loop of fused_step: nstep(f, n, t0=0) -> f."""
+
+    def nstep(f, n, t0=0):
+        for k in range(n):
+            f = fused_step(f, model, params, plan, noise=noise, t=t0 + k,
+                           delta=delta)
+        return f
+
+    return nstep
+
+
+def make_fusedn_nstep(model: LatticeModel, params: CollisionParams,
+                      nsteps: int, plan: FusedPlan = FusedPlan(),
+                      delta: bool = False):
+    """n-step loop of fusedn_step: nstep(f, n) -> f, n a multiple of
+    `nsteps`."""
+
+    def nstep(f, n):
+        if n % nsteps:
+            raise ValueError(f"fusedn nstep needs n % {nsteps} == 0")
+        for _ in range(n // nsteps):
+            f = fusedn_step(f, model, params, nsteps, plan, delta=delta)
+        return f
+
+    return nstep

@@ -1,0 +1,99 @@
+"""The port's input-file surface against ludwig_tpu's, on the CPU.
+
+The same input text runs through ludwig_tpu.ludwig.run_text and
+ludwig_tpu_torch.ludwig.run_text; the statistics-block floats must agree
+at rtol 1e-9 / atol 1e-11, the bound test_ludwig_run.py holds the fused
+CLI path to (the port sums with plain reductions, the JAX package's jnp
+path with compensated ones)."""
+
+import io
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from ludwig_tpu.ludwig import run_text as jrun_text
+from ludwig_tpu_torch.ludwig import run_text
+from test_ludwig_run import PLAIN_FUSED_INPUT, PLAIN_INPUT, _stat_floats
+
+
+def _logs(jax_text, port_text):
+    a, b = io.StringIO(), io.StringIO()
+    jrun_text(jax_text, out=a)
+    sys_ = run_text(port_text, out=b, device="cpu")
+    return a.getvalue(), b.getvalue(), sys_
+
+
+def test_fused_cli_matches_jax():
+    jlog, log, sys_ = _logs("tpu_fused interpret\n" + PLAIN_FUSED_INPUT,
+                            "tpu_fused on\n" + PLAIN_FUSED_INPUT)
+    assert sys_.fused_mode == "plain"
+    assert "Completed cycle 6" in log
+    a, b = _stat_floats(jlog), _stat_floats(log)
+    assert a.size == b.size and a.size > 0
+    np.testing.assert_allclose(b, a, rtol=1e-9, atol=1e-11)
+
+
+def test_plain_cli_matches_jax():
+    jlog, log, sys_ = _logs(PLAIN_INPUT, PLAIN_INPUT)
+    assert sys_.fused_mode is None
+    assert "Completed cycle 5" in log
+    a, b = _stat_floats(jlog), _stat_floats(log)
+    assert a.size == b.size and a.size > 0
+    np.testing.assert_allclose(b, a, rtol=1e-9, atol=1e-11)
+    # body force adds momentum: gx = nsites * F * t
+    gx_final = float(re.findall(r"\[total   \]\s+(\S+)", log)[-1])
+    assert abs(gx_final - 16 * 8 * 8 * 1e-5 * 5) < 1e-10
+
+
+@pytest.mark.parametrize("line", [
+    "free_energy symmetric", "boundary_walls 1_0_0", "N_LE_plane 2",
+    "temperature 0.001", "bogus_key_xyz 42", "periodicity 0_1_1"])
+def test_unported_keys_raise(line):
+    with pytest.raises(NotImplementedError, match=line.split()[0]):
+        run_text(PLAIN_INPUT + line + "\n", out=io.StringIO())
+
+
+def test_inactive_defaults_accepted():
+    text = PLAIN_INPUT + textwrap.dedent("""
+        free_energy none
+        colloid_init no_colloids
+        periodicity 1_1_1
+        boundary_walls 0_0_0
+        temperature 0.0
+        N_start 0
+        dtype float32
+        """)
+    log = io.StringIO()
+    sys_ = run_text(text, out=log)
+    assert sys_.state[0].dtype == torch.float32
+    assert "Completed cycle 5" in log.getvalue()
+
+
+def test_cli_runs_without_jax(tmp_path):
+    """`python -m ludwig_tpu_torch input --device cpu` in a fresh
+    interpreter: it runs, and neither JAX nor ludwig_tpu is imported."""
+    inp = tmp_path / "input"
+    inp.write_text("tpu_fused on\n" + PLAIN_INPUT)
+    probe = textwrap.dedent(f"""
+        import runpy, sys
+        sys.argv = ["ludwig_tpu_torch", {str(inp)!r}, "--device", "cpu"]
+        runpy.run_module("ludwig_tpu_torch", run_name="__main__")
+        import ludwig_tpu_torch.ops._cuda, ludwig_tpu_torch.convert
+        bad = [m for m in sys.modules
+               if m == "jax" or m.startswith("jax.")
+               or m == "ludwig_tpu" or m.startswith("ludwig_tpu.")]
+        assert not bad, bad
+        print("NO_JAX_OK")
+        """)
+    res = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                         text=True, timeout=120,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert res.returncode == 0, res.stderr
+    assert "Completed cycle 5" in res.stdout
+    assert "NO_JAX_OK" in res.stdout

@@ -19,7 +19,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      make_fusedn_nstep; the kernel launch counts of this phase show the
      path used the kernels;
   6. at 256^3: each kernel against its twin within TOL, and kernel, twin
-     and device-copy times (ms/step and MLUPS).
+     and device-copy times (ms/step and MLUPS);
+  7. the binary fluid's kernels against their twins: binary_phi_force_step
+     (K1) at two sizes, advection orders 1 and 2, f32 and f64;
+     fused_force_step (K2) over velocity sets and relaxation schemes with
+     random force fields; 3 chained fused binary steps through the
+     kernels against 3 through the twins;
+  8. the binary main path at full width: `free_energy symmetric` D3Q19
+     256^3 f32, spinodal, advection order 2, `tpu_fused on`, through
+     run_text on the card; K1 and K2 launched once per cycle, the [phi]
+     total conserved, the [rho] totals at the site count;
+  9. at 256^3 f32: K1, K2 and the whole binary step against the twins
+     within TOL, and kernel, twin and bound times.
+
+Bounds: `bound_ms` is the larger of the bytes the function must move
+(each input read once, each output written once) over the H100 SXM's
+published 3.35 TB/s and its arithmetic over 67 TFLOP/s f32 (NVIDIA's
+data sheet, dense, 700 W); `copy_bound_ms` puts the same bytes
+over the device copy bandwidth measured in this run.
 
 The second-to-last line is the kernels' JSON record (ms and plain_ms per
 lattice step, CUDA events), the last line {"ok": true, "device": {...}}.
@@ -35,12 +52,17 @@ import time
 
 import torch
 
+from ludwig_tpu_torch.fe.symmetric import SymmetricFE
 from ludwig_tpu_torch.lb import LBConfig, initial_rest
 from ludwig_tpu_torch.ludwig import run_text
 from ludwig_tpu_torch.ops import _cuda, fused
+from ludwig_tpu_torch.ops import fused_binary as fb
 from ludwig_tpu_torch.ops.collide import RelaxationScheme
 
 SOURCE = "ludwig_tpu_torch/csrc/fused_lb.cu"
+SOURCE_BINARY = "ludwig_tpu_torch/csrc/binary_phi.cu"
+PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, published
+PEAK_F32_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 # f64: kernel and twin evaluate one expression tree operation by operation
 # (nvcc -fmad=false); what is left is the twin folding a few scalar
 # products in double before rounding (rdim * rtb, coef * force) and
@@ -87,6 +109,13 @@ def check_close(what, a, b, dtype):
         raise AssertionError(f"{what}: max |diff| {err:.3e} beyond "
                              f"{TOL[dtype]}")
     return err
+
+
+def bound(nbytes, nops):
+    """(bound_ms, bound_by) from bytes moved and f32 operations."""
+    t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
+    t_ops = 1e3 * nops / PEAK_F32_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def time_ms(fn, reps, warm=2):
@@ -272,7 +301,11 @@ def phase6(card, gen):
                       twin_steps(1, True), cfg.tdtype)
     print(f"fused_step 256^3 float32 delta=True vs twin max_abs_err "
           f"{err:.3e}")
-    res["fused_step"] = dict(ms=step_ms, plain_ms=plain_ms, max_abs_err=err)
+    res["copy_ms"] = copy_ms
+    res["copy_bytes"] = nbytes
+    res["fused_step"] = dict(
+        ms=step_ms, plain_ms=plain_ms, max_abs_err=err,
+        nbytes=nbytes, nops=nsite * _cuda.site_ops("fused_step"))
     for n in NSTEPS:
         ms = time_ms(lambda: fused.fusedn_step(f0, model, params, n,
                                                delta=True), 5)
@@ -288,7 +321,227 @@ def phase6(card, gen):
                       twin_steps(n, False), cfg.tdtype)
     print(f"fusedn_step n={n} 256^3 float32 delta=False vs {n} twin steps "
           f"max_abs_err {err:.3e}")
-    res["fusedn_step"] = dict(ms=ms, plain_ms=twin_ms, max_abs_err=err)
+    # per lattice step: one read and one write of f per n-step launch
+    res["fusedn_step"] = dict(
+        ms=ms, plain_ms=twin_ms, max_abs_err=err, nbytes=nbytes / n,
+        nops=nsite * _cuda.site_ops("fusedn_step", delta=False))
+    return res
+
+
+FE = SymmetricFE(a=-0.00625, b=0.00625, kappa=0.004)   # BINARY_INPUT's
+MOBILITY = 1.25
+BINARY_CYCLES = 20
+BINARY_INPUT = f"""
+tpu_fused on
+dtype float32
+N_cycles {BINARY_CYCLES}
+size {MAIN_SIZE[0]}_{MAIN_SIZE[1]}_{MAIN_SIZE[2]}
+viscosity 0.00625
+free_energy symmetric
+A {FE.a}
+B {FE.b}
+K {FE.kappa}
+phi0 0.0
+phi_initialisation spinodal
+mobility {MOBILITY}
+fd_gradient_calculation 3d_7pt_fluid
+fd_advection_scheme_order 2
+periodicity 1_1_1
+freq_statistics 10
+random_seed 8361235
+"""
+
+
+def rand_phi_u(size, dtype, gen):
+    phi = 0.05 * torch.randn(size, generator=gen, dtype=dtype,
+                             device="cuda")
+    u = 0.01 * torch.randn((3,) + size, generator=gen, dtype=dtype,
+                           device="cuda")
+    return phi.contiguous(), u.contiguous()
+
+
+def binary_cfg(size, dtype, order):
+    from ludwig_tpu_torch.binary import BinaryConfig
+    lb = LBConfig(size=size, nvel=19, eta_shear=0.00625, dtype=dtype,
+                  device="cuda")
+    return BinaryConfig(lb=lb, fe=FE, mobility=MOBILITY,
+                        advection_order=order)
+
+
+def phase7(gen):
+    phase("7 binary-fluid kernels vs plain twins")
+    worst = {"binary_phi_force_step": 0.0, "fused_force_step": 0.0}
+    for size in ((16, 24, 40), (64, 64, 64)):
+        for dtype in (torch.float64, torch.float32):
+            phi, u = rand_phi_u(size, dtype, gen)
+            for order in fb.ORDERS:
+                a = fb.binary_phi_force_step(phi, u, FE, MOBILITY, order)
+                b = fb._binary_phi_force_plain(phi, u, FE, MOBILITY, order)
+                err = max(check_close(f"binary_phi_force_step {size} {dtype}"
+                                      f" order {order} {name}", x, y, dtype)
+                          for name, x, y in zip(("phi", "force"), a, b))
+                worst["binary_phi_force_step"] = max(
+                    worst["binary_phi_force_step"], err)
+                print(f"binary_phi_force_step {size} {dtype} order {order} "
+                      f"max_abs_err {err:.3e}")
+    for size in ((16, 24, 40), (64, 64, 64)):
+        for nvel, scheme in cases():
+            for dtype in ("float64", "float32"):
+                cfg = LBConfig(size=size, nvel=nvel, eta_shear=0.1,
+                               eta_bulk=0.14, scheme=scheme, dtype=dtype,
+                               force_global=(1e-4, 0.0, 5e-5),
+                               device="cuda")
+                model, params = cfg.model, cfg.collision_params()
+                f0 = rand_state(cfg, gen)
+                frc = (1e-4 * torch.randn((3,) + size, generator=gen,
+                                          dtype=cfg.tdtype, device="cuda")
+                       ).contiguous()
+                a = fused.fused_force_step(f0, frc, model, params)
+                b = fused._fused_force_step_plain(f0, frc, model, params)
+                err = max(check_close(f"fused_force_step {size} q{nvel} "
+                                      f"{scheme.value} {dtype} {name}", x, y,
+                                      cfg.tdtype)
+                          for name, x, y in zip(("f", "u"), a, b))
+                worst["fused_force_step"] = max(worst["fused_force_step"],
+                                                err)
+                print(f"fused_force_step {size} D3Q{nvel} {scheme.value} "
+                      f"{dtype} max_abs_err {err:.3e}")
+    # whole fused binary step: 3 chained steps, kernels vs twins
+    for size in ((16, 24, 40), (64, 64, 64)):
+        for dtype in ("float64", "float32"):
+            for order in fb.ORDERS:
+                bcfg = binary_cfg(size, dtype, order)
+                phi0, _ = rand_phi_u(size, bcfg.lb.tdtype, gen)
+                step = fb.make_fused_binary_step(bcfg)
+                a = b = fb.initial_fused_binary(bcfg, phi0)
+                for _ in range(3):
+                    a = step(a)
+                    f, phi, u = b
+                    phi, frc = fb._binary_phi_force_plain(
+                        phi, u, FE, MOBILITY, order)
+                    f, u = fused._fused_force_step_plain(
+                        f, frc, bcfg.lb.model, bcfg.lb.collision_params())
+                    b = (f, phi, u)
+                for name, x, y in zip(("f", "phi", "u"), a, b):
+                    err = check_close(f"fused binary step {size} {dtype} "
+                                      f"order {order} {name}", x, y,
+                                      bcfg.lb.tdtype)
+                    print(f"fused binary step x3 {size} {dtype} order "
+                          f"{order} {name} max_abs_err {err:.3e}")
+    return worst
+
+
+def phase8():
+    phase("8 binary main path: symmetric D3Q19 256^3 f32, run_text on cuda")
+    nsite = MAIN_SIZE[0] * MAIN_SIZE[1] * MAIN_SIZE[2]
+    torch.cuda.synchronize()
+    _cuda.launches.reset()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    sys_ = run_text(BINARY_INPUT, out=log, device="cuda")
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = {"binary_phi_force_step": _cuda.launches.binary_phi_force_step,
+              "fused_force_step": _cuda.launches.fused_force_step}
+    text = log.getvalue()
+    print(text[text.rfind("Scalars"):text.rfind("Completed")].strip())
+    if f"Completed cycle {BINARY_CYCLES}" not in text:
+        raise AssertionError("binary run_text did not complete its cycles")
+    if sys_.fused_mode != "binary":
+        raise AssertionError(f"fused_mode {sys_.fused_mode}, not binary")
+    for name, n in counts.items():
+        if n != BINARY_CYCLES:
+            raise AssertionError(f"{name} launched {n} times for "
+                                 f"{BINARY_CYCLES} cycles")
+    f, phi, u = sys_.state
+    for name, x, shape in (("f", f, (19,) + MAIN_SIZE), ("phi", phi, MAIN_SIZE),
+                           ("u", u, (3,) + MAIN_SIZE)):
+        if tuple(x.shape) != shape or x.dtype != torch.float32:
+            raise AssertionError(f"{name}: {tuple(x.shape)} {x.dtype}")
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"{name} is not finite")
+    # [phi] total: conserved by the flux form; f32 rounds each site's
+    # update, the printed sums are f32 reductions.  Bound: 1e-7 of the
+    # total |phi|.
+    phis = [float(v) for v in re.findall(r"\[phi\]\s+(\S+)", text)]
+    scale = 1e-7 * float(phi.double().abs().sum())
+    if max(phis) - min(phis) > scale:
+        raise AssertionError(f"[phi] totals {phis} not conserved "
+                             f"within {scale:.3e}")
+    rhos = [float(v) for v in re.findall(r"\[rho\]\s+(\S+)", text)]
+    if not all(abs(t - nsite) <= 1e-5 * nsite for t in rhos):
+        raise AssertionError(f"[rho] totals {rhos} != {nsite}")
+    feds = [float(v) for v in re.findall(r"\[fed\]\s+\S+\s+(\S+)", text)]
+    if len(feds) != 3 or len(phis) != 3:
+        raise AssertionError(f"want 3 [phi]/[fed] blocks: {phis} {feds}")
+    # run_text's timer table (host clocks; the statistics blocks
+    # synchronise, so device time of the steps lands partly in them)
+    print(text[text.find("Timer statistics"):].strip())
+    print(f"binary run_text 256^3 x {BINARY_CYCLES} cycles: {cli_s:.2f} s "
+          f"wall (spinodal init on the host included), [phi] totals {phis}"
+          f" (spread {max(phis) - min(phis):.3e} <= {scale:.3e}), [rho] "
+          f"totals {rhos}, [fed] {feds}, launches {counts}")
+    return counts
+
+
+def phase9(card, gen, copy_ms, copy_bytes):
+    phase(f"9 binary timing at 256^3 D3Q19 f32 on {card}")
+    bcfg = binary_cfg(MAIN_SIZE, "float32", 2)
+    model, params = bcfg.lb.model, bcfg.lb.collision_params()
+    nsite = MAIN_SIZE[0] * MAIN_SIZE[1] * MAIN_SIZE[2]
+    phi, u = rand_phi_u(MAIN_SIZE, torch.float32, gen)
+    u = 1e-3 * u
+    f0 = rand_state(bcfg.lb, gen, amp=0.01)
+    frc = (1e-5 * torch.randn((3,) + MAIN_SIZE, generator=gen,
+                              device="cuda")).contiguous()
+    res = {}
+
+    def report(name, ms, plain_ms, nbytes, nops, err):
+        b_ms, b_by = bound(nbytes, nops)
+        copy_b = copy_ms * nbytes / copy_bytes
+        print(f"{name}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; {nbytes / nsite:.0f} B/site, "
+              f"{nops / nsite:.0f} flop/site), {100 * b_ms / ms:.1f}% of "
+              f"it; copy bound {copy_b:.4f} ms, {100 * copy_b / ms:.1f}% of "
+              f"it; max_abs_err vs twin {err:.3e} [{card}]")
+        return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                    nbytes=nbytes, nops=nops)
+
+    # K1: reads phi and u, writes phi' and the force: 8 values a site
+    k1 = lambda: fb.binary_phi_force_step(phi, u, FE, MOBILITY, 2)  # noqa
+    t1 = lambda: fb._binary_phi_force_plain(phi, u, FE, MOBILITY, 2)  # noqa
+    err = max(check_close(f"binary_phi_force_step 256^3 {n}", x, y,
+                          torch.float32)
+              for n, x, y in zip(("phi", "force"), k1(), t1()))
+    res["binary_phi_force_step"] = report(
+        "binary_phi_force_step (K1, order 2)", time_ms(k1, 20),
+        time_ms(t1, 3, warm=1), 8 * 4 * nsite,
+        nsite * _cuda.site_ops("binary_phi_force_step", order=2), err)
+    # K2: reads f, force; writes f', u
+    k2 = lambda: fused.fused_force_step(f0, frc, model, params)  # noqa
+    t2 = lambda: fused._fused_force_step_plain(f0, frc, model, params)  # noqa
+    err = max(check_close(f"fused_force_step 256^3 {n}", x, y,
+                          torch.float32)
+              for n, x, y in zip(("f", "u"), k2(), t2()))
+    res["fused_force_step"] = report(
+        "fused_force_step (K2, D3Q19 M10)", time_ms(k2, 20),
+        time_ms(t2, 3, warm=1), 2 * (19 + 3) * 4 * nsite,
+        nsite * _cuda.site_ops("fused_force_step"), err)
+    # the whole step: K1 + K2 (force and u round-trip through memory)
+    step = fb.make_fused_binary_step(bcfg)
+    state = (f0, phi, u)
+
+    def twin_step():
+        _phi2, fr = fb._binary_phi_force_plain(phi, u, FE, MOBILITY, 2)
+        return fused._fused_force_step_plain(f0, fr, model, params)
+
+    step_ms = time_ms(lambda: step(state), 20)
+    twin_ms = time_ms(twin_step, 3, warm=1)
+    k1r, k2r = res["binary_phi_force_step"], res["fused_force_step"]
+    report("fused binary step (K1 + K2, two-pass bound)", step_ms, twin_ms,
+           k1r["nbytes"] + k2r["nbytes"], k1r["nops"] + k2r["nops"],
+           max(k1r["max_abs_err"], k2r["max_abs_err"]))
+    print(f"fused binary step: {nsite / (step_ms * 1e3):.1f} MLUPS [{card}]")
     return res
 
 
@@ -313,16 +566,31 @@ def main():
     phase4(gen)
     counts = phase5()
     timed = phase6(card, gen)
+    worst.update(phase7(gen))
+    counts.update(phase8())
+    timed.update(phase9(card, gen, timed["copy_ms"], timed["copy_bytes"]))
     print("all phases passed")
 
     kernels = []
-    for name, line in (("fused_step", 429), ("fusedn_step", 902)):
+    for name, source, replaces in (
+            ("fused_step", SOURCE, "ludwig_tpu/ops/fused.py:429"),
+            ("fusedn_step", SOURCE, "ludwig_tpu/ops/fused.py:902"),
+            ("binary_phi_force_step", SOURCE_BINARY,
+             "ludwig_tpu/ops/fused_binary.py:49"),
+            ("fused_force_step", SOURCE, "ludwig_tpu/ops/fused.py:1069")):
+        t = timed[name]
+        bound_ms, bound_by = bound(t["nbytes"], t["nops"])
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": f"ludwig_tpu/ops/fused.py:{line}",
-            "launches": counts[name],
-            "max_abs_err": max(worst[name], timed[name]["max_abs_err"]),
-            "ms": timed[name]["ms"], "plain_ms": timed[name]["plain_ms"]})
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts[name],
+            "max_abs_err": max(worst[name], t["max_abs_err"]),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            # no single PyTorch call computes a collide+stream or the
+            # binary order-parameter update
+            "library_ms": None,
+            "copy_bound_ms": timed["copy_ms"] * t["nbytes"]
+            / timed["copy_bytes"]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """ludwig_tpu_torch: the PyTorch + CUDA port of ludwig_tpu.
 
 A second package beside the JAX one, which stays the reference.  Plain
-tensor code is PyTorch on an explicit device; the fused collide+stream
-kernels are hand-written CUDA for Hopper (csrc/fused_lb.cu), each with a
-plain PyTorch twin that the CPU takes.  This package imports neither JAX
-nor ludwig_tpu.
+tensor code is PyTorch on a device (the GPU unless the caller asks for
+the CPU); the fused collide+stream kernels and the binary fluid's
+order-parameter kernel are hand-written CUDA for Hopper (csrc/*.cu),
+each with a plain PyTorch twin that the CPU takes.  This package imports
+neither JAX nor ludwig_tpu.
 """
 
 __version__ = "0.1.0"

@@ -2,32 +2,47 @@
 
 Values cross as numpy arrays and plain Python values, so this module
 needs neither JAX nor ludwig_tpu: a caller that has both packages (the
-parity tests) converts on its side and passes the values in.
+parity tests) converts on its side and passes the values in.  Like every
+entry point of the port, the results land on the GPU unless the caller
+asks for the CPU.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from ludwig_tpu_torch.binary import GRADIENT, BinaryConfig
+from ludwig_tpu_torch.fe.symmetric import SymmetricFE
 from ludwig_tpu_torch.lb import DTYPES, LBConfig
 from ludwig_tpu_torch.ops.collide import RelaxationScheme
+
+# pad widths of the JAX package's fused binary state (ops/fused.py HX, HY
+# for f; ops/fused_lc.py HX, HY for phi)
+_F_PAD = (1, 8)
+_PHI_PAD = (2, 8)
+
+
+def _tensor(a: np.ndarray, device, dtype) -> torch.Tensor:
+    if isinstance(dtype, str):
+        dtype = DTYPES[dtype]
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                           device=device)
 
 
 def state_from_jax(f: np.ndarray, device, dtype) -> torch.Tensor:
     """An unpadded (nvel, X, Y, Z) distribution array as a contiguous
     tensor on `device`; `dtype` a torch dtype or its name."""
-    if isinstance(dtype, str):
-        dtype = DTYPES[dtype]
     f = np.asarray(f)
     if f.ndim != 4:
         raise ValueError(f"want an unpadded (nvel, X, Y, Z) state, "
                          f"got shape {f.shape}")
-    return torch.as_tensor(np.ascontiguousarray(f), dtype=dtype,
-                           device=device)
+    return _tensor(f, device, dtype)
 
 
-def params_from_jax(lb_cfg_fields: dict, device="cpu") -> LBConfig:
+def params_from_jax(lb_cfg_fields: dict, device="cuda") -> LBConfig:
     """LBConfig from the fields of a ludwig_tpu LBConfig (for example
     ``{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}``).
     The relaxation scheme may be the JAX package's enum or its value."""
@@ -39,3 +54,49 @@ def params_from_jax(lb_cfg_fields: dict, device="cpu") -> LBConfig:
             fields[key] = tuple(fields[key])
     fields["device"] = str(device)
     return LBConfig(**fields)
+
+
+def _unpad_xy(a: np.ndarray, hx: int, hy: int) -> np.ndarray:
+    return a[..., hx:a.shape[-3] - hx, hy:a.shape[-2] - hy, :]
+
+
+def binary_state_from_jax(fpad, ppad, u, device, dtype):
+    """The JAX fused binary state (fpad (nvel, X+2, Y+16, Z), ppad
+    (X+4, Y+16, Z), u (3, X, Y, Z); z is not lane-padded on that path)
+    as the port's unpadded (f, phi, u): the work of
+    ops/fused.unpad_state and ops/fused_binary.unpad_phi, in numpy."""
+    f = _unpad_xy(np.asarray(fpad), *_F_PAD)
+    phi = _unpad_xy(np.asarray(ppad), *_PHI_PAD)
+    u = np.asarray(u)
+    if f.ndim != 4 or phi.shape != f.shape[1:] or u.shape != (3,) + phi.shape:
+        raise ValueError(f"inconsistent padded binary state: f {f.shape}, "
+                         f"phi {phi.shape}, u {u.shape}")
+    return tuple(_tensor(a, device, dtype) for a in (f, phi, u))
+
+
+def binary_params_from_jax(bcfg_fields: dict, device="cuda") -> BinaryConfig:
+    """BinaryConfig from the fields of a ludwig_tpu BinaryConfig, for
+    example ``dataclasses.asdict(bcfg)``: "lb" the LBConfig's fields,
+    "fe" the symmetric free energy's a, b and kappa (a dict or an object
+    with those attributes), the mobility and the advection order.
+    Fields of features the port has not taken over must be at their
+    inactive defaults."""
+    fields = dict(bcfg_fields)
+    fe = fields.pop("fe")
+    if not isinstance(fe, dict):
+        fe = {k: getattr(fe, k) for k in ("a", "b", "kappa")}
+    inactive = {"gradient": GRADIENT, "hydrodynamics": True,
+                "visc_model": None, "wetting": (0.0, 0.0),
+                "force_method": "stress_divergence",
+                "gradmu_ex": (0.0, 0.0, 0.0)}
+    for key, off in inactive.items():
+        value = fields.pop(key, off)
+        if (tuple(value) if isinstance(value, (list, tuple)) else value) \
+                != off:
+            raise NotImplementedError(f"BinaryConfig.{key} = {value!r} is "
+                                      "not ported yet, see ROADMAP")
+    lb = fields.pop("lb")
+    if dataclasses.is_dataclass(lb):
+        lb = {f.name: getattr(lb, f.name) for f in dataclasses.fields(lb)}
+    return BinaryConfig(lb=params_from_jax(lb, device),
+                        fe=SymmetricFE(**fe), **fields)

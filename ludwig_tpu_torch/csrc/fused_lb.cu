@@ -1,16 +1,20 @@
 // Fused collide + stream kernels for Hopper (sm_90a), D3Q15/19/27, f32/f64.
 //
 // Replaces the Pallas TPU kernels of ludwig_tpu/ops/fused.py:
-//   fused_step_kernel   <- _fused_kernel  (ops/fused.py:429), one step
-//   fusedn_step_kernel  <- _fusedn_kernel (ops/fused.py:902), n steps/pass
+//   fused_step_kernel        <- _fused_kernel  (ops/fused.py:429), one step
+//   fusedn_step_kernel       <- _fusedn_kernel (ops/fused.py:902), n
+//                               steps/pass
+//   fused_force_step_kernel  <- _fused_force_kernel (ops/fused.py:1069)
+//                               without its solid variant: one step with a
+//                               per-site force, writing u
 //
-// Both compute f'_q(x) = C(f)_q(x - c_q): a local moment-space collision C
-// (M10/BGK/TRT through per-ghost rates, global body force, even/odd
+// All compute f'_q(x) = C(f)_q(x - c_q): a local moment-space collision C
+// (M10/BGK/TRT through per-ghost rates, a body force, even/odd
 // factorised transforms, increment or absolute back transform) followed
 // by a periodic pull stream, on the unpadded state (nvel, X, Y, Z) with z
 // fastest.  The collision is lb_generated.h, straight-line code generated
 // at build time from the port's Python twin and lattice.py tables
-// (ops/_cuda.py), so both kernels and the twin share one expression tree.
+// (ops/_cuda.py), so the kernels and the twins share one expression tree.
 //
 // Bound on this card: memory.  One step must read and write every value
 // once: 2 * nvel * sizeof(T) bytes per site (152 B for D3Q19 in f32)
@@ -34,6 +38,14 @@
 // single-step HBM traffic per step, at the price of recomputing the halo
 // collisions; each value is the same collide of the same inputs as in n
 // single-step launches, so the results are equal to them.
+//
+// fused_force_step_kernel: fused_step_kernel's push design with a
+// per-site Guo force (the K2 pass of the binary fluid, and of the LC,
+// droplet and electrokinetic steps in the JAX package).  The thread also
+// reads force[a] at its site and writes the collision-time velocity
+// u = (m_1 + F/2) / rho, before streaming.  Increment form only, as in
+// the TPU kernel.  Bound: memory, (nvel + 3) values read and written per
+// site, 176 B for D3Q19 in f32, against ~3 flop/B of arithmetic.
 //
 // Offsets are 64-bit: nvel*X*Y*Z passes 2^31 at 512^3.
 
@@ -110,6 +122,48 @@ fused_step_kernel(const T* __restrict__ fin, T* __restrict__ fout, int X,
     fout[q * nsite + d] = v;
   };
   lb_collide<T, DELTA, PROJ>(f, p, emit);
+}
+
+template <typename T, int PROJ>
+__global__ void __launch_bounds__(kThreads)
+fused_force_step_kernel(const T* __restrict__ fin,
+                        const T* __restrict__ force, T* __restrict__ fout,
+                        T* __restrict__ uout, int X, int Y, int Z,
+                        LBParams<T> p) {
+  const int64_t nsite = static_cast<int64_t>(X) * Y * Z;
+  const int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  if (s >= nsite) return;
+  const int z = static_cast<int>(s % Z);
+  const int64_t r = s / Z;
+  const int y = static_cast<int>(r % Y);
+  const int x = static_cast<int>(r / Y);
+  T f[LB_NVEL];
+#pragma unroll
+  for (int q = 0; q < LB_NVEL; ++q) f[q] = fin[q * nsite + s];
+  // total force: the global body force is added only where it is
+  // non-zero, as the twin does (ops/fused.py _collide)
+  const T fg[3] = {p.fx, p.fy, p.fz};
+  T fs[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const T v = force[a * nsite + s];
+    fs[a] = fg[a] != T(0) ? v + fg[a] : v;
+  }
+  auto emit = [&](int q, int cx, int cy, int cz, T v) {
+    const int64_t d =
+        (static_cast<int64_t>(wrap1(x + cx, X)) * Y + wrap1(y + cy, Y)) * Z +
+        wrap1(z + cz, Z);
+    fout[q * nsite + d] = v;
+  };
+  T u[3];
+  if constexpr (PROJ) {
+    lb_collide_force_p1<T>(f, fs, p, emit, u);
+  } else {
+    lb_collide_force_p0<T>(f, fs, p, emit, u);
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) uout[a * nsite + s] = u[a];
 }
 
 template <typename T, int DELTA, int PROJ>
@@ -199,6 +253,20 @@ static int launch_step(const void* fin, void* fout, int X, int Y, int Z,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int PROJ>
+static int launch_force_step(const void* fin, const void* force, void* fout,
+                             void* uout, int X, int Y, int Z,
+                             const double* par, cudaStream_t stream) {
+  const int64_t nsite = static_cast<int64_t>(X) * Y * Z;
+  const int64_t blocks = (nsite + kThreads - 1) / kThreads;
+  fused_force_step_kernel<T, PROJ><<<static_cast<unsigned>(blocks),
+                                     kThreads, 0, stream>>>(
+      static_cast<const T*>(fin), static_cast<const T*>(force),
+      static_cast<T*>(fout), static_cast<T*>(uout), X, Y, Z,
+      make_params<T>(par));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int DELTA, int PROJ>
 static int launch_stepn(const void* fin, void* fout, int X, int Y, int Z,
                         int nsteps, int BX, int BY, int BZ, void* scratch,
@@ -264,6 +332,25 @@ int lb_fusedn_step(int is_f64, int delta, int proj, const void* fin,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   LB_DISPATCH(launch_stepn, fin, fout, X, Y, Z, nsteps, BX, BY, BZ, scratch,
               per_block, grid, smem, par, s);
+}
+
+int lb_fused_force_step(int is_f64, int proj, const void* fin,
+                        const void* force, void* fout, void* uout, int X,
+                        int Y, int Z, const double* par, void* stream,
+                        int device) {
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_f64) {
+    return proj ? launch_force_step<double, 1>(fin, force, fout, uout, X, Y,
+                                               Z, par, s)
+                : launch_force_step<double, 0>(fin, force, fout, uout, X, Y,
+                                               Z, par, s);
+  }
+  return proj ? launch_force_step<float, 1>(fin, force, fout, uout, X, Y, Z,
+                                            par, s)
+              : launch_force_step<float, 0>(fin, force, fout, uout, X, Y, Z,
+                                            par, s);
 }
 
 }  // extern "C"

@@ -39,7 +39,7 @@ class LBConfig:
     wall_u: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     dtype: str = "float32"
     noise: Optional[object] = None   # isothermal fluctuations: not ported
-    device: str = "cpu"
+    device: str = "cuda"      # the GPU unless the caller asks for the CPU
 
     def __post_init__(self):
         if self.dtype not in DTYPES:

@@ -1,19 +1,23 @@
-"""Top-level orchestration: run a plain-fluid simulation from a
-reference-format input file.
+"""Top-level orchestration: run a simulation from a reference-format
+input file.
 
-PyTorch port of the plain single-fluid slice of ludwig_tpu/ludwig.py
-(ref: src/ludwig.c:443 ludwig_run, src/main.c:30-46).  It parses the
-same key-value input, builds the `free_energy none` system without walls,
-Lees-Edwards planes, porous media or noise, runs the time loop on an
-explicit device and writes the statistics blocks in the reference's
-formats.  `tpu_fused on` (or `interpret`) selects ops.fused.fused_step,
-the hand-written CUDA kernel on a GPU and its twin on the CPU.
+PyTorch port of two slices of ludwig_tpu/ludwig.py (ref: src/ludwig.c:443
+ludwig_run, src/main.c:30-46): the plain single fluid (`free_energy
+none`) and the symmetric binary fluid (`free_energy symmetric`, the
+periodic, stress-divergence, hydrodynamics-on route the JAX package's
+fused path accepts).  It parses the same key-value input, builds the
+system without walls, Lees-Edwards planes, porous media or noise, runs
+the time loop on a device (the GPU unless the caller asks for the CPU)
+and writes the statistics blocks in the reference's formats.
+`tpu_fused on` (or `interpret`) selects the fused steps: ops.fused.
+fused_step for the plain fluid, ops.fused_binary.make_fused_binary_step
+(the two kernels K1 and K2) for the binary fluid; the hand-written CUDA
+kernels on a GPU and their twins on the CPU.
 
-Every input key outside the slice raises NotImplementedError naming the
-key, unless it is set to its inactive default (`free_energy none`,
-`periodicity 1_1_1`, `colloid_init no_colloids`, ...).  The input header
-of the reference log (fulllog.InitLog in the JAX package) is not ported
-yet.
+Every input key outside the slices raises NotImplementedError naming the
+key, unless it is set to its inactive default (`periodicity 1_1_1`,
+`colloid_init no_colloids`, ...).  The input header of the reference log
+(fulllog.InitLog in the JAX package) is not ported yet.
 """
 
 from __future__ import annotations
@@ -28,10 +32,17 @@ import numpy as np
 import torch
 
 from ludwig_tpu_torch import stats
+from ludwig_tpu_torch.binary import (GRADIENT, ORDERS, BinaryConfig,
+                                     fe_fields, initial_binary,
+                                     make_binary_step)
+from ludwig_tpu_torch.fe.symmetric import SymmetricFE
 from ludwig_tpu_torch.lb import (LBConfig, hydro_fields, initial_from_hydro,
                                  initial_rest, make_step)
 from ludwig_tpu_torch.ops.collide import RelaxationScheme
 from ludwig_tpu_torch.ops.fused import fused_step
+from ludwig_tpu_torch.ops.fused_binary import (initial_fused_binary,
+                                               make_fused_binary_step)
+from ludwig_tpu_torch.ref_rng import spinodal_ref
 from ludwig_tpu_torch.runtime import RunTime
 
 
@@ -53,9 +64,20 @@ SLICE_KEYS = frozenset((
     "distribution_uniform_u", "N_cycles", "freq_statistics", "tpu_fused",
     "hydrodynamics"))
 
-# keys of features outside the slice, accepted while they leave it off
+# keys the binary-fluid slice reads (free_energy symmetric only)
+BINARY_KEYS = frozenset((
+    "A", "B", "K", "symmetric_a", "symmetric_b", "symmetric_kappa",
+    "mobility", "fd_advection_scheme_order", "fd_gradient_calculation",
+    "fe_force_method", "grad_mu", "phi_initialisation", "phi0",
+    "random_seed", "noise", "phi_init_drop_radius",
+    "phi_init_drop_amplitude", "phi_init_drop_centred",
+    "phi_init_block_dimension"))
+
+FREE_ENERGIES = ("none", "symmetric")
+
+# keys of features outside the slices, accepted while they leave them off
 INACTIVE = {
-    "free_energy": lambda v: v == "none",
+    "viscosity_model": lambda v: v == "newtonian",
     "colloid_init": lambda v: v == "no_colloids",
     "periodicity": lambda v: v == "1_1_1",
     "boundary_walls": _zeros,
@@ -78,17 +100,24 @@ INACTIVE = {
 }
 
 
+def _not_ported(key: str, value):
+    return NotImplementedError(
+        f"input key '{key}' (value '{value}') is not ported yet, see ROADMAP")
+
+
 def _check_keys(rt: RunTime):
-    """Raise on any key the slice cannot honour."""
+    """Raise on any key the slices cannot honour."""
+    fe_name = rt.string("free_energy", "none")
+    if fe_name not in FREE_ENERGIES:
+        raise _not_ported("free_energy", fe_name)
     for key in rt.unused_keys():
-        if key in SLICE_KEYS:
+        if key in SLICE_KEYS or (fe_name == "symmetric"
+                                 and key in BINARY_KEYS):
             continue
         check = INACTIVE.get(key)
         value = rt.string(key)
         if check is None or not check(value):
-            raise NotImplementedError(
-                f"input key '{key}' (value '{value}') is not ported yet, "
-                "see ROADMAP")
+            raise _not_ported(key, value)
 
 
 @dataclasses.dataclass
@@ -97,10 +126,24 @@ class System:
 
     rt: RunTime
     lb_cfg: LBConfig
-    state: tuple                 # (f,)
+    state: tuple                 # (f,) or, binary, (f, phi, u)
     step_fn: object
-    fused_mode: Optional[str] = None   # 'plain': fused collide+stream
+    # 'plain': fused collide+stream; 'binary': the two binary kernels
+    fused_mode: Optional[str] = None
     hydro_on: bool = True
+    binary_cfg: Optional[BinaryConfig] = None
+
+
+def _device(device) -> str:
+    """The device an entry point runs on; a CUDA device that is not there
+    raises instead of falling back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device '{device}' asked for, but no CUDA device is visible; "
+            "pass device='cpu' (--device cpu) to run the plain twins on "
+            "the CPU")
+    return str(dev)
 
 
 def _relaxation(rt: RunTime) -> RelaxationScheme:
@@ -157,9 +200,107 @@ def _distribution_init(rt: RunTime, lb_cfg: LBConfig):
     return initial_from_hydro(lb_cfg, rho, u)
 
 
-def build_system(rt: RunTime, device="cpu") -> System:
-    """The plain-fluid system of an input on `device`."""
+def _symm_fe(rt: RunTime) -> SymmetricFE:
+    """Symmetric FE parameters; both the legacy A/B/K spellings and the
+    preferred symmetric_a/b/kappa names are accepted (ref:
+    symmetric_rt.c:45-86)."""
+    if rt.has_key("symmetric_a"):
+        return SymmetricFE(a=rt.double_required("symmetric_a"),
+                           b=rt.double_required("symmetric_b"),
+                           kappa=rt.double_required("symmetric_kappa"))
+    return SymmetricFE(a=rt.double_required("A"),
+                       b=rt.double_required("B"),
+                       kappa=rt.double_required("K"))
+
+
+def _phi_init(rt: RunTime, size, fe: SymmetricFE) -> np.ndarray:
+    """phi initialisation modes, on the host (ref: src/phi_rt.c /
+    field_phi_init.c); `patches` is not ported yet."""
+    mode = rt.string("phi_initialisation", "spinodal")
+    phi0 = rt.double("phi0", 0.0)
+    seed = rt.int("random_seed", 13)
+    if mode == "spinodal":
+        return spinodal_ref(size, seed, phi0, amp=rt.double("noise", 0.1))
+    if mode == "uniform":
+        return np.full(size, phi0)
+    if mode == "drop":
+        # centre at 0.5 L in 1-based site coordinates (ref:
+        # field_phi_init.c:60-75, is_centred = 0 default)
+        radius = rt.double("phi_init_drop_radius", 0.25 * size[0])
+        amp = rt.double("phi_init_drop_amplitude", 1.0)
+        centred = 0.5 if rt.switch("phi_init_drop_centred") else 0.0
+        x = np.arange(1, size[0] + 1) - centred - 0.5 * size[0]
+        y = np.arange(1, size[1] + 1) - centred - 0.5 * size[1]
+        z = np.arange(1, size[2] + 1) - centred - 0.5 * size[2]
+        r = np.sqrt(x[:, None, None] ** 2 + y[None, :, None] ** 2
+                    + z[None, None, :] ** 2)
+        return amp * np.tanh((r - radius) / fe.xi0)
+    if mode == "block":
+        # slab with interfaces at z = L/4 and 3L/4
+        # (ref: field_phi_init.c field_phi_init_block)
+        z = np.arange(1, size[2] + 1, dtype=np.float64)
+        lz = float(size[2])
+        prof = np.where(z > 0.5 * lz, np.tanh((z - 0.75 * lz) / fe.xi0),
+                        -np.tanh((z - 0.25 * lz) / fe.xi0))
+        return np.broadcast_to(prof[None, None, :], size).copy()
+    if mode in ("block_X", "block_Y", "block_Z"):
+        # central block of given width along one axis (ref:
+        # field_phi_init.c field_phi_init_block_X/Y/Z; coordinate is
+        # the plain 1-based global index, no 0.5 offset)
+        axis = {"block_X": 0, "block_Y": 1, "block_Z": 2}[mode]
+        width = rt.double("phi_init_block_dimension", 10.0)
+        ln = float(size[axis])
+        x = np.arange(1, size[axis] + 1, dtype=np.float64)
+        x1 = 0.5 * (ln - width)
+        x2 = 0.5 * (ln + width)
+        prof = np.where(x > 0.5 * ln, np.tanh((x - x2) / fe.xi0),
+                        -np.tanh((x - x1) / fe.xi0))
+        shape = [1, 1, 1]
+        shape[axis] = size[axis]
+        return np.broadcast_to(prof.reshape(shape), size).copy()
+    raise _not_ported("phi_initialisation", mode)
+
+
+def _binary_config(rt: RunTime, lb_cfg: LBConfig) -> BinaryConfig:
+    """The `free_energy symmetric` configuration, limited to what the
+    JAX package's fused route accepts (ludwig.py:996-1004): periodic,
+    stress-divergence force, 7-point gradients, advection order 1 or 2,
+    hydrodynamics on.  Anything else raises naming its key."""
+    size = lb_cfg.size
+    gradient = rt.string("fd_gradient_calculation",
+                         GRADIENT if size[2] > 1 else "2d_5pt_fluid")
+    order = rt.int("fd_advection_scheme_order", 1)
+    hydro = rt.switch("hydrodynamics", True)
+    method = rt.string("fe_force_method", "stress_divergence")
+    grad_mu = rt.double_vector("grad_mu", (0.0, 0.0, 0.0))
+    if gradient != GRADIENT:
+        raise _not_ported("fd_gradient_calculation", gradient)
+    if order not in ORDERS:
+        raise _not_ported("fd_advection_scheme_order", order)
+    if not hydro:
+        raise _not_ported("hydrodynamics", rt.string("hydrodynamics"))
+    if method != "stress_divergence":
+        raise _not_ported("fe_force_method", method)
+    if any(g != 0.0 for g in grad_mu):
+        raise _not_ported("grad_mu", rt.string("grad_mu"))
+    return BinaryConfig(lb=lb_cfg, fe=_symm_fe(rt),
+                        mobility=rt.double("mobility", 1.0),
+                        advection_order=order)
+
+
+def _fused_request(rt: RunTime) -> bool:
+    fused_req = rt.string("tpu_fused", "off")
+    if fused_req not in ("on", "interpret", "off"):
+        raise ValueError(f"tpu_fused '{fused_req}' not recognised")
+    # 'interpret' is the JAX package's CPU spelling of 'on'
+    return fused_req != "off"
+
+
+def build_system(rt: RunTime, device="cuda") -> System:
+    """The system of an input on `device` (the GPU unless the caller
+    asks for the CPU)."""
     _check_keys(rt)
+    device = _device(device)
     size = tuple(rt.int_vector("size", (64, 64, 64)))
     eta = rt.double("viscosity", 1.0 / 6.0)
     eta_b = rt.double("viscosity_bulk", eta)
@@ -174,14 +315,25 @@ def build_system(rt: RunTime, device="cpu") -> System:
     lb_cfg = LBConfig(size=size, nvel=nvel, eta_shear=eta, eta_bulk=eta_b,
                       rho0=rho0, scheme=_relaxation(rt),
                       ghost_modes_on=ghosts, force_global=force,
-                      dtype=dtype, device=str(device))
+                      dtype=dtype, device=device)
+    if rt.string("free_energy", "none") == "symmetric":
+        # the fluid starts at rest (ref: the symmetric branch of
+        # ludwig_tpu build_system; distribution_initialisation is not
+        # read)
+        bcfg = _binary_config(rt, lb_cfg)
+        phi0 = _phi_init(rt, size, bcfg.fe)
+        if _fused_request(rt):
+            # production path: the two fused kernels (K1, K2)
+            return System(rt=rt, lb_cfg=lb_cfg,
+                          state=initial_fused_binary(bcfg, phi0),
+                          step_fn=make_fused_binary_step(bcfg),
+                          fused_mode="binary", binary_cfg=bcfg)
+        return System(rt=rt, lb_cfg=lb_cfg, state=initial_binary(bcfg, phi0),
+                      step_fn=make_binary_step(bcfg), binary_cfg=bcfg)
     f = _distribution_init(rt, lb_cfg)
-    fused_req = rt.string("tpu_fused", "off")
-    if fused_req not in ("on", "interpret", "off"):
-        raise ValueError(f"tpu_fused '{fused_req}' not recognised")
-    if fused_req != "off":
+    if _fused_request(rt):
         # production path: the fused collide+stream (kernel on a GPU,
-        # twin on the CPU; 'interpret' is the JAX package's CPU spelling)
+        # twin on the CPU)
         model = lb_cfg.model
         params = lb_cfg.collision_params()
 
@@ -196,14 +348,29 @@ def build_system(rt: RunTime, device="cpu") -> System:
 
 def _make_fast_stats_fn(sys_: System):
     """Plain-reduction statistics, as the fused path of the JAX package
-    reports them: compute(f, u) -> {rho, g, umm}."""
+    reports them: compute(state, u, prev_phi=None) -> {rho, g, umm} and,
+    for the binary fluid, {phi, fed}."""
     model = sys_.lb_cfg.model
+    bcfg = sys_.binary_cfg
 
-    def compute(f, u):
+    def compute(state, u, prev_phi=None):
+        f = state[0]
         rho, _g = hydro_fields(f, model)
-        return {"rho": stats.field_stats(rho),
-                "g": stats.momentum_total_plain(f, model),
-                "umm": stats.velocity_minmax(u)}
+        res = {"rho": stats.field_stats(rho),
+               "g": stats.momentum_total_plain(f, model),
+               "umm": stats.velocity_minmax(u)}
+        if bcfg is not None:
+            # [phi] of the updated phi; [fed] with the reference's
+            # stale-gradient convention: gradients of the phi before the
+            # step, the updated phi in place of phi (ludwig_tpu ludwig.py
+            # _make_fast_stats_fn)
+            phi = state[1]
+            res["phi"] = stats.field_stats(phi)
+            fields = fe_fields(phi if prev_phi is None else prev_phi)
+            fields["phi"] = phi
+            m = torch.mean(bcfg.fe.fed(fields))
+            res["fed"] = (m, m)
+        return res
 
     return compute
 
@@ -219,12 +386,16 @@ def _fused_u(sys_: System, f: torch.Tensor) -> torch.Tensor:
 
 
 def report_statistics(sys_: System, tstep: int, u, stats_fn,
-                      with_velocity=True, out=sys.stdout, in_loop=True):
+                      with_velocity=True, out=sys.stdout, in_loop=True,
+                      prev_phi=None):
     """One statistics block set in the reference formats.  The
     'Completed cycle' trailer only appears inside the time loop (ref:
     ludwig.c:961)."""
-    res = stats_fn(sys_.state[0], u)
+    res = stats_fn(sys_.state, u, prev_phi)
     out.write(stats.format_rho_block(*res["rho"]))
+    if "phi" in res:
+        out.write(stats.format_phi_line("phi", *res["phi"]))
+        out.write(stats.format_fed_block(tstep, *res["fed"]))
     g = res["g"]
     out.write(stats.format_momentum_block(g, g))
     if with_velocity:
@@ -234,7 +405,7 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
     out.flush()
 
 
-def run_text(text: str, out=sys.stdout, device="cpu") -> System:
+def run_text(text: str, out=sys.stdout, device="cuda") -> System:
     """Run a simulation from input-file text on `device`; returns the
     final System."""
     rt = RunTime(text)
@@ -263,22 +434,32 @@ def run_text(text: str, out=sys.stdout, device="cpu") -> System:
         s[2] = max(s[2], dt_)
         s[3] += 1
 
-    f = sys_.state[0]
     for t in range(1, ncycles + 1):
         ts0 = time.time()
-        if sys_.fused_mode == "plain":
-            f = sys_.step_fn(f, t)
+        # the steps return new tensors and never write their inputs, so
+        # the pre-step phi of the [fed] statistic is held by reference
+        prev_phi = None
+        if sys_.binary_cfg is not None:
+            prev_phi = sys_.state[1]
+            if sys_.fused_mode == "binary":
+                sys_.state = sys_.step_fn(sys_.state, t)
+            else:
+                sys_.state, _rho = sys_.step_fn(sys_.state, t)
+            u = sys_.state[2]     # u rides at the tail of the state
+        elif sys_.fused_mode == "plain":
+            sys_.state = (sys_.step_fn(sys_.state[0], t),)
             u = None      # derived from f at statistics steps
         else:
-            f, _rho, u = sys_.step_fn(f, t)
-        sys_.state = (f,)
+            f, _rho, u = sys_.step_fn(sys_.state[0], t)
+            sys_.state = (f,)
         _acc("step", time.time() - ts0)
         if t % freq == 0:
             ts0 = time.time()
             if u is None:
-                u = _fused_u(sys_, f)
+                u = _fused_u(sys_, sys_.state[0])
             report_statistics(sys_, t, u, stats_fn, out=out,
-                              with_velocity=sys_.hydro_on)
+                              with_velocity=sys_.hydro_on,
+                              prev_phi=prev_phi)
             _acc("stats", time.time() - ts0)
 
     # timer table (ref: TIMER_statistics table shape); host clocks, the
@@ -304,7 +485,7 @@ def run_text(text: str, out=sys.stdout, device="cpu") -> System:
     return sys_
 
 
-def run(path: str = "input", out=sys.stdout, device="cpu") -> System:
+def run(path: str = "input", out=sys.stdout, device="cuda") -> System:
     with open(path) as fh:
         return run_text(fh.read(), out=out, device=device)
 
@@ -312,10 +493,12 @@ def run(path: str = "input", out=sys.stdout, device="cpu") -> System:
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m ludwig_tpu_torch",
-        description="Run a plain-fluid lattice Boltzmann input file.")
+        description="Run a lattice Boltzmann input file (plain or "
+                    "symmetric binary fluid).")
     ap.add_argument("input", nargs="?", default="input",
                     help="input file (default: ./input)")
-    ap.add_argument("--device", default="cpu",
-                    help="torch device, e.g. cpu or cuda (default: cpu)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device: cuda runs the CUDA kernels, cpu "
+                         "their plain twins (default: cuda)")
     args = ap.parse_args(argv)
     run(args.input, device=args.device)

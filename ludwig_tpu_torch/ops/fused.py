@@ -1,8 +1,9 @@
 """Fused collide + stream: one collision and one pull stream per pass.
 
 PyTorch port of ludwig_tpu/ops/fused.py.  The TPU kernels
-``_fused_kernel`` and ``_fusedn_kernel`` become the hand-written CUDA
-kernels of ``csrc/fused_lb.cu``; their plain PyTorch twins live here.
+``_fused_kernel``, ``_fusedn_kernel`` and ``_fused_force_kernel`` (without
+its solid variant) become the hand-written CUDA kernels of
+``csrc/fused_lb.cu``; their plain PyTorch twins live here.
 Every public function takes the twin for a tensor on the CPU, launches
 the kernel for a tensor on a CUDA device, and raises on anything else.
 
@@ -385,6 +386,54 @@ def fusedn_step(f: torch.Tensor, model: LatticeModel,
     if f.device.type == "cuda":
         return _cuda.fusedn_step(f, model, params, nsteps, plan, delta)
     raise ValueError(f"no fusedn_step for device {f.device}")
+
+
+def _check_force(force: torch.Tensor, f: torch.Tensor):
+    if tuple(force.shape) != (3,) + tuple(f.shape[1:]):
+        raise ValueError(f"force must be (3, X, Y, Z) = "
+                         f"{(3,) + tuple(f.shape[1:])}, got "
+                         f"{tuple(force.shape)}")
+    if force.dtype != f.dtype or force.device != f.device:
+        raise TypeError("force must have the state's dtype and device")
+    if not force.is_contiguous():
+        raise ValueError("force must be C-contiguous (z fastest)")
+
+
+def _fused_force_step_plain(f: torch.Tensor, force: torch.Tensor,
+                            model: LatticeModel, params: CollisionParams):
+    """Twin of the force-coupled kernel: collide every site with its own
+    Guo force in the increment form, pull-stream each assembled velocity
+    with torch.roll, and return the collision-time velocity u."""
+    fl = [f[q] for q in range(model.nvel)]
+    out = [None] * model.nvel
+    cvs = [tuple(int(c) for c in model.cv[q]) for q in range(model.nvel)]
+
+    def emit(acc, q):
+        shift = cvs[q]
+        dims = tuple(d for d in range(3) if shift[d])
+        out[q] = (torch.roll(acc, tuple(shift[d] for d in dims), dims)
+                  if dims else acc)
+
+    modes, u = _collide_mode_deltas(model, params, fl,
+                                    force=[force[a] for a in range(3)])
+    _assemble_eo_deltas(model, fl, modes, emit)
+    return torch.stack(out), torch.stack(u)
+
+
+def fused_force_step(f: torch.Tensor, force: torch.Tensor,
+                     model: LatticeModel, params: CollisionParams):
+    """(f', u): one fused collide+stream with a per-site body force
+    (3, X, Y, Z), in the increment form.  u (3, X, Y, Z) is the
+    collision-time hydrodynamic velocity (m_1 + F/2)/rho, taken before
+    streaming: the next order-parameter update's advection input.  The
+    solid (bounce-back) variant of the JAX package is not ported yet."""
+    _check_state(f, model)
+    _check_force(force, f)
+    if f.device.type == "cpu":
+        return _fused_force_step_plain(f, force, model, params)
+    if f.device.type == "cuda":
+        return _cuda.fused_force_step(f, force, model, params)
+    raise ValueError(f"no fused_force_step for device {f.device}")
 
 
 def make_fused_nstep(model: LatticeModel, params: CollisionParams,

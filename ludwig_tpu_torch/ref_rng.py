@@ -1,0 +1,82 @@
+"""The reference's per-site initial-condition RNG, vectorised (numpy only).
+
+Copied from ludwig_tpu/ref_rng.py (kiss_advance, RefNoise, spinodal_ref;
+ref: src/noise.c:136-233 noise_init, noise_uniform,
+noise_uniform_double_reap): a 4-word KISS-style generator (LCG +
+xorshift + two 16-bit MWC) seeded per site from the global coordinates,
+so the stream is decomposition independent.  The whole lattice advances
+in one vectorised uint64 pass on the host - each site's stream is
+independent, so 'reap site-by-site in loop order' equals 'reap
+everywhere at once'.  The fields it makes are moved to the device by
+the caller.
+
+Negative or zero master seeds fall back to the default 13, as in the
+reference (noise.c:143-151).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+_M32 = np.uint64(0xFFFFFFFF)
+UINT_MAX = 4294967295.0
+
+
+def _u(x):
+    return x & _M32
+
+
+def kiss_advance(state):
+    """One generator step for an array of states.
+
+    state: (4, ...) uint64 arrays (values < 2^32).
+    Returns (state, draw) with draw uint64 (< 2^32).
+    """
+    s0, s1, s2, s3 = state
+    s0 = _u(np.uint64(69069) * s0 + np.uint64(1234567))
+    b = _u(s1 ^ _u(s1 << np.uint64(17)))
+    b = _u(b ^ (b >> np.uint64(13)))
+    s1 = _u(b ^ _u(b << np.uint64(5)))
+    s2 = _u(np.uint64(36969) * (s2 & np.uint64(0xFFFF))
+            + (s2 >> np.uint64(16)))
+    s3 = _u(np.uint64(18000) * (s3 & np.uint64(0xFFFF))
+            + (s3 >> np.uint64(16)))
+    b = _u(_u(s2 << np.uint64(16)) + s3)
+    draw = _u(s1 + (s0 ^ b))
+    return np.stack([s0, s1, s2, s3]), draw
+
+
+class RefNoise:
+    """Per-site streams over an (X, Y, Z) lattice (1-based global
+    coordinates feed the seeds; serial, no offset)."""
+
+    def __init__(self, size, master_seed: int = 13):
+        seed = master_seed if master_seed > 0 else 13
+        nx, ny, nz = size
+        ig = np.arange(1, nx + 1, dtype=np.uint64)[:, None, None]
+        jg = np.arange(1, ny + 1, dtype=np.uint64)[None, :, None]
+        kg = np.arange(1, nz + 1, dtype=np.uint64)[None, None, :]
+        zeros = np.zeros((nx, ny, nz), np.uint64)
+        state = np.stack([
+            zeros + np.uint64(seed) + ig,
+            zeros + np.uint64(12953) + jg,
+            zeros + np.uint64(712357) + kg,
+            zeros + np.uint64(22383979),
+        ])
+        # warm-up: the four draws become the working state (noise.c:201)
+        new = []
+        for _ in range(4):
+            state, draw = kiss_advance(state)
+            new.append(draw)
+        self.state = np.stack(new)
+
+    def reap_uniform(self) -> np.ndarray:
+        """One double in [0, 1) per site: (1/UINT_MAX) * draw."""
+        self.state, draw = kiss_advance(self.state)
+        return (1.0 / UINT_MAX) * draw.astype(np.float64)
+
+
+def spinodal_ref(size, seed, phi0, amp=0.1):
+    """phi = phi0 + amp (r - 1/2) (ref: field_phi_init_spinodal)."""
+    rng = RefNoise(size, seed)
+    return phi0 + amp * (rng.reap_uniform() - 0.5)

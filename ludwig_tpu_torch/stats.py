@@ -2,7 +2,8 @@
 
 PyTorch port of the plain-reduction part of ludwig_tpu/stats.py: the
 observables the fused production path of the JAX package reports
-(ludwig.py _make_fast_stats_fn), computed with ordinary tensor
+(ludwig.py _make_fast_stats_fn: rho, momentum and velocity, and [phi]
+and [fed] for the binary fluid), computed with ordinary tensor
 reductions on the device.  The reference-ordered compensated scans of
 the golden-parity path (_compensated_stats, *_ref) are not ported yet;
 values agree with them to roundoff.
@@ -61,6 +62,19 @@ def format_rho_block(total, mean, var, rmin, rmax) -> str:
     return ("\nScalars - total mean variance min max\n"
             f"[rho] {float(total):14.2f} {float(mean):14.11f} "
             f"{float(var):14.7e} {float(rmin):14.11f} {float(rmax):14.11f}\n")
+
+
+def format_phi_line(name, total, mean, var, fmin, fmax) -> str:
+    # ref: phi_stats.c:336 (note the glued '%14.7e%14.7e' pairs)
+    return (f"[{name}] {float(total):14.7e} {float(mean):14.7e}"
+            f"{float(var):14.7e} {float(fmin):14.7e}{float(fmax):14.7e}\n")
+
+
+def format_fed_block(tstep, fed_mean, fed_fluid) -> str:
+    # ref: stats_free_energy.c:130-132
+    return ("\nFree energy density - timestep total fluid\n"
+            f"[fed] {int(tstep):14d} {float(fed_mean):17.10e} "
+            f"{float(fed_fluid):17.10e}\n")
 
 
 def format_momentum_block(gtotal, gfluid, gwall=None) -> str:

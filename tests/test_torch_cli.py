@@ -19,7 +19,8 @@ import torch
 
 from ludwig_tpu.ludwig import run_text as jrun_text
 from ludwig_tpu_torch.ludwig import run_text
-from test_ludwig_run import PLAIN_FUSED_INPUT, PLAIN_INPUT, _stat_floats
+from test_ludwig_run import (BINARY_FUSED_INPUT, PLAIN_FUSED_INPUT,
+                             PLAIN_INPUT, _stat_floats)
 
 
 def _logs(jax_text, port_text):
@@ -27,6 +28,55 @@ def _logs(jax_text, port_text):
     jrun_text(jax_text, out=a)
     sys_ = run_text(port_text, out=b, device="cpu")
     return a.getvalue(), b.getvalue(), sys_
+
+
+def _binary_input(order):
+    return BINARY_FUSED_INPUT.replace("fd_advection_scheme_order 2",
+                                      f"fd_advection_scheme_order {order}")
+
+
+@pytest.mark.parametrize("order", [2, 1])
+def test_binary_cli_matches_jax(order):
+    """The fused binary route (the K1 + K2 twins) against the JAX
+    package's jnp binary path; [phi] and [fed] lines included."""
+    text = _binary_input(order)
+    jlog, log, sys_ = _logs(text, "tpu_fused on\n" + text)
+    assert sys_.fused_mode == "binary"
+    assert "Completed cycle 4" in log
+    assert log.count("[fed]") == jlog.count("[fed]") == 3
+    a, b = _stat_floats(jlog), _stat_floats(log)
+    assert a.size == b.size and a.size > 0
+    np.testing.assert_allclose(b, a, rtol=1e-9, atol=1e-11)
+
+
+def test_binary_cli_unfused_route_matches_jax():
+    jlog, log, sys_ = _logs(BINARY_FUSED_INPUT, BINARY_FUSED_INPUT)
+    assert sys_.fused_mode is None and sys_.binary_cfg is not None
+    a, b = _stat_floats(jlog), _stat_floats(log)
+    assert a.size == b.size and a.size > 0
+    np.testing.assert_allclose(b, a, rtol=1e-9, atol=1e-11)
+
+
+@pytest.mark.parametrize("line", [
+    "fd_advection_scheme_order 3", "fe_force_method phi_gradmu",
+    "fd_gradient_calculation 3d_27pt_fluid", "hydrodynamics off",
+    "phi_initialisation patches", "grad_mu 0.001_0_0",
+    "viscosity_model arrhenius", "boundary_walls 0_0_1"])
+def test_unported_binary_keys_raise(line):
+    with pytest.raises(NotImplementedError, match=line.split()[0]):
+        run_text(BINARY_FUSED_INPUT + line + "\n", out=io.StringIO(),
+                 device="cpu")
+
+
+def test_no_device_means_the_card():
+    """Named or not, a CUDA device that is not there raises; nothing
+    falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default runs there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_text(PLAIN_INPUT, out=io.StringIO())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_text(BINARY_FUSED_INPUT, out=io.StringIO(), device="cuda")
 
 
 def test_fused_cli_matches_jax():
@@ -52,11 +102,11 @@ def test_plain_cli_matches_jax():
 
 
 @pytest.mark.parametrize("line", [
-    "free_energy symmetric", "boundary_walls 1_0_0", "N_LE_plane 2",
+    "free_energy lc_blue_phase", "boundary_walls 1_0_0", "N_LE_plane 2",
     "temperature 0.001", "bogus_key_xyz 42", "periodicity 0_1_1"])
 def test_unported_keys_raise(line):
     with pytest.raises(NotImplementedError, match=line.split()[0]):
-        run_text(PLAIN_INPUT + line + "\n", out=io.StringIO())
+        run_text(PLAIN_INPUT + line + "\n", out=io.StringIO(), device="cpu")
 
 
 def test_inactive_defaults_accepted():
@@ -70,20 +120,23 @@ def test_inactive_defaults_accepted():
         dtype float32
         """)
     log = io.StringIO()
-    sys_ = run_text(text, out=log)
+    sys_ = run_text(text, out=log, device="cpu")
     assert sys_.state[0].dtype == torch.float32
     assert "Completed cycle 5" in log.getvalue()
 
 
 def test_cli_runs_without_jax(tmp_path):
     """`python -m ludwig_tpu_torch input --device cpu` in a fresh
-    interpreter: it runs, and neither JAX nor ludwig_tpu is imported."""
-    inp = tmp_path / "input"
+    interpreter, for the plain and the binary input: both run, and
+    neither JAX nor ludwig_tpu is imported."""
+    inp, inp_binary = tmp_path / "input", tmp_path / "input_binary"
     inp.write_text("tpu_fused on\n" + PLAIN_INPUT)
+    inp_binary.write_text("tpu_fused on\n" + BINARY_FUSED_INPUT)
     probe = textwrap.dedent(f"""
         import runpy, sys
-        sys.argv = ["ludwig_tpu_torch", {str(inp)!r}, "--device", "cpu"]
-        runpy.run_module("ludwig_tpu_torch", run_name="__main__")
+        for path in ({str(inp)!r}, {str(inp_binary)!r}):
+            sys.argv = ["ludwig_tpu_torch", path, "--device", "cpu"]
+            runpy.run_module("ludwig_tpu_torch", run_name="__main__")
         import ludwig_tpu_torch.ops._cuda, ludwig_tpu_torch.convert
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.")
@@ -96,4 +149,5 @@ def test_cli_runs_without_jax(tmp_path):
                          cwd=Path(__file__).resolve().parents[1])
     assert res.returncode == 0, res.stderr
     assert "Completed cycle 5" in res.stdout
+    assert "[fed]" in res.stdout and "Completed cycle 4" in res.stdout
     assert "NO_JAX_OK" in res.stdout

@@ -72,12 +72,84 @@ def test_generated_collision_is_the_twin(nvel, scheme, delta):
     assert torch.equal(got, fused.fused_step(f, model, params, delta=delta))
 
 
+def _exec_body(lines, env):
+    code = "\n".join(ln.strip().removeprefix("const T ").rstrip(";")
+                     for ln in lines)
+    exec(code, env)
+
+
+@pytest.mark.parametrize("nvel", [15, 19, 27])
+@pytest.mark.parametrize("scheme", ["m10", "bgk"])
+def test_generated_force_collision_is_the_twin(nvel, scheme):
+    """lb_collide_force_p*: the collision of fused_force_step_kernel with
+    a per-site force, streamed as the kernel stores it, and its u."""
+    model = lb_model(nvel)
+    params = CollisionParams(model=model, eta_shear=0.1, eta_bulk=0.14,
+                             scheme=RelaxationScheme(scheme),
+                             force_global=(1e-4, 0.0, 5e-5))
+    rng = np.random.default_rng(nvel + 1)
+    f = torch.as_tensor(model.wv.reshape(-1, 1, 1, 1) * (
+        1.0 + 0.05 * rng.standard_normal((nvel,) + SHAPE)))
+    frc = torch.as_tensor(1e-4 * rng.standard_normal((3,) + SHAPE))
+    proj, par = _cuda._kernel_params(model, params, True)
+    name = f"lb_collide_force_p{proj}"
+    m = re.search(name + r"\(.*?\{\n(.*?)\n\}", _cuda.generate_header(nvel),
+                  re.S)
+    p = types.SimpleNamespace(rt=par[0], rtb=par[1], g=list(par)[5:])
+    # the kernel adds the global force where it is non-zero
+    fs = [frc[a] + par[2 + a] if par[2 + a] != 0.0 else frc[a]
+          for a in range(3)]
+    out, u = [None] * nvel, [None] * 3
+
+    def emit(q, cx, cy, cz, v):
+        out[q] = torch.roll(v, (cx, cy, cz), (0, 1, 2))
+
+    _exec_body(m.group(1).splitlines(),
+               {"f": [f[q] for q in range(nvel)], "fs": fs, "p": p,
+                "T": float, "emit": emit, "u": u})
+    want_f, want_u = fused.fused_force_step(f, frc, model, params)
+    assert torch.equal(torch.stack(out), want_f)
+    assert torch.equal(torch.stack(u), want_u)
+
+
+@pytest.mark.parametrize("order", [1, 2])
+def test_generated_binary_site_is_the_twin(order):
+    """binary_site_o*: one site of binary_phi_force_kernel, run on whole
+    tensors with P/U as periodic neighbour fetches, against the twin."""
+    from ludwig_tpu_torch.fe.symmetric import SymmetricFE
+    from ludwig_tpu_torch.ops import fused_binary as fb
+
+    rng = np.random.default_rng(order)
+    phi = torch.as_tensor(0.05 * rng.standard_normal(SHAPE))
+    u = torch.as_tensor(0.01 * rng.standard_normal((3,) + SHAPE))
+    fe = SymmetricFE(-6.25e-3, 6.25e-3, 4e-3)
+    m = re.search(rf"binary_site_o{order}\(.*?\{{\n(.*?)\n\}}",
+                  _cuda.generate_binary_header(), re.S)
+    out = [None] * 4
+
+    def at(x, *o):
+        return torch.roll(x, tuple(-v for v in o), (0, 1, 2))
+
+    _exec_body(m.group(1).splitlines(),
+               {"P": lambda *o: at(phi, *o),
+                "U": lambda a, *o: at(u[a], *o),
+                "p": fb._consts(fe, 0.45), "T": float, "out": out,
+                "sel": fb._where_pos})
+    want_phi, want_force = fb.binary_phi_force_step(phi, u, fe, 0.45, order)
+    assert torch.equal(out[0], want_phi)
+    assert torch.equal(torch.stack(out[1:]), want_force)
+    # the bound's operation count: level-1 values once per site
+    assert 0 < _cuda.site_ops("binary_phi_force_step", order=order) < (
+        _cuda._binary_trace(order)[0].nops)
+
+
 def test_header_declares_the_model():
     h = _cuda.generate_header(19)
     assert "#define LB_NVEL 19" in h and "#define LB_NGHOST 9" in h
     for d in (0, 1):
         for p in (0, 1):
             assert f"void lb_collide_d{d}_p{p}(" in h
+        assert f"void lb_collide_force_p{d}(" in h
     # the projected absolute form carries no ghost rate at all
     assert "p.g[" not in "\n".join(_body(h, False, True))
     with pytest.raises(ValueError):

@@ -49,7 +49,7 @@ def _close(a, b):
 def test_make_step_matches_jax(scheme, walls):
     jcfg = _jcfg(scheme=JScheme(scheme), walls=walls,
                  wall_u=(0.0, 0.01, 0.0) if any(walls) else (0.0,) * 3)
-    tcfg = params_from_jax(_fields(jcfg))
+    tcfg = params_from_jax(_fields(jcfg), device="cpu")
     f0 = _noisy_state(jcfg, seed=3)
     jstep = jlb.make_step(jcfg, solid=jlb.solid_mask(jcfg))
     tstep = tlb.make_step(tcfg, solid=tlb.solid_mask(tcfg))
@@ -64,7 +64,7 @@ def test_make_step_matches_jax(scheme, walls):
 
 def test_make_nstep_matches_jax():
     jcfg = _jcfg()
-    tcfg = params_from_jax(_fields(jcfg))
+    tcfg = params_from_jax(_fields(jcfg), device="cpu")
     f0 = _noisy_state(jcfg, seed=5)
     jf = jlb.make_nstep(jcfg)(jnp.asarray(f0), 3)
     tf = tlb.make_nstep(tcfg)(state_from_jax(f0, "cpu", torch.float64), 3)
@@ -74,7 +74,7 @@ def test_make_nstep_matches_jax():
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_initial_states_match_jax(dtype):
     jcfg = _jcfg(dtype=dtype, rho0=1.1)
-    tcfg = params_from_jax(_fields(jcfg))
+    tcfg = params_from_jax(_fields(jcfg), device="cpu")
     tf = tlb.initial_rest(tcfg)
     assert tf.dtype == getattr(torch, dtype) and tf.is_contiguous()
     np.testing.assert_array_equal(tf.numpy(),
@@ -93,8 +93,8 @@ def test_hydro_fields_match_jax():
     jcfg = _jcfg()
     f0 = _noisy_state(jcfg, seed=9)
     jrho, jg = jlb.hydro_fields(jnp.asarray(f0), jcfg.model)
-    trho, tg = tlb.hydro_fields(torch.as_tensor(f0),
-                                params_from_jax(_fields(jcfg)).model)
+    tcfg = params_from_jax(_fields(jcfg), device="cpu")
+    trho, tg = tlb.hydro_fields(torch.as_tensor(f0), tcfg.model)
     _close(trho, jrho)
     _close(tg, jg)
 
@@ -102,7 +102,7 @@ def test_hydro_fields_match_jax():
 def test_convert_round_trip():
     jcfg = _jcfg(scheme=JScheme.TRT, ghost_modes_on=False,
                  walls=(False, True, False), wall_u=(0.0, 0.0, 0.02))
-    tcfg = params_from_jax(_fields(jcfg))
+    tcfg = params_from_jax(_fields(jcfg), device="cpu")
     for name, value in _fields(jcfg).items():
         got = getattr(tcfg, name)
         if name == "scheme":
@@ -124,7 +124,8 @@ def test_convert_round_trip():
 def test_port_refuses_unported_features():
     with pytest.raises(NotImplementedError):
         tlb.LBConfig(size=SIZE, noise=object())
-    cfg = tlb.LBConfig(size=SIZE)
+    cfg = tlb.LBConfig(size=SIZE, device="cpu")
+    assert tlb.LBConfig(size=SIZE).device == "cuda"   # the card by default
     with pytest.raises(NotImplementedError):
         tlb.make_step(cfg, le=object())
     with pytest.raises(NotImplementedError):

@@ -53,3 +53,11 @@ def test_velocity_minmax_and_formats_match_jax():
     g, gw = (0.1, -2e-12, 0.0), (1e-3, 0.0, 5.0)
     assert (stats.format_momentum_block(g, g, gw)
             == jstats.format_momentum_block(g, g, gw))
+
+
+def test_binary_formats_match_jax():
+    vals = (-0.3133627812, -3.06e-4, 8.44e-4, -0.0499717, 0.0497398)
+    assert (stats.format_phi_line("phi", *vals)
+            == jstats.format_phi_line("phi", *vals))
+    assert (stats.format_fed_block(20, -1.3e-7, 2.5e-9)
+            == jstats.format_fed_block(20, -1.3e-7, 2.5e-9))

@@ -30,7 +30,18 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      run_text on the card; K1 and K2 launched once per cycle, the [phi]
      total conserved, the [rho] totals at the site count;
   9. at 256^3 f32: K1, K2 and the whole binary step against the twins
-     within TOL, and kernel, twin and bound times.
+     within TOL, and kernel, twin and bound times;
+ 10. the liquid crystal's kernel lc_q_force_step (K1) against its twin at
+     two sizes, f32 and f64, with and without the active stress and a
+     redshift, then 3 chained fused LC steps (K1 + K2) through the
+     kernels against 3 through the twins;
+ 11. the liquid-crystal main path at full width: `free_energy
+     lc_blue_phase` D3Q19 f32 with the reference's benchmark parameters,
+     `tpu_fused on`, through run_text on the card at 256^3 and at 128^3;
+     K1 and K2 launched once per cycle; before that the same input at
+     16x16x32 in f64 on the card against the CPU twins' log;
+ 12. at 128^3 and 256^3 f32: K1, K2 and the whole LC step, kernel, twin
+     and bound times.
 
 Bounds: `bound_ms` is the larger of the bytes the function must move
 (each input read once, each output written once) over the H100 SXM's
@@ -52,15 +63,19 @@ import time
 
 import torch
 
+from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE
+from ludwig_tpu_torch.fe.lc_init import lc_init_o8m
 from ludwig_tpu_torch.fe.symmetric import SymmetricFE
 from ludwig_tpu_torch.lb import LBConfig, initial_rest
 from ludwig_tpu_torch.ludwig import run_text
 from ludwig_tpu_torch.ops import _cuda, fused
 from ludwig_tpu_torch.ops import fused_binary as fb
+from ludwig_tpu_torch.ops import fused_lc as fl
 from ludwig_tpu_torch.ops.collide import RelaxationScheme
 
 SOURCE = "ludwig_tpu_torch/csrc/fused_lb.cu"
 SOURCE_BINARY = "ludwig_tpu_torch/csrc/binary_phi.cu"
+SOURCE_LC = "ludwig_tpu_torch/csrc/lc_q.cu"
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, published
 PEAK_F32_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 # f64: kernel and twin evaluate one expression tree operation by operation
@@ -109,6 +124,23 @@ def check_close(what, a, b, dtype):
         raise AssertionError(f"{what}: max |diff| {err:.3e} beyond "
                              f"{TOL[dtype]}")
     return err
+
+
+def check_increment(what, x, a, b):
+    """Kernel result a and twin result b as increments of x, held to one
+    unit in the last place of the largest |b|.  A step changes Q by far
+    less than Q itself, so the whole-value tolerance would pass an error
+    of a few percent in one term of the update; this one does not.
+    Returns (max |diff| of the increments, the same over the largest
+    increment)."""
+    torch.cuda.synchronize()
+    inc = b - x
+    err = max_err(a - x, inc)
+    ulp = torch.finfo(b.dtype).eps * float(b.abs().max())
+    if not err <= ulp:
+        raise AssertionError(f"{what}: increments differ by {err:.3e}, "
+                             f"beyond one ulp of the value, {ulp:.3e}")
+    return err, err / float(inc.abs().max())
 
 
 def bound(nbytes, nops):
@@ -544,6 +576,258 @@ def phase9(card, gen, copy_ms, copy_bytes):
     print(f"fused binary step: {nsite / (step_ms * 1e3):.1f} MLUPS [{card}]")
     return res
 
+# the reference's blue-phase benchmark parameters (the JAX package's
+# tests/test_ludwig_run.py LC_FUSED_INPUT)
+LC_FE = dict(a0=0.01, gamma=3.0, q0=0.19635, kappa0=0.000648456,
+             kappa1=0.000648456, xi=0.7)
+LC_GAMMA = 0.5
+LC_CYCLES = 20
+LC_INPUT = f"""
+tpu_fused on
+N_cycles {LC_CYCLES}
+viscosity 0.1
+free_energy lc_blue_phase
+fd_gradient_calculation 3d_7pt_fluid
+fd_advection_scheme_order 1
+lc_a0 {LC_FE['a0']}
+lc_gamma {LC_FE['gamma']}
+lc_q0 {LC_FE['q0']}
+lc_kappa0 {LC_FE['kappa0']}
+lc_kappa1 {LC_FE['kappa1']}
+lc_xi {LC_FE['xi']}
+lc_Gamma {LC_GAMMA}
+lc_q_initialisation o8m
+lc_q_init_amplitude -0.2
+lc_init_redshift 1.0
+periodicity 1_1_1
+freq_statistics 10
+colloid_init no_colloids
+"""
+LC_VARIANTS = (("passive", {}), ("active", dict(zeta0=0.002, zeta1=0.01)),
+               ("redshift 0.93", dict(redshift=0.93)))
+
+
+def lc_input(size, dtype):
+    return (f"size {size[0]}_{size[1]}_{size[2]}\ndtype {dtype}\n"
+            + LC_INPUT)
+
+
+def rand_q_u(size, dtype, gen, u_amp=0.01):
+    """The O8M blue phase with noise on it, and a velocity of both signs
+    so that both upwind branches occur."""
+    q = torch.as_tensor(lc_init_o8m(size, LC_FE["q0"], -0.2), dtype=dtype,
+                        device="cuda")
+    q = q + 0.02 * torch.randn(q.shape, generator=gen, dtype=dtype,
+                               device="cuda")
+    u = u_amp * torch.randn((3,) + size, generator=gen, dtype=dtype,
+                            device="cuda")
+    return q.contiguous(), u.contiguous()
+
+
+def lc_cfg(size, dtype, **extra):
+    from ludwig_tpu_torch.lc import LCConfig
+    lb = LBConfig(size=size, nvel=19, eta_shear=0.1, dtype=dtype,
+                  device="cuda")
+    return LCConfig(lb=lb, fe=BluePhaseFE(**LC_FE, **extra), gamma=LC_GAMMA)
+
+
+def lc_twin_step(state, lcfg):
+    f, q, u = state
+    q, frc = fl._lc_q_force_plain(q, u, lcfg.fe, lcfg.gamma)
+    f, u = fused._fused_force_step_plain(f, frc, lcfg.lb.model,
+                                         lcfg.lb.collision_params())
+    return (f, q, u)
+
+
+def phase10(gen):
+    phase("10 liquid-crystal kernel vs plain twin")
+    # the one operation kernel and twin round differently: the kernel
+    # divides the trace of W by 3 (IEEE), torch on a CUDA tensor
+    # multiplies by the reciprocal of a Python scalar divisor
+    x = torch.randn(1 << 16, generator=gen, dtype=torch.float64,
+                    device="cuda")
+    print("torch on cuda: x / 3.0 equals x * (1 / 3.0) bitwise: "
+          f"{torch.equal(x / 3.0, x * (1.0 / 3.0))}; equals the IEEE "
+          f"quotient: {torch.equal(x / 3.0, x / torch.full_like(x, 3.0))}")
+    worst = 0.0
+    for size in ((16, 24, 40), (64, 64, 64)):
+        for dtype in (torch.float64, torch.float32):
+            q, u = rand_q_u(size, dtype, gen)
+            for label, extra in LC_VARIANTS:
+                fe = BluePhaseFE(**LC_FE, **extra)
+                a = fl.lc_q_force_step(q, u, fe, LC_GAMMA)
+                b = fl._lc_q_force_plain(q, u, fe, LC_GAMMA)
+                errs = [check_close(f"lc_q_force_step {size} {dtype} "
+                                    f"{label} {name}", x, y, dtype)
+                        for name, x, y in zip(("q", "force"), a, b)]
+                worst = max(worst, *errs)
+                inc_err, inc_rel = check_increment(
+                    f"lc_q_force_step {size} {dtype} {label} q' - q", q,
+                    a[0], b[0])
+                print(f"lc_q_force_step {size} {dtype} {label} max_abs_err "
+                      f"q {errs[0]:.3e} force {errs[1]:.3e} bitwise "
+                      f"{[torch.equal(x, y) for x, y in zip(a, b)]} "
+                      f"(tolerance {TOL[dtype]}); increment q' - q within "
+                      f"{inc_err:.3e}, {inc_rel:.3e} of its largest "
+                      "(tolerance: one ulp of the largest |q'|)")
+    # whole fused LC step: 3 chained steps, kernels vs twins
+    for size in ((16, 24, 40), (64, 64, 64)):
+        for dtype in ("float64", "float32"):
+            lcfg = lc_cfg(size, dtype, zeta1=0.01)
+            q0, _ = rand_q_u(size, lcfg.lb.tdtype, gen)
+            step = fl.make_fused_lc_step(lcfg)
+            a = b = fl.initial_fused_lc(lcfg, q0)
+            for _ in range(3):
+                a = step(a)
+                b = lc_twin_step(b, lcfg)
+            for name, x, y in zip(("f", "q", "u"), a, b):
+                err = check_close(f"fused LC step {size} {dtype} {name}", x,
+                                  y, lcfg.lb.tdtype)
+                print(f"fused LC step x3 {size} {dtype} {name} max_abs_err "
+                      f"{err:.3e} bitwise {torch.equal(x, y)}")
+    return {"lc_q_force_step": worst}
+
+
+def stat_floats(log):
+    """All floats of the statistics lines of a run log."""
+    vals = []
+    for line in log.splitlines():
+        if line.startswith(("[rho]", "[Q", "[fe]", "[total", "[fluid",
+                            "[minimum", "[maximum")):
+            vals += [float(t) for t in line.split()
+                     if re.match(r"^-?\d", t)]
+    return torch.tensor(vals, dtype=torch.float64)
+
+
+def phase11():
+    phase("11 liquid-crystal main path: lc_blue_phase D3Q19 f32, run_text "
+          "on cuda")
+    # the card's log against the CPU twins' on a small lattice, f64:
+    # statistics floats at the CLI tests' tolerance
+    small = lc_input((16, 16, 32), "float64").replace(
+        f"N_cycles {LC_CYCLES}", "N_cycles 4").replace(
+        "freq_statistics 10", "freq_statistics 2")
+    logs = {}
+    for device in ("cuda", "cpu"):
+        out = io.StringIO()
+        run_text(small, out=out, device=device)
+        logs[device] = stat_floats(out.getvalue())
+    if logs["cuda"].numel() != logs["cpu"].numel() or not torch.allclose(
+            logs["cuda"], logs["cpu"], rtol=1e-9, atol=1e-11):
+        raise AssertionError("LC 16x16x32 f64: the card's statistics differ "
+                             "from the CPU twins'")
+    print(f"LC 16x16x32 f64, 4 cycles: {logs['cuda'].numel()} statistics "
+          "floats on the card agree with the CPU twins' (rtol 1e-9, atol "
+          f"1e-11), max |diff| "
+          f"{float((logs['cuda'] - logs['cpu']).abs().max()):.3e}")
+    counts = {}
+    for size in (MAIN_SIZE, (128, 128, 128)):
+        nsite = size[0] * size[1] * size[2]
+        torch.cuda.synchronize()
+        _cuda.launches.reset()
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        sys_ = run_text(lc_input(size, "float32"), out=log, device="cuda")
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        got = {"lc_q_force_step": _cuda.launches.lc_q_force_step,
+               "fused_force_step": _cuda.launches.fused_force_step}
+        text = log.getvalue()
+        if f"Completed cycle {LC_CYCLES}" not in text:
+            raise AssertionError("LC run_text did not complete its cycles")
+        if sys_.fused_mode != "lc":
+            raise AssertionError(f"fused_mode {sys_.fused_mode}, not lc")
+        for name, n in got.items():
+            if n != LC_CYCLES:
+                raise AssertionError(f"{name} launched {n} times for "
+                                     f"{LC_CYCLES} cycles")
+        f, q, u = sys_.state
+        for name, x, shape in (("f", f, (19,) + size), ("q", q, (5,) + size),
+                               ("u", u, (3,) + size)):
+            if tuple(x.shape) != shape or x.dtype != torch.float32:
+                raise AssertionError(f"{name}: {tuple(x.shape)} {x.dtype}")
+            if not torch.isfinite(x).all():
+                raise AssertionError(f"{name} is not finite")
+        rhos = [float(v) for v in re.findall(r"\[rho\]\s+(\S+)", text)]
+        if not all(abs(t - nsite) <= 1e-5 * nsite for t in rhos):
+            raise AssertionError(f"[rho] totals {rhos} != {nsite}")
+        # the free energy relaxes: [fe] total falls from block to block
+        fes = [float(v) for v in re.findall(r"\[fe\]\s+\S+\s+(\S+)", text)]
+        if len(fes) != 3 or not fes[0] > fes[1] > fes[2]:
+            raise AssertionError(f"[fe] totals {fes} do not fall")
+        for line in text.splitlines():
+            if line.startswith(("[Qxx]", "[fe]")):
+                print(line)
+        print(text[text.find("Timer statistics"):].strip())
+        print(f"LC run_text {size} x {LC_CYCLES} cycles: {cli_s:.2f} s wall "
+              f"(O8M init on the host included), [rho] totals {rhos}, [fe] "
+              f"totals {fes}, launches {got}")
+        if size == MAIN_SIZE:
+            counts = got
+    return counts
+
+
+def phase12(card, gen, copy_ms, copy_bytes):
+    phase(f"12 liquid-crystal timing at 128^3 and 256^3 D3Q19 f32 on {card}")
+    res = {}
+    for size in ((128, 128, 128), MAIN_SIZE):
+        lcfg = lc_cfg(size, "float32")
+        model, params = lcfg.lb.model, lcfg.lb.collision_params()
+        nsite = size[0] * size[1] * size[2]
+        q, u = rand_q_u(size, torch.float32, gen, u_amp=1e-3)
+        f0 = rand_state(lcfg.lb, gen, amp=0.01)
+        frc = (1e-5 * torch.randn((3,) + size, generator=gen,
+                                  device="cuda")).contiguous()
+
+        def report(name, ms, plain_ms, nbytes, nops, err):
+            b_ms, b_by = bound(nbytes, nops)
+            copy_b = copy_ms * nbytes / copy_bytes
+            print(f"{name} {size[0]}^3: kernel {ms:.4f} ms, twin "
+                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                  f"{nbytes / nsite:.0f} B/site, {nops / nsite:.0f} "
+                  f"flop/site), {100 * b_ms / ms:.1f}% of it; copy bound "
+                  f"{copy_b:.4f} ms; max_abs_err vs twin {err:.3e} [{card}]")
+            return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                        nbytes=nbytes, nops=nops)
+
+        # K1: reads q5 and u, writes q5' and the force: 16 values a site
+        k1 = lambda: fl.lc_q_force_step(q, u, lcfg.fe, LC_GAMMA)  # noqa
+        t1 = lambda: fl._lc_q_force_plain(q, u, lcfg.fe, LC_GAMMA)  # noqa
+        a, b = k1(), t1()
+        err = max(check_close(f"lc_q_force_step {size} {n}", x, y,
+                              torch.float32)
+                  for n, x, y in zip(("q", "force"), a, b))
+        inc_err, inc_rel = check_increment(
+            f"lc_q_force_step {size} q' - q", q, a[0], b[0])
+        print(f"lc_q_force_step (K1) {size[0]}^3: increment q' - q within "
+              f"{inc_err:.3e} of the twin's, {inc_rel:.3e} of its largest "
+              "(tolerance: one ulp of the largest |q'|)")
+        del a, b
+        r1 = report("lc_q_force_step (K1)", time_ms(k1, 20),
+                    time_ms(t1, 2, warm=1), 16 * 4 * nsite,
+                    nsite * _cuda.site_ops("lc_q_force_step"), err)
+        k2 = lambda: fused.fused_force_step(f0, frc, model, params)  # noqa
+        t2 = lambda: fused._fused_force_step_plain(f0, frc, model,  # noqa
+                                                   params)
+        err = max(check_close(f"fused_force_step {size} {n}", x, y,
+                              torch.float32)
+                  for n, x, y in zip(("f", "u"), k2(), t2()))
+        r2 = report("fused_force_step (K2, D3Q19 M10)", time_ms(k2, 20),
+                    time_ms(t2, 3, warm=1), 2 * (19 + 3) * 4 * nsite,
+                    nsite * _cuda.site_ops("fused_force_step"), err)
+        step = fl.make_fused_lc_step(lcfg)
+        state = (f0, q, u)
+        step_ms = time_ms(lambda: step(state), 20)
+        twin_ms = time_ms(lambda: lc_twin_step(state, lcfg), 2, warm=1)
+        report("fused LC step (K1 + K2, two-pass bound)", step_ms, twin_ms,
+               r1["nbytes"] + r2["nbytes"], r1["nops"] + r2["nops"],
+               max(r1["max_abs_err"], r2["max_abs_err"]))
+        print(f"fused LC step {size[0]}^3: {nsite / (step_ms * 1e3):.1f} "
+              f"MLUPS [{card}]")
+        if size == MAIN_SIZE:
+            res["lc_q_force_step"] = r1
+    return res
+
 
 def main():
     if not torch.cuda.is_available():
@@ -560,6 +844,18 @@ def main():
     t0 = time.perf_counter()
     built = _cuda.build()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
+    # what ptxas says of the liquid-crystal kernel (f32, then f64)
+    report = built[_cuda.LC_LIB].with_suffix(".ptxas.txt").read_text()
+    for line in report.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"lc_q ptxas: {line.strip()}")
+
+    tr1, _t1, tr2, _t2, table = _cuda._lc_trace()
+    print(f"lc_q generated code: {tr1.nops} distinct operations for one "
+          f"level-1 evaluation, {tr2.nops} for the site update, "
+          f"{len(table)} constants; the bound counts "
+          f"{_cuda.site_ops('lc_q_force_step')} a site (level 1 once, the "
+          "free energy factored)")
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     worst = phase3(gen)
@@ -567,8 +863,11 @@ def main():
     counts = phase5()
     timed = phase6(card, gen)
     worst.update(phase7(gen))
-    counts.update(phase8())
+    by_path = {"plain": counts, "binary": phase8()}
     timed.update(phase9(card, gen, timed["copy_ms"], timed["copy_bytes"]))
+    worst.update(phase10(gen))
+    by_path["lc"] = phase11()
+    timed.update(phase12(card, gen, timed["copy_ms"], timed["copy_bytes"]))
     print("all phases passed")
 
     kernels = []
@@ -577,17 +876,23 @@ def main():
             ("fusedn_step", SOURCE, "ludwig_tpu/ops/fused.py:902"),
             ("binary_phi_force_step", SOURCE_BINARY,
              "ludwig_tpu/ops/fused_binary.py:49"),
-            ("fused_force_step", SOURCE, "ludwig_tpu/ops/fused.py:1069")):
+            ("fused_force_step", SOURCE, "ludwig_tpu/ops/fused.py:1069"),
+            ("lc_q_force_step", SOURCE_LC,
+             "ludwig_tpu/ops/fused_lc.py:63")):
         t = timed[name]
         bound_ms, bound_by = bound(t["nbytes"], t["nops"])
+        # each main path was driven with the counts at 0 just before it
+        # and read just after; a kernel on several paths adds them up
+        paths = {path: c[name] for path, c in by_path.items() if name in c}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[name],
+            "replaces": replaces, "launches": sum(paths.values()),
+            "launches_by_path": paths,
             "max_abs_err": max(worst[name], t["max_abs_err"]),
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by,
-            # no single PyTorch call computes a collide+stream or the
-            # binary order-parameter update
+            # no single PyTorch call computes a collide+stream, the
+            # binary order-parameter update or the Q-tensor update
             "library_ms": None,
             "copy_bound_ms": timed["copy_ms"] * t["nbytes"]
             / timed["copy_bytes"]})

@@ -15,12 +15,14 @@ import numpy as np
 import torch
 
 from ludwig_tpu_torch.binary import GRADIENT, BinaryConfig
+from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE
 from ludwig_tpu_torch.fe.symmetric import SymmetricFE
+from ludwig_tpu_torch.lc import LCConfig
 from ludwig_tpu_torch.lb import DTYPES, LBConfig
 from ludwig_tpu_torch.ops.collide import RelaxationScheme
 
-# pad widths of the JAX package's fused binary state (ops/fused.py HX, HY
-# for f; ops/fused_lc.py HX, HY for phi)
+# pad widths of the JAX package's fused binary and LC states (ops/fused.py
+# HX, HY for f; ops/fused_lc.py HX, HY for phi and q)
 _F_PAD = (1, 8)
 _PHI_PAD = (2, 8)
 
@@ -74,6 +76,23 @@ def binary_state_from_jax(fpad, ppad, u, device, dtype):
     return tuple(_tensor(a, device, dtype) for a in (f, phi, u))
 
 
+def _take_inactive(fields: dict, inactive: dict, what: str):
+    """Pop the fields of features the port has not taken over; each must
+    be at its inactive default."""
+    for key, off in inactive.items():
+        value = fields.pop(key, off)
+        if (tuple(value) if isinstance(value, (list, tuple)) else value) \
+                != off:
+            raise NotImplementedError(f"{what}.{key} = {value!r} is "
+                                      "not ported yet, see ROADMAP")
+
+
+def _lb_from_jax(lb, device) -> LBConfig:
+    if dataclasses.is_dataclass(lb):
+        lb = {f.name: getattr(lb, f.name) for f in dataclasses.fields(lb)}
+    return params_from_jax(lb, device)
+
+
 def binary_params_from_jax(bcfg_fields: dict, device="cuda") -> BinaryConfig:
     """BinaryConfig from the fields of a ludwig_tpu BinaryConfig, for
     example ``dataclasses.asdict(bcfg)``: "lb" the LBConfig's fields,
@@ -85,18 +104,50 @@ def binary_params_from_jax(bcfg_fields: dict, device="cuda") -> BinaryConfig:
     fe = fields.pop("fe")
     if not isinstance(fe, dict):
         fe = {k: getattr(fe, k) for k in ("a", "b", "kappa")}
-    inactive = {"gradient": GRADIENT, "hydrodynamics": True,
-                "visc_model": None, "wetting": (0.0, 0.0),
-                "force_method": "stress_divergence",
-                "gradmu_ex": (0.0, 0.0, 0.0)}
-    for key, off in inactive.items():
-        value = fields.pop(key, off)
-        if (tuple(value) if isinstance(value, (list, tuple)) else value) \
-                != off:
-            raise NotImplementedError(f"BinaryConfig.{key} = {value!r} is "
-                                      "not ported yet, see ROADMAP")
-    lb = fields.pop("lb")
-    if dataclasses.is_dataclass(lb):
-        lb = {f.name: getattr(lb, f.name) for f in dataclasses.fields(lb)}
-    return BinaryConfig(lb=params_from_jax(lb, device),
+    _take_inactive(fields, {"gradient": GRADIENT, "hydrodynamics": True,
+                            "visc_model": None, "wetting": (0.0, 0.0),
+                            "force_method": "stress_divergence",
+                            "gradmu_ex": (0.0, 0.0, 0.0)}, "BinaryConfig")
+    return BinaryConfig(lb=_lb_from_jax(fields.pop("lb"), device),
                         fe=SymmetricFE(**fe), **fields)
+
+
+def lc_state_from_jax(fpad, qpad, u, device, dtype):
+    """The JAX fused LC state (fpad (nvel, X+2, Y+16, Z), qpad
+    (5, X+4, Y+16, Z), u (3, X, Y, Z)) as the port's unpadded
+    (f, q5, u): the work of ops/fused.unpad_state and
+    ops/fused_lc.unpad_q, in numpy."""
+    f = _unpad_xy(np.asarray(fpad), *_F_PAD)
+    q5 = _unpad_xy(np.asarray(qpad), *_PHI_PAD)
+    u = np.asarray(u)
+    if (f.ndim != 4 or q5.shape != (5,) + f.shape[1:]
+            or u.shape != (3,) + f.shape[1:]):
+        raise ValueError(f"inconsistent padded LC state: f {f.shape}, "
+                         f"q {q5.shape}, u {u.shape}")
+    return tuple(_tensor(a, device, dtype) for a in (f, q5, u))
+
+
+def lc_params_from_jax(lcfg_fields: dict, device="cuda") -> LCConfig:
+    """LCConfig from the fields of a ludwig_tpu LCConfig, for example
+    ``dataclasses.asdict(lcfg)``: "lb" the LBConfig's fields, "fe" the
+    blue-phase free energy's (a dict or an object with those
+    attributes), the rotational mobility and the advection order.
+    Fields of features the port has not taken over must be at their
+    inactive defaults."""
+    fields = dict(lcfg_fields)
+    fe = fields.pop("fe")
+    if not isinstance(fe, dict):
+        fe = {f.name: getattr(fe, f.name) for f in dataclasses.fields(fe)}
+    fe = dict(fe)
+    _take_inactive(fe, {"zeta2": 0.0, "epsilon": 0.0,
+                        "e0": (0.0, 0.0, 0.0)}, "BluePhaseFE")
+    _take_inactive(fields, {"gradient": GRADIENT, "hydrodynamics": True,
+                            "wallspec": None, "anchoring": None,
+                            "redshift_update": False, "noise_kt": 0.0},
+                   "LCConfig")
+    # the port's run loop carries the pre-step Q for the statistics
+    # itself, and the noise seed matters only with noise
+    for key in ("keep_grads", "noise_seed"):
+        fields.pop(key, None)
+    return LCConfig(lb=_lb_from_jax(fields.pop("lb"), device),
+                    fe=BluePhaseFE(**fe), **fields)

@@ -1,18 +1,21 @@
 """Top-level orchestration: run a simulation from a reference-format
 input file.
 
-PyTorch port of two slices of ludwig_tpu/ludwig.py (ref: src/ludwig.c:443
-ludwig_run, src/main.c:30-46): the plain single fluid (`free_energy
-none`) and the symmetric binary fluid (`free_energy symmetric`, the
-periodic, stress-divergence, hydrodynamics-on route the JAX package's
-fused path accepts).  It parses the same key-value input, builds the
-system without walls, Lees-Edwards planes, porous media or noise, runs
-the time loop on a device (the GPU unless the caller asks for the CPU)
-and writes the statistics blocks in the reference's formats.
-`tpu_fused on` (or `interpret`) selects the fused steps: ops.fused.
-fused_step for the plain fluid, ops.fused_binary.make_fused_binary_step
-(the two kernels K1 and K2) for the binary fluid; the hand-written CUDA
-kernels on a GPU and their twins on the CPU.
+PyTorch port of three slices of ludwig_tpu/ludwig.py (ref:
+src/ludwig.c:443 ludwig_run, src/main.c:30-46): the plain single fluid
+(`free_energy none`), the symmetric binary fluid (`free_energy
+symmetric`) and the blue-phase liquid crystal (`free_energy
+lc_blue_phase`), the last two on the periodic, stress-divergence,
+hydrodynamics-on route the JAX package's fused path accepts.  It parses
+the same key-value input, builds the system without walls, Lees-Edwards
+planes, porous media or noise, runs the time loop on a device (the GPU
+unless the caller asks for the CPU) and writes the statistics blocks in
+the reference's formats.  `tpu_fused on` (or `interpret`) selects the
+fused steps: ops.fused.fused_step for the plain fluid,
+ops.fused_binary.make_fused_binary_step and
+ops.fused_lc.make_fused_lc_step (two kernels each, K1 and K2) for the
+binary fluid and the liquid crystal; the hand-written CUDA kernels on a
+GPU and their twins on the CPU.
 
 Every input key outside the slices raises NotImplementedError naming the
 key, unless it is set to its inactive default (`periodicity 1_1_1`,
@@ -35,6 +38,9 @@ from ludwig_tpu_torch import stats
 from ludwig_tpu_torch.binary import (GRADIENT, ORDERS, BinaryConfig,
                                      fe_fields, initial_binary,
                                      make_binary_step)
+from ludwig_tpu_torch import lc
+from ludwig_tpu_torch.fe import lc_init
+from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE
 from ludwig_tpu_torch.fe.symmetric import SymmetricFE
 from ludwig_tpu_torch.lb import (LBConfig, hydro_fields, initial_from_hydro,
                                  initial_rest, make_step)
@@ -42,6 +48,7 @@ from ludwig_tpu_torch.ops.collide import RelaxationScheme
 from ludwig_tpu_torch.ops.fused import fused_step
 from ludwig_tpu_torch.ops.fused_binary import (initial_fused_binary,
                                                make_fused_binary_step)
+from ludwig_tpu_torch.ops.fused_lc import initial_fused_lc, make_fused_lc_step
 from ludwig_tpu_torch.ref_rng import spinodal_ref
 from ludwig_tpu_torch.runtime import RunTime
 
@@ -73,7 +80,19 @@ BINARY_KEYS = frozenset((
     "phi_init_drop_amplitude", "phi_init_drop_centred",
     "phi_init_block_dimension"))
 
-FREE_ENERGIES = ("none", "symmetric")
+# keys the liquid-crystal slice reads (free_energy lc_blue_phase only)
+LC_KEYS = frozenset((
+    "lc_a0", "lc_gamma", "lc_q0", "lc_kappa0", "lc_kappa1", "lc_xi",
+    "lc_Gamma", "lc_init_redshift", "lc_activity", "lc_active_zeta0",
+    "lc_active_zeta", "lc_active_zeta1", "lc_q_initialisation",
+    "lc_q_init_amplitude", "lc_q_init_euler_angles", "lc_init_nematic",
+    "fd_advection_scheme_order", "fd_gradient_calculation",
+    # read by features that are off here (the electric field, the noise)
+    "lc_dielectric_anisotropy", "random_seed"))
+
+# free energy -> the keys it reads beside SLICE_KEYS
+FREE_ENERGIES = {"none": frozenset(), "symmetric": BINARY_KEYS,
+                 "lc_blue_phase": LC_KEYS}
 
 # keys of features outside the slices, accepted while they leave them off
 INACTIVE = {
@@ -83,6 +102,9 @@ INACTIVE = {
     "boundary_walls": _zeros,
     "temperature": _zeros,
     "isothermal_fluctuations": _off,
+    "lc_noise": _off,
+    "lc_redshift_update": _off,
+    "electric_e0": _zeros,
     "lb_fluctuations": _off,
     "N_LE_plane": _zeros,
     "N_start": _zeros,
@@ -111,8 +133,7 @@ def _check_keys(rt: RunTime):
     if fe_name not in FREE_ENERGIES:
         raise _not_ported("free_energy", fe_name)
     for key in rt.unused_keys():
-        if key in SLICE_KEYS or (fe_name == "symmetric"
-                                 and key in BINARY_KEYS):
+        if key in SLICE_KEYS or key in FREE_ENERGIES[fe_name]:
             continue
         check = INACTIVE.get(key)
         value = rt.string(key)
@@ -126,12 +147,13 @@ class System:
 
     rt: RunTime
     lb_cfg: LBConfig
-    state: tuple                 # (f,) or, binary, (f, phi, u)
+    state: tuple          # (f,); binary (f, phi, u); LC (f, q5, u)
     step_fn: object
-    # 'plain': fused collide+stream; 'binary': the two binary kernels
+    # 'plain': fused collide+stream; 'binary', 'lc': their two kernels
     fused_mode: Optional[str] = None
     hydro_on: bool = True
     binary_cfg: Optional[BinaryConfig] = None
+    lc_cfg: Optional[lc.LCConfig] = None
 
 
 def _device(device) -> str:
@@ -288,6 +310,66 @@ def _binary_config(rt: RunTime, lb_cfg: LBConfig) -> BinaryConfig:
                         advection_order=order)
 
 
+def _lc_config(rt: RunTime, lb_cfg: LBConfig) -> lc.LCConfig:
+    """The `free_energy lc_blue_phase` configuration (ref: the
+    lc_blue_phase branch of ludwig_tpu build_system), limited to the
+    periodic, 7-point, hydrodynamics-on blue phase; noise, redshift
+    update and electric field are refused with the other inactive keys
+    (INACTIVE).  Anything else raises naming its key."""
+    active = rt.switch("lc_activity", False)
+    fe = BluePhaseFE(
+        a0=rt.double_required("lc_a0"),
+        gamma=rt.double_required("lc_gamma"),
+        q0=rt.double_required("lc_q0"),
+        kappa0=rt.double_required("lc_kappa0"),
+        kappa1=rt.double_required("lc_kappa1"),
+        xi=rt.double("lc_xi", 0.0),
+        redshift=rt.double("lc_init_redshift", 1.0),
+        zeta0=rt.double("lc_active_zeta0", 0.0) if active else 0.0,
+        zeta1=(rt.double("lc_active_zeta", 0.0) or
+               rt.double("lc_active_zeta1", 0.0)) if active else 0.0)
+    gradient = rt.string("fd_gradient_calculation", lc.GRADIENT)
+    order = rt.int("fd_advection_scheme_order", 1)
+    if gradient != lc.GRADIENT:
+        raise _not_ported("fd_gradient_calculation", gradient)
+    if order not in lc.ORDERS:
+        raise _not_ported("fd_advection_scheme_order", order)
+    if not rt.switch("hydrodynamics", True):
+        raise _not_ported("hydrodynamics", rt.string("hydrodynamics"))
+    return lc.LCConfig(lb=lb_cfg, fe=fe, gamma=rt.double("lc_Gamma", 0.1),
+                       advection_order=order)
+
+
+def _q_init(rt: RunTime, size, fe: BluePhaseFE) -> np.ndarray:
+    """lc_q_initialisation modes, on the host (ref: blue_phase_rt.c /
+    fe/lc_init.py); the random rectangle (lc_q_init_rectangle_min/max)
+    is not ported yet, its keys are refused."""
+    mode = rt.string("lc_q_initialisation", "nematic")
+    amp = rt.double("lc_q_init_amplitude", fe.amplitude0)
+    euler = tuple(rt.double_vector("lc_q_init_euler_angles",
+                                   (0.0, 0.0, 0.0)))
+    if mode == "o8m":
+        return lc_init.lc_init_o8m(size, fe.q0, amp, euler=euler)
+    if mode == "o2":
+        return lc_init.lc_init_o2(size, fe.q0, amp, euler=euler)
+    twist_axis = {"twist": 2, "cholesteric_z": 2, "cholesteric_x": 0,
+                  "cholesteric_y": 1}
+    if mode in twist_axis:
+        return lc_init.lc_init_twist(size, fe.q0, amp, axis=twist_axis[mode])
+    if mode == "nematic":
+        director = tuple(rt.double_vector("lc_init_nematic",
+                                          (1.0, 0.0, 0.0)))
+        return lc_init.lc_init_nematic(size, amp, director)
+    if mode == "random":
+        return lc_init.lc_init_random(size, amp)      # DEFAULT_SEED
+    if mode == "random_xy":
+        return lc_init.lc_init_random_xy(size, amp)
+    if mode in ("active_nematic_q2d_x", "active_nematic_q2d_y"):
+        return lc_init.lc_init_active_nematic_q2d(
+            size, amp, axis=0 if mode.endswith("x") else 1)
+    raise ValueError(f"lc_q_initialisation '{mode}' not implemented")
+
+
 def _fused_request(rt: RunTime) -> bool:
     fused_req = rt.string("tpu_fused", "off")
     if fused_req not in ("on", "interpret", "off"):
@@ -330,6 +412,18 @@ def build_system(rt: RunTime, device="cuda") -> System:
                           fused_mode="binary", binary_cfg=bcfg)
         return System(rt=rt, lb_cfg=lb_cfg, state=initial_binary(bcfg, phi0),
                       step_fn=make_binary_step(bcfg), binary_cfg=bcfg)
+    if rt.string("free_energy", "none") == "lc_blue_phase":
+        lcfg = _lc_config(rt, lb_cfg)
+        q0 = _q_init(rt, size, lcfg.fe)
+        # as in the JAX package, the two fused kernels (K1, K2) take the
+        # order-1 upwind scheme only; order 2 runs the unfused step
+        if _fused_request(rt) and lcfg.advection_order == 1:
+            return System(rt=rt, lb_cfg=lb_cfg,
+                          state=initial_fused_lc(lcfg, q0),
+                          step_fn=make_fused_lc_step(lcfg),
+                          fused_mode="lc", lc_cfg=lcfg)
+        return System(rt=rt, lb_cfg=lb_cfg, state=lc.initial_lc(lcfg, q0),
+                      step_fn=lc.make_lc_step(lcfg), lc_cfg=lcfg)
     f = _distribution_init(rt, lb_cfg)
     if _fused_request(rt):
         # production path: the fused collide+stream (kernel on a GPU,
@@ -348,12 +442,14 @@ def build_system(rt: RunTime, device="cuda") -> System:
 
 def _make_fast_stats_fn(sys_: System):
     """Plain-reduction statistics, as the fused path of the JAX package
-    reports them: compute(state, u, prev_phi=None) -> {rho, g, umm} and,
-    for the binary fluid, {phi, fed}."""
+    reports them: compute(state, u, prev=None) -> {rho, g, umm} and, for
+    the binary fluid, {phi, fed}, for the liquid crystal {q5, fe_lc}.
+    `prev` is the order parameter (phi or q5) before the last step."""
     model = sys_.lb_cfg.model
     bcfg = sys_.binary_cfg
+    lcfg = sys_.lc_cfg
 
-    def compute(state, u, prev_phi=None):
+    def compute(state, u, prev=None):
         f = state[0]
         rho, _g = hydro_fields(f, model)
         res = {"rho": stats.field_stats(rho),
@@ -366,10 +462,21 @@ def _make_fast_stats_fn(sys_: System):
             # _make_fast_stats_fn)
             phi = state[1]
             res["phi"] = stats.field_stats(phi)
-            fields = fe_fields(phi if prev_phi is None else prev_phi)
+            fields = fe_fields(phi if prev is None else prev)
             fields["phi"] = phi
             m = torch.mean(bcfg.fe.fed(fields))
             res["fed"] = (m, m)
+        if lcfg is not None:
+            # the same convention for [fe]: gradients of the Q before
+            # the step, the updated Q in place of Q
+            q5 = state[1]
+            res["q5"] = [stats.field_stats(q5[n]) for n in range(5)]
+            fields = lc.lc_fields(q5 if prev is None else prev)
+            fields["q"] = q5
+            bulk, grad = lcfg.fe.fed_bulk_grad(fields)
+            res["fe_lc"] = (torch.sum(lcfg.fe.fed(fields)),
+                            float(q5[0].numel()), torch.sum(bulk),
+                            torch.sum(grad))
         return res
 
     return compute
@@ -387,15 +494,21 @@ def _fused_u(sys_: System, f: torch.Tensor) -> torch.Tensor:
 
 def report_statistics(sys_: System, tstep: int, u, stats_fn,
                       with_velocity=True, out=sys.stdout, in_loop=True,
-                      prev_phi=None):
+                      prev=None):
     """One statistics block set in the reference formats.  The
     'Completed cycle' trailer only appears inside the time loop (ref:
     ludwig.c:961)."""
-    res = stats_fn(sys_.state, u, prev_phi)
+    res = stats_fn(sys_.state, u, prev)
     out.write(stats.format_rho_block(*res["rho"]))
     if "phi" in res:
         out.write(stats.format_phi_line("phi", *res["phi"]))
         out.write(stats.format_fed_block(tstep, *res["fed"]))
+    if "q5" in res:
+        for name, q_stats in zip(("Qxx", "Qxy", "Qxz", "Qyy", "Qyz"),
+                                 res["q5"]):
+            out.write(stats.format_phi_line(name, *q_stats))
+        out.write(stats.format_fe_lc_block(tstep, *res["fe_lc"],
+                                           sys_.lc_cfg.fe.redshift))
     g = res["g"]
     out.write(stats.format_momentum_block(g, g))
     if with_velocity:
@@ -437,11 +550,12 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
     for t in range(1, ncycles + 1):
         ts0 = time.time()
         # the steps return new tensors and never write their inputs, so
-        # the pre-step phi of the [fed] statistic is held by reference
-        prev_phi = None
-        if sys_.binary_cfg is not None:
-            prev_phi = sys_.state[1]
-            if sys_.fused_mode == "binary":
+        # the pre-step phi or Q of the [fed] / [fe] statistic is held by
+        # reference
+        prev = None
+        if sys_.binary_cfg is not None or sys_.lc_cfg is not None:
+            prev = sys_.state[1]
+            if sys_.fused_mode in ("binary", "lc"):
                 sys_.state = sys_.step_fn(sys_.state, t)
             else:
                 sys_.state, _rho = sys_.step_fn(sys_.state, t)
@@ -458,8 +572,7 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
             if u is None:
                 u = _fused_u(sys_, sys_.state[0])
             report_statistics(sys_, t, u, stats_fn, out=out,
-                              with_velocity=sys_.hydro_on,
-                              prev_phi=prev_phi)
+                              with_velocity=sys_.hydro_on, prev=prev)
             _acc("stats", time.time() - ts0)
 
     # timer table (ref: TIMER_statistics table shape); host clocks, the
@@ -493,8 +606,9 @@ def run(path: str = "input", out=sys.stdout, device="cuda") -> System:
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m ludwig_tpu_torch",
-        description="Run a lattice Boltzmann input file (plain or "
-                    "symmetric binary fluid).")
+        description="Run a lattice Boltzmann input file (plain fluid, "
+                    "symmetric binary fluid or blue-phase liquid "
+                    "crystal).")
     ap.add_argument("input", nargs="?", default="input",
                     help="input file (default: ./input)")
     ap.add_argument("--device", default="cuda",

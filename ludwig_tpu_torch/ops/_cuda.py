@@ -4,16 +4,18 @@ At first use, ``nvcc`` compiles the sources for Hopper (sm_90a) into
 shared libraries with a plain C interface under ``build/kernels/``
 inside the package, and ``ctypes`` loads them: ``csrc/fused_lb.cu`` once
 per velocity set (the collide+stream kernels), ``csrc/binary_phi.cu``
-once (the binary fluid's order-parameter kernel).  Nothing is built or
-loaded when the module is imported, so the CPU tests import it freely.
+once (the binary fluid's order-parameter kernel), ``csrc/lc_q.cu`` once
+(the liquid crystal's Q-tensor kernel).  Nothing is built or loaded when
+the module is imported, so the CPU tests import it freely.
 
 The per-site arithmetic reaches each kernel as straight-line C++
 generated from the port's own Python, traced with symbols instead of
 tensors: the collision from ops/fused.py (``_relax_modes``,
 ``_assemble_eo`` and friends) and lattice.py's tables, the binary site
-update from ops/fused_binary.py (``_level1``, ``_binary_site``).  Kernel
-and twin therefore evaluate the same expression tree, with the same
-constants.
+update from ops/fused_binary.py (``_level1``, ``_binary_site``), the
+liquid-crystal site update from ops/fused_lc.py (``_level1``,
+``_lc_site``, which call fe/blue_phase.py's methods).  Kernel and twin
+therefore evaluate the same expression tree, with the same constants.
 
 Every launch adds one to the kernel's count in ``launches``; a caller can
 reset the counts and read them back to see which kernels a run used.
@@ -23,7 +25,9 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
+import operator
 import os
 import shutil
 import subprocess
@@ -36,6 +40,7 @@ from ludwig_tpu_torch.lattice import lb_model
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc" / "fused_lb.cu"
 CSRC_BINARY = PKG_DIR / "csrc" / "binary_phi.cu"
+CSRC_LC = PKG_DIR / "csrc" / "lc_q.cu"
 BUILD_DIR = PKG_DIR / "build" / "kernels"
 # -fmad=false: no mul+add contraction, so every kernel evaluates the
 # generated expression tree operation by operation, like the twin.  With
@@ -57,6 +62,7 @@ class LaunchCounts:
     fusedn_step: int = 0
     fused_force_step: int = 0
     binary_phi_force_step: int = 0
+    lc_q_force_step: int = 0
 
     def reset(self):
         for field in dataclasses.fields(self):
@@ -70,27 +76,43 @@ _libs = {}      # library name -> (loaded ctypes library, path)
 # -- code generation ----------------------------------------------------------
 
 class _Trace:
-    """Records straight-line C++ (one const temporary per value); `nops`
-    counts the arithmetic operations, loads excluded."""
+    """Records straight-line C++, one const temporary per distinct value:
+    a load or an operation met again (the same operator on the same
+    operands, in either order where it commutes) returns the temporary
+    it already has, so `nops` counts the distinct arithmetic operations,
+    loads excluded.  `consts` collects the host-folded constants (_Const)
+    the code reads as p.c[k]; traces of one kernel share it.  With
+    `skip_exact`, adding a Python zero and multiplying by an int +-1 emit
+    nothing (or a negation): both are exact, and the free-energy text
+    starts its sums from 0 and multiplies by Levi-Civita signs."""
 
-    def __init__(self):
+    def __init__(self, consts=None, skip_exact=False):
         self.lines = []
         self.nops = 0
+        self.values = {}        # expression text -> its _Sym
+        self.consts = {} if consts is None else consts
+        self.skip_exact = skip_exact
 
-    def load(self, expr):
-        name = f"t{len(self.lines)}"
-        self.lines.append(f"  const T {name} = {expr};")
-        return _Sym(self, name)
+    def load(self, expr, key=None):
+        key = key or expr
+        if key not in self.values:
+            name = f"t{len(self.lines)}"
+            self.lines.append(f"  const T {name} = {expr};")
+            self.values[key] = _Sym(self, name)
+        return self.values[key]
 
-    def op(self, expr):
-        self.nops += 1
-        return self.load(expr)
+    def op(self, expr, key=None):
+        if (key or expr) not in self.values:
+            self.nops += 1
+        return self.load(expr, key)
 
-
-def _lit(x):
-    if isinstance(x, _Sym):
-        return x.name
-    return f"T({float(x)!r})"
+    def lit(self, x):
+        if isinstance(x, _Sym):
+            return x.name
+        if isinstance(x, _Const):
+            k = self.consts.setdefault(x.key, (len(self.consts), x))[0]
+            return f"p.c[{k}]"
+        return f"T({float(x)!r})"
 
 
 class _Sym:
@@ -100,32 +122,92 @@ class _Sym:
         self.trace = trace
         self.name = name
 
+    def _is(self, x, value):
+        """x is the Python number `value`, in a trace that skips exact
+        operations (+-1 as an int only: a Levi-Civita sign)."""
+        kinds = (int, float) if value == 0 else (int,)
+        return (self.trace.skip_exact and isinstance(x, kinds)
+                and x == value)
+
+    def _op(self, sym, o, swap=False):
+        """self <sym> o, or o <sym> self with `swap`; a sum or a product
+        is one value whatever the order of its operands."""
+        a, b = self.name, self.trace.lit(o)
+        if swap:
+            a, b = b, a
+        x, y = sorted((a, b)) if sym in "+*" else (a, b)
+        return self.trace.op(f"{a} {sym} {b}", f"{x} {sym} {y}")
+
     def __add__(self, o):
-        return self.trace.op(f"{_lit(self)} + {_lit(o)}")
+        return self if self._is(o, 0) else self._op("+", o)
 
     def __radd__(self, o):
-        return self.trace.op(f"{_lit(o)} + {_lit(self)}")
+        return self if self._is(o, 0) else self._op("+", o, swap=True)
 
     def __sub__(self, o):
-        return self.trace.op(f"{_lit(self)} - {_lit(o)}")
+        return self if self._is(o, 0) else self._op("-", o)
 
     def __rsub__(self, o):
-        return self.trace.op(f"{_lit(o)} - {_lit(self)}")
+        return self._op("-", o, swap=True)
 
     def __mul__(self, o):
-        return self.trace.op(f"{_lit(self)} * {_lit(o)}")
+        if self._is(o, 1):
+            return self
+        return -self if self._is(o, -1) else self._op("*", o)
 
     def __rmul__(self, o):
-        return self.trace.op(f"{_lit(o)} * {_lit(self)}")
+        if self._is(o, 1):
+            return self
+        return -self if self._is(o, -1) else self._op("*", o, swap=True)
 
     def __truediv__(self, o):
-        return self.trace.op(f"{_lit(self)} / {_lit(o)}")
+        return self._op("/", o)
 
     def __rtruediv__(self, o):
-        return self.trace.op(f"{_lit(o)} / {_lit(self)}")
+        return self._op("/", o, swap=True)
 
     def __neg__(self):
         return self.trace.op(f"-{self.name}")
+
+
+class _Const:
+    """A parameter of the generated code, or a product of parameters and
+    Python numbers folded on the host in double as the twin's Python
+    folds them (for example a0 * (1.0 - r3 * gamma)).  `fn(base)`
+    evaluates it from the named base parameters; `key` is its expression
+    text.  Meeting a _Sym it becomes an entry p.c[k] of the kernel's
+    constant table."""
+
+    def __init__(self, key, fn):
+        self.key = key
+        self.fn = fn
+
+    @classmethod
+    def named(cls, name):
+        return cls(name, lambda base: base[name])
+
+    def _fold(self, o, sym, f, swap=False):
+        """self <sym> o, or o <sym> self with `swap` (o a Python number
+        then: a _Const or _Sym on the left takes the operation itself)."""
+        if isinstance(o, _Sym):
+            return NotImplemented
+        other = o if isinstance(o, _Const) else _Const(repr(o), lambda b: o)
+        x, y = (other, self) if swap else (self, other)
+        return _Const(f"({x.key} {sym} {y.key})",
+                      lambda b: f(x.fn(b), y.fn(b)))
+
+    def _binary(sym, f):
+        return (lambda self, o: self._fold(o, sym, f),
+                lambda self, o: self._fold(o, sym, f, swap=True))
+
+    __add__, __radd__ = _binary("+", operator.add)
+    __sub__, __rsub__ = _binary("-", operator.sub)
+    __mul__, __rmul__ = _binary("*", operator.mul)
+    __truediv__, __rtruediv__ = _binary("/", operator.truediv)
+    del _binary
+
+    def __neg__(self):
+        return _Const(f"(-{self.key})", lambda b: -self.fn(b))
 
 
 def _collide_source(nvel: int, delta: bool, projected: bool) -> str:
@@ -215,12 +297,7 @@ def _binary_trace(order: int, level1_once: bool = False):
     from ludwig_tpu_torch.ops import fused_binary as fb
 
     tr = _Trace()
-    loads = {}
-
-    def load(expr):
-        if expr not in loads:
-            loads[expr] = tr.load(expr)
-        return loads[expr]
+    load = tr.load
 
     def P(*o):
         return load(f"P({o[0]}, {o[1]}, {o[2]})")
@@ -236,7 +313,7 @@ def _binary_trace(order: int, level1_once: bool = False):
         return fb._level1(P, o, c)
 
     def select(x, p, q):
-        return tr.op(f"sel({x.name}, {_lit(p)}, {_lit(q)})")
+        return tr.op(f"sel({x.name}, {tr.lit(p)}, {tr.lit(q)})")
 
     c = fb._Consts(*(_Sym(tr, f"p.{k}") for k in fb._Consts._fields))
     phinew, force = fb._binary_site(L1, U, c, order, select)
@@ -260,20 +337,109 @@ def generate_binary_header() -> str:
     return "\n".join(parts)
 
 
+LC_BASE = ("a0", "gamma", "q0", "kappa0", "kappa1", "xi", "redshift",
+           "zeta0", "zeta1", "be_gamma")
+
+
+@functools.lru_cache(maxsize=None)
+def _lc_trace(factored: bool = False):
+    """(level-1 trace, its tail, site trace, its tail, constants) of the
+    liquid-crystal kernel.  The level-1 function loads Q(n, dx, dy, dz)
+    and stores the stress pth[9] and the molecular field h5[5] of one
+    site; the site function loads Q, U(a, ...), the neighbours' stress
+    S(a, b, dx, dy, dz) and its own H(n), and stores out[0..5) = q5' and
+    out[5..8) = the force.  The free energy is traced with every
+    parameter a _Const, the active stress included: with both zetas zero
+    it adds an exact zero.  `constants` lists the table p.c[] in order,
+    as _Const.  With `factored`, level 1 goes through the free energy's
+    factored form: not the kernel's code, but the fewest operations this
+    text knows for the same function (the bound's count)."""
+    from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE
+    from ludwig_tpu_torch.ops import fused_lc
+
+    base = {k: _Const.named(k) for k in LC_BASE}
+    fe = BluePhaseFE(**{k: base[k] for k in LC_BASE if k != "be_gamma"})
+    consts = {}
+
+    def loader(tr):
+        return lambda name, *args: tr.load(
+            f"{name}({', '.join(str(a) for a in args)})")
+
+    tr1 = _Trace(consts, skip_exact=True)
+    load = loader(tr1)
+    h, pth = fused_lc._level1(lambda *a: load("Q", *a), fe, factored)
+    tail1 = [f"  pth[{3 * a + b}] = {pth[a][b].name};"
+             for a in range(3) for b in range(3)]
+    h5 = (h[0][0], h[0][1], h[0][2], h[1][1], h[1][2])
+    tail1 += [f"  h5[{n}] = {v.name};" for n, v in enumerate(h5)]
+
+    tr2 = _Trace(consts, skip_exact=True)
+    load = loader(tr2)
+
+    def select(x, p, q):
+        return tr2.op(f"sel({x.name}, {tr2.lit(p)}, {tr2.lit(q)})")
+
+    qnew, force = fused_lc._lc_site(
+        lambda *a: load("Q", *a), lambda *a: load("U", *a),
+        lambda *a: load("S", *a), lambda n: load("H", n), base["be_gamma"],
+        base["xi"], select)
+    tail2 = [f"  out[{n}] = {v.name};" for n, v in enumerate(qnew + force)]
+    table = [c for _k, c in sorted(consts.values(), key=lambda kc: kc[0])]
+    return tr1, tail1, tr2, tail2, table
+
+
+def lc_const_values(fe, be_gamma) -> list:
+    """The kernel's constant table p.c[] for a BluePhaseFE and the
+    rotational mobility, folded in double like the twin's Python."""
+    base = {k: float(getattr(fe, k)) for k in LC_BASE if k != "be_gamma"}
+    base["be_gamma"] = float(be_gamma)
+    return [c.fn(base) for c in _lc_trace()[4]]
+
+
+def generate_lc_header() -> str:
+    """lc_generated.h: the constant table's size, lc_level1 (stress and
+    molecular field of one site) and lc_site (force and Q update)."""
+    tr1, tail1, tr2, tail2, table = _lc_trace()
+    parts = ["// Generated by ludwig_tpu_torch/ops/_cuda.py from "
+             "ops/fused_lc.py and fe/blue_phase.py; do not edit.",
+             "#pragma once", f"#define LC_NCONST {len(table)}",
+             "// p.c[k], folded on the host:"]
+    parts += [f"//   {k}: {c.key}" for k, c in enumerate(table)]
+    parts += ["template <typename T>", "struct LcParams {",
+              "  T c[LC_NCONST];", "};", ""]
+    parts.append("\n".join(
+        ["template <typename T, typename LQ>",
+         "__device__ __forceinline__ void lc_level1(const LQ& Q, "
+         "const LcParams<T>& p, T* pth, T* h5) {"]
+        + tr1.lines + tail1 + ["}", ""]))
+    parts.append("\n".join(
+        ["template <typename T, typename LQ, typename LU, typename LS, "
+         "typename LH>",
+         "__device__ __forceinline__ void lc_site(const LQ& Q, const LU& U, "
+         "const LS& S, const LH& H, const LcParams<T>& p, T* out) {"]
+        + tr2.lines + tail2 + ["}", ""]))
+    return "\n".join(parts)
+
+
 def site_ops(kernel: str, nvel: int = 19, order: int = 2,
              delta: bool = True) -> int:
-    """Arithmetic operations per site and step the function needs, for
-    the bound: the M10 collision (fused_step, fusedn_step), the M10
-    collision with a per-site force (fused_force_step, plus the three
-    additions of a non-zero global force at most), or the binary site
-    update with level-1 values computed once per site
-    (binary_phi_force_step)."""
+    """Distinct arithmetic operations per site and step the function
+    needs, for the bound: the M10 collision (fused_step, fusedn_step),
+    the M10 collision with a per-site force (fused_force_step, plus the
+    three additions of a non-zero global force at most), or the binary
+    site update with level-1 values computed once per site
+    (binary_phi_force_step), or the liquid-crystal update, likewise with
+    one level-1 evaluation per site and the free energy in its factored
+    form (lc_q_force_step)."""
     if kernel in ("fused_step", "fusedn_step"):
         return _collide_trace(nvel, delta, True)[0].nops
     if kernel == "fused_force_step":
         return _collide_trace(nvel, True, True, site_force=True)[0].nops + 3
     if kernel == "binary_phi_force_step":
         return _binary_trace(order, level1_once=True)[0].nops
+    if kernel == "lc_q_force_step":
+        tr1, _t1, tr2, _t2, _c = _lc_trace(factored=True)
+        return tr1.nops + tr2.nops
     raise ValueError(f"no operation count for {kernel}")
 
 
@@ -291,6 +457,7 @@ def _nvcc() -> str:
 
 
 BINARY_LIB = "binary_phi"
+LC_LIB = "lc_q"
 
 
 def _lib_name(nvel: int) -> str:
@@ -326,6 +493,18 @@ def _bind_lb(path: Path, nvel: int):
     return lib
 
 
+def _bind_lc(path: Path):
+    lib = ctypes.CDLL(str(path))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lb_lc_nconst.argtypes = []
+    lib.lb_lc_nconst.restype = ci
+    lib.lb_lc_q_force.argtypes = [
+        ci, vp, vp, vp, vp, ci, ci, ci, ctypes.POINTER(ctypes.c_double), vp,
+        ci]
+    lib.lb_lc_q_force.restype = ci
+    return lib
+
+
 def _bind_binary(path: Path):
     lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -336,26 +515,35 @@ def _bind_binary(path: Path):
     return lib
 
 
-def build(nvels=KERNEL_NVELS, binary: bool = True) -> dict:
-    """Compile (where not already built) and load the kernel library of
-    each velocity set and, with `binary`, the binary-fluid library; the
-    nvcc runs go in parallel, and each writes its ptxas report
-    (registers, spills) beside the library.  Returns {library name:
-    path}."""
-    bad = [nvel for nvel in nvels if nvel not in KERNEL_NVELS]
-    if bad:
-        raise ValueError(f"no CUDA kernel for nvel={bad}; "
-                         f"built for {KERNEL_NVELS}")
+def _jobs() -> dict:
+    """library name -> (source, generated header's name, its generator,
+    binder of the loaded library)."""
     jobs = {_lib_name(nvel): (CSRC, "lb_generated.h",
                               lambda nvel=nvel: generate_header(nvel),
                               lambda p, nvel=nvel: _bind_lb(p, nvel))
-            for nvel in nvels}
-    if binary:
-        jobs[BINARY_LIB] = (CSRC_BINARY, "binary_generated.h",
-                            generate_binary_header, _bind_binary)
+            for nvel in KERNEL_NVELS}
+    jobs[BINARY_LIB] = (CSRC_BINARY, "binary_generated.h",
+                        generate_binary_header, _bind_binary)
+    jobs[LC_LIB] = (CSRC_LC, "lc_generated.h", generate_lc_header, _bind_lc)
+    return jobs
+
+
+def build(names=None) -> dict:
+    """Compile (where not already built) and load the named kernel
+    libraries, all of them by default: fused_lb_q<nvel> per velocity set,
+    binary_phi, lc_q.  The nvcc runs go in parallel, and each writes its
+    ptxas report (registers, spills) beside the library.  Returns
+    {library name: path}."""
+    jobs = _jobs()
+    names = tuple(jobs) if names is None else tuple(names)
+    bad = [name for name in names if name not in jobs]
+    if bad:
+        raise ValueError(f"no CUDA kernel library {bad}; there are "
+                         f"{tuple(jobs)}")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo, done = {}, {}
-    for name, (src, header_name, gen_header, _b) in jobs.items():
+    for name in names:
+        src, header_name, gen_header, _b = jobs[name]
         if name in _libs:
             done[name] = _libs[name][1]
             continue
@@ -386,17 +574,15 @@ def build(nvels=KERNEL_NVELS, binary: bool = True) -> dict:
     return done
 
 
-def _lib(nvel: int):
-    name = _lib_name(nvel)
+def _get_lib(name: str):
+    """The loaded library `name`, built first where it is not yet."""
     if name not in _libs:
-        build((nvel,), binary=False)
+        build((name,))
     return _libs[name][0]
 
 
-def _binary_lib():
-    if BINARY_LIB not in _libs:
-        build((), binary=True)
-    return _libs[BINARY_LIB][0]
+def _lib(nvel: int):
+    return _get_lib(_lib_name(nvel))
 
 
 # -- launches -----------------------------------------------------------------
@@ -470,7 +656,7 @@ def binary_phi_force_step(phi: torch.Tensor, u: torch.Tensor, consts,
     `consts` is ops/fused_binary._Consts of Python floats; the caller has
     checked shapes, dtypes and contiguity."""
     _check_cuda_state(phi)
-    lib = _binary_lib()
+    lib = _get_lib(BINARY_LIB)
     par = (ctypes.c_double * len(consts))(*(float(v) for v in consts))
     phi_out = torch.empty_like(phi)
     force = torch.empty_like(u)
@@ -483,6 +669,30 @@ def binary_phi_force_step(phi: torch.Tensor, u: torch.Tensor, consts,
     _raise_on(rc, "binary_phi_force_step")
     launches.binary_phi_force_step += 1
     return phi_out, force
+
+
+def lc_q_force_step(q5: torch.Tensor, u: torch.Tensor, fe, be_gamma):
+    """Launch the liquid-crystal Q-tensor kernel; returns (q5', force).
+    `fe` is a BluePhaseFE of Python floats, `be_gamma` the rotational
+    mobility; the caller (ops/fused_lc.py) has checked shapes, dtypes and
+    contiguity."""
+    _check_cuda_state(q5)
+    lib = _get_lib(LC_LIB)
+    vals = lc_const_values(fe, be_gamma)
+    if lib.lb_lc_nconst() != len(vals):
+        raise RuntimeError(f"lc_q library has {lib.lb_lc_nconst()} "
+                           f"constants, the generator {len(vals)}")
+    par = (ctypes.c_double * len(vals))(*vals)
+    q_out = torch.empty_like(q5)
+    force = torch.empty_like(u)
+    X, Y, Z = q5.shape[1:]
+    stream = torch.cuda.current_stream(q5.device).cuda_stream
+    rc = lib.lb_lc_q_force(int(q5.dtype == torch.float64), q5.data_ptr(),
+                           u.data_ptr(), q_out.data_ptr(), force.data_ptr(),
+                           X, Y, Z, par, stream, q5.device.index)
+    _raise_on(rc, "lc_q_force_step")
+    launches.lc_q_force_step += 1
+    return q_out, force
 
 
 def _window_sites(plan, halo: int) -> int:

@@ -1,6 +1,7 @@
 """The reference's per-site initial-condition RNG, vectorised (numpy only).
 
-Copied from ludwig_tpu/ref_rng.py (kiss_advance, RefNoise, spinodal_ref;
+Copied from ludwig_tpu/ref_rng.py (kiss_advance, RefNoise, spinodal_ref,
+random_director_q5;
 ref: src/noise.c:136-233 noise_init, noise_uniform,
 noise_uniform_double_reap): a 4-word KISS-style generator (LCG +
 xorshift + two 16-bit MWC) seeded per site from the global coordinates,
@@ -80,3 +81,27 @@ def spinodal_ref(size, seed, phi0, amp=0.1):
     """phi = phi0 + amp (r - 1/2) (ref: field_phi_init_spinodal)."""
     rng = RefNoise(size, seed)
     return phi0 + amp * (rng.reap_uniform() - 0.5)
+
+
+def random_director_q5(size, amplitude, two_d=False, seed=13):
+    """Random uniaxial Q (ref: blue_phase_random_q_init / _q_2d;
+    fixed DEFAULT_SEED=13).  Returns (5, X, Y, Z)."""
+    rng = RefNoise(size, seed)
+    ran1 = rng.reap_uniform()
+    if two_d:
+        phase1 = 2.0 * np.pi * (0.5 - ran1)
+        n = np.stack([np.cos(phase1), np.sin(phase1),
+                      np.zeros_like(phase1)])
+    else:
+        ran2 = rng.reap_uniform()
+        phase1 = 2.0 * np.pi * (0.5 - ran1)
+        phase2 = np.arccos(2.0 * ran2 - 1.0)
+        n = np.stack([np.cos(phase1) * np.sin(phase2),
+                      np.sin(phase1) * np.sin(phase2),
+                      np.cos(phase2)])
+    a = amplitude
+    return np.stack([0.5 * a * (3.0 * n[0] * n[0] - 1.0),
+                     0.5 * a * 3.0 * n[0] * n[1],
+                     0.5 * a * 3.0 * n[0] * n[2],
+                     0.5 * a * (3.0 * n[1] * n[1] - 1.0),
+                     0.5 * a * 3.0 * n[1] * n[2]])

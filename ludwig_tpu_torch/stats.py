@@ -2,11 +2,12 @@
 
 PyTorch port of the plain-reduction part of ludwig_tpu/stats.py: the
 observables the fused production path of the JAX package reports
-(ludwig.py _make_fast_stats_fn: rho, momentum and velocity, and [phi]
-and [fed] for the binary fluid), computed with ordinary tensor
-reductions on the device.  The reference-ordered compensated scans of
-the golden-parity path (_compensated_stats, *_ref) are not ported yet;
-values agree with them to roundoff.
+(ludwig.py _make_fast_stats_fn: rho, momentum and velocity, [phi] and
+[fed] for the binary fluid, [Qxx]..[Qyz] and [fe] for the liquid
+crystal), computed with ordinary tensor reductions on the device.  The
+reference-ordered compensated scans of the golden-parity path
+(_compensated_stats, *_ref) are not ported yet; values agree with them
+to roundoff.
 """
 
 from __future__ import annotations
@@ -75,6 +76,16 @@ def format_fed_block(tstep, fed_mean, fed_fluid) -> str:
     return ("\nFree energy density - timestep total fluid\n"
             f"[fed] {int(tstep):14d} {float(fed_mean):17.10e} "
             f"{float(fed_fluid):17.10e}\n")
+
+
+def format_fe_lc_block(tstep, ftot, vol, fbulk, fgrad, redshift) -> str:
+    # ref: fe_lc_stats.c fe_lc_stats_info, the branch without walls or
+    # colloids
+    ftot, vol = float(ftot), float(vol)
+    return ("\nFree energies - timestep f v f/v f_bulk/v f_grad/v redshift\n"
+            f"[fe] {int(tstep):14d} {ftot:17.10e} {vol:17.10e} "
+            f"{ftot / vol:17.10e} {float(fbulk) / vol:17.10e} "
+            f"{float(fgrad) / vol:17.10e} {float(redshift):17.10e}\n")
 
 
 def format_momentum_block(gtotal, gfluid, gwall=None) -> str:

@@ -19,8 +19,8 @@ import torch
 
 from ludwig_tpu.ludwig import run_text as jrun_text
 from ludwig_tpu_torch.ludwig import run_text
-from test_ludwig_run import (BINARY_FUSED_INPUT, PLAIN_FUSED_INPUT,
-                             PLAIN_INPUT, _stat_floats)
+from test_ludwig_run import (BINARY_FUSED_INPUT, LC_FUSED_INPUT,
+                             PLAIN_FUSED_INPUT, PLAIN_INPUT, _stat_floats)
 
 
 def _logs(jax_text, port_text):
@@ -68,6 +68,51 @@ def test_unported_binary_keys_raise(line):
                  device="cpu")
 
 
+@pytest.mark.parametrize("fused", ["on", "off"])
+def test_lc_cli_matches_jax(fused):
+    """The blue-phase input on the fused route (the K1 + K2 twins against
+    the JAX package's Pallas kernels in interpret mode) and on the
+    unfused one (against its jnp step); the [Qxx]..[Qyz] lines and the
+    [fe] line, whose gradients are those of the Q before the step."""
+    jfused = "interpret" if fused == "on" else "off"
+    jlog, log, sys_ = _logs(f"tpu_fused {jfused}\n" + LC_FUSED_INPUT,
+                            f"tpu_fused {fused}\n" + LC_FUSED_INPUT)
+    assert sys_.fused_mode == ("lc" if fused == "on" else None)
+    assert sys_.lc_cfg is not None and "Completed cycle 4" in log
+    for tag in ("[Qxx]", "[Qyz]", "[fe]"):
+        assert log.count(tag) == jlog.count(tag) == 3
+    heads = [ln for ln in log.splitlines() if ln.startswith("Free energies")]
+    assert heads == [ln for ln in jlog.splitlines()
+                     if ln.startswith("Free energies")]
+    a, b = _stat_floats(jlog), _stat_floats(log)
+    assert a.size == b.size and a.size > 0
+    np.testing.assert_allclose(b, a, rtol=1e-9, atol=1e-11)
+
+
+def test_lc_cli_order_2_runs_unfused():
+    """As in the JAX package, `tpu_fused on` with order-2 advection takes
+    the unfused step."""
+    text = "tpu_fused on\n" + LC_FUSED_INPUT.replace(
+        "fd_advection_scheme_order 1", "fd_advection_scheme_order 2")
+    jlog, log, sys_ = _logs(text.replace("tpu_fused on", "tpu_fused off"),
+                            text)
+    assert sys_.fused_mode is None and sys_.lc_cfg.advection_order == 2
+    np.testing.assert_allclose(_stat_floats(log), _stat_floats(jlog),
+                               rtol=1e-9, atol=1e-11)
+
+
+@pytest.mark.parametrize("line", [
+    "lc_noise on", "lc_redshift_update on",
+    "fd_gradient_calculation s7_anchoring", "electric_e0 0.0_0.0_0.01",
+    "fd_advection_scheme_order 3", "hydrodynamics off",
+    "lc_q_init_rectangle_min 1_1_1", "lc_anchoring_method two",
+    "boundary_walls 1_0_0", "N_LE_plane 2"])
+def test_unported_lc_keys_raise(line):
+    with pytest.raises(NotImplementedError, match=line.split()[0]):
+        run_text("tpu_fused on\n" + LC_FUSED_INPUT + line + "\n",
+                 out=io.StringIO(), device="cpu")
+
+
 def test_no_device_means_the_card():
     """Named or not, a CUDA device that is not there raises; nothing
     falls back to the CPU."""
@@ -77,6 +122,8 @@ def test_no_device_means_the_card():
         run_text(PLAIN_INPUT, out=io.StringIO())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_text(BINARY_FUSED_INPUT, out=io.StringIO(), device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_text("tpu_fused on\n" + LC_FUSED_INPUT, out=io.StringIO())
 
 
 def test_fused_cli_matches_jax():
@@ -102,7 +149,8 @@ def test_plain_cli_matches_jax():
 
 
 @pytest.mark.parametrize("line", [
-    "free_energy lc_blue_phase", "boundary_walls 1_0_0", "N_LE_plane 2",
+    "free_energy lc_droplet", "free_energy fe_electro", "lc_noise on",
+    "lc_a0 0.01", "boundary_walls 1_0_0", "N_LE_plane 2",
     "temperature 0.001", "bogus_key_xyz 42", "periodicity 0_1_1"])
 def test_unported_keys_raise(line):
     with pytest.raises(NotImplementedError, match=line.split()[0]):
@@ -127,14 +175,16 @@ def test_inactive_defaults_accepted():
 
 def test_cli_runs_without_jax(tmp_path):
     """`python -m ludwig_tpu_torch input --device cpu` in a fresh
-    interpreter, for the plain and the binary input: both run, and
-    neither JAX nor ludwig_tpu is imported."""
+    interpreter, for the plain, the binary and the liquid-crystal input:
+    all run, and neither JAX nor ludwig_tpu is imported."""
     inp, inp_binary = tmp_path / "input", tmp_path / "input_binary"
+    inp_lc = tmp_path / "input_lc"
     inp.write_text("tpu_fused on\n" + PLAIN_INPUT)
     inp_binary.write_text("tpu_fused on\n" + BINARY_FUSED_INPUT)
+    inp_lc.write_text("tpu_fused on\n" + LC_FUSED_INPUT)
     probe = textwrap.dedent(f"""
         import runpy, sys
-        for path in ({str(inp)!r}, {str(inp_binary)!r}):
+        for path in ({str(inp)!r}, {str(inp_binary)!r}, {str(inp_lc)!r}):
             sys.argv = ["ludwig_tpu_torch", path, "--device", "cpu"]
             runpy.run_module("ludwig_tpu_torch", run_name="__main__")
         import ludwig_tpu_torch.ops._cuda, ludwig_tpu_torch.convert
@@ -150,4 +200,5 @@ def test_cli_runs_without_jax(tmp_path):
     assert res.returncode == 0, res.stderr
     assert "Completed cycle 5" in res.stdout
     assert "[fed]" in res.stdout and "Completed cycle 4" in res.stdout
+    assert "[Qxx]" in res.stdout and "[fe]" in res.stdout
     assert "NO_JAX_OK" in res.stdout

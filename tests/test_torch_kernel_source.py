@@ -153,4 +153,94 @@ def test_header_declares_the_model():
     # the projected absolute form carries no ghost rate at all
     assert "p.g[" not in "\n".join(_body(h, False, True))
     with pytest.raises(ValueError):
-        _cuda.build((9,))         # no kernel for D2Q9
+        _cuda.build(("fused_lb_q9",))     # no kernel for D2Q9
+
+
+@pytest.mark.parametrize("extra", [
+    {}, dict(zeta0=0.002, zeta1=0.01), dict(redshift=0.93)],
+    ids=["passive", "active", "redshift"])
+def test_generated_lc_site_is_the_twin(extra):
+    """lc_level1 and lc_site: the two device functions of
+    lc_q_force_kernel, run on whole tensors with Q/U/S/H as periodic
+    neighbour fetches, against the twin; the constant table p.c[] is
+    folded on the host as the launch folds it."""
+    from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE
+    from ludwig_tpu_torch.fe.lc_init import lc_init_o8m
+    from ludwig_tpu_torch.ops import fused_lc as fl
+
+    fe = BluePhaseFE(a0=0.01, gamma=3.0, q0=0.19635, kappa0=0.000648456,
+                     kappa1=0.0007, xi=0.7, **extra)
+    rng = np.random.default_rng(5)
+    q = torch.as_tensor(lc_init_o8m(SHAPE, fe.q0, -0.2)
+                        + 0.02 * rng.standard_normal((5,) + SHAPE))
+    u = torch.as_tensor(0.01 * rng.standard_normal((3,) + SHAPE))
+    header = _cuda.generate_lc_header()
+    p = types.SimpleNamespace(c=_cuda.lc_const_values(fe, 0.5))
+    assert f"#define LC_NCONST {len(p.c)}" in header
+
+    def at(x, *o):
+        return torch.roll(x, tuple(-v for v in o), (0, 1, 2))
+
+    def body(name):
+        m = re.search(name + r"\(.*?\{\n(.*?)\n\}", header, re.S)
+        return m.group(1).splitlines()
+
+    pth, h5, out = [None] * 9, [None] * 5, [None] * 8
+    _exec_body(body("void lc_level1"),
+               {"Q": lambda n, *o: at(q[n], *o), "p": p, "T": float,
+                "pth": pth, "h5": h5})
+    _exec_body(body("void lc_site"),
+               {"Q": lambda n, *o: at(q[n], *o),
+                "U": lambda a, *o: at(u[a], *o),
+                "S": lambda a, b, *o: at(pth[3 * a + b], *o),
+                "H": lambda n: h5[n], "p": p, "T": float, "out": out,
+                "sel": fl._where_pos})
+    want_q, want_force = fl.lc_q_force_step(q, u, fe, 0.5)
+    assert torch.equal(torch.stack(out[:5]), want_q)
+    assert torch.equal(torch.stack(out[5:]), want_force)
+    # the bound's operation count: one level-1 evaluation in the free
+    # energy's factored form and one site update per site; fewer than
+    # the kernel text's distinct operations, far more than the binary site
+    kernel_ops = sum(tr.nops for tr in _cuda._lc_trace()[:3:2])
+    assert 5 * _cuda.site_ops("binary_phi_force_step") < _cuda.site_ops(
+        "lc_q_force_step") < kernel_ops
+
+
+def test_trace_counts_distinct_operations():
+    """A value met again is the temporary it already has: the same
+    operator on the same operands, in either order where it commutes."""
+    tr = _cuda._Trace(skip_exact=True)
+    a, b = tr.load("A"), tr.load("B")
+    assert tr.load("A") is a and tr.nops == 0
+    assert (a * b) is (b * a) and (a + b) is (b + a) and tr.nops == 2
+    assert (a - b) is not (b - a) and (a / b) is not (b / a)
+    assert (2.0 * a) is (a * 2.0) and tr.nops == 7
+    assert (0 + a) is a and (a * 1) is a and (-1 * a) is (-a)
+    assert tr.nops == 8 and len(tr.lines) == 10
+
+
+def test_factored_level1_is_the_twins_level1():
+    """The factored free energy behind the bound's operation count is the
+    function the twin and the kernel evaluate: float64, rtol 1e-12 of
+    each component's largest value."""
+    from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE
+    from ludwig_tpu_torch.fe.lc_init import lc_init_o8m
+    from ludwig_tpu_torch.ops import fused_lc as fl
+
+    fe = BluePhaseFE(a0=0.01, gamma=3.0, q0=0.19635, kappa0=0.000648456,
+                     kappa1=0.0007, xi=0.7, redshift=0.93, zeta0=0.002,
+                     zeta1=0.01)
+    rng = np.random.default_rng(6)
+    q = torch.as_tensor(lc_init_o8m(SHAPE, fe.q0, -0.2)
+                        + 0.02 * rng.standard_normal((5,) + SHAPE))
+
+    def Q(n, *o):
+        return torch.roll(q[n], tuple(-v for v in o), (0, 1, 2))
+
+    want = fl._level1(Q, fe)
+    got = fl._level1(Q, fe, factored=True)
+    for w33, g33 in zip(want, got):
+        for a in range(3):
+            for b in range(3):
+                tol = 1e-12 * float(w33[a][b].abs().max())
+                assert float((g33[a][b] - w33[a][b]).abs().max()) <= tol

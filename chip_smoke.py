@@ -41,7 +41,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      K1 and K2 launched once per cycle; before that the same input at
      16x16x32 in f64 on the card against the CPU twins' log;
  12. at 128^3 and 256^3 f32: K1, K2 and the whole LC step, kernel, twin
-     and bound times.
+     and bound times;
+ 13. the LC droplet's kernel droplet_phi_q_force_step (K1) against its
+     twin at two sizes, f32 and f64, advection orders 1 and 2, anchoring
+     W = 0 and 0.02, the increments phi' - phi and q' - q to one ulp of
+     the value; then 3 chained fused droplet steps (K1, the mean
+     subtraction, K2) through the kernels against 3 through the twins;
+ 14. the droplet main path at full width: `free_energy lc_droplet` D3Q19
+     128^3 f32 (the reference benchmark's size) with the JAX package's
+     droplet test parameters, `tpu_fused on`, through run_text on the
+     card; K1 and K2 launched once per cycle, the [phi] total conserved;
+     before that the same input at 16x16x32 in f64 on the card against
+     the CPU twins' log;
+ 15. at 128^3 and 256^3 f32: K1, K2, the mean subtraction and the whole
+     droplet step, kernel, twin and bound times.
 
 Bounds: `bound_ms` is the larger of the bytes the function must move
 (each input read once, each output written once) over the H100 SXM's
@@ -64,18 +77,21 @@ import time
 import torch
 
 from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE
+from ludwig_tpu_torch.fe.lc_droplet import LCDropletFE
 from ludwig_tpu_torch.fe.lc_init import lc_init_o8m
 from ludwig_tpu_torch.fe.symmetric import SymmetricFE
 from ludwig_tpu_torch.lb import LBConfig, initial_rest
 from ludwig_tpu_torch.ludwig import run_text
 from ludwig_tpu_torch.ops import _cuda, fused
 from ludwig_tpu_torch.ops import fused_binary as fb
+from ludwig_tpu_torch.ops import fused_droplet as fd
 from ludwig_tpu_torch.ops import fused_lc as fl
 from ludwig_tpu_torch.ops.collide import RelaxationScheme
 
 SOURCE = "ludwig_tpu_torch/csrc/fused_lb.cu"
 SOURCE_BINARY = "ludwig_tpu_torch/csrc/binary_phi.cu"
 SOURCE_LC = "ludwig_tpu_torch/csrc/lc_q.cu"
+SOURCE_DROPLET = "ludwig_tpu_torch/csrc/droplet.cu"
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, published
 PEAK_F32_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 # f64: kernel and twin evaluate one expression tree operation by operation
@@ -95,8 +111,13 @@ SMEM_CASES = ((2, fused.FusedPlan(4, 4, 32)), (3, fused.FusedPlan(2, 2, 16)),
               (4, fused.FusedPlan(2, 2, 8)))
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    """A phase's header, with the seconds since the script started (the
+    time a phase adds is the next header's time less its own)."""
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 def card_line():
@@ -692,8 +713,8 @@ def stat_floats(log):
     """All floats of the statistics lines of a run log."""
     vals = []
     for line in log.splitlines():
-        if line.startswith(("[rho]", "[Q", "[fe]", "[total", "[fluid",
-                            "[minimum", "[maximum")):
+        if line.startswith(("[rho]", "[phi]", "[Q", "[fe]", "[fed]",
+                            "[total", "[fluid", "[minimum", "[maximum")):
             vals += [float(t) for t in line.split()
                      if re.match(r"^-?\d", t)]
     return torch.tensor(vals, dtype=torch.float64)
@@ -829,6 +850,278 @@ def phase12(card, gen, copy_ms, copy_bytes):
     return res
 
 
+# the JAX package's droplet input (tests/test_ludwig_run.py:165-192)
+DROP_SYMM = SymmetricFE(a=-0.0625, b=0.0625, kappa=0.053)
+DROP_LC = dict(a0=0.1, gamma=3.0, q0=0.19635, kappa0=0.01, kappa1=0.01,
+               xi=0.7)
+DROP = dict(gamma0=2.586, delta=0.25)
+DROP_MOBILITY, DROP_GAMMA = 0.05, 0.5
+DROP_SIZE = (128, 128, 128)
+DROP_CYCLES = 20
+DROP_INPUT = f"""
+tpu_fused on
+N_cycles {DROP_CYCLES}
+viscosity 0.5
+free_energy lc_droplet
+fd_gradient_calculation 3d_7pt_fluid
+fd_advection_scheme_order 1
+A {DROP_SYMM.a}
+B {DROP_SYMM.b}
+K {DROP_SYMM.kappa}
+phi_initialisation spinodal
+phi0 0.0
+random_seed 8361235
+mobility {DROP_MOBILITY}
+lc_a0 {DROP_LC['a0']}
+lc_gamma {DROP_LC['gamma']}
+lc_q0 {DROP_LC['q0']}
+lc_kappa0 {DROP_LC['kappa0']}
+lc_kappa1 {DROP_LC['kappa1']}
+lc_xi {DROP_LC['xi']}
+lc_Gamma {DROP_GAMMA}
+lc_q_initialisation random
+lc_q_init_amplitude 0.2
+lc_droplet_gamma {DROP['gamma0']}
+lc_droplet_delta {DROP['delta']}
+lc_droplet_W 0.0
+freq_statistics 10
+"""
+
+
+def drop_fe(w=0.0):
+    return LCDropletFE(symm=DROP_SYMM, lc=BluePhaseFE(**DROP_LC), w=w,
+                       **DROP)
+
+
+def drop_input(size, dtype):
+    return (f"size {size[0]}_{size[1]}_{size[2]}\ndtype {dtype}\n"
+            + DROP_INPUT)
+
+
+def rand_drop(size, dtype, gen, u_amp=0.01):
+    """A noisy phi of both signs, a random Q of amplitude ~0.1 and a
+    velocity of both signs so that both upwind branches occur."""
+    def rnd(shape, amp):
+        return (amp * torch.randn(shape, generator=gen, dtype=dtype,
+                                  device="cuda")).contiguous()
+    return rnd(size, 0.05), rnd((5,) + size, 0.1), rnd((3,) + size, u_amp)
+
+
+def drop_cfg(size, dtype, order=1, w=0.0):
+    from ludwig_tpu_torch.lc_droplet import LCDropletConfig
+    lb = LBConfig(size=size, nvel=19, eta_shear=0.5, dtype=dtype,
+                  device="cuda")
+    return LCDropletConfig(lb=lb, fe=drop_fe(w), mobility=DROP_MOBILITY,
+                           gamma=DROP_GAMMA, advection_order=order)
+
+
+def drop_twin_step(state, dcfg):
+    f, phi, q, u = state
+    phi, q, frc = fd._droplet_plain(phi, q, u, dcfg.fe, dcfg.gamma,
+                                    dcfg.mobility, dcfg.advection_order)
+    f, u = fused._fused_force_step_plain(f, fd.correct_momentum(frc),
+                                         dcfg.lb.model,
+                                         dcfg.lb.collision_params())
+    return (f, phi, q, u)
+
+
+def phase13(gen):
+    phase("13 LC-droplet kernel vs plain twin")
+    worst = 0.0
+    for size in ((16, 24, 40), (64, 64, 64)):
+        for dtype in (torch.float64, torch.float32):
+            phi, q, u = rand_drop(size, dtype, gen)
+            for order in (1, 2):
+                for w in (0.0, 0.02):
+                    fe = drop_fe(w)
+                    args = (phi, q, u, fe, DROP_GAMMA, DROP_MOBILITY, order)
+                    a = fd.droplet_phi_q_force_step(*args)
+                    b = fd._droplet_plain(*args)
+                    what = f"droplet {size} {dtype} order {order} W {w}"
+                    errs = [check_close(f"{what} {name}", x, y, dtype)
+                            for name, x, y in zip(("phi", "q", "force"), a,
+                                                  b)]
+                    worst = max(worst, *errs)
+                    incs = [check_increment(f"{what} {name}' - {name}", x0,
+                                            x, y)
+                            for name, x0, x, y in zip(("phi", "q"),
+                                                      (phi, q), a, b)]
+                    print(f"droplet_phi_q_force_step {size} {dtype} order "
+                          f"{order} W {w} max_abs_err phi {errs[0]:.3e} q "
+                          f"{errs[1]:.3e} force {errs[2]:.3e} bitwise "
+                          f"{[torch.equal(x, y) for x, y in zip(a, b)]} "
+                          f"(tolerance {TOL[dtype]}); increments phi' - phi "
+                          f"within {incs[0][0]:.3e} ({incs[0][1]:.3e} of "
+                          f"its largest), q' - q within {incs[1][0]:.3e} "
+                          f"({incs[1][1]:.3e}) (tolerance: one ulp of the "
+                          "largest value)")
+    # whole fused droplet step: 3 chained steps, kernels vs twins
+    for size in ((16, 24, 40), (64, 64, 64)):
+        for dtype in ("float64", "float32"):
+            dcfg = drop_cfg(size, dtype, w=0.02)
+            phi0, q0, _u = rand_drop(size, dcfg.lb.tdtype, gen)
+            step = fd.make_fused_droplet_step(dcfg)
+            a = b = fd.initial_fused_droplet(dcfg, phi0, q0)
+            for _ in range(3):
+                a = step(a)
+                b = drop_twin_step(b, dcfg)
+            for name, x, y in zip(("f", "phi", "q", "u"), a, b):
+                err = check_close(f"fused droplet step {size} {dtype} "
+                                  f"{name}", x, y, dcfg.lb.tdtype)
+                print(f"fused droplet step x3 {size} {dtype} {name} "
+                      f"max_abs_err {err:.3e} bitwise {torch.equal(x, y)}")
+    return {"droplet_phi_q_force_step": worst}
+
+
+def phase14():
+    phase("14 LC-droplet main path: lc_droplet D3Q19 128^3 f32, run_text on "
+          "cuda")
+    small = drop_input((16, 16, 32), "float64").replace(
+        f"N_cycles {DROP_CYCLES}", "N_cycles 4").replace(
+        "freq_statistics 10", "freq_statistics 2")
+    logs = {}
+    for device in ("cuda", "cpu"):
+        out = io.StringIO()
+        run_text(small, out=out, device=device)
+        logs[device] = stat_floats(out.getvalue())
+    if logs["cuda"].numel() != logs["cpu"].numel() or not torch.allclose(
+            logs["cuda"], logs["cpu"], rtol=1e-9, atol=1e-11):
+        raise AssertionError("droplet 16x16x32 f64: the card's statistics "
+                             "differ from the CPU twins'")
+    print(f"droplet 16x16x32 f64, 4 cycles: {logs['cuda'].numel()} "
+          "statistics floats on the card agree with the CPU twins' (rtol "
+          "1e-9, atol 1e-11), max |diff| "
+          f"{float((logs['cuda'] - logs['cpu']).abs().max()):.3e}")
+    size = DROP_SIZE
+    nsite = size[0] * size[1] * size[2]
+    torch.cuda.synchronize()
+    _cuda.launches.reset()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    sys_ = run_text(drop_input(size, "float32"), out=log, device="cuda")
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = {"droplet_phi_q_force_step":
+              _cuda.launches.droplet_phi_q_force_step,
+              "fused_force_step": _cuda.launches.fused_force_step}
+    text = log.getvalue()
+    if f"Completed cycle {DROP_CYCLES}" not in text:
+        raise AssertionError("droplet run_text did not complete its cycles")
+    if sys_.fused_mode != "droplet":
+        raise AssertionError(f"fused_mode {sys_.fused_mode}, not droplet")
+    for name, n in counts.items():
+        if n != DROP_CYCLES:
+            raise AssertionError(f"{name} launched {n} times for "
+                                 f"{DROP_CYCLES} cycles")
+    f, phi, q, u = sys_.state
+    for name, x, shape in (("f", f, (19,) + size), ("phi", phi, size),
+                           ("q", q, (5,) + size), ("u", u, (3,) + size)):
+        if tuple(x.shape) != shape or x.dtype != torch.float32:
+            raise AssertionError(f"{name}: {tuple(x.shape)} {x.dtype}")
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"{name} is not finite")
+    # [phi] total: conserved by the flux form; f32 rounds each site's
+    # update, the printed sums are f32 reductions.  Bound: 1e-7 of the
+    # total |phi|.
+    phis = [float(v) for v in re.findall(r"\[phi\]\s+(\S+)", text)]
+    scale = 1e-7 * float(phi.double().abs().sum())
+    if len(phis) != 3 or max(phis) - min(phis) > scale:
+        raise AssertionError(f"[phi] totals {phis} not conserved within "
+                             f"{scale:.3e}")
+    rhos = [float(v) for v in re.findall(r"\[rho\]\s+(\S+)", text)]
+    if not all(abs(t - nsite) <= 1e-5 * nsite for t in rhos):
+        raise AssertionError(f"[rho] totals {rhos} != {nsite}")
+    feds = [float(v) for v in re.findall(r"\[fed\]\s+\S+\s+(\S+)", text)]
+    if len(feds) != 3:
+        raise AssertionError(f"want 3 [fed] blocks: {feds}")
+    for line in text.splitlines():
+        if line.startswith(("[phi]", "[Qxx]", "[fed]")):
+            print(line)
+    print(text[text.find("Timer statistics"):].strip())
+    print(f"droplet run_text {size} x {DROP_CYCLES} cycles: {cli_s:.2f} s "
+          f"wall (spinodal and random Q made on the host included), [phi] "
+          f"totals {phis} (spread {max(phis) - min(phis):.3e} <= "
+          f"{scale:.3e}), [rho] totals {rhos}, [fed] {feds}, launches "
+          f"{counts}")
+    return counts
+
+
+def phase15(card, gen, copy_ms, copy_bytes):
+    phase(f"15 LC-droplet timing at 128^3 and 256^3 D3Q19 f32 on {card}")
+    res = {}
+    for size in (DROP_SIZE, MAIN_SIZE):
+        dcfg = drop_cfg(size, "float32")
+        model, params = dcfg.lb.model, dcfg.lb.collision_params()
+        nsite = size[0] * size[1] * size[2]
+        phi, q, u = rand_drop(size, torch.float32, gen, u_amp=1e-3)
+        f0 = rand_state(dcfg.lb, gen, amp=0.01)
+        frc = (1e-5 * torch.randn((3,) + size, generator=gen,
+                                  device="cuda")).contiguous()
+
+        def report(name, ms, plain_ms, nbytes, nops, err):
+            b_ms, b_by = bound(nbytes, nops)
+            copy_b = copy_ms * nbytes / copy_bytes
+            print(f"{name} {size[0]}^3: kernel {ms:.4f} ms, twin "
+                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                  f"{nbytes / nsite:.0f} B/site, {nops / nsite:.0f} "
+                  f"flop/site), {100 * b_ms / ms:.1f}% of it; copy bound "
+                  f"{copy_b:.4f} ms; max_abs_err vs twin {err:.3e} [{card}]")
+            return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                        nbytes=nbytes, nops=nops)
+
+        # K1: reads phi, q5 and u, writes phi', q5' and the force: 18
+        # values a site
+        args = (phi, q, u, dcfg.fe, DROP_GAMMA, DROP_MOBILITY, 1)
+        k1 = lambda: fd.droplet_phi_q_force_step(*args)  # noqa
+        t1 = lambda: fd._droplet_plain(*args)  # noqa
+        a, b = k1(), t1()
+        err = max(check_close(f"droplet_phi_q_force_step {size} {n}", x, y,
+                              torch.float32)
+                  for n, x, y in zip(("phi", "q", "force"), a, b))
+        for n, x0, x, y in zip(("phi", "q"), (phi, q), a, b):
+            inc_err, inc_rel = check_increment(
+                f"droplet_phi_q_force_step {size} {n}' - {n}", x0, x, y)
+            print(f"droplet_phi_q_force_step (K1) {size[0]}^3: increment "
+                  f"{n}' - {n} within {inc_err:.3e} of the twin's, "
+                  f"{inc_rel:.3e} of its largest (tolerance: one ulp of the "
+                  "largest value)")
+        raw = a[2]
+        del a, b
+        r1 = report("droplet_phi_q_force_step (K1, order 1)",
+                    time_ms(k1, 20), time_ms(t1, 2, warm=1), 18 * 4 * nsite,
+                    nsite * _cuda.site_ops("droplet_phi_q_force_step",
+                                           order=1), err)
+        # the mean subtraction, plain PyTorch: the bound reads the force
+        # once and writes it once (the two-pass form moves 36 B a site)
+        mean_ms = time_ms(lambda: fd.correct_momentum(raw), 20)
+        rm = report("momentum correction (force - mean, PyTorch)", mean_ms,
+                    mean_ms, 6 * 4 * nsite, 2 * 3 * nsite, 0.0)
+        k2 = lambda: fused.fused_force_step(f0, frc, model, params)  # noqa
+        t2 = lambda: fused._fused_force_step_plain(f0, frc, model,  # noqa
+                                                   params)
+        err = max(check_close(f"fused_force_step {size} {n}", x, y,
+                              torch.float32)
+                  for n, x, y in zip(("f", "u"), k2(), t2()))
+        r2 = report("fused_force_step (K2, D3Q19 M10)", time_ms(k2, 20),
+                    time_ms(t2, 3, warm=1), 2 * (19 + 3) * 4 * nsite,
+                    nsite * _cuda.site_ops("fused_force_step"), err)
+        step = fd.make_fused_droplet_step(dcfg)
+        state = (f0, phi, q, u)
+        step_ms = time_ms(lambda: step(state), 20)
+        twin_ms = time_ms(lambda: drop_twin_step(state, dcfg), 2, warm=1)
+        report("fused droplet step (K1 + mean + K2; two-pass bound K1 + K2)",
+               step_ms, twin_ms, r1["nbytes"] + r2["nbytes"],
+               r1["nops"] + r2["nops"],
+               max(r1["max_abs_err"], r2["max_abs_err"]))
+        print(f"fused droplet step {size[0]}^3: "
+              f"{nsite / (step_ms * 1e3):.1f} MLUPS; K1 + mean + K2 "
+              f"launched alone {r1['ms'] + rm['ms'] + r2['ms']:.4f} ms "
+              f"[{card}]")
+        if size == DROP_SIZE:
+            res["droplet_phi_q_force_step"] = r1
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -844,11 +1137,13 @@ def main():
     t0 = time.perf_counter()
     built = _cuda.build()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
-    # what ptxas says of the liquid-crystal kernel (f32, then f64)
-    report = built[_cuda.LC_LIB].with_suffix(".ptxas.txt").read_text()
-    for line in report.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"lc_q ptxas: {line.strip()}")
+    # what ptxas says of the liquid-crystal and droplet kernels
+    for lib in (_cuda.LC_LIB, _cuda.DROPLET_LIB):
+        report = built[lib].with_suffix(".ptxas.txt").read_text()
+        for line in report.splitlines():
+            if ("registers" in line or "spill" in line
+                    or "Compiling entry" in line):
+                print(f"{lib} ptxas: {line.strip()}")
 
     tr1, _t1, tr2, _t2, table = _cuda._lc_trace()
     print(f"lc_q generated code: {tr1.nops} distinct operations for one "
@@ -856,6 +1151,12 @@ def main():
           f"{len(table)} constants; the bound counts "
           f"{_cuda.site_ops('lc_q_force_step')} a site (level 1 once, the "
           "free energy factored)")
+    tr1, _t1, sites, table = _cuda._droplet_trace()
+    print(f"droplet generated code: {tr1.nops} distinct operations for one "
+          f"level-1 evaluation, {sites[1][0].nops} / {sites[2][0].nops} for "
+          f"the site update of order 1 / 2, {len(table)} constants; the "
+          f"bound counts {_cuda.site_ops('droplet_phi_q_force_step', order=1)}"
+          " a site at order 1 (level 1 once, the site's fields kept)")
 
     gen = torch.Generator(device="cuda").manual_seed(1234)
     worst = phase3(gen)
@@ -868,7 +1169,10 @@ def main():
     worst.update(phase10(gen))
     by_path["lc"] = phase11()
     timed.update(phase12(card, gen, timed["copy_ms"], timed["copy_bytes"]))
-    print("all phases passed")
+    worst.update(phase13(gen))
+    by_path["droplet"] = phase14()
+    timed.update(phase15(card, gen, timed["copy_ms"], timed["copy_bytes"]))
+    print(f"all phases passed ({time.perf_counter() - _T0:.1f} s)")
 
     kernels = []
     for name, source, replaces in (
@@ -878,7 +1182,9 @@ def main():
              "ludwig_tpu/ops/fused_binary.py:49"),
             ("fused_force_step", SOURCE, "ludwig_tpu/ops/fused.py:1069"),
             ("lc_q_force_step", SOURCE_LC,
-             "ludwig_tpu/ops/fused_lc.py:63")):
+             "ludwig_tpu/ops/fused_lc.py:63"),
+            ("droplet_phi_q_force_step", SOURCE_DROPLET,
+             "ludwig_tpu/ops/fused_droplet.py:39")):
         t = timed[name]
         bound_ms, bound_by = bound(t["nbytes"], t["nops"])
         # each main path was driven with the counts at 0 just before it
@@ -892,7 +1198,8 @@ def main():
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by,
             # no single PyTorch call computes a collide+stream, the
-            # binary order-parameter update or the Q-tensor update
+            # binary order-parameter update, the Q-tensor update or the
+            # coupled droplet update
             "library_ms": None,
             "copy_bound_ms": timed["copy_ms"] * t["nbytes"]
             / timed["copy_bytes"]})

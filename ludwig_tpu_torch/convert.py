@@ -16,13 +16,15 @@ import torch
 
 from ludwig_tpu_torch.binary import GRADIENT, BinaryConfig
 from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE
+from ludwig_tpu_torch.fe.lc_droplet import LCDropletFE
 from ludwig_tpu_torch.fe.symmetric import SymmetricFE
 from ludwig_tpu_torch.lc import LCConfig
+from ludwig_tpu_torch.lc_droplet import LCDropletConfig
 from ludwig_tpu_torch.lb import DTYPES, LBConfig
 from ludwig_tpu_torch.ops.collide import RelaxationScheme
 
-# pad widths of the JAX package's fused binary and LC states (ops/fused.py
-# HX, HY for f; ops/fused_lc.py HX, HY for phi and q)
+# pad widths of the JAX package's fused binary, LC and droplet states
+# (ops/fused.py HX, HY for f; ops/fused_lc.py HX, HY for phi and q)
 _F_PAD = (1, 8)
 _PHI_PAD = (2, 8)
 
@@ -127,6 +129,20 @@ def lc_state_from_jax(fpad, qpad, u, device, dtype):
     return tuple(_tensor(a, device, dtype) for a in (f, q5, u))
 
 
+def _fields_of(x) -> dict:
+    """A dataclass's fields (or a dict) as a new dict."""
+    if isinstance(x, dict):
+        return dict(x)
+    return {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
+
+
+def _blue_phase_from_jax(fe) -> BluePhaseFE:
+    fe = _fields_of(fe)
+    _take_inactive(fe, {"zeta2": 0.0, "epsilon": 0.0,
+                        "e0": (0.0, 0.0, 0.0)}, "BluePhaseFE")
+    return BluePhaseFE(**fe)
+
+
 def lc_params_from_jax(lcfg_fields: dict, device="cuda") -> LCConfig:
     """LCConfig from the fields of a ludwig_tpu LCConfig, for example
     ``dataclasses.asdict(lcfg)``: "lb" the LBConfig's fields, "fe" the
@@ -135,12 +151,7 @@ def lc_params_from_jax(lcfg_fields: dict, device="cuda") -> LCConfig:
     Fields of features the port has not taken over must be at their
     inactive defaults."""
     fields = dict(lcfg_fields)
-    fe = fields.pop("fe")
-    if not isinstance(fe, dict):
-        fe = {f.name: getattr(fe, f.name) for f in dataclasses.fields(fe)}
-    fe = dict(fe)
-    _take_inactive(fe, {"zeta2": 0.0, "epsilon": 0.0,
-                        "e0": (0.0, 0.0, 0.0)}, "BluePhaseFE")
+    fe = _blue_phase_from_jax(fields.pop("fe"))
     _take_inactive(fields, {"gradient": GRADIENT, "hydrodynamics": True,
                             "wallspec": None, "anchoring": None,
                             "redshift_update": False, "noise_kt": 0.0},
@@ -149,5 +160,38 @@ def lc_params_from_jax(lcfg_fields: dict, device="cuda") -> LCConfig:
     # itself, and the noise seed matters only with noise
     for key in ("keep_grads", "noise_seed"):
         fields.pop(key, None)
-    return LCConfig(lb=_lb_from_jax(fields.pop("lb"), device),
-                    fe=BluePhaseFE(**fe), **fields)
+    return LCConfig(lb=_lb_from_jax(fields.pop("lb"), device), fe=fe,
+                    **fields)
+
+
+def droplet_state_from_jax(fpad, ppad, qpad, u, device, dtype):
+    """The JAX fused droplet state (fpad (nvel, X+2, Y+16, Z), ppad
+    (X+4, Y+16, Z), qpad (5, X+4, Y+16, Z), u (3, X, Y, Z)) as the port's
+    unpadded (f, phi, q5, u): the work of ops/fused.unpad_state,
+    ops/fused_binary.unpad_phi and ops/fused_lc.unpad_q, in numpy."""
+    f = _unpad_xy(np.asarray(fpad), *_F_PAD)
+    phi = _unpad_xy(np.asarray(ppad), *_PHI_PAD)
+    q5 = _unpad_xy(np.asarray(qpad), *_PHI_PAD)
+    u = np.asarray(u)
+    if (f.ndim != 4 or phi.shape != f.shape[1:]
+            or q5.shape != (5,) + phi.shape or u.shape != (3,) + phi.shape):
+        raise ValueError(f"inconsistent padded droplet state: f {f.shape}, "
+                         f"phi {phi.shape}, q {q5.shape}, u {u.shape}")
+    return tuple(_tensor(a, device, dtype) for a in (f, phi, q5, u))
+
+
+def droplet_params_from_jax(dcfg_fields: dict,
+                            device="cuda") -> LCDropletConfig:
+    """LCDropletConfig from the fields of a ludwig_tpu LCDropletConfig, for
+    example ``dataclasses.asdict(dcfg)``: "lb" the LBConfig's fields, "fe"
+    the droplet free energy's (its "symm" and "lc" the symmetric and
+    blue-phase free energies'; dicts or objects with those attributes),
+    the two mobilities, the advection order, the gradient stencil and the
+    force method.  What the port has not taken over raises, naming it."""
+    fields = dict(dcfg_fields)
+    fe = _fields_of(fields.pop("fe"))
+    symm = _fields_of(fe.pop("symm"))
+    symm = SymmetricFE(**{k: symm[k] for k in ("a", "b", "kappa")})
+    fe = LCDropletFE(symm=symm, lc=_blue_phase_from_jax(fe.pop("lc")), **fe)
+    return LCDropletConfig(lb=_lb_from_jax(fields.pop("lb"), device), fe=fe,
+                           **fields)

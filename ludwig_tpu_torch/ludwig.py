@@ -1,21 +1,22 @@
 """Top-level orchestration: run a simulation from a reference-format
 input file.
 
-PyTorch port of three slices of ludwig_tpu/ludwig.py (ref:
+PyTorch port of four slices of ludwig_tpu/ludwig.py (ref:
 src/ludwig.c:443 ludwig_run, src/main.c:30-46): the plain single fluid
 (`free_energy none`), the symmetric binary fluid (`free_energy
-symmetric`) and the blue-phase liquid crystal (`free_energy
-lc_blue_phase`), the last two on the periodic, stress-divergence,
-hydrodynamics-on route the JAX package's fused path accepts.  It parses
+symmetric`), the blue-phase liquid crystal (`free_energy lc_blue_phase`)
+and the liquid-crystal droplet (`free_energy lc_droplet`), the last three
+on the periodic, stress-divergence, hydrodynamics-on route the JAX
+package's fused path accepts.  It parses
 the same key-value input, builds the system without walls, Lees-Edwards
 planes, porous media or noise, runs the time loop on a device (the GPU
 unless the caller asks for the CPU) and writes the statistics blocks in
 the reference's formats.  `tpu_fused on` (or `interpret`) selects the
 fused steps: ops.fused.fused_step for the plain fluid,
-ops.fused_binary.make_fused_binary_step and
-ops.fused_lc.make_fused_lc_step (two kernels each, K1 and K2) for the
-binary fluid and the liquid crystal; the hand-written CUDA kernels on a
-GPU and their twins on the CPU.
+ops.fused_binary.make_fused_binary_step, ops.fused_lc.make_fused_lc_step
+and ops.fused_droplet.make_fused_droplet_step (two kernels each, K1 and
+K2) for the binary fluid, the liquid crystal and the droplet; the
+hand-written CUDA kernels on a GPU and their twins on the CPU.
 
 Every input key outside the slices raises NotImplementedError naming the
 key, unless it is set to its inactive default (`periodicity 1_1_1`,
@@ -38,9 +39,10 @@ from ludwig_tpu_torch import stats
 from ludwig_tpu_torch.binary import (GRADIENT, ORDERS, BinaryConfig,
                                      fe_fields, initial_binary,
                                      make_binary_step)
-from ludwig_tpu_torch import lc
+from ludwig_tpu_torch import lc, lc_droplet
 from ludwig_tpu_torch.fe import lc_init
 from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE
+from ludwig_tpu_torch.fe.lc_droplet import LCDropletFE
 from ludwig_tpu_torch.fe.symmetric import SymmetricFE
 from ludwig_tpu_torch.lb import (LBConfig, hydro_fields, initial_from_hydro,
                                  initial_rest, make_step)
@@ -48,6 +50,8 @@ from ludwig_tpu_torch.ops.collide import RelaxationScheme
 from ludwig_tpu_torch.ops.fused import fused_step
 from ludwig_tpu_torch.ops.fused_binary import (initial_fused_binary,
                                                make_fused_binary_step)
+from ludwig_tpu_torch.ops.fused_droplet import (initial_fused_droplet,
+                                                make_fused_droplet_step)
 from ludwig_tpu_torch.ops.fused_lc import initial_fused_lc, make_fused_lc_step
 from ludwig_tpu_torch.ref_rng import spinodal_ref
 from ludwig_tpu_torch.runtime import RunTime
@@ -90,9 +94,21 @@ LC_KEYS = frozenset((
     # read by features that are off here (the electric field, the noise)
     "lc_dielectric_anisotropy", "random_seed"))
 
+# keys the droplet slice reads (free_energy lc_droplet only)
+DROPLET_KEYS = frozenset((
+    "A", "B", "K", "symmetric_a", "symmetric_b", "symmetric_kappa",
+    "phi_initialisation", "phi0", "random_seed", "noise",
+    "phi_init_drop_radius", "phi_init_drop_amplitude",
+    "phi_init_drop_centred", "phi_init_block_dimension", "mobility",
+    "lc_a0", "lc_gamma", "lc_q0", "lc_kappa0", "lc_kappa1", "lc_xi",
+    "lc_Gamma", "lc_init_redshift", "lc_q_initialisation",
+    "lc_q_init_amplitude", "lc_init_nematic", "lc_droplet_gamma",
+    "lc_droplet_delta", "lc_droplet_W", "fd_advection_scheme_order",
+    "fd_gradient_calculation", "fe_force_method"))
+
 # free energy -> the keys it reads beside SLICE_KEYS
 FREE_ENERGIES = {"none": frozenset(), "symmetric": BINARY_KEYS,
-                 "lc_blue_phase": LC_KEYS}
+                 "lc_blue_phase": LC_KEYS, "lc_droplet": DROPLET_KEYS}
 
 # keys of features outside the slices, accepted while they leave them off
 INACTIVE = {
@@ -147,13 +163,16 @@ class System:
 
     rt: RunTime
     lb_cfg: LBConfig
-    state: tuple          # (f,); binary (f, phi, u); LC (f, q5, u)
+    # (f,); binary (f, phi, u); LC (f, q5, u); droplet (f, phi, q5, u)
+    state: tuple
     step_fn: object
-    # 'plain': fused collide+stream; 'binary', 'lc': their two kernels
+    # 'plain': fused collide+stream; 'binary', 'lc', 'droplet': their two
+    # kernels
     fused_mode: Optional[str] = None
     hydro_on: bool = True
     binary_cfg: Optional[BinaryConfig] = None
     lc_cfg: Optional[lc.LCConfig] = None
+    droplet_cfg: Optional[lc_droplet.LCDropletConfig] = None
 
 
 def _device(device) -> str:
@@ -310,14 +329,10 @@ def _binary_config(rt: RunTime, lb_cfg: LBConfig) -> BinaryConfig:
                         advection_order=order)
 
 
-def _lc_config(rt: RunTime, lb_cfg: LBConfig) -> lc.LCConfig:
-    """The `free_energy lc_blue_phase` configuration (ref: the
-    lc_blue_phase branch of ludwig_tpu build_system), limited to the
-    periodic, 7-point, hydrodynamics-on blue phase; noise, redshift
-    update and electric field are refused with the other inactive keys
-    (INACTIVE).  Anything else raises naming its key."""
-    active = rt.switch("lc_activity", False)
-    fe = BluePhaseFE(
+def _blue_phase_fe(rt: RunTime, active: bool) -> BluePhaseFE:
+    """The blue-phase free energy's parameters (ref: blue_phase_rt.c), the
+    active stress's zetas only where `active`."""
+    return BluePhaseFE(
         a0=rt.double_required("lc_a0"),
         gamma=rt.double_required("lc_gamma"),
         q0=rt.double_required("lc_q0"),
@@ -328,6 +343,15 @@ def _lc_config(rt: RunTime, lb_cfg: LBConfig) -> lc.LCConfig:
         zeta0=rt.double("lc_active_zeta0", 0.0) if active else 0.0,
         zeta1=(rt.double("lc_active_zeta", 0.0) or
                rt.double("lc_active_zeta1", 0.0)) if active else 0.0)
+
+
+def _lc_config(rt: RunTime, lb_cfg: LBConfig) -> lc.LCConfig:
+    """The `free_energy lc_blue_phase` configuration (ref: the
+    lc_blue_phase branch of ludwig_tpu build_system), limited to the
+    periodic, 7-point, hydrodynamics-on blue phase; noise, redshift
+    update and electric field are refused with the other inactive keys
+    (INACTIVE).  Anything else raises naming its key."""
+    fe = _blue_phase_fe(rt, active=rt.switch("lc_activity", False))
     gradient = rt.string("fd_gradient_calculation", lc.GRADIENT)
     order = rt.int("fd_advection_scheme_order", 1)
     if gradient != lc.GRADIENT:
@@ -368,6 +392,56 @@ def _q_init(rt: RunTime, size, fe: BluePhaseFE) -> np.ndarray:
         return lc_init.lc_init_active_nematic_q2d(
             size, amp, axis=0 if mode.endswith("x") else 1)
     raise ValueError(f"lc_q_initialisation '{mode}' not implemented")
+
+
+def _droplet_config(rt: RunTime,
+                    lb_cfg: LBConfig) -> lc_droplet.LCDropletConfig:
+    """The `free_energy lc_droplet` configuration (ref: the lc_droplet
+    branch of ludwig_tpu build_system, ludwig.py:1055-1080), limited to
+    what the JAX package's fused route accepts: periodic, no solid or
+    walls, stress-divergence force, 7-point gradients, advection order 1
+    or 2, hydrodynamics on.  Anything else raises naming its key."""
+    fe = LCDropletFE(symm=_symm_fe(rt), lc=_blue_phase_fe(rt, active=False),
+                     gamma0=rt.double_required("lc_droplet_gamma"),
+                     delta=rt.double_required("lc_droplet_delta"),
+                     w=rt.double("lc_droplet_W", 0.0))
+    gradient = rt.string("fd_gradient_calculation", lc_droplet.GRADIENT)
+    order = rt.int("fd_advection_scheme_order", 1)
+    method = rt.string("fe_force_method", lc_droplet.FORCE_METHOD)
+    if gradient != lc_droplet.GRADIENT:
+        raise _not_ported("fd_gradient_calculation", gradient)
+    if order not in lc_droplet.ORDERS:
+        raise _not_ported("fd_advection_scheme_order", order)
+    if method != lc_droplet.FORCE_METHOD:
+        raise _not_ported("fe_force_method", method)
+    if not rt.switch("hydrodynamics", True):
+        raise _not_ported("hydrodynamics", rt.string("hydrodynamics"))
+    return lc_droplet.LCDropletConfig(
+        lb=lb_cfg, fe=fe, mobility=rt.double("mobility", 0.05),
+        gamma=rt.double("lc_Gamma", 0.5), advection_order=order)
+
+
+def _droplet_q_init(rt: RunTime, size, fe: BluePhaseFE) -> np.ndarray:
+    """The droplet's own lc_q_initialisation modes (ref: ludwig_tpu
+    ludwig.py:1081-1098): twist/cholesteric, o8m, o2, random, nematic,
+    with no Euler angles."""
+    amp = rt.double("lc_q_init_amplitude", fe.amplitude0)
+    mode = rt.string("lc_q_initialisation", "nematic")
+    if mode.startswith("cholesteric") or mode == "twist":
+        axis = {"x": 0, "y": 1, "z": 2}[mode[-1]] if mode[-1] in "xyz" \
+            else 2
+        return lc_init.lc_init_twist(size, fe.q0, amp, axis=axis)
+    if mode == "o8m":
+        return lc_init.lc_init_o8m(size, fe.q0, amp)
+    if mode == "o2":
+        return lc_init.lc_init_o2(size, fe.q0, amp)
+    if mode == "random":
+        return lc_init.lc_init_random(size, amp)
+    if mode == "nematic":
+        return lc_init.lc_init_nematic(
+            size, amp, tuple(rt.double_vector("lc_init_nematic",
+                                              (1.0, 0.0, 0.0))))
+    raise ValueError(f"lc_q_initialisation '{mode}' for droplet")
 
 
 def _fused_request(rt: RunTime) -> bool:
@@ -424,6 +498,19 @@ def build_system(rt: RunTime, device="cuda") -> System:
                           fused_mode="lc", lc_cfg=lcfg)
         return System(rt=rt, lb_cfg=lb_cfg, state=lc.initial_lc(lcfg, q0),
                       step_fn=lc.make_lc_step(lcfg), lc_cfg=lcfg)
+    if rt.string("free_energy", "none") == "lc_droplet":
+        dcfg = _droplet_config(rt, lb_cfg)
+        phi0 = _phi_init(rt, size, dcfg.fe.symm)
+        q0 = _droplet_q_init(rt, size, dcfg.fe.lc)
+        if _fused_request(rt):
+            return System(rt=rt, lb_cfg=lb_cfg,
+                          state=initial_fused_droplet(dcfg, phi0, q0),
+                          step_fn=make_fused_droplet_step(dcfg),
+                          fused_mode="droplet", droplet_cfg=dcfg)
+        return System(rt=rt, lb_cfg=lb_cfg,
+                      state=lc_droplet.initial_droplet(dcfg, phi0, q0),
+                      step_fn=lc_droplet.make_droplet_step(dcfg),
+                      droplet_cfg=dcfg)
     f = _distribution_init(rt, lb_cfg)
     if _fused_request(rt):
         # production path: the fused collide+stream (kernel on a GPU,
@@ -443,11 +530,13 @@ def build_system(rt: RunTime, device="cuda") -> System:
 def _make_fast_stats_fn(sys_: System):
     """Plain-reduction statistics, as the fused path of the JAX package
     reports them: compute(state, u, prev=None) -> {rho, g, umm} and, for
-    the binary fluid, {phi, fed}, for the liquid crystal {q5, fe_lc}.
-    `prev` is the order parameter (phi or q5) before the last step."""
+    the binary fluid, {phi, fed}, for the liquid crystal {q5, fe_lc},
+    for the droplet {phi, q5, fed}.  `prev` is the order-parameter state
+    before the last step: (phi,), (q5,) or the droplet's (phi, q5)."""
     model = sys_.lb_cfg.model
     bcfg = sys_.binary_cfg
     lcfg = sys_.lc_cfg
+    dcfg = sys_.droplet_cfg
 
     def compute(state, u, prev=None):
         f = state[0]
@@ -462,7 +551,7 @@ def _make_fast_stats_fn(sys_: System):
             # _make_fast_stats_fn)
             phi = state[1]
             res["phi"] = stats.field_stats(phi)
-            fields = fe_fields(phi if prev is None else prev)
+            fields = fe_fields(phi if prev is None else prev[0])
             fields["phi"] = phi
             m = torch.mean(bcfg.fe.fed(fields))
             res["fed"] = (m, m)
@@ -471,12 +560,25 @@ def _make_fast_stats_fn(sys_: System):
             # the step, the updated Q in place of Q
             q5 = state[1]
             res["q5"] = [stats.field_stats(q5[n]) for n in range(5)]
-            fields = lc.lc_fields(q5 if prev is None else prev)
+            fields = lc.lc_fields(q5 if prev is None else prev[0])
             fields["q"] = q5
             bulk, grad = lcfg.fe.fed_bulk_grad(fields)
             res["fe_lc"] = (torch.sum(lcfg.fe.fed(fields)),
                             float(q5[0].numel()), torch.sum(bulk),
                             torch.sum(grad))
+        if dcfg is not None:
+            # [phi], [Qxx]..[Qyz] of the updated fields; [fed] with the
+            # gradients of the pre-step phi and Q, the updated fields in
+            # their place (ludwig_tpu ludwig.py _make_fast_stats_fn)
+            phi, q5 = state[1], state[2]
+            res["phi"] = stats.field_stats(phi)
+            res["q5"] = [stats.field_stats(q5[n]) for n in range(5)]
+            fields = lc_droplet.droplet_fields(
+                *((phi, q5) if prev is None else prev))
+            fields["phi"] = phi
+            fields["q"] = q5
+            m = torch.mean(dcfg.fe.fed(fields))
+            res["fed"] = (m, m)
         return res
 
     return compute
@@ -500,13 +602,17 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
     ludwig.c:961)."""
     res = stats_fn(sys_.state, u, prev)
     out.write(stats.format_rho_block(*res["rho"]))
+    # [phi], then [Qxx]..[Qyz], then [fed] or [fe] (ref: ludwig_tpu
+    # ludwig.py:2496-2500 for the droplet, which has all but [fe])
     if "phi" in res:
         out.write(stats.format_phi_line("phi", *res["phi"]))
-        out.write(stats.format_fed_block(tstep, *res["fed"]))
     if "q5" in res:
         for name, q_stats in zip(("Qxx", "Qxy", "Qxz", "Qyy", "Qyz"),
                                  res["q5"]):
             out.write(stats.format_phi_line(name, *q_stats))
+    if "fed" in res:
+        out.write(stats.format_fed_block(tstep, *res["fed"]))
+    if "fe_lc" in res:
         out.write(stats.format_fe_lc_block(tstep, *res["fe_lc"],
                                            sys_.lc_cfg.fe.redshift))
     g = res["g"]
@@ -550,16 +656,17 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
     for t in range(1, ncycles + 1):
         ts0 = time.time()
         # the steps return new tensors and never write their inputs, so
-        # the pre-step phi or Q of the [fed] / [fe] statistic is held by
-        # reference
+        # the pre-step order parameters of the [fed] / [fe] statistic
+        # (phi, Q, or the droplet's pair) are held by reference
         prev = None
-        if sys_.binary_cfg is not None or sys_.lc_cfg is not None:
-            prev = sys_.state[1]
-            if sys_.fused_mode in ("binary", "lc"):
+        if (sys_.binary_cfg is not None or sys_.lc_cfg is not None
+                or sys_.droplet_cfg is not None):
+            prev = sys_.state[1:-1]
+            if sys_.fused_mode in ("binary", "lc", "droplet"):
                 sys_.state = sys_.step_fn(sys_.state, t)
             else:
                 sys_.state, _rho = sys_.step_fn(sys_.state, t)
-            u = sys_.state[2]     # u rides at the tail of the state
+            u = sys_.state[-1]    # u rides at the tail of the state
         elif sys_.fused_mode == "plain":
             sys_.state = (sys_.step_fn(sys_.state[0], t),)
             u = None      # derived from f at statistics steps
@@ -607,8 +714,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m ludwig_tpu_torch",
         description="Run a lattice Boltzmann input file (plain fluid, "
-                    "symmetric binary fluid or blue-phase liquid "
-                    "crystal).")
+                    "symmetric binary fluid, blue-phase liquid crystal "
+                    "or liquid-crystal droplet).")
     ap.add_argument("input", nargs="?", default="input",
                     help="input file (default: ./input)")
     ap.add_argument("--device", default="cuda",

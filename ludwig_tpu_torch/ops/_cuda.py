@@ -5,8 +5,9 @@ shared libraries with a plain C interface under ``build/kernels/``
 inside the package, and ``ctypes`` loads them: ``csrc/fused_lb.cu`` once
 per velocity set (the collide+stream kernels), ``csrc/binary_phi.cu``
 once (the binary fluid's order-parameter kernel), ``csrc/lc_q.cu`` once
-(the liquid crystal's Q-tensor kernel).  Nothing is built or loaded when
-the module is imported, so the CPU tests import it freely.
+(the liquid crystal's Q-tensor kernel), ``csrc/droplet.cu`` once (the LC
+droplet's coupled phi + Q kernel).  Nothing is built or loaded when the
+module is imported, so the CPU tests import it freely.
 
 The per-site arithmetic reaches each kernel as straight-line C++
 generated from the port's own Python, traced with symbols instead of
@@ -14,7 +15,9 @@ tensors: the collision from ops/fused.py (``_relax_modes``,
 ``_assemble_eo`` and friends) and lattice.py's tables, the binary site
 update from ops/fused_binary.py (``_level1``, ``_binary_site``), the
 liquid-crystal site update from ops/fused_lc.py (``_level1``,
-``_lc_site``, which call fe/blue_phase.py's methods).  Kernel and twin
+``_lc_site``, which call fe/blue_phase.py's methods), the droplet's from
+ops/fused_droplet.py (``_fields``, ``_level1``, ``_droplet_site``, which
+call fe/lc_droplet.py's).  Kernel and twin
 therefore evaluate the same expression tree, with the same constants.
 
 Every launch adds one to the kernel's count in ``launches``; a caller can
@@ -41,6 +44,7 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc" / "fused_lb.cu"
 CSRC_BINARY = PKG_DIR / "csrc" / "binary_phi.cu"
 CSRC_LC = PKG_DIR / "csrc" / "lc_q.cu"
+CSRC_DROPLET = PKG_DIR / "csrc" / "droplet.cu"
 BUILD_DIR = PKG_DIR / "build" / "kernels"
 # -fmad=false: no mul+add contraction, so every kernel evaluates the
 # generated expression tree operation by operation, like the twin.  With
@@ -63,6 +67,7 @@ class LaunchCounts:
     fused_force_step: int = 0
     binary_phi_force_step: int = 0
     lc_q_force_step: int = 0
+    droplet_phi_q_force_step: int = 0
 
     def reset(self):
         for field in dataclasses.fields(self):
@@ -421,6 +426,140 @@ def generate_lc_header() -> str:
     return "\n".join(parts)
 
 
+DROPLET_BASE = ("a", "b", "kappa", "a0", "gamma", "q0", "kappa0", "kappa1",
+                "xi", "redshift", "gamma0", "delta", "w", "zeta0", "zeta1",
+                "be_gamma", "mobility")
+
+
+def _droplet_fe(base):
+    """An LCDropletFE whose parameters are the _Const of `base`."""
+    from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE
+    from ludwig_tpu_torch.fe.lc_droplet import LCDropletFE
+    from ludwig_tpu_torch.fe.symmetric import SymmetricFE
+
+    lc = BluePhaseFE(**{k: base[k] for k in ("a0", "gamma", "q0", "kappa0",
+                                             "kappa1", "xi", "redshift")})
+    return LCDropletFE(symm=SymmetricFE(base["a"], base["b"], base["kappa"]),
+                       lc=lc, **{k: base[k] for k in ("gamma0", "delta", "w",
+                                                      "zeta0", "zeta1")})
+
+
+def _loader(tr):
+    return lambda name, *args: tr.load(
+        f"{name}({', '.join(str(a) for a in args)})")
+
+
+def _droplet_site_trace(order: int, consts, base, fields_loaded=False):
+    """(trace, tail) of one site of the droplet update (_droplet_site).
+    The site's fields are computed from its P/Q loads, as the kernel
+    does, or with `fields_loaded` are loads themselves (the bound's
+    count: an implementation keeping level 1's fields does not redo
+    them)."""
+    from ludwig_tpu_torch.ops import fused_droplet as fd
+
+    tr = _Trace(consts, skip_exact=True)
+    load = _loader(tr)
+
+    def P(*o):
+        return load("P", *o)
+
+    def Q(n, *o):
+        return load("Q", n, *o)
+
+    def select(x, p, q):
+        return tr.op(f"sel({x.name}, {tr.lit(p)}, {tr.lit(q)})")
+
+    if fields_loaded:
+        F = {"phi": P(0, 0, 0),
+             "grad_phi": [load("GP", a) for a in range(3)],
+             "q": [Q(n, 0, 0, 0) for n in range(5)],
+             "grad_q": [[load("GQ", c, n) for n in range(5)]
+                        for c in range(3)],
+             "delsq_q": [load("DQ", n) for n in range(5)]}
+    else:
+        F = fd._fields(P, Q, dab=False)
+    phinew, qnew, force = fd._droplet_site(
+        F, P, Q, lambda *a: load("U", *a), lambda *a: load("MU", *a),
+        lambda *a: load("S", *a), lambda *a: load("H", *a), _droplet_fe(base),
+        base["be_gamma"], base["mobility"], order, select)
+    tail = [f"  out[{k}] = {v.name};"
+            for k, v in enumerate([phinew] + qnew + force)]
+    return tr, tail
+
+
+@functools.lru_cache(maxsize=None)
+def _droplet_trace():
+    """(level-1 trace, its tail, {order: (site trace, its tail)},
+    constants) of the droplet kernel.  The level-1 function loads
+    P(dx, dy, dz) (phi, 19-point footprint) and Q(n, dx, dy, dz) and
+    stores mu[0], pth[9] and h[9] of one site; the site functions (one per
+    advection order) load P, Q, U(a, ...), the neighbours' MU(...) and
+    S(a, b, ...) and the site's own H(b, c), and store out[0] = phi',
+    out[1..6) = q5', out[6..9) = the raw force.  The free energy is traced
+    with every parameter a _Const, so one build serves all parameters,
+    and the active stress is always added (an exact zero with both zetas
+    zero).  `constants` lists the table p.c[] in order, as _Const."""
+    from ludwig_tpu_torch.ops import fused_droplet as fd
+
+    base = {k: _Const.named(k) for k in DROPLET_BASE}
+    consts = {}
+    tr1 = _Trace(consts, skip_exact=True)
+    load = _loader(tr1)
+    F = fd._fields(lambda *o: load("P", *o), lambda *a: load("Q", *a))
+    mu, h, pth = fd._level1(F, _droplet_fe(base))
+    tail1 = [f"  mu[0] = {mu.name};"]
+    tail1 += [f"  pth[{3 * a + b}] = {pth[a][b].name};"
+              for a in range(3) for b in range(3)]
+    tail1 += [f"  h[{3 * a + b}] = {h[a][b].name};"
+              for a in range(3) for b in range(3)]
+    sites = {order: _droplet_site_trace(order, consts, base)
+             for order in (1, 2)}
+    table = [c for _k, c in sorted(consts.values(), key=lambda kc: kc[0])]
+    return tr1, tail1, sites, table
+
+
+def droplet_const_values(fe, be_gamma, mobility) -> list:
+    """The droplet kernel's constant table p.c[] for an LCDropletFE, the
+    rotational mobility and the phi mobility, folded in double like the
+    twin's Python."""
+    base = {k: float(getattr(fe.symm, k)) for k in ("a", "b", "kappa")}
+    base.update({k: float(getattr(fe.lc, k))
+                 for k in ("a0", "gamma", "q0", "kappa0", "kappa1", "xi",
+                           "redshift")})
+    base.update({k: float(getattr(fe, k))
+                 for k in ("gamma0", "delta", "w", "zeta0", "zeta1")})
+    base["be_gamma"], base["mobility"] = float(be_gamma), float(mobility)
+    return [c.fn(base) for c in _droplet_trace()[3]]
+
+
+def generate_droplet_header() -> str:
+    """droplet_generated.h: the constant table's size, droplet_level1 (mu,
+    stress and molecular field of one site) and droplet_site_o1 / _o2
+    (force, phi' and q5')."""
+    tr1, tail1, sites, table = _droplet_trace()
+    parts = ["// Generated by ludwig_tpu_torch/ops/_cuda.py from "
+             "ops/fused_droplet.py and fe/lc_droplet.py; do not edit.",
+             "#pragma once", f"#define DROPLET_NCONST {len(table)}",
+             "// p.c[k], folded on the host:"]
+    parts += [f"//   {k}: {c.key}" for k, c in enumerate(table)]
+    parts += ["template <typename T>", "struct DropletParams {",
+              "  T c[DROPLET_NCONST];", "};", ""]
+    parts.append("\n".join(
+        ["template <typename T, typename LP, typename LQ>",
+         "__device__ __forceinline__ void droplet_level1(const LP& P, "
+         "const LQ& Q, const DropletParams<T>& p, T* mu, T* pth, T* h) {"]
+        + tr1.lines + tail1 + ["}", ""]))
+    for order, (tr2, tail2) in sites.items():
+        parts.append("\n".join(
+            ["template <typename T, typename LP, typename LQ, typename LU, "
+             "typename LM, typename LS, typename LH>",
+             f"__device__ __forceinline__ void droplet_site_o{order}("
+             "const LP& P, const LQ& Q, const LU& U, const LM& MU, "
+             "const LS& S, const LH& H, const DropletParams<T>& p, T* out) {"]
+            + tr2.lines + tail2 + ["}", ""]))
+    return "\n".join(parts)
+
+
 def site_ops(kernel: str, nvel: int = 19, order: int = 2,
              delta: bool = True) -> int:
     """Distinct arithmetic operations per site and step the function
@@ -430,7 +569,10 @@ def site_ops(kernel: str, nvel: int = 19, order: int = 2,
     site update with level-1 values computed once per site
     (binary_phi_force_step), or the liquid-crystal update, likewise with
     one level-1 evaluation per site and the free energy in its factored
-    form (lc_q_force_step)."""
+    form (lc_q_force_step), or the droplet update, with one level-1
+    evaluation per site, the site's fields not recomputed, in the kernel
+    text's own term order: no factored form of the droplet free energy
+    is written (droplet_phi_q_force_step)."""
     if kernel in ("fused_step", "fusedn_step"):
         return _collide_trace(nvel, delta, True)[0].nops
     if kernel == "fused_force_step":
@@ -440,6 +582,11 @@ def site_ops(kernel: str, nvel: int = 19, order: int = 2,
     if kernel == "lc_q_force_step":
         tr1, _t1, tr2, _t2, _c = _lc_trace(factored=True)
         return tr1.nops + tr2.nops
+    if kernel == "droplet_phi_q_force_step":
+        tr2, _tail = _droplet_site_trace(
+            order, {}, {k: _Const.named(k) for k in DROPLET_BASE},
+            fields_loaded=True)
+        return _droplet_trace()[0].nops + tr2.nops
     raise ValueError(f"no operation count for {kernel}")
 
 
@@ -458,6 +605,7 @@ def _nvcc() -> str:
 
 BINARY_LIB = "binary_phi"
 LC_LIB = "lc_q"
+DROPLET_LIB = "droplet"
 
 
 def _lib_name(nvel: int) -> str:
@@ -505,6 +653,18 @@ def _bind_lc(path: Path):
     return lib
 
 
+def _bind_droplet(path: Path):
+    lib = ctypes.CDLL(str(path))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.lb_droplet_nconst.argtypes = []
+    lib.lb_droplet_nconst.restype = ci
+    lib.lb_droplet_phi_q_force.argtypes = [
+        ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci,
+        ctypes.POINTER(ctypes.c_double), vp, ci]
+    lib.lb_droplet_phi_q_force.restype = ci
+    return lib
+
+
 def _bind_binary(path: Path):
     lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -525,13 +685,15 @@ def _jobs() -> dict:
     jobs[BINARY_LIB] = (CSRC_BINARY, "binary_generated.h",
                         generate_binary_header, _bind_binary)
     jobs[LC_LIB] = (CSRC_LC, "lc_generated.h", generate_lc_header, _bind_lc)
+    jobs[DROPLET_LIB] = (CSRC_DROPLET, "droplet_generated.h",
+                         generate_droplet_header, _bind_droplet)
     return jobs
 
 
 def build(names=None) -> dict:
     """Compile (where not already built) and load the named kernel
     libraries, all of them by default: fused_lb_q<nvel> per velocity set,
-    binary_phi, lc_q.  The nvcc runs go in parallel, and each writes its
+    binary_phi, lc_q, droplet.  The nvcc runs go in parallel, and each writes its
     ptxas report (registers, spills) beside the library.  Returns
     {library name: path}."""
     jobs = _jobs()
@@ -693,6 +855,33 @@ def lc_q_force_step(q5: torch.Tensor, u: torch.Tensor, fe, be_gamma):
     _raise_on(rc, "lc_q_force_step")
     launches.lc_q_force_step += 1
     return q_out, force
+
+
+def droplet_phi_q_force_step(phi: torch.Tensor, q5: torch.Tensor,
+                             u: torch.Tensor, fe, be_gamma, mobility,
+                             order: int):
+    """Launch the droplet kernel; returns (phi', q5', raw force).  `fe` is
+    an LCDropletFE of Python floats; the caller (ops/fused_droplet.py) has
+    checked shapes, dtypes, contiguity and the order."""
+    _check_cuda_state(phi)
+    lib = _get_lib(DROPLET_LIB)
+    vals = droplet_const_values(fe, be_gamma, mobility)
+    if lib.lb_droplet_nconst() != len(vals):
+        raise RuntimeError(f"droplet library has {lib.lb_droplet_nconst()} "
+                           f"constants, the generator {len(vals)}")
+    par = (ctypes.c_double * len(vals))(*vals)
+    phi_out = torch.empty_like(phi)
+    q_out = torch.empty_like(q5)
+    force = torch.empty_like(u)
+    X, Y, Z = phi.shape
+    stream = torch.cuda.current_stream(phi.device).cuda_stream
+    rc = lib.lb_droplet_phi_q_force(
+        int(phi.dtype == torch.float64), order, phi.data_ptr(),
+        q5.data_ptr(), u.data_ptr(), phi_out.data_ptr(), q_out.data_ptr(),
+        force.data_ptr(), X, Y, Z, par, stream, phi.device.index)
+    _raise_on(rc, "droplet_phi_q_force_step")
+    launches.droplet_phi_q_force_step += 1
+    return phi_out, q_out, force
 
 
 def _window_sites(plan, halo: int) -> int:

@@ -41,3 +41,9 @@ def stress_divergence_force(pth: torch.Tensor) -> torch.Tensor:
             acc = d if acc is None else acc + d
         comps.append(-acc)
     return torch.stack(comps)
+
+
+def correct_momentum(force: torch.Tensor) -> torch.Tensor:
+    """The force (3, X, Y, Z) less its mean over the lattice, so that it
+    adds no net momentum (ref: hydro_correct_momentum)."""
+    return force - torch.mean(force, dim=(1, 2, 3), keepdim=True)

@@ -1,7 +1,8 @@
 """Finite-difference gradient stencils for order-parameter fields.
 
 PyTorch port of the 3d_7pt_fluid part of ludwig_tpu/ops/stencil.py (ref:
-src/gradient_3d_7pt_fluid.c).  Fields are (..., X, Y, Z) tensors; stencil
+src/gradient_3d_7pt_fluid.c) and of its d_a d_b stencil ``dab_7pt``.
+Fields are (..., X, Y, Z) tensors; stencil
 shifts are ``torch.roll`` (periodic).  ``gradient_ops`` selects a stencil
 by the reference's ``fd_gradient_calculation`` input string; the other
 stencils of the JAX package are not ported yet.
@@ -47,6 +48,30 @@ def delsq_7pt(phi: torch.Tensor) -> torch.Tensor:
             + _shift(phi, 0, 1, 0) + _shift(phi, 0, -1, 0)
             + _shift(phi, 0, 0, 1) + _shift(phi, 0, 0, -1)
             - 6.0 * phi)
+
+
+def dab_7pt(phi: torch.Tensor):
+    """Second-derivative tensor d_a d_b phi as a 3x3 list of tensors:
+    central second differences on the diagonal, cross differences of the
+    12 edge neighbours off it (ref: field_grad_scalar_dab).  The list is
+    symmetric: [b][a] is the same tensor as [a][b]."""
+    def sh(*s):
+        return _shift(phi, *s)
+
+    rows = [[None] * 3 for _ in range(3)]
+    offs = ((1, 0, 0), (0, 1, 0), (0, 0, 1))
+    for a in range(3):
+        oa = offs[a]
+        rows[a][a] = sh(*[-v for v in oa]) - 2.0 * phi + sh(*oa)
+        for b in range(a + 1, 3):
+            ob = offs[b]
+            pp = sh(*[-(oa[i] + ob[i]) for i in range(3)])
+            pm = sh(*[-(oa[i] - ob[i]) for i in range(3)])
+            mp = sh(*[(oa[i] - ob[i]) for i in range(3)])
+            mm = sh(*[(oa[i] + ob[i]) for i in range(3)])
+            rows[a][b] = 0.25 * (pp - pm - mp + mm)
+            rows[b][a] = rows[a][b]
+    return rows
 
 
 def gradient_ops(name: str):

@@ -4,7 +4,8 @@ PyTorch port of the plain-reduction part of ludwig_tpu/stats.py: the
 observables the fused production path of the JAX package reports
 (ludwig.py _make_fast_stats_fn: rho, momentum and velocity, [phi] and
 [fed] for the binary fluid, [Qxx]..[Qyz] and [fe] for the liquid
-crystal), computed with ordinary tensor reductions on the device.  The
+crystal, all three but [fe] for the LC droplet), computed with ordinary
+tensor reductions on the device.  The
 reference-ordered compensated scans of the golden-parity path
 (_compensated_stats, *_ref) are not ported yet; values agree with them
 to roundoff.

@@ -19,8 +19,9 @@ import torch
 
 from ludwig_tpu.ludwig import run_text as jrun_text
 from ludwig_tpu_torch.ludwig import run_text
-from test_ludwig_run import (BINARY_FUSED_INPUT, LC_FUSED_INPUT,
-                             PLAIN_FUSED_INPUT, PLAIN_INPUT, _stat_floats)
+from test_ludwig_run import (BINARY_FUSED_INPUT, DROPLET_FUSED_INPUT,
+                             LC_FUSED_INPUT, PLAIN_FUSED_INPUT, PLAIN_INPUT,
+                             _stat_floats)
 
 
 def _logs(jax_text, port_text):
@@ -113,6 +114,36 @@ def test_unported_lc_keys_raise(line):
                  out=io.StringIO(), device="cpu")
 
 
+@pytest.mark.parametrize("fused", ["on", "off"])
+def test_droplet_cli_matches_jax(fused):
+    """The droplet input on the fused route (the K1 + mean + K2 twins)
+    and on the unfused one, both against the JAX package's jnp droplet
+    path (test_ludwig_run.py:304 holds its Pallas route to that path at
+    the same tolerance); the [phi], [Qxx]..[Qyz] and [fed] lines, the
+    last with the gradients of the phi and Q before the step."""
+    jlog, log, sys_ = _logs(DROPLET_FUSED_INPUT,
+                            f"tpu_fused {fused}\n" + DROPLET_FUSED_INPUT)
+    assert sys_.fused_mode == ("droplet" if fused == "on" else None)
+    assert sys_.droplet_cfg is not None and "Completed cycle 4" in log
+    for tag in ("[phi]", "[Qxx]", "[Qyz]", "[fed]"):
+        assert log.count(tag) == jlog.count(tag) == 3
+    a, b = _stat_floats(jlog), _stat_floats(log)
+    assert a.size == b.size and a.size > 0
+    np.testing.assert_allclose(b, a, rtol=1e-9, atol=1e-11)
+
+
+@pytest.mark.parametrize("line", [
+    "fe_force_method relaxation_antisymmetric",
+    "fd_gradient_calculation 3d_27pt_fluid", "fd_advection_scheme_order 3",
+    "hydrodynamics off", "N_LE_plane 2", "boundary_walls 0_0_1",
+    "porous_media_file capillary", "lc_noise on", "temperature 0.001",
+    "lc_activity yes"])
+def test_unported_droplet_keys_raise(line):
+    with pytest.raises(NotImplementedError, match=line.split()[0]):
+        run_text("tpu_fused on\n" + DROPLET_FUSED_INPUT + line + "\n",
+                 out=io.StringIO(), device="cpu")
+
+
 def test_no_device_means_the_card():
     """Named or not, a CUDA device that is not there raises; nothing
     falls back to the CPU."""
@@ -124,6 +155,8 @@ def test_no_device_means_the_card():
         run_text(BINARY_FUSED_INPUT, out=io.StringIO(), device="cuda")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_text("tpu_fused on\n" + LC_FUSED_INPUT, out=io.StringIO())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_text("tpu_fused on\n" + DROPLET_FUSED_INPUT, out=io.StringIO())
 
 
 def test_fused_cli_matches_jax():
@@ -149,7 +182,7 @@ def test_plain_cli_matches_jax():
 
 
 @pytest.mark.parametrize("line", [
-    "free_energy lc_droplet", "free_energy fe_electro", "lc_noise on",
+    "free_energy brazovskii", "free_energy fe_electro", "lc_noise on",
     "lc_a0 0.01", "boundary_walls 1_0_0", "N_LE_plane 2",
     "temperature 0.001", "bogus_key_xyz 42", "periodicity 0_1_1"])
 def test_unported_keys_raise(line):
@@ -175,16 +208,18 @@ def test_inactive_defaults_accepted():
 
 def test_cli_runs_without_jax(tmp_path):
     """`python -m ludwig_tpu_torch input --device cpu` in a fresh
-    interpreter, for the plain, the binary and the liquid-crystal input:
-    all run, and neither JAX nor ludwig_tpu is imported."""
+    interpreter, for the plain, the binary, the liquid-crystal and the
+    droplet input: all run, and neither JAX nor ludwig_tpu is imported."""
     inp, inp_binary = tmp_path / "input", tmp_path / "input_binary"
-    inp_lc = tmp_path / "input_lc"
+    inp_lc, inp_drop = tmp_path / "input_lc", tmp_path / "input_droplet"
     inp.write_text("tpu_fused on\n" + PLAIN_INPUT)
     inp_binary.write_text("tpu_fused on\n" + BINARY_FUSED_INPUT)
     inp_lc.write_text("tpu_fused on\n" + LC_FUSED_INPUT)
+    inp_drop.write_text("tpu_fused on\n" + DROPLET_FUSED_INPUT)
     probe = textwrap.dedent(f"""
         import runpy, sys
-        for path in ({str(inp)!r}, {str(inp_binary)!r}, {str(inp_lc)!r}):
+        for path in ({str(inp)!r}, {str(inp_binary)!r}, {str(inp_lc)!r},
+                     {str(inp_drop)!r}):
             sys.argv = ["ludwig_tpu_torch", path, "--device", "cpu"]
             runpy.run_module("ludwig_tpu_torch", run_name="__main__")
         import ludwig_tpu_torch.ops._cuda, ludwig_tpu_torch.convert
@@ -201,4 +236,5 @@ def test_cli_runs_without_jax(tmp_path):
     assert "Completed cycle 5" in res.stdout
     assert "[fed]" in res.stdout and "Completed cycle 4" in res.stdout
     assert "[Qxx]" in res.stdout and "[fe]" in res.stdout
+    assert res.stdout.count("[Qyz]") == 3 + 3   # LC and droplet runs
     assert "NO_JAX_OK" in res.stdout

@@ -244,3 +244,62 @@ def test_factored_level1_is_the_twins_level1():
             for b in range(3):
                 tol = 1e-12 * float(w33[a][b].abs().max())
                 assert float((g33[a][b] - w33[a][b]).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("order", [1, 2])
+def test_generated_droplet_site_is_the_twin(order):
+    """droplet_level1 and droplet_site_o*: the device functions of
+    droplet_kernel, run on whole tensors with P/Q/U/MU/S/H as periodic
+    neighbour fetches, against the twin, with W and delta non-zero and
+    the active stress's zetas zero (the kernel adds that term always);
+    the constant table p.c[] is folded on the host as the launch folds
+    it."""
+    from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE
+    from ludwig_tpu_torch.fe.lc_droplet import LCDropletFE
+    from ludwig_tpu_torch.fe.symmetric import SymmetricFE
+    from ludwig_tpu_torch.ops import fused_droplet as fd
+
+    fe = LCDropletFE(
+        symm=SymmetricFE(-0.0625, 0.0625, 0.053),
+        lc=BluePhaseFE(a0=0.1, gamma=2.586, q0=0.19635, kappa0=0.01,
+                       kappa1=0.012, xi=0.7, redshift=0.93),
+        gamma0=2.586, delta=0.25, w=0.02)
+    rng = np.random.default_rng(7)
+    phi = torch.as_tensor(0.05 * rng.standard_normal(SHAPE))
+    q = torch.as_tensor(0.1 * rng.standard_normal((5,) + SHAPE))
+    u = torch.as_tensor(0.01 * rng.standard_normal((3,) + SHAPE))
+    header = _cuda.generate_droplet_header()
+    p = types.SimpleNamespace(c=_cuda.droplet_const_values(fe, 0.5, 0.05))
+    assert f"#define DROPLET_NCONST {len(p.c)}" in header
+
+    def at(x, *o):
+        return torch.roll(x, tuple(-v for v in o), (0, 1, 2))
+
+    def body(name):
+        m = re.search(name + r"\(.*?\{\n(.*?)\n\}", header, re.S)
+        return m.group(1).splitlines()
+
+    mu, pth, h, out = [None], [None] * 9, [None] * 9, [None] * 9
+    _exec_body(body("void droplet_level1"),
+               {"P": lambda *o: at(phi, *o),
+                "Q": lambda n, *o: at(q[n], *o), "p": p, "T": float,
+                "mu": mu, "pth": pth, "h": h})
+    _exec_body(body(f"void droplet_site_o{order}"),
+               {"P": lambda *o: at(phi, *o),
+                "Q": lambda n, *o: at(q[n], *o),
+                "U": lambda a, *o: at(u[a], *o),
+                "MU": lambda *o: at(mu[0], *o),
+                "S": lambda a, b, *o: at(pth[3 * a + b], *o),
+                "H": lambda b, c: h[3 * b + c], "p": p, "T": float,
+                "out": out, "sel": fd._where_pos})
+    want_phi, want_q, want_force = fd.droplet_phi_q_force_step(
+        phi, q, u, fe, 0.5, 0.05, order)
+    assert torch.equal(out[0], want_phi)
+    assert torch.equal(torch.stack(out[1:6]), want_q)
+    assert torch.equal(torch.stack(out[6:]), want_force)
+    # the bound's operation count: level 1 once and the site's fields
+    # kept, fewer than the kernel text's operations
+    tr1, _tail, sites, _table = _cuda._droplet_trace()
+    assert tr1.nops < _cuda.site_ops("droplet_phi_q_force_step",
+                                     order=order) < (
+        tr1.nops + sites[order][0].nops)

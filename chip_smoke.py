@@ -54,7 +54,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      before that the same input at 16x16x32 in f64 on the card against
      the CPU twins' log;
  15. at 128^3 and 256^3 f32: K1, K2, the mean subtraction and the whole
-     droplet step, kernel, twin and bound times.
+     droplet step, kernel, twin and bound times;
+ 16. the electrokinetic kernels against their twins at (16, 16, 128), an
+     odd-X (15, 16, 32) and 64^3, f32 and f64: sor_solve (f64 the same
+     stop and criterion, psi within 1e-12; f32 within 15 iterations and
+     2e-5), np_gradmu with and without advection (rho' and the force
+     within 2 ulp, fsum within 1e-12 / 1e-6 of sum |force|), the solid
+     fused_force_step (f64 bitwise, f32 within TOL, u on fluid sites);
+     then 3 chained electrokinetic steps through the kernels against 3
+     through the twins;
+ 17. the electrokinetic main path at full width: `free_energy fe_electro`
+     Gouy-Chapman D3Q19 128^3 f32 (the JAX package's perf_bench.py
+     electro bench) through run_text on the card, 20 cycles; one launch
+     of each kernel a cycle, each species' total conserved, [elc] ~ 0,
+     the SOR iteration counts; before that a 16x8x8 f64 input (the
+     reference route) on the card against the CPU's log;
+ 18. at 128^3 and 256^3 f32: sor_solve (a solve, an iteration, the
+     count), np_gradmu, the mean subtraction, the solid K2, the whole step
+     and its MLUPS, the FFT route's solve for context; twin and bound
+     times.
 
 Bounds: `bound_ms` is the larger of the bytes the function must move
 (each input read once, each output written once) over the H100 SXM's
@@ -92,6 +110,7 @@ SOURCE = "ludwig_tpu_torch/csrc/fused_lb.cu"
 SOURCE_BINARY = "ludwig_tpu_torch/csrc/binary_phi.cu"
 SOURCE_LC = "ludwig_tpu_torch/csrc/lc_q.cu"
 SOURCE_DROPLET = "ludwig_tpu_torch/csrc/droplet.cu"
+SOURCE_ELECTRO = "ludwig_tpu_torch/csrc/electro.cu"
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, published
 PEAK_F32_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 # f64: kernel and twin evaluate one expression tree operation by operation
@@ -1122,6 +1141,502 @@ def phase15(card, gen, copy_ms, copy_bytes):
     return res
 
 
+# the JAX package's Gouy-Chapman bench (perf_bench.py:86-110, shaped like
+# the reference's d3q19-elec serial-elec-gc1); no temperature key, so
+# beta = 3.0e4
+ELEC_EK = dict(valency=(1, -1), diffusivity=(0.01, 0.01), e=1.0, beta=3.0e4,
+               epsilon=3.3e3, rel_tol=1e-8, abs_tol=1e-15, max_its=10000,
+               solver="sor")
+ELEC_RHO_EL, ELEC_SIGMA = 1.04e-3, 3.125e-2
+ELEC_SIZE = (128, 128, 128)
+ELEC_CYCLES = 20
+ELEC_INPUT = f"""
+N_cycles {ELEC_CYCLES}
+freq_statistics 10
+freq_psi_resid 1
+viscosity 0.1
+free_energy fe_electro
+electrokinetics_z0 1
+electrokinetics_z1 -1
+electrokinetics_d0 0.01
+electrokinetics_d1 0.01
+electrokinetics_eunit 1.0
+electrokinetics_epsilon 3.3e3
+electrokinetics_init gouy_chapman
+electrokinetics_init_rho_el {ELEC_RHO_EL}
+electrokinetics_init_sigma {ELEC_SIGMA}
+electrokinetics_solver_type sor
+electrokinetics_rel_tol 1e-8
+electrokinetics_abs_tol 1e-15
+electrokinetics_maxits 10000
+electrokinetics_multisteps 1
+"""
+# what the tests hold the SOR kernel's inputs to (tests/test_fused_electro.py
+# :18-33): a loose tolerance, at most 500 iterations
+SOR_TEST_EK = dict(valency=(1, -1), diffusivity=(0.01, 0.0095), beta=3.0e-4,
+                   epsilon=3.3e3, rel_tol=1e-6, abs_tol=1e-7, max_its=500,
+                   solver="sor")
+# the JAX tests' shape, an odd X, and the main path's 128^3, where each
+# thread of the cooperative SOR grid walks several sites a half-sweep
+ELEC_SHAPES = ((16, 16, 128), (15, 16, 32), (64, 64, 64), (128, 128, 128))
+SOR_SITE_OPS = 16    # 6-neighbour sum, residual, update, res^2 and its sum
+NP_SITE_OPS = 120    # force 15, per species 3 faces x ~17 + divergence
+
+
+def elec_input(size, dtype):
+    return (f"size {size[0]}_{size[1]}_{size[2]}\ndtype {dtype}\n"
+            + ELEC_INPUT)
+
+
+def elec_cfg(size, dtype, device="cuda", **ek):
+    from ludwig_tpu_torch.electro import ElectroConfig
+    from ludwig_tpu_torch.electro_sim import ElectroSimConfig
+    lb = LBConfig(size=size, nvel=19, eta_shear=0.1, dtype=dtype,
+                  device=device)
+    return ElectroSimConfig(lb=lb, ek=ElectroConfig(**(ek or ELEC_EK)))
+
+
+def elec_state(cfg):
+    """The Gouy-Chapman initial state on the configuration's device and
+    its wall mask."""
+    from ludwig_tpu_torch import electro_sim as es
+    psi0, rho0, boundary = es.init_gouy_chapman(cfg.lb.size, ELEC_RHO_EL,
+                                                ELEC_SIGMA)
+    rho0 = es.electroneutral(rho0, cfg.ek.valency, boundary)
+    state = es.initial_electro(cfg, initial_rest(cfg.lb), psi0, rho0)
+    return state, torch.as_tensor(boundary, device=cfg.lb.device)
+
+
+def rand_elec(size, dtype, gen):
+    """tests/test_fused_electro.py:25-33's kind of fields, on the card."""
+    def rnd(shape, amp, base=0.0, uniform=False):
+        x = (torch.rand if uniform else torch.randn)(
+            shape, generator=gen, dtype=dtype, device="cuda")
+        return (base + amp * x).contiguous()
+    fluid = torch.ones(size, dtype=torch.bool, device="cuda")
+    fluid[0] = fluid[-1] = False
+    return (rnd(size, 1e-3), rnd((2,) + size, 1e-4, 1e-3, True),
+            rnd((3,) + size, 1e-3), fluid)
+
+
+def within_ulps(a, b, n):
+    """|a - b| <= n units in the last place of b, everywhere."""
+    spacing = torch.finfo(b.dtype).eps * b.abs().clamp_min(
+        torch.finfo(b.dtype).tiny)
+    return bool(((a - b).abs() <= n * spacing).all())
+
+
+def hold_sor(what, k, t):
+    """The SOR kernel's (psi, n, rnorm, which) held to its twin's: in
+    float64 the same stop, the same criterion and psi within 1e-12; in
+    float32 within 15 iterations and 2e-5 (tests/test_fused_electro.py).
+    Returns (psi's max_abs_err, the sites a thread walks a half-sweep)."""
+    torch.cuda.synchronize()
+    kn, tn, kw, tw = int(k[1]), int(t[1]), int(k[3]), int(t[3])
+    err = max_err(k[0], t[0])
+    if k[0].dtype == torch.float64:
+        ok = kn == tn and kw == tw and err <= 1e-12
+    else:
+        ok = abs(kn - tn) <= 15 and err <= 2e-5
+    if not ok:
+        raise AssertionError(f"sor_solve {what}: n {kn}/{tn} which {kw}/{tw}"
+                             f" psi err {err:.3e}")
+    grid = _cuda.sor_grid(k[0])
+    walks = -(-k[0].numel() // (grid * _cuda.ELECTRO_THREADS))
+    print(f"sor_solve {what}: n {kn} (twin {tn}), which {kw} (twin {tw}), "
+          f"rnorm {float(k[2]):.6e} (twin {float(t[2]):.6e}), psi "
+          f"max_abs_err {err:.3e} of max|psi| {float(t[0].abs().max()):.3e},"
+          f" bitwise {torch.equal(k[0], t[0])}; {grid} blocks, {walks} "
+          "sites a thread a half-sweep")
+    return err, walks
+
+
+def hold_np(what, a, b):
+    """The NP + grad-mu kernel's (rho', force, fsum) held to its twin's:
+    rho' and the raw force within 2 ulp (both call CUDA's exp), fsum
+    within 1e-12 (f64) / 1e-6 (f32) of the sum of |force| (a cancelling
+    sum in another order).  Returns the max_abs_err of rho' and force."""
+    torch.cuda.synchronize()
+    f64 = a[0].dtype == torch.float64
+    fs_tol = (1e-12 if f64 else 1e-6) * float(b[1].abs().sum())
+    fs_err = max_err(a[2], b[2])
+    if not (within_ulps(a[0], b[0], 2) and within_ulps(a[1], b[1], 2)
+            and fs_err <= fs_tol):
+        raise AssertionError(f"np_gradmu {what}: beyond 2 ulp or fsum "
+                             f"{fs_err:.3e} > {fs_tol:.3e}")
+    err = max(max_err(a[0], b[0]), max_err(a[1], b[1]))
+    same = [torch.equal(x, y) for x, y in zip(a[:2], b[:2])]
+    print(f"np_gradmu {what}: rho', force bitwise {same} (tolerance 2 ulp),"
+          f" max_abs_err {err:.3e}; fsum {fs_err:.3e} (tolerance "
+          f"{fs_tol:.3e})")
+    return err
+
+
+def hold_k2_solid(what, a, b, f0, solid):
+    """The solid collide+stream's (f', u, gw) held to its twin's: f' and
+    u on fluid sites by check_close, and bitwise in float64; gw, a sum
+    over the live links in another order, within 2 eps of the sum of
+    |f0|.  Returns the max_abs_err of f' and u."""
+    dtype = f0.dtype
+    fl3 = torch.logical_not(solid)[None]
+    err_f = check_close(f"fused_force_step_solid {what} f", a[0], b[0],
+                        dtype)
+    ua, ub = a[1] * fl3, b[1] * fl3
+    err_u = check_close(f"fused_force_step_solid {what} u", ua, ub, dtype)
+    gw_tol = torch.finfo(dtype).eps * 2.0 * float(f0.abs().sum())
+    err_g = max_err(a[2], b[2])
+    if dtype == torch.float64 and not (torch.equal(a[0], b[0])
+                                       and torch.equal(ua, ub)):
+        raise AssertionError(f"fused_force_step_solid {what}: not bitwise "
+                             "its twin")
+    if err_g > gw_tol:
+        raise AssertionError(f"fused_force_step_solid {what} gw err "
+                             f"{err_g:.3e} > {gw_tol:.3e}")
+    print(f"fused_force_step_solid {what}: f' bitwise "
+          f"{torch.equal(a[0], b[0])} (max_abs_err {err_f:.3e}), u on fluid "
+          f"sites bitwise {torch.equal(ua, ub)}, gw "
+          f"{[round(v, 9) for v in a[2].tolist()]} err {err_g:.3e} "
+          f"(tolerance {gw_tol:.3e})")
+    return max(err_f, err_u)
+
+
+def elec_chain_step(state, cfg, solid, sor, npg, k2):
+    """One step of the electrokinetic kernel route with the given SOR,
+    NP + grad-mu and solid collide+stream functions (kernels or twins):
+    electro_sim.make_electro_step's float32 route, written out so that
+    the kernels are chained in float64 too (the step takes the reference
+    route there) and so that the twins' step can be timed on the card."""
+    from ludwig_tpu_torch.electro import rho_elec
+    f, psi, rho, u, gwall = state
+    fluid = torch.logical_not(solid)
+    n_sites = float(psi.numel())
+    psi = sor(psi, rho_elec(rho, cfg.ek))[0]
+    rho, force, fsum = npg(psi, rho, u, fluid)
+    force = force - (fsum / n_sites)[:, None, None, None]
+    f, u, gw = k2(f, force, solid)
+    return f, psi, rho, u, gwall + gw
+
+
+def elec_routes(cfg, dt=1.0):
+    """{kernel, twin}: the three functions elec_chain_step takes; the SOR
+    functions return (psi', n, rnorm, which), the NP ones take a sub-step
+    of dt."""
+    from ludwig_tpu_torch.ops import fused_electro as fe
+    ek = cfg.ek
+    model, params = cfg.lb.model, cfg.lb.collision_params()
+    ez = [float(ek.e * v) for v in ek.valency]
+    z = [float(v) for v in ek.valency]
+    c = [-float(d) * 0.5 for d in ek.diffusivity]
+    kt_e = 1.0 / (ek.beta * ek.e)
+
+    def sor_twin(psi, rel):
+        X, _Y, Z = psi.shape
+        rhs = ((ek.e * ek.beta) * rel).to(psi.dtype).contiguous()
+        om = fe._omega_table_on(X, Z, ek.max_its, psi.dtype,
+                                str(psi.device))
+        return fe._sor_solve_plain(psi, rhs, om, ek.epsilon, ek.rel_tol,
+                                   ek.abs_tol, ek.max_its, True)
+
+    return {
+        "kernel": (lambda psi, rel: fe.sor_solve_fused(psi, rel, ek),
+                   lambda psi, rho, u, fl: fe.np_gradmu_fused(
+                       psi, rho, u, fl, cfg, dt),
+                   lambda f, force, solid: fused.fused_force_step(
+                       f, force, model, params, solid=solid)),
+        "twin": (sor_twin,
+                 lambda psi, rho, u, fl: fe._np_plain(
+                     psi, rho, u, fl, ez, z, c, kt_e, dt),
+                 lambda f, force, solid: fused._fused_force_step_plain(
+                     f, force, model, params, solid))}
+
+
+def phase16(gen):
+    phase("16 electrokinetic kernels vs plain twins")
+    from ludwig_tpu_torch import electro_sim as es
+    from ludwig_tpu_torch.electro import rho_elec
+    worst = {"sor_solve": 0.0, "np_gradmu": 0.0,
+             "fused_force_step_solid": 0.0}
+    most_walks = 0
+    for size in ELEC_SHAPES:
+        for dtype in ("float64", "float32"):
+            cfg = elec_cfg(size, dtype, **SOR_TEST_EK)
+            psi, rho, u, fluid = rand_elec(size, cfg.lb.tdtype, gen)
+            rel = rho_elec(rho, cfg.ek)
+            routes = elec_routes(cfg, dt=0.5)
+            kern, twin = routes["kernel"], routes["twin"]
+            err, walks = hold_sor(f"{size} {dtype}", kern[0](psi, rel),
+                                  twin[0](psi, rel))
+            worst["sor_solve"] = max(worst["sor_solve"], err)
+            most_walks = max(most_walks, walks)
+            for hydro in (True, False):
+                uu = u if hydro else None
+                err = hold_np(f"{size} {dtype} hydro {hydro}",
+                              kern[1](psi, rho, uu, fluid),
+                              twin[1](psi, rho, uu, fluid))
+                worst["np_gradmu"] = max(worst["np_gradmu"], err)
+    # the grid-stride walk, whose coordinates step with carries, is held
+    # only where a thread takes more than one site
+    if most_walks < 2:
+        raise AssertionError("no SOR check walked more than one site a "
+                             "thread")
+    # K2 solid: D3Q19 M10 with the Gouy-Chapman walls and an obstacle
+    for size in ELEC_SHAPES:
+        for dtype in ("float64", "float32"):
+            lb = LBConfig(size=size, nvel=19, eta_shear=0.1, dtype=dtype,
+                          device="cuda")
+            model, params = lb.model, lb.collision_params()
+            f0 = rand_state(lb, gen)
+            frc = (1e-4 * torch.randn((3,) + size, generator=gen,
+                                      dtype=lb.tdtype, device="cuda")
+                   ).contiguous()
+            solid = torch.zeros(size, dtype=torch.bool, device="cuda")
+            solid[0] = solid[-1] = True
+            solid[size[0] // 2, 3:6, size[2] // 4:size[2] // 2] = True
+            err = hold_k2_solid(
+                f"{size} {dtype}",
+                fused.fused_force_step(f0, frc, model, params, solid=solid),
+                fused._fused_force_step_plain(f0, frc, model, params, solid),
+                f0, solid)
+            worst["fused_force_step_solid"] = max(
+                worst["fused_force_step_solid"], err)
+    # three chained electrokinetic steps: in float32 the step the CLI runs
+    # on the card (kernels) against the same step on the CPU (twins); in
+    # float64, where the step takes the reference route, the kernels
+    # chained by hand against the twins
+    tol = {"float64": {"f": 1e-13, "psi": 1e-12, "rho": 1e-14, "u": 1e-13},
+           "float32": {"f": 1e-6, "psi": 2e-5, "rho": 1e-8, "u": 1e-6}}
+    size = (32, 16, 64)
+    for dtype in ("float64", "float32"):
+        cfg = elec_cfg(size, dtype)
+        a, solid = elec_state(cfg)
+        if dtype == "float32":
+            cfg_cpu = elec_cfg(size, dtype, device="cpu")
+            b, solid_cpu = elec_state(cfg_cpu)
+            step_a = es.make_electro_step(cfg, solid=solid)
+            step_b = es.make_electro_step(cfg_cpu, solid=solid_cpu)
+            for t in range(3):
+                a = step_a(a, t)[0]
+                b = step_b(b, t)[0]
+            b = tuple(x.to("cuda") for x in b)
+            how = "make_electro_step on cuda vs on the CPU"
+        else:
+            routes = elec_routes(cfg)
+            b = a
+            for _ in range(3):
+                a = elec_chain_step(a, cfg, solid, *routes["kernel"])
+                b = elec_chain_step(b, cfg, solid, *routes["twin"])
+            how = "kernels vs twins"
+        torch.cuda.synchronize()
+        fl3 = torch.logical_not(solid)[None]
+        for name, x, y in zip(("f", "psi", "rho", "u", "gwall"), a, b):
+            if name == "u":
+                x, y = x * fl3, y * fl3
+            err = max_err(x, y)
+            # gwall sums ~1e4 link terms of ~1/18 over the two walls, which
+            # cancel: 1e-14 (f64) / 1e-6 (f32) of the terms' total
+            links = 3 * 2 * 5 * size[1] * size[2] * 2.0 / 18.0
+            bound = (tol[dtype][name] if name != "gwall" else
+                     (1e-14 if dtype == "float64" else 1e-6) * links)
+            if not err <= bound:
+                raise AssertionError(f"electro step x3 {dtype} {name}: "
+                                     f"{err:.3e} > {bound:.3e}")
+            print(f"electro step x3 {size} {dtype} ({how}) {name} "
+                  f"max_abs_err {err:.3e} (tolerance {bound:.3e}) bitwise "
+                  f"{torch.equal(x, y)}")
+    return worst
+
+
+def phase17():
+    phase("17 electrokinetic main path: fe_electro Gouy-Chapman D3Q19 128^3 "
+          "f32, run_text on cuda")
+    small = elec_input((16, 8, 8), "float64").replace(
+        f"N_cycles {ELEC_CYCLES}", "N_cycles 4").replace(
+        "freq_statistics 10", "freq_statistics 2")
+    logs, sors = {}, {}
+    tags = ("[rho]", "[psi]", "[elc]", "[fed]", "[total", "[fluid", "[walls",
+            "[minimum", "[maximum")
+    for device in ("cuda", "cpu"):
+        out = io.StringIO()
+        run_text(small, out=out, device=device)
+        text = out.getvalue()
+        sors[device] = re.findall(r"converged to (\w+) tolerance\nSOR "
+                                  r"residual\s+\S+ at (\d+) iterations", text)
+        vals, loose = [], []
+        for line in text.splitlines():
+            if line.startswith(tags):
+                nums = [float(t) for t in line.split()
+                        if re.match(r"^-?\d", t)]
+                vals += nums
+                loose += [line.startswith(("[psi]", "[elc]")) and i == 0
+                          for i in range(len(nums))]
+        logs[device] = (torch.tensor(vals, dtype=torch.float64),
+                        torch.tensor(loose))
+    (a, loose), (b, _) = logs["cuda"], logs["cpu"]
+    # the [psi] and [elc] totals cancel to ~0: 1e-12 x sites x max|value|
+    scale = 1e-12 * 16 * 8 * 8 * float(b.abs().max())
+    if (a.numel() != b.numel() or sors["cuda"] != sors["cpu"]
+            or not torch.allclose(a[~loose], b[~loose], rtol=1e-9,
+                                  atol=1e-11)
+            or not torch.allclose(a[loose], b[loose], rtol=0, atol=scale)):
+        raise AssertionError("electro 16x8x8 f64: the card's log differs "
+                             "from the CPU's")
+    print(f"electro 16x8x8 f64 (reference route), 4 cycles: {a.numel()} "
+          "statistics floats on the card agree with the CPU's (rtol 1e-9, "
+          f"atol 1e-11; [psi]/[elc] totals atol {scale:.3e}), max |diff| "
+          f"{float((a - b).abs().max()):.3e}; SOR reports {sors['cuda']} "
+          "equal")
+    size = ELEC_SIZE
+    torch.cuda.synchronize()
+    _cuda.launches.reset()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    sys_ = run_text(elec_input(size, "float32"), out=log, device="cuda")
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = {"sor_solve": _cuda.launches.sor_solve,
+              "np_gradmu": _cuda.launches.np_gradmu,
+              "fused_force_step_solid": _cuda.launches.fused_force_step_solid}
+    text = log.getvalue()
+    if f"Completed cycle {ELEC_CYCLES}" not in text or not sys_.is_electro:
+        raise AssertionError("electro run_text did not complete its cycles")
+    for name, n in counts.items():
+        if n != ELEC_CYCLES:
+            raise AssertionError(f"{name} launched {n} times for "
+                                 f"{ELEC_CYCLES} cycles")
+    f, psi, rho, u, gwall = sys_.state
+    for name, x, shape in (("f", f, (19,) + size), ("psi", psi, size),
+                           ("rho", rho, (2,) + size), ("u", u, (3,) + size),
+                           ("gwall", gwall, (3,))):
+        if tuple(x.shape) != shape or x.dtype != torch.float32:
+            raise AssertionError(f"{name}: {tuple(x.shape)} {x.dtype}")
+        if not torch.isfinite(x).all():
+            raise AssertionError(f"{name} is not finite")
+    # each species' total is conserved by the flux form (f32 rounding of
+    # the site updates and of the printed sums: 1e-6 of the total); the
+    # net charge stays ~0 (1e-6 of the species' totals)
+    species = re.findall(r"\[rho\]\s+(\S+)\s+\S+\s+\S+\n", text)
+    totals = [[float(v) for v in species[k::2]] for k in range(2)]
+    for k, tk in enumerate(totals):
+        if len(tk) != 3 or max(tk) - min(tk) > 1e-6 * abs(tk[0]):
+            raise AssertionError(f"species {k} totals {tk} not conserved")
+    elc = [float(v) for v in re.findall(r"\[elc\]\s+(\S+)", text)]
+    if max(abs(v) for v in elc) > 1e-6 * (totals[0][0] + totals[1][0]):
+        raise AssertionError(f"[elc] totals {elc} not ~0")
+    iters = [int(v) for v in re.findall(r"at (\d+) iterations", text)]
+    if len(iters) != ELEC_CYCLES:
+        raise AssertionError(f"{len(iters)} SOR reports for {ELEC_CYCLES} "
+                             "cycles")
+    for line in text.splitlines():
+        if line.startswith(("[psi]", "[elc]", "[walls")):
+            print(line)
+    print(text[text.find("Timer statistics"):].strip())
+    print(f"electro run_text {size} x {ELEC_CYCLES} cycles: {cli_s:.2f} s "
+          f"wall (an SOR report and its read-back every cycle), SOR "
+          f"iterations per cycle {iters}, species totals {totals}, [elc] "
+          f"{elc}, launches {counts}")
+    return counts, iters
+
+
+def phase18(card, gen, copy_ms, copy_bytes):
+    phase(f"18 electrokinetic kernels held and timed at 128^3 and 256^3 "
+          f"D3Q19 f32 on {card}")
+    from ludwig_tpu_torch import electro_sim as es
+    from ludwig_tpu_torch.electro import poisson_fft, rho_elec
+    from ludwig_tpu_torch.ops import fused_electro as fe
+    res = {}
+    for size in (ELEC_SIZE, MAIN_SIZE):
+        cfg = elec_cfg(size, "float32")
+        ek = cfg.ek
+        model, params = cfg.lb.model, cfg.lb.collision_params()
+        nsite = size[0] * size[1] * size[2]
+        state, solid = elec_state(cfg)
+        # the CLI's step: no collision-time density
+        step = es.make_electro_step(cfg, solid=solid, return_rho_lb=False)
+        for t in range(2):       # a charged double layer, the fluid moving
+            state, _aux = step(state, t)
+        f, psi, rho, u, _gw = state
+        fluid = torch.logical_not(solid)
+        rel = rho_elec(rho, ek)
+        routes = elec_routes(cfg)
+
+        def report(name, ms, plain_ms, nbytes, nops, err, extra=""):
+            b_ms, b_by = bound(nbytes, nops)
+            copy_b = copy_ms * nbytes / copy_bytes
+            print(f"{name} {size[0]}^3: kernel {ms:.4f} ms, twin "
+                  f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                  f"{nbytes / nsite:.1f} B/site, {nops / nsite:.0f} "
+                  f"flop/site), {100 * b_ms / ms:.1f}% of it; copy bound "
+                  f"{copy_b:.4f} ms; max_abs_err vs twin {err:.3e}{extra} "
+                  f"[{card}]")
+            return dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
+                        nbytes=nbytes, nops=nops)
+
+        # each kernel held to its twin on the main path's state, by phase
+        # 16's rules.  SOR from the state's psi (warm start, as in a step)
+        k = fe.sor_solve_fused(psi, rel, ek)
+        err, _walks = hold_sor(f"{size[0]}^3 main-path state", k,
+                               routes["twin"][0](psi, rel))
+        n = int(k[1]) + 1
+        sor_ms = time_ms(lambda: fe.sor_solve_fused(psi, rel, ek), 20)
+        sor_twin = time_ms(lambda: routes["twin"][0](psi, rel), 2, warm=1)
+        # the function reads psi and rhs and writes psi once (12 B/site);
+        # a sweep that streams the fields from memory moves 24 B/site an
+        # iteration
+        sweep_ms = n * 1e3 * 24 * nsite / PEAK_BYTES_PER_S
+        r = report("sor_solve", sor_ms, sor_twin, 12 * nsite,
+                   SOR_SITE_OPS * n * nsite, err,
+                   f"; {n} iterations, {sor_ms / n:.4f} ms an iteration, "
+                   f"streaming-sweep bound {sweep_ms:.4f} ms")
+        fft_ms = time_ms(lambda: poisson_fft(rel / ek.e, ek), 20)
+        print(f"poisson_fft (torch.fft, context) {size[0]}^3: {fft_ms:.4f} "
+              f"ms a solve [{card}]")
+        res_size = {"sor_solve": r}
+        # NP + grad-mu, the mean subtraction, K2 solid
+        a = fe.np_gradmu_fused(psi, rho, u, fluid, cfg, 1.0)
+        err = hold_np(f"{size[0]}^3 main-path state hydro True", a,
+                      routes["twin"][1](psi, rho, u, fluid))
+        res_size["np_gradmu"] = report(
+            "np_gradmu (nk = 2, hydrodynamics)",
+            time_ms(lambda: fe.np_gradmu_fused(psi, rho, u, fluid, cfg, 1.0),
+                    20),
+            time_ms(lambda: routes["twin"][1](psi, rho, u, fluid), 3,
+                    warm=1), 45 * nsite, NP_SITE_OPS * nsite, err)
+        raw, fsum = a[1], a[2]
+        mean_ms = time_ms(lambda: raw - (fsum / float(nsite))[
+            :, None, None, None], 20)
+        report("momentum correction (force - fsum / nsites, PyTorch)",
+               mean_ms, mean_ms, 24 * nsite, 3 * nsite, 0.0)
+        frc = (raw - (fsum / float(nsite))[:, None, None, None]).contiguous()
+        err = hold_k2_solid(
+            f"{size[0]}^3 main-path state",
+            fused.fused_force_step(f, frc, model, params, solid=solid),
+            fused._fused_force_step_plain(f, frc, model, params, solid),
+            f, solid)
+        res_size["fused_force_step_solid"] = report(
+            "fused_force_step_solid (K2, D3Q19 M10)",
+            time_ms(lambda: fused.fused_force_step(f, frc, model, params,
+                                                   solid=solid), 20),
+            time_ms(lambda: fused._fused_force_step_plain(
+                f, frc, model, params, solid), 2, warm=1),
+            (2 * (19 + 3) * 4 + 1) * nsite,
+            nsite * _cuda.site_ops("fused_force_step"), err)
+        del a
+        step_ms = time_ms(lambda: step(state), 10)
+        twin_ms = time_ms(lambda: elec_chain_step(state, cfg, solid,
+                                                  *routes["twin"]), 1, warm=1)
+        parts = [res_size[k] for k in ("sor_solve", "np_gradmu",
+                                       "fused_force_step_solid")]
+        report("electro step (SOR + NP + mean + K2 + PyTorch glue; bound of "
+               "the three kernels)", step_ms, twin_ms,
+               sum(p["nbytes"] for p in parts), sum(p["nops"] for p in parts),
+               max(p["max_abs_err"] for p in parts))
+        print(f"electro step {size[0]}^3: {nsite / (step_ms * 1e3):.1f} MLUPS"
+              f" [{card}]")
+        if size == ELEC_SIZE:
+            res.update(res_size)
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -1137,8 +1652,9 @@ def main():
     t0 = time.perf_counter()
     built = _cuda.build()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
-    # what ptxas says of the liquid-crystal and droplet kernels
-    for lib in (_cuda.LC_LIB, _cuda.DROPLET_LIB):
+    # what ptxas says of the liquid-crystal, droplet and electrokinetic
+    # kernels
+    for lib in (_cuda.LC_LIB, _cuda.DROPLET_LIB, _cuda.ELECTRO_LIB):
         report = built[lib].with_suffix(".ptxas.txt").read_text()
         for line in report.splitlines():
             if ("registers" in line or "spill" in line
@@ -1172,6 +1688,9 @@ def main():
     worst.update(phase13(gen))
     by_path["droplet"] = phase14()
     timed.update(phase15(card, gen, timed["copy_ms"], timed["copy_bytes"]))
+    worst.update(phase16(gen))
+    by_path["electro"], _iters = phase17()
+    timed.update(phase18(card, gen, timed["copy_ms"], timed["copy_bytes"]))
     print(f"all phases passed ({time.perf_counter() - _T0:.1f} s)")
 
     kernels = []
@@ -1184,7 +1703,13 @@ def main():
             ("lc_q_force_step", SOURCE_LC,
              "ludwig_tpu/ops/fused_lc.py:63"),
             ("droplet_phi_q_force_step", SOURCE_DROPLET,
-             "ludwig_tpu/ops/fused_droplet.py:39")):
+             "ludwig_tpu/ops/fused_droplet.py:39"),
+            ("fused_force_step_solid", SOURCE,
+             "ludwig_tpu/ops/fused.py:1069 (with_solid)"),
+            ("sor_solve", SOURCE_ELECTRO,
+             "ludwig_tpu/ops/fused_electro.py:63"),
+            ("np_gradmu", SOURCE_ELECTRO,
+             "ludwig_tpu/ops/fused_electro.py:207")):
         t = timed[name]
         bound_ms, bound_by = bound(t["nbytes"], t["nops"])
         # each main path was driven with the counts at 0 just before it
@@ -1198,8 +1723,9 @@ def main():
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
             "bound_by": bound_by,
             # no single PyTorch call computes a collide+stream, the
-            # binary order-parameter update, the Q-tensor update or the
-            # coupled droplet update
+            # binary order-parameter update, the Q-tensor update, the
+            # coupled droplet update, an SOR solve or the Nernst-Planck
+            # face fluxes
             "library_ms": None,
             "copy_bound_ms": timed["copy_ms"] * t["nbytes"]
             / timed["copy_bytes"]})

@@ -2,11 +2,12 @@
 
 A second package beside the JAX one, which stays the reference.  Plain
 tensor code is PyTorch on a device (the GPU unless the caller asks for
-the CPU); the fused collide+stream kernels, the binary fluid's
-order-parameter kernel, the liquid crystal's Q-tensor kernel and the LC
-droplet's coupled phi + Q kernel are hand-written CUDA for Hopper
-(csrc/*.cu), each with a plain PyTorch twin that the CPU takes.  This
-package imports neither JAX nor ludwig_tpu.
+the CPU); the fused collide+stream kernels (with and without bounce-back
+on solid sites), the binary fluid's order-parameter kernel, the liquid
+crystal's Q-tensor kernel, the LC droplet's coupled phi + Q kernel and
+the electrokinetic SOR and Nernst-Planck kernels are hand-written CUDA
+for Hopper (csrc/*.cu), each with a plain PyTorch twin that the CPU
+takes.  This package imports neither JAX nor ludwig_tpu.
 """
 
 __version__ = "0.1.0"

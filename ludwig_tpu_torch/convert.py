@@ -15,6 +15,8 @@ import numpy as np
 import torch
 
 from ludwig_tpu_torch.binary import GRADIENT, BinaryConfig
+from ludwig_tpu_torch.electro import ElectroConfig
+from ludwig_tpu_torch.electro_sim import ElectroSimConfig
 from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE
 from ludwig_tpu_torch.fe.lc_droplet import LCDropletFE
 from ludwig_tpu_torch.fe.symmetric import SymmetricFE
@@ -195,3 +197,36 @@ def droplet_params_from_jax(dcfg_fields: dict,
     fe = LCDropletFE(symm=symm, lc=_blue_phase_from_jax(fe.pop("lc")), **fe)
     return LCDropletConfig(lb=_lb_from_jax(fields.pop("lb"), device), fe=fe,
                            **fields)
+
+
+def electro_state_from_jax(f, psi, rho, u, gwall, device, dtype):
+    """The JAX electrokinetic state (f (nvel, X, Y, Z), psi (X, Y, Z), rho
+    (nk, X, Y, Z), u (3, X, Y, Z), gwall (3,); none of it padded) as the
+    port's (f, psi, rho, u, gwall)."""
+    arrs = [np.array(a) for a in (f, psi, rho, u, gwall)]
+    f, psi, rho, u, gwall = arrs
+    if (f.ndim != 4 or psi.shape != f.shape[1:] or rho.ndim != 4
+            or rho.shape[1:] != psi.shape or u.shape != (3,) + psi.shape
+            or gwall.shape != (3,)):
+        raise ValueError(f"inconsistent electrokinetic state: "
+                         f"{[a.shape for a in arrs]}")
+    return tuple(_tensor(a, device, dtype) for a in arrs)
+
+
+def electro_params_from_jax(ecfg_fields: dict,
+                            device="cuda") -> ElectroSimConfig:
+    """ElectroSimConfig from the fields of a ludwig_tpu ElectroSimConfig,
+    for example ``dataclasses.asdict(ecfg)``: "lb" the LBConfig's fields,
+    "ek" the ElectroConfig's (a dict or an object with those fields), the
+    external field, the hydrodynamics switch and the NP stencil.  The
+    port's step is periodic: `periodic` must be all True."""
+    fields = dict(ecfg_fields)
+    ek = _fields_of(fields.pop("ek"))
+    for key in ("valency", "diffusivity"):
+        ek[key] = tuple(ek[key])
+    _take_inactive(fields, {"periodic": (True, True, True)},
+                   "ElectroSimConfig")
+    if "e0" in fields:
+        fields["e0"] = tuple(float(v) for v in fields["e0"])
+    return ElectroSimConfig(lb=_lb_from_jax(fields.pop("lb"), device),
+                            ek=ElectroConfig(**ek), **fields)

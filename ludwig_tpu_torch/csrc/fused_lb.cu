@@ -7,6 +7,10 @@
 //   fused_force_step_kernel  <- _fused_force_kernel (ops/fused.py:1069)
 //                               without its solid variant: one step with a
 //                               per-site force, writing u
+//   fused_force_step_solid_kernel <- the same kernel's `with_solid`
+//                               variant: half-way bounce-back on an
+//                               in-lattice solid mask, and the momentum
+//                               the links hand to the walls
 //
 // All compute f'_q(x) = C(f)_q(x - c_q): a local moment-space collision C
 // (M10/BGK/TRT through per-ghost rates, a body force, even/odd
@@ -47,14 +51,32 @@
 // the TPU kernel.  Bound: memory, (nvel + 3) values read and written per
 // site, 176 B for D3Q19 in f32, against ~3 flop/B of arithmetic.
 //
+// fused_force_step_solid_kernel: the same push with a uint8 solid mask
+// (the electrokinetic LB step's Gouy-Chapman walls).  The semantics are
+// those of collide(fluid_mask) + stream_bounce_back: a solid site keeps
+// its pre-collision values, unstreamed; a link whose pull source is solid
+// receives the receiver's own post-collision antipode value.  In push
+// form a fluid site's post-collision value C_q heads for x + c_q; if that
+// site is solid it comes back into the antipode -q at x instead (the same
+// value the pull form takes), and the wall receives -c_q C_q of momentum
+// per link (gw = -2 sum, as the TPU kernel accumulates it).  Every output
+// value is written once: by its fluid source, by its fluid receiver after
+// a bounce, or by the solid site itself.  u is written at every site, as
+// in the TPU kernel (solid sites' u is that of their own, discarded,
+// collision).  The wall momentum is summed per block and the partials
+// reduced in a fixed order by a one-block launch: no float atomics.
+// Bound: memory, (nvel + 3) values read and written per site plus the
+// mask byte, 177 B/site for D3Q19 in f32.
+//
 // Offsets are 64-bit: nvel*X*Y*Z passes 2^31 at 512^3.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "lb_generated.h"
+#include "reduce.cuh"
 
-constexpr int kThreads = 256;
+constexpr int kThreads = kReduceThreads;
 
 template <typename T>
 struct LBParams {
@@ -166,6 +188,70 @@ fused_force_step_kernel(const T* __restrict__ fin,
   for (int a = 0; a < 3; ++a) uout[a * nsite + s] = u[a];
 }
 
+template <typename T, int PROJ>
+__global__ void __launch_bounds__(kThreads)
+fused_force_step_solid_kernel(const T* __restrict__ fin,
+                              const T* __restrict__ force,
+                              const uint8_t* __restrict__ solid,
+                              T* __restrict__ fout, T* __restrict__ uout,
+                              T* __restrict__ part, int X, int Y, int Z,
+                              LBParams<T> p) {
+  __shared__ T sh[kThreads / 32 + 1];
+  const int64_t nsite = static_cast<int64_t>(X) * Y * Z;
+  const int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                    threadIdx.x;
+  T w[3] = {T(0), T(0), T(0)};   // momentum given to the walls, per axis
+  if (s < nsite) {
+    const int z = static_cast<int>(s % Z);
+    const int64_t r = s / Z;
+    const int y = static_cast<int>(r % Y);
+    const int x = static_cast<int>(r / Y);
+    T f[LB_NVEL];
+#pragma unroll
+    for (int q = 0; q < LB_NVEL; ++q) f[q] = fin[q * nsite + s];
+    const T fg[3] = {p.fx, p.fy, p.fz};
+    T fs[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const T v = force[a * nsite + s];
+      fs[a] = fg[a] != T(0) ? v + fg[a] : v;
+    }
+    const bool sol = solid[s] != 0;
+    auto emit = [&](int q, int cx, int cy, int cz, T v) {
+      if (sol) return;   // a solid site keeps its pre-collision values
+      const int64_t d =
+          (static_cast<int64_t>(wrap1(x + cx, X)) * Y + wrap1(y + cy, Y)) * Z +
+          wrap1(z + cz, Z);
+      if (!solid[d]) {
+        fout[q * nsite + d] = v;
+        return;
+      }
+      // bounced: back into the antipode here; the wall takes -c_q v
+      fout[lb_anti(q) * nsite + s] = v;
+      if (cx) w[0] = cx > 0 ? w[0] - v : w[0] + v;
+      if (cy) w[1] = cy > 0 ? w[1] - v : w[1] + v;
+      if (cz) w[2] = cz > 0 ? w[2] - v : w[2] + v;
+    };
+    T u[3];
+    if constexpr (PROJ) {
+      lb_collide_force_p1<T>(f, fs, p, emit, u);
+    } else {
+      lb_collide_force_p0<T>(f, fs, p, emit, u);
+    }
+    if (sol) {
+#pragma unroll
+      for (int q = 0; q < LB_NVEL; ++q) fout[q * nsite + s] = f[q];
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) uout[a * nsite + s] = u[a];
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const T b = block_sum_all(w[a], sh);
+    if (threadIdx.x == 0) part[a * gridDim.x + blockIdx.x] = b;
+  }
+}
+
 template <typename T, int DELTA, int PROJ>
 __global__ void __launch_bounds__(kThreads)
 fusedn_step_kernel(const T* __restrict__ fin, T* __restrict__ fout, int X,
@@ -267,6 +353,25 @@ static int launch_force_step(const void* fin, const void* force, void* fout,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int PROJ>
+static int launch_force_step_solid(const void* fin, const void* force,
+                                   const void* solid, void* fout, void* uout,
+                                   void* part, void* gw, int X, int Y, int Z,
+                                   const double* par, cudaStream_t stream) {
+  const int64_t nsite = static_cast<int64_t>(X) * Y * Z;
+  const int blocks = static_cast<int>((nsite + kThreads - 1) / kThreads);
+  fused_force_step_solid_kernel<T, PROJ><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(fin), static_cast<const T*>(force),
+      static_cast<const uint8_t*>(solid), static_cast<T*>(fout),
+      static_cast<T*>(uout), static_cast<T*>(part), X, Y, Z,
+      make_params<T>(par));
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  reduce_partials_kernel<T><<<1, kReduceThreads, 0, stream>>>(
+      static_cast<const T*>(part), blocks, 3, T(-2), static_cast<T*>(gw));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int DELTA, int PROJ>
 static int launch_stepn(const void* fin, void* fout, int X, int Y, int Z,
                         int nsteps, int BX, int BY, int BZ, void* scratch,
@@ -351,6 +456,33 @@ int lb_fused_force_step(int is_f64, int proj, const void* fin,
                                             par, s)
               : launch_force_step<float, 0>(fin, force, fout, uout, X, Y, Z,
                                             par, s);
+}
+
+int lb_force_step_blocks(long long nsite) {
+  return static_cast<int>((nsite + kThreads - 1) / kThreads);
+}
+
+int lb_fused_force_step_solid(int is_f64, int proj, const void* fin,
+                              const void* force, const void* solid,
+                              void* fout, void* uout, void* part, void* gw,
+                              int X, int Y, int Z, const double* par,
+                              void* stream, int device) {
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_f64) {
+    return proj ? launch_force_step_solid<double, 1>(
+                      fin, force, solid, fout, uout, part, gw, X, Y, Z, par, s)
+                : launch_force_step_solid<double, 0>(
+                      fin, force, solid, fout, uout, part, gw, X, Y, Z, par,
+                      s);
+  }
+  return proj ? launch_force_step_solid<float, 1>(fin, force, solid, fout,
+                                                  uout, part, gw, X, Y, Z,
+                                                  par, s)
+              : launch_force_step_solid<float, 0>(fin, force, solid, fout,
+                                                  uout, part, gw, X, Y, Z,
+                                                  par, s);
 }
 
 }  // extern "C"

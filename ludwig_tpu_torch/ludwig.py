@@ -1,22 +1,28 @@
 """Top-level orchestration: run a simulation from a reference-format
 input file.
 
-PyTorch port of four slices of ludwig_tpu/ludwig.py (ref:
+PyTorch port of five slices of ludwig_tpu/ludwig.py (ref:
 src/ludwig.c:443 ludwig_run, src/main.c:30-46): the plain single fluid
 (`free_energy none`), the symmetric binary fluid (`free_energy
 symmetric`), the blue-phase liquid crystal (`free_energy lc_blue_phase`)
-and the liquid-crystal droplet (`free_energy lc_droplet`), the last three
+and the liquid-crystal droplet (`free_energy lc_droplet`), those three
 on the periodic, stress-divergence, hydrodynamics-on route the JAX
-package's fused path accepts.  It parses
-the same key-value input, builds the system without walls, Lees-Edwards
-planes, porous media or noise, runs the time loop on a device (the GPU
-unless the caller asks for the CPU) and writes the statistics blocks in
-the reference's formats.  `tpu_fused on` (or `interpret`) selects the
-fused steps: ops.fused.fused_step for the plain fluid,
+package's fused path accepts, and electrokinetics without colloids
+(`free_energy fe_electro`: Gouy-Chapman walls, liquid junction or a
+uniform electrolyte).  It parses the same key-value input, builds the
+system without walls, Lees-Edwards planes, porous media or noise (the
+Gouy-Chapman walls are the electrokinetic initialisation's own), runs
+the time loop on a device (the GPU unless the caller asks for the CPU)
+and writes the statistics blocks in the reference's formats.
+`tpu_fused on` (or `interpret`) selects the fused steps:
+ops.fused.fused_step for the plain fluid,
 ops.fused_binary.make_fused_binary_step, ops.fused_lc.make_fused_lc_step
 and ops.fused_droplet.make_fused_droplet_step (two kernels each, K1 and
 K2) for the binary fluid, the liquid crystal and the droplet; the
-hand-written CUDA kernels on a GPU and their twins on the CPU.
+hand-written CUDA kernels on a GPU and their twins on the CPU.  The
+electrokinetic step picks its route by dtype, as the JAX package's
+does: float32 runs the SOR, Nernst-Planck and solid LB kernels,
+float64 the reference route (electro_sim.py).
 
 Every input key outside the slices raises NotImplementedError naming the
 key, unless it is set to its inactive default (`periodicity 1_1_1`,
@@ -39,7 +45,8 @@ from ludwig_tpu_torch import stats
 from ludwig_tpu_torch.binary import (GRADIENT, ORDERS, BinaryConfig,
                                      fe_fields, initial_binary,
                                      make_binary_step)
-from ludwig_tpu_torch import lc, lc_droplet
+from ludwig_tpu_torch import electro_sim, lc, lc_droplet
+from ludwig_tpu_torch.electro import ElectroConfig, fe_electro_fed, rho_elec
 from ludwig_tpu_torch.fe import lc_init
 from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE
 from ludwig_tpu_torch.fe.lc_droplet import LCDropletFE
@@ -106,9 +113,25 @@ DROPLET_KEYS = frozenset((
     "lc_droplet_delta", "lc_droplet_W", "fd_advection_scheme_order",
     "fd_gradient_calculation", "fe_force_method"))
 
+# keys the electrokinetic slice reads (free_energy fe_electro only);
+# temperature is the electrolyte's kT here, and the LB noise it would
+# drive stays off (isothermal_fluctuations is refused with the inactive
+# keys)
+ELECTRO_KEYS = frozenset((
+    "temperature", "electrokinetics_z0", "electrokinetics_z1",
+    "electrokinetics_d0", "electrokinetics_d1", "electrokinetics_eunit",
+    "electrokinetics_epsilon", "electrokinetics_solver_type",
+    "electrokinetics_rel_tol", "electrokinetics_abs_tol",
+    "electrokinetics_maxits", "electrokinetics_multisteps",
+    "electrokinetics_solver_stencil", "electric_e0",
+    "electrokinetics_init", "electrokinetics_init_rho_el",
+    "electrokinetics_init_sigma", "electrokinetics_init_delta_el",
+    "freq_psi_resid"))
+
 # free energy -> the keys it reads beside SLICE_KEYS
 FREE_ENERGIES = {"none": frozenset(), "symmetric": BINARY_KEYS,
-                 "lc_blue_phase": LC_KEYS, "lc_droplet": DROPLET_KEYS}
+                 "lc_blue_phase": LC_KEYS, "lc_droplet": DROPLET_KEYS,
+                 "fe_electro": ELECTRO_KEYS}
 
 # keys of features outside the slices, accepted while they leave them off
 INACTIVE = {
@@ -163,7 +186,8 @@ class System:
 
     rt: RunTime
     lb_cfg: LBConfig
-    # (f,); binary (f, phi, u); LC (f, q5, u); droplet (f, phi, q5, u)
+    # (f,); binary (f, phi, u); LC (f, q5, u); droplet (f, phi, q5, u);
+    # electrokinetics (f, psi, rho, u, gwall)
     state: tuple
     step_fn: object
     # 'plain': fused collide+stream; 'binary', 'lc', 'droplet': their two
@@ -173,6 +197,12 @@ class System:
     binary_cfg: Optional[BinaryConfig] = None
     lc_cfg: Optional[lc.LCConfig] = None
     droplet_cfg: Optional[lc_droplet.LCDropletConfig] = None
+    electro_cfg: Optional[electro_sim.ElectroSimConfig] = None
+    solid: Optional[torch.Tensor] = None     # in-lattice solid sites
+
+    @property
+    def is_electro(self) -> bool:
+        return self.electro_cfg is not None
 
 
 def _device(device) -> str:
@@ -444,6 +474,58 @@ def _droplet_q_init(rt: RunTime, size, fe: BluePhaseFE) -> np.ndarray:
     raise ValueError(f"lc_q_initialisation '{mode}' for droplet")
 
 
+def _electro_system(rt: RunTime, lb_cfg: LBConfig) -> System:
+    """The `free_energy fe_electro` system without colloids (ref: the
+    fe_electro branch of ludwig_tpu build_system, ludwig.py:1348-1465):
+    the electrolyte's parameters, the initial psi and charge densities
+    (the Gouy-Chapman walls become the solid mask), the counter-charge
+    that makes the fluid neutral, and make_electro_step."""
+    size = lb_cfg.size
+    kt = rt.double("temperature", 1.0 / 3.0e4)
+    ek = ElectroConfig(
+        valency=(rt.int("electrokinetics_z0", 1),
+                 rt.int("electrokinetics_z1", -1)),
+        diffusivity=(rt.double("electrokinetics_d0", 0.01),
+                     rt.double("electrokinetics_d1", 0.01)),
+        e=rt.double("electrokinetics_eunit", 1.0),
+        beta=1.0 / kt,
+        epsilon=rt.double("electrokinetics_epsilon", 3.3e3),
+        solver=rt.string("electrokinetics_solver_type", "sor"),
+        rel_tol=rt.double("electrokinetics_rel_tol", 1e-8),
+        abs_tol=rt.double("electrokinetics_abs_tol", 1e-15),
+        max_its=rt.int("electrokinetics_maxits", 10000),
+        multisteps=rt.int("electrokinetics_multisteps", 1))
+    mode = rt.string("electrokinetics_init", "uniform")
+    rho_el = rt.double("electrokinetics_init_rho_el", 0.0)
+    boundary = None
+    if mode == "gouy_chapman":
+        sigma = rt.double("electrokinetics_init_sigma", 0.0)
+        psi0, rho_k, boundary = electro_sim.init_gouy_chapman(size, rho_el,
+                                                              sigma)
+    elif mode == "liquid_junction":
+        delta_el = rt.double("electrokinetics_init_delta_el", 0.0)
+        psi0, rho_k = electro_sim.init_liquid_junction(size, rho_el,
+                                                       delta_el)
+    elif mode == "uniform":
+        psi0, rho_k = electro_sim.init_uniform(size, rho_el)
+    else:
+        raise ValueError(f"electrokinetics_init '{mode}'")
+    rho_k = electro_sim.electroneutral(rho_k, ek.valency, boundary)
+    ecfg = electro_sim.ElectroSimConfig(
+        lb=lb_cfg, ek=ek,
+        e0=tuple(rt.double_vector("electric_e0", (0.0, 0.0, 0.0))),
+        hydrodynamics=rt.switch("hydrodynamics", True),
+        stencil=rt.int("electrokinetics_solver_stencil", 7))
+    solid = (None if boundary is None
+             else torch.as_tensor(boundary, device=lb_cfg.device))
+    state = electro_sim.initial_electro(ecfg, _distribution_init(rt, lb_cfg),
+                                        psi0, rho_k)
+    return System(rt=rt, lb_cfg=lb_cfg, state=state,
+                  step_fn=electro_sim.make_electro_step(
+                      ecfg, solid=solid, return_rho_lb=False),
+                  hydro_on=ecfg.hydrodynamics, electro_cfg=ecfg, solid=solid)
+
+
 def _fused_request(rt: RunTime) -> bool:
     fused_req = rt.string("tpu_fused", "off")
     if fused_req not in ("on", "interpret", "off"):
@@ -511,6 +593,8 @@ def build_system(rt: RunTime, device="cuda") -> System:
                       state=lc_droplet.initial_droplet(dcfg, phi0, q0),
                       step_fn=lc_droplet.make_droplet_step(dcfg),
                       droplet_cfg=dcfg)
+    if rt.string("free_energy", "none") == "fe_electro":
+        return _electro_system(rt, lb_cfg)
     f = _distribution_init(rt, lb_cfg)
     if _fused_request(rt):
         # production path: the fused collide+stream (kernel on a GPU,
@@ -531,19 +615,38 @@ def _make_fast_stats_fn(sys_: System):
     """Plain-reduction statistics, as the fused path of the JAX package
     reports them: compute(state, u, prev=None) -> {rho, g, umm} and, for
     the binary fluid, {phi, fed}, for the liquid crystal {q5, fe_lc},
-    for the droplet {phi, q5, fed}.  `prev` is the order-parameter state
-    before the last step: (phi,), (q5,) or the droplet's (phi, q5)."""
+    for the droplet {phi, q5, fed}, for electrokinetics {psi3, rhok, elc,
+    fed} and, with solid sites, {gwall} (rho, g and umm then over the
+    fluid sites, as the JAX package's reference statistics take them).
+    `prev` is the order-parameter state before the last step: (phi,),
+    (q5,) or the droplet's (phi, q5)."""
     model = sys_.lb_cfg.model
     bcfg = sys_.binary_cfg
     lcfg = sys_.lc_cfg
     dcfg = sys_.droplet_cfg
+    ecfg = sys_.electro_cfg
+    mask = None if sys_.solid is None else torch.logical_not(sys_.solid)
 
     def compute(state, u, prev=None):
         f = state[0]
         rho, _g = hydro_fields(f, model)
-        res = {"rho": stats.field_stats(rho),
-               "g": stats.momentum_total_plain(f, model),
-               "umm": stats.velocity_minmax(u)}
+        res = {"rho": stats.field_stats(rho, mask),
+               "g": stats.momentum_total_plain(f, model, mask),
+               "umm": stats.velocity_minmax(u, mask)}
+        if ecfg is not None:
+            # ludwig_tpu ludwig.py:2127-2161
+            psi, rhok, gwall = state[1], state[2], state[4]
+            res["psi3"] = stats.total_min_max(psi)
+            res["rhok"] = [stats.total_min_max(rhok[k])
+                           for k in range(ecfg.ek.nk)]
+            res["elc"] = stats.total_min_max(rho_elec(rhok, ecfg.ek))
+            fed = fe_electro_fed(rhok, ecfg.ek, psi)
+            fluid = (torch.mean(fed) if mask is None
+                     else torch.sum(torch.where(mask, fed, 0.0))
+                     / torch.sum(mask))
+            res["fed"] = (torch.mean(fed), fluid)
+            if mask is not None:
+                res["gwall"] = gwall
         if bcfg is not None:
             # [phi] of the updated phi; [fed] with the reference's
             # stale-gradient convention: gradients of the phi before the
@@ -602,6 +705,16 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
     ludwig.c:961)."""
     res = stats_fn(sys_.state, u, prev)
     out.write(stats.format_rho_block(*res["rho"]))
+    if sys_.is_electro:
+        # ref: ludwig_tpu ludwig.py:2410-2434
+        def line(tag, tot, mn, mx):
+            out.write(f"[{tag}] {float(tot):14.7e} {float(mn):14.7e} "
+                      f"{float(mx):14.7e}\n")
+
+        line("psi", *res["psi3"])
+        for r in res["rhok"]:
+            line("rho", *r)
+        line("elc", *res["elc"])
     # [phi], then [Qxx]..[Qyz], then [fed] or [fe] (ref: ludwig_tpu
     # ludwig.py:2496-2500 for the droplet, which has all but [fe])
     if "phi" in res:
@@ -616,12 +729,27 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
         out.write(stats.format_fe_lc_block(tstep, *res["fe_lc"],
                                            sys_.lc_cfg.fe.redshift))
     g = res["g"]
-    out.write(stats.format_momentum_block(g, g))
+    if "gwall" in res:
+        gw = res["gwall"]
+        out.write(stats.format_momentum_block(
+            [g[a] + gw[a] for a in range(3)], g, gw))
+    else:
+        out.write(stats.format_momentum_block(g, g))
     if with_velocity:
         out.write(stats.format_velocity_block(*res["umm"]))
     if in_loop:
         out.write(f"\nCompleted cycle {tstep}\n")
     out.flush()
+
+
+def _sor_report(sor, multisteps: int, out):
+    """The three lines of the SOR solver's report (ref: psi_sor.c:263-292
+    prints the 0-based iteration index)."""
+    n, rnorm, which = (v.item() for v in sor)
+    kind = "absolute" if int(which) == 0 else "relative"
+    out.write(f"\nSOR solver converged to {kind} tolerance\n")
+    out.write(f"SOR residual {float(rnorm):14.7e} at {int(n)} iterations\n")
+    out.write(f"{multisteps} multisteps\n")
 
 
 def run_text(text: str, out=sys.stdout, device="cuda") -> System:
@@ -635,6 +763,9 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
     ncycles = rt.int("N_cycles", 0)
     freq = rt.int("freq_statistics", max(ncycles, 1))
     stats_fn = _make_fast_stats_fn(sys_)
+    # the SOR convergence report (ludwig_tpu ludwig.py:3157-3176)
+    sor_freq = (rt.int("freq_psi_resid", freq) if sys_.is_electro
+                and sys_.electro_cfg.ek.solver != "fft" else 0)
 
     out.write("\nInitial conditions.\n")
     u = torch.zeros((3,) + size, dtype=sys_.lb_cfg.tdtype,
@@ -667,6 +798,9 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
             else:
                 sys_.state, _rho = sys_.step_fn(sys_.state, t)
             u = sys_.state[-1]    # u rides at the tail of the state
+        elif sys_.is_electro:
+            sys_.state, (_none, sor) = sys_.step_fn(sys_.state, t)
+            u = sys_.state[3]
         elif sys_.fused_mode == "plain":
             sys_.state = (sys_.step_fn(sys_.state[0], t),)
             u = None      # derived from f at statistics steps
@@ -674,6 +808,8 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
             f, _rho, u = sys_.step_fn(sys_.state[0], t)
             sys_.state = (f,)
         _acc("step", time.time() - ts0)
+        if sor_freq and t % sor_freq == 0:
+            _sor_report(sor, sys_.electro_cfg.ek.multisteps, out)
         if t % freq == 0:
             ts0 = time.time()
             if u is None:
@@ -714,8 +850,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m ludwig_tpu_torch",
         description="Run a lattice Boltzmann input file (plain fluid, "
-                    "symmetric binary fluid, blue-phase liquid crystal "
-                    "or liquid-crystal droplet).")
+                    "symmetric binary fluid, blue-phase liquid crystal, "
+                    "liquid-crystal droplet or electrokinetics).")
     ap.add_argument("input", nargs="?", default="input",
                     help="input file (default: ./input)")
     ap.add_argument("--device", default="cuda",

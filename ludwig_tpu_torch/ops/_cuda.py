@@ -6,8 +6,10 @@ inside the package, and ``ctypes`` loads them: ``csrc/fused_lb.cu`` once
 per velocity set (the collide+stream kernels), ``csrc/binary_phi.cu``
 once (the binary fluid's order-parameter kernel), ``csrc/lc_q.cu`` once
 (the liquid crystal's Q-tensor kernel), ``csrc/droplet.cu`` once (the LC
-droplet's coupled phi + Q kernel).  Nothing is built or loaded when the
-module is imported, so the CPU tests import it freely.
+droplet's coupled phi + Q kernel), ``csrc/electro.cu`` once (the SOR
+Poisson solve and the Nernst-Planck + grad-mu kernel).  Nothing is built
+or loaded when the module is imported, so the CPU tests import it
+freely.
 
 The per-site arithmetic reaches each kernel as straight-line C++
 generated from the port's own Python, traced with symbols instead of
@@ -19,6 +21,9 @@ liquid-crystal site update from ops/fused_lc.py (``_level1``,
 ops/fused_droplet.py (``_fields``, ``_level1``, ``_droplet_site``, which
 call fe/lc_droplet.py's).  Kernel and twin
 therefore evaluate the same expression tree, with the same constants.
+The electrokinetic kernels and the solid variant's bounce-back are
+short stencils written in the .cu files, term for term the twins of
+ops/fused_electro.py and ops/fused.py.
 
 Every launch adds one to the kernel's count in ``launches``; a caller can
 reset the counts and read them back to see which kernels a run used.
@@ -45,6 +50,7 @@ CSRC = PKG_DIR / "csrc" / "fused_lb.cu"
 CSRC_BINARY = PKG_DIR / "csrc" / "binary_phi.cu"
 CSRC_LC = PKG_DIR / "csrc" / "lc_q.cu"
 CSRC_DROPLET = PKG_DIR / "csrc" / "droplet.cu"
+CSRC_ELECTRO = PKG_DIR / "csrc" / "electro.cu"
 BUILD_DIR = PKG_DIR / "build" / "kernels"
 # -fmad=false: no mul+add contraction, so every kernel evaluates the
 # generated expression tree operation by operation, like the twin.  With
@@ -68,6 +74,9 @@ class LaunchCounts:
     binary_phi_force_step: int = 0
     lc_q_force_step: int = 0
     droplet_phi_q_force_step: int = 0
+    fused_force_step_solid: int = 0
+    sor_solve: int = 0
+    np_gradmu: int = 0
 
     def reset(self):
         for field in dataclasses.fields(self):
@@ -289,7 +298,18 @@ def generate_header(nvel: int) -> str:
             parts.append(_collide_source(nvel, delta, projected))
     for projected in (False, True):
         parts.append(_collide_force_source(nvel, projected))
+    parts.append(_antipode_source(model))
     return "\n".join(parts)
+
+
+def _antipode_source(model) -> str:
+    """lb_anti(q): the index of the velocity -c_q, a chain of compile-time
+    comparisons that folds to a constant for a literal q."""
+    rev = [int(r) for r in model.reverse]
+    chain = "".join(f"q == {q} ? {r} : " for q, r in enumerate(rev[:-1]))
+    return "\n".join([
+        "__host__ __device__ __forceinline__ constexpr int lb_anti(int q) {",
+        f"  return {chain}{rev[-1]};", "}", ""])
 
 
 def _binary_trace(order: int, level1_once: bool = False):
@@ -606,6 +626,8 @@ def _nvcc() -> str:
 BINARY_LIB = "binary_phi"
 LC_LIB = "lc_q"
 DROPLET_LIB = "droplet"
+ELECTRO_LIB = "electro"
+ELECTRO_THREADS = 256    # threads a block of csrc/electro.cu (kReduceThreads)
 
 
 def _lib_name(nvel: int) -> str:
@@ -613,7 +635,9 @@ def _lib_name(nvel: int) -> str:
 
 
 def _lib_path(name: str, src: Path, header: str) -> Path:
-    key = hashlib.sha256((src.read_text() + header
+    shared = "".join(h.read_text()
+                     for h in sorted(src.parent.glob("*.cuh")))
+    key = hashlib.sha256((src.read_text() + shared + header
                           + " ".join(NVCC_FLAGS)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{key}.so"
 
@@ -636,6 +660,11 @@ def _bind_lb(path: Path, nvel: int):
     lib.lb_fused_force_step.argtypes = [ci, ci, vp, vp, vp, vp, ci, ci, ci,
                                         dp, vp, ci]
     lib.lb_fused_force_step.restype = ci
+    lib.lb_force_step_blocks.argtypes = [cll]
+    lib.lb_force_step_blocks.restype = ci
+    lib.lb_fused_force_step_solid.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp,
+                                              vp, ci, ci, ci, dp, vp, ci]
+    lib.lb_fused_force_step_solid.restype = ci
     if lib.lb_nvel() != nvel:
         raise RuntimeError(f"{path} was built for nvel={lib.lb_nvel()}")
     return lib
@@ -675,6 +704,24 @@ def _bind_binary(path: Path):
     return lib
 
 
+def _bind_electro(path: Path):
+    lib = ctypes.CDLL(str(path))
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    dp = ctypes.POINTER(ctypes.c_double)
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.lb_np_blocks.argtypes = [cll]
+    lib.lb_np_blocks.restype = ci
+    lib.lb_sor_grid.argtypes = [ci, ci, cll, ip]
+    lib.lb_sor_grid.restype = ci
+    lib.lb_sor_solve.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ci, dp, ip,
+                                 vp, ci]
+    lib.lb_sor_solve.restype = ci
+    lib.lb_np_gradmu.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci,
+                                 ci, ci, ci, dp, vp, ci]
+    lib.lb_np_gradmu.restype = ci
+    return lib
+
+
 def _jobs() -> dict:
     """library name -> (source, generated header's name, its generator,
     binder of the loaded library)."""
@@ -687,14 +734,17 @@ def _jobs() -> dict:
     jobs[LC_LIB] = (CSRC_LC, "lc_generated.h", generate_lc_header, _bind_lc)
     jobs[DROPLET_LIB] = (CSRC_DROPLET, "droplet_generated.h",
                          generate_droplet_header, _bind_droplet)
+    # hand-written throughout: no generated header
+    jobs[ELECTRO_LIB] = (CSRC_ELECTRO, None, lambda: "", _bind_electro)
     return jobs
 
 
 def build(names=None) -> dict:
     """Compile (where not already built) and load the named kernel
     libraries, all of them by default: fused_lb_q<nvel> per velocity set,
-    binary_phi, lc_q, droplet.  The nvcc runs go in parallel, and each writes its
-    ptxas report (registers, spills) beside the library.  Returns
+    binary_phi, lc_q, droplet, electro.  The nvcc runs go in parallel,
+    and each writes its ptxas report (registers, spills) beside the
+    library.  Returns
     {library name: path}."""
     jobs = _jobs()
     names = tuple(jobs) if names is None else tuple(names)
@@ -716,7 +766,8 @@ def build(names=None) -> dict:
             continue
         gen = BUILD_DIR / f"gen_{name}"
         gen.mkdir(exist_ok=True)
-        (gen / header_name).write_text(header)
+        if header_name is not None:
+            (gen / header_name).write_text(header)
         tmp = path.with_suffix(f".tmp{os.getpid()}")
         cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(gen), "-o", str(tmp),
                str(src)]
@@ -882,6 +933,110 @@ def droplet_phi_q_force_step(phi: torch.Tensor, q5: torch.Tensor,
     _raise_on(rc, "droplet_phi_q_force_step")
     launches.droplet_phi_q_force_step += 1
     return phi_out, q_out, force
+
+
+def fused_force_step_solid(f: torch.Tensor, force: torch.Tensor,
+                           solid: torch.Tensor, model, params):
+    """Launch the force-coupled collide+stream with bounce-back on the
+    bool mask `solid`, then the one-block sum of the wall momentum;
+    returns (f', u, gw).  The caller (ops/fused.py) has checked shapes,
+    dtypes and contiguity."""
+    _check_cuda_state(f)
+    lib = _lib(model.nvel)
+    proj, par = _kernel_params(model, params, True)
+    out = torch.empty_like(f)
+    u = torch.empty_like(force)
+    X, Y, Z = f.shape[1:]
+    blocks = lib.lb_force_step_blocks(X * Y * Z)
+    part = torch.empty(3 * blocks, dtype=f.dtype, device=f.device)
+    gw = torch.empty(3, dtype=f.dtype, device=f.device)
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    rc = lib.lb_fused_force_step_solid(
+        int(f.dtype == torch.float64), proj, f.data_ptr(), force.data_ptr(),
+        solid.view(torch.uint8).data_ptr(), out.data_ptr(), u.data_ptr(),
+        part.data_ptr(), gw.data_ptr(), X, Y, Z, par, stream,
+        f.device.index)
+    _raise_on(rc, "fused_force_step_solid")
+    launches.fused_force_step_solid += 1
+    return out, u, gw
+
+
+def sor_grid(psi: torch.Tensor) -> int:
+    """Blocks of the cooperative SOR launch for psi: one for each
+    ELECTRO_THREADS sites, capped at what the card keeps resident; each
+    thread then walks ceil(X*Y*Z / (ELECTRO_THREADS * grid)) sites a
+    half-sweep."""
+    lib = _get_lib(ELECTRO_LIB)
+    dev = psi.device.index
+    grid = ctypes.c_int()
+    rc = lib.lb_sor_grid(int(psi.dtype == torch.float64), dev, psi.numel(),
+                         ctypes.byref(grid))
+    if rc == -1:
+        raise RuntimeError(f"sor_solve needs a cooperative launch, which "
+                           f"{torch.cuda.get_device_name(dev)} lacks")
+    _raise_on(rc, "sor_solve grid query")
+    return grid.value
+
+
+def sor_solve(psi: torch.Tensor, rhs: torch.Tensor, om_tab: torch.Tensor,
+              eps: float, rel_tol: float, abs_tol: float, max_its: int,
+              zero_mean: bool):
+    """Launch the cooperative SOR kernel on a copy of psi; returns
+    (psi', n, rnorm, which) as ops/fused_electro.sor_solve_fused
+    documents.  The caller has checked shapes, dtypes and contiguity."""
+    _check_cuda_state(psi)
+    lib = _get_lib(ELECTRO_LIB)
+    is_f64 = int(psi.dtype == torch.float64)
+    X, Y, Z = psi.shape
+    dev = psi.device.index
+    grid = sor_grid(psi)
+    p0 = psi.clone()
+    p1 = torch.empty_like(psi)
+    part = torch.empty(5 * grid, dtype=psi.dtype, device=psi.device)
+    istats = torch.empty(2, dtype=torch.int32, device=psi.device)
+    rstats = torch.empty(1, dtype=psi.dtype, device=psi.device)
+    par = (ctypes.c_double * 5)(eps, 6.0 * eps, rel_tol, abs_tol, 0.995)
+    ipar = (ctypes.c_int * 7)(X, Y, Z, max_its, om_tab.shape[0],
+                              int(zero_mean), int(not is_f64))
+    stream = torch.cuda.current_stream(psi.device).cuda_stream
+    rc = lib.lb_sor_solve(is_f64, p0.data_ptr(), p1.data_ptr(),
+                          rhs.data_ptr(), om_tab.data_ptr(), part.data_ptr(),
+                          istats.data_ptr(), rstats.data_ptr(), grid,
+                          par, ipar, stream, dev)
+    _raise_on(rc, "sor_solve")
+    launches.sor_solve += 1
+    return p0, istats[0], rstats[0], istats[1]
+
+
+def np_gradmu(psi: torch.Tensor, rho: torch.Tensor, u, fluid: torch.Tensor,
+              ez, z, c, kt_e: float, dt: float):
+    """Launch the Nernst-Planck + grad-mu kernel, then the one-block sum
+    of the force; returns (rho', force, fsum).  ez, z, c are per-species
+    e z_k, z_k and -D_k/2; u is None without advection.  The caller
+    (ops/fused_electro.py) has checked shapes, dtypes, devices and the
+    int32 index range."""
+    _check_cuda_state(psi)
+    lib = _get_lib(ELECTRO_LIB)
+    X, Y, Z = psi.shape
+    nk = rho.shape[0]
+    blocks = lib.lb_np_blocks(X * Y * Z)
+    rho_out = torch.empty_like(rho)
+    force = torch.empty((3,) + tuple(psi.shape), dtype=psi.dtype,
+                        device=psi.device)
+    part = torch.empty(3 * blocks, dtype=psi.dtype, device=psi.device)
+    fsum = torch.empty(3, dtype=psi.dtype, device=psi.device)
+    vals = [kt_e, dt, *ez, *z, *c]
+    par = (ctypes.c_double * len(vals))(*vals)
+    stream = torch.cuda.current_stream(psi.device).cuda_stream
+    rc = lib.lb_np_gradmu(
+        int(psi.dtype == torch.float64), int(u is not None), psi.data_ptr(),
+        rho.data_ptr(), (psi if u is None else u).data_ptr(),
+        fluid.view(torch.uint8).data_ptr(), rho_out.data_ptr(),
+        force.data_ptr(), part.data_ptr(), fsum.data_ptr(), X, Y, Z, nk, par,
+        stream, psi.device.index)
+    _raise_on(rc, "np_gradmu")
+    launches.np_gradmu += 1
+    return rho_out, force, fsum
 
 
 def _window_sites(plan, halo: int) -> int:

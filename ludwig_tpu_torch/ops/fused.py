@@ -1,8 +1,8 @@
 """Fused collide + stream: one collision and one pull stream per pass.
 
 PyTorch port of ludwig_tpu/ops/fused.py.  The TPU kernels
-``_fused_kernel``, ``_fusedn_kernel`` and ``_fused_force_kernel`` (without
-its solid variant) become the hand-written CUDA kernels of
+``_fused_kernel``, ``_fusedn_kernel`` and ``_fused_force_kernel`` (with
+and without its solid variant) become the hand-written CUDA kernels of
 ``csrc/fused_lb.cu``; their plain PyTorch twins live here.
 Every public function takes the twin for a tensor on the CPU, launches
 the kernel for a tensor on a CUDA device, and raises on anything else.
@@ -31,6 +31,7 @@ import torch
 from ludwig_tpu_torch.lattice import LatticeModel, lb_model
 from ludwig_tpu_torch.ops import _cuda
 from ludwig_tpu_torch.ops.collide import CollisionParams, _triu_pairs
+from ludwig_tpu_torch.ops.stream import _roll3
 
 NSTEPS_MAX = 8   # deepest temporal blocking fusedn_step accepts
 
@@ -400,38 +401,82 @@ def _check_force(force: torch.Tensor, f: torch.Tensor):
 
 
 def _fused_force_step_plain(f: torch.Tensor, force: torch.Tensor,
-                            model: LatticeModel, params: CollisionParams):
+                            model: LatticeModel, params: CollisionParams,
+                            solid=None):
     """Twin of the force-coupled kernel: collide every site with its own
     Guo force in the increment form, pull-stream each assembled velocity
-    with torch.roll, and return the collision-time velocity u."""
+    with torch.roll, and return the collision-time velocity u.
+
+    With a bool `solid` mask, the TPU kernel's solid variant: a link whose
+    pull source is solid takes the receiver's own post-collision antipode
+    value, solid sites keep their pre-collision values, and gw = -2 sum
+    over live links of c_q times that value (the momentum handed to the
+    walls) comes back third, its per-site terms added in the order the
+    velocities are assembled."""
     fl = [f[q] for q in range(model.nvel)]
     out = [None] * model.nvel
     cvs = [tuple(int(c) for c in model.cv[q]) for q in range(model.nvel)]
+    post, order = [None] * model.nvel, []
 
     def emit(acc, q):
-        shift = cvs[q]
-        dims = tuple(d for d in range(3) if shift[d])
-        out[q] = (torch.roll(acc, tuple(shift[d] for d in dims), dims)
-                  if dims else acc)
+        if solid is None:
+            out[q] = _roll3(acc, cvs[q], 0)
+        else:
+            post[q] = acc
+            order.append(q)
 
     modes, u = _collide_mode_deltas(model, params, fl,
                                     force=[force[a] for a in range(3)])
     _assemble_eo_deltas(model, fl, modes, emit)
-    return torch.stack(out), torch.stack(u)
+    if solid is None:
+        return torch.stack(out), torch.stack(u)
+    anti, _par = _eo_tables(model)
+    fluid = torch.logical_not(solid)
+    zero = torch.zeros((), dtype=f.dtype, device=f.device)
+    wacc = [zero] * 3
+    for q in order:
+        ss = _roll3(solid, cvs[q], 0)       # the pull source is solid
+        bb = post[anti[q]]
+        out[q] = torch.where(solid, fl[q],
+                             torch.where(ss, bb, _roll3(post[q], cvs[q], 0)))
+        if any(cvs[q]):
+            lv = torch.where(torch.logical_and(ss, fluid), bb, zero)
+            for a, c in enumerate(cvs[q]):
+                if c:
+                    wacc[a] = wacc[a] + lv if c > 0 else wacc[a] - lv
+    gw = torch.stack([-2.0 * torch.sum(w) for w in wacc])
+    return torch.stack(out), torch.stack(u), gw
 
 
 def fused_force_step(f: torch.Tensor, force: torch.Tensor,
-                     model: LatticeModel, params: CollisionParams):
+                     model: LatticeModel, params: CollisionParams,
+                     solid=None):
     """(f', u): one fused collide+stream with a per-site body force
     (3, X, Y, Z), in the increment form.  u (3, X, Y, Z) is the
     collision-time hydrodynamic velocity (m_1 + F/2)/rho, taken before
-    streaming: the next order-parameter update's advection input.  The
-    solid (bounce-back) variant of the JAX package is not ported yet."""
+    streaming: the next order-parameter update's advection input.
+
+    `solid` is an optional bool mask (X, Y, Z) of in-lattice solid sites:
+    streaming then applies half-way bounce-back, solid sites keep their
+    pre-collision values (collide(fluid_mask) + ops.stream.
+    stream_bounce_back), and the call returns (f', u, gw) with gw (3,)
+    the momentum the links handed to the walls (ops.stream.
+    wall_momentum_transfer).  u is computed at solid sites too; only its
+    fluid sites mean anything."""
     _check_state(f, model)
     _check_force(force, f)
+    if solid is not None:
+        if (tuple(solid.shape) != tuple(f.shape[1:])
+                or solid.dtype != torch.bool or solid.device != f.device
+                or not solid.is_contiguous()):
+            raise ValueError(f"solid must be a contiguous bool mask "
+                             f"{tuple(f.shape[1:])} on {f.device}")
     if f.device.type == "cpu":
-        return _fused_force_step_plain(f, force, model, params)
+        return _fused_force_step_plain(f, force, model, params, solid)
     if f.device.type == "cuda":
+        if solid is not None:
+            return _cuda.fused_force_step_solid(f, force, solid, model,
+                                                params)
         return _cuda.fused_force_step(f, force, model, params)
     raise ValueError(f"no fused_force_step for device {f.device}")
 

@@ -85,6 +85,26 @@ def stream_bounce_back(f_post: torch.Tensor,
     return torch.where(solid[None], f_post, f_new)
 
 
+def wall_momentum_transfer(f_post: torch.Tensor, model: LatticeModel,
+                           solid: torch.Tensor) -> torch.Tensor:
+    """Net momentum given to the walls this step (for conservation stats).
+
+    Each bounced link p at fluid site r transfers 2 f*_p(r) c_p to the
+    solid (ref: src/wall.c:1279-1299 momentum accounting).
+    """
+    from ludwig_tpu_torch.ops.collide import unrolled_matvec
+
+    from_solid = solid_neighbour_masks(model, solid)
+    live = torch.logical_and(from_solid, torch.logical_not(solid)[None])
+    # link p at r pulls from solid: the outgoing f*_rev(p) hits the wall
+    f_out = f_post[torch.as_tensor(model.reverse, device=f_post.device)]
+    contrib = torch.where(live, f_out, torch.zeros((), dtype=f_post.dtype,
+                                                   device=f_post.device))
+    sums = [torch.sum(contrib[p]) for p in range(model.nvel)]
+    return -2.0 * torch.stack(unrolled_matvec(
+        model.cv.T.astype(np.float64), sums))
+
+
 def wall_solid_mask(shape, walls, dtype=bool):
     """Plane-wall solid mask: one solid plane at each face of a walled axis.
 

@@ -4,8 +4,10 @@ PyTorch port of the plain-reduction part of ludwig_tpu/stats.py: the
 observables the fused production path of the JAX package reports
 (ludwig.py _make_fast_stats_fn: rho, momentum and velocity, [phi] and
 [fed] for the binary fluid, [Qxx]..[Qyz] and [fe] for the liquid
-crystal, all three but [fe] for the LC droplet), computed with ordinary
-tensor reductions on the device.  The
+crystal, all three but [fe] for the LC droplet) and those of an
+electrokinetic run (rho, momentum and velocity over the fluid sites,
+[psi], [rho] per species, [elc]), computed with ordinary tensor
+reductions on the device.  The
 reference-ordered compensated scans of the golden-parity path
 (_compensated_stats, *_ref) are not ported yet; values agree with them
 to roundoff.
@@ -19,16 +21,36 @@ import torch
 from ludwig_tpu_torch.lattice import LatticeModel
 
 
-def field_stats(x: torch.Tensor):
-    """(total, mean, var, min, max) of a scalar field."""
-    m = torch.mean(x)
-    return (torch.sum(x), m, torch.mean(x * x) - m * m, torch.min(x),
-            torch.max(x))
+def field_stats(x: torch.Tensor, fluid_mask=None):
+    """(total, mean, var, min, max) of a scalar field, over the sites of
+    `fluid_mask` where one is given (var = E[x^2] - E[x]^2 as in the
+    reference's stats_distribution.c:62-115)."""
+    if fluid_mask is None:
+        m = torch.mean(x)
+        return (torch.sum(x), m, torch.mean(x * x) - m * m, torch.min(x),
+                torch.max(x))
+    xm = torch.where(fluid_mask, x, torch.zeros((), dtype=x.dtype,
+                                                device=x.device))
+    n = torch.sum(fluid_mask.to(x.dtype))
+    total = torch.sum(xm)
+    m = total / n
+    inf = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
+    return (total, m, torch.sum(xm * x) / n - m * m,
+            torch.min(torch.where(fluid_mask, x, inf)),
+            torch.max(torch.where(fluid_mask, x, -inf)))
 
 
-def momentum_total_plain(f: torch.Tensor, model: LatticeModel):
+def total_min_max(x: torch.Tensor):
+    """(total, min, max) of a field: the [psi], [rho] and [elc] lines of
+    an electrokinetic run (ref: psi_stats.c)."""
+    return torch.sum(x), torch.min(x), torch.max(x)
+
+
+def momentum_total_plain(f: torch.Tensor, model: LatticeModel,
+                         fluid_mask=None):
     """(3,) total momentum: a p-order fold of f_p c_pa per site, then a
-    plain (uncompensated) sum over the sites."""
+    plain (uncompensated) sum over the sites (the sites of `fluid_mask`
+    where one is given)."""
     cv = np.asarray(model.cv, np.float64)
     comps = []
     for a in range(3):
@@ -42,12 +64,19 @@ def momentum_total_plain(f: torch.Tensor, model: LatticeModel):
         if acc is None:   # 2-D models: no z links
             comps.append(torch.zeros((), dtype=f.dtype, device=f.device))
             continue
+        if fluid_mask is not None:
+            acc = torch.where(fluid_mask, acc, torch.zeros(
+                (), dtype=f.dtype, device=f.device))
         comps.append(torch.sum(acc))
     return torch.stack(comps)
 
 
-def velocity_minmax(u: torch.Tensor):
-    """Per-component (min, max) of a (3, X, Y, Z) velocity field."""
+def velocity_minmax(u: torch.Tensor, fluid_mask=None):
+    """Per-component (min, max) of a (3, X, Y, Z) velocity field; solid
+    sites count as u = 0 where `fluid_mask` is given."""
+    if fluid_mask is not None:
+        u = torch.where(fluid_mask[None], u, torch.zeros(
+            (), dtype=u.dtype, device=u.device))
     # the reference seeds the max accumulator with FLT_MIN (not
     # -FLT_MAX), so an all-non-positive component reports +1.1754944e-38
     # (ref: stats_velocity.c:76)

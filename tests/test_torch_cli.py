@@ -62,7 +62,9 @@ def test_binary_cli_unfused_route_matches_jax():
     "fd_advection_scheme_order 3", "fe_force_method phi_gradmu",
     "fd_gradient_calculation 3d_27pt_fluid", "hydrodynamics off",
     "phi_initialisation patches", "grad_mu 0.001_0_0",
-    "viscosity_model arrhenius", "boundary_walls 0_0_1"])
+    "viscosity_model arrhenius", "boundary_walls 0_0_1",
+    # kT of the electrolyte under fe_electro only
+    "temperature 0.001"])
 def test_unported_binary_keys_raise(line):
     with pytest.raises(NotImplementedError, match=line.split()[0]):
         run_text(BINARY_FUSED_INPUT + line + "\n", out=io.StringIO(),
@@ -144,6 +146,90 @@ def test_unported_droplet_keys_raise(line):
                  out=io.StringIO(), device="cpu")
 
 
+# a Gouy-Chapman double layer (ref: d3q19-elec serial-elec-gc1, the
+# JAX package's perf_bench.py:86-110 parameters) at 16x4x4, float64
+ELECTRO_INPUT = """
+N_cycles 6
+freq_statistics 3
+size 16_4_4
+viscosity 0.1
+dtype float64
+free_energy fe_electro
+electrokinetics_z0 1
+electrokinetics_z1 -1
+electrokinetics_d0 0.01
+electrokinetics_d1 0.01
+electrokinetics_eunit 1.0
+electrokinetics_epsilon 3.3e3
+temperature 3.33333333333e-5
+electrokinetics_init gouy_chapman
+electrokinetics_init_rho_el 1.04e-3
+electrokinetics_init_sigma 3.125e-2
+electrokinetics_solver_type sor
+electrokinetics_rel_tol 1e-8
+electrokinetics_abs_tol 1e-15
+electrokinetics_maxits 10000
+electrokinetics_multisteps 1
+"""
+ELECTRO_TAGS = ("[rho]", "[psi]", "[elc]", "[fed]", "[total", "[fluid",
+                "[walls", "[minimum", "[maximum")
+
+
+def _electro_floats(log):
+    """(floats, looser): the statistics floats of an electrokinetic log and
+    which of them are the [psi] and [elc] totals."""
+    vals, loose = [], []
+    for line in log.splitlines():
+        if line.startswith(ELECTRO_TAGS):
+            nums = [float(t) for t in line.split() if re.match(r"^-?\d", t)]
+            vals += nums
+            loose += [line.startswith(("[psi]", "[elc]")) and i == 0
+                      for i in range(len(nums))]
+    return np.array(vals), np.array(loose)
+
+
+@pytest.mark.parametrize("solver", ["sor", "fft"])
+def test_electro_cli_matches_jax(solver):
+    """The Gouy-Chapman input through both packages in float64 (the
+    reference route): every statistics float within rtol 1e-9 / atol
+    1e-11 but the [psi] and [elc] totals, sums of values of both signs
+    that cancel to ~0, held to 1e-12 x sites x max|value|; the SOR
+    reports equal in their iteration counts and criteria."""
+    text = ELECTRO_INPUT.replace("solver_type sor", f"solver_type {solver}")
+    jlog, log, sys_ = _logs(text, text)
+    assert sys_.is_electro and sys_.solid is not None
+    assert "Completed cycle 6" in log
+    for tag in ("[psi]", "[elc]", "[walls   ]", "[fed]"):
+        assert log.count(tag) == jlog.count(tag) == 3
+    assert log.count("[rho]") == jlog.count("[rho]") == 9
+    a, loose = _electro_floats(jlog)
+    b, _ = _electro_floats(log)
+    assert a.size == b.size and a.size > 0
+    np.testing.assert_allclose(b[~loose], a[~loose], rtol=1e-9, atol=1e-11)
+    scale = 16 * 4 * 4 * max(abs(v) for v in a)
+    np.testing.assert_allclose(b[loose], a[loose], rtol=0,
+                               atol=1e-12 * scale)
+
+    def sor(lg):
+        return re.findall(r"SOR solver converged to (\w+) tolerance\n"
+                          r"SOR residual\s+\S+ at (\d+) iterations\n"
+                          r"(\d+) multisteps", lg)
+
+    assert sor(log) == sor(jlog)
+    assert len(sor(log)) == (2 if solver == "sor" else 0)
+
+
+@pytest.mark.parametrize("line", [
+    "colloid_init input_one", "colloid_one_a0 2.3", "freq_psi 2",
+    "psi_io_format BINARY",
+    "isothermal_fluctuations on", "boundary_walls 0_0_1",
+    "porous_media_file capillary"])
+def test_unported_electro_keys_raise(line):
+    with pytest.raises(NotImplementedError, match=line.split()[0]):
+        run_text(ELECTRO_INPUT + line + "\n", out=io.StringIO(),
+                 device="cpu")
+
+
 def test_no_device_means_the_card():
     """Named or not, a CUDA device that is not there raises; nothing
     falls back to the CPU."""
@@ -157,6 +243,8 @@ def test_no_device_means_the_card():
         run_text("tpu_fused on\n" + LC_FUSED_INPUT, out=io.StringIO())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_text("tpu_fused on\n" + DROPLET_FUSED_INPUT, out=io.StringIO())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_text(ELECTRO_INPUT, out=io.StringIO())
 
 
 def test_fused_cli_matches_jax():
@@ -182,7 +270,8 @@ def test_plain_cli_matches_jax():
 
 
 @pytest.mark.parametrize("line", [
-    "free_energy brazovskii", "free_energy fe_electro", "lc_noise on",
+    "free_energy brazovskii", "free_energy fe_electro_symmetric",
+    "lc_noise on",
     "lc_a0 0.01", "boundary_walls 1_0_0", "N_LE_plane 2",
     "temperature 0.001", "bogus_key_xyz 42", "periodicity 0_1_1"])
 def test_unported_keys_raise(line):
@@ -208,10 +297,13 @@ def test_inactive_defaults_accepted():
 
 def test_cli_runs_without_jax(tmp_path):
     """`python -m ludwig_tpu_torch input --device cpu` in a fresh
-    interpreter, for the plain, the binary, the liquid-crystal and the
-    droplet input: all run, and neither JAX nor ludwig_tpu is imported."""
+    interpreter, for the plain, the binary, the liquid-crystal, the
+    droplet and the electrokinetic input: all run, and neither JAX nor
+    ludwig_tpu is imported."""
     inp, inp_binary = tmp_path / "input", tmp_path / "input_binary"
     inp_lc, inp_drop = tmp_path / "input_lc", tmp_path / "input_droplet"
+    inp_elec = tmp_path / "input_electro"
+    inp_elec.write_text(ELECTRO_INPUT)
     inp.write_text("tpu_fused on\n" + PLAIN_INPUT)
     inp_binary.write_text("tpu_fused on\n" + BINARY_FUSED_INPUT)
     inp_lc.write_text("tpu_fused on\n" + LC_FUSED_INPUT)
@@ -219,10 +311,11 @@ def test_cli_runs_without_jax(tmp_path):
     probe = textwrap.dedent(f"""
         import runpy, sys
         for path in ({str(inp)!r}, {str(inp_binary)!r}, {str(inp_lc)!r},
-                     {str(inp_drop)!r}):
+                     {str(inp_drop)!r}, {str(inp_elec)!r}):
             sys.argv = ["ludwig_tpu_torch", path, "--device", "cpu"]
             runpy.run_module("ludwig_tpu_torch", run_name="__main__")
         import ludwig_tpu_torch.ops._cuda, ludwig_tpu_torch.convert
+        import ludwig_tpu_torch.ops.fused_electro
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.")
                or m == "ludwig_tpu" or m.startswith("ludwig_tpu.")]
@@ -237,4 +330,5 @@ def test_cli_runs_without_jax(tmp_path):
     assert "[fed]" in res.stdout and "Completed cycle 4" in res.stdout
     assert "[Qxx]" in res.stdout and "[fe]" in res.stdout
     assert res.stdout.count("[Qyz]") == 3 + 3   # LC and droplet runs
+    assert res.stdout.count("[elc]") == 3 and "[walls   ]" in res.stdout
     assert "NO_JAX_OK" in res.stdout

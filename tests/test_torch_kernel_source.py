@@ -156,6 +156,19 @@ def test_header_declares_the_model():
         _cuda.build(("fused_lb_q9",))     # no kernel for D2Q9
 
 
+@pytest.mark.parametrize("nvel", [15, 19, 27])
+def test_header_antipode_table(nvel):
+    """lb_anti(q), the solid kernel's bounce-back target, is the model's
+    reverse table: evaluated here as the Python conditional chain it
+    spells."""
+    h = _cuda.generate_header(nvel)
+    expr = re.search(r"int lb_anti\(int q\) \{\n  return (.*);\n\}", h).group(1)
+    py = re.sub(r"q == (\d+) \? (\d+) :", r"\2 if q == \1 else", expr)
+    model = lb_model(nvel)
+    assert [eval(py, {"q": q}) for q in range(nvel)] == list(model.reverse)
+    assert (model.cv[model.reverse] == -model.cv).all()
+
+
 @pytest.mark.parametrize("extra", [
     {}, dict(zeta0=0.002, zeta1=0.01), dict(redshift=0.93)],
     ids=["passive", "active", "redshift"])

@@ -72,7 +72,28 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
  18. at 128^3 and 256^3 f32: sor_solve (a solve, an iteration, the
      count), np_gradmu, the mean subtraction, the solid K2, the whole step
      and its MLUPS, the FFT route's solve for context; twin and bound
-     times.
+     times;
+ 19. the fluctuating kernel fused_step with FusedNoise against its twin,
+     3 chained steps at step counters whose hash products wrap, over
+     velocity sets, M10 and TRT, both back-transform forms and both
+     dtypes; the reference-statistics scans (csrc/stats_ref.cu) bitwise
+     against their CPU twins at 16x16x32 and 64^3, with and without a
+     fluid mask;
+ 20. the fluctuating main path: a 16x16x32 f64 noise input on the card
+     against the CPU's log under `tpu_fused interpret` (the noise kernel,
+     as the JAX package runs its fused kernel in f64 only in interpret
+     mode; plain statistics, held to rtol 1e-9), and under `on` and `off`
+     (the KISS route both, as in the JAX package: torch on the card plus
+     the statistics scans, whose lines must be identical as text); then
+     D3Q19 256^3 f32 with isothermal
+     fluctuations (bench.py's flagship plus the noise keys of
+     tests/test_ludwig_run.py:423-435), `tpu_fused on`, 40 cycles through
+     run_text: 40 launches of the noise kernel, [rho] at the site count,
+     the kT block finite;
+ 21. at 256^3 f32: the noise kernel against the noiseless one, with its
+     bound and twin; the KISS route's step; one reference-statistics
+     block at 128^3 and 256^3; each scan kernel against its CPU twin's
+     time at 128^3 (the electrokinetic main path's size).
 
 Bounds: `bound_ms` is the larger of the bytes the function must move
 (each input read once, each output written once) over the H100 SXM's
@@ -87,6 +108,7 @@ There is no CPU path.
 
 import io
 import json
+import math
 import re
 import subprocess
 import sys
@@ -111,6 +133,7 @@ SOURCE_BINARY = "ludwig_tpu_torch/csrc/binary_phi.cu"
 SOURCE_LC = "ludwig_tpu_torch/csrc/lc_q.cu"
 SOURCE_DROPLET = "ludwig_tpu_torch/csrc/droplet.cu"
 SOURCE_ELECTRO = "ludwig_tpu_torch/csrc/electro.cu"
+SOURCE_STATS = "ludwig_tpu_torch/csrc/stats_ref.cu"
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3, published
 PEAK_F32_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 # f64: kernel and twin evaluate one expression tree operation by operation
@@ -733,7 +756,8 @@ def stat_floats(log):
     vals = []
     for line in log.splitlines():
         if line.startswith(("[rho]", "[phi]", "[Q", "[fe]", "[fed]",
-                            "[total", "[fluid", "[minimum", "[maximum")):
+                            "[total", "[fluid", "[minimum", "[maximum",
+                            "[eqipart.]", "[measd/kT]")):
             vals += [float(t) for t in line.split()
                      if re.match(r"^-?\d", t)]
     return torch.tensor(vals, dtype=torch.float64)
@@ -750,12 +774,27 @@ def phase11():
     logs = {}
     for device in ("cuda", "cpu"):
         out = io.StringIO()
+        torch.cuda.synchronize()
+        _cuda.launches.reset()
         run_text(small, out=out, device=device)
+        torch.cuda.synchronize()
+        if device == "cuda":
+            # `tpu_fused on` in f64 prints the reference statistics, as
+            # the JAX package does: the scans of csrc/stats_ref.cu
+            ref_counts = stat_scan_counts()
         logs[device] = stat_floats(out.getvalue())
     if logs["cuda"].numel() != logs["cpu"].numel() or not torch.allclose(
             logs["cuda"], logs["cpu"], rtol=1e-9, atol=1e-11):
         raise AssertionError("LC 16x16x32 f64: the card's statistics differ "
                              "from the CPU twins'")
+    # three blocks (t = 0, 2, 4): [rho], the momentum and five Q lines
+    want = {"seq_sum": 0, "field_stats_ref": 15, "rho_stats_ref": 3,
+            "momentum_total_ref": 3}
+    if ref_counts != want:
+        raise AssertionError(f"LC f64 reference statistics: scans "
+                             f"{ref_counts}, want {want}")
+    print(f"LC 16x16x32 f64 on the card: reference-statistics scans "
+          f"{ref_counts}")
     print(f"LC 16x16x32 f64, 4 cycles: {logs['cuda'].numel()} statistics "
           "floats on the card agree with the CPU twins' (rtol 1e-9, atol "
           f"1e-11), max |diff| "
@@ -804,7 +843,7 @@ def phase11():
               f"totals {fes}, launches {got}")
         if size == MAIN_SIZE:
             counts = got
-    return counts
+    return counts, ref_counts
 
 
 def phase12(card, gen, copy_ms, copy_bytes):
@@ -1496,6 +1535,7 @@ def phase17():
     counts = {"sor_solve": _cuda.launches.sor_solve,
               "np_gradmu": _cuda.launches.np_gradmu,
               "fused_force_step_solid": _cuda.launches.fused_force_step_solid}
+    scans = stat_scan_counts()
     text = log.getvalue()
     if f"Completed cycle {ELEC_CYCLES}" not in text or not sys_.is_electro:
         raise AssertionError("electro run_text did not complete its cycles")
@@ -1503,6 +1543,14 @@ def phase17():
         if n != ELEC_CYCLES:
             raise AssertionError(f"{name} launched {n} times for "
                                  f"{ELEC_CYCLES} cycles")
+    # an electrokinetic run prints the reference statistics: per block
+    # [rho] and the momentum once, seq_sum for [psi], two [rho], [elc]
+    nblocks = ELEC_CYCLES // 10 + 1
+    want = {"seq_sum": 4 * nblocks, "field_stats_ref": 0,
+            "rho_stats_ref": nblocks, "momentum_total_ref": nblocks}
+    if scans != want:
+        raise AssertionError(f"statistics scans {scans}, want {want}")
+    counts.update(scans)
     f, psi, rho, u, gwall = sys_.state
     for name, x, shape in (("f", f, (19,) + size), ("psi", psi, size),
                            ("rho", rho, (2,) + size), ("u", u, (3,) + size),
@@ -1512,16 +1560,34 @@ def phase17():
         if not torch.isfinite(x).all():
             raise AssertionError(f"{name} is not finite")
     # each species' total is conserved by the flux form (f32 rounding of
-    # the site updates and of the printed sums: 1e-6 of the total); the
-    # net charge stays ~0 (1e-6 of the species' totals)
-    species = re.findall(r"\[rho\]\s+(\S+)\s+\S+\s+\S+\n", text)
-    totals = [[float(v) for v in species[k::2]] for k in range(2)]
+    # the site updates: 1e-6 of the total); the net charge stays ~0 (1e-6
+    # of the species' totals).  Both summed in f64 from the initial and
+    # the final state: the log prints them as the JAX package's reference
+    # statistics do, site-order f32 sums (seq_sum), whose rounding over
+    # 2M sites is ~1e-2 of the total; the last block's lines must be
+    # those sums of the final state, digit for digit
+    from ludwig_tpu_torch import stats
+    from ludwig_tpu_torch.electro import rho_elec
+    from ludwig_tpu_torch.ludwig import build_system
+    from ludwig_tpu_torch.runtime import RunTime
+    rho0 = build_system(RunTime(elec_input(size, "float32")),
+                        device="cuda").state[2]
+    totals = [[float(r[k].double().sum()) for r in (rho0, rho)]
+              for k in range(2)]
     for k, tk in enumerate(totals):
-        if len(tk) != 3 or max(tk) - min(tk) > 1e-6 * abs(tk[0]):
+        if abs(tk[1] - tk[0]) > 1e-6 * abs(tk[0]):
             raise AssertionError(f"species {k} totals {tk} not conserved")
-    elc = [float(v) for v in re.findall(r"\[elc\]\s+(\S+)", text)]
-    if max(abs(v) for v in elc) > 1e-6 * (totals[0][0] + totals[1][0]):
-        raise AssertionError(f"[elc] totals {elc} not ~0")
+    net = float(rho_elec(rho.double(), sys_.electro_cfg.ek).sum())
+    if abs(net) > 1e-6 * (totals[0][1] + totals[1][1]):
+        raise AssertionError(f"net charge {net} not ~0")
+    species = re.findall(r"\[rho\]\s+(\S+)\s+\S+\s+\S+\n", text)
+    elc = re.findall(r"\[elc\]\s+(\S+)", text)
+    printed = species[-2:] + elc[-1:]
+    want = [f"{float(stats.seq_sum(x)):14.7e}".strip()
+            for x in (rho[0], rho[1], rho_elec(rho, sys_.electro_cfg.ek))]
+    if len(species) != 6 or printed != want:
+        raise AssertionError(f"last [rho]/[elc] totals {printed}, the "
+                             f"site-order sums of the state {want}")
     iters = [int(v) for v in re.findall(r"at (\d+) iterations", text)]
     if len(iters) != ELEC_CYCLES:
         raise AssertionError(f"{len(iters)} SOR reports for {ELEC_CYCLES} "
@@ -1532,8 +1598,9 @@ def phase17():
     print(text[text.find("Timer statistics"):].strip())
     print(f"electro run_text {size} x {ELEC_CYCLES} cycles: {cli_s:.2f} s "
           f"wall (an SOR report and its read-back every cycle), SOR "
-          f"iterations per cycle {iters}, species totals {totals}, [elc] "
-          f"{elc}, launches {counts}")
+          f"iterations per cycle {iters}, species totals (f64 sums, "
+          f"initial and final) {totals}, net charge {net:.3e}, printed "
+          f"[rho] totals {species}, [elc] {elc}, launches {counts}")
     return counts, iters
 
 
@@ -1637,6 +1704,298 @@ def phase18(card, gen, copy_ms, copy_bytes):
     return res
 
 
+STAT_SCANS = ("seq_sum", "field_stats_ref", "rho_stats_ref",
+              "momentum_total_ref")
+
+
+def stat_scan_counts():
+    return {name: getattr(_cuda.launches, name) for name in STAT_SCANS}
+
+
+NOISE_KEYS = """
+temperature 0.00002
+isothermal_fluctuations on
+random_seed 8361235
+"""
+NOISE_STEP0 = 2 ** 20 + 3      # t * 0x9e3779b9 wraps from t = 2
+
+
+def noise_params(nvel, scheme, dtype, size=(16, 24, 40), eta_bulk=0.14,
+                 force=(1e-4, -2e-4, 5e-5), kt=2e-5):
+    """(LBConfig, CollisionParams, FusedNoise) on the card, the noise at
+    temperature kt with a seed above 2^31."""
+    from ludwig_tpu_torch.noise import var_bulk, var_eta, var_ghost
+    cfg = LBConfig(size=size, nvel=nvel, eta_shear=0.1, eta_bulk=eta_bulk,
+                   scheme=scheme, dtype=dtype, force_global=force,
+                   device="cuda")
+    params = cfg.collision_params()
+    noise = fused.FusedNoise(
+        seed=2 ** 31 + 8361235, v_eta=var_eta(1.0 / params.rtau_shear, kt),
+        v_bulk=var_bulk(1.0 / params.rtau_bulk, kt),
+        v_ghost=tuple(var_ghost(cfg.model, params.rtau_ghost, kt)))
+    return cfg, params, noise
+
+
+def hold_scans(x, f, model, mask, what):
+    """Each reference-statistics scan on the card against its CPU twin on
+    the same values: bitwise.  Returns the number of values held."""
+    from ludwig_tpu_torch import stats
+    xc, fc = x.cpu(), f.cpu()
+    mc = None if mask is None else mask.cpu()
+    pairs = [("seq_sum", stats.seq_sum(x, mask), stats.seq_sum(xc, mc)),
+             ("rho_stats_ref", torch.stack(stats.rho_stats_ref(f, model,
+                                                               mask)),
+              torch.stack(stats.rho_stats_ref(fc, model, mc))),
+             ("momentum_total_ref", stats.momentum_total_ref(f, model, mask),
+              stats.momentum_total_ref(fc, model, mc))]
+    for klein in ("klein", "kahan", False):
+        pairs.append((f"field_stats_ref klein={klein}",
+                      torch.stack(stats.field_stats_ref(x, mask, klein)),
+                      torch.stack(stats.field_stats_ref(xc, mc, klein))))
+    torch.cuda.synchronize()
+    for name, a, b in pairs:
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"{name} {what}: the card's {a.tolist()} "
+                                 f"is not its twin's {b.tolist()}")
+    return len(pairs)
+
+
+def phase19(gen):
+    phase("19 fluctuating kernel and statistics scans vs plain twins")
+    worst = 0.0
+    for nvel, scheme in ((15, "m10"), (15, "trt"), (19, "m10"), (19, "trt"),
+                         (27, "m10")):
+        for dtype in ("float64", "float32"):
+            cfg, params, noise = noise_params(nvel, RelaxationScheme(scheme),
+                                              dtype)
+            f0 = rand_state(cfg, gen)
+            for delta in (True, False):
+                for t0 in (0, NOISE_STEP0):
+                    a = b = f0
+                    for t in range(t0, t0 + 3):
+                        a = fused.fused_step(a, cfg.model, params,
+                                             noise=noise, t=t, delta=delta)
+                        b = fused._fused_step_plain(b, cfg.model, params,
+                                                    delta, noise, t)
+                    what = (f"fused_step noise D3Q{nvel} {scheme} {dtype} "
+                            f"delta={delta} t={t0}..{t0 + 2}")
+                    err = check_close(what, a, b, cfg.tdtype)
+                    worst = max(worst, err)
+                    print(f"{what} max_abs_err {err:.3e}"
+                          + (" bitwise" if torch.equal(a, b) else ""))
+    for size in ((16, 16, 32), (64, 64, 64)):
+        for dtype in ("float64", "float32"):
+            cfg = LBConfig(size=size, nvel=19, dtype=dtype, device="cuda")
+            f = rand_state(cfg, gen, amp=1e-3)
+            x = torch.randn(size, generator=gen, dtype=cfg.tdtype,
+                            device="cuda") * torch.exp(
+                8.0 * torch.rand(size, generator=gen, dtype=cfg.tdtype,
+                                 device="cuda") - 6.0)
+            mask = torch.rand(size, generator=gen, device="cuda") > 0.2
+            for m in (None, mask):
+                n = hold_scans(x, f, cfg.model, m, f"{size} {dtype} "
+                               f"mask={m is not None}")
+                print(f"stats scans {size} {dtype} mask={m is not None}: "
+                      f"{n} results bitwise their twins")
+    return {"fused_step_noise": worst}
+
+
+def noise_input(size, dtype, fused_req, cycles, freq):
+    return (f"size {size[0]}_{size[1]}_{size[2]}\ntpu_fused {fused_req}\n"
+            f"dtype {dtype}\nviscosity 0.1\nviscosity_bulk 0.1\n"
+            f"N_cycles {cycles}\nfreq_statistics {freq}\n" + NOISE_KEYS)
+
+
+def phase20():
+    phase("20 fluctuating main path: D3Q19 256^3 f32 isothermal "
+          "fluctuations, run_text on cuda")
+    small_counts = {}
+    # (tpu_fused, the noise kernel's launches: the JAX package's gate
+    # sends float64 under `on` to the KISS route)
+    for fused_req, launched in (("interpret", 6), ("on", 0), ("off", 0)):
+        text = noise_input((16, 16, 32), "float64", fused_req, 6, 3)
+        logs = {}
+        for device in ("cuda", "cpu"):
+            out = io.StringIO()
+            torch.cuda.synchronize()
+            _cuda.launches.reset()
+            run_text(text, out=out, device=device)
+            torch.cuda.synchronize()
+            if device == "cuda":
+                got = dict(stat_scan_counts(), fused_step_noise=_cuda.
+                           launches.fused_step_noise)
+            logs[device] = out.getvalue()
+        a, b = stat_floats(logs["cuda"]), stat_floats(logs["cpu"])
+        if (a.numel() != b.numel() or logs["cuda"].count("[measd/kT]") != 2
+                or not torch.allclose(a, b, rtol=1e-9, atol=1e-11)):
+            raise AssertionError(f"noise 16x16x32 f64 tpu_fused {fused_req}:"
+                                 " the card's log differs from the CPU's")
+        same = [ln for ln in logs["cuda"].splitlines() if ln.startswith("[")
+                ] == [ln for ln in logs["cpu"].splitlines()
+                      if ln.startswith("[")]
+        kernel = got.pop("fused_step_noise")
+        if kernel != launched:
+            raise AssertionError(f"fused_step_noise launched {kernel} times")
+        # the reference statistics on the KISS route: the scans, and the
+        # lines the CPU twins print, digit for digit
+        scans = 0 if launched else 3
+        if got["rho_stats_ref"] != scans or got["momentum_total_ref"] != scans:
+            raise AssertionError(f"reference statistics scans {got}")
+        if scans and not same:
+            raise AssertionError(f"noise 16x16x32 f64 tpu_fused {fused_req}:"
+                                 " the card's reference statistics lines "
+                                 "are not the CPU's as text")
+        small_counts[fused_req] = dict(got, fused_step_noise=kernel)
+        print(f"noise 16x16x32 f64 tpu_fused {fused_req}, 6 cycles: "
+              f"{a.numel()} statistics floats (kT block included) on the "
+              f"card agree with the CPU's (rtol 1e-9, atol 1e-11), max "
+              f"|diff| {float((a - b).abs().max()):.3e}; statistics lines "
+              f"{'identical as text' if same else 'not identical as text'};"
+              f" launches {small_counts[fused_req]}")
+    size = MAIN_SIZE
+    nsite = size[0] * size[1] * size[2]
+    torch.cuda.synchronize()
+    _cuda.launches.reset()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    sys_ = run_text(noise_input(size, "float32", "on", MAIN_CYCLES, 20),
+                    out=log, device="cuda")
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = {"fused_step_noise": _cuda.launches.fused_step_noise,
+              "fused_step": _cuda.launches.fused_step}
+    text = log.getvalue()
+    if f"Completed cycle {MAIN_CYCLES}" not in text:
+        raise AssertionError("noise run_text did not complete its cycles")
+    if counts != {"fused_step_noise": MAIN_CYCLES, "fused_step": 0}:
+        raise AssertionError(f"launches {counts} for {MAIN_CYCLES} cycles")
+    f = sys_.state[0]
+    if tuple(f.shape) != (19,) + size or not torch.isfinite(f).all():
+        raise AssertionError("the fluctuating state is not finite")
+    totals = [float(v) for v in re.findall(r"\[rho\]\s+(\S+)", text)]
+    if len(totals) != 3 or not all(abs(t - nsite) <= 1e-5 * nsite
+                                   for t in totals):
+        raise AssertionError(f"[rho] totals {totals} != {nsite}")
+    kts = [[float(v) for v in ln.split()[1:]] for ln in text.splitlines()
+           if ln.startswith(("[eqipart.]", "[measd/kT]"))]
+    if len(kts) != 4 or not all(math.isfinite(v) and v > 0
+                                for row in kts for v in row):
+        raise AssertionError(f"kT block {kts}")
+    for line in text.splitlines():
+        if line.startswith(("[rho]", "[eqipart.]", "[measd/kT]")):
+            print(line)
+    print(text[text.find("Timer statistics"):].strip())
+    print(f"noise run_text 256^3 f32 x {MAIN_CYCLES} cycles: {cli_s:.2f} s "
+          f"wall, [rho] totals {totals}, kT rows {kts}, launches {counts}")
+    return counts, small_counts
+
+
+def phase21(card, gen, copy_ms, copy_bytes):
+    phase(f"21 fluctuation and statistics timing at 256^3 D3Q19 f32 on "
+          f"{card}")
+    from ludwig_tpu_torch import ludwig as tl
+    from ludwig_tpu_torch import stats
+    from ludwig_tpu_torch.lb import make_step
+    from ludwig_tpu_torch.noise import NoiseConfig
+    from ludwig_tpu_torch.noise_kiss import kiss_init
+    from ludwig_tpu_torch.runtime import RunTime
+    res = {}
+    # the main path's: viscosities 0.1, no body force
+    cfg, params, noise = noise_params(19, RelaxationScheme.M10, "float32",
+                                      MAIN_SIZE, 0.1, (0.0, 0.0, 0.0))
+    nsite = MAIN_SIZE[0] * MAIN_SIZE[1] * MAIN_SIZE[2]
+    f0 = rand_state(cfg, gen, amp=0.01)
+    nbytes = 2 * f0.numel() * f0.element_size()
+    t = NOISE_STEP0
+    err = check_close("fused_step noise 256^3",
+                      fused.fused_step(f0, cfg.model, params, noise=noise,
+                                       t=t),
+                      fused._fused_step_plain(f0, cfg.model, params, True,
+                                              noise, t), cfg.tdtype)
+    # noiseless, noise, noise, noiseless: one card, in turns
+    quiet = [time_ms(lambda: fused.fused_step(f0, cfg.model, params), 20)]
+    loud = [time_ms(lambda: fused.fused_step(f0, cfg.model, params,
+                                             noise=noise, t=t), 20)
+            for _ in range(2)]
+    quiet.append(time_ms(lambda: fused.fused_step(f0, cfg.model, params),
+                         20))
+    ms = min(loud)
+    twin_ms = time_ms(lambda: fused._fused_step_plain(
+        f0, cfg.model, params, True, noise, t), 2, warm=1)
+    nops = nsite * _cuda.site_ops("fused_step_noise")
+    b_ms, b_by = bound(nbytes, nops)
+    print(f"fused_step noise 256^3: kernel {ms:.4f} ms (runs {loud[0]:.4f}, "
+          f"{loud[1]:.4f}), noiseless {quiet[0]:.4f} / {quiet[1]:.4f} ms, "
+          f"twin {twin_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+          f"{nbytes / nsite:.0f} B/site, {nops / nsite:.0f} op/site), "
+          f"{100 * b_ms / ms:.1f}% of it, copy bound "
+          f"{copy_ms * nbytes / copy_bytes:.4f} ms, max_abs_err vs twin "
+          f"{err:.3e}, {nsite / (ms * 1e3):.1f} MLUPS [{card}]")
+    res["fused_step_noise"] = dict(ms=ms, plain_ms=twin_ms, max_abs_err=err,
+                                   nbytes=nbytes, nops=nops)
+    # the KISS route's step: torch on the card, the state riding with f
+    kcfg = LBConfig(size=MAIN_SIZE, nvel=19, eta_shear=0.1, eta_bulk=0.1,
+                    dtype="float32", device="cuda",
+                    noise=NoiseConfig(kt=2e-5, rho=True))
+    kstep = make_step(kcfg)
+    kstate = (f0, kiss_init(0, MAIN_SIZE, device="cuda"))
+    kiss_ms = time_ms(lambda: kstep(kstate, 1), 3, warm=1)
+    print(f"KISS route step (make_step, torch on the card) 256^3: "
+          f"{kiss_ms:.4f} ms = {nsite / (kiss_ms * 1e3):.1f} MLUPS [{card}]")
+    # one reference-statistics block of the plain fluctuating run
+    for size in ((128, 128, 128), MAIN_SIZE):
+        text = noise_input(size, "float32", "off", 1, 1)
+        sys_ = tl.build_system(RunTime(text), device="cuda")
+        f = rand_state(sys_.lb_cfg, gen, amp=0.01)
+        sys_.state = (f, sys_.state[1])
+        u = tl._fused_u(sys_, f)
+        stats_fn = tl._make_stats_fn(sys_, reference=True)
+        fast_fn = tl._make_stats_fn(sys_, reference=False)
+        blk = time_ms(lambda: stats_fn(sys_.state, u), 2, warm=1)
+        fast = time_ms(lambda: fast_fn(sys_.state, u), 5, warm=1)
+        print(f"reference statistics block {size[0]}^3 f32 (rho_stats_ref, "
+              f"momentum_total_ref, velocity, kT): {blk:.2f} ms; the plain "
+              f"reductions' block {fast:.4f} ms [{card}]")
+        del sys_, f, u
+    # each scan kernel and its CPU twin at 128^3 (the electrokinetic main
+    # path's size), the kernel also at 256^3
+    for size in ((128, 128, 128), MAIN_SIZE):
+        scfg = LBConfig(size=size, nvel=19, dtype="float32", device="cuda")
+        f = rand_state(scfg, gen, amp=1e-3)
+        x = f[0].contiguous()
+        n = x.numel()
+        runs = {
+            "seq_sum": (lambda z: stats.seq_sum(z), x, 4 * n, n),
+            "field_stats_ref": (lambda z: stats.field_stats_ref(z), x, 4 * n,
+                                14 * n),
+            "rho_stats_ref": (lambda z: stats.rho_stats_ref(z, scfg.model),
+                              f, 4 * 19 * n, 21 * n),
+            "momentum_total_ref": (lambda z: stats.momentum_total_ref(
+                z, scfg.model), f, 4 * 18 * n, 3 * 18 * 5 * n)}
+        for name, (fn, arg, nb, no) in runs.items():
+            k_ms = time_ms(lambda: fn(arg), 2, warm=1)
+            b_ms, b_by = bound(nb, no)
+            line = (f"{name} {size[0]}^3 f32: kernel {k_ms:.3f} ms, bound "
+                    f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / k_ms:.3f}% of it")
+            if size != MAIN_SIZE:
+                argc = arg.cpu()
+                t0 = time.perf_counter()
+                want = fn(argc)
+                twin = 1e3 * (time.perf_counter() - t0)
+                got = fn(arg)
+                got = torch.stack(got) if isinstance(got, tuple) else got
+                want = (torch.stack(want) if isinstance(want, tuple)
+                        else want)
+                if not torch.equal(got.cpu(), want):
+                    raise AssertionError(f"{name} {size}: not bitwise")
+                line += f", CPU twin {twin:.1f} ms, bitwise"
+                res[name] = dict(ms=k_ms, plain_ms=twin, max_abs_err=0.0,
+                                 nbytes=nb, nops=no)
+            print(line + f" [{card}]")
+        del f, x
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -1683,7 +2042,7 @@ def main():
     by_path = {"plain": counts, "binary": phase8()}
     timed.update(phase9(card, gen, timed["copy_ms"], timed["copy_bytes"]))
     worst.update(phase10(gen))
-    by_path["lc"] = phase11()
+    by_path["lc"], by_path["lc f64 16x16x32"] = phase11()
     timed.update(phase12(card, gen, timed["copy_ms"], timed["copy_bytes"]))
     worst.update(phase13(gen))
     by_path["droplet"] = phase14()
@@ -1691,6 +2050,13 @@ def main():
     worst.update(phase16(gen))
     by_path["electro"], _iters = phase17()
     timed.update(phase18(card, gen, timed["copy_ms"], timed["copy_bytes"]))
+    worst.update(phase19(gen))
+    by_path["noise"], small = phase20()
+    for fused_req, c in small.items():
+        by_path[f"noise f64 16x16x32 tpu_fused {fused_req}"] = c
+    timed.update(phase21(card, gen, timed["copy_ms"], timed["copy_bytes"]))
+    for name in STAT_SCANS:
+        worst[name] = 0.0        # held bitwise in phases 19 and 21
     print(f"all phases passed ({time.perf_counter() - _T0:.1f} s)")
 
     kernels = []
@@ -1709,7 +2075,18 @@ def main():
             ("sor_solve", SOURCE_ELECTRO,
              "ludwig_tpu/ops/fused_electro.py:63"),
             ("np_gradmu", SOURCE_ELECTRO,
-             "ludwig_tpu/ops/fused_electro.py:207")):
+             "ludwig_tpu/ops/fused_electro.py:207"),
+            ("fused_step_noise", SOURCE,
+             "ludwig_tpu/ops/fused.py:429 (FusedNoise)"),
+            # the reference statistics: lax.scan in the JAX package, no
+            # Pallas kernel
+            ("seq_sum", SOURCE_STATS, "ludwig_tpu/stats.py:59 (lax.scan)"),
+            ("field_stats_ref", SOURCE_STATS,
+             "ludwig_tpu/stats.py:84 (lax.scan)"),
+            ("rho_stats_ref", SOURCE_STATS,
+             "ludwig_tpu/stats.py:155 (lax.scan)"),
+            ("momentum_total_ref", SOURCE_STATS,
+             "ludwig_tpu/stats.py:239 (lax.scan)")):
         t = timed[name]
         bound_ms, bound_by = bound(t["nbytes"], t["nops"])
         # each main path was driven with the counts at 0 just before it
@@ -1724,8 +2101,8 @@ def main():
             "bound_by": bound_by,
             # no single PyTorch call computes a collide+stream, the
             # binary order-parameter update, the Q-tensor update, the
-            # coupled droplet update, an SOR solve or the Nernst-Planck
-            # face fluxes
+            # coupled droplet update, an SOR solve, the Nernst-Planck
+            # face fluxes or a site-ordered (compensated) scan
             "library_ms": None,
             "copy_bound_ms": timed["copy_ms"] * t["nbytes"]
             / timed["copy_bytes"]})

@@ -23,7 +23,9 @@ from ludwig_tpu_torch.fe.symmetric import SymmetricFE
 from ludwig_tpu_torch.lc import LCConfig
 from ludwig_tpu_torch.lc_droplet import LCDropletConfig
 from ludwig_tpu_torch.lb import DTYPES, LBConfig
+from ludwig_tpu_torch.noise import NoiseConfig
 from ludwig_tpu_torch.ops.collide import RelaxationScheme
+from ludwig_tpu_torch.ops.fused import FusedNoise
 
 # pad widths of the JAX package's fused binary, LC and droplet states
 # (ops/fused.py HX, HY for f; ops/fused_lc.py HX, HY for phi and q)
@@ -51,15 +53,37 @@ def state_from_jax(f: np.ndarray, device, dtype) -> torch.Tensor:
 def params_from_jax(lb_cfg_fields: dict, device="cuda") -> LBConfig:
     """LBConfig from the fields of a ludwig_tpu LBConfig (for example
     ``{f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}``).
-    The relaxation scheme may be the JAX package's enum or its value."""
+    The relaxation scheme may be the JAX package's enum or its value, the
+    noise a JAX NoiseConfig, its fields as a dict, or None."""
     fields = dict(lb_cfg_fields)
     scheme = fields.get("scheme", RelaxationScheme.M10)
     fields["scheme"] = RelaxationScheme(getattr(scheme, "value", scheme))
     for key in ("size", "force_global", "walls", "wall_u"):
         if key in fields:
             fields[key] = tuple(fields[key])
+    if fields.get("noise") is not None:
+        fields["noise"] = NoiseConfig(**_fields_of(fields["noise"]))
     fields["device"] = str(device)
     return LBConfig(**fields)
+
+
+def noise_state_from_jax(nstate, device="cuda") -> torch.Tensor:
+    """The JAX package's per-site KISS state, a (4, X, Y, Z) uint32 array
+    as numpy, as the port's int64 tensor of the same words on `device`."""
+    a = np.asarray(nstate)
+    if a.ndim != 4 or a.shape[0] != 4 or a.dtype != np.uint32:
+        raise ValueError(f"want a (4, X, Y, Z) uint32 KISS state, got "
+                         f"{a.dtype} {a.shape}")
+    return torch.as_tensor(a.astype(np.int64), device=device)
+
+
+def fused_noise_from_jax(fnz) -> FusedNoise:
+    """The port's FusedNoise from a JAX FusedNoise (or its fields as a
+    dict)."""
+    fields = _fields_of(fnz)
+    return FusedNoise(seed=int(fields["seed"]), v_eta=float(fields["v_eta"]),
+                      v_bulk=float(fields["v_bulk"]),
+                      v_ghost=tuple(float(v) for v in fields["v_ghost"]))
 
 
 def _unpad_xy(a: np.ndarray, hx: int, hy: int) -> np.ndarray:

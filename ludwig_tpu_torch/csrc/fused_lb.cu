@@ -1,7 +1,11 @@
 // Fused collide + stream kernels for Hopper (sm_90a), D3Q15/19/27, f32/f64.
 //
 // Replaces the Pallas TPU kernels of ludwig_tpu/ops/fused.py:
-//   fused_step_kernel        <- _fused_kernel  (ops/fused.py:429), one step
+//   fused_step_kernel        <- _fused_kernel  (ops/fused.py:429), one step;
+//                               with NOISE, the same kernel with
+//                               FusedNoise (its second pallas_call,
+//                               ops/fused.py:604): isothermal
+//                               fluctuations in the collision
 //   fusedn_step_kernel       <- _fusedn_kernel (ops/fused.py:902), n
 //                               steps/pass
 //   fused_force_step_kernel  <- _fused_force_kernel (ops/fused.py:1069)
@@ -31,6 +35,18 @@
 // one write per value, no collision recomputed.  Push of C is the same
 // stored state as the TPU kernel's pull of C (pull-then-collide per site
 // would compute C(S(f)), a different state).
+//
+// fused_step_kernel<NOISE>: the fluctuating collision (ref:
+// collision.c:53).  Each thread hashes its own site's global (x, y, z)
+// with the step counter and the seed into 6 + nghost counter-based
+// deviates of the reference's 8-value table (the JAX
+// package's int32 murmur3 hash, here on uint32_t words: the same bits)
+// and hands them to lb_collide_noise_*, generated from the twin's
+// _noise_sg / _relax_modes.  The TPU kernel re-draws the noise for its
+// window's halo and mirrors the z lane padding; in push form every site
+// collides once, in its own thread, so neither exists here.  Bound: the
+// same 152 B/site as fused_step_kernel; the hash adds ~8 + 14 per
+// deviate integer operations and no bytes.
 //
 // fusedn_step_kernel: temporal blocking.  A block owns an output tile
 // (BX, BY, BZ) and walks n steps over windows that start n sites wider on
@@ -83,6 +99,13 @@ struct LBParams {
   T rt, rtb;            // shear and bulk relaxation rates
   T fx, fy, fz;         // global body force
   T g[LB_NGHOST];       // per-ghost factor on m_g (general variants)
+  // fluctuations (fused_step_kernel<NOISE> only): amplitudes v_eta *
+  // sqrt(2), v_eta, v_bulk and per ghost, folded in double on the host;
+  // the seed & 0x7fffffff and the step counter of the hash
+  T nz_eta2, nz_eta, nz_bulk;
+  T nz_g[LB_NGHOST];
+  uint32_t nz_seed;
+  int nz_t;
 };
 
 template <typename T>
@@ -97,10 +120,77 @@ static LBParams<T> make_params(const double* par) {
   return p;
 }
 
-template <typename T, int DELTA, int PROJ, typename Emit>
-__device__ __forceinline__ void lb_collide(const T* f, const LBParams<T>& p,
-                                           Emit& emit) {
-  if constexpr (DELTA && PROJ) {
+// the fluctuation parameters on top of make_params' (npar: the
+// amplitudes v_eta * sqrt(2), v_eta, v_bulk, then one per ghost)
+template <typename T>
+static LBParams<T> make_noise_params(const double* par, const double* npar,
+                                     uint32_t seed, int t) {
+  LBParams<T> p = make_params<T>(par);
+  p.nz_eta2 = static_cast<T>(npar[0]);
+  p.nz_eta = static_cast<T>(npar[1]);
+  p.nz_bulk = static_cast<T>(npar[2]);
+  for (int i = 0; i < LB_NGHOST; ++i) p.nz_g[i] = static_cast<T>(npar[3 + i]);
+  p.nz_seed = seed;
+  p.nz_t = t;
+  return p;
+}
+
+constexpr int kNoiseDeviates = 6 + LB_NGHOST;
+
+// murmur3 finalizer (ludwig_tpu/ops/fused.py _hash_u32)
+__device__ __forceinline__ uint32_t lb_hash_u32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85ebca6bu;
+  h ^= h >> 13;
+  h *= 0xc2b2ae35u;
+  h ^= h >> 16;
+  return h;
+}
+
+// 3 bits -> {-A, -B, 0 x4, +B, +A}, A = sqrt(2 + sqrt 2), B = sqrt(2 -
+// sqrt 2), each the double rounded to T (_deviate_from_bits)
+template <typename T>
+__device__ __forceinline__ T lb_deviate(uint32_t bits) {
+  const T a = static_cast<T>(1.8477590650225735);
+  const T b = static_cast<T>(0.7653668647301795);
+  const uint32_t idx = bits & 7u;
+  return idx == 0u ? -a
+                   : (idx == 1u ? -b
+                                : (idx == 6u ? b : (idx == 7u ? a : T(0))));
+}
+
+// the site's 6 + nghost deviates (_window_deviates): the int32 products
+// and xors of the JAX hash are these uint32_t ones bit for bit
+template <typename T>
+__device__ __forceinline__ void lb_site_deviates(int x, int y, int z,
+                                                 const LBParams<T>& p,
+                                                 T* r) {
+  uint32_t base = static_cast<uint32_t>(x) * 73856093u ^
+                  static_cast<uint32_t>(y) * 19349663u ^
+                  static_cast<uint32_t>(z) * 83492791u;
+  base ^= static_cast<uint32_t>(p.nz_t) * 0x9e3779b9u;
+  base ^= p.nz_seed;
+#pragma unroll
+  for (int m = 0; m < kNoiseDeviates; ++m)
+    r[m] = lb_deviate<T>(lb_hash_u32(base ^ static_cast<uint32_t>(m * 40503)));
+}
+
+// the collision of the site values f; with NOISE, plus the fluctuations
+// of the site deviates r (unused without)
+template <typename T, int DELTA, int PROJ, bool NOISE = false, typename Emit>
+__device__ __forceinline__ void lb_collide(const T* f, const T* r,
+                                           const LBParams<T>& p, Emit& emit) {
+  if constexpr (NOISE) {
+    if constexpr (DELTA && PROJ) {
+      lb_collide_noise_d1_p1<T>(f, r, p, emit);
+    } else if constexpr (DELTA) {
+      lb_collide_noise_d1_p0<T>(f, r, p, emit);
+    } else if constexpr (PROJ) {
+      lb_collide_noise_d0_p1<T>(f, r, p, emit);
+    } else {
+      lb_collide_noise_d0_p0<T>(f, r, p, emit);
+    }
+  } else if constexpr (DELTA && PROJ) {
     lb_collide_d1_p1<T>(f, p, emit);
   } else if constexpr (DELTA) {
     lb_collide_d1_p0<T>(f, p, emit);
@@ -122,7 +212,7 @@ __device__ __forceinline__ int wrapn(int i, int n) {
   return r < 0 ? r + n : r;
 }
 
-template <typename T, int DELTA, int PROJ>
+template <typename T, int DELTA, int PROJ, bool NOISE>
 __global__ void __launch_bounds__(kThreads)
 fused_step_kernel(const T* __restrict__ fin, T* __restrict__ fout, int X,
                   int Y, int Z, LBParams<T> p) {
@@ -137,13 +227,15 @@ fused_step_kernel(const T* __restrict__ fin, T* __restrict__ fout, int X,
   T f[LB_NVEL];
 #pragma unroll
   for (int q = 0; q < LB_NVEL; ++q) f[q] = fin[q * nsite + s];
+  T dev[NOISE ? kNoiseDeviates : 1];
+  if constexpr (NOISE) lb_site_deviates<T>(x, y, z, p, dev);
   auto emit = [&](int q, int cx, int cy, int cz, T v) {
     const int64_t d =
         (static_cast<int64_t>(wrap1(x + cx, X)) * Y + wrap1(y + cy, Y)) * Z +
         wrap1(z + cz, Z);
     fout[q * nsite + d] = v;
   };
-  lb_collide<T, DELTA, PROJ>(f, p, emit);
+  lb_collide<T, DELTA, PROJ, NOISE>(f, dev, p, emit);
 }
 
 template <typename T, int PROJ>
@@ -318,7 +410,7 @@ fusedn_step_kernel(const T* __restrict__ fin, T* __restrict__ fout, int X,
                 v;
           }
         };
-        lb_collide<T, DELTA, PROJ>(f, p, emit);
+        lb_collide<T, DELTA, PROJ>(f, nullptr, p, emit);
       }
       __syncthreads();
       src = dst;
@@ -327,15 +419,24 @@ fusedn_step_kernel(const T* __restrict__ fin, T* __restrict__ fout, int X,
   }
 }
 
+// npar null: the noiseless kernel; else its fluctuation amplitudes, with
+// the hash's seed and step counter
 template <typename T, int DELTA, int PROJ>
 static int launch_step(const void* fin, void* fout, int X, int Y, int Z,
-                       const double* par, cudaStream_t stream) {
+                       const double* par, const double* npar, uint32_t seed,
+                       int t, cudaStream_t stream) {
   const int64_t nsite = static_cast<int64_t>(X) * Y * Z;
-  const int64_t blocks = (nsite + kThreads - 1) / kThreads;
-  fused_step_kernel<T, DELTA, PROJ><<<static_cast<unsigned>(blocks),
-                                      kThreads, 0, stream>>>(
-      static_cast<const T*>(fin), static_cast<T*>(fout), X, Y, Z,
-      make_params<T>(par));
+  const unsigned blocks =
+      static_cast<unsigned>((nsite + kThreads - 1) / kThreads);
+  const T* in = static_cast<const T*>(fin);
+  T* out = static_cast<T*>(fout);
+  if (npar == nullptr) {
+    fused_step_kernel<T, DELTA, PROJ, false><<<blocks, kThreads, 0, stream>>>(
+        in, out, X, Y, Z, make_params<T>(par));
+  } else {
+    fused_step_kernel<T, DELTA, PROJ, true><<<blocks, kThreads, 0, stream>>>(
+        in, out, X, Y, Z, make_noise_params<T>(par, npar, seed, t));
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -420,11 +521,12 @@ int lb_device_info(int device, int* sms, int* smem_optin) {
 
 int lb_fused_step(int is_f64, int delta, int proj, const void* fin,
                   void* fout, int X, int Y, int Z, const double* par,
-                  void* stream, int device) {
+                  const double* npar, uint32_t seed, int t, void* stream,
+                  int device) {
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  LB_DISPATCH(launch_step, fin, fout, X, Y, Z, par, s);
+  LB_DISPATCH(launch_step, fin, fout, X, Y, Z, par, npar, seed, t, s);
 }
 
 int lb_fusedn_step(int is_f64, int delta, int proj, const void* fin,

@@ -3,7 +3,9 @@
 PyTorch port of ludwig_tpu/lb.py for the plain-fluid path (ref:
 src/model.c, src/ludwig.c:530-970).  The state is one distribution tensor
 f (nvel, NX, NY, NZ) on an explicit device; a step is collide ->
-stream(+bounce-back), run eagerly.
+stream(+bounce-back), run eagerly.  With isothermal fluctuations
+(``LBConfig.noise``) the per-site KISS99 state rides beside f and a step
+maps (f, nstate) to (f', nstate').
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ludwig_tpu_torch import noise as noise_mod
+from ludwig_tpu_torch import noise_kiss
 from ludwig_tpu_torch.lattice import LatticeModel, lb_model
 from ludwig_tpu_torch.ops.collide import (CollisionParams, RelaxationScheme,
                                           collide, equilibrium,
@@ -38,17 +42,17 @@ class LBConfig:
     walls: Tuple[bool, bool, bool] = (False, False, False)
     wall_u: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     dtype: str = "float32"
-    noise: Optional[object] = None   # isothermal fluctuations: not ported
+    noise: Optional[object] = None   # noise.NoiseConfig (fluctuations)
     device: str = "cuda"      # the GPU unless the caller asks for the CPU
 
     def __post_init__(self):
         if self.dtype not in DTYPES:
             raise ValueError(f"dtype must be one of {sorted(DTYPES)}, "
                              f"got {self.dtype!r}")
-        if self.noise is not None:
-            raise NotImplementedError(
-                "isothermal fluctuations (noise) not ported yet, "
-                "see ROADMAP")
+        if self.noise is not None and not isinstance(self.noise,
+                                                     noise_mod.NoiseConfig):
+            raise TypeError(f"noise must be a noise.NoiseConfig, got "
+                            f"{type(self.noise).__name__}")
 
     @property
     def model(self) -> LatticeModel:
@@ -102,22 +106,76 @@ def _not_ported(le, open_bc):
                                   "see ROADMAP")
 
 
+def _noise_terms(cfg: LBConfig, params, t, nstate=None, fluid=None):
+    """(shat, ghat[, nstate']) fluctuation terms for timestep t.
+
+    With nstate (a per-site KISS state array, interior-shaped), draws
+    the reference-exact stream and returns the advanced state as a
+    third element.  fluid: bool mask - the reference reaps only at
+    MAP_FLUID sites (ref: collision.c noise branch), so the state at
+    solid sites does not advance and their deviates are zero.  Without
+    a state the JAX package draws its stateless threefry stream, which
+    is not ported: that raises."""
+    nz = cfg.noise
+    if nz is None or not nz.rho:
+        return (None, None) if nstate is None else (None, None, nstate)
+    if nstate is None:
+        raise NotImplementedError(
+            "fluctuations without a KISS state use the JAX package's "
+            "threefry stream, which is not ported; see ROADMAP")
+    ve = noise_mod.var_eta(1.0 / params.rtau_shear, nz.kt)
+    vb = noise_mod.var_bulk(1.0 / params.rtau_bulk, nz.kt)
+    zero = torch.zeros((), dtype=cfg.tdtype, device=nstate.device)
+
+    def reap(st, n):
+        st2, r = noise_kiss.reap(st, n, cfg.tdtype)
+        if fluid is not None:
+            st2 = torch.where(fluid[None], st2, st)
+            r = torch.where(fluid[None], r, zero)
+        return st2, r
+
+    nstate, r6 = reap(nstate, 6)
+    shat = noise_mod.stress_from_deviates(r6, ve, vb, cfg.model.ndim)
+    ghat = None
+    if cfg.ghost_modes_on:
+        vg = noise_mod.var_ghost(cfg.model, params.rtau_ghost, nz.kt)
+        nstate, rg = reap(nstate, cfg.model.nvel - cfg.model.nhydro)
+        ghat = noise_mod.ghost_from_deviates(rg, cfg.model, vg)
+    return shat, ghat, nstate
+
+
+def kiss_on(cfg: LBConfig) -> bool:
+    """Whether a step carries the per-site KISS state beside f."""
+    return cfg.noise is not None and cfg.noise.kiss and cfg.noise.rho
+
+
 def make_step(cfg: LBConfig, solid=None, force_field=None, le=None,
               open_bc=None):
-    """Single-fluid step: step(f, t=0, force=force_field) -> (f', rho, u).
-    t is the timestep counter (kept for the fluctuation and Lees-Edwards
-    hooks of the JAX package, not ported yet)."""
+    """Single-fluid step: step(state, t=0, force=force_field) ->
+    (state', rho, u).  The state is f, or (f, nstate) when the KISS
+    fluctuation stream is on (kiss_on); t is the timestep counter (kept
+    for the Lees-Edwards hook of the JAX package, not ported yet)."""
     _not_ported(le, open_bc)
     params = cfg.collision_params()
     model = cfg.model
     fluid = None if solid is None else torch.logical_not(solid)
     wall_u = cfg.wall_u if any(v != 0.0 for v in cfg.wall_u) else None
+    kiss_rho = kiss_on(cfg)
 
-    def step(f, t=0, force=force_field):
-        del t
-        f_post, rho, u = collide(f, params, force=force, fluid_mask=fluid)
+    def step(state, t=0, force=force_field):
+        if kiss_rho:
+            f = state[0]
+            shat, ghat, nstate = _noise_terms(cfg, params, t,
+                                              nstate=state[1], fluid=fluid)
+        else:
+            f = state
+            shat, ghat = _noise_terms(cfg, params, t)
+        f_post, rho, u = collide(f, params, force=force, fluid_mask=fluid,
+                                 shat=shat, ghat=ghat)
         f_new = stream_bounce_back(f_post, model, solid=solid,
                                    wall_u=wall_u, rho0=cfg.rho0)
+        if kiss_rho:
+            return (f_new, nstate), rho, u
         return f_new, rho, u
 
     return step
@@ -125,7 +183,14 @@ def make_step(cfg: LBConfig, solid=None, force_field=None, le=None,
 
 def make_nstep(cfg: LBConfig, solid=None, force_field=None, le=None,
                open_bc=None):
-    """n steps in a loop: nstep(f, n, t0=0) -> f."""
+    """n steps in a loop: nstep(f, n, t0=0) -> f.  With fluctuations the
+    JAX package's n-step loop draws the threefry stream, which is not
+    ported: that raises."""
+    if cfg.noise is not None and cfg.noise.rho:
+        raise NotImplementedError(
+            "make_nstep with fluctuations draws the JAX package's threefry "
+            "stream, which is not ported; step the KISS state with "
+            "make_step, see ROADMAP")
     step = make_step(cfg, solid=solid, force_field=force_field, le=le,
                      open_bc=open_bc)
 

@@ -3,11 +3,12 @@ input file.
 
 PyTorch port of five slices of ludwig_tpu/ludwig.py (ref:
 src/ludwig.c:443 ludwig_run, src/main.c:30-46): the plain single fluid
-(`free_energy none`), the symmetric binary fluid (`free_energy
-symmetric`), the blue-phase liquid crystal (`free_energy lc_blue_phase`)
-and the liquid-crystal droplet (`free_energy lc_droplet`), those three
-on the periodic, stress-divergence, hydrodynamics-on route the JAX
-package's fused path accepts, and electrokinetics without colloids
+(`free_energy none`, with isothermal fluctuations), the symmetric binary
+fluid (`free_energy symmetric`), the blue-phase liquid crystal
+(`free_energy lc_blue_phase`) and the liquid-crystal droplet
+(`free_energy lc_droplet`), those three on the periodic,
+stress-divergence, hydrodynamics-on route the JAX package's fused path
+accepts, and electrokinetics without colloids
 (`free_energy fe_electro`: Gouy-Chapman walls, liquid junction or a
 uniform electrolyte).  It parses the same key-value input, builds the
 system without walls, Lees-Edwards planes, porous media or noise (the
@@ -15,7 +16,11 @@ Gouy-Chapman walls are the electrokinetic initialisation's own), runs
 the time loop on a device (the GPU unless the caller asks for the CPU)
 and writes the statistics blocks in the reference's formats.
 `tpu_fused on` (or `interpret`) selects the fused steps:
-ops.fused.fused_step for the plain fluid,
+ops.fused.fused_step for the plain fluid (with fluctuations, its
+FusedNoise counter-hash stream where the JAX package takes its fused
+kernel; elsewhere - `tpu_fused off`, float64 under `on`, a lattice with
+no fused-kernel plan - the reference-exact per-site KISS stream through
+lb.make_step, as the JAX package does),
 ops.fused_binary.make_fused_binary_step, ops.fused_lc.make_fused_lc_step
 and ops.fused_droplet.make_fused_droplet_step (two kernels each, K1 and
 K2) for the binary fluid, the liquid crystal and the droplet; the
@@ -23,6 +28,10 @@ hand-written CUDA kernels on a GPU and their twins on the CPU.  The
 electrokinetic step picks its route by dtype, as the JAX package's
 does: float32 runs the SOR, Nernst-Planck and solid LB kernels,
 float64 the reference route (electro_sim.py).
+
+The statistics follow the JAX package's rule (reference_statistics):
+its reference-ordered scans wherever its build_system would take the
+unfused route, its plain reductions on its fused routes.
 
 Every input key outside the slices raises NotImplementedError naming the
 key, unless it is set to its inactive default (`periodicity 1_1_1`,
@@ -52,9 +61,11 @@ from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE
 from ludwig_tpu_torch.fe.lc_droplet import LCDropletFE
 from ludwig_tpu_torch.fe.symmetric import SymmetricFE
 from ludwig_tpu_torch.lb import (LBConfig, hydro_fields, initial_from_hydro,
-                                 initial_rest, make_step)
+                                 initial_rest, kiss_on, make_step)
+from ludwig_tpu_torch.noise import NoiseConfig, var_bulk, var_eta, var_ghost
+from ludwig_tpu_torch.noise_kiss import kiss_init
 from ludwig_tpu_torch.ops.collide import RelaxationScheme
-from ludwig_tpu_torch.ops.fused import fused_step
+from ludwig_tpu_torch.ops.fused import FusedNoise, fused_step
 from ludwig_tpu_torch.ops.fused_binary import (initial_fused_binary,
                                                make_fused_binary_step)
 from ludwig_tpu_torch.ops.fused_droplet import (initial_fused_droplet,
@@ -128,8 +139,14 @@ ELECTRO_KEYS = frozenset((
     "electrokinetics_init_sigma", "electrokinetics_init_delta_el",
     "freq_psi_resid"))
 
+# keys the plain fluid reads for isothermal fluctuations (free_energy
+# none only; the other families refuse the noise keys while they are on)
+NOISE_KEYS = frozenset((
+    "temperature", "isothermal_fluctuations", "lb_fluctuations",
+    "random_seed"))
+
 # free energy -> the keys it reads beside SLICE_KEYS
-FREE_ENERGIES = {"none": frozenset(), "symmetric": BINARY_KEYS,
+FREE_ENERGIES = {"none": NOISE_KEYS, "symmetric": BINARY_KEYS,
                  "lc_blue_phase": LC_KEYS, "lc_droplet": DROPLET_KEYS,
                  "fe_electro": ELECTRO_KEYS}
 
@@ -186,8 +203,9 @@ class System:
 
     rt: RunTime
     lb_cfg: LBConfig
-    # (f,); binary (f, phi, u); LC (f, q5, u); droplet (f, phi, q5, u);
-    # electrokinetics (f, psi, rho, u, gwall)
+    # (f,) or, with the KISS noise stream, (f, nstate); binary (f, phi,
+    # u); LC (f, q5, u); droplet (f, phi, q5, u); electrokinetics (f,
+    # psi, rho, u, gwall)
     state: tuple
     step_fn: object
     # 'plain': fused collide+stream; 'binary', 'lc', 'droplet': their two
@@ -203,6 +221,12 @@ class System:
     @property
     def is_electro(self) -> bool:
         return self.electro_cfg is not None
+
+    @property
+    def has_kiss(self) -> bool:
+        """The plain unfused step carries the per-site KISS state:
+        (f, nstate)."""
+        return self.fused_mode is None and kiss_on(self.lb_cfg)
 
 
 def _device(device) -> str:
@@ -526,6 +550,62 @@ def _electro_system(rt: RunTime, lb_cfg: LBConfig) -> System:
                   hydro_on=ecfg.hydrodynamics, electro_cfg=ecfg, solid=solid)
 
 
+def _noise_config(rt: RunTime) -> Optional[NoiseConfig]:
+    """Isothermal fluctuations of the plain fluid (ref: temperature +
+    isothermal_fluctuations keys; ludwig_tpu ludwig.py:603-617): None
+    unless temperature > 0 and the fluctuations are on."""
+    kt = rt.double("temperature", 0.0)
+    if kt <= 0.0:
+        return None
+    on = rt.switch("isothermal_fluctuations",
+                   rt.switch("lb_fluctuations", False))
+    if not on:
+        return None
+    return NoiseConfig(kt=kt, seed=rt.int("random_seed", 8361235), rho=True)
+
+
+def _has_fused_plan(size) -> bool:
+    """The JAX package's fused-kernel plan predicate (ludwig_tpu
+    ludwig.py:38-46 _fused_plan is not None): BX = 1 divides every X and
+    BY in (32, 24, 16, 8) divides Y exactly when 8 does.  The port's
+    kernels need no plan; the JAX package without one takes its unfused
+    route and prints its reference statistics, and so does the port."""
+    return size[1] % 8 == 0
+
+
+def _jax_fused_plain(rt: RunTime, lb_cfg: LBConfig) -> bool:
+    """Whether the JAX package steps a plain-fluid input through its fused
+    kernel (ludwig_tpu ludwig.py:1719-1733): tpu_fused on or interpret, a
+    _fused_plan, and float32 or interpret mode."""
+    fused_req = rt.string("tpu_fused", "off")
+    return (fused_req != "off" and _has_fused_plan(lb_cfg.size)
+            and (fused_req == "interpret" or lb_cfg.dtype == "float32"))
+
+
+def reference_statistics(sys_: System) -> bool:
+    """Whether the JAX package prints reference-ordered statistics for
+    this input: wherever its build_system leaves fused_mode None
+    (ludwig_tpu ludwig.py:2784-2785).  That is every route the port runs
+    unfused (tpu_fused off, LC order-2 advection, fe_electro) and the
+    fused routes the JAX package's gates refuse: a lattice with no
+    _fused_plan, or `tpu_fused on` (not interpret) in float64 - and, for
+    the two-kernel binary, LC and droplet steps, with z not a multiple
+    of 128 (ludwig_tpu ludwig.py:1008-1011, 1160-1163, 1329-1332,
+    1709-1712, 1730-1733).  The port's noiseless step routes do not
+    follow these gates, only their statistics do; a fluctuating plain
+    input's step follows the plain gate too (build_system)."""
+    if sys_.fused_mode is None:
+        return True
+    if sys_.fused_mode == "plain":
+        return not _jax_fused_plain(sys_.rt, sys_.lb_cfg)
+    size, dtype = sys_.lb_cfg.size, sys_.lb_cfg.dtype
+    if not _has_fused_plan(size):
+        return True
+    if sys_.rt.string("tpu_fused", "off") == "interpret":
+        return False
+    return not (size[2] % 128 == 0 and dtype == "float32")
+
+
 def _fused_request(rt: RunTime) -> bool:
     fused_req = rt.string("tpu_fused", "off")
     if fused_req not in ("on", "interpret", "off"):
@@ -549,12 +629,14 @@ def build_system(rt: RunTime, device="cuda") -> System:
     ghosts = rt.switch("ghost_modes", rt.switch("lb_ghost_modes", True))
     dtype = rt.string("dtype", "float64")
     nvel = rt.int("lb_nvel", 9 if size[2] == 1 else 19)
+    fe_name = rt.string("free_energy", "none")
 
     lb_cfg = LBConfig(size=size, nvel=nvel, eta_shear=eta, eta_bulk=eta_b,
                       rho0=rho0, scheme=_relaxation(rt),
                       ghost_modes_on=ghosts, force_global=force,
-                      dtype=dtype, device=device)
-    if rt.string("free_energy", "none") == "symmetric":
+                      dtype=dtype, device=device,
+                      noise=_noise_config(rt) if fe_name == "none" else None)
+    if fe_name == "symmetric":
         # the fluid starts at rest (ref: the symmetric branch of
         # ludwig_tpu build_system; distribution_initialisation is not
         # read)
@@ -568,7 +650,7 @@ def build_system(rt: RunTime, device="cuda") -> System:
                           fused_mode="binary", binary_cfg=bcfg)
         return System(rt=rt, lb_cfg=lb_cfg, state=initial_binary(bcfg, phi0),
                       step_fn=make_binary_step(bcfg), binary_cfg=bcfg)
-    if rt.string("free_energy", "none") == "lc_blue_phase":
+    if fe_name == "lc_blue_phase":
         lcfg = _lc_config(rt, lb_cfg)
         q0 = _q_init(rt, size, lcfg.fe)
         # as in the JAX package, the two fused kernels (K1, K2) take the
@@ -580,7 +662,7 @@ def build_system(rt: RunTime, device="cuda") -> System:
                           fused_mode="lc", lc_cfg=lcfg)
         return System(rt=rt, lb_cfg=lb_cfg, state=lc.initial_lc(lcfg, q0),
                       step_fn=lc.make_lc_step(lcfg), lc_cfg=lcfg)
-    if rt.string("free_energy", "none") == "lc_droplet":
+    if fe_name == "lc_droplet":
         dcfg = _droplet_config(rt, lb_cfg)
         phi0 = _phi_init(rt, size, dcfg.fe.symm)
         q0 = _droplet_q_init(rt, size, dcfg.fe.lc)
@@ -593,53 +675,90 @@ def build_system(rt: RunTime, device="cuda") -> System:
                       state=lc_droplet.initial_droplet(dcfg, phi0, q0),
                       step_fn=lc_droplet.make_droplet_step(dcfg),
                       droplet_cfg=dcfg)
-    if rt.string("free_energy", "none") == "fe_electro":
+    if fe_name == "fe_electro":
         return _electro_system(rt, lb_cfg)
     f = _distribution_init(rt, lb_cfg)
-    if _fused_request(rt):
+    nz = lb_cfg.noise
+    # with isothermal fluctuations the step follows the JAX package's
+    # gate, since the two routes draw different noise: FusedNoise where
+    # it takes its fused kernel, the KISS stream where it does not (f64
+    # under tpu_fused on, no _fused_plan).  Without noise the fused route
+    # differs from the unfused one by roundoff only, and the port keeps
+    # its kernel.
+    if _fused_request(rt) and (nz is None or _jax_fused_plain(rt, lb_cfg)):
         # production path: the fused collide+stream (kernel on a GPU,
-        # twin on the CPU)
+        # twin on the CPU); with isothermal fluctuations the kernel draws
+        # the counter-hash stream of FusedNoise, keyed on random_seed
+        # (ludwig_tpu ludwig.py:1719-1760)
         model = lb_cfg.model
         params = lb_cfg.collision_params()
+        fnz = None
+        if nz is not None:
+            fnz = FusedNoise(
+                seed=nz.seed,
+                v_eta=var_eta(1.0 / params.rtau_shear, nz.kt),
+                v_bulk=var_bulk(1.0 / params.rtau_bulk, nz.kt),
+                v_ghost=tuple(var_ghost(model, params.rtau_ghost, nz.kt)))
 
         def step(f, t=0):
-            return fused_step(f, model, params, t=t)
+            return fused_step(f, model, params, t=t, noise=fnz)
 
         return System(rt=rt, lb_cfg=lb_cfg, state=(f,), step_fn=step,
                       fused_mode="plain")
+    if kiss_on(lb_cfg):
+        # the reference-exact KISS stream: the JAX package seeds it with
+        # master seed 0 (hence 13), not random_seed (ludwig_tpu
+        # ludwig.py:1762-1767)
+        return System(rt=rt, lb_cfg=lb_cfg,
+                      state=(f, kiss_init(0, size, device=device)),
+                      step_fn=make_step(lb_cfg))
     return System(rt=rt, lb_cfg=lb_cfg, state=(f,),
                   step_fn=make_step(lb_cfg))
 
 
-def _make_fast_stats_fn(sys_: System):
-    """Plain-reduction statistics, as the fused path of the JAX package
-    reports them: compute(state, u, prev=None) -> {rho, g, umm} and, for
-    the binary fluid, {phi, fed}, for the liquid crystal {q5, fe_lc},
-    for the droplet {phi, q5, fed}, for electrokinetics {psi3, rhok, elc,
-    fed} and, with solid sites, {gwall} (rho, g and umm then over the
-    fluid sites, as the JAX package's reference statistics take them).
-    `prev` is the order-parameter state before the last step: (phi,),
-    (q5,) or the droplet's (phi, q5)."""
+def _make_stats_fn(sys_: System, reference: bool):
+    """compute(state, u, prev=None) -> {rho, g, umm} and, for the binary
+    fluid, {phi, fed}, for the liquid crystal {q5, fe_lc}, for the
+    droplet {phi, q5, fed}, for electrokinetics {psi3, rhok, elc, fed}
+    and, with solid sites, {gwall}; {ktstats} with fluctuations.  rho, g
+    and umm are over the fluid sites.  `prev` is the order-parameter
+    state before the last step: (phi,), (q5,) or the droplet's (phi, q5).
+
+    `reference` selects the JAX package's reference-ordered statistics
+    (ludwig.py _make_stats_fn: rho_stats_ref, momentum_total_ref, the
+    field scans, seq_sum totals, the masked kT sums) over the plain
+    reductions of its fused path (_make_fast_stats_fn); see
+    reference_statistics for which a run prints."""
     model = sys_.lb_cfg.model
     bcfg = sys_.binary_cfg
     lcfg = sys_.lc_cfg
     dcfg = sys_.droplet_cfg
     ecfg = sys_.electro_cfg
+    nz = sys_.lb_cfg.noise
     mask = None if sys_.solid is None else torch.logical_not(sys_.solid)
+    order_stats = stats.field_stats_ref if reference else stats.field_stats
 
     def compute(state, u, prev=None):
         f = state[0]
-        rho, _g = hydro_fields(f, model)
-        res = {"rho": stats.field_stats(rho, mask),
-               "g": stats.momentum_total_plain(f, model, mask),
-               "umm": stats.velocity_minmax(u, mask)}
+        if reference:
+            res = {"rho": stats.rho_stats_ref(f, model, mask),
+                   "g": stats.momentum_total_ref(f, model, mask)}
+        else:   # the JAX package's fused routes have no solid sites
+            rho, _g = hydro_fields(f, model)
+            res = {"rho": stats.field_stats(rho),
+                   "g": stats.momentum_total_plain(f, model)}
+        res["umm"] = stats.velocity_minmax(u, mask)
         if ecfg is not None:
-            # ludwig_tpu ludwig.py:2127-2161
+            # ludwig_tpu ludwig.py:2127-2161 (an electrokinetic run always
+            # prints the reference statistics): site-order totals
             psi, rhok, gwall = state[1], state[2], state[4]
-            res["psi3"] = stats.total_min_max(psi)
-            res["rhok"] = [stats.total_min_max(rhok[k])
-                           for k in range(ecfg.ek.nk)]
-            res["elc"] = stats.total_min_max(rho_elec(rhok, ecfg.ek))
+
+            def tmm(x):
+                return stats.seq_sum(x), torch.min(x), torch.max(x)
+
+            res["psi3"] = tmm(psi)
+            res["rhok"] = [tmm(rhok[k]) for k in range(ecfg.ek.nk)]
+            res["elc"] = tmm(rho_elec(rhok, ecfg.ek))
             fed = fe_electro_fed(rhok, ecfg.ek, psi)
             fluid = (torch.mean(fed) if mask is None
                      else torch.sum(torch.where(mask, fed, 0.0))
@@ -648,12 +767,13 @@ def _make_fast_stats_fn(sys_: System):
             if mask is not None:
                 res["gwall"] = gwall
         if bcfg is not None:
-            # [phi] of the updated phi; [fed] with the reference's
-            # stale-gradient convention: gradients of the phi before the
-            # step, the updated phi in place of phi (ludwig_tpu ludwig.py
-            # _make_fast_stats_fn)
+            # [phi] of the updated phi (the reference route's shifted
+            # two-pass sums); [fed] with the reference's stale-gradient
+            # convention: gradients of the phi before the step, the
+            # updated phi in place of phi
             phi = state[1]
-            res["phi"] = stats.field_stats(phi)
+            res["phi"] = (stats._compensated_stats(phi, mask) if reference
+                          else stats.field_stats(phi))
             fields = fe_fields(phi if prev is None else prev[0])
             fields["phi"] = phi
             m = torch.mean(bcfg.fe.fed(fields))
@@ -662,7 +782,7 @@ def _make_fast_stats_fn(sys_: System):
             # the same convention for [fe]: gradients of the Q before
             # the step, the updated Q in place of Q
             q5 = state[1]
-            res["q5"] = [stats.field_stats(q5[n]) for n in range(5)]
+            res["q5"] = [order_stats(q5[n]) for n in range(5)]
             fields = lc.lc_fields(q5 if prev is None else prev[0])
             fields["q"] = q5
             bulk, grad = lcfg.fe.fed_bulk_grad(fields)
@@ -672,16 +792,34 @@ def _make_fast_stats_fn(sys_: System):
         if dcfg is not None:
             # [phi], [Qxx]..[Qyz] of the updated fields; [fed] with the
             # gradients of the pre-step phi and Q, the updated fields in
-            # their place (ludwig_tpu ludwig.py _make_fast_stats_fn)
+            # their place
             phi, q5 = state[1], state[2]
-            res["phi"] = stats.field_stats(phi)
-            res["q5"] = [stats.field_stats(q5[n]) for n in range(5)]
+            res["phi"] = order_stats(phi)
+            res["q5"] = [order_stats(q5[n]) for n in range(5)]
             fields = lc_droplet.droplet_fields(
                 *((phi, q5) if prev is None else prev))
             fields["phi"] = phi
             fields["q"] = q5
             m = torch.mean(dcfg.fe.fed(fields))
             res["fed"] = (m, m)
+        if nz is not None and nz.rho:
+            # the temperature statistics (ref: collision.c:1030-1110
+            # lb_collision_stats_kt; ludwig_tpu ludwig.py:1813-1817 on the
+            # fused route, :2344-2359 with the rho == 0 guard on the
+            # reference one)
+            rho_f, g_f = hydro_fields(f, model)
+            if reference:
+                w = 1.0 if mask is None else mask.to(f.dtype)
+                nfl = (torch.tensor(float(rho_f.numel()), dtype=f.dtype,
+                                    device=f.device)
+                       if mask is None else torch.sum(w))
+                rho_s = torch.where(rho_f == 0.0, 1.0, rho_f)
+                res["ktstats"] = tuple(
+                    torch.sum(w * g_f[a] * g_f[a] / rho_s) / nfl
+                    for a in range(3))
+            else:
+                res["ktstats"] = tuple(torch.mean(g_f[a] * g_f[a] / rho_f)
+                                       for a in range(3))
         return res
 
     return compute
@@ -737,6 +875,14 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
         out.write(stats.format_momentum_block(g, g))
     if with_velocity:
         out.write(stats.format_velocity_block(*res["umm"]))
+    if "ktstats" in res and in_loop:
+        # ref: collision.c:1103-1110 lb_collision_stats_kt
+        gx, gy, gz = (float(v) for v in res["ktstats"])
+        ndim = 2 if sys_.lb_cfg.nvel == 9 else 3
+        kt = sys_.lb_cfg.noise.kt * ndim
+        out.write("\nIsothermal fluctuations\n")
+        out.write(f"[eqipart.] {gx:14.7e} {gy:14.7e} {gz:14.7e}\n")
+        out.write(f"[measd/kT] {gx + gy + gz:14.7e} {kt:14.7e}\n")
     if in_loop:
         out.write(f"\nCompleted cycle {tstep}\n")
     out.flush()
@@ -762,7 +908,7 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
     size = sys_.lb_cfg.size
     ncycles = rt.int("N_cycles", 0)
     freq = rt.int("freq_statistics", max(ncycles, 1))
-    stats_fn = _make_fast_stats_fn(sys_)
+    stats_fn = _make_stats_fn(sys_, reference_statistics(sys_))
     # the SOR convergence report (ludwig_tpu ludwig.py:3157-3176)
     sor_freq = (rt.int("freq_psi_resid", freq) if sys_.is_electro
                 and sys_.electro_cfg.ek.solver != "fft" else 0)
@@ -804,6 +950,9 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
         elif sys_.fused_mode == "plain":
             sys_.state = (sys_.step_fn(sys_.state[0], t),)
             u = None      # derived from f at statistics steps
+        elif sys_.has_kiss:
+            # the KISS state rides with f (ludwig_tpu ludwig.py:3395-3447)
+            sys_.state, _rho, u = sys_.step_fn(sys_.state, t)
         else:
             f, _rho, u = sys_.step_fn(sys_.state[0], t)
             sys_.state = (f,)

@@ -7,9 +7,10 @@ per velocity set (the collide+stream kernels), ``csrc/binary_phi.cu``
 once (the binary fluid's order-parameter kernel), ``csrc/lc_q.cu`` once
 (the liquid crystal's Q-tensor kernel), ``csrc/droplet.cu`` once (the LC
 droplet's coupled phi + Q kernel), ``csrc/electro.cu`` once (the SOR
-Poisson solve and the Nernst-Planck + grad-mu kernel).  Nothing is built
-or loaded when the module is imported, so the CPU tests import it
-freely.
+Poisson solve and the Nernst-Planck + grad-mu kernel),
+``csrc/stats_ref.cu`` once (the reference-ordered statistics scans).
+Nothing is built or loaded when the module is imported, so the CPU tests
+import it freely.
 
 The per-site arithmetic reaches each kernel as straight-line C++
 generated from the port's own Python, traced with symbols instead of
@@ -51,6 +52,7 @@ CSRC_BINARY = PKG_DIR / "csrc" / "binary_phi.cu"
 CSRC_LC = PKG_DIR / "csrc" / "lc_q.cu"
 CSRC_DROPLET = PKG_DIR / "csrc" / "droplet.cu"
 CSRC_ELECTRO = PKG_DIR / "csrc" / "electro.cu"
+CSRC_STATS = PKG_DIR / "csrc" / "stats_ref.cu"
 BUILD_DIR = PKG_DIR / "build" / "kernels"
 # -fmad=false: no mul+add contraction, so every kernel evaluates the
 # generated expression tree operation by operation, like the twin.  With
@@ -61,6 +63,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 KERNEL_NVELS = (15, 19, 27)
+# integer operations of the fluctuations' counter hash (csrc/fused_lb.cu
+# lb_site_deviates): the site's key (3 products, a product by t, 4
+# xors), then per deviate (6 + nghost of them) a xor with the mode's
+# key, the murmur3 finalizer (3 shifts, 3 xors, 2 products), the 3-bit
+# mask and the table select (4 compares)
+NOISE_KEY_OPS, NOISE_DEVIATE_OPS = 8, 14
 BLOCKS_PER_SM = 2        # resident blocks per SM when scratch is global
 
 
@@ -77,6 +85,11 @@ class LaunchCounts:
     fused_force_step_solid: int = 0
     sor_solve: int = 0
     np_gradmu: int = 0
+    fused_step_noise: int = 0
+    seq_sum: int = 0
+    field_stats_ref: int = 0
+    rho_stats_ref: int = 0
+    momentum_total_ref: int = 0
 
     def reset(self):
         for field in dataclasses.fields(self):
@@ -224,24 +237,36 @@ class _Const:
         return _Const(f"(-{self.key})", lambda b: -self.fn(b))
 
 
-def _collide_source(nvel: int, delta: bool, projected: bool) -> str:
+def _collide_source(nvel: int, delta: bool, projected: bool,
+                    noise: bool = False) -> str:
     """One device function: collide the site values f[0..nvel) and hand
-    each post-collision value to emit(q, cx, cy, cz, value)."""
-    tr, emits = _collide_trace(nvel, delta, projected)
-    name = f"lb_collide_d{int(delta)}_p{int(projected)}"
+    each post-collision value to emit(q, cx, cy, cz, value); with
+    `noise`, add the fluctuations built from the site's unit-variance
+    deviates r[0..6 + nghost) (lb_collide_noise_*)."""
+    tr, emits = _collide_trace(nvel, delta, projected, noise=noise)
+    if noise:
+        name = f"lb_collide_noise_d{int(delta)}_p{int(projected)}"
+        args = "const T* f, const T* r, const P& p, Emit& emit"
+    else:
+        name = f"lb_collide_d{int(delta)}_p{int(projected)}"
+        args = "const T* f, const P& p, Emit& emit"
     return "\n".join(
         ["template <typename T, typename P, typename Emit>",
-         f"__device__ __forceinline__ void {name}(const T* f, const P& p, "
-         "Emit& emit) {"] + tr.lines + emits + ["}", ""])
+         f"__device__ __forceinline__ void {name}({args}) {{"]
+        + tr.lines + emits + ["}", ""])
 
 
 def _collide_trace(nvel: int, delta: bool, projected: bool,
-                   site_force: bool = False):
+                   site_force: bool = False, noise: bool = False):
     """(trace, tail lines) of one site's collision.  The force is the
     global one (p.fx, p.fy, p.fz) or, with `site_force`, the site's total
     fs[0..3) (per-site + global, summed in the kernel where the global one
     is non-zero, as ops/fused.py _collide does); then the tail also
-    stores the collision-time velocity in u[0..3)."""
+    stores the collision-time velocity in u[0..3).  With `noise` the
+    collision adds ops/fused.py _noise_sg of the deviates r[k] and the
+    amplitudes p.nz_eta2, p.nz_eta, p.nz_bulk, p.nz_g[i] (each ghost
+    amplitude a value, never a structural 0: the header does not depend
+    on the temperature)."""
     from ludwig_tpu_torch.ops import fused
 
     model = lb_model(nvel)
@@ -255,9 +280,16 @@ def _collide_trace(nvel: int, delta: bool, projected: bool,
         gcoef = [-1.0 if delta else 0.0] * nghost
     else:
         gcoef = [_Sym(tr, f"p.g[{i}]") for i in range(nghost)]
+    noise_sg = None
+    if noise:
+        r = [_Sym(tr, f"r[{k}]") for k in range(6 + nghost)]
+        noise_sg = fused._noise_sg(
+            model, r, _Sym(tr, "p.nz_eta2"), _Sym(tr, "p.nz_eta"),
+            _Sym(tr, "p.nz_bulk"),
+            [_Sym(tr, f"p.nz_g[{i}]") for i in range(nghost)])
     modes, u = fused._relax_modes(model, fl, _Sym(tr, "p.rt"),
                                   _Sym(tr, "p.rtb"), ftot, [True] * 3,
-                                  gcoef, delta)
+                                  gcoef, delta, noise_sg)
     tail = []
 
     def emit(acc, q):
@@ -286,7 +318,8 @@ def _collide_force_source(nvel: int, projected: bool) -> str:
 
 
 def generate_header(nvel: int) -> str:
-    """lb_generated.h for one velocity set."""
+    """lb_generated.h for one velocity set; the fluctuating collisions
+    (lb_collide_noise_*) come last, after the noiseless functions."""
     model = lb_model(nvel)
     parts = [f"// Generated by ludwig_tpu_torch/ops/_cuda.py for D3Q{nvel}"
              " from lattice.py; do not edit.",
@@ -299,6 +332,9 @@ def generate_header(nvel: int) -> str:
     for projected in (False, True):
         parts.append(_collide_force_source(nvel, projected))
     parts.append(_antipode_source(model))
+    for delta in (False, True):
+        for projected in (False, True):
+            parts.append(_collide_source(nvel, delta, projected, noise=True))
     return "\n".join(parts)
 
 
@@ -584,8 +620,11 @@ def site_ops(kernel: str, nvel: int = 19, order: int = 2,
              delta: bool = True) -> int:
     """Distinct arithmetic operations per site and step the function
     needs, for the bound: the M10 collision (fused_step, fusedn_step),
-    the M10 collision with a per-site force (fused_force_step, plus the
-    three additions of a non-zero global force at most), or the binary
+    the M10 collision with fluctuations (fused_step_noise: the
+    collision's floating-point operations plus the integer operations of
+    the counter hash), the M10 collision with a per-site force
+    (fused_force_step, plus the three additions of a non-zero global
+    force at most), or the binary
     site update with level-1 values computed once per site
     (binary_phi_force_step), or the liquid-crystal update, likewise with
     one level-1 evaluation per site and the free energy in its factored
@@ -595,6 +634,10 @@ def site_ops(kernel: str, nvel: int = 19, order: int = 2,
     is written (droplet_phi_q_force_step)."""
     if kernel in ("fused_step", "fusedn_step"):
         return _collide_trace(nvel, delta, True)[0].nops
+    if kernel == "fused_step_noise":
+        ndev = 6 + nvel - lb_model(nvel).nhydro
+        return (_collide_trace(nvel, delta, True, noise=True)[0].nops
+                + NOISE_KEY_OPS + NOISE_DEVIATE_OPS * ndev)
     if kernel == "fused_force_step":
         return _collide_trace(nvel, True, True, site_force=True)[0].nops + 3
     if kernel == "binary_phi_force_step":
@@ -627,6 +670,7 @@ BINARY_LIB = "binary_phi"
 LC_LIB = "lc_q"
 DROPLET_LIB = "droplet"
 ELECTRO_LIB = "electro"
+STATS_LIB = "stats_ref"
 ELECTRO_THREADS = 256    # threads a block of csrc/electro.cu (kReduceThreads)
 
 
@@ -651,8 +695,8 @@ def _bind_lb(path: Path, nvel: int):
     lib.lb_device_info.argtypes = [ci, ctypes.POINTER(ci),
                                    ctypes.POINTER(ci)]
     lib.lb_device_info.restype = ci
-    lib.lb_fused_step.argtypes = [ci, ci, ci, vp, vp, ci, ci, ci, dp, vp,
-                                  ci]
+    lib.lb_fused_step.argtypes = [ci, ci, ci, vp, vp, ci, ci, ci, dp, dp,
+                                  ctypes.c_uint32, ci, vp, ci]
     lib.lb_fused_step.restype = ci
     lib.lb_fusedn_step.argtypes = [ci, ci, ci, vp, vp, ci, ci, ci, ci, ci,
                                    ci, ci, vp, cll, ci, ci, dp, vp, ci]
@@ -722,6 +766,17 @@ def _bind_electro(path: Path):
     return lib
 
 
+def _bind_stats(path: Path):
+    lib = ctypes.CDLL(str(path))
+    vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.lb_stats_scan.argtypes = [ci, ci, vp, vp, cll, vp, vp, ci]
+    lib.lb_stats_scan.restype = ci
+    lib.lb_stats_momentum.argtypes = [ci, ci, vp, vp, cll,
+                                      ctypes.POINTER(ci), vp, vp, ci]
+    lib.lb_stats_momentum.restype = ci
+    return lib
+
+
 def _jobs() -> dict:
     """library name -> (source, generated header's name, its generator,
     binder of the loaded library)."""
@@ -736,16 +791,16 @@ def _jobs() -> dict:
                          generate_droplet_header, _bind_droplet)
     # hand-written throughout: no generated header
     jobs[ELECTRO_LIB] = (CSRC_ELECTRO, None, lambda: "", _bind_electro)
+    jobs[STATS_LIB] = (CSRC_STATS, None, lambda: "", _bind_stats)
     return jobs
 
 
 def build(names=None) -> dict:
     """Compile (where not already built) and load the named kernel
     libraries, all of them by default: fused_lb_q<nvel> per velocity set,
-    binary_phi, lc_q, droplet, electro.  The nvcc runs go in parallel,
-    and each writes its ptxas report (registers, spills) beside the
-    library.  Returns
-    {library name: path}."""
+    binary_phi, lc_q, droplet, electro, stats_ref.  The nvcc runs go in
+    parallel, and each writes its ptxas report (registers, spills) beside
+    the library.  Returns {library name: path}."""
     jobs = _jobs()
     names = tuple(jobs) if names is None else tuple(names)
     bad = [name for name in names if name not in jobs]
@@ -836,10 +891,36 @@ def fused_step(f: torch.Tensor, model, params, delta: bool) -> torch.Tensor:
     X, Y, Z = f.shape[1:]
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = lib.lb_fused_step(int(f.dtype == torch.float64), int(delta), proj,
-                           f.data_ptr(), out.data_ptr(), X, Y, Z, par,
-                           stream, f.device.index)
+                           f.data_ptr(), out.data_ptr(), X, Y, Z, par, None,
+                           0, 0, stream, f.device.index)
     _raise_on(rc, "fused_step")
     launches.fused_step += 1
+    return out
+
+
+def fused_step_noise(f: torch.Tensor, model, params, delta: bool, noise,
+                     t: int) -> torch.Tensor:
+    """Launch the single-step kernel with in-kernel fluctuations (a
+    FusedNoise) at step t on PyTorch's current stream.  The amplitude
+    products are folded in double here, as the twin folds them, and
+    rounded to the dtype in the kernel's parameters."""
+    from ludwig_tpu_torch.ops.fused import noise_amplitudes
+
+    _check_cuda_state(f)
+    lib = _lib(model.nvel)
+    proj, par = _kernel_params(model, params, delta)
+    eta2, eta, bulk, ghost = noise_amplitudes(model, noise)
+    vals = [eta2, eta, bulk] + [0.0 if g is None else g for g in ghost]
+    npar = (ctypes.c_double * len(vals))(*vals)
+    out = torch.empty_like(f)
+    X, Y, Z = f.shape[1:]
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    rc = lib.lb_fused_step(int(f.dtype == torch.float64), int(delta), proj,
+                           f.data_ptr(), out.data_ptr(), X, Y, Z, par, npar,
+                           noise.seed & 0x7FFFFFFF, t, stream,
+                           f.device.index)
+    _raise_on(rc, "fused_step_noise")
+    launches.fused_step_noise += 1
     return out
 
 
@@ -1037,6 +1118,44 @@ def np_gradmu(psi: torch.Tensor, rho: torch.Tensor, u, fluid: torch.Tensor,
     _raise_on(rc, "np_gradmu")
     launches.np_gradmu += 1
     return rho_out, force, fsum
+
+
+def stats_scan(flat: torch.Tensor, keep, mode: int, name: str):
+    """Launch the one-block site-order scan `mode` of csrc/stats_ref.cu
+    over the contiguous 1-D tensor flat (keep: a bool mask of its
+    values, or None); returns (2,) [total, second sum] on the device.
+    `name` is the statistic the scan serves (seq_sum, field_stats_ref or
+    rho_stats_ref), whose launch count it adds to."""
+    _check_cuda_state(flat)
+    lib = _get_lib(STATS_LIB)
+    out = torch.empty(2, dtype=flat.dtype, device=flat.device)
+    stream = torch.cuda.current_stream(flat.device).cuda_stream
+    rc = lib.lb_stats_scan(
+        int(flat.dtype == torch.float64), mode, flat.data_ptr(),
+        None if keep is None else keep.view(torch.uint8).data_ptr(),
+        flat.numel(), out.data_ptr(), stream, flat.device.index)
+    _raise_on(rc, name)
+    setattr(launches, name, getattr(launches, name) + 1)
+    return out
+
+
+def momentum_total_ref(f: torch.Tensor, keep, model) -> torch.Tensor:
+    """Launch the three Kahan chains of csrc/stats_ref.cu's momentum scan
+    over the contiguous state f (keep: a flat bool mask of the sites, or
+    None); returns the (3,) total on the device."""
+    _check_cuda_state(f)
+    lib = _get_lib(STATS_LIB)
+    cv = [int(c) for c in model.cv.reshape(-1)]
+    cvp = (ctypes.c_int * len(cv))(*cv)
+    out = torch.empty(3, dtype=f.dtype, device=f.device)
+    stream = torch.cuda.current_stream(f.device).cuda_stream
+    rc = lib.lb_stats_momentum(
+        int(f.dtype == torch.float64), model.nvel, f.data_ptr(),
+        None if keep is None else keep.view(torch.uint8).data_ptr(),
+        f[0].numel(), cvp, out.data_ptr(), stream, f.device.index)
+    _raise_on(rc, "momentum_total_ref")
+    launches.momentum_total_ref += 1
+    return out
 
 
 def _window_sites(plan, halo: int) -> int:

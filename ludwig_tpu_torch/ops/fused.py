@@ -1,8 +1,9 @@
 """Fused collide + stream: one collision and one pull stream per pass.
 
 PyTorch port of ludwig_tpu/ops/fused.py.  The TPU kernels
-``_fused_kernel``, ``_fusedn_kernel`` and ``_fused_force_kernel`` (with
-and without its solid variant) become the hand-written CUDA kernels of
+``_fused_kernel`` (with and without its in-kernel fluctuations,
+FusedNoise), ``_fusedn_kernel`` and ``_fused_force_kernel`` (with and
+without its solid variant) become the hand-written CUDA kernels of
 ``csrc/fused_lb.cu``; their plain PyTorch twins live here.
 Every public function takes the twin for a tensor on the CPU, launches
 the kernel for a tensor on a CUDA device, and raises on anything else.
@@ -26,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 from functools import lru_cache
 
+import numpy as np
 import torch
 
 from ludwig_tpu_torch.lattice import LatticeModel, lb_model
@@ -164,7 +166,7 @@ def _assemble_eo_deltas(model: LatticeModel, fl, deltas, emit):
 
 
 def _relax_modes(model: LatticeModel, fl, rt, rtb, ftot, has_f, gcoef,
-                 delta: bool):
+                 delta: bool, noise_sg=None):
     """Post-collision modes (delta=False) or mode increments
     delta_m = m'_m - m_m (delta=True), plus u.
 
@@ -176,7 +178,12 @@ def _relax_modes(model: LatticeModel, fl, rt, rtb, ftot, has_f, gcoef,
     structurally.  In the increment form the conserved modes have delta
     exactly zero (density) or the bare force (momentum), which keeps the
     conserved content of f out of the back-transform rounding
-    (ACCURACY.md f32 conservation study)."""
+    (ACCURACY.md f32 conservation study).
+
+    `noise_sg` is an optional (shat_by_pair, ghat_list) from _noise_sg:
+    isothermal fluctuations inside the collision (ref: collision.c:53),
+    at the JAX package's places - shat after the force term, ghat added
+    to m_g * coef or standing alone where coef is a structural 0."""
     ndim = model.ndim
     m = _eo_matvec(model, fl)
     rho = m[0]
@@ -190,6 +197,7 @@ def _relax_modes(model: LatticeModel, fl, rt, rtb, ftot, has_f, gcoef,
     tr_seq = sum(seq[(a, a)] for a in range(ndim))
     rdim = 1.0 / ndim
 
+    shat, ghat = noise_sg if noise_sg is not None else (None, None)
     if delta:
         out = [0.0] + [ftot[a] if has_f[a] else 0.0 for a in range(ndim)]
     else:
@@ -209,10 +217,16 @@ def _relax_modes(model: LatticeModel, fl, rt, rtb, ftot, has_f, gcoef,
                 v = v + rdim * tr_post
         if has_f[a] or has_f[b]:
             v = v + (2.0 - rt) * (u[a] * ftot[b] + ftot[a] * u[b])
+        if shat is not None:
+            v = v + shat[(a, b)]
         out.append(v)
-    for g, coef in zip(range(model.nhydro, model.nvel), gcoef):
+    for gi, (g, coef) in enumerate(zip(range(model.nhydro, model.nvel),
+                                       gcoef)):
         structural_zero = isinstance(coef, float) and coef == 0.0
-        out.append(0.0 if structural_zero else m[g] * coef)
+        val = None if structural_zero else m[g] * coef
+        if ghat is not None and ghat[gi] is not None:
+            val = ghat[gi] if val is None else val + ghat[gi]
+        out.append(0.0 if val is None else val)
     return out, u
 
 
@@ -225,19 +239,21 @@ def _ghost_coefs(model: LatticeModel, params: CollisionParams, delta: bool):
 
 
 def _collide_modes(model: LatticeModel, params: CollisionParams, fl,
-                   force=None):
+                   force=None, noise_sg=None):
     """Post-collision modes from a list of per-velocity tensors; `force`
-    an optional [fx, fy, fz] per-site body force.  Returns (modes, u)."""
-    return _collide(model, params, fl, force, delta=False)
+    an optional [fx, fy, fz] per-site body force, `noise_sg` optional
+    fluctuation terms (_noise_sg).  Returns (modes, u)."""
+    return _collide(model, params, fl, force, delta=False,
+                    noise_sg=noise_sg)
 
 
 def _collide_mode_deltas(model: LatticeModel, params: CollisionParams, fl,
-                         force=None):
+                         force=None, noise_sg=None):
     """Post-collision mode INCREMENTS delta_m = m'_m - m_m, plus u."""
-    return _collide(model, params, fl, force, delta=True)
+    return _collide(model, params, fl, force, delta=True, noise_sg=noise_sg)
 
 
-def _collide(model, params, fl, force, delta):
+def _collide(model, params, fl, force, delta, noise_sg=None):
     ndim = model.ndim
     fg = [float(v) for v in params.force_global[:ndim]]
     if force is None:
@@ -249,7 +265,7 @@ def _collide(model, params, fl, force, delta):
         has_f = [True] * ndim
     return _relax_modes(model, fl, params.rtau_shear, params.rtau_bulk,
                         ftot, has_f, _ghost_coefs(model, params, delta),
-                        delta)
+                        delta, noise_sg)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,10 +292,16 @@ def _check_state(f: torch.Tensor, model: LatticeModel):
 
 
 def _fused_step_plain(f: torch.Tensor, model: LatticeModel,
-                      params: CollisionParams, delta: bool) -> torch.Tensor:
-    """Twin of the single-step kernel: collide every site, then pull-
-    stream each assembled velocity with torch.roll."""
+                      params: CollisionParams, delta: bool, noise=None,
+                      t=0) -> torch.Tensor:
+    """Twin of the single-step kernel: collide every site (with the
+    counter-hash fluctuations of `noise`, a FusedNoise, at step t), then
+    pull-stream each assembled velocity with torch.roll."""
     fl = [f[q] for q in range(model.nvel)]
+    noise_sg = None
+    if noise is not None:
+        coords = _site_coords(f.shape[1:], f.device)
+        noise_sg = _noise_modes(model, noise, *coords, t, f.dtype)
     out = [None] * model.nvel
     cvs = [tuple(int(c) for c in model.cv[q]) for q in range(model.nvel)]
 
@@ -290,10 +312,11 @@ def _fused_step_plain(f: torch.Tensor, model: LatticeModel,
                   if dims else acc)
 
     if delta:
-        modes, _u = _collide_mode_deltas(model, params, fl)
+        modes, _u = _collide_mode_deltas(model, params, fl,
+                                         noise_sg=noise_sg)
         _assemble_eo_deltas(model, fl, modes, emit)
     else:
-        modes, _u = _collide_modes(model, params, fl)
+        modes, _u = _collide_modes(model, params, fl, noise_sg=noise_sg)
         _assemble_eo(model, modes, emit)
     return torch.stack(out)
 
@@ -355,17 +378,22 @@ def fused_step(f: torch.Tensor, model: LatticeModel,
     `delta` (default True on this production path) selects the
     conservation-hardened increment-form back transform.  `plan` is
     accepted for signature parity with fusedn_step; the single-step
-    kernel has no tile.  `noise`/`t` are the in-kernel fluctuation hooks
-    of the JAX package, not ported yet."""
-    del plan, t
-    if noise is not None:
-        raise NotImplementedError(
-            "in-kernel fluctuations (FusedNoise) not ported yet, "
-            "see ROADMAP")
+    kernel has no tile.  `noise` is an optional FusedNoise: isothermal
+    fluctuations drawn inside the collision from the counter hash of
+    each site's global coordinates and the step counter `t` (an int32,
+    as the TPU kernel's step scalar)."""
+    del plan
     _check_state(f, model)
+    if noise is not None:
+        if not isinstance(noise, FusedNoise):
+            raise TypeError(f"noise must be a FusedNoise, got "
+                            f"{type(noise).__name__}")
+        t = _check_step(t)
     if f.device.type == "cpu":
-        return _fused_step_plain(f, model, params, delta)
+        return _fused_step_plain(f, model, params, delta, noise, t)
     if f.device.type == "cuda":
+        if noise is not None:
+            return _cuda.fused_step_noise(f, model, params, delta, noise, t)
         return _cuda.fused_step(f, model, params, delta)
     raise ValueError(f"no fused_step for device {f.device}")
 
@@ -509,3 +537,150 @@ def make_fusedn_nstep(model: LatticeModel, params: CollisionParams,
         return f
 
     return nstep
+
+
+# -- in-kernel fluctuating LB (ref: collision.c:53 lb_collision_
+# fluctuations inside the collision kernel; variances collision.c:
+# 108-120) -------------------------------------------------------------
+
+_RT_A = float(np.sqrt(2.0 + np.sqrt(2.0)))
+_RT_B = float(np.sqrt(2.0 - np.sqrt(2.0)))
+_M32 = 0xFFFFFFFF
+# the hash's int32 multipliers as unsigned words (the JAX package's
+# np.int32 constants; ludwig_tpu/ops/fused.py:1436-1474)
+_HX, _HY, _HZ = 73856093, 19349663, 83492791
+_HT = -1640531527 & _M32          # 0x9e3779b9
+_HM = 40503
+_MURMUR = (-2048144789 & _M32, -1028477387 & _M32)   # 0x85ebca6b, 0xc2b2ae35
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedNoise:
+    """Static fluctuation parameters of the fused kernel.
+
+    The production stream is a counter-based per-GLOBAL-site hash
+    (murmur3-style finalizer over (x, y, z, step, mode, seed)) mapped
+    onto the reference's 8-value discrete unit-variance distribution
+    (ref: noise.c:70 table) - deterministic and decomposition
+    independent by construction, like the reference's site-seeded state
+    (ref: noise.c:190-196).  The bitwise KISS99 stream is the unfused
+    route's (lb.make_step)."""
+    seed: int
+    v_eta: float
+    v_bulk: float
+    v_ghost: tuple       # per-mode ghost amplitudes (len nvel)
+
+
+def _check_step(t) -> int:
+    t = int(t)
+    if not -2 ** 31 <= t < 2 ** 31:
+        raise ValueError(f"step counter {t} does not fit the kernel's int32")
+    return t
+
+
+def _mul32(a, c: int):
+    """a * c mod 2^32 for int64 tensors a of 32-bit words and a 32-bit
+    constant c, with every intermediate below 2^49 (int64 overflow is
+    not promised to wrap)."""
+    lo = a * (c & 0xFFFF)
+    hi = ((a * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _hash_u32(h):
+    """murmur3 finalizer on 32-bit words (logical shifts, wrap-around
+    products)."""
+    h = h ^ (h >> 16)
+    h = _mul32(h, _MURMUR[0])
+    h = h ^ (h >> 13)
+    h = _mul32(h, _MURMUR[1])
+    return h ^ (h >> 16)
+
+
+def _deviate_from_bits(bits, dtype):
+    """Map 3 uniform bits onto the 8-value discrete distribution
+    {-A, -B, 0 x4, +B, +A} (zero mean, unit variance, correct 4th
+    moment; ref: noise.c discrete table)."""
+    table = torch.tensor([-_RT_A, -_RT_B, 0.0, 0.0, 0.0, 0.0, _RT_B, _RT_A],
+                         dtype=dtype, device=bits.device)
+    return table[bits & 7]
+
+
+def _window_deviates(gx, gy, gz, step, seed, n, dtype):
+    """n unit-variance deviate tensors keyed on GLOBAL site coordinates
+    (int64 tensors that broadcast) and the step counter: the JAX
+    package's int32 hash, bit for bit, on 32-bit words."""
+    base = (_mul32(gx, _HX) ^ _mul32(gy, _HY) ^ _mul32(gz, _HZ))
+    base = base ^ _mul32(torch.as_tensor(step & _M32, dtype=torch.int64,
+                                         device=base.device), _HT)
+    base = base ^ (seed & 0x7FFFFFFF)
+    return [_deviate_from_bits(_hash_u32(base ^ (m * _HM)), dtype)
+            for m in range(n)]
+
+
+def _noise_sg(model: LatticeModel, r, eta2, eta, bulk, ghost_amps):
+    """(shat_by_pair, ghat_list) from 6 + nghost unit-variance deviates
+    r (ref: collision.c:1818-1906, noise.stress_from_deviates): eta2 is
+    v_eta * sqrt(2) and eta v_eta, both folded in double before they
+    meet r, bulk v_bulk; ghost_amps[i] the amplitude of ghost i, or None
+    where it is 0.  Tensors in the twin, symbols in the kernel's
+    generated code (ops/_cuda.py)."""
+    ndim = model.ndim
+    s = [[None] * 3 for _ in range(3)]
+    s[0][0], s[0][1], s[0][2] = r[0], r[1], r[2]
+    s[1][1], s[1][2], s[2][2] = r[3], r[4], r[5]
+    s[1][0], s[2][0], s[2][1] = s[0][1], s[0][2], s[1][2]
+    tr = (1.0 / ndim) * (s[0][0] + s[1][1] + (ndim - 2.0) * s[2][2])
+    shat = {}
+    for (a, b) in _triu_pairs(ndim):
+        v = s[a][b] - (tr if a == b else 0.0)
+        v = v * (eta2 if a == b else eta)
+        if a == b:
+            v = v + tr * bulk
+        shat[(a, b)] = v
+    ghat = [None if amp is None else amp * r[6 + i]
+            for i, amp in enumerate(ghost_amps)]
+    return shat, ghat
+
+
+def noise_amplitudes(model: LatticeModel, noise: FusedNoise):
+    """(eta2, eta, bulk, ghost_amps) of _noise_sg as Python floats, a
+    ghost amplitude None where it is 0."""
+    amps = [float(noise.v_ghost[g]) for g in range(model.nhydro, model.nvel)]
+    return (noise.v_eta * float(np.sqrt(2.0)), noise.v_eta, noise.v_bulk,
+            [a if a != 0.0 else None for a in amps])
+
+
+def _noise_modes(model: LatticeModel, noise: FusedNoise, gx, gy, gz, step,
+                 dtype):
+    """(shat_by_pair, ghat_list) at the sites of coordinates (gx, gy,
+    gz) and step `step`."""
+    nghost = model.nvel - model.nhydro
+    r = _window_deviates(gx, gy, gz, step, noise.seed, 6 + nghost, dtype)
+    return _noise_sg(model, r, *noise_amplitudes(model, noise))
+
+
+def _site_coords(size, device):
+    """Broadcasting int64 global coordinates (x, y, z) of a lattice."""
+    X, Y, Z = size
+    kw = dict(dtype=torch.int64, device=device)
+    return (torch.arange(X, **kw)[:, None, None],
+            torch.arange(Y, **kw)[None, :, None],
+            torch.arange(Z, **kw)[None, None, :])
+
+
+def fused_noise_fields(model: LatticeModel, noise: FusedNoise, size, step,
+                       dtype, device="cuda"):
+    """Twin of the in-kernel noise as fields: (shat (3, 3, X, Y, Z), ghat
+    (nvel, X, Y, Z)) of the same counter stream, for feeding
+    ops.collide.collide."""
+    X, Y, Z = size
+    shp, ghl = _noise_modes(model, noise, *_site_coords(size, device),
+                            _check_step(step), dtype)
+    shat = torch.stack([torch.stack([
+        torch.broadcast_to(shp[tuple(sorted((a, b)))], (X, Y, Z))
+        for b in range(3)]) for a in range(3)])
+    zero = torch.zeros((X, Y, Z), dtype=dtype, device=device)
+    rows = [zero] * model.nhydro + [
+        zero if g is None else torch.broadcast_to(g, (X, Y, Z)) for g in ghl]
+    return shat, torch.stack(rows)

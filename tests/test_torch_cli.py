@@ -64,7 +64,9 @@ def test_binary_cli_unfused_route_matches_jax():
     "phi_initialisation patches", "grad_mu 0.001_0_0",
     "viscosity_model arrhenius", "boundary_walls 0_0_1",
     # kT of the electrolyte under fe_electro only
-    "temperature 0.001"])
+    "temperature 0.001",
+    # the binary fluid's noise is not ported (the plain fluid's is)
+    "isothermal_fluctuations on"])
 def test_unported_binary_keys_raise(line):
     with pytest.raises(NotImplementedError, match=line.split()[0]):
         run_text(BINARY_FUSED_INPUT + line + "\n", out=io.StringIO(),
@@ -109,7 +111,7 @@ def test_lc_cli_order_2_runs_unfused():
     "fd_gradient_calculation s7_anchoring", "electric_e0 0.0_0.0_0.01",
     "fd_advection_scheme_order 3", "hydrodynamics off",
     "lc_q_init_rectangle_min 1_1_1", "lc_anchoring_method two",
-    "boundary_walls 1_0_0", "N_LE_plane 2"])
+    "boundary_walls 1_0_0", "N_LE_plane 2", "isothermal_fluctuations on"])
 def test_unported_lc_keys_raise(line):
     with pytest.raises(NotImplementedError, match=line.split()[0]):
         run_text("tpu_fused on\n" + LC_FUSED_INPUT + line + "\n",
@@ -139,7 +141,7 @@ def test_droplet_cli_matches_jax(fused):
     "fd_gradient_calculation 3d_27pt_fluid", "fd_advection_scheme_order 3",
     "hydrodynamics off", "N_LE_plane 2", "boundary_walls 0_0_1",
     "porous_media_file capillary", "lc_noise on", "temperature 0.001",
-    "lc_activity yes"])
+    "lc_activity yes", "lb_fluctuations on"])
 def test_unported_droplet_keys_raise(line):
     with pytest.raises(NotImplementedError, match=line.split()[0]):
         run_text("tpu_fused on\n" + DROPLET_FUSED_INPUT + line + "\n",
@@ -273,7 +275,9 @@ def test_plain_cli_matches_jax():
     "free_energy brazovskii", "free_energy fe_electro_symmetric",
     "lc_noise on",
     "lc_a0 0.01", "boundary_walls 1_0_0", "N_LE_plane 2",
-    "temperature 0.001", "bogus_key_xyz 42", "periodicity 0_1_1"])
+    # temperature alone (no fluctuations) is read since the plain fluid's
+    # noise is ported; a restart is not
+    "N_start 10", "bogus_key_xyz 42", "periodicity 0_1_1"])
 def test_unported_keys_raise(line):
     with pytest.raises(NotImplementedError, match=line.split()[0]):
         run_text(PLAIN_INPUT + line + "\n", out=io.StringIO(), device="cpu")
@@ -298,12 +302,14 @@ def test_inactive_defaults_accepted():
 def test_cli_runs_without_jax(tmp_path):
     """`python -m ludwig_tpu_torch input --device cpu` in a fresh
     interpreter, for the plain, the binary, the liquid-crystal, the
-    droplet and the electrokinetic input: all run, and neither JAX nor
-    ludwig_tpu is imported."""
+    droplet, the electrokinetic and the fluctuating plain input: all
+    run, and neither JAX nor ludwig_tpu is imported."""
     inp, inp_binary = tmp_path / "input", tmp_path / "input_binary"
     inp_lc, inp_drop = tmp_path / "input_lc", tmp_path / "input_droplet"
     inp_elec = tmp_path / "input_electro"
     inp_elec.write_text(ELECTRO_INPUT)
+    inp_noise = tmp_path / "input_noise"
+    inp_noise.write_text("tpu_fused off\n" + PLAIN_INPUT + NOISE_KEYS)
     inp.write_text("tpu_fused on\n" + PLAIN_INPUT)
     inp_binary.write_text("tpu_fused on\n" + BINARY_FUSED_INPUT)
     inp_lc.write_text("tpu_fused on\n" + LC_FUSED_INPUT)
@@ -311,7 +317,8 @@ def test_cli_runs_without_jax(tmp_path):
     probe = textwrap.dedent(f"""
         import runpy, sys
         for path in ({str(inp)!r}, {str(inp_binary)!r}, {str(inp_lc)!r},
-                     {str(inp_drop)!r}, {str(inp_elec)!r}):
+                     {str(inp_drop)!r}, {str(inp_elec)!r},
+                     {str(inp_noise)!r}):
             sys.argv = ["ludwig_tpu_torch", path, "--device", "cpu"]
             runpy.run_module("ludwig_tpu_torch", run_name="__main__")
         import ludwig_tpu_torch.ops._cuda, ludwig_tpu_torch.convert
@@ -331,4 +338,158 @@ def test_cli_runs_without_jax(tmp_path):
     assert "[Qxx]" in res.stdout and "[fe]" in res.stdout
     assert res.stdout.count("[Qyz]") == 3 + 3   # LC and droplet runs
     assert res.stdout.count("[elc]") == 3 and "[walls   ]" in res.stdout
+    assert res.stdout.count("[measd/kT]") == 1     # the noise input
     assert "NO_JAX_OK" in res.stdout
+
+
+# isothermal fluctuations of the plain fluid (tests/test_ludwig_run.py:
+# 423-435)
+NOISE_KEYS = """
+temperature 0.00002
+isothermal_fluctuations on
+random_seed 8361235
+"""
+KT_TAGS = ("[eqipart.]", "[measd/kT]")
+
+
+def _kt_floats(log):
+    return np.array([float(t) for line in log.splitlines()
+                     if line.startswith(KT_TAGS) for t in line.split()[1:]])
+
+
+@pytest.mark.parametrize("fused", ["interpret", "on", "off"])
+def test_noise_cli_matches_jax(fused):
+    """The fluctuating plain input on the fused route (FusedNoise: the
+    counter-hash stream, the twin against the Pallas kernel in interpret
+    mode) and on the KISS route (the reference-exact per-site stream),
+    which float64 under `tpu_fused on` takes in both packages: every
+    statistics float, the kT block's included, at rtol 1e-9 / atol
+    1e-11."""
+    text = f"tpu_fused {fused}\n" + PLAIN_FUSED_INPUT + NOISE_KEYS
+    jlog, log, sys_ = _logs(text, text)
+    assert sys_.fused_mode == ("plain" if fused == "interpret" else None)
+    assert sys_.has_kiss == (fused != "interpret")
+    assert "Completed cycle 6" in log
+    for tag in ("Isothermal fluctuations\n[eqipart.]",) + KT_TAGS:
+        assert log.count(tag) == jlog.count(tag) == 2
+    a, b = _stat_floats(jlog), _stat_floats(log)
+    assert a.size == b.size and a.size > 0
+    np.testing.assert_allclose(b, a, rtol=1e-9, atol=1e-11)
+    ka, kb = _kt_floats(jlog), _kt_floats(log)
+    assert ka.size == kb.size == 10
+    np.testing.assert_allclose(kb, ka, rtol=1e-9, atol=1e-11)
+
+
+@pytest.mark.parametrize("text", [
+    "tpu_fused interpret\n" + PLAIN_FUSED_INPUT,
+    "tpu_fused on\n" + PLAIN_FUSED_INPUT,                      # float64
+    "tpu_fused on\ndtype float32\n" + PLAIN_FUSED_INPUT,
+    "tpu_fused on\ndtype float32\n"
+    + PLAIN_FUSED_INPUT.replace("16_16_32", "16_12_32"),      # no plan
+    "tpu_fused off\n" + PLAIN_FUSED_INPUT], ids=[
+        "interpret", "on-f64", "on-f32", "on-no-plan", "off"])
+def test_noise_route_follows_the_jax_gate(text):
+    """With isothermal fluctuations the two routes draw different noise,
+    so the port steps the route ludwig_tpu's build_system takes for the
+    same input: FusedNoise on its fused route, the KISS stream where it
+    leaves fused_mode None."""
+    from ludwig_tpu import ludwig as jl
+    from ludwig_tpu.runtime import RunTime as JRunTime
+    from ludwig_tpu_torch import ludwig as tl
+    from ludwig_tpu_torch.runtime import RunTime
+
+    tsys = tl.build_system(RunTime(text + NOISE_KEYS), device="cpu")
+    jsys = jl.build_system(JRunTime(text + NOISE_KEYS))
+    assert (tsys.fused_mode is None) == (jsys.fused_mode is None)
+    assert tsys.has_kiss == jsys.has_kiss == (jsys.fused_mode is None)
+    assert len(tsys.state) == len(jsys.state)
+
+
+def _jax_stats_lines(text, nsteps):
+    """(JAX System after nsteps of its step, its u, the report lines of
+    ludwig_tpu's report_statistics for that state)."""
+    from ludwig_tpu import ludwig as jl
+    from ludwig_tpu.runtime import RunTime as JRunTime
+
+    jsys = jl.build_system(JRunTime(text))
+    assert jsys.fused_mode is None
+    state = jsys.state
+    for t in range(1, nsteps + 1):
+        if jsys.is_electro:
+            state, _aux = jsys.step_fn(state, t)
+            u = state[3]
+        else:
+            state, _rho, u = jsys.step_fn(state, t)
+    jsys.state = state
+    out = io.StringIO()
+    jl.report_statistics(jsys, nsteps, u, jl._make_stats_fn(jsys), out=out)
+    return jsys, u, out.getvalue()
+
+
+def _port_stats_lines(text, state, u, nsteps):
+    from ludwig_tpu_torch import ludwig as tl
+    from ludwig_tpu_torch.runtime import RunTime
+
+    tsys = tl.build_system(RunTime(text), device="cpu")
+    assert tl.reference_statistics(tsys)
+    tsys.state = state
+    out = io.StringIO()
+    tl.report_statistics(tsys, nsteps, u,
+                         tl._make_stats_fn(tsys, reference=True), out=out)
+    return out.getvalue()
+
+
+def test_reference_statistics_lines_equal_jax_plain_kiss():
+    """The repair of the port's statistics: for one state (four steps of
+    the JAX package's KISS route, carried across), the port's lines are
+    the JAX package's report_statistics lines as text - [rho], the
+    near-zero momentum totals, the velocity and the kT block."""
+    from ludwig_tpu_torch.convert import noise_state_from_jax, state_from_jax
+
+    text = "tpu_fused off\n" + PLAIN_FUSED_INPUT + NOISE_KEYS
+    jsys, u, want = _jax_stats_lines(text, 4)
+    f, nstate = jsys.state
+    state = (state_from_jax(np.asarray(f), "cpu", "float64"),
+             noise_state_from_jax(np.asarray(nstate), "cpu"))
+    got = _port_stats_lines(text, state, torch.as_tensor(np.asarray(u)), 4)
+    assert "[measd/kT]" in got and "[total   ]" in got
+    assert got == want
+
+
+def test_reference_statistics_lines_equal_jax_electro():
+    """The same for the electrokinetic input: [rho] over the fluid sites,
+    the site-order [psi], [rho] and [elc] totals, [fed], the momentum
+    with [walls] and the velocity."""
+    from ludwig_tpu_torch.convert import electro_state_from_jax
+
+    jsys, u, want = _jax_stats_lines(ELECTRO_INPUT, 3)
+    state = electro_state_from_jax(*(np.asarray(a) for a in jsys.state),
+                                   device="cpu", dtype="float64")
+    got = _port_stats_lines(ELECTRO_INPUT, state, state[3], 3)
+    assert "[elc]" in got and "[walls   ]" in got
+    assert got == want
+
+
+@pytest.mark.parametrize("text,reference", [
+    ("tpu_fused off\n" + PLAIN_FUSED_INPUT, True),
+    ("tpu_fused interpret\n" + PLAIN_FUSED_INPUT, False),
+    ("tpu_fused on\n" + PLAIN_FUSED_INPUT, True),            # float64
+    ("tpu_fused on\ndtype float32\n" + PLAIN_FUSED_INPUT, False),
+    ("tpu_fused on\ndtype float32\n"
+     + PLAIN_FUSED_INPUT.replace("16_16_32", "16_12_32"), True),  # no plan
+    ("tpu_fused on\ndtype float32\n" + BINARY_FUSED_INPUT, True),  # z 16
+    ("tpu_fused interpret\n" + BINARY_FUSED_INPUT, False),
+    (ELECTRO_INPUT, True)], ids=[
+        "plain-off", "plain-interpret", "plain-on-f64", "plain-on-f32",
+        "plain-no-plan", "binary-z16", "binary-interpret", "electro"])
+def test_statistics_follow_the_jax_route_rule(text, reference):
+    """Reference statistics wherever ludwig_tpu's build_system leaves
+    fused_mode None for the same input."""
+    from ludwig_tpu import ludwig as jl
+    from ludwig_tpu.runtime import RunTime as JRunTime
+    from ludwig_tpu_torch import ludwig as tl
+    from ludwig_tpu_torch.runtime import RunTime
+
+    tsys = tl.build_system(RunTime(text), device="cpu")
+    assert tl.reference_statistics(tsys) == reference
+    assert (jl.build_system(JRunTime(text)).fused_mode is None) == reference

@@ -122,7 +122,7 @@ def test_fusedn_twin_matches_pallas_interpret():
 def test_fused_rejects_what_it_cannot_run():
     _, tp = _both_params(19)
     f = torch.as_tensor(_rand_f(19, seed=2))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):        # noise is a FusedNoise
         fused.fused_step(f, tp.model, tp, noise=object())
     with pytest.raises(ValueError):
         fused.fusedn_step(f, tp.model, tp, fused.NSTEPS_MAX + 1)

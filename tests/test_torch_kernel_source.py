@@ -316,3 +316,81 @@ def test_generated_droplet_site_is_the_twin(order):
     assert tr1.nops < _cuda.site_ops("droplet_phi_q_force_step",
                                      order=order) < (
         tr1.nops + sites[order][0].nops)
+
+
+@pytest.mark.parametrize("nvel,scheme", [(15, "m10"), (19, "m10"),
+                                         (19, "trt"), (27, "bgk")])
+@pytest.mark.parametrize("delta", [True, False])
+def test_generated_noise_collision_is_the_twin(nvel, scheme, delta):
+    """lb_collide_noise_d*_p*: the fluctuating collision of
+    fused_step_kernel<NOISE>, fed the site deviates the kernel hashes
+    (the twin's _window_deviates) and its noise parameters, streamed as
+    the kernel stores it: bitwise the twin fused_step(noise=, t=)."""
+    from ludwig_tpu_torch.noise import var_bulk, var_eta, var_ghost
+
+    model = lb_model(nvel)
+    params = CollisionParams(model=model, eta_shear=0.1, eta_bulk=0.14,
+                             scheme=RelaxationScheme(scheme),
+                             force_global=(1e-4, -2e-4, 5e-5))
+    kt = 2e-5
+    noise = fused.FusedNoise(
+        seed=8361235, v_eta=var_eta(1.0 / params.rtau_shear, kt),
+        v_bulk=var_bulk(1.0 / params.rtau_bulk, kt),
+        v_ghost=tuple(var_ghost(model, params.rtau_ghost, kt)))
+    t = 2 ** 20 + 3
+    rng = np.random.default_rng(nvel + 7)
+    f = torch.as_tensor(model.wv.reshape(-1, 1, 1, 1) * (
+        1.0 + 0.05 * rng.standard_normal((nvel,) + SHAPE)))
+    proj, par = _cuda._kernel_params(model, params, delta)
+    name = f"lb_collide_noise_d{int(delta)}_p{proj}"
+    m = re.search(name + r"\(.*?\{\n(.*?)\n\}", _cuda.generate_header(nvel),
+                  re.S)
+    eta2, eta, bulk, ghost = fused.noise_amplitudes(model, noise)
+    p = types.SimpleNamespace(rt=par[0], rtb=par[1], fx=par[2], fy=par[3],
+                              fz=par[4], g=list(par)[5:], nz_eta2=eta2,
+                              nz_eta=eta, nz_bulk=bulk,
+                              nz_g=[0.0 if a is None else a for a in ghost])
+    r = fused._window_deviates(*fused._site_coords(SHAPE, "cpu"), t,
+                               noise.seed, 6 + nvel - model.nhydro, f.dtype)
+    out = [None] * nvel
+
+    def emit(q, cx, cy, cz, v):
+        out[q] = torch.roll(v, (cx, cy, cz), (0, 1, 2))
+
+    _exec_body(m.group(1).splitlines(),
+               {"f": [f[q] for q in range(nvel)], "r": r, "p": p,
+                "T": float, "emit": emit})
+    want = fused.fused_step(f, model, params, noise=noise, t=t, delta=delta)
+    assert torch.equal(torch.stack(out), want)
+    assert not torch.equal(want, fused.fused_step(f, model, params,
+                                                  delta=delta))
+
+
+# sha256 of the generated headers as they were before the fluctuating
+# collision was added: with noise off every generated text is unchanged
+HEADER_SHA256 = {
+    15: "59379c843a6a42b23cadabad780183f320b8aec3968f26a3b2cf5e483d4923ca",
+    19: "ef7a94a921fc01f1bdd1db69165f32996e652a49251522e083eb835a94180a5f",
+    27: "f8fe823f91ed34d711fd401d75537ebdfa93088527cbee50aeb84d5e2571944c",
+    "binary":
+        "97ac4e952239641b256f8f61d02fb91e03feac3c802ae512bf277ef1f4b06174",
+    "lc": "c7b8c0d6c8b4ef0d1294ccc6922bbdc491ec66af178fef4c764bce4fbebdd542",
+    "droplet":
+        "720db9e806d5e70029e4ecb0e5988dad6108a2cad339fe8eee3c90a60f8e63ba",
+}
+
+
+@pytest.mark.parametrize("which", sorted(HEADER_SHA256, key=str))
+def test_headers_unchanged_with_noise_off(which):
+    import hashlib
+
+    if isinstance(which, int):
+        # the fluctuating collisions come last: the text before the first
+        # of them is the header as it was
+        text = _cuda.generate_header(which)
+        start = text.rindex("template", 0, text.index("lb_collide_noise"))
+        text = text[:start - 1]
+        assert "lb_collide_noise" not in text
+    else:
+        text = getattr(_cuda, f"generate_{which}_header")()
+    assert hashlib.sha256(text.encode()).hexdigest() == HEADER_SHA256[which]

@@ -16,6 +16,7 @@ from ludwig_tpu import lb as jlb
 from ludwig_tpu.ops.collide import RelaxationScheme as JScheme
 from ludwig_tpu_torch import lb as tlb
 from ludwig_tpu_torch.convert import params_from_jax, state_from_jax
+from ludwig_tpu_torch.noise import NoiseConfig
 
 RTOL, ATOL = 1e-12, 1e-14
 SIZE = (8, 16, 16)
@@ -122,7 +123,11 @@ def test_convert_round_trip():
 
 
 def test_port_refuses_unported_features():
-    with pytest.raises(NotImplementedError):
+    # the JAX package's stateless threefry noise stream
+    with pytest.raises(NotImplementedError, match="threefry"):
+        tlb.LBConfig(size=SIZE, noise=NoiseConfig(kt=1e-5, rho=True,
+                                                  kiss=False))
+    with pytest.raises(TypeError):
         tlb.LBConfig(size=SIZE, noise=object())
     cfg = tlb.LBConfig(size=SIZE, device="cpu")
     assert tlb.LBConfig(size=SIZE).device == "cuda"   # the card by default

@@ -10,16 +10,20 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   3. each kernel against its plain PyTorch twin on the card, 3 chained
      steps, over velocity sets, relaxation schemes, both back-transform
      forms and both dtypes;
-  4. the n-step kernel bitwise against n single-step launches, n in 1..8,
-     on the default tile (windows in global scratch) and on small tiles
-     whose windows fit in shared memory;
+  4. the n-step kernel (the x-march) bitwise against n single-step
+     launches, n in 1..8, both back-transform forms, f32 and f64, on the
+     default plan and a ragged one, then at 256^3 f32 for the bench's
+     rungs n = 6, 4, 3, 2; each case prints the route and tile the
+     launcher took, and n = 2 and 3 at 256^3 must run in shared memory;
   5. the main path at full width: D3Q19 256^3 f32 (the flagship
      configuration of bench.py) for 40 cycles through run_text on the
      card, plus the bench's n-step loop (n=6, absolute form) through
      make_fusedn_nstep; the kernel launch counts of this phase show the
      path used the kernels;
   6. at 256^3: each kernel against its twin within TOL, and kernel, twin
-     and device-copy times (ms/step and MLUPS);
+     and device-copy times (ms/step and MLUPS), fusedn_step for n = 1..8
+     in both forms beside fused_step, and n = 2 and 3 on each plan of
+     TILE_PLANS, five passes (the default has the least median sum);
   7. the binary fluid's kernels against their twins: binary_phi_force_step
      (K1) at two sizes, advection orders 1 and 2, f32 and f64;
      fused_force_step (K2) over velocity sets and relaxation schemes with
@@ -56,23 +60,27 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
  15. at 128^3 and 256^3 f32: K1, K2, the mean subtraction and the whole
      droplet step, kernel, twin and bound times;
  16. the electrokinetic kernels against their twins at (16, 16, 128), an
-     odd-X (15, 16, 32) and 64^3, f32 and f64: sor_solve (f64 the same
-     stop and criterion, psi within 1e-12; f32 within 15 iterations and
-     2e-5), np_gradmu with and without advection (rho' and the force
-     within 2 ulp, fsum within 1e-12 / 1e-6 of sum |force|), the solid
-     fused_force_step (f64 bitwise, f32 within TOL, u on fluid sites);
-     then 3 chained electrokinetic steps through the kernels against 3
-     through the twins;
+     odd-X (15, 16, 32), 64^3 and 128^3, f32 and f64: sor_solve on the
+     route it picks and on every route the shape admits (on-chip,
+     in-place, two-buffer; f64 the same stop and criterion, psi within
+     1e-12; f32 within 15 iterations and 2e-5), np_gradmu with and
+     without advection (rho' and the force within 2 ulp, fsum within
+     1e-12 / 1e-6 of sum |force|), the solid fused_force_step (f64
+     bitwise, f32 within TOL, u on fluid sites); then 3 chained
+     electrokinetic steps through the kernels against 3 through the
+     twins;
  17. the electrokinetic main path at full width: `free_energy fe_electro`
      Gouy-Chapman D3Q19 128^3 f32 (the JAX package's perf_bench.py
      electro bench) through run_text on the card, 20 cycles; one launch
      of each kernel a cycle, each species' total conserved, [elc] ~ 0,
      the SOR iteration counts; before that a 16x8x8 f64 input (the
      reference route) on the card against the CPU's log;
- 18. at 128^3 and 256^3 f32: sor_solve (a solve, an iteration, the
-     count), np_gradmu, the mean subtraction, the solid K2, the whole step
-     and its MLUPS, the FFT route's solve for context; twin and bound
-     times;
+ 18. at 128^3 and 256^3 f32: sor_solve on each route the shape admits
+     (a solve, an iteration, the count; and from solves of a random
+     field held to 11 and 41 iterations, the fixed cost and the cost an
+     iteration, also at 48^3 and 64^3), np_gradmu, the mean
+     subtraction, the solid K2, the whole step and its MLUPS, the FFT
+     route's solve for context; twin and bound times;
  19. the fluctuating kernel fused_step with FusedNoise against its twin,
      3 chained steps at step counters whose hash products wrap, over
      velocity sets, M10 and TRT, both back-transform forms and both
@@ -125,6 +133,7 @@ from ludwig_tpu_torch.ludwig import run_text
 from ludwig_tpu_torch.ops import _cuda, fused
 from ludwig_tpu_torch.ops import fused_binary as fb
 from ludwig_tpu_torch.ops import fused_droplet as fd
+from ludwig_tpu_torch.ops import fused_electro as fe
 from ludwig_tpu_torch.ops import fused_lc as fl
 from ludwig_tpu_torch.ops.collide import RelaxationScheme
 
@@ -146,11 +155,13 @@ TOL = {torch.float64: dict(rtol=1e-12, atol=1e-13),
 MAIN_SIZE = (256, 256, 256)
 MAIN_CYCLES = 40
 BENCH_NSTEPS = 6        # bench.py's first n (absolute form, delta=False)
-NSTEPS = (1, 2, 3, 4, 6, 8)
-# tiles whose D3Q19 windows fit the H100's 227 KB shared-memory opt-in
-# in f32 and f64 (the default FusedPlan's go to global scratch for n >= 2)
-SMEM_CASES = ((2, fused.FusedPlan(4, 4, 32)), (3, fused.FusedPlan(2, 2, 16)),
-              (4, fused.FusedPlan(2, 2, 8)))
+NSTEPS = tuple(range(1, fused.NSTEPS_MAX + 1))
+BENCH_RUNGS = (6, 4, 3, 2)   # bench.py:65-66's ladder
+# n-step plans (x segment, y-z tile) timed beside the default in phase 6
+TILE_PASSES = 5
+TILE_PLANS = tuple(fused.FusedPlan(*p) for p in (
+    (64, 16, 32), (128, 16, 32), (256, 16, 32), (128, 8, 64), (128, 16, 64),
+    (128, 32, 32)))
 
 
 _T0 = time.perf_counter()
@@ -275,33 +286,52 @@ def phase3(gen):
     return worst
 
 
+def nstep_route(lay):
+    return (f"{lay.route} tile {lay.plan.BX}x{lay.plan.BY}x{lay.plan.BZ}, "
+            f"{lay.threads} threads")
+
+
+def hold_nstep(f0, model, params, n, plan, what):
+    """fusedn_step bitwise n fused_step launches, in both forms; returns
+    the route the launcher took."""
+    lay = _cuda.nstep_layout_on(f0, model, plan, n)
+    for delta in (True, False):
+        a = fused.fusedn_step(f0, model, params, n, plan, delta)
+        b = fused.make_fused_nstep(model, params, delta=delta)(f0, n)
+        torch.cuda.synchronize()
+        if not torch.equal(a, b):
+            raise AssertionError(
+                f"fusedn n={n} {plan} {what} delta={delta}: max |diff| "
+                f"{max_err(a, b):.3e}, not bitwise")
+        del a, b
+    print(f"fusedn_step n={n} plan {plan.BX}x{plan.BY}x{plan.BZ} {what}: "
+          f"{nstep_route(lay)}, both forms bitwise")
+    return lay
+
+
 def phase4(gen):
-    phase("4 n-step kernel vs n single-step launches (32, 32, 64) D3Q19, "
-          "bitwise")
-    cases = ([(n, fused.FusedPlan(), n == 1) for n in NSTEPS]
-             + [(n, plan, True) for n, plan in SMEM_CASES])
+    phase("4 n-step kernel vs n single-step launches, bitwise")
     for dtype in ("float64", "float32"):
         cfg = LBConfig(size=(32, 32, 64), nvel=19, eta_shear=0.1,
                        eta_bulk=0.1, force_global=(1e-5, 0.0, 0.0),
                        dtype=dtype, device="cuda")
         model, params = cfg.model, cfg.collision_params()
         f0 = rand_state(cfg, gen)
-        for n, plan, shared in cases:
-            where = "shared" if shared else "global"
-            if _cuda.nstep_in_shared(f0, model, plan, n) != shared:
-                raise AssertionError(f"n={n} {plan} {dtype}: windows not "
-                                     f"in {where} memory")
-            for delta in (True, False):
-                a = fused.fusedn_step(f0, model, params, n, plan, delta)
-                b = fused.make_fused_nstep(model, params,
-                                           delta=delta)(f0, n)
-                torch.cuda.synchronize()
-                if not torch.equal(a, b):
-                    raise AssertionError(
-                        f"fusedn n={n} {plan} {dtype} delta={delta}: max "
-                        f"|diff| {max_err(a, b):.3e}, not bitwise")
-                print(f"fusedn_step n={n} tile {plan.BX}x{plan.BY}x{plan.BZ}"
-                      f" ({where}) {dtype} delta={delta} bitwise")
+        for n in NSTEPS:
+            for plan in (fused.FusedPlan(), fused.FusedPlan(5, 7, 9)):
+                hold_nstep(f0, model, params, n, plan,
+                           f"(32, 32, 64) {dtype}")
+    # the bench's rungs on its state size
+    cfg = LBConfig(size=MAIN_SIZE, nvel=19, eta_shear=0.1, eta_bulk=0.1,
+                   dtype="float32", device="cuda")
+    model, params = cfg.model, cfg.collision_params()
+    f0 = rand_state(cfg, gen, amp=0.01)
+    for n in BENCH_RUNGS:
+        lay = hold_nstep(f0, model, params, n, fused.FusedPlan(),
+                         "256^3 float32")
+        if n in (2, 3) and lay.route != "shared":
+            raise AssertionError(f"fusedn n={n} 256^3 f32 ran {lay.route}, "
+                                 "not in shared memory")
 
 
 MAIN_INPUT = f"""
@@ -402,9 +432,29 @@ def phase6(card, gen):
         ms=step_ms, plain_ms=plain_ms, max_abs_err=err,
         nbytes=nbytes, nops=nsite * _cuda.site_ops("fused_step"))
     for n in NSTEPS:
-        ms = time_ms(lambda: fused.fusedn_step(f0, model, params, n,
-                                               delta=True), 5)
-        report(f"kernel fusedn_step n={n} (delta)", ms / n)
+        route = nstep_route(_cuda.nstep_layout_on(f0, model,
+                                                  fused.FusedPlan(), n))
+        for delta, form in ((True, "delta"), (False, "absolute")):
+            ms = time_ms(lambda: fused.fusedn_step(f0, model, params, n,
+                                                   delta=delta), 5)
+            report(f"kernel fusedn_step n={n} ({form}; {route})", ms / n)
+    # the plans the default was chosen from: the least median of the n=2
+    # + n=3 time over TILE_PASSES passes, in turns forwards and backwards
+    sums = {plan: [] for plan in TILE_PLANS}
+    for rep in range(TILE_PASSES):
+        for plan in TILE_PLANS[::1 if rep % 2 == 0 else -1]:
+            sums[plan].append(sum(
+                time_ms(lambda: fused.fusedn_step(f0, model, params, n, plan,
+                                                  delta=True), 5) / n
+                for n in (2, 3)))
+    for plan, runs in sums.items():
+        routes = [nstep_route(_cuda.nstep_layout_on(f0, model, plan, n))
+                  for n in (2, 3)]
+        tag = " (the default)" if plan == fused.FusedPlan() else ""
+        print(f"tile sweep plan {plan.BX}x{plan.BY}x{plan.BZ}{tag} (n=2: "
+              f"{routes[0]}; n=3: {routes[1]}): n=2 + n=3 increment, median "
+              f"{sorted(runs)[len(runs) // 2]:.4f} ms/step of "
+              f"{', '.join(f'{r:.4f}' for r in runs)} [{card}]")
     # the bench's form: n=6, absolute back transform
     n = BENCH_NSTEPS
     ms = time_ms(lambda: fused.fusedn_step(f0, model, params, n), 5) / n
@@ -704,14 +754,25 @@ def lc_twin_step(state, lcfg):
 
 def phase10(gen):
     phase("10 liquid-crystal kernel vs plain twin")
-    # the one operation kernel and twin round differently: the kernel
-    # divides the trace of W by 3 (IEEE), torch on a CUDA tensor
-    # multiplies by the reciprocal of a Python scalar divisor
+    # the kernel divides the trace of W by 3 (IEEE); torch on a CUDA
+    # tensor multiplies by the reciprocal of a Python scalar divisor, so
+    # the twin divides by a tensor (dynamics/beris_edwards.py
+    # remove_trace): held here bitwise to the IEEE quotient
+    from ludwig_tpu_torch.dynamics.beris_edwards import remove_trace
     x = torch.randn(1 << 16, generator=gen, dtype=torch.float64,
                     device="cuda")
     print("torch on cuda: x / 3.0 equals x * (1 / 3.0) bitwise: "
           f"{torch.equal(x / 3.0, x * (1.0 / 3.0))}; equals the IEEE "
           f"quotient: {torch.equal(x / 3.0, x / torch.full_like(x, 3.0))}")
+    for dtype in (torch.float64, torch.float32):
+        w = [[torch.randn(1 << 16, generator=gen, dtype=dtype,
+                          device="cuda") for _ in range(3)]
+             for _ in range(3)]
+        tr = (w[0][0] + w[1][1] + w[2][2]) / torch.full_like(w[0][0], 3.0)
+        if not torch.equal(remove_trace(w)[0][0], w[0][0] - tr):
+            raise AssertionError(f"remove_trace {dtype} on cuda: not the "
+                                 "IEEE quotient")
+    print("remove_trace on cuda: the IEEE quotient of the trace, bitwise")
     worst = 0.0
     for size in ((16, 24, 40), (64, 64, 64)):
         for dtype in (torch.float64, torch.float32):
@@ -1218,6 +1279,7 @@ SOR_TEST_EK = dict(valency=(1, -1), diffusivity=(0.01, 0.0095), beta=3.0e-4,
 # the JAX tests' shape, an odd X, and the main path's 128^3, where each
 # thread of the cooperative SOR grid walks several sites a half-sweep
 ELEC_SHAPES = ((16, 16, 128), (15, 16, 32), (64, 64, 64), (128, 128, 128))
+SPLIT_ITS = (11, 41)  # iterations of the two solves that split a solve
 SOR_SITE_OPS = 16    # 6-neighbour sum, residual, update, res^2 and its sum
 NP_SITE_OPS = 120    # force 15, per species 3 faces x ~17 + divergence
 
@@ -1265,11 +1327,13 @@ def within_ulps(a, b, n):
     return bool(((a - b).abs() <= n * spacing).all())
 
 
-def hold_sor(what, k, t):
+def hold_sor(what, k, t, route=None):
     """The SOR kernel's (psi, n, rnorm, which) held to its twin's: in
     float64 the same stop, the same criterion and psi within 1e-12; in
     float32 within 15 iterations and 2e-5 (tests/test_fused_electro.py).
-    Returns (psi's max_abs_err, the sites a thread walks a half-sweep)."""
+    `route` names the route k was forced to (None: the one the launcher
+    picks).  Returns (psi's max_abs_err, the pairs or sites a thread of
+    a streaming route walks a half-sweep, 0 on chip)."""
     torch.cuda.synchronize()
     kn, tn, kw, tw = int(k[1]), int(t[1]), int(k[3]), int(t[3])
     err = max_err(k[0], t[0])
@@ -1277,16 +1341,19 @@ def hold_sor(what, k, t):
         ok = kn == tn and kw == tw and err <= 1e-12
     else:
         ok = abs(kn - tn) <= 15 and err <= 2e-5
+    lay, grid = _cuda.sor_plan(k[0], route)
     if not ok:
-        raise AssertionError(f"sor_solve {what}: n {kn}/{tn} which {kw}/{tw}"
-                             f" psi err {err:.3e}")
-    grid = _cuda.sor_grid(k[0])
-    walks = -(-k[0].numel() // (grid * _cuda.ELECTRO_THREADS))
-    print(f"sor_solve {what}: n {kn} (twin {tn}), which {kw} (twin {tw}), "
-          f"rnorm {float(k[2]):.6e} (twin {float(t[2]):.6e}), psi "
-          f"max_abs_err {err:.3e} of max|psi| {float(t[0].abs().max()):.3e},"
-          f" bitwise {torch.equal(k[0], t[0])}; {grid} blocks, {walks} "
-          "sites a thread a half-sweep")
+        raise AssertionError(f"sor_solve {what} {lay.route}: n {kn}/{tn} "
+                             f"which {kw}/{tw} psi err {err:.3e}")
+    work = k[0].numel() // (2 if lay.route == "in-place" else 1)
+    walks = (0 if lay.route == "on-chip"
+             else -(-work // (grid * _cuda.ELECTRO_THREADS)))
+    where = (f"bricks {lay.bx}x{lay.by}x{k[0].shape[2]}, {lay.smem} B"
+             if lay.route == "on-chip" else f"{walks} a thread a half-sweep")
+    print(f"sor_solve {what} {lay.route} ({grid} blocks, {where}): n {kn} "
+          f"(twin {tn}), which {kw} (twin {tw}), rnorm {float(k[2]):.6e} "
+          f"(twin {float(t[2]):.6e}), psi max_abs_err {err:.3e} of max|psi| "
+          f"{float(t[0].abs().max()):.3e}, bitwise {torch.equal(k[0], t[0])}")
     return err, walks
 
 
@@ -1360,7 +1427,6 @@ def elec_routes(cfg, dt=1.0):
     """{kernel, twin}: the three functions elec_chain_step takes; the SOR
     functions return (psi', n, rnorm, which), the NP ones take a sub-step
     of dt."""
-    from ludwig_tpu_torch.ops import fused_electro as fe
     ek = cfg.ek
     model, params = cfg.lb.model, cfg.lb.collision_params()
     ez = [float(ek.e * v) for v in ek.valency]
@@ -1403,10 +1469,16 @@ def phase16(gen):
             rel = rho_elec(rho, cfg.ek)
             routes = elec_routes(cfg, dt=0.5)
             kern, twin = routes["kernel"], routes["twin"]
-            err, walks = hold_sor(f"{size} {dtype}", kern[0](psi, rel),
-                                  twin[0](psi, rel))
+            t = twin[0](psi, rel)
+            err, walks = hold_sor(f"{size} {dtype}", kern[0](psi, rel), t)
             worst["sor_solve"] = max(worst["sor_solve"], err)
             most_walks = max(most_walks, walks)
+            for route in _cuda.sor_routes(psi):
+                err, walks = hold_sor(
+                    f"{size} {dtype} forced",
+                    fe._sor_solve_route(psi, rel, cfg.ek, route), t, route)
+                worst["sor_solve"] = max(worst["sor_solve"], err)
+                most_walks = max(most_walks, walks)
             for hydro in (True, False):
                 uu = u if hydro else None
                 err = hold_np(f"{size} {dtype} hydro {hydro}",
@@ -1414,7 +1486,7 @@ def phase16(gen):
                               twin[1](psi, rho, uu, fluid))
                 worst["np_gradmu"] = max(worst["np_gradmu"], err)
     # the grid-stride walk, whose coordinates step with carries, is held
-    # only where a thread takes more than one site
+    # only where a thread takes more than one site (or pair)
     if most_walks < 2:
         raise AssertionError("no SOR check walked more than one site a "
                              "thread")
@@ -1604,13 +1676,44 @@ def phase17():
     return counts, iters
 
 
+def sor_split(card, size, gen):
+    """Each SOR route's fixed cost and cost an iteration at `size` f32,
+    from solves of a random field capped at SPLIT_ITS[0] and SPLIT_ITS[1]
+    iterations.  A tolerance of 0 never stops them, and the residual of
+    a random field falls steadily, so the f32 stall guard does not (from
+    the main path's warm start it stops every solve after 10-11
+    iterations)."""
+    from ludwig_tpu_torch.electro import ElectroConfig, rho_elec
+    psi, rho, _u, _fluid = rand_elec(size, torch.float32, gen)
+    for route in _cuda.sor_routes(psi):
+        split = []
+        for its in SPLIT_ITS:
+            ek = ElectroConfig(**dict(SOR_TEST_EK, rel_tol=0.0, abs_tol=0.0,
+                                      max_its=its))
+            rel = rho_elec(rho, ek)
+            ran = int(fe._sor_solve_route(psi, rel, ek, route)[1]) + 1
+            split.append((ran, time_ms(
+                lambda: fe._sor_solve_route(psi, rel, ek, route), 10)))
+        (n0, ms0), (n1, ms1) = split
+        if n1 <= n0:
+            raise AssertionError(f"sor_solve {route}: the stall guard "
+                                 f"stopped both solves at {n0}")
+        per_it = (ms1 - ms0) / (n1 - n0)
+        print(f"sor_solve ({route}) {size[0]}^3 random field: {ms0:.4f} ms "
+              f"for {n0} iterations, {ms1:.4f} ms for {n1}: {per_it:.5f} ms "
+              f"an iteration, {ms0 - n0 * per_it:.4f} ms fixed [{card}]")
+
+
 def phase18(card, gen, copy_ms, copy_bytes):
     phase(f"18 electrokinetic kernels held and timed at 128^3 and 256^3 "
           f"D3Q19 f32 on {card}")
     from ludwig_tpu_torch import electro_sim as es
     from ludwig_tpu_torch.electro import poisson_fft, rho_elec
-    from ludwig_tpu_torch.ops import fused_electro as fe
     res = {}
+    # the launcher goes on chip from SOR_CHIP_MIN_SITES = 64^3 sites on:
+    # the routes' costs on each side
+    for size in ((48, 48, 48), (64, 64, 64)):
+        sor_split(card, size, gen)
     for size in (ELEC_SIZE, MAIN_SIZE):
         cfg = elec_cfg(size, "float32")
         ek = cfg.ek
@@ -1640,20 +1743,34 @@ def phase18(card, gen, copy_ms, copy_bytes):
 
         # each kernel held to its twin on the main path's state, by phase
         # 16's rules.  SOR from the state's psi (warm start, as in a step)
+        t = routes["twin"][0](psi, rel)
         k = fe.sor_solve_fused(psi, rel, ek)
-        err, _walks = hold_sor(f"{size[0]}^3 main-path state", k,
-                               routes["twin"][0](psi, rel))
+        err, _walks = hold_sor(f"{size[0]}^3 main-path state", k, t)
         n = int(k[1]) + 1
         sor_ms = time_ms(lambda: fe.sor_solve_fused(psi, rel, ek), 20)
         sor_twin = time_ms(lambda: routes["twin"][0](psi, rel), 2, warm=1)
         # the function reads psi and rhs and writes psi once (12 B/site);
-        # a sweep that streams the fields from memory moves 24 B/site an
-        # iteration
-        sweep_ms = n * 1e3 * 24 * nsite / PEAK_BYTES_PER_S
-        r = report("sor_solve", sor_ms, sor_twin, 12 * nsite,
+        # an in-place sweep that streams the fields from memory moves 16
+        # B/site an iteration (psi read and written, rhs read)
+        sweep_ms = n * 1e3 * 16 * nsite / PEAK_BYTES_PER_S
+        auto = _cuda.sor_plan(psi)[0].route
+        r = report(f"sor_solve ({auto})", sor_ms, sor_twin, 12 * nsite,
                    SOR_SITE_OPS * n * nsite, err,
                    f"; {n} iterations, {sor_ms / n:.4f} ms an iteration, "
                    f"streaming-sweep bound {sweep_ms:.4f} ms")
+        for route in _cuda.sor_routes(psi):
+            if route == auto:
+                continue
+            kr = fe._sor_solve_route(psi, rel, ek, route)
+            hold_sor(f"{size[0]}^3 main-path state forced", kr, t, route)
+            nr = int(kr[1]) + 1
+            ms_r = time_ms(lambda: fe._sor_solve_route(psi, rel, ek, route),
+                           20)
+            print(f"sor_solve ({route}) {size[0]}^3: kernel {ms_r:.4f} ms, "
+                  f"{nr} iterations, {ms_r / nr:.4f} ms an iteration "
+                  f"[{card}]")
+        del t
+        sor_split(card, size, gen)
         fft_ms = time_ms(lambda: poisson_fft(rel / ek.e, ek), 20)
         print(f"poisson_fft (torch.fft, context) {size[0]}^3: {fft_ms:.4f} "
               f"ms a solve [{card}]")
@@ -2011,8 +2128,12 @@ def main():
     t0 = time.perf_counter()
     built = _cuda.build()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
-    # what ptxas says of the liquid-crystal, droplet and electrokinetic
-    # kernels
+    # what ptxas says of the n-step and SOR kernels, then of the
+    # liquid-crystal, droplet and electrokinetic ones
+    for lib, names in ((_cuda._lib_name(19), ("fusedn",)),
+                       (_cuda.ELECTRO_LIB, ("sor_kernel",))):
+        for line in _cuda.ptxas_lines(built[lib], names):
+            print(f"{lib} ptxas: {line}")
     for lib in (_cuda.LC_LIB, _cuda.DROPLET_LIB, _cuda.ELECTRO_LIB):
         report = built[lib].with_suffix(".ptxas.txt").read_text()
         for line in report.splitlines():

@@ -13,21 +13,39 @@
 //
 // sor_kernel.  The TPU kernel keeps the whole field in VMEM and loops in
 // the kernel; one SM cannot hold a field (8 MB at 128^3 f32), so this is
-// one persistent cooperative launch (grid = resident blocks, found by the
-// occupancy query) that walks the lattice grid-stride and separates
-// half-sweeps by grid-wide barriers.  A half-sweep reads psi from one
-// buffer and writes every site of the other (its colour updated, the rest
-// copied): with an odd periodic extent two sites of one colour are
-// neighbours across the wrap, and the residual must come from the
-// pre-sweep field, as in the JAX package.  Residual sums are per-block
-// partials reduced by every block in one fixed order, so all blocks take
-// the same stop decision; they are formed only at check iterations
-// (n % 5 == 0) and at the last allowed one, where the solve can stop or
-// report.  At 128^3 f32 psi, its second buffer and rhs (24 MB) sit in the
-// H100's 50 MB L2, so the sweeps run from L2.  Bound: per iteration the
-// function reads psi and rhs and writes psi in each half-sweep (24 B/site
-// in f32) against ~16 operations a site; memory.
-//
+// one persistent cooperative launch whose half-sweeps are separated by
+// grid-wide barriers.  Three routes (ops/_cuda.py sor_layout picks one):
+//   in-place (every extent even): every neighbour of a site, across the
+//     wraps too, has the other colour, so a half-sweep updating one colour
+//     in place reads exactly the pre-sweep field.  A thread owns pairs of
+//     z-adjacent sites (2m, 2m + 1), one of each colour, and updates the
+//     one of the sweep's colour: no warp divergence, no copies.  psi and
+//     rhs are split by colour once a solve (sor_split), so a half-sweep
+//     moves only its colour's values and the other colour's neighbours.
+//   on-chip (every extent even, psi and rhs fit the SMs' shared memory):
+//     the in-place sweep on a brick (bx, by, Z) of colour-split psi, with
+//     a one-site halo in x and y, and of rhs, that each block keeps in
+//     shared memory for the whole solve.  After a half-sweep a block writes
+//     its boundary planes of the swept colour to that colour's face
+//     buffer, and after the barrier reads its halo of that colour from the
+//     neighbours' faces: only faces cross L2 between half-sweeps.
+//   two-buffer (an odd extent: two sites of one colour meet across the
+//     wrap): a half-sweep reads one buffer and writes every site of the
+//     other, its colour updated, the rest copied, so the residual comes
+//     from the pre-sweep field, as in the JAX package.
+// Residual sums are per-block partials reduced by every block in one
+// fixed order, so all blocks take the same stop decision; they are formed
+// only at check iterations (n % 5 == 0) and at the last allowed one,
+// where the solve can stop or report.  sum rhs^2 (rnorm0) is formed in
+// the first pass over rhs (the colour split, the brick's load or the
+// first half-sweep), and with zero_mean the sum of psi in the black
+// half-sweep of every such iteration, so the mean of the stop iteration
+// is known without another sweep.  Bound: the function reads psi and rhs
+// and writes psi (12 B/site in f32 once; an in-place sweep streaming the
+// fields moves 16 B/site an iteration) against ~16 operations a site an
+// iteration: memory, and in practice the grid barriers and the latency of
+// each half-sweep.
+
 // np_gradmu_kernel.  One thread per site.  The thread forms its site's
 // force from rho_el and the centred psi difference, and for each species
 // the flux through each of its six faces; the flux through a face is the
@@ -62,40 +80,79 @@ __device__ __forceinline__ int wrap1(int i, int n) {
 
 // -- SOR ---------------------------------------------------------------------
 
-// One half-sweep over this thread's sites s = first, first + stride, ...:
-// sites of `colour` get p + omega res / denom with res = eps (x- + x+ +
-// y- + y+ + z- + z+ - 6 p) + rhs, the others are copied; returns the
-// thread's sum of res^2.  The coordinates advance by the stride's
-// (dx, dy, dz) with carries, instead of four integer divisions a site.
+constexpr int kSorTwoBuffer = 0, kSorInPlace = 1, kSorOnChip = 2;
+constexpr int kSorChipThreads = 512;  // threads a block, on-chip route
+
+#define SOR_THREADS(ROUTE) ((ROUTE) == kSorOnChip ? kSorChipThreads : kThreads)
+
+// two adjacent values (a pair of z-adjacent sites) as one 8- or 16-byte
+// access
 template <typename T>
-__device__ __forceinline__ T sor_half(const T* src, T* dst,
-                                      const T* __restrict__ rhs, int colour,
-                                      T omega, int X, int Y, int Z, T eps,
-                                      T denom, int first, int stride,
-                                      int nsite) {
-  const int YZ = Y * Z;
+struct SorVec2;
+template <>
+struct SorVec2<float> {
+  using type = float2;
+};
+template <>
+struct SorVec2<double> {
+  using type = double2;
+};
+
+template <typename T>
+struct SorParams {
+  T eps, denom, rel_tol, abs_tol, stall_frac;
+  int X, Y, Z, max_its, ntab, zero_mean, stall;
+  int bx, by;  // the on-chip route's brick: x and y extents (z whole)
+};
+
+// The update of the site with value p: res = eps (x- + x+ + y- + y+ + z-
+// + z+ - 6 p) + r, the neighbours summed in the twin's order; returns
+// p + omega res / denom and sets res.
+template <typename T>
+__device__ __forceinline__ T sor_update(T p, T xm, T xp, T ym, T yp, T zm,
+                                        T zp, T r, T omega,
+                                        const SorParams<T>& sp, T& res) {
+  T nb = xm + xp;
+  nb = nb + ym + yp;
+  nb = nb + zm + zp;
+  res = sp.eps * (nb - T(6) * p) + r;
+  return p + omega * res / sp.denom;
+}
+
+// Two-buffer half-sweep over this thread's sites s = first, first +
+// stride, ...: sites of `colour` get the update from src, the others are
+// copied.  Returns the thread's sum of res^2; r0 (when not null) adds
+// rhs^2 of every site walked, sum the values written.  The coordinates
+// advance by the stride's (dx, dy, dz) with carries, instead of four
+// integer divisions a site.
+template <typename T>
+__device__ __forceinline__ T sor_half_copy(const T* src, T* dst,
+                                           const T* __restrict__ rhs,
+                                           int colour, T omega,
+                                           const SorParams<T>& sp, int first,
+                                           int stride, T* r0, T* sum) {
+  const int X = sp.X, Y = sp.Y, Z = sp.Z, YZ = Y * Z, nsite = X * YZ;
   const int dz = stride % Z, dy = (stride / Z) % Y, dx = stride / YZ;
   int z = first % Z, y = (first / Z) % Y, x = first / YZ;
   T acc = T(0);
   for (int64_t s64 = first; s64 < nsite; s64 += stride) {
     const int s = static_cast<int>(s64);
     const T p = src[s];
-    if (((x + y + z) & 1) != colour) {
-      dst[s] = p;
-    } else {
-      const T xm = src[x == 0 ? s + (X - 1) * YZ : s - YZ];
-      const T xp = src[x == X - 1 ? s - (X - 1) * YZ : s + YZ];
-      const T ym = src[y == 0 ? s + (Y - 1) * Z : s - Z];
-      const T yp = src[y == Y - 1 ? s - (Y - 1) * Z : s + Z];
-      const T zm = src[z == 0 ? s + (Z - 1) : s - 1];
-      const T zp = src[z == Z - 1 ? s - (Z - 1) : s + 1];
-      T nb = xm + xp;
-      nb = nb + ym + yp;
-      nb = nb + zm + zp;
-      const T res = eps * (nb - T(6) * p) + rhs[s];
-      dst[s] = p + omega * res / denom;
+    T v = p;
+    if (((x + y + z) & 1) == colour) {
+      T res;
+      v = sor_update(p, src[x == 0 ? s + (X - 1) * YZ : s - YZ],
+                     src[x == X - 1 ? s - (X - 1) * YZ : s + YZ],
+                     src[y == 0 ? s + (Y - 1) * Z : s - Z],
+                     src[y == Y - 1 ? s - (Y - 1) * Z : s + Z],
+                     src[z == 0 ? s + (Z - 1) : s - 1],
+                     src[z == Z - 1 ? s - (Z - 1) : s + 1], rhs[s], omega,
+                     sp, res);
       acc += res * res;
     }
+    dst[s] = v;
+    if (r0) *r0 += rhs[s] * rhs[s];
+    if (sum) *sum += v;
     z += dz;
     const int cz = z >= Z;
     z -= cz * Z;
@@ -107,86 +164,524 @@ __device__ __forceinline__ T sor_half(const T* src, T* dst,
   return acc;
 }
 
-template <typename T>
-struct SorParams {
-  T eps, denom, rel_tol, abs_tol, stall_frac;
-  int X, Y, Z, max_its, ntab, zero_mean, stall;
+// Coordinates (x, y, m) of a pair index t = (x Y + y) Zh + m, advanced
+// by a fixed step with carries instead of integer divisions.
+struct SorWalk {
+  int x, y, m, dx, dy, dm;
+  __device__ void init(int t, int step, int Y, int Zh) {
+    m = t % Zh, y = (t / Zh) % Y, x = t / (Y * Zh);
+    dm = step % Zh, dy = (step / Zh) % Y, dx = step / (Y * Zh);
+  }
+  __device__ void next(int Y, int Zh) {
+    m += dm;
+    const int cm = m >= Zh;
+    m -= cm * Zh;
+    y += dy + cm;
+    const int cy = y >= Y;
+    y -= cy * Y;
+    x += dx + cy;
+  }
 };
 
-// part: 5 x gridDim.x partials: red and black for even iterations, red
-// and black for odd ones, misc.  Iteration n + 1 writes the other pair
-// while slow blocks may still read iteration n's; n + 2 may reuse it, as
-// every block has passed iteration n + 1's first barrier by then.  The
-// result is in p0, istats = (n, which), rstats = (rnorm).
+// The in-place route keeps psi and rhs colour-split: cs holds two
+// (X, Y, Z/2) arrays, colour 0 then colour 1, whose value t = (x Y + y)
+// Zh + m is the site (x, y, 2m + ((x + y + c) & 1)) of colour c.  Every
+// neighbour of a colour-c site has the other colour and sits at the same
+// t in x and y (offset by a plane or a row), and at t or t -+ 1 in z, so a
+// half-sweep reads and writes each colour's values contiguously.
+//
+// Split psi and rhs into cs and rs over this thread's pairs t = first,
+// first + stride, ... of z-adjacent sites (2m, 2m + 1), each pair read as
+// one vector; returns the thread's sum of rhs^2.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-sor_kernel(T* p0, T* p1, const T* __restrict__ rhs,
-           const T* __restrict__ om_tab, T* part, int* istats, T* rstats,
-           SorParams<T> sp) {
+__device__ T sor_split(const T* __restrict__ psi, const T* __restrict__ rhs,
+                       T* __restrict__ cs, T* __restrict__ rs,
+                       const SorParams<T>& sp, int first, int stride) {
+  using V = typename SorVec2<T>::type;
+  const int Y = sp.Y, Zh = sp.Z >> 1, npair = sp.X * Y * Zh;
+  const V* pv = reinterpret_cast<const V*>(psi);
+  const V* rv = reinterpret_cast<const V*>(rhs);
+  SorWalk w;
+  w.init(first, stride, Y, Zh);
+  T r0 = T(0);
+#pragma unroll 4
+  for (int t = first; t < npair; t += stride) {
+    const int c0 = (w.x + w.y) & 1;  // the colour of site 2m
+    const V p = pv[t], r = rv[t];
+    cs[c0 * npair + t] = p.x;
+    cs[(1 - c0) * npair + t] = p.y;
+    rs[c0 * npair + t] = r.x;
+    rs[(1 - c0) * npair + t] = r.y;
+    r0 += r.x * r.x;
+    r0 += r.y * r.y;
+    w.next(Y, Zh);
+  }
+  return r0;
+}
+
+// the result p0 <- cs, less `mean`, over this thread's pairs
+template <typename T>
+__device__ void sor_unsplit(T* __restrict__ p0, const T* __restrict__ cs,
+                            T mean, const SorParams<T>& sp, int first,
+                            int stride) {
+  using V = typename SorVec2<T>::type;
+  const int Y = sp.Y, Zh = sp.Z >> 1, npair = sp.X * Y * Zh;
+  V* pv = reinterpret_cast<V*>(p0);
+  SorWalk w;
+  w.init(first, stride, Y, Zh);
+#pragma unroll 4
+  for (int t = first; t < npair; t += stride) {
+    const int c0 = (w.x + w.y) & 1;
+    V v;
+    v.x = cs[c0 * npair + t] - mean;
+    v.y = cs[(1 - c0) * npair + t] - mean;
+    pv[t] = v;
+    w.next(Y, Zh);
+  }
+}
+
+constexpr int kSorUnroll = 2;  // pairs a thread has in flight
+
+// In-place half-sweep (every extent even) of `colour` on the split cs,
+// rs over this thread's pairs: each pair's site of this colour is
+// updated; its partner, of the other colour, is read only as a z
+// neighbour.  kSorUnroll pairs are loaded before any is stored (no site a
+// pair updates is read by another), so their loads overlap.  sum (when
+// not null) adds both sites' values after the update, site 2m first.
+template <typename T>
+__device__ __forceinline__ T sor_half_inplace(T* cs, const T* __restrict__ rs,
+                                              int colour, T omega,
+                                              const SorParams<T>& sp,
+                                              int first, int stride,
+                                              T* sum) {
+  const int X = sp.X, Y = sp.Y, Zh = sp.Z >> 1, YZh = Y * Zh;
+  const int npair = X * YZh;
+  // the two colours are disjoint halves of cs: no store to own is seen
+  // by a load from oth, so the loads of later pairs may run ahead
+  T* __restrict__ own = cs + colour * npair;
+  const T* __restrict__ oth = cs + (1 - colour) * npair;
+  const T* __restrict__ rc = rs + colour * npair;
+  SorWalk w[kSorUnroll];
+#pragma unroll
+  for (int u = 0; u < kSorUnroll; ++u) {
+    w[u].init(first + u * stride, kSorUnroll * stride, Y, Zh);
+  }
+  T acc = T(0);
+#pragma unroll 1
+  for (int t0 = first; t0 < npair; t0 += kSorUnroll * stride) {
+    T p[kSorUnroll], xm[kSorUnroll], xp[kSorUnroll], ym[kSorUnroll],
+        yp[kSorUnroll], zm[kSorUnroll], zp[kSorUnroll], r[kSorUnroll];
+    int o[kSorUnroll];
+#pragma unroll
+    for (int u = 0; u < kSorUnroll; ++u) {
+      const int t = t0 + u * stride;
+      if (t >= npair) break;
+      const int x = w[u].x, y = w[u].y, m = w[u].m;
+      o[u] = (x + y + colour) & 1;  // the pair's site of this colour
+      p[u] = own[t];
+      xm[u] = oth[x == 0 ? t + (X - 1) * YZh : t - YZh];
+      xp[u] = oth[x == X - 1 ? t - (X - 1) * YZh : t + YZh];
+      ym[u] = oth[y == 0 ? t + (Y - 1) * Zh : t - Zh];
+      yp[u] = oth[y == Y - 1 ? t - (Y - 1) * Zh : t + Zh];
+      zm[u] = oth[o[u] ? t : (m == 0 ? t + (Zh - 1) : t - 1)];
+      zp[u] = oth[o[u] ? (m == Zh - 1 ? t - (Zh - 1) : t + 1) : t];
+      r[u] = rc[t];
+    }
+#pragma unroll
+    for (int u = 0; u < kSorUnroll; ++u) {
+      const int t = t0 + u * stride;
+      if (t >= npair) break;
+      T res;
+      const T pn = sor_update(p[u], xm[u], xp[u], ym[u], yp[u], zm[u], zp[u],
+                              r[u], omega, sp, res);
+      own[t] = pn;
+      acc += res * res;
+      if (sum) {  // the partner is z + 1 (o = 0) or z - 1 (o = 1)
+        *sum += o[u] ? zm[u] : pn;
+        *sum += o[u] ? pn : zp[u];
+      }
+      w[u].next(Y, Zh);
+    }
+  }
+  return acc;
+}
+
+// The on-chip route's brick in shared memory, colour-split as the
+// in-place route's fields: psi as two (bx + 2, by + 2, Z/2) arrays with a
+// one-site halo in x and y (the corner columns unused), value (lx, ly, m)
+// of colour c being the site (x0 + lx, y0 + ly, 2m + ((x0 + lx + y0 + ly
+// + c) & 1)); then rhs as two (bx, by, Z/2) arrays.  A half-sweep of
+// colour c changes only colour c, so only its boundary planes cross L2.
+template <typename T>
+struct SorBrick {
+  T* psi;
+  T* rhs;
+  int bx, by, Zh, x0, y0, ix, iy, nbx, nby;
+  __device__ int at(int lx, int ly, int m) const {  // lx, ly from -1
+    return ((lx + 1) * (by + 2) + ly + 1) * Zh + m;
+  }
+  __device__ int colour_len() const { return (bx + 2) * (by + 2) * Zh; }
+  __device__ int face_len() const { return 2 * (by + bx) * Zh; }
+  __device__ int parity(int lx, int ly) const {
+    return (x0 + lx + y0 + ly) & 1;
+  }
+};
+
+// Row r of the boundary planes, in order x = 0, x = bx - 1 (by rows of
+// Z/2 each), y = 0, y = by - 1 (bx rows each): its (lx, ly).  Value i of
+// the faces is row i / (Z/2), m = i % (Z/2).
+template <typename T>
+__device__ __forceinline__ void sor_face_row(const SorBrick<T>& b, int r,
+                                             int& lx, int& ly) {
+  if (r < 2 * b.by) {
+    lx = r < b.by ? 0 : b.bx - 1;
+    ly = r < b.by ? r : r - b.by;
+  } else {
+    const int k = r - 2 * b.by;
+    ly = k < b.bx ? 0 : b.by - 1;
+    lx = k < b.bx ? k : k - b.bx;
+  }
+}
+
+// this block's boundary planes of colour c -> faces
+template <typename T>
+__device__ void sor_put_faces(const SorBrick<T>& b, int c,
+                              T* __restrict__ faces) {
+  const int len = b.face_len(), rows = 2 * (b.bx + b.by);
+  const T* ps = b.psi + c * b.colour_len();
+  T* mine = faces + static_cast<int64_t>(blockIdx.x) * len;
+  SorWalk w;  // (row, m) of value i
+  w.init(threadIdx.x, blockDim.x, rows, b.Zh);
+  for (int i = threadIdx.x; i < len; i += blockDim.x) {
+    int lx, ly;
+    sor_face_row(b, w.y, lx, ly);
+    mine[i] = ps[b.at(lx, ly, w.m)];
+    w.next(rows, b.Zh);
+  }
+}
+
+// the halo of colour c <- the neighbours' faces: x = -1 from the x-minus
+// block's x = bx - 1 plane, x = bx from the x-plus block's x = 0 plane,
+// likewise in y; kHaloBatch values loaded before any is stored
+constexpr int kHaloBatch = 4;
+
+template <typename T>
+__device__ void sor_get_halo(const SorBrick<T>& b, int c,
+                             const T* __restrict__ faces) {
+  const int len = b.face_len(), rows = 2 * (b.bx + b.by);
+  const int fx = b.by * b.Zh, fy = b.bx * b.Zh;
+  const int xm = b.iy * b.nbx + (b.ix == 0 ? b.nbx - 1 : b.ix - 1);
+  const int xp = b.iy * b.nbx + (b.ix == b.nbx - 1 ? 0 : b.ix + 1);
+  const int ym = (b.iy == 0 ? b.nby - 1 : b.iy - 1) * b.nbx + b.ix;
+  const int yp = (b.iy == b.nby - 1 ? 0 : b.iy + 1) * b.nbx + b.ix;
+  T* ps = b.psi + c * b.colour_len();
+  const int stride = blockDim.x;
+  SorWalk w[kHaloBatch];
+#pragma unroll
+  for (int u = 0; u < kHaloBatch; ++u) {
+    w[u].init(threadIdx.x + u * stride, kHaloBatch * stride, rows, b.Zh);
+  }
+  for (int i0 = threadIdx.x; i0 < len; i0 += kHaloBatch * stride) {
+    T v[kHaloBatch];
+    int at[kHaloBatch];
+#pragma unroll
+    for (int u = 0; u < kHaloBatch; ++u) {
+      const int i = i0 + u * stride;
+      if (i >= len) break;
+      int lx, ly, nb, j;
+      sor_face_row(b, w[u].y, lx, ly);
+      if (i < fx) {  // the halo beyond x = 0
+        nb = xm, j = i + fx, lx = -1;
+      } else if (i < 2 * fx) {
+        nb = xp, j = i - fx, lx = b.bx;
+      } else if (i < 2 * fx + fy) {
+        nb = ym, j = i + fy, ly = -1;
+      } else {
+        nb = yp, j = i - fy, ly = b.by;
+      }
+      at[u] = b.at(lx, ly, w[u].m);
+      v[u] = faces[static_cast<int64_t>(nb) * len + j];
+      w[u].next(rows, b.Zh);
+    }
+#pragma unroll
+    for (int u = 0; u < kHaloBatch; ++u) {
+      if (i0 + u * stride >= len) break;
+      ps[at[u]] = v[u];
+    }
+  }
+}
+
+// the brick and its halo from the global fields, split by colour, each
+// pair of sites read as one vector; returns this thread's sum of rhs^2
+template <typename T>
+__device__ T sor_load_brick(const SorBrick<T>& b, const T* __restrict__ psi,
+                            const T* __restrict__ rhs,
+                            const SorParams<T>& sp) {
+  using V = typename SorVec2<T>::type;
+  const V* pv = reinterpret_cast<const V*>(psi);
+  const V* rv = reinterpret_cast<const V*>(rhs);
+  const int Zh = b.Zh, rows = (b.bx + 2) * (b.by + 2), cl = b.colour_len();
+  T* __restrict__ ps = b.psi;
+  T* __restrict__ rsh = b.rhs;
+  SorWalk w;  // (row, m) of a column pair of the padded brick
+  w.init(threadIdx.x, blockDim.x, rows, Zh);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < cl; i += blockDim.x) {
+    const int lx = w.y / (b.by + 2) - 1, ly = w.y % (b.by + 2) - 1;
+    const int gx = wrap1(b.x0 + lx, sp.X), gy = wrap1(b.y0 + ly, sp.Y);
+    const V p = pv[(gx * sp.Y + gy) * Zh + w.m];
+    const int c0 = b.parity(lx, ly);  // the colour of site 2m
+    ps[c0 * cl + i] = p.x;
+    ps[(1 - c0) * cl + i] = p.y;
+    w.next(rows, Zh);
+  }
+  T r0 = T(0);
+  const int ri = b.bx * b.by * Zh;
+  w.init(threadIdx.x, blockDim.x, b.by, Zh);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < ri; i += blockDim.x) {
+    const int lx = w.x, ly = w.y;
+    const V r = rv[((b.x0 + lx) * sp.Y + b.y0 + ly) * Zh + w.m];
+    const int c0 = b.parity(lx, ly);
+    rsh[c0 * ri + i] = r.x;
+    rsh[(1 - c0) * ri + i] = r.y;
+    r0 += r.x * r.x;
+    r0 += r.y * r.y;
+    w.next(b.by, Zh);
+  }
+  return r0;
+}
+
+// the result p0 <- the brick's interior, less `mean`
+template <typename T>
+__device__ void sor_store_brick(const SorBrick<T>& b, T* __restrict__ p0,
+                                T mean, const SorParams<T>& sp) {
+  using V = typename SorVec2<T>::type;
+  V* pv = reinterpret_cast<V*>(p0);
+  const int Zh = b.Zh, cl = b.colour_len(), ri = b.bx * b.by * Zh;
+  SorWalk w;
+  w.init(threadIdx.x, blockDim.x, b.by, Zh);
+#pragma unroll 4
+  for (int i = threadIdx.x; i < ri; i += blockDim.x) {
+    const int lx = w.x, ly = w.y, c0 = b.parity(lx, ly);
+    const int k = b.at(lx, ly, w.m);
+    V v;
+    v.x = b.psi[c0 * cl + k] - mean;
+    v.y = b.psi[(1 - c0) * cl + k] - mean;
+    pv[((b.x0 + lx) * sp.Y + b.y0 + ly) * Zh + w.m] = v;
+    w.next(b.by, Zh);
+  }
+}
+
+// On-chip half-sweep of `colour` over the brick's pairs, as
+// sor_half_inplace on the brick's split psi and rhs, the pair index t =
+// (lx by + ly) Zh + m walked with carries; returns the thread's sum of
+// res^2.
+template <typename T>
+__device__ __forceinline__ T sor_half_chip(const SorBrick<T>& b, int colour,
+                                           T omega, const SorParams<T>& sp,
+                                           T* sum) {
+  const int Zh = b.Zh, PX = (b.by + 2) * Zh, cl = b.colour_len();
+  const int npair = b.bx * b.by * Zh;
+  T* __restrict__ own = b.psi + colour * cl;
+  const T* __restrict__ oth = b.psi + (1 - colour) * cl;
+  const T* __restrict__ rc = b.rhs + colour * npair;
+  const int stride = blockDim.x;
+  SorWalk w[kSorUnroll];
+#pragma unroll
+  for (int u = 0; u < kSorUnroll; ++u) {
+    w[u].init(threadIdx.x + u * stride, kSorUnroll * stride, b.by, Zh);
+  }
+  T acc = T(0);
+  for (int t0 = threadIdx.x; t0 < npair; t0 += kSorUnroll * stride) {
+    T p[kSorUnroll], xm[kSorUnroll], xp[kSorUnroll], ym[kSorUnroll],
+        yp[kSorUnroll], zm[kSorUnroll], zp[kSorUnroll], r[kSorUnroll];
+    int c[kSorUnroll], o[kSorUnroll];
+#pragma unroll
+    for (int u = 0; u < kSorUnroll; ++u) {
+      const int t = t0 + u * stride;
+      if (t >= npair) break;
+      const int lx = w[u].x, ly = w[u].y, m = w[u].m;
+      o[u] = (b.parity(lx, ly) + colour) & 1;
+      const int cc = b.at(lx, ly, m);
+      c[u] = cc;
+      p[u] = own[cc];
+      xm[u] = oth[cc - PX];
+      xp[u] = oth[cc + PX];
+      ym[u] = oth[cc - Zh];
+      yp[u] = oth[cc + Zh];
+      zm[u] = oth[o[u] ? cc : (m == 0 ? cc + (Zh - 1) : cc - 1)];
+      zp[u] = oth[o[u] ? (m == Zh - 1 ? cc - (Zh - 1) : cc + 1) : cc];
+      r[u] = rc[t];
+    }
+#pragma unroll
+    for (int u = 0; u < kSorUnroll; ++u) {
+      if (t0 + u * stride >= npair) break;
+      T res;
+      const T pn = sor_update(p[u], xm[u], xp[u], ym[u], yp[u], zm[u], zp[u],
+                              r[u], omega, sp, res);
+      own[c[u]] = pn;
+      acc += res * res;
+      if (sum) {
+        *sum += o[u] ? zm[u] : pn;
+        *sum += o[u] ? pn : zp[u];
+      }
+      w[u].next(b.by, Zh);
+    }
+  }
+  return acc;
+}
+
+// part: 7 x gridDim.x partials: red, black (even iterations), red, black
+// (odd ones), the psi sums (even, odd), sum rhs^2.  Iteration n + 1
+// writes the other set while slow blocks may still read iteration n's;
+// n + 2 may reuse it, as every block has passed iteration n + 1's first
+// barrier by then.  faces (on-chip route): one buffer per colour of
+// gridDim.x x face_len values.  The on-chip and in-place routes read psi
+// once; the two-buffer route starts from p0, a copy of it.  The result
+// is in p0, istats = (n, which), rstats = (rnorm).
+// The streaming routes run four blocks an SM (<= 64 registers a thread).
+template <typename T, int ROUTE>
+__global__ void __launch_bounds__(SOR_THREADS(ROUTE),
+                                  ROUTE == kSorOnChip ? 1 : 4)
+sor_kernel(const T* __restrict__ psi, T* p0, T* p1,
+           const T* __restrict__ rhs, const T* __restrict__ om_tab, T* part,
+           T* faces, int* istats, T* rstats, SorParams<T> sp) {
+  constexpr int NT = SOR_THREADS(ROUTE);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::grid_group grid = cg::this_grid();
-  __shared__ T sh[kThreads / 32 + 1];
+  __shared__ T sh[NT / 32 + 1];
   const int G = gridDim.x;
-  T* part_misc = part + 4 * G;
   const int nsite = sp.X * sp.Y * sp.Z;
   const int stride = G * blockDim.x;
   const int first = blockIdx.x * blockDim.x + threadIdx.x;
+  T* part_r0 = part + 6 * G;
 
-  // rnorm0 = sqrt(sum rhs^2)
-  T acc = T(0);
-  for (int64_t s = first; s < nsite; s += stride) acc += rhs[s] * rhs[s];
-  acc = block_sum_all(acc, sh);
-  if (threadIdx.x == 0) part_misc[blockIdx.x] = acc;
-  grid.sync();
-  const T rnorm0 = sqrt(sum_partials(part_misc, G, sh));
+  SorBrick<T> b{};
+  T r0 = T(0);
+  if constexpr (ROUTE == kSorOnChip) {
+    b.bx = sp.bx;
+    b.by = sp.by;
+    b.Zh = sp.Z >> 1;
+    b.nbx = sp.X / sp.bx;
+    b.nby = sp.Y / sp.by;
+    b.ix = blockIdx.x % b.nbx;
+    b.iy = blockIdx.x / b.nbx;
+    b.x0 = b.ix * b.bx;
+    b.y0 = b.iy * b.by;
+    b.psi = reinterpret_cast<T*>(smem_raw);
+    b.rhs = b.psi + 2 * b.colour_len();
+    r0 = sor_load_brick(b, psi, rhs, sp);
+    __syncthreads();
+  }
+  T* faces_of[2] = {faces, faces + static_cast<int64_t>(G) * b.face_len()};
+  // the in-place route's colour-split psi and rhs (p1: 2 nsite values)
+  T* cs = p1;
+  T* rs = p1 + nsite;
+  if constexpr (ROUTE == kSorInPlace) {
+    r0 = sor_split(psi, rhs, cs, rs, sp, first, stride);
+    grid.sync();
+  }
+
+  auto half = [&](int colour, T omega, T* r0p, T* sum) -> T {
+    if constexpr (ROUTE == kSorOnChip) {
+      return sor_half_chip(b, colour, omega, sp, sum);
+    } else if constexpr (ROUTE == kSorInPlace) {
+      return sor_half_inplace(cs, rs, colour, omega, sp, first, stride, sum);
+    } else {
+      return colour == 0
+                 ? sor_half_copy(p0, p1, rhs, 0, omega, sp, first, stride,
+                                 r0p, sum)
+                 : sor_half_copy(p1, p0, rhs, 1, omega, sp, first, stride,
+                                 r0p, sum);
+    }
+  };
 
   // prev is set at n = 0 before any use, rn at the last iteration run
-  T prev = T(0), rn = T(0);
+  T prev = T(0), rn = T(0), rnorm0 = T(0);
   int nstop = sp.max_its - 1, which = 1;
   for (int n = 0; n < sp.max_its; ++n) {
     const int nt = n < sp.ntab ? n : sp.ntab - 1;
     T* part_red = part + (n & 1) * 2 * G;
     T* part_blk = part_red + G;
+    T* part_sum = part + (4 + (n & 1)) * G;
     const bool is_check = n % 5 == 0;
     const bool reduce = is_check || n == sp.max_its - 1;
-    T a = sor_half(p0, p1, rhs, 0, om_tab[2 * nt], sp.X, sp.Y, sp.Z, sp.eps,
-                   sp.denom, first, stride, nsite);
+    T a = half(0, om_tab[2 * nt],
+               ROUTE == kSorTwoBuffer && n == 0 ? &r0 : nullptr, nullptr);
     if (reduce) {
-      a = block_sum_all(a, sh);
+      a = block_sum_all<T, NT>(a, sh);
       if (threadIdx.x == 0) part_red[blockIdx.x] = a;
     }
-    grid.sync();
-    T b = sor_half(p1, p0, rhs, 1, om_tab[2 * nt + 1], sp.X, sp.Y, sp.Z,
-                   sp.eps, sp.denom, first, stride, nsite);
-    if (reduce) {
-      b = block_sum_all(b, sh);
-      if (threadIdx.x == 0) part_blk[blockIdx.x] = b;
+    if (n == 0) {
+      r0 = block_sum_all<T, NT>(r0, sh);
+      if (threadIdx.x == 0) part_r0[blockIdx.x] = r0;
+    }
+    if constexpr (ROUTE == kSorOnChip) {
+      __syncthreads();
+      sor_put_faces(b, 0, faces_of[0]);
     }
     grid.sync();
-    if (!reduce) continue;
-    // the same partials in the same order in every block: one decision
-    const T s_red = sum_partials(part_red, G, sh);
-    const T s_blk = sum_partials(part_blk, G, sh);
-    const T rnorm1 = sqrt(s_red + s_blk);
-    rn = rnorm1;
-    which = rnorm1 < sp.abs_tol ? 0 : 1;
-    if (is_check) {
-      bool conv = rnorm1 < sp.abs_tol || rnorm1 < sp.rel_tol * rnorm0;
-      if (sp.stall && n > 0) conv = conv || rnorm1 >= sp.stall_frac * prev;
-      prev = rnorm1;
-      if (conv) {
-        nstop = n;
-        break;
+    if constexpr (ROUTE == kSorOnChip) {
+      sor_get_halo(b, 0, faces_of[0]);
+      __syncthreads();
+    }
+    T psum = T(0);
+    T c = half(1, om_tab[2 * nt + 1], nullptr,
+               reduce && sp.zero_mean ? &psum : nullptr);
+    if (reduce) {
+      c = block_sum_all<T, NT>(c, sh);
+      if (threadIdx.x == 0) part_blk[blockIdx.x] = c;
+      if (sp.zero_mean) {
+        psum = block_sum_all<T, NT>(psum, sh);
+        if (threadIdx.x == 0) part_sum[blockIdx.x] = psum;
+      }
+    }
+    if constexpr (ROUTE == kSorOnChip) {
+      __syncthreads();
+      sor_put_faces(b, 1, faces_of[1]);
+    }
+    grid.sync();
+    bool stop = false;
+    if (reduce) {
+      if (n == 0) rnorm0 = sqrt(sum_partials<T, NT>(part_r0, G, sh));
+      // the same partials in the same order in every block: one decision
+      const T s_red = sum_partials<T, NT>(part_red, G, sh);
+      const T s_blk = sum_partials<T, NT>(part_blk, G, sh);
+      const T rnorm1 = sqrt(s_red + s_blk);
+      rn = rnorm1;
+      which = rnorm1 < sp.abs_tol ? 0 : 1;
+      if (is_check) {
+        bool conv = rnorm1 < sp.abs_tol || rnorm1 < sp.rel_tol * rnorm0;
+        if (sp.stall && n > 0) conv = conv || rnorm1 >= sp.stall_frac * prev;
+        prev = rnorm1;
+        if (conv) {
+          nstop = n;
+          stop = true;
+        }
+      }
+    }
+    if (stop) break;
+    if constexpr (ROUTE == kSorOnChip) {
+      if (n + 1 < sp.max_its) {
+        sor_get_halo(b, 1, faces_of[1]);
+        __syncthreads();
       }
     }
   }
 
+  // the stop iteration formed the sum of psi: no barrier, each thread
+  // shifts only its own sites
+  T mean = T(0);
   if (sp.zero_mean) {
-    T m = T(0);
-    for (int64_t s = first; s < nsite; s += stride) m += p0[s];
-    m = block_sum_all(m, sh);
-    if (threadIdx.x == 0) part_misc[blockIdx.x] = m;
-    grid.sync();
-    const T mean = sum_partials(part_misc, G, sh) / static_cast<T>(nsite);
+    mean = sum_partials<T, NT>(part + (4 + (nstop & 1)) * G, G, sh) /
+           static_cast<T>(nsite);
+  }
+  if constexpr (ROUTE == kSorOnChip) {
+    sor_store_brick(b, p0, mean, sp);
+  } else if constexpr (ROUTE == kSorInPlace) {
+    sor_unsplit(p0, cs, mean, sp, first, stride);
+  } else if (sp.zero_mean) {
     for (int64_t s = first; s < nsite; s += stride) p0[s] = p0[s] - mean;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
@@ -196,8 +691,8 @@ sor_kernel(T* p0, T* p1, const T* __restrict__ rhs,
   }
 }
 
-template <typename T>
-static int sor_grid(int device, long long nsite, int* grid) {
+template <typename T, int ROUTE>
+static int sor_grid(int device, long long nsite, int smem, int* grid) {
   int coop = 0, sms = 0, per_sm = 0;
   cudaError_t e =
       cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
@@ -205,20 +700,29 @@ static int sor_grid(int device, long long nsite, int* grid) {
   if (!coop) return kErrNoCooperativeLaunch;
   e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sor_kernel<T>,
-                                                    kThreads, 0);
+  if (smem > 48 * 1024) {
+    e = cudaFuncSetAttribute(sor_kernel<T, ROUTE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, sor_kernel<T, ROUTE>, SOR_THREADS(ROUTE), smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long need = (nsite + kThreads - 1) / kThreads;
+  // the streaming routes: a block for each kThreads sites (pairs in place)
+  const long long work = ROUTE == kSorInPlace ? nsite / 2 : nsite;
+  const long long need = (work + kThreads - 1) / kThreads;
   const long long resident = static_cast<long long>(per_sm) * sms;
-  *grid = static_cast<int>(need < resident ? need : resident);
+  *grid = static_cast<int>(ROUTE == kSorOnChip || need > resident ? resident
+                                                                   : need);
   return *grid > 0 ? 0 : static_cast<int>(cudaErrorInvalidConfiguration);
 }
 
-template <typename T>
-static int launch_sor(void* p0, void* p1, const void* rhs, const void* om,
-                      void* part, void* istats, void* rstats, int grid,
-                      const double* par, const int* ipar,
-                      cudaStream_t stream) {
+template <typename T, int ROUTE>
+static int launch_sor(const void* psi, void* p0, void* p1, const void* rhs,
+                      const void* om, void* part, void* faces, void* istats,
+                      void* rstats, int grid, int smem, const double* par,
+                      const int* ipar, cudaStream_t stream) {
   SorParams<T> sp;
   sp.eps = static_cast<T>(par[0]);
   sp.denom = static_cast<T>(par[1]);
@@ -232,20 +736,53 @@ static int launch_sor(void* p0, void* p1, const void* rhs, const void* om,
   sp.ntab = ipar[4];
   sp.zero_mean = ipar[5];
   sp.stall = ipar[6];
+  sp.bx = ipar[7];
+  sp.by = ipar[8];
+  if (ROUTE != kSorTwoBuffer && (sp.X % 2 || sp.Y % 2 || sp.Z % 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);  // colours would meet
+  }
+  if (ROUTE == kSorOnChip &&
+      (sp.bx < 1 || sp.by < 1 || sp.X % sp.bx || sp.Y % sp.by ||
+       grid != (sp.X / sp.bx) * (sp.Y / sp.by))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        sor_kernel<T, ROUTE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const T* ain = static_cast<const T*>(psi);
   T* a0 = static_cast<T*>(p0);
   T* a1 = static_cast<T*>(p1);
   const T* a2 = static_cast<const T*>(rhs);
   const T* a3 = static_cast<const T*>(om);
   T* a4 = static_cast<T*>(part);
-  int* a5 = static_cast<int*>(istats);
-  T* a6 = static_cast<T*>(rstats);
-  void* args[] = {&a0, &a1, &a2, &a3, &a4, &a5, &a6, &sp};
+  T* a5 = static_cast<T*>(faces);
+  int* a6 = static_cast<int*>(istats);
+  T* a7 = static_cast<T*>(rstats);
+  void* args[] = {&ain, &a0, &a1, &a2, &a3, &a4, &a5, &a6, &a7, &sp};
   cudaError_t e = cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(sor_kernel<T>), dim3(grid), dim3(kThreads),
-      args, 0, stream);
+      reinterpret_cast<void*>(sor_kernel<T, ROUTE>), dim3(grid),
+      dim3(SOR_THREADS(ROUTE)), args, smem, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
+
+#define SOR_DISPATCH(F, ...)                                                \
+  do {                                                                      \
+    if (route < kSorTwoBuffer || route > kSorOnChip) {                      \
+      return static_cast<int>(cudaErrorInvalidValue);                       \
+    }                                                                       \
+    if (is_f64) {                                                           \
+      return route == kSorOnChip    ? F<double, kSorOnChip>(__VA_ARGS__)    \
+             : route == kSorInPlace ? F<double, kSorInPlace>(__VA_ARGS__)   \
+                                    : F<double, kSorTwoBuffer>(__VA_ARGS__); \
+    }                                                                       \
+    return route == kSorOnChip    ? F<float, kSorOnChip>(__VA_ARGS__)       \
+           : route == kSorInPlace ? F<float, kSorInPlace>(__VA_ARGS__)      \
+                                  : F<float, kSorTwoBuffer>(__VA_ARGS__);   \
+  } while (0)
 
 // -- Nernst-Planck + grad-mu ---------------------------------------------------
 
@@ -378,24 +915,35 @@ int lb_np_blocks(long long nsite) {
   return static_cast<int>((nsite + kThreads - 1) / kThreads);
 }
 
-int lb_sor_grid(int is_f64, int device, long long nsite, int* grid) {
-  const cudaError_t e = cudaSetDevice(device);
+int lb_electro_device_info(int device, int* sms, int* smem_optin) {
+  cudaError_t e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount,
+                                         device);
   if (e != cudaSuccess) return static_cast<int>(e);
-  return is_f64 ? sor_grid<double>(device, nsite, grid)
-                : sor_grid<float>(device, nsite, grid);
+  e = cudaDeviceGetAttribute(smem_optin,
+                             cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  return static_cast<int>(e);
 }
 
-int lb_sor_solve(int is_f64, void* p0, void* p1, const void* rhs,
-                 const void* om_tab, void* part, void* istats, void* rstats,
-                 int grid, const double* par, const int* ipar, void* stream,
+// route: 0 two-buffer, 1 in-place, 2 on-chip (smem: its dynamic shared
+// memory); grid: the cooperative launch's blocks (on-chip: what the card
+// keeps resident, which must cover the bricks)
+int lb_sor_grid(int is_f64, int route, int device, long long nsite,
+                int smem, int* grid) {
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  SOR_DISPATCH(sor_grid, device, nsite, smem, grid);
+}
+
+int lb_sor_solve(int is_f64, int route, const void* psi, void* p0, void* p1,
+                 const void* rhs, const void* om_tab, void* part, void* faces,
+                 void* istats, void* rstats, int grid, int smem,
+                 const double* par, const int* ipar, void* stream,
                  int device) {
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? launch_sor<double>(p0, p1, rhs, om_tab, part, istats,
-                                     rstats, grid, par, ipar, s)
-                : launch_sor<float>(p0, p1, rhs, om_tab, part, istats,
-                                    rstats, grid, par, ipar, s);
+  SOR_DISPATCH(launch_sor, psi, p0, p1, rhs, om_tab, part, faces, istats,
+               rstats, grid, smem, par, ipar, s);
 }
 
 int lb_np_gradmu(int is_f64, int hydro, const void* psi, const void* rho,

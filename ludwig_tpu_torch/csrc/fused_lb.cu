@@ -48,17 +48,29 @@
 // same 152 B/site as fused_step_kernel; the hash adds ~8 + 14 per
 // deviate integer operations and no bytes.
 //
-// fusedn_step_kernel: temporal blocking.  A block owns an output tile
-// (BX, BY, BZ) and walks n steps over windows that start n sites wider on
-// every side and shrink by one per step; step s collides its whole window
-// and keeps only values that land in the next window.  The intermediate
-// windows live in shared memory when a block's pair of them fits the
-// opt-in limit, otherwise in a per-block global scratch (L2-resident for
-// the recently touched part).  It aims at (1 + halo) / n of the
-// single-step HBM traffic per step, at the price of recomputing the halo
-// collisions; each value is the same collide of the same inputs as in n
-// single-step launches, so the results are equal to them.
-//
+// fusedn_step_kernel: temporal blocking, 2.5-D, marching along x.  A
+// block owns a y-z tile (BY, BZ) and an x segment of BX planes, and
+// marches over the segment's planes plus n at each end, one pipeline
+// stage per time level: at march step k, level L collides local plane
+// j = k - L of its window (the tile widened by n - L sites in y and z)
+// and pushes C_q to plane j + c_qx of level L + 1's window, which is one
+// site narrower per side; the last level writes fout.  Level L + 1 then
+// finds plane j - 1 complete: its c_x = -1 values came this step, its
+// c_x = 0 values one step ago, its c_x = +1 values two steps ago.  So
+// each level's input lives in a ring with 2 + c_x slots per velocity
+// (lb_ring_base, LB_RING), 2 nvel values a window site in all:
+// two planes a level.  The rings sit in shared memory where one block's
+// fit the opt-in limit, else in a per-block global scratch of the same
+// O(planes) size (the launcher says which route: nstep_layout in
+// ops/fused.py).  x has no halo apart from the n planes at each end of
+// the segment; y and z carry n.  HBM traffic per step falls from
+// 2 nvel values a site to ~[(BY + 2n)(BZ + 2n) / (BY BZ) + 1] nvel / n,
+// at the price of recomputing the y-z halo's collisions: on this card
+// the march is bound by the instructions of its collisions, not by
+// bytes.  Each value is the same collide of the same inputs as in n
+// single-step launches, so
+// the results are bitwise equal to them.
+
 // fused_force_step_kernel: fused_step_kernel's push design with a
 // per-site Guo force (the K2 pass of the binary fluid, and of the LC,
 // droplet and electrokinetic steps in the JAX package).  The thread also
@@ -344,19 +356,123 @@ fused_force_step_solid_kernel(const T* __restrict__ fin,
   }
 }
 
-template <typename T, int DELTA, int PROJ>
-__global__ void __launch_bounds__(kThreads)
+// threads a block of the n-step kernel at most: f32 within 128
+// registers, f64 (~144 registers for the collision) within 255
+#define NSTEP_MAX_THREADS(T) (sizeof(T) == 4 ? 512 : 256)
+
+// One level of the march: collide local plane j of the level's window
+// (halo h in y and z) and push each value to the next level's ring, or,
+// on the last level, to fout.  Level 0 (src null) reads fin, the others
+// their ring src.  Per site, the destination offset of c = 0 and a mask
+// of the (c_x,) c_y, c_z in {-1, 0, 1} that stay inside the next window
+// (the tile) are formed once; an emit then adds its velocity's constant
+// offsets and tests one bit.  The site (ly, lz) advances by the block's
+// stride with a carry.
+template <typename T, int DELTA, int PROJ, bool LAST>
+__device__ __forceinline__ void nstep_level(
+    const T* __restrict__ fin, const T* src, T* dst, T* __restrict__ fout,
+    int j, int h, int n, int X, int Y, int Z, int BX, int BY, int BZ,
+    int x0, int y0, int z0, int64_t nsite, const LBParams<T>& p) {
+  const int WY = BY + 2 * h, WZ = BZ + 2 * h, S = WY * WZ;
+  const int DY = WY - 2, DZ = WZ - 2, DS = DY * DZ;  // the next window
+  const int64_t YZ = static_cast<int64_t>(Y) * Z;
+  // ring slots: of plane j for the reads (c_x = 0, +1), of plane j + c_x
+  // for the writes (c_x = -1 always slot 0)
+  const int rd0 = (j & 1) * S, rdp = (j % 3) * S;
+  const int wr0 = (j & 1) * DS, wrp = ((j + 1) % 3) * DS;
+  const int64_t gx = wrapn(x0 - n + j, X);
+  // the last level: bit c_x + 1 set where c_x lands in the segment; the
+  // global plane of c_x = 0
+  unsigned xmask = 7u;
+  int64_t obase = 0;
+  if constexpr (LAST) {
+    xmask = 0u;
+#pragma unroll
+    for (int c = -1; c <= 1; ++c) {
+      const int jx = j + c;
+      if (jx >= n && jx < n + BX && x0 + jx - n < X) xmask |= 1u << (c + 1);
+    }
+    obase = static_cast<int64_t>(x0 + j - n) * YZ;
+  }
+  const int sy = blockDim.x / WZ, sz = blockDim.x % WZ;
+  int ly = threadIdx.x / WZ, lz = threadIdx.x % WZ;
+  for (int i = threadIdx.x; i < S; i += blockDim.x) {
+    T f[LB_NVEL];
+    if (src == nullptr) {
+      const T* fp = fin + (gx * Y + wrapn(y0 - h + ly, Y)) * Z +
+                    wrapn(z0 - h + lz, Z);
+#pragma unroll
+      for (int q = 0; q < LB_NVEL; ++q) f[q] = fp[q * nsite];
+    } else {
+#pragma unroll
+      for (int q = 0; q < LB_NVEL; ++q) {
+        const int cx = lb_cx(q);
+        f[q] = src[lb_ring_base(q) * S + (cx < 0 ? 0 : (cx == 0 ? rd0 : rdp)) +
+                   i];
+      }
+    }
+    // c = 0's destination in the next window (or the tile); bit
+    // 9 (c_x + 1) + 3 (c_y + 1) + c_z + 1 of vmask set where c stays in
+    const int ay = ly - 1, az = lz - 1;
+    unsigned ymask = 0u, zmask = 0u;
+#pragma unroll
+    for (int c = -1; c <= 1; ++c) {
+      bool yin = ay + c >= 0 && ay + c < DY;
+      bool zin = az + c >= 0 && az + c < DZ;
+      if constexpr (LAST) {  // ragged edge tiles
+        yin = yin && y0 + ay + c < Y;
+        zin = zin && z0 + az + c < Z;
+      }
+      ymask |= yin ? 1u << (c + 1) : 0u;
+      zmask |= zin ? 1u << (c + 1) : 0u;
+    }
+    unsigned vmask = 0u;
+#pragma unroll
+    for (int cx = 0; cx < 3; ++cx) {
+#pragma unroll
+      for (int cy = 0; cy < 3; ++cy) {
+        const bool in = (xmask >> cx) & (ymask >> cy) & 1u;
+        vmask |= in ? zmask << (9 * cx + 3 * cy) : 0u;
+      }
+    }
+    if constexpr (LAST) {
+      T* op = fout + obase + static_cast<int64_t>(y0 + ay) * Z + (z0 + az);
+      auto emit = [&](int q, int cx, int cy, int cz, T v) {
+        if ((vmask >> (9 * (cx + 1) + 3 * (cy + 1) + cz + 1)) & 1u)
+          op[q * nsite + cx * YZ + cy * Z + cz] = v;
+      };
+      lb_collide<T, DELTA, PROJ>(f, nullptr, p, emit);
+    } else {
+      const int ob = ay * DZ + az;
+      auto emit = [&](int q, int cx, int cy, int cz, T v) {
+        if ((vmask >> (9 * (cx + 1) + 3 * (cy + 1) + cz + 1)) & 1u)
+          dst[ob + lb_ring_base(q) * DS +
+              (cx < 0 ? 0 : (cx == 0 ? wr0 : wrp)) + cy * DZ + cz] = v;
+      };
+      lb_collide<T, DELTA, PROJ>(f, nullptr, p, emit);
+    }
+    lz += sz;
+    const int carry = lz >= WZ;
+    lz -= carry * WZ;
+    ly += sy + carry;
+  }
+}
+
+// GLOBAL_RING false: the rings (per_block values a block) in shared
+// memory, addressed as such; true: in scratch.
+template <typename T, int DELTA, int PROJ, bool GLOBAL_RING>
+__global__ void __launch_bounds__(NSTEP_MAX_THREADS(T))
 fusedn_step_kernel(const T* __restrict__ fin, T* __restrict__ fout, int X,
                    int Y, int Z, int nsteps, int BX, int BY, int BZ,
                    T* scratch, int64_t per_block, LBParams<T> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* bufA = scratch ? scratch + static_cast<int64_t>(blockIdx.x) * per_block
-                    : reinterpret_cast<T*>(smem_raw);
-  const int64_t volA =
-      nsteps >= 2 ? static_cast<int64_t>(BX + 2 * (nsteps - 1)) *
-                        (BY + 2 * (nsteps - 1)) * (BZ + 2 * (nsteps - 1))
-                  : 0;
-  T* bufB = bufA + LB_NVEL * volA;
+  T* ring;
+  if constexpr (GLOBAL_RING) {
+    ring = scratch + static_cast<int64_t>(blockIdx.x) * per_block;
+  } else {
+    ring = reinterpret_cast<T*>(smem_raw);
+  }
+  const int n = nsteps;
   const int64_t nsite = static_cast<int64_t>(X) * Y * Z;
   const int ntx = (X + BX - 1) / BX, nty = (Y + BY - 1) / BY,
             ntz = (Z + BZ - 1) / BZ;
@@ -368,53 +484,27 @@ fusedn_step_kernel(const T* __restrict__ fin, T* __restrict__ fout, int X,
     const int ty = static_cast<int>(tr % nty);
     const int tx = static_cast<int>(tr / nty);
     const int x0 = tx * BX, y0 = ty * BY, z0 = tz * BZ;
-    const T* src = nullptr;  // step 0 reads the global state
-    T* dst = bufA;
-    for (int st = 0; st < nsteps; ++st) {
-      const int hs = nsteps - st;  // halo of the source window
-      const int sx = BX + 2 * hs, sy = BY + 2 * hs, sz = BZ + 2 * hs;
-      const int dx = sx - 2, dy = sy - 2, dz = sz - 2;
-      const int64_t svol = static_cast<int64_t>(sx) * sy * sz;
-      const int64_t dvol = static_cast<int64_t>(dx) * dy * dz;
-      const bool last = st == nsteps - 1;
-      for (int64_t i = threadIdx.x; i < svol; i += blockDim.x) {
-        const int lz = static_cast<int>(i % sz);
-        const int64_t li = i / sz;
-        const int ly = static_cast<int>(li % sy);
-        const int lx = static_cast<int>(li / sy);
-        T f[LB_NVEL];
-        if (src == nullptr) {
-          const int64_t g =
-              (static_cast<int64_t>(wrapn(x0 - hs + lx, X)) * Y +
-               wrapn(y0 - hs + ly, Y)) * Z +
-              wrapn(z0 - hs + lz, Z);
-#pragma unroll
-          for (int q = 0; q < LB_NVEL; ++q) f[q] = fin[q * nsite + g];
+    for (int k = 0; k < BX + 2 * n; ++k) {
+      // level L starts at step 2 L, when its first plane (j = L) is whole
+      int in_off = 0;  // level L's input ring
+      for (int L = 0; L < n && 2 * L <= k; ++L) {
+        const int h = n - L;
+        const int S = (BY + 2 * h) * (BZ + 2 * h);
+        const int out_off = L == 0 ? 0 : in_off + LB_RING * S;
+        const T* src = L == 0 ? nullptr : ring + in_off;
+        if (L == n - 1) {
+          nstep_level<T, DELTA, PROJ, true>(fin, src, nullptr, fout, k - L,
+                                            h, n, X, Y, Z, BX, BY, BZ, x0,
+                                            y0, z0, nsite, p);
         } else {
-#pragma unroll
-          for (int q = 0; q < LB_NVEL; ++q) f[q] = src[q * svol + i];
+          nstep_level<T, DELTA, PROJ, false>(fin, src, ring + out_off,
+                                             nullptr, k - L, h, n, X, Y, Z,
+                                             BX, BY, BZ, x0, y0, z0, nsite,
+                                             p);
         }
-        auto emit = [&](int q, int cx, int cy, int cz, T v) {
-          // destination in the next window (one site narrower per side)
-          const int ax = lx + cx - 1, ay = ly + cy - 1, az = lz + cz - 1;
-          if (ax < 0 || ax >= dx || ay < 0 || ay >= dy || az < 0 ||
-              az >= dz)
-            return;
-          if (last) {
-            const int gx = x0 + ax, gy = y0 + ay, gz = z0 + az;
-            if (gx < X && gy < Y && gz < Z)  // ragged edge tiles
-              fout[q * nsite +
-                   (static_cast<int64_t>(gx) * Y + gy) * Z + gz] = v;
-          } else {
-            dst[q * dvol + (static_cast<int64_t>(ax) * dy + ay) * dz + az] =
-                v;
-          }
-        };
-        lb_collide<T, DELTA, PROJ>(f, nullptr, p, emit);
+        __syncthreads();
+        in_off = out_off;
       }
-      __syncthreads();
-      src = dst;
-      dst = dst == bufA ? bufB : bufA;
     }
   }
 }
@@ -476,17 +566,29 @@ static int launch_force_step_solid(const void* fin, const void* force,
 template <typename T, int DELTA, int PROJ>
 static int launch_stepn(const void* fin, void* fout, int X, int Y, int Z,
                         int nsteps, int BX, int BY, int BZ, void* scratch,
-                        long long per_block, int grid, int smem,
+                        long long per_block, int grid, int threads, int smem,
                         const double* par, cudaStream_t stream) {
-  auto kernel = fusedn_step_kernel<T, DELTA, PROJ>;
+  if (threads < 32 || threads % 32 ||
+      threads > static_cast<int>(NSTEP_MAX_THREADS(T))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const T* in = static_cast<const T*>(fin);
+  T* out = static_cast<T*>(fout);
+  if (scratch != nullptr) {
+    fusedn_step_kernel<T, DELTA, PROJ, true><<<grid, threads, 0, stream>>>(
+        in, out, X, Y, Z, nsteps, BX, BY, BZ, static_cast<T*>(scratch),
+        per_block, make_params<T>(par));
+    return static_cast<int>(cudaGetLastError());
+  }
+  auto kernel = fusedn_step_kernel<T, DELTA, PROJ, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(fin), static_cast<T*>(fout), X, Y, Z, nsteps, BX,
-      BY, BZ, static_cast<T*>(scratch), per_block, make_params<T>(par));
+  kernel<<<grid, threads, smem, stream>>>(in, out, X, Y, Z, nsteps, BX, BY,
+                                          BZ, nullptr, per_block,
+                                          make_params<T>(par));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -532,13 +634,13 @@ int lb_fused_step(int is_f64, int delta, int proj, const void* fin,
 int lb_fusedn_step(int is_f64, int delta, int proj, const void* fin,
                    void* fout, int X, int Y, int Z, int nsteps, int BX,
                    int BY, int BZ, void* scratch, long long per_block,
-                   int grid, int smem, const double* par, void* stream,
-                   int device) {
+                   int grid, int threads, int smem, const double* par,
+                   void* stream, int device) {
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   LB_DISPATCH(launch_stepn, fin, fout, X, Y, Z, nsteps, BX, BY, BZ, scratch,
-              per_block, grid, smem, par, s);
+              per_block, grid, threads, smem, par, s);
 }
 
 int lb_fused_force_step(int is_f64, int proj, const void* fin,

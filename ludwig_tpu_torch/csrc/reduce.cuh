@@ -11,9 +11,9 @@
 
 constexpr int kReduceThreads = 256;
 
-// Sum of v over the block (blockDim.x == kReduceThreads), in every
-// thread.  sh holds kReduceThreads / 32 + 1 values.
-template <typename T>
+// Sum of v over the block (blockDim.x == NT), in every thread.  sh holds
+// NT / 32 + 1 values.
+template <typename T, int NT = kReduceThreads>
 __device__ __forceinline__ T block_sum_all(T v, T* sh) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
@@ -23,19 +23,20 @@ __device__ __forceinline__ T block_sum_all(T v, T* sh) {
   __syncthreads();
   if (threadIdx.x == 0) {
     T s = sh[0];
-    for (int w = 1; w < kReduceThreads / 32; ++w) s += sh[w];
-    sh[kReduceThreads / 32] = s;
+    for (int w = 1; w < NT / 32; ++w) s += sh[w];
+    sh[NT / 32] = s;
   }
   __syncthreads();
-  return sh[kReduceThreads / 32];
+  return sh[NT / 32];
 }
 
-// Sum of part[0..n) in a fixed order, in every thread of the block.
-template <typename T>
+// Sum of part[0..n) in a fixed order, in every thread of the block
+// (blockDim.x == NT).
+template <typename T, int NT = kReduceThreads>
 __device__ __forceinline__ T sum_partials(const T* part, int n, T* sh) {
   T v = T(0);
-  for (int i = threadIdx.x; i < n; i += kReduceThreads) v += part[i];
-  return block_sum_all(v, sh);
+  for (int i = threadIdx.x; i < n; i += NT) v += part[i];
+  return block_sum_all<T, NT>(v, sh);
 }
 
 // out[c] = scale * sum_b part[c * n + b] for c < ncomp: one block of

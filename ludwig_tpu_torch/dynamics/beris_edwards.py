@@ -35,8 +35,12 @@ class BerisEdwardsParams:
 
 
 def remove_trace(w):
-    """w[a][b] with a third of its trace taken off the diagonal."""
-    tr = (w[0][0] + w[1][1] + w[2][2]) / 3.0
+    """w[a][b] with a third of its trace taken off the diagonal.  The
+    third is an IEEE quotient on every device, as the kernels take it: a
+    CUDA tensor divided by a Python scalar is multiplied by the scalar's
+    reciprocal instead, which can round differently."""
+    s = w[0][0] + w[1][1] + w[2][2]
+    tr = s / (s.new_full((), 3.0) if isinstance(s, torch.Tensor) else 3.0)
     return [[w[a][b] - tr if a == b else w[a][b] for b in range(3)]
             for a in range(3)]
 

@@ -69,7 +69,6 @@ KERNEL_NVELS = (15, 19, 27)
 # key, the murmur3 finalizer (3 shifts, 3 xors, 2 products), the 3-bit
 # mask and the table select (4 compares)
 NOISE_KEY_OPS, NOISE_DEVIATE_OPS = 8, 14
-BLOCKS_PER_SM = 2        # resident blocks per SM when scratch is global
 
 
 @dataclasses.dataclass
@@ -335,6 +334,7 @@ def generate_header(nvel: int) -> str:
     for delta in (False, True):
         for projected in (False, True):
             parts.append(_collide_source(nvel, delta, projected, noise=True))
+    parts.append(_ring_source(model))
     return "\n".join(parts)
 
 
@@ -616,6 +616,30 @@ def generate_droplet_header() -> str:
     return "\n".join(parts)
 
 
+def ring_depths(model) -> list:
+    """Slots per velocity in a ring of the n-step kernel's x-march: a
+    value pushed along c_x waits 1 + c_x march steps before the next
+    level reads it, so its ring holds 2 + c_x planes."""
+    return [2 + int(c[0]) for c in model.cv]
+
+
+def _ring_source(model) -> str:
+    """lb_cx(q), lb_ring_base(q) (the first slot of velocity q in a ring)
+    and LB_RING (slots of all velocities, 2 nvel for a set symmetric
+    under c -> -c), as compile-time chains like lb_anti."""
+    depth = ring_depths(model)
+    base = [sum(depth[:q]) for q in range(model.nvel)]
+    cx = [int(c[0]) for c in model.cv]
+
+    def chain(name, vals):
+        body = "".join(f"q == {q} ? {v} : " for q, v in enumerate(vals[:-1]))
+        return [f"__host__ __device__ __forceinline__ constexpr int "
+                f"{name}(int q) {{", f"  return {body}{vals[-1]};", "}"]
+
+    return "\n".join([f"#define LB_RING {sum(depth)}"] + chain("lb_cx", cx)
+                     + chain("lb_ring_base", base) + [""])
+
+
 def site_ops(kernel: str, nvel: int = 19, order: int = 2,
              delta: bool = True) -> int:
     """Distinct arithmetic operations per site and step the function
@@ -699,7 +723,7 @@ def _bind_lb(path: Path, nvel: int):
                                   ctypes.c_uint32, ci, vp, ci]
     lib.lb_fused_step.restype = ci
     lib.lb_fusedn_step.argtypes = [ci, ci, ci, vp, vp, ci, ci, ci, ci, ci,
-                                   ci, ci, vp, cll, ci, ci, dp, vp, ci]
+                                   ci, ci, vp, cll, ci, ci, ci, dp, vp, ci]
     lib.lb_fusedn_step.restype = ci
     lib.lb_fused_force_step.argtypes = [ci, ci, vp, vp, vp, vp, ci, ci, ci,
                                         dp, vp, ci]
@@ -755,10 +779,12 @@ def _bind_electro(path: Path):
     ip = ctypes.POINTER(ctypes.c_int)
     lib.lb_np_blocks.argtypes = [cll]
     lib.lb_np_blocks.restype = ci
-    lib.lb_sor_grid.argtypes = [ci, ci, cll, ip]
+    lib.lb_electro_device_info.argtypes = [ci, ip, ip]
+    lib.lb_electro_device_info.restype = ci
+    lib.lb_sor_grid.argtypes = [ci, ci, ci, cll, ci, ip]
     lib.lb_sor_grid.restype = ci
-    lib.lb_sor_solve.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, ci, dp, ip,
-                                 vp, ci]
+    lib.lb_sor_solve.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                 ci, ci, dp, ip, vp, ci]
     lib.lb_sor_solve.restype = ci
     lib.lb_np_gradmu.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci,
                                  ci, ci, ci, dp, vp, ci]
@@ -840,6 +866,21 @@ def build(names=None) -> dict:
         if name not in _libs:
             _libs[name] = (jobs[name][3](path), path)
     return done
+
+
+def ptxas_lines(path: Path, names) -> list:
+    """What ptxas reported (registers, shared memory, spills) of the
+    kernels in the library at `path` whose mangled names contain one of
+    `names`: one line an entry, with its name."""
+    out, entry = [], None
+    text = path.with_suffix(".ptxas.txt").read_text()
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1] if "'" in line else line
+        elif entry and any(n in entry for n in names) and (
+                "Used" in line or "spill" in line):
+            out.append(f"{entry}: {line.split(':', 1)[-1].strip()}")
+    return out
 
 
 def _get_lib(name: str):
@@ -1042,49 +1083,168 @@ def fused_force_step_solid(f: torch.Tensor, force: torch.Tensor,
     return out, u, gw
 
 
-def sor_grid(psi: torch.Tensor) -> int:
-    """Blocks of the cooperative SOR launch for psi: one for each
-    ELECTRO_THREADS sites, capped at what the card keeps resident; each
-    thread then walks ceil(X*Y*Z / (ELECTRO_THREADS * grid)) sites a
-    half-sweep."""
+SOR_ROUTES = ("two-buffer", "in-place", "on-chip")  # electro.cu routes 0, 1, 2
+SOR_CHIP_THREADS = 512   # threads a block of the on-chip route
+# the on-chip route is picked from this many sites on: on an H100, f32
+# solves of 41 iterations ran faster on chip than in place from 64^3 on
+# and slower at 48^3 and below (chip_smoke.py phase 18)
+SOR_CHIP_MIN_SITES = 64 ** 3
+INT32_MAX = 2 ** 31 - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SorLayout:
+    """The SOR kernel's route; on-chip, the brick (bx, by, Z) each block
+    keeps in shared memory and the bytes it takes."""
+    route: str
+    bx: int = 0
+    by: int = 0
+    smem: int = 0
+
+    def blocks(self, shape) -> int:
+        """Blocks of the on-chip route: one a brick."""
+        return (shape[0] // self.bx) * (shape[1] // self.by)
+
+
+def sor_brick_bytes(bx: int, by: int, Z: int, itemsize: int) -> int:
+    """Shared memory of one on-chip brick: psi with a one-site halo in x
+    and y, and rhs."""
+    return ((bx + 2) * (by + 2) + bx * by) * Z * itemsize
+
+
+def sor_layout(shape, itemsize: int, sms: int, optin: int,
+               route=None) -> SorLayout:
+    """The SOR kernel's route for a field of `shape` on a card with `sms`
+    multiprocessors and `optin` bytes of shared memory a block.  An odd
+    extent takes the two-buffer route (two sites of one colour meet
+    across the wrap).  With every extent even, the on-chip route from
+    SOR_CHIP_MIN_SITES sites on where psi and rhs fit: the most bricks
+    (bx, by, Z) that divide X and Y, one a multiprocessor, then the least
+    shared memory, then the longer y side; else the in-place route.
+    `route` forces one (on-chip at any size it fits) and raises where it
+    cannot run."""
+    X, Y, Z = (int(v) for v in shape)
+    if X * Y * Z > INT32_MAX:
+        raise ValueError(f"sor_solve kernel indexes with int32: X*Y*Z = "
+                         f"{X * Y * Z} exceeds {INT32_MAX}")
+    if route not in (None,) + SOR_ROUTES:
+        raise ValueError(f"no SOR route {route!r}; there are {SOR_ROUTES}")
+    even = X % 2 == 0 and Y % 2 == 0 and Z % 2 == 0
+    if route == "two-buffer" or (route is None and not even):
+        return SorLayout("two-buffer")
+    if not even:
+        raise ValueError(f"the {route} route needs even extents, got "
+                         f"{(X, Y, Z)}")
+    if route == "in-place" or (route is None
+                               and X * Y * Z < SOR_CHIP_MIN_SITES):
+        return SorLayout("in-place")
+    best = None
+    for nbx in (d for d in range(1, X + 1) if X % d == 0):
+        for nby in (d for d in range(1, Y + 1) if Y % d == 0):
+            if nbx * nby > sms:
+                continue
+            bx, by = X // nbx, Y // nby
+            # the block's static memory: one reduction slot a warp
+            smem = sor_brick_bytes(bx, by, Z, itemsize)
+            if smem + 8 * (SOR_CHIP_THREADS // 32 + 1) > optin:
+                continue
+            key = (nbx * nby, -smem, by)
+            if best is None or key > best[0]:
+                best = (key, SorLayout("on-chip", bx, by, smem))
+    if best is not None:
+        return best[1]
+    if route == "on-chip":
+        raise ValueError(f"psi and rhs of {(X, Y, Z)} do not fit the "
+                         "shared memory of the card's multiprocessors")
+    return SorLayout("in-place")
+
+
+def sor_plan(psi: torch.Tensor, route=None):
+    """(SorLayout, grid) of the cooperative SOR launch for psi on its
+    card: the streaming routes take one block for each ELECTRO_THREADS
+    sites (pairs, in place), capped at what the card keeps resident; the
+    on-chip route one block a brick, which the card must keep resident
+    at once.  Raises where the card lacks cooperative launches."""
+    return _sor_plan(tuple(psi.shape), psi.dtype, psi.device.index, route)
+
+
+def sor_routes(psi: torch.Tensor) -> list:
+    """The routes the card can run for psi, in SOR_ROUTES order."""
+    out = []
+    for route in SOR_ROUTES:
+        try:
+            sor_plan(psi, route)
+        except ValueError:
+            continue
+        out.append(route)
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _sor_plan(shape, dtype, dev: int, route):
     lib = _get_lib(ELECTRO_LIB)
-    dev = psi.device.index
+    sms, optin = ctypes.c_int(), ctypes.c_int()
+    _raise_on(lib.lb_electro_device_info(dev, ctypes.byref(sms),
+                                         ctypes.byref(optin)), "device query")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    lay = sor_layout(shape, itemsize, sms.value, optin.value, route)
     grid = ctypes.c_int()
-    rc = lib.lb_sor_grid(int(psi.dtype == torch.float64), dev, psi.numel(),
+    rc = lib.lb_sor_grid(int(dtype == torch.float64),
+                         SOR_ROUTES.index(lay.route), dev,
+                         shape[0] * shape[1] * shape[2], lay.smem,
                          ctypes.byref(grid))
     if rc == -1:
         raise RuntimeError(f"sor_solve needs a cooperative launch, which "
                            f"{torch.cuda.get_device_name(dev)} lacks")
     _raise_on(rc, "sor_solve grid query")
-    return grid.value
+    if lay.route != "on-chip":
+        return lay, grid.value
+    if lay.blocks(shape) > grid.value:
+        raise RuntimeError(f"sor_solve on-chip: {lay.blocks(shape)} "
+                           f"bricks, the card keeps {grid.value} resident")
+    return lay, lay.blocks(shape)
 
 
 def sor_solve(psi: torch.Tensor, rhs: torch.Tensor, om_tab: torch.Tensor,
               eps: float, rel_tol: float, abs_tol: float, max_its: int,
-              zero_mean: bool):
-    """Launch the cooperative SOR kernel on a copy of psi; returns
-    (psi', n, rnorm, which) as ops/fused_electro.sor_solve_fused
-    documents.  The caller has checked shapes, dtypes and contiguity."""
+              zero_mean: bool, route=None):
+    """Launch the cooperative SOR kernel from psi (left as it is), on the
+    route sor_layout picks (or `route`); returns (psi', n, rnorm, which) as
+    ops/fused_electro.sor_solve_fused documents.  The caller has checked
+    shapes, dtypes and contiguity."""
     _check_cuda_state(psi)
     lib = _get_lib(ELECTRO_LIB)
     is_f64 = int(psi.dtype == torch.float64)
     X, Y, Z = psi.shape
     dev = psi.device.index
-    grid = sor_grid(psi)
-    p0 = psi.clone()
-    p1 = torch.empty_like(psi)
-    part = torch.empty(5 * grid, dtype=psi.dtype, device=psi.device)
+    lay, grid = sor_plan(psi, route)
+    # the result; the two-buffer route iterates in it from a copy of psi
+    p0 = psi.clone() if lay.route == "two-buffer" else torch.empty_like(psi)
+    if psi.data_ptr() % (2 * psi.element_size()):
+        psi = psi.clone()   # the kernel reads pairs of sites as vectors
+    # the second buffer, or the in-place route's colour-split psi and rhs
+    p1 = {"two-buffer": torch.empty_like(psi),
+          "in-place": torch.empty(2 * psi.numel(), dtype=psi.dtype,
+                                  device=psi.device)}.get(lay.route)
+    part = torch.empty(7 * grid, dtype=psi.dtype, device=psi.device)
+    faces = None
+    if lay.route == "on-chip":   # a colour's boundary planes, per colour
+        faces = torch.empty(2 * grid * (lay.bx + lay.by) * Z,
+                            dtype=psi.dtype, device=psi.device)
     istats = torch.empty(2, dtype=torch.int32, device=psi.device)
     rstats = torch.empty(1, dtype=psi.dtype, device=psi.device)
     par = (ctypes.c_double * 5)(eps, 6.0 * eps, rel_tol, abs_tol, 0.995)
-    ipar = (ctypes.c_int * 7)(X, Y, Z, max_its, om_tab.shape[0],
-                              int(zero_mean), int(not is_f64))
+    ipar = (ctypes.c_int * 9)(X, Y, Z, max_its, om_tab.shape[0],
+                              int(zero_mean), int(not is_f64), lay.bx,
+                              lay.by)
     stream = torch.cuda.current_stream(psi.device).cuda_stream
-    rc = lib.lb_sor_solve(is_f64, p0.data_ptr(), p1.data_ptr(),
-                          rhs.data_ptr(), om_tab.data_ptr(), part.data_ptr(),
-                          istats.data_ptr(), rstats.data_ptr(), grid,
-                          par, ipar, stream, dev)
-    _raise_on(rc, "sor_solve")
+    rc = lib.lb_sor_solve(
+        is_f64, SOR_ROUTES.index(lay.route), psi.data_ptr(), p0.data_ptr(),
+        None if p1 is None else p1.data_ptr(), rhs.data_ptr(),
+        om_tab.data_ptr(), part.data_ptr(),
+        None if faces is None else faces.data_ptr(), istats.data_ptr(),
+        rstats.data_ptr(), grid, lay.smem, par, ipar, stream, dev)
+    _raise_on(rc, f"sor_solve ({lay.route})")
     launches.sor_solve += 1
     return p0, istats[0], rstats[0], istats[1]
 
@@ -1158,20 +1318,7 @@ def momentum_total_ref(f: torch.Tensor, keep, model) -> torch.Tensor:
     return out
 
 
-def _window_sites(plan, halo: int) -> int:
-    return ((plan.BX + 2 * halo) * (plan.BY + 2 * halo)
-            * (plan.BZ + 2 * halo))
-
-
-def _nstep_scratch(model, plan, nsteps: int) -> int:
-    """Elements of intermediate state one block of the n-step kernel
-    holds: the step-0 output window (halo n-1) and the step-1 output
-    window (halo n-2), ping-ponged."""
-    sites = (_window_sites(plan, nsteps - 1) if nsteps >= 2 else 0) + (
-        _window_sites(plan, nsteps - 2) if nsteps >= 3 else 0)
-    return model.nvel * sites
-
-
+@functools.lru_cache(maxsize=None)
 def _device_info(lib, dev: int):
     """(multiprocessors, shared-memory opt-in bytes per block)."""
     sms, smem_optin = ctypes.c_int(), ctypes.c_int()
@@ -1180,42 +1327,92 @@ def _device_info(lib, dev: int):
     return sms.value, smem_optin.value
 
 
-def nstep_in_shared(f: torch.Tensor, model, plan, nsteps: int) -> bool:
-    """Whether the n-step kernel keeps one block's intermediate windows in
-    shared memory on f's card (else in global scratch)."""
+SMEM_OPTIN_H100 = 232_448   # shared memory one block may opt into (H100)
+NSTEP_MIN_BY = 8            # nstep_layout narrows BY no further
+NSTEP_MIN_BZ = 32           # nor BZ: a warp reads 32 consecutive z
+
+
+@dataclasses.dataclass(frozen=True)
+class NstepLayout:
+    """Where the n-step kernel keeps its rings, on which tile, and with
+    how many threads a block."""
+    route: str          # "shared" (memory of the SM) or "global" scratch
+    plan: object        # the FusedPlan (tile and segment) the kernel runs
+    ring_bytes: int     # one block's rings
+    threads: int
+
+
+def nstep_ring_bytes(nvel: int, nsteps: int, BY: int, BZ: int,
+                     itemsize: int) -> int:
+    """Bytes of one block's rings: levels 1..n-1, level L's window widened
+    by n - L sites in y and z, two planes of nvel values a window site
+    (2 + c_x slots per velocity)."""
+    return 2 * nvel * itemsize * sum((BY + 2 * h) * (BZ + 2 * h)
+                                     for h in range(1, nsteps))
+
+
+def nstep_layout(nvel: int, nsteps: int, plan, itemsize: int,
+                 optin: int = SMEM_OPTIN_H100) -> NstepLayout:
+    """The n-step kernel's route, tile and block size for a FusedPlan.  BY
+    halves (not below NSTEP_MIN_BY), then BZ (not below NSTEP_MIN_BZ),
+    until one block's rings fit `optin` bytes of shared memory; where
+    none fits, the rings go to global scratch on the narrowest tile.  An
+    f32 block takes 256 threads where two blocks' rings share an SM, else
+    512; an f64 block 256 (its collision needs up to 255 registers a
+    thread)."""
+    by, bz = plan.BY, plan.BZ
+    while nstep_ring_bytes(nvel, nsteps, by, bz, itemsize) > optin:
+        if by > NSTEP_MIN_BY:
+            by = max(NSTEP_MIN_BY, by // 2)
+        elif bz > NSTEP_MIN_BZ:
+            bz = max(NSTEP_MIN_BZ, bz // 2)
+        else:
+            break
+    ring = nstep_ring_bytes(nvel, nsteps, by, bz, itemsize)
+    route = "shared" if ring <= optin else "global"
+    two_fit = route == "shared" and ring <= optin // 2 - 1024
+    threads = 256 if itemsize == 8 or two_fit else 512
+    return NstepLayout(route, dataclasses.replace(plan, BY=by, BZ=bz), ring,
+                       threads)
+
+
+def nstep_layout_on(f: torch.Tensor, model, plan, nsteps: int):
+    """nstep_layout for f on its card, with the card's opt-in: the route
+    and tile fusedn_step takes."""
     _check_cuda_state(f)
     optin = _device_info(_lib(model.nvel), f.device.index)[1]
-    return _nstep_scratch(model, plan, nsteps) * f.element_size() <= optin
+    return nstep_layout(model.nvel, nsteps, plan, f.element_size(), optin)
 
 
 def fusedn_step(f: torch.Tensor, model, params, nsteps: int, plan,
                 delta: bool) -> torch.Tensor:
-    """Launch the n-step kernel.  The intermediate windows live in
-    shared memory when one block's fit the card's opt-in limit, and
-    otherwise in a global scratch allocated here, one slice per resident
-    block of a persistent grid."""
+    """Launch the n-step kernel on the tile nstep_layout_on picks: one
+    block a tile, its rings in shared memory; or, where they do not fit,
+    a persistent grid of one block an SM with the rings in a global
+    scratch allocated here."""
     _check_cuda_state(f)
     lib = _lib(model.nvel)
     proj, par = _kernel_params(model, params, delta)
     X, Y, Z = f.shape[1:]
-    ntiles = (-(-X // plan.BX)) * (-(-Y // plan.BY)) * (-(-Z // plan.BZ))
+    lay = nstep_layout_on(f, model, plan, nsteps)
+    tile = lay.plan
+    ntiles = (-(-X // tile.BX)) * (-(-Y // tile.BY)) * (-(-Z // tile.BZ))
     dev = f.device.index
-    per_block = _nstep_scratch(model, plan, nsteps)
+    per_block = lay.ring_bytes // f.element_size()
     scratch = None
-    if nstep_in_shared(f, model, plan, nsteps):
-        grid, smem = ntiles, per_block * f.element_size()
+    if lay.route == "shared":
+        grid, smem = ntiles, lay.ring_bytes
     else:
-        sms = _device_info(lib, dev)[0]
-        grid, smem = min(ntiles, sms * BLOCKS_PER_SM), 0
+        grid, smem = min(ntiles, _device_info(lib, dev)[0]), 0
         scratch = torch.empty(grid * per_block, dtype=f.dtype,
                               device=f.device)
     out = torch.empty_like(f)
     stream = torch.cuda.current_stream(f.device).cuda_stream
     rc = lib.lb_fusedn_step(
         int(f.dtype == torch.float64), int(delta), proj, f.data_ptr(),
-        out.data_ptr(), X, Y, Z, nsteps, plan.BX, plan.BY, plan.BZ,
+        out.data_ptr(), X, Y, Z, nsteps, tile.BX, tile.BY, tile.BZ,
         None if scratch is None else scratch.data_ptr(), per_block, grid,
-        smem, par, stream, dev)
+        lay.threads, smem, par, stream, dev)
     _raise_on(rc, "fusedn_step")
     launches.fusedn_step += 1
     return out

@@ -270,15 +270,18 @@ def _collide(model, params, fl, force, delta, noise_sg=None):
 
 @dataclasses.dataclass(frozen=True)
 class FusedPlan:
-    """Output tile of the n-step kernel (x, y, z sites per tile).
+    """Tiling of the n-step kernel, which marches along x.
 
-    Each tile is computed from a window widened by n sites on every side
-    and shrinking by one per inner step; the single-step kernel runs one
-    thread per site and needs no tile.  (16, 16, 32) was the fastest of
-    seven tiles for n = 1..4 at 256^3 D3Q19 f32 on an H100 (PERF.md)."""
-    BX: int = 16
+    BY x BZ is the y-z tile a block owns (its windows carry n halo
+    sites in y and z), BX the x segment it marches (n planes more at each
+    end).  The single-step kernel runs one thread per site and needs no
+    tile.  ops/_cuda.py nstep_layout may narrow BY, then BZ, so that one
+    block's rings fit the card's shared memory.  The default had the
+    least n=2 plus n=3 time at 256^3 f32 on an H100 (chip_smoke.py
+    phase 6)."""
+    BX: int = 128
     BY: int = 16
-    BZ: int = 32
+    BZ: int = 64
 
 
 def _check_state(f: torch.Tensor, model: LatticeModel):
@@ -324,12 +327,16 @@ def _fused_step_plain(f: torch.Tensor, model: LatticeModel,
 def _fusedn_step_plain(f: torch.Tensor, model: LatticeModel,
                        params: CollisionParams, nsteps: int,
                        plan: FusedPlan, delta: bool) -> torch.Tensor:
-    """Twin of the n-step kernel, on the kernel's own plan: per output
-    tile, gather a window widened by n sites (periodic indices), run n
-    collide+stream steps on windows that shrink by one site per side per
-    step, and write the tile.  Equal to n single steps bitwise."""
+    """Twin of the n-step kernel, tiled as the kernel tiles on an H100
+    (ops/_cuda.py nstep_layout): per x segment and y-z tile, gather a
+    window widened by n sites (periodic indices), run n collide+stream
+    steps on windows that shrink by one site per side per step, and
+    write the tile.  The
+    kernel's march visits the same sites at each level, plane by plane.
+    Equal to n single steps bitwise on any tiling."""
     nvel, X, Y, Z = f.shape
     H = nsteps
+    plan = _cuda.nstep_layout(nvel, nsteps, plan, f.element_size()).plan
     BX, BY, BZ = plan.BX, plan.BY, plan.BZ
     cvs = [tuple(int(c) for c in model.cv[q]) for q in range(nvel)]
     collide_fn = _collide_mode_deltas if delta else _collide_modes

@@ -25,7 +25,6 @@ import torch
 
 from ludwig_tpu_torch.ops import _cuda
 
-INT32_MAX = 2 ** 31 - 1
 NP_MAX_SPECIES = 8       # csrc/electro.cu kMaxSpecies
 
 
@@ -103,37 +102,41 @@ def red_mask(shape, device) -> torch.Tensor:
     return (i[:, None, None] + j[None, :, None] + k) % 2 == 0
 
 
+def _sor_half_plain(p, rhs, mask, omega, eps, denom):
+    """One two-buffer half-sweep: the residual eps (x- + x+ + y- + y+ +
+    z- + z+ - 6 p) + rhs from the whole pre-sweep field, periodic, in the
+    Pallas kernel's order, and p + omega res / denom on the sites of
+    `mask`; returns (p', the sum of res^2 over them)."""
+    nb = torch.roll(p, 1, 0) + torch.roll(p, -1, 0)
+    nb = nb + torch.roll(p, 1, 1) + torch.roll(p, -1, 1)
+    nb = nb + torch.roll(p, 1, 2) + torch.roll(p, -1, 2)
+    res = eps * (nb - 6.0 * p) + rhs
+    pn = torch.where(mask, p + omega * res / denom, p)
+    zero = torch.zeros((), dtype=p.dtype, device=p.device)
+    return pn, torch.sum(torch.where(mask, res * res, zero))
+
+
 def _sor_solve_plain(psi, rhs, om_tab, eps, rel_tol, abs_tol, max_its,
                      zero_mean):
-    """Twin of the SOR kernel, in the Pallas kernel's order: the residual
-    eps (sum of x-, x+, y-, y+, z-, z+ - 6 p) + rhs from the whole
-    pre-sweep field, p + omega res / (6 eps) on the sweep's colour,
+    """Twin of the SOR kernel, in the Pallas kernel's order: two-buffer
+    half-sweeps (_sor_half_plain) on the red sites, then the black,
     sums of res^2 in the field's dtype, a check every 5 iterations (the
     float32 stall guard from the second check on), the zero-mean shift.
     The loop reads the residual on the host at each check."""
     X, Y, Z = psi.shape
     red = red_mask(psi.shape, psi.device)
     masks = (red, torch.logical_not(red))
-    zero = torch.zeros((), dtype=psi.dtype, device=psi.device)
     rnorm0 = torch.sqrt(torch.sum(rhs * rhs))
     denom = torch.tensor(6.0 * eps, dtype=psi.dtype, device=psi.device)
     stall = psi.dtype == torch.float32
 
-    def neigh_sum(p):
-        s = torch.roll(p, 1, 0) + torch.roll(p, -1, 0)
-        s = s + torch.roll(p, 1, 1) + torch.roll(p, -1, 1)
-        return s + torch.roll(p, 1, 2) + torch.roll(p, -1, 2)
-
-    def half(p, mask, omega):
-        res = eps * (neigh_sum(p) - 6.0 * p) + rhs
-        pn = torch.where(mask, p + omega * res / denom, p)
-        return pn, torch.sum(torch.where(mask, res * res, zero))
-
     p, prev, n = psi, None, 0
     while True:
         nt = min(n, om_tab.shape[0] - 1)
-        p, s_red = half(p, masks[0], om_tab[nt, 0])
-        p, s_blk = half(p, masks[1], om_tab[nt, 1])
+        p, s_red = _sor_half_plain(p, rhs, masks[0], om_tab[nt, 0], eps,
+                                   denom)
+        p, s_blk = _sor_half_plain(p, rhs, masks[1], om_tab[nt, 1], eps,
+                                   denom)
         rnorm1 = torch.sqrt(s_red + s_blk)
         if n % 5 == 0:
             conv = torch.logical_or(rnorm1 < abs_tol,
@@ -166,26 +169,35 @@ def sor_solve_fused(psi: torch.Tensor, rho_el: torch.Tensor, cfg,
     electro_sim.poisson_sor_ref's, with the float32 stall guard; with
     `zero_mean` the solve also shifts psi to zero mean.  `cfg` is an
     electro.ElectroConfig."""
+    rhs, om_tab, args = _sor_operands(psi, rho_el, cfg, zero_mean)
+    # the kernel's route (ops/_cuda.py sor_layout) raises beyond int32
+    return _dispatch(psi, lambda: _sor_solve_plain(psi, rhs, om_tab, *args),
+                     lambda: _cuda.sor_solve(psi, rhs, om_tab, *args))
+
+
+def _sor_solve_route(psi: torch.Tensor, rho_el: torch.Tensor, cfg,
+                     route: str, zero_mean: bool = True):
+    """sor_solve_fused on the kernel's route `route` (ops/_cuda.py
+    SOR_ROUTES), which raises where the route cannot run; psi on a CUDA
+    device."""
+    rhs, om_tab, args = _sor_operands(psi, rho_el, cfg, zero_mean)
+    return _cuda.sor_solve(psi, rhs, om_tab, *args, route=route)
+
+
+def _sor_operands(psi, rho_el, cfg, zero_mean):
+    """Check the solve's inputs; (rhs, omega table, the scalar args)."""
     _check_psi(psi)
     if rho_el.shape != psi.shape or rho_el.device != psi.device:
         raise ValueError("rho_el must be psi's shape, on psi's device")
     if int(cfg.max_its) < 1:
         raise ValueError(f"max_its must be >= 1, got {cfg.max_its}")
-    X, Y, Z = psi.shape
+    X, _Y, Z = psi.shape
     rhs = ((cfg.e * cfg.beta) * rho_el).to(psi.dtype).contiguous()
     om_tab = _omega_table_on(X, Z, int(cfg.max_its), psi.dtype,
                              str(psi.device))
-    args = (float(cfg.epsilon), float(cfg.rel_tol), float(cfg.abs_tol),
-            int(cfg.max_its), bool(zero_mean))
-
-    def kernel():
-        if X * Y * Z > INT32_MAX:
-            raise ValueError(f"sor_solve kernel indexes with int32: X*Y*Z = "
-                             f"{X * Y * Z} exceeds {INT32_MAX}")
-        return _cuda.sor_solve(psi, rhs, om_tab, *args)
-
-    return _dispatch(
-        psi, lambda: _sor_solve_plain(psi, rhs, om_tab, *args), kernel)
+    return rhs, om_tab, (float(cfg.epsilon), float(cfg.rel_tol),
+                         float(cfg.abs_tol), int(cfg.max_its),
+                         bool(zero_mean))
 
 
 # -- Nernst-Planck + grad-mu -------------------------------------------------
@@ -262,10 +274,10 @@ def np_gradmu_fused(psi: torch.Tensor, rho: torch.Tensor, u, fluid,
         if nk > NP_MAX_SPECIES:
             raise ValueError(f"np_gradmu kernel takes at most "
                              f"{NP_MAX_SPECIES} species, got {nk}")
-        if max(nk, 3) * nsite > INT32_MAX:
+        if max(nk, 3) * nsite > _cuda.INT32_MAX:
             raise ValueError(
                 f"np_gradmu kernel indexes with int32: max(nk, 3) * X*Y*Z = "
-                f"{max(nk, 3) * nsite} exceeds {INT32_MAX}")
+                f"{max(nk, 3) * nsite} exceeds {_cuda.INT32_MAX}")
         return _cuda.np_gradmu(psi, rho, u if hydro else None, fluid, ez, z,
                                c, kt_e, float(dt))
 

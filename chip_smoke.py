@@ -6,7 +6,8 @@
 Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card (nvidia-smi name and power limit) and the CUDA version;
   2. build the CUDA kernels from ludwig_tpu_torch/csrc into the package's
-     git-ignored build directory;
+     git-ignored build directory; print what ptxas reports of the n-step,
+     SOR, LC, droplet and electrokinetic kernels;
   3. each kernel against its plain PyTorch twin on the card, 3 chained
      steps, over velocity sets, relaxation schemes, both back-transform
      forms and both dtypes;
@@ -35,22 +36,31 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      total conserved, the [rho] totals at the site count;
   9. at 256^3 f32: K1, K2 and the whole binary step against the twins
      within TOL, and kernel, twin and bound times;
- 10. the liquid crystal's kernel lc_q_force_step (K1) against its twin at
-     two sizes, f32 and f64, with and without the active stress and a
-     redshift, then 3 chained fused LC steps (K1 + K2) through the
-     kernels against 3 through the twins;
+ 10. the liquid crystal's kernel lc_q_force_step (K1, the x-march of
+     csrc/k1_march.cuh) against its twin at K1_SHAPES (two of them
+     shorter than the halo or ragged against the tile), f32 and f64, with
+     and without the active stress and a redshift, each case's layout
+     printed and its blocks an SM held to the card's occupancy count; at
+     the ragged shape each plan of K1_PLANS bitwise the default layout;
+     then 3 chained fused LC steps (K1 + K2) through the kernels against
+     3 through the twins;
  11. the liquid-crystal main path at full width: `free_energy
      lc_blue_phase` D3Q19 f32 with the reference's benchmark parameters,
      `tpu_fused on`, through run_text on the card at 256^3 and at 128^3;
      K1 and K2 launched once per cycle; before that the same input at
      16x16x32 in f64 on the card against the CPU twins' log;
  12. at 128^3 and 256^3 f32: K1, K2 and the whole LC step, kernel, twin
-     and bound times;
- 13. the LC droplet's kernel droplet_phi_q_force_step (K1) against its
-     twin at two sizes, f32 and f64, advection orders 1 and 2, anchoring
-     W = 0 and 0.02, the increments phi' - phi and q' - q to one ulp of
-     the value; then 3 chained fused droplet steps (K1, the mean
-     subtraction, K2) through the kernels against 3 through the twins;
+     and bound times; K1 beside its issue floor (generated operations a
+     site on its layout over the f32 issue rate without FMA) and the box
+     kernel's time (the design the march replaced), the SM clock under load, and each plan of K1_PLANS held
+     bitwise to the default and timed;
+ 13. the LC droplet's kernel droplet_phi_q_force_step (K1, the x-march)
+     against its twin at K1_SHAPES, f32 and f64, advection orders 1 and
+     2, anchoring W = 0 and 0.02, the increments phi' - phi and q' - q to
+     one ulp of the value, layouts printed and held as in phase 10, the
+     plans of K1_PLANS bitwise the default at the ragged shape; then 3
+     chained fused droplet steps (K1, the mean subtraction, K2) through
+     the kernels against 3 through the twins;
  14. the droplet main path at full width: `free_energy lc_droplet` D3Q19
      128^3 f32 (the reference benchmark's size) with the JAX package's
      droplet test parameters, `tpu_fused on`, through run_text on the
@@ -58,7 +68,10 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      before that the same input at 16x16x32 in f64 on the card against
      the CPU twins' log;
  15. at 128^3 and 256^3 f32: K1, K2, the mean subtraction and the whole
-     droplet step, kernel, twin and bound times;
+     droplet step, kernel, twin and bound times; K1 (order 1) against its
+     issue floor and the box kernel's time and its plan sweep as in
+     phase 12, and
+     order 2 on the default layout;
  16. the electrokinetic kernels against their twins at (16, 16, 128), an
      odd-X (15, 16, 32), 64^3 and 128^3, f32 and f64: sor_solve on the
      route it picks and on every route the shape admits (on-chip,
@@ -164,6 +177,24 @@ TILE_PLANS = tuple(fused.FusedPlan(*p) for p in (
     (128, 32, 32)))
 
 
+# the K1 x-march (LC and droplet): the shapes held against the twins
+# (the last two shorter than the halo or ragged against the tile), the
+# plans held bitwise against the default layout at a ragged shape, and
+# the plans timed beside the default at 128^3 and 256^3 (f32)
+K1_SHAPES = ((16, 24, 40), (64, 64, 64), (9, 5, 3), (18, 40, 70))
+K1_RAGGED = (18, 40, 70)
+K1_PLANS = {torch.float32: tuple(_cuda.K1Plan(*p) for p in (
+    (16, 512), (16, 512, 16), (8, 256), (8, 256, 16), (16, 256), (4, 128))),
+            torch.float64: tuple(_cuda.K1Plan(*p) for p in (
+                (8, 256), (8, 256, 5), (4, 128), (2, 64)))}
+# the K1 times (ms) of the design the march replaced, an 8x8x32 box with a
+# halo of 1 and level 1 on all of it, as phases 12 and 15 of this script
+# measured them on an NVIDIA H100 80GB HBM3 at 700.00 W
+K1_BOX_MS = {("lc_q_force_step", 128): 0.2817,
+             ("lc_q_force_step", 256): 2.1560,
+             ("droplet_phi_q_force_step", 128): 0.3005,
+             ("droplet_phi_q_force_step", 256): 2.3151}
+
 _T0 = time.perf_counter()
 
 
@@ -222,6 +253,49 @@ def bound(nbytes, nops):
     t_bytes = 1e3 * nbytes / PEAK_BYTES_PER_S
     t_ops = 1e3 * nops / PEAK_F32_PER_S
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def clocks_line():
+    """The SM clock, power draw and limit as nvidia-smi reads them now."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,"
+                          "power.draw,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60,
+                         check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def k1_floor_ms(kernel, lay, nsite, order=1):
+    """The issue floor: the generated operations a site on the layout
+    (level 1 times its evaluations a site, plus the site update) over
+    the card's f32 issue rate without FMA."""
+    return (1e3 * nsite * _cuda.k1_site_ops(kernel, lay.evals_per_site,
+                                            order) / _cuda.K1_ISSUE_RATE)
+
+
+def hold_k1_layout(x, kernel, lay, order=1):
+    """The layout's blocks an SM as the card's occupancy query counts
+    them, and the kernel's registers; raises where they differ."""
+    regs, occ = _cuda.k1_occupancy(x, kernel, lay, order)
+    if occ != lay.blocks_per_sm:
+        raise AssertionError(f"{kernel} {lay}: the card keeps {occ} blocks "
+                             f"an SM resident, k1_layout counts "
+                             f"{lay.blocks_per_sm} ({regs} registers)")
+    return regs
+
+
+def hold_k1_plans(what, run, x, kernel, ref, order=1):
+    """Each plan of K1_PLANS for x's dtype, run through run(plan), is
+    bitwise `ref` (the default layout's outputs): the tiling changes no
+    operation."""
+    for plan in K1_PLANS[x.dtype]:
+        lay = _cuda.k1_layout_on(x, kernel, order, plan)
+        hold_k1_layout(x, kernel, lay, order)
+        got = run(plan)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+            raise AssertionError(f"{what} on {lay}: not bitwise the default "
+                                 "layout's outputs")
+        print(f"{what} on [{lay}]: bitwise the default layout's")
 
 
 def time_ms(fn, reps, warm=2):
@@ -774,9 +848,13 @@ def phase10(gen):
                                  "IEEE quotient")
     print("remove_trace on cuda: the IEEE quotient of the trace, bitwise")
     worst = 0.0
-    for size in ((16, 24, 40), (64, 64, 64)):
+    for size in K1_SHAPES:
         for dtype in (torch.float64, torch.float32):
             q, u = rand_q_u(size, dtype, gen)
+            lay = _cuda.k1_layout_on(q, _cuda.LC_KERNEL)
+            regs = hold_k1_layout(q, _cuda.LC_KERNEL, lay)
+            print(f"lc_q_force_step {size} {dtype} layout [{lay}], "
+                  f"{regs} registers")
             for label, extra in LC_VARIANTS:
                 fe = BluePhaseFE(**LC_FE, **extra)
                 a = fl.lc_q_force_step(q, u, fe, LC_GAMMA)
@@ -794,6 +872,12 @@ def phase10(gen):
                       f"(tolerance {TOL[dtype]}); increment q' - q within "
                       f"{inc_err:.3e}, {inc_rel:.3e} of its largest "
                       "(tolerance: one ulp of the largest |q'|)")
+                if size == K1_RAGGED and label == "active":
+                    hold_k1_plans(
+                        f"lc_q_force_step {size} {dtype} {label}",
+                        lambda plan: _cuda.lc_q_force_step(
+                            q, u, fe, LC_GAMMA, plan=plan), q,  # noqa
+                        _cuda.LC_KERNEL, a)
     # whole fused LC step: 3 chained steps, kernels vs twins
     for size in ((16, 24, 40), (64, 64, 64)):
         for dtype in ("float64", "float32"):
@@ -907,6 +991,37 @@ def phase11():
     return counts, ref_counts
 
 
+def k1_sweep(card, size, x, kernel, ms, ref, run):
+    """K1 at `size`: what ptxas reported of its instances, its time
+    against its issue floor and the box kernel's, the layout held to the
+    card's occupancy count, then each plan of K1_PLANS held bitwise to
+    the default's outputs `ref` (hold_k1_plans) and timed (three passes,
+    the median).  Returns the default layout."""
+    nsite = size[0] * size[1] * size[2]
+    lib = _cuda.LC_LIB if kernel == _cuda.LC_KERNEL else _cuda.DROPLET_LIB
+    for line in _cuda.ptxas_lines(_cuda.build((lib,))[lib],
+                                  ("lc_q_force_kernel", "droplet_kernel")):
+        print(f"{kernel} ptxas: {line}")
+    lay = _cuda.k1_layout_on(x, kernel)
+    regs = hold_k1_layout(x, kernel, lay)
+    floor = k1_floor_ms(kernel, lay, nsite)
+    box = K1_BOX_MS[(kernel, size[0])]
+    print(f"{kernel} {size[0]}^3 on [{lay}], {regs} registers: "
+          f"{ms:.4f} ms, issue floor {floor:.4f} ms ("
+          f"{_cuda.k1_site_ops(kernel, lay.evals_per_site):.0f} generated "
+          f"operations a site at {_cuda.K1_ISSUE_RATE / 1e12:.1f} T/s), "
+          f"{100 * floor / ms:.1f}% of it; the box kernel {box:.4f} ms, "
+          f"this one {100 * (ms / box - 1):+.1f}% [{card}]")
+    hold_k1_plans(f"{kernel} {size}", run, x, kernel, ref)
+    for plan in K1_PLANS[x.dtype]:
+        p_lay = _cuda.k1_layout_on(x, kernel, plan=plan)
+        times = sorted(time_ms(lambda: run(plan), 10) for _ in range(3))
+        print(f"{kernel} {size[0]}^3 plan {plan}: [{p_lay}] {times[1]:.4f} "
+              f"ms (passes {', '.join(f'{t:.4f}' for t in times)}), issue "
+              f"floor {k1_floor_ms(kernel, p_lay, nsite):.4f} ms [{card}]")
+    return {"lay": lay}
+
+
 def phase12(card, gen, copy_ms, copy_bytes):
     phase(f"12 liquid-crystal timing at 128^3 and 256^3 D3Q19 f32 on {card}")
     res = {}
@@ -942,10 +1057,14 @@ def phase12(card, gen, copy_ms, copy_bytes):
         print(f"lc_q_force_step (K1) {size[0]}^3: increment q' - q within "
               f"{inc_err:.3e} of the twin's, {inc_rel:.3e} of its largest "
               "(tolerance: one ulp of the largest |q'|)")
-        del a, b
         r1 = report("lc_q_force_step (K1)", time_ms(k1, 20),
                     time_ms(t1, 2, warm=1), 16 * 4 * nsite,
                     nsite * _cuda.site_ops("lc_q_force_step"), err)
+        print(f"lc_q_force_step (K1) {size[0]}^3 under load: {clocks_line()}")
+        r1.update(k1_sweep(card, size, q, _cuda.LC_KERNEL, r1["ms"], a,
+                           lambda plan: _cuda.lc_q_force_step(  # noqa
+                               q, u, lcfg.fe, LC_GAMMA, plan=plan)))
+        del a, b
         k2 = lambda: fused.fused_force_step(f0, frc, model, params)  # noqa
         t2 = lambda: fused._fused_force_step_plain(f0, frc, model,  # noqa
                                                    params)
@@ -1047,10 +1166,14 @@ def drop_twin_step(state, dcfg):
 def phase13(gen):
     phase("13 LC-droplet kernel vs plain twin")
     worst = 0.0
-    for size in ((16, 24, 40), (64, 64, 64)):
+    for size in K1_SHAPES:
         for dtype in (torch.float64, torch.float32):
             phi, q, u = rand_drop(size, dtype, gen)
             for order in (1, 2):
+                lay = _cuda.k1_layout_on(phi, _cuda.DROPLET_KERNEL, order)
+                regs = hold_k1_layout(phi, _cuda.DROPLET_KERNEL, lay, order)
+                print(f"droplet_phi_q_force_step {size} {dtype} order "
+                      f"{order} layout [{lay}], {regs} registers")
                 for w in (0.0, 0.02):
                     fe = drop_fe(w)
                     args = (phi, q, u, fe, DROP_GAMMA, DROP_MOBILITY, order)
@@ -1074,6 +1197,12 @@ def phase13(gen):
                           f"its largest), q' - q within {incs[1][0]:.3e} "
                           f"({incs[1][1]:.3e}) (tolerance: one ulp of the "
                           "largest value)")
+                    if size == K1_RAGGED and w:
+                        hold_k1_plans(
+                            f"droplet {size} {dtype} order {order} W {w}",
+                            lambda plan: _cuda.droplet_phi_q_force_step(
+                                *args, plan=plan), phi,  # noqa
+                            _cuda.DROPLET_KERNEL, a, order)
     # whole fused droplet step: 3 chained steps, kernels vs twins
     for size in ((16, 24, 40), (64, 64, 64)):
         for dtype in ("float64", "float32"):
@@ -1205,11 +1334,23 @@ def phase15(card, gen, copy_ms, copy_bytes):
                   f"{inc_rel:.3e} of its largest (tolerance: one ulp of the "
                   "largest value)")
         raw = a[2]
-        del a, b
         r1 = report("droplet_phi_q_force_step (K1, order 1)",
                     time_ms(k1, 20), time_ms(t1, 2, warm=1), 18 * 4 * nsite,
                     nsite * _cuda.site_ops("droplet_phi_q_force_step",
                                            order=1), err)
+        print(f"droplet_phi_q_force_step (K1) {size[0]}^3 under load: "
+              f"{clocks_line()}")
+        r1.update(k1_sweep(card, size, phi, _cuda.DROPLET_KERNEL, r1["ms"],
+                           a, lambda plan: _cuda.droplet_phi_q_force_step(
+                               *args, plan=plan)))  # noqa
+        del a, b
+        # order 2 on the default layout, for the record
+        args2 = args[:-1] + (2,)
+        ms2 = time_ms(lambda: fd.droplet_phi_q_force_step(*args2), 20)
+        print(f"droplet_phi_q_force_step (K1, order 2) {size[0]}^3: kernel "
+              f"{ms2:.4f} ms, issue floor "
+              f"{k1_floor_ms(_cuda.DROPLET_KERNEL, r1['lay'], nsite, 2):.4f}"
+              f" ms [{card}]")
         # the mean subtraction, plain PyTorch: the bound reads the force
         # once and writes it once (the two-pass form moves 36 B a site)
         mean_ms = time_ms(lambda: fd.correct_momentum(raw), 20)
@@ -2227,6 +2368,8 @@ def main():
             "library_ms": None,
             "copy_bound_ms": timed["copy_ms"] * t["nbytes"]
             / timed["copy_bytes"]})
+        if "lay" in t:          # the K1 march: its layout
+            kernels[-1].update(layout=str(t["lay"]))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -26,21 +26,16 @@
 // code keeps the JAX package's term order instead: about 1 180 distinct
 // operations for one level-1 evaluation and 360 for the site update, none
 // of them fused (-fmad=false), so arithmetic is what it waits for, not
-// memory.  The TPU kernel computed level 1 on a (BX+2, BY+2, Z)
-// slab in VMEM.  Here one block owns a (BX, BY, BZ) tile: phase A
-// evaluates level 1 once for every site of the tile and its halo of 1,
-// strided over the block's threads, and keeps the stress in shared
-// memory (and h5 of the tile's own sites); after one barrier, phase B
-// forms each site's force from the shared stress and updates Q from q5
-// and u read through the caches.  Level 1 is so recomputed only on the
-// halo ((BX+2)(BY+2)(BZ+2) / (BX BY BZ): 1.66x for 8x8x32), not at every
-// neighbour of every site (7x).  The stress tile needs the opt-in above
-// 48 KB of shared memory; f64 takes a smaller tile to fit.
-//
-// Offsets are 64-bit; coordinates wrap with a true modulo, so an axis
-// shorter than the tile or the stencil still wraps periodically, and a
-// tile that overhangs the lattice computes its overhang on wrapped sites
-// and stores nothing for it.
+// memory.  The TPU kernel computed level 1 on a (BX+2, BY+2, Z) slab in
+// VMEM.  Here a block marches along x over a y-z tile (csrc/k1_march.cuh):
+// q5 and u are staged plane by plane in shared memory, the next plane in
+// flight while one computes; level 1 is evaluated once per site of the
+// cross-shaped window the site updates read (the tile and its four y-z
+// faces), keeping only what crosses sites (pth[:,0] over three planes,
+// pth[:,1] and pth[:,2] on the plane's faces, h on the tile); the site
+// update reads shared memory alone.  About 1.2-1.5 level-1 evaluations a
+// site, against 1.66 for the earlier box of 8x8x32 with a halo of 1.
+// The tile, segment and thread count come from ops/_cuda.py k1_layout.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -51,133 +46,54 @@ __device__ __forceinline__ T sel(T x, T p, T q) {
   return x > T(0) ? p : q;
 }
 
+#include "k1_march.cuh"
 #include "lc_generated.h"
 
-// one block's tile and thread count
-template <typename T>
-struct Tile;
-template <>
-struct Tile<float> {
-  static constexpr int BX = 8, BY = 8, BZ = 32, THREADS = 512;
-};
-template <>
-struct Tile<double> {
-  static constexpr int BX = 4, BY = 4, BZ = 32, THREADS = 256;
-};
+constexpr int LC_NS = 5, LC_NH = 5;   // staged q5; h in 5-component form
 
 template <typename T>
-struct Shape {
-  using TL = Tile<T>;
-  static constexpr int WX = TL::BX + 2, WY = TL::BY + 2, WZ = TL::BZ + 2;
-  static constexpr int NW = WX * WY * WZ;              // level-1 sites
-  static constexpr int NT = TL::BX * TL::BY * TL::BZ;  // tile sites
-  static constexpr size_t SMEM = sizeof(T) * (9 * NW + 5 * NT);
-};
-
-__device__ __forceinline__ int64_t wrapn(int64_t i, int64_t n) {
-  const int64_t r = i % n;
-  return r < 0 ? r + n : r;
-}
-
-// element offsets of the coordinates c-1, c, c+1 (c in [0, n)) times stride
-__device__ __forceinline__ void offsets3(int64_t c, int64_t n, int64_t stride,
-                                         int64_t* o) {
-  o[0] = (c == 0 ? n - 1 : c - 1) * stride;
-  o[1] = c * stride;
-  o[2] = (c + 1 == n ? 0 : c + 1) * stride;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(Tile<T>::THREADS)
+__global__ void __launch_bounds__(k1::MaxThreads<T>::value)
 lc_q_force_kernel(const T* __restrict__ q, const T* __restrict__ u,
-                  T* __restrict__ q_out, T* __restrict__ force, int X, int Y,
-                  int Z, LcParams<T> p) {
-  using TL = Tile<T>;
-  using SH = Shape<T>;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* s_pth = reinterpret_cast<T*>(smem_raw);   // [9][NW]
-  T* s_h = s_pth + 9 * SH::NW;                 // [5][NT]
-
-  const int64_t nsite = static_cast<int64_t>(X) * Y * Z;
-  const int64_t x0 = static_cast<int64_t>(blockIdx.z) * TL::BX;
-  const int64_t y0 = static_cast<int64_t>(blockIdx.y) * TL::BY;
-  const int64_t z0 = static_cast<int64_t>(blockIdx.x) * TL::BZ;
-
-  // phase A: level 1 on the tile and its halo of 1
-  for (int i = threadIdx.x; i < SH::NW; i += TL::THREADS) {
-    const int lz = i % SH::WZ;
-    const int ly = (i / SH::WZ) % SH::WY;
-    const int lx = i / (SH::WZ * SH::WY);
-    int64_t xo[3], yo[3], zo[3];
-    offsets3(wrapn(x0 + lx - 1, X), X, static_cast<int64_t>(Y) * Z, xo);
-    offsets3(wrapn(y0 + ly - 1, Y), Y, Z, yo);
-    offsets3(wrapn(z0 + lz - 1, Z), Z, 1, zo);
-    auto Q = [&](int n, int dx, int dy, int dz) -> T {
-      return q[n * nsite + xo[dx + 1] + yo[dy + 1] + zo[dz + 1]];
-    };
-    T pth[9], h5[5];
-    lc_level1<T>(Q, p, pth, h5);
+                  T* __restrict__ q_out, T* __restrict__ force, k1::Geom g,
+                  LcParams<T> p) {
+  const int64_t nsite = static_cast<int64_t>(g.X) * g.Y * g.Z;
+  const T* src[LC_NS];
 #pragma unroll
-    for (int k = 0; k < 9; ++k) s_pth[k * SH::NW + i] = pth[k];
-    if (lx >= 1 && lx <= TL::BX && ly >= 1 && ly <= TL::BY && lz >= 1 &&
-        lz <= TL::BZ) {
-      const int t = ((lx - 1) * TL::BY + (ly - 1)) * TL::BZ + (lz - 1);
-#pragma unroll
-      for (int n = 0; n < 5; ++n) s_h[n * SH::NT + t] = h5[n];
-    }
-  }
-  __syncthreads();
-
-  // phase B: force from the shared stress, Beris-Edwards update of Q
-  for (int t = threadIdx.x; t < SH::NT; t += TL::THREADS) {
-    const int lz = t % TL::BZ;
-    const int ly = (t / TL::BZ) % TL::BY;
-    const int lx = t / (TL::BZ * TL::BY);
-    const int64_t x = x0 + lx, y = y0 + ly, z = z0 + lz;
-    if (x >= X || y >= Y || z >= Z) continue;
-    int64_t xo[3], yo[3], zo[3];
-    offsets3(x, X, static_cast<int64_t>(Y) * Z, xo);
-    offsets3(y, Y, Z, yo);
-    offsets3(z, Z, 1, zo);
+  for (int n = 0; n < LC_NS; ++n) src[n] = q + n * nsite;
+  auto level1 = [&](const auto& F, T* mu, T* pth, T* h) {
+    (void)mu;
     auto Q = [&](int n, int dx, int dy, int dz) -> T {
-      return q[n * nsite + xo[dx + 1] + yo[dy + 1] + zo[dz + 1]];
+      return F(n, dx, dy, dz);
     };
-    auto U = [&](int a, int dx, int dy, int dz) -> T {
-      return u[a * nsite + xo[dx + 1] + yo[dy + 1] + zo[dz + 1]];
+    lc_level1<T>(Q, p, pth, h);
+  };
+  auto site = [&](const auto& F, const auto& U, const auto& S,
+                  const auto& MU, const auto& HK, int64_t s) {
+    (void)MU;
+    auto Q = [&](int n, int dx, int dy, int dz) -> T {
+      return F(n, dx, dy, dz);
     };
-    auto S = [&](int a, int b, int dx, int dy, int dz) -> T {
-      return s_pth[(3 * a + b) * SH::NW +
-                   ((lx + 1 + dx) * SH::WY + (ly + 1 + dy)) * SH::WZ +
-                   (lz + 1 + dz)];
-    };
-    auto H = [&](int n) -> T { return s_h[n * SH::NT + t]; };
     T out[8];
-    lc_site<T>(Q, U, S, H, p, out);
-    const int64_t s = xo[1] + yo[1] + zo[1];
+    lc_site<T>(Q, U, S, HK, p, out);
 #pragma unroll
     for (int n = 0; n < 5; ++n) q_out[n * nsite + s] = out[n];
 #pragma unroll
     for (int a = 0; a < 3; ++a) force[a * nsite + s] = out[5 + a];
-  }
+  };
+  k1::march<T, LC_NS, LC_NH, false>(g, src, u, level1, site);
 }
 
+// lay = BX, BY, threads, shared bytes (ops/_cuda.py k1_layout)
 template <typename T>
 static int launch(const void* q, const void* u, void* q_out, void* force,
-                  int X, int Y, int Z, const double* par,
+                  int X, int Y, int Z, const double* par, const int* lay,
                   cudaStream_t stream) {
-  using TL = Tile<T>;
   LcParams<T> p;
   for (int k = 0; k < LC_NCONST; ++k) p.c[k] = static_cast<T>(par[k]);
-  const cudaError_t e = cudaFuncSetAttribute(
-      lc_q_force_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(Shape<T>::SMEM));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((Z + TL::BZ - 1) / TL::BZ, (Y + TL::BY - 1) / TL::BY,
-                  (X + TL::BX - 1) / TL::BX);
-  lc_q_force_kernel<T><<<grid, TL::THREADS, Shape<T>::SMEM, stream>>>(
+  return k1::launch<T, LC_NS, LC_NH, false>(
+      lc_q_force_kernel<T>, X, Y, Z, lay, p, stream,
       static_cast<const T*>(q), static_cast<const T*>(u),
-      static_cast<T*>(q_out), static_cast<T*>(force), X, Y, Z, p);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<T*>(q_out), static_cast<T*>(force));
 }
 
 extern "C" {
@@ -185,15 +101,25 @@ extern "C" {
 // the length of the constant table the library was generated with
 int lb_lc_nconst() { return LC_NCONST; }
 
-// par = the constant table p.c[] in double (ops/_cuda.py lc_const_values)
+// out[0..4): the kernel's registers a thread, (threads > 0) the blocks an
+// SM the card keeps resident with `smem` bytes each, the card's
+// multiprocessors and shared-memory opt-in
+int lb_lc_attrs(int is_f64, int device, int threads, int smem, int* out) {
+  return is_f64
+             ? k1::attrs(lc_q_force_kernel<double>, device, threads, smem, out)
+             : k1::attrs(lc_q_force_kernel<float>, device, threads, smem, out);
+}
+
+// par = the constant table p.c[] in double (ops/_cuda.py lc_const_values);
+// lay = BX, BY, threads, shared bytes (ops/_cuda.py k1_layout)
 int lb_lc_q_force(int is_f64, const void* q, const void* u, void* q_out,
                   void* force, int X, int Y, int Z, const double* par,
-                  void* stream, int device) {
+                  const int* lay, void* stream, int device) {
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_f64 ? launch<double>(q, u, q_out, force, X, Y, Z, par, s)
-                : launch<float>(q, u, q_out, force, X, Y, Z, par, s);
+  return is_f64 ? launch<double>(q, u, q_out, force, X, Y, Z, par, lay, s)
+                : launch<float>(q, u, q_out, force, X, Y, Z, par, lay, s);
 }
 
 }  // extern "C"

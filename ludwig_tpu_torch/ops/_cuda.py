@@ -6,7 +6,9 @@ inside the package, and ``ctypes`` loads them: ``csrc/fused_lb.cu`` once
 per velocity set (the collide+stream kernels), ``csrc/binary_phi.cu``
 once (the binary fluid's order-parameter kernel), ``csrc/lc_q.cu`` once
 (the liquid crystal's Q-tensor kernel), ``csrc/droplet.cu`` once (the LC
-droplet's coupled phi + Q kernel), ``csrc/electro.cu`` once (the SOR
+droplet's coupled phi + Q kernel; both march along x with
+``csrc/k1_march.cuh`` on the layout ``k1_layout`` picks),
+``csrc/electro.cu`` once (the SOR
 Poisson solve and the Nernst-Planck + grad-mu kernel),
 ``csrc/stats_ref.cu`` once (the reference-ordered statistics scans).
 Nothing is built or loaded when the module is imported, so the CPU tests
@@ -38,6 +40,7 @@ import functools
 import hashlib
 import operator
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -460,6 +463,7 @@ def lc_const_values(fe, be_gamma) -> list:
 def generate_lc_header() -> str:
     """lc_generated.h: the constant table's size, lc_level1 (stress and
     molecular field of one site) and lc_site (force and Q update)."""
+    k1_check_reads(LC_KERNEL)
     tr1, tail1, tr2, tail2, table = _lc_trace()
     parts = ["// Generated by ludwig_tpu_torch/ops/_cuda.py from "
              "ops/fused_lc.py and fe/blue_phase.py; do not edit.",
@@ -592,6 +596,8 @@ def generate_droplet_header() -> str:
     """droplet_generated.h: the constant table's size, droplet_level1 (mu,
     stress and molecular field of one site) and droplet_site_o1 / _o2
     (force, phi' and q5')."""
+    for order in (1, 2):
+        k1_check_reads(DROPLET_KERNEL, order)
     tr1, tail1, sites, table = _droplet_trace()
     parts = ["// Generated by ludwig_tpu_torch/ops/_cuda.py from "
              "ops/fused_droplet.py and fe/lc_droplet.py; do not edit.",
@@ -743,9 +749,12 @@ def _bind_lc(path: Path):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.lb_lc_nconst.argtypes = []
     lib.lb_lc_nconst.restype = ci
+    ip = ctypes.POINTER(ci)
+    lib.lb_lc_attrs.argtypes = [ci, ci, ci, ci, ip]
+    lib.lb_lc_attrs.restype = ci
     lib.lb_lc_q_force.argtypes = [
-        ci, vp, vp, vp, vp, ci, ci, ci, ctypes.POINTER(ctypes.c_double), vp,
-        ci]
+        ci, vp, vp, vp, vp, ci, ci, ci, ctypes.POINTER(ctypes.c_double), ip,
+        vp, ci]
     lib.lb_lc_q_force.restype = ci
     return lib
 
@@ -755,9 +764,12 @@ def _bind_droplet(path: Path):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.lb_droplet_nconst.argtypes = []
     lib.lb_droplet_nconst.restype = ci
+    ip = ctypes.POINTER(ci)
+    lib.lb_droplet_attrs.argtypes = [ci, ci, ci, ci, ci, ip]
+    lib.lb_droplet_attrs.restype = ci
     lib.lb_droplet_phi_q_force.argtypes = [
         ci, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci,
-        ctypes.POINTER(ctypes.c_double), vp, ci]
+        ctypes.POINTER(ctypes.c_double), ip, vp, ci]
     lib.lb_droplet_phi_q_force.restype = ci
     return lib
 
@@ -1006,11 +1018,12 @@ def binary_phi_force_step(phi: torch.Tensor, u: torch.Tensor, consts,
     return phi_out, force
 
 
-def lc_q_force_step(q5: torch.Tensor, u: torch.Tensor, fe, be_gamma):
-    """Launch the liquid-crystal Q-tensor kernel; returns (q5', force).
-    `fe` is a BluePhaseFE of Python floats, `be_gamma` the rotational
-    mobility; the caller (ops/fused_lc.py) has checked shapes, dtypes and
-    contiguity."""
+def lc_q_force_step(q5: torch.Tensor, u: torch.Tensor, fe, be_gamma,
+                    plan=None):
+    """Launch the liquid-crystal Q-tensor kernel on the layout k1_layout_on
+    picks (or the K1Plan `plan`); returns (q5', force).  `fe` is a
+    BluePhaseFE of Python floats, `be_gamma` the rotational mobility; the
+    caller (ops/fused_lc.py) has checked shapes, dtypes and contiguity."""
     _check_cuda_state(q5)
     lib = _get_lib(LC_LIB)
     vals = lc_const_values(fe, be_gamma)
@@ -1018,23 +1031,26 @@ def lc_q_force_step(q5: torch.Tensor, u: torch.Tensor, fe, be_gamma):
         raise RuntimeError(f"lc_q library has {lib.lb_lc_nconst()} "
                            f"constants, the generator {len(vals)}")
     par = (ctypes.c_double * len(vals))(*vals)
+    lay = k1_layout_on(q5, LC_KERNEL, plan=plan)
     q_out = torch.empty_like(q5)
     force = torch.empty_like(u)
     X, Y, Z = q5.shape[1:]
     stream = torch.cuda.current_stream(q5.device).cuda_stream
     rc = lib.lb_lc_q_force(int(q5.dtype == torch.float64), q5.data_ptr(),
                            u.data_ptr(), q_out.data_ptr(), force.data_ptr(),
-                           X, Y, Z, par, stream, q5.device.index)
-    _raise_on(rc, "lc_q_force_step")
+                           X, Y, Z, par, lay.c_args(), stream,
+                           q5.device.index)
+    _raise_on(rc, f"lc_q_force_step ({lay})")
     launches.lc_q_force_step += 1
     return q_out, force
 
 
 def droplet_phi_q_force_step(phi: torch.Tensor, q5: torch.Tensor,
                              u: torch.Tensor, fe, be_gamma, mobility,
-                             order: int):
-    """Launch the droplet kernel; returns (phi', q5', raw force).  `fe` is
-    an LCDropletFE of Python floats; the caller (ops/fused_droplet.py) has
+                             order: int, plan=None):
+    """Launch the droplet kernel on the layout k1_layout_on picks (or the
+    K1Plan `plan`); returns (phi', q5', raw force).  `fe` is an
+    LCDropletFE of Python floats; the caller (ops/fused_droplet.py) has
     checked shapes, dtypes, contiguity and the order."""
     _check_cuda_state(phi)
     lib = _get_lib(DROPLET_LIB)
@@ -1043,6 +1059,7 @@ def droplet_phi_q_force_step(phi: torch.Tensor, q5: torch.Tensor,
         raise RuntimeError(f"droplet library has {lib.lb_droplet_nconst()} "
                            f"constants, the generator {len(vals)}")
     par = (ctypes.c_double * len(vals))(*vals)
+    lay = k1_layout_on(phi, DROPLET_KERNEL, order=order, plan=plan)
     phi_out = torch.empty_like(phi)
     q_out = torch.empty_like(q5)
     force = torch.empty_like(u)
@@ -1051,8 +1068,9 @@ def droplet_phi_q_force_step(phi: torch.Tensor, q5: torch.Tensor,
     rc = lib.lb_droplet_phi_q_force(
         int(phi.dtype == torch.float64), order, phi.data_ptr(),
         q5.data_ptr(), u.data_ptr(), phi_out.data_ptr(), q_out.data_ptr(),
-        force.data_ptr(), X, Y, Z, par, stream, phi.device.index)
-    _raise_on(rc, "droplet_phi_q_force_step")
+        force.data_ptr(), X, Y, Z, par, lay.c_args(), stream,
+        phi.device.index)
+    _raise_on(rc, f"droplet_phi_q_force_step ({lay})")
     launches.droplet_phi_q_force_step += 1
     return phi_out, q_out, force
 
@@ -1416,3 +1434,261 @@ def fusedn_step(f: torch.Tensor, model, params, nsteps: int, plan,
     _raise_on(rc, "fusedn_step")
     launches.fusedn_step += 1
     return out
+
+
+# -- the K1 x-march of the liquid crystal and the droplet -----------------------
+
+LC_KERNEL = "lc_q_force_step"
+DROPLET_KERNEL = "droplet_phi_q_force_step"
+# slots of the march's shared buffers (csrc/k1_march.cuh): the staged
+# planes x-1 .. x+3 (x+3 in flight), u's planes x-1 .. x+2, the ring of
+# pth[:,0] and mu over planes x-1 .. x+1, and pth[:,1], pth[:,2] and h of
+# planes x and x+1
+K1_STAGE_SLOTS, K1_U_SLOTS, K1_RING, K1_BUFS = 5, 4, 3, 2
+K1_MAX_THREADS = {4: 512, 8: 256}   # the kernels' launch bounds (f32, f64)
+K1_BZ = 32              # the tile's z extent, fixed in csrc/k1_march.cuh
+SM_RESERVED = 1024      # shared memory an H100 keeps back for each block
+SM_REGS, SM_THREADS, SM_BLOCKS = 65536, 2048, 32    # an H100 SM's limits
+# f32 operations an H100 SXM issues a second without FMA (132 SMs x 128
+# lanes x 1.98 GHz): the generated code runs with -fmad=false
+K1_ISSUE_RATE = 33.5e12
+_ACCESS = re.compile(r"^([A-Z]+)\((-?\d+(?:, -?\d+)*)\)$")
+
+
+def k1_reads(kernel: str, order: int = 1, level1: bool = False) -> dict:
+    """{accessor: set of argument tuples} the K1 site update loads (with
+    `level1`, one level-1 evaluation), from the traces the kernel's code
+    is generated from: S(a, b, dx, dy, dz), MU(dx, dy, dz), Q(n, dx, dy,
+    dz), P(dx, dy, dz), U(a, dx, dy, dz), H(n) or H(b, c)."""
+    if kernel == LC_KERNEL:
+        tr1, _t1, tr2, _t2, _c = _lc_trace()
+    elif kernel == DROPLET_KERNEL:
+        tr1, _t1, sites, _c = _droplet_trace()
+        tr2 = sites[order][0]
+    else:
+        raise ValueError(f"no K1 kernel {kernel!r}")
+    out = {}
+    for key in (tr1 if level1 else tr2).values:
+        m = _ACCESS.match(key)
+        if m:
+            out.setdefault(m[1], set()).add(
+                tuple(int(v) for v in m[2].split(", ")))
+    return out
+
+
+def k1_check_reads(kernel: str, order: int = 1):
+    """Raise unless the march keeps what K1 reads: the stress pth[a][b]
+    only at +-e_b, mu at the site and its six neighbours, the staged
+    fields and u within one site on each axis (level 1 likewise, from
+    the staged fields alone)."""
+    site = k1_reads(kernel, order)
+    lvl = k1_reads(kernel, order, level1=True)
+    bad = [("S",) + s for s in site.get("S", ())
+           if sorted(map(abs, s[2:])) != [0, 0, 1] or s[2 + s[1]] == 0]
+    bad += [("MU",) + o for o in site.get("MU", ())
+            if sum(map(abs, o)) > 1]
+    for where, reads, names in (("site", site, ("P", "Q", "U")),
+                                ("level 1", lvl, ("P", "Q"))):
+        bad += [(where, name) + a for name in names
+                for a in reads.get(name, ()) if max(map(abs, a[-3:])) > 1]
+    bad += [("level 1", name) for name in lvl if name not in ("P", "Q")]
+    if bad:
+        raise ValueError(f"{kernel}: reads the x-march does not keep: "
+                         f"{sorted(bad)}")
+
+
+def k1_buffers(kernel: str, BY: int, BZ: int) -> dict:
+    """Elements of one block's shared buffers on a BY x BZ tile
+    (csrc/k1_march.cuh Layout), from what the traces read: the staged
+    components (those level 1 loads) with a halo of level 1's reach plus
+    the stress's, u with the site's reach, the stress components read
+    across x and across the y and z faces, mu where it is read at the
+    neighbours, and the components of h."""
+    site, lvl = k1_reads(kernel), k1_reads(kernel, level1=True)
+    staged = len({a[0] for a in lvl.get("Q", ())}) + ("P" in lvl)
+    reach = max(max(map(abs, a[-3:])) for v in lvl.values() for a in v)
+    halo = reach + max(max(map(abs, s[2:])) for s in site["S"])
+    uh = max(max(map(abs, a[1:])) for a in site["U"])
+    across = [{s[0] for s in site["S"] if s[1] == b} for b in range(3)]
+    ni = BY * BZ
+    plane_u = (BY + 2 * uh) * (BZ + 2 * uh)
+    return {
+        "staged": K1_STAGE_SLOTS * staged * (BY + 2 * halo)
+        * (BZ + 2 * halo),
+        "u": K1_U_SLOTS * len({a[0] for a in site["U"]}) * plane_u,
+        "pth_x": K1_RING * len(across[0]) * ni,
+        "pth_yz": K1_BUFS * (len(across[1]) * (BY + 2) * BZ
+                             + len(across[2]) * BY * (BZ + 2)),
+        "h": K1_BUFS * len(site["H"]) * ni,
+        "mu": K1_RING * plane_u if "MU" in site else 0}
+
+
+def k1_smem_bytes(kernel: str, BY: int, BZ: int, itemsize: int) -> int:
+    """Shared bytes of one block: the buffers, then the int32 in-plane
+    offsets of the staged window's BY + 4 rows and BZ + 4 columns."""
+    return (itemsize * sum(k1_buffers(kernel, BY, BZ).values())
+            + 4 * (BY + 4 + BZ + 4))
+
+
+def k1_blocks_per_sm(smem: int, threads: int, regs: int,
+                     optin: int = None) -> int:
+    """Blocks an SM keeps resident: the least of what its shared memory
+    (the opt-in plus one reserve, less a reserve a block), its registers
+    (allocated per warp in units of 256) and its threads allow."""
+    optin = SMEM_OPTIN_H100 if optin is None else optin
+    by_smem = (optin + SM_RESERVED) // (smem + SM_RESERVED)
+    warps = -(-threads // 32)
+    warp_regs = -(-regs * 32 // 256) * 256
+    by_regs = (SM_REGS // warp_regs) // warps
+    return min(by_smem, by_regs, SM_THREADS // threads, SM_BLOCKS)
+
+
+def k1_evals(shape, BX: int, BY: int, BZ: int) -> int:
+    """Level-1 evaluations of one launch: per block and plane of its x
+    segment the tile and its four y-z faces, plus the tile alone on the
+    segment's two end planes (tiles overhanging the lattice included)."""
+    X, Y, Z = shape
+    ntiles = -(-Y // BY) * -(-Z // BZ)
+    per = sum((min(BX, X - xs) + 2) * BY * BZ
+              + min(BX, X - xs) * 2 * (BY + BZ) for xs in range(0, X, BX))
+    return ntiles * per
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Plan:
+    """The tile's rows BY (its z extent is K1_BZ) and the threads a block
+    of the K1 march; the x segment BX, or None for the longest that keeps
+    every SM busy in one wave."""
+    BY: int = 16
+    threads: int = 512
+    BX: object = None
+
+
+# the default plan of each kernel and itemsize: the least time at 128^3
+# plus 256^3 f32 on an H100 among the plans chip_smoke.py phases 12 and
+# 15 time (K1_PLANS there), LC one 16x32 block of 512 threads an SM,
+# droplet two 8x32 blocks of 256; f64 8x32 (what fits)
+K1_DEFAULT = {(LC_KERNEL, 4): K1Plan(16, 512),
+              (LC_KERNEL, 8): K1Plan(8, 256),
+              (DROPLET_KERNEL, 4): K1Plan(8, 256),
+              (DROPLET_KERNEL, 8): K1Plan(8, 256)}
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Layout:
+    """The K1 march's launch: x segment BX, y-z tile BY x BZ, threads and
+    shared bytes a block, blocks an SM and in all, waves (blocks over
+    the SMs' resident slots) and level-1 evaluations a lattice site."""
+    BX: int
+    BY: int
+    BZ: int
+    threads: int
+    smem: int
+    blocks_per_sm: int
+    blocks: int
+    waves: float
+    evals_per_site: float
+
+    def c_args(self):
+        return (ctypes.c_int * 4)(self.BX, self.BY, self.threads, self.smem)
+
+    def __str__(self):
+        return (f"{self.BY}x{self.BZ} tile, BX {self.BX}, {self.threads} "
+                f"threads, {self.smem} B, {self.blocks_per_sm}/SM, "
+                f"{self.blocks} blocks, {self.waves:.2f} waves, "
+                f"{self.evals_per_site:.4f} level-1 evaluations a site")
+
+
+def k1_layout(kernel: str, shape, itemsize: int, sms: int,
+              optin: int = SMEM_OPTIN_H100, regs=None,
+              plan=None) -> K1Layout:
+    """The K1 march's layout for a lattice of `shape` on a card with `sms`
+    multiprocessors and `optin` shared bytes a block, the kernel taking
+    `regs` registers a thread (None: its launch bound's cap).  The tile
+    (BY x K1_BZ) and threads are `plan`'s, or K1_DEFAULT's.  x is cut
+    into segments of equal length, as long as they can be while the
+    tiles' segments keep every SM's resident slots busy in one wave (one
+    segment where the tiles alone fill the card), or of `plan`'s BX.
+    Raises on a plan the kernel does not take, the default's included
+    (every default fits an H100)."""
+    X, Y, Z = (int(v) for v in shape)
+    if Y * Z > INT32_MAX:
+        raise ValueError(f"{kernel} indexes a plane with int32: Y*Z = "
+                         f"{Y * Z} exceeds {INT32_MAX}")
+    maxt = K1_MAX_THREADS[itemsize]
+    regs = min(255, SM_REGS // maxt) if regs is None else int(regs)
+    chosen = plan if plan is not None else K1_DEFAULT[(kernel, itemsize)]
+    by, bz, threads = chosen.BY, K1_BZ, chosen.threads
+    if threads % 32 or not 32 <= threads <= maxt or by < 1:
+        raise ValueError(f"{kernel}: no {by}x{bz} tile of {threads} threads "
+                         f"(threads a multiple of 32, at most {maxt})")
+    smem = k1_smem_bytes(kernel, by, bz, itemsize)
+    bps = k1_blocks_per_sm(smem, threads, regs, optin)
+    if smem > optin or bps < 1:
+        raise ValueError(f"{kernel}: a {by}x{bz} tile takes {smem} B of "
+                         f"shared memory and {threads} x {regs} registers; "
+                         f"the card gives {optin} B a block")
+    ntiles = -(-Y // by) * -(-Z // bz)
+    if chosen.BX is not None:
+        bx = min(int(chosen.BX), X)
+        if bx < 1:
+            raise ValueError(f"{kernel}: segment BX {chosen.BX}")
+    else:
+        bx = -(-X // min(X, max(1, sms * bps // ntiles)))
+    blocks = ntiles * -(-X // bx)
+    return K1Layout(bx, by, bz, threads, smem, bps, blocks,
+                    blocks / (sms * bps),
+                    k1_evals((X, Y, Z), bx, by, bz) / (X * Y * Z))
+
+
+def k1_site_ops(kernel: str, evals_per_site: float, order: int = 1) -> float:
+    """Operations a lattice site of the generated code on a layout: one
+    level-1 evaluation times the evaluations a site, plus the site
+    update (the issue floor's count: the kernel's own term order, none
+    of it fused)."""
+    if kernel == LC_KERNEL:
+        tr1, _t1, tr2, _t2, _c = _lc_trace()
+        return tr1.nops * evals_per_site + tr2.nops
+    tr1, _t1, sites, _c = _droplet_trace()
+    return tr1.nops * evals_per_site + sites[order][0].nops
+
+
+@functools.lru_cache(maxsize=64)
+def _k1_attrs(kernel: str, is_f64: bool, order: int, dev: int,
+              threads: int = 0, smem: int = 0):
+    """(registers a thread, blocks an SM the card keeps resident with
+    `threads` and `smem` (0 without), SMs, shared opt-in) of the K1
+    kernel."""
+    out = (ctypes.c_int * 4)()
+    if kernel == LC_KERNEL:
+        rc = _get_lib(LC_LIB).lb_lc_attrs(int(is_f64), dev, threads, smem,
+                                          out)
+    else:
+        rc = _get_lib(DROPLET_LIB).lb_droplet_attrs(int(is_f64), order, dev,
+                                                    threads, smem, out)
+    _raise_on(rc, f"{kernel} attributes")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=64)
+def _k1_layout_on(kernel, shape, itemsize, is_f64, order, dev, plan):
+    regs, _b, sms, optin = _k1_attrs(kernel, is_f64, order, dev)
+    return k1_layout(kernel, shape, itemsize, sms, optin, regs, plan)
+
+
+def k1_layout_on(x: torch.Tensor, kernel: str, order: int = 1, plan=None):
+    """k1_layout for the field x (its last three axes the lattice) on its
+    card, with the card's SMs and opt-in and the kernel's registers."""
+    _check_cuda_state(x)
+    return _k1_layout_on(kernel, tuple(x.shape[-3:]), x.element_size(),
+                         x.dtype == torch.float64, order, x.device.index,
+                         plan)
+
+
+def k1_occupancy(x: torch.Tensor, kernel: str, lay: K1Layout,
+                 order: int = 1) -> tuple:
+    """(registers a thread, blocks an SM the card's occupancy query gives
+    for the layout): the card's own count beside lay.blocks_per_sm."""
+    a = _k1_attrs(kernel, x.dtype == torch.float64, order, x.device.index,
+                  lay.threads, lay.smem)
+    return a[0], a[1]

@@ -7,7 +7,7 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
   1. the card (nvidia-smi name and power limit) and the CUDA version;
   2. build the CUDA kernels from ludwig_tpu_torch/csrc into the package's
      git-ignored build directory; print what ptxas reports of the n-step,
-     SOR, LC, droplet and electrokinetic kernels;
+     SOR, binary, LC, droplet and electrokinetic (SOR and NP) kernels;
   3. each kernel against its plain PyTorch twin on the card, 3 chained
      steps, over velocity sets, relaxation schemes, both back-transform
      forms and both dtypes;
@@ -26,16 +26,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      in both forms beside fused_step, and n = 2 and 3 on each plan of
      TILE_PLANS, five passes (the default has the least median sum);
   7. the binary fluid's kernels against their twins: binary_phi_force_step
-     (K1) at two sizes, advection orders 1 and 2, f32 and f64;
-     fused_force_step (K2) over velocity sets and relaxation schemes with
-     random force fields; 3 chained fused binary steps through the
-     kernels against 3 through the twins;
+     (K1, the x-march of csrc/k1_march.cuh) at K1_SHAPES, advection
+     orders 1 and 2, f32 and f64, phi' - phi to one ulp of the value and
+     the force within TOL, each case's layout printed and its blocks an
+     SM held to the card's occupancy count, at the ragged shape each plan
+     of BINARY_K1_PLANS bitwise the default layout; fused_force_step (K2)
+     over velocity sets and relaxation schemes with random force fields;
+     3 chained fused binary steps through the kernels against 3 through
+     the twins;
   8. the binary main path at full width: `free_energy symmetric` D3Q19
      256^3 f32, spinodal, advection order 2, `tpu_fused on`, through
      run_text on the card; K1 and K2 launched once per cycle, the [phi]
      total conserved, the [rho] totals at the site count;
   9. at 256^3 f32: K1, K2 and the whole binary step against the twins
-     within TOL, and kernel, twin and bound times;
+     within TOL, and kernel, twin and bound times; K1 beside its issue
+     floor and the thread-per-site kernel's time (BINARY_K1_THREAD_MS),
+     its plans held bitwise to the default and timed (BINARY_K1_PLANS);
  10. the liquid crystal's kernel lc_q_force_step (K1, the x-march of
      csrc/k1_march.cuh) against its twin at K1_SHAPES (two of them
      shorter than the halo or ragged against the tile), f32 and f64, with
@@ -78,7 +84,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      in-place, two-buffer; f64 the same stop and criterion, psi within
      1e-12; f32 within 15 iterations and 2e-5), np_gradmu with and
      without advection (rho' and the force within 2 ulp, fsum within
-     1e-12 / 1e-6 of sum |force|), the solid fused_force_step (f64
+     1e-12 / 1e-6 of sum |force|; the x-march at NP_SHAPES, 16x4x4
+     included, with 1, 2 and 3 species, each layout printed and held to
+     the card's occupancy count), the solid fused_force_step (f64
      bitwise, f32 within TOL, u on fluid sites); then 3 chained
      electrokinetic steps through the kernels against 3 through the
      twins;
@@ -91,7 +99,9 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
  18. at 128^3 and 256^3 f32: sor_solve on each route the shape admits
      (a solve, an iteration, the count; and from solves of a random
      field held to 11 and 41 iterations, the fixed cost and the cost an
-     iteration, also at 48^3 and 64^3), np_gradmu, the mean
+     iteration, also at 48^3 and 64^3), np_gradmu (beside the
+     thread-per-site kernel's time, NP_THREAD_MS, and each plan of
+     NP_PLANS held bitwise to the default and timed), the mean
      subtraction, the solid K2, the whole step and its MLUPS, the FFT
      route's solve for context; twin and bound times;
  19. the fluctuating kernel fused_step with FusedNoise against its twin,
@@ -177,23 +187,47 @@ TILE_PLANS = tuple(fused.FusedPlan(*p) for p in (
     (128, 32, 32)))
 
 
-# the K1 x-march (LC and droplet): the shapes held against the twins
-# (the last two shorter than the halo or ragged against the tile), the
-# plans held bitwise against the default layout at a ragged shape, and
-# the plans timed beside the default at 128^3 and 256^3 (f32)
+# the K1 x-march (binary, LC and droplet): the shapes held against the
+# twins (the last two shorter than the halo or ragged against the tile),
+# the plans held bitwise against the default layout at a ragged shape,
+# and the plans timed beside the default at 128^3 and 256^3 (f32; the
+# binary march at 256^3, its main path's size, over its own plans: its
+# blocks are small, so more tiles and thread counts fit)
 K1_SHAPES = ((16, 24, 40), (64, 64, 64), (9, 5, 3), (18, 40, 70))
 K1_RAGGED = (18, 40, 70)
 K1_PLANS = {torch.float32: tuple(_cuda.K1Plan(*p) for p in (
     (16, 512), (16, 512, 16), (8, 256), (8, 256, 16), (16, 256), (4, 128))),
             torch.float64: tuple(_cuda.K1Plan(*p) for p in (
                 (8, 256), (8, 256, 5), (4, 128), (2, 64)))}
-# the K1 times (ms) of the design the march replaced, an 8x8x32 box with a
-# halo of 1 and level 1 on all of it, as phases 12 and 15 of this script
-# measured them on an NVIDIA H100 80GB HBM3 at 700.00 W
+BINARY_K1_PLANS = {torch.float32: tuple(_cuda.K1Plan(*p) for p in (
+    (8, 256), (8, 128), (8, 128, 32), (16, 256), (16, 512), (16, 128),
+    (4, 128), (4, 64))),
+                   torch.float64: K1_PLANS[torch.float64]}
+# the K1 times (ms) of the designs the march replaced, as phases 9, 12
+# and 15 of this script measured them on an NVIDIA H100 80GB HBM3 at
+# 700.00 W: for LC and droplet an 8x8x32 box with a halo of 1 and level 1
+# on all of it, for the binary fluid one thread a site recomputing its
+# neighbours' level 1 (256^3 f32, order 2)
 K1_BOX_MS = {("lc_q_force_step", 128): 0.2817,
              ("lc_q_force_step", 256): 2.1560,
              ("droplet_phi_q_force_step", 128): 0.3005,
              ("droplet_phi_q_force_step", 256): 2.3151}
+BINARY_K1_THREAD_MS = 0.8321
+# the times (ms) of the np_gradmu kernel the NP x-march replaced, one
+# thread a site computing both faces of each axis (two species, with
+# hydrodynamics), as phase 18 measured them on an NVIDIA H100 80GB HBM3 at
+# 700.00 W, at 128^3 and 256^3
+NP_THREAD_MS = {128: 0.1260, 256: 0.9224}
+# the NP march's tiles timed beside the default in phase 18, and the
+# shapes and species counts phase 16 holds it at (16x4x4: the CLI test's
+# lattice, every axis shorter than the tile)
+NP_PLANS = tuple(_cuda.NpPlan(*p) for p in ((8,), (4,), (16,), (3,),
+                                            (8, 16)))
+NP_SHAPES = ((16, 16, 128), (15, 16, 32), (64, 64, 64), (128, 128, 128),
+             (16, 4, 4))
+NP_SPECIES = {1: dict(valency=(1,), diffusivity=(0.01,)),
+              2: dict(valency=(1, -1), diffusivity=(0.01, 0.0095)),
+              3: dict(valency=(1, -1, 2), diffusivity=(0.01, 0.0095, 0.008))}
 
 _T0 = time.perf_counter()
 
@@ -283,11 +317,17 @@ def hold_k1_layout(x, kernel, lay, order=1):
     return regs
 
 
+def k1_plans(kernel, dtype):
+    """The plans held and timed beside a K1 kernel's default layout."""
+    return (BINARY_K1_PLANS if kernel == _cuda.BINARY_KERNEL
+            else K1_PLANS)[dtype]
+
+
 def hold_k1_plans(what, run, x, kernel, ref, order=1):
-    """Each plan of K1_PLANS for x's dtype, run through run(plan), is
+    """Each plan of k1_plans for x's dtype, run through run(plan), is
     bitwise `ref` (the default layout's outputs): the tiling changes no
     operation."""
-    for plan in K1_PLANS[x.dtype]:
+    for plan in k1_plans(kernel, x.dtype):
         lay = _cuda.k1_layout_on(x, kernel, order, plan)
         hold_k1_layout(x, kernel, lay, order)
         got = run(plan)
@@ -590,19 +630,32 @@ def binary_cfg(size, dtype, order):
 def phase7(gen):
     phase("7 binary-fluid kernels vs plain twins")
     worst = {"binary_phi_force_step": 0.0, "fused_force_step": 0.0}
-    for size in ((16, 24, 40), (64, 64, 64)):
+    kernel = _cuda.BINARY_KERNEL
+    for size in K1_SHAPES:
         for dtype in (torch.float64, torch.float32):
             phi, u = rand_phi_u(size, dtype, gen)
             for order in fb.ORDERS:
+                lay = _cuda.k1_layout_on(phi, kernel, order)
+                regs = hold_k1_layout(phi, kernel, lay, order)
                 a = fb.binary_phi_force_step(phi, u, FE, MOBILITY, order)
                 b = fb._binary_phi_force_plain(phi, u, FE, MOBILITY, order)
-                err = max(check_close(f"binary_phi_force_step {size} {dtype}"
-                                      f" order {order} {name}", x, y, dtype)
-                          for name, x, y in zip(("phi", "force"), a, b))
-                worst["binary_phi_force_step"] = max(
-                    worst["binary_phi_force_step"], err)
-                print(f"binary_phi_force_step {size} {dtype} order {order} "
-                      f"max_abs_err {err:.3e}")
+                what = f"binary_phi_force_step {size} {dtype} order {order}"
+                errs = [check_close(f"{what} {name}", x, y, dtype)
+                        for name, x, y in zip(("phi", "force"), a, b)]
+                worst[kernel] = max(worst[kernel], *errs)
+                inc_err, inc_rel = check_increment(f"{what} phi' - phi", phi,
+                                                   a[0], b[0])
+                print(f"{what} layout [{lay}], {regs} registers: max_abs_err "
+                      f"phi {errs[0]:.3e} force {errs[1]:.3e} bitwise "
+                      f"{[torch.equal(x, y) for x, y in zip(a, b)]} "
+                      f"(tolerance {TOL[dtype]}); increment phi' - phi "
+                      f"within {inc_err:.3e}, {inc_rel:.3e} of its largest "
+                      "(tolerance: one ulp of the largest |phi'|)")
+                if size == K1_RAGGED:
+                    hold_k1_plans(
+                        what, lambda plan: _cuda.binary_phi_force_step(
+                            phi, u, fb._consts(FE, MOBILITY), order,
+                            plan=plan), phi, kernel, a, order)  # noqa
     for size in ((16, 24, 40), (64, 64, 64)):
         for nvel, scheme in cases():
             for dtype in ("float64", "float32"):
@@ -729,13 +782,26 @@ def phase9(card, gen, copy_ms, copy_bytes):
     # K1: reads phi and u, writes phi' and the force: 8 values a site
     k1 = lambda: fb.binary_phi_force_step(phi, u, FE, MOBILITY, 2)  # noqa
     t1 = lambda: fb._binary_phi_force_plain(phi, u, FE, MOBILITY, 2)  # noqa
+    a, b = k1(), t1()
     err = max(check_close(f"binary_phi_force_step 256^3 {n}", x, y,
                           torch.float32)
-              for n, x, y in zip(("phi", "force"), k1(), t1()))
-    res["binary_phi_force_step"] = report(
-        "binary_phi_force_step (K1, order 2)", time_ms(k1, 20),
-        time_ms(t1, 3, warm=1), 8 * 4 * nsite,
-        nsite * _cuda.site_ops("binary_phi_force_step", order=2), err)
+              for n, x, y in zip(("phi", "force"), a, b))
+    inc_err, inc_rel = check_increment("binary_phi_force_step 256^3 phi' - "
+                                       "phi", phi, a[0], b[0])
+    print(f"binary_phi_force_step (K1) 256^3: bitwise "
+          f"{[torch.equal(x, y) for x, y in zip(a, b)]}, increment phi' - "
+          f"phi within {inc_err:.3e} of the twin's, {inc_rel:.3e} of its "
+          "largest (tolerance: one ulp of the largest |phi'|)")
+    r1 = report("binary_phi_force_step (K1, order 2)", time_ms(k1, 20),
+                time_ms(t1, 3, warm=1), 8 * 4 * nsite,
+                nsite * _cuda.site_ops("binary_phi_force_step", order=2), err)
+    print(f"binary_phi_force_step (K1) 256^3 under load: {clocks_line()}")
+    r1.update(k1_sweep(card, MAIN_SIZE, phi, _cuda.BINARY_KERNEL, r1["ms"], a,
+                       lambda plan: _cuda.binary_phi_force_step(  # noqa
+                           phi, u, fb._consts(FE, MOBILITY), 2, plan=plan),
+                       order=2))
+    del a, b
+    res["binary_phi_force_step"] = r1
     # K2: reads f, force; writes f', u
     k2 = lambda: fused.fused_force_step(f0, frc, model, params)  # noqa
     t2 = lambda: fused._fused_force_step_plain(f0, frc, model, params)  # noqa
@@ -991,34 +1057,43 @@ def phase11():
     return counts, ref_counts
 
 
-def k1_sweep(card, size, x, kernel, ms, ref, run):
+K1_LIBS = {_cuda.BINARY_KERNEL: (_cuda.BINARY_LIB, "binary_phi_force_kernel"),
+           _cuda.LC_KERNEL: (_cuda.LC_LIB, "lc_q_force_kernel"),
+           _cuda.DROPLET_KERNEL: (_cuda.DROPLET_LIB, "droplet_kernel")}
+
+
+def k1_sweep(card, size, x, kernel, ms, ref, run, order=1):
     """K1 at `size`: what ptxas reported of its instances, its time
-    against its issue floor and the box kernel's, the layout held to the
-    card's occupancy count, then each plan of K1_PLANS held bitwise to
-    the default's outputs `ref` (hold_k1_plans) and timed (three passes,
-    the median).  Returns the default layout."""
+    against its issue floor and the replaced kernel's (the box kernel,
+    or for the binary fluid the thread-per-site kernel), the layout held
+    to the card's occupancy count, then each plan of k1_plans held
+    bitwise to the default's outputs `ref` (hold_k1_plans) and timed
+    (three passes, the median).  Returns the default layout."""
     nsite = size[0] * size[1] * size[2]
-    lib = _cuda.LC_LIB if kernel == _cuda.LC_KERNEL else _cuda.DROPLET_LIB
-    for line in _cuda.ptxas_lines(_cuda.build((lib,))[lib],
-                                  ("lc_q_force_kernel", "droplet_kernel")):
+    lib, name = K1_LIBS[kernel]
+    for line in _cuda.ptxas_lines(_cuda.build((lib,))[lib], (name,)):
         print(f"{kernel} ptxas: {line}")
-    lay = _cuda.k1_layout_on(x, kernel)
-    regs = hold_k1_layout(x, kernel, lay)
-    floor = k1_floor_ms(kernel, lay, nsite)
-    box = K1_BOX_MS[(kernel, size[0])]
+    lay = _cuda.k1_layout_on(x, kernel, order)
+    regs = hold_k1_layout(x, kernel, lay, order)
+    floor = k1_floor_ms(kernel, lay, nsite, order)
+    if kernel == _cuda.BINARY_KERNEL:
+        before, old = "the thread-per-site kernel", BINARY_K1_THREAD_MS
+    else:
+        before, old = "the box kernel", K1_BOX_MS[(kernel, size[0])]
     print(f"{kernel} {size[0]}^3 on [{lay}], {regs} registers: "
           f"{ms:.4f} ms, issue floor {floor:.4f} ms ("
-          f"{_cuda.k1_site_ops(kernel, lay.evals_per_site):.0f} generated "
-          f"operations a site at {_cuda.K1_ISSUE_RATE / 1e12:.1f} T/s), "
-          f"{100 * floor / ms:.1f}% of it; the box kernel {box:.4f} ms, "
-          f"this one {100 * (ms / box - 1):+.1f}% [{card}]")
-    hold_k1_plans(f"{kernel} {size}", run, x, kernel, ref)
-    for plan in K1_PLANS[x.dtype]:
-        p_lay = _cuda.k1_layout_on(x, kernel, plan=plan)
+          f"{_cuda.k1_site_ops(kernel, lay.evals_per_site, order):.0f} "
+          f"generated operations a site at {_cuda.K1_ISSUE_RATE / 1e12:.1f} "
+          f"T/s), {100 * floor / ms:.1f}% of it; {before} {old:.4f} ms, "
+          f"this one {100 * (ms / old - 1):+.1f}% [{card}]")
+    hold_k1_plans(f"{kernel} {size}", run, x, kernel, ref, order)
+    for plan in k1_plans(kernel, x.dtype):
+        p_lay = _cuda.k1_layout_on(x, kernel, order, plan)
         times = sorted(time_ms(lambda: run(plan), 10) for _ in range(3))
         print(f"{kernel} {size[0]}^3 plan {plan}: [{p_lay}] {times[1]:.4f} "
               f"ms (passes {', '.join(f'{t:.4f}' for t in times)}), issue "
-              f"floor {k1_floor_ms(kernel, p_lay, nsite):.4f} ms [{card}]")
+              f"floor {k1_floor_ms(kernel, p_lay, nsite, order):.4f} ms "
+              f"[{card}]")
     return {"lay": lay}
 
 
@@ -1449,15 +1524,16 @@ def elec_state(cfg):
     return state, torch.as_tensor(boundary, device=cfg.lb.device)
 
 
-def rand_elec(size, dtype, gen):
-    """tests/test_fused_electro.py:25-33's kind of fields, on the card."""
+def rand_elec(size, dtype, gen, nk=2):
+    """tests/test_fused_electro.py:25-33's kind of fields, on the card,
+    with nk species."""
     def rnd(shape, amp, base=0.0, uniform=False):
         x = (torch.rand if uniform else torch.randn)(
             shape, generator=gen, dtype=dtype, device="cuda")
         return (base + amp * x).contiguous()
     fluid = torch.ones(size, dtype=torch.bool, device="cuda")
     fluid[0] = fluid[-1] = False
-    return (rnd(size, 1e-3), rnd((2,) + size, 1e-4, 1e-3, True),
+    return (rnd(size, 1e-3), rnd((nk,) + size, 1e-4, 1e-3, True),
             rnd((3,) + size, 1e-3), fluid)
 
 
@@ -1519,6 +1595,25 @@ def hold_np(what, a, b):
     return err
 
 
+def hold_np_layout(psi, nk, hydro, lay):
+    """The NP layout's blocks an SM as the card's occupancy query counts
+    them, and the kernel's registers; raises where they differ."""
+    regs, occ = _cuda.np_occupancy(psi, nk, hydro, lay)
+    if occ != lay.blocks_per_sm:
+        raise AssertionError(f"np_gradmu {lay}: the card keeps {occ} blocks "
+                             f"an SM resident, np_layout counts "
+                             f"{lay.blocks_per_sm} ({regs} registers)")
+    return regs
+
+
+def np_raw(cfg):
+    """(ez, z, c, kt_e): the NP kernel's per-species constants."""
+    ek = cfg.ek
+    return ([float(ek.e * v) for v in ek.valency],
+            [float(v) for v in ek.valency],
+            [-float(d) * 0.5 for d in ek.diffusivity], 1.0 / (ek.beta * ek.e))
+
+
 def hold_k2_solid(what, a, b, f0, solid):
     """The solid collide+stream's (f', u, gw) held to its twin's: f' and
     u on fluid sites by check_close, and bitwise in float64; gw, a sum
@@ -1570,10 +1665,7 @@ def elec_routes(cfg, dt=1.0):
     of dt."""
     ek = cfg.ek
     model, params = cfg.lb.model, cfg.lb.collision_params()
-    ez = [float(ek.e * v) for v in ek.valency]
-    z = [float(v) for v in ek.valency]
-    c = [-float(d) * 0.5 for d in ek.diffusivity]
-    kt_e = 1.0 / (ek.beta * ek.e)
+    ez, z, c, kt_e = np_raw(cfg)
 
     def sor_twin(psi, rel):
         X, _Y, Z = psi.shape
@@ -1620,12 +1712,25 @@ def phase16(gen):
                     fe._sor_solve_route(psi, rel, cfg.ek, route), t, route)
                 worst["sor_solve"] = max(worst["sor_solve"], err)
                 most_walks = max(most_walks, walks)
-            for hydro in (True, False):
-                uu = u if hydro else None
-                err = hold_np(f"{size} {dtype} hydro {hydro}",
-                              kern[1](psi, rho, uu, fluid),
-                              twin[1](psi, rho, uu, fluid))
-                worst["np_gradmu"] = max(worst["np_gradmu"], err)
+    # the NP march over NP_SHAPES, 1 to 3 species, with and without
+    # advection, each case's layout printed and held to the card's
+    # occupancy count
+    for size in NP_SHAPES:
+        for dtype in ("float64", "float32"):
+            for nk, species in NP_SPECIES.items():
+                cfg = elec_cfg(size, dtype, **dict(SOR_TEST_EK, **species))
+                psi, rho, u, fluid = rand_elec(size, cfg.lb.tdtype, gen, nk)
+                routes = elec_routes(cfg, dt=0.5)
+                kern, twin = routes["kernel"], routes["twin"]
+                for hydro in (True, False):
+                    uu = u if hydro else None
+                    lay = _cuda.np_layout_on(psi, nk, hydro)
+                    regs = hold_np_layout(psi, nk, hydro, lay)
+                    err = hold_np(f"{size} {dtype} nk {nk} hydro {hydro} "
+                                  f"[{lay}], {regs} registers",
+                                  kern[1](psi, rho, uu, fluid),
+                                  twin[1](psi, rho, uu, fluid))
+                    worst["np_gradmu"] = max(worst["np_gradmu"], err)
     # the grid-stride walk, whose coordinates step with carries, is held
     # only where a thread takes more than one site (or pair)
     if most_walks < 2:
@@ -1845,6 +1950,71 @@ def sor_split(card, size, gen):
               f"an iteration, {ms0 - n0 * per_it:.4f} ms fixed [{card}]")
 
 
+def device_ms(run, names, reps=20):
+    """{name: ms a launch on the device} of the kernels whose names
+    contain one of `names`, from torch.profiler over `reps` calls of
+    run(): the card's own time, without the host's (at 128^3 a call's
+    host work can outlast its kernels, and CUDA events then time the
+    host)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        for name in names:
+            if name in e.key and e.count:
+                out[name] = e.device_time_total / e.count / 1e3
+    return out
+
+
+def np_sweep(card, size, args, ms, ref):
+    """np_gradmu at `size` (args: _cuda.np_gradmu's): its layout held to
+    the card's occupancy count, its time against the thread-per-site
+    kernel's, its device time (torch.profiler), then each plan of
+    NP_PLANS held bitwise to the default's rho' and force `ref` (the
+    tiling changes no operation; fsum's order follows the blocks) and
+    timed (three passes, the median).  Returns the default layout and
+    the device time of the kernel and of the sum of its partials."""
+    psi, rho, u = args[:3]
+    nk = rho.shape[0]
+    lay = _cuda.np_layout_on(psi, nk, u is not None)
+    regs = hold_np_layout(psi, nk, u is not None, lay)
+    old = NP_THREAD_MS[size[0]]
+    print(f"np_gradmu {size[0]}^3 on [{lay}], {regs} registers: {ms:.4f} "
+          f"ms; the thread-per-site kernel {old:.4f} ms, this one "
+          f"{100 * (ms / old - 1):+.1f}% [{card}]")
+    dev = device_ms(lambda: _cuda.np_gradmu(*args),
+                    ("np_gradmu_kernel", "reduce_partials_kernel"))
+    if len(dev) == 2:
+        print(f"np_gradmu {size[0]}^3 on the device (torch.profiler, 20 "
+              f"calls): the march {dev['np_gradmu_kernel']:.4f} ms, the sum "
+              f"of its partials {dev['reduce_partials_kernel']:.4f} ms "
+              f"[{card}]")
+    else:
+        print(f"np_gradmu {size[0]}^3 device time: not measured (the "
+              f"profiler saw {sorted(dev)})")
+    for plan in NP_PLANS:
+        p_lay = _cuda.np_layout_on(psi, nk, u is not None, plan)
+        hold_np_layout(psi, nk, u is not None, p_lay)
+        got = _cuda.np_gradmu(*args, plan=plan)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got[:2], ref[:2])):
+            raise AssertionError(f"np_gradmu {size} on {p_lay}: rho' or the "
+                                 "force not bitwise the default layout's")
+        times = sorted(time_ms(lambda: _cuda.np_gradmu(*args, plan=plan), 10)
+                       for _ in range(3))
+        print(f"np_gradmu {size[0]}^3 plan {plan}: [{p_lay}] bitwise the "
+              f"default's, {times[1]:.4f} ms (passes "
+              f"{', '.join(f'{t:.4f}' for t in times)}) [{card}]")
+    out = {"lay": lay}
+    if len(dev) == 2:
+        out["device_ms"] = sum(dev.values())
+    return out
+
+
 def phase18(card, gen, copy_ms, copy_bytes):
     phase(f"18 electrokinetic kernels held and timed at 128^3 and 256^3 "
           f"D3Q19 f32 on {card}")
@@ -1926,6 +2096,9 @@ def phase18(card, gen, copy_ms, copy_bytes):
                     20),
             time_ms(lambda: routes["twin"][1](psi, rho, u, fluid), 3,
                     warm=1), 45 * nsite, NP_SITE_OPS * nsite, err)
+        res_size["np_gradmu"].update(np_sweep(
+            card, size, (psi, rho, u, fluid, *np_raw(cfg), 1.0),
+            res_size["np_gradmu"]["ms"], a))
         raw, fsum = a[1], a[2]
         mean_ms = time_ms(lambda: raw - (fsum / float(nsite))[
             :, None, None, None], 20)
@@ -2269,19 +2442,25 @@ def main():
     t0 = time.perf_counter()
     built = _cuda.build()
     print(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
-    # what ptxas says of the n-step and SOR kernels, then of the
-    # liquid-crystal, droplet and electrokinetic ones
+    # what ptxas says of the n-step and SOR kernels, then of the binary,
+    # liquid-crystal, droplet and electrokinetic (SOR and NP) ones
     for lib, names in ((_cuda._lib_name(19), ("fusedn",)),
                        (_cuda.ELECTRO_LIB, ("sor_kernel",))):
         for line in _cuda.ptxas_lines(built[lib], names):
             print(f"{lib} ptxas: {line}")
-    for lib in (_cuda.LC_LIB, _cuda.DROPLET_LIB, _cuda.ELECTRO_LIB):
+    for lib in (_cuda.BINARY_LIB, _cuda.LC_LIB, _cuda.DROPLET_LIB,
+                _cuda.ELECTRO_LIB):
         report = built[lib].with_suffix(".ptxas.txt").read_text()
         for line in report.splitlines():
             if ("registers" in line or "spill" in line
                     or "Compiling entry" in line):
                 print(f"{lib} ptxas: {line.strip()}")
 
+    tr1, _t1, sites = _cuda._binary_trace()
+    print(f"binary generated code: {tr1.nops} distinct operations for one "
+          f"level-1 evaluation, {sites[1][0].nops} / {sites[2][0].nops} for "
+          "the site update of order 1 / 2; the bound counts one level-1 "
+          "evaluation a site")
     tr1, _t1, tr2, _t2, table = _cuda._lc_trace()
     print(f"lc_q generated code: {tr1.nops} distinct operations for one "
           f"level-1 evaluation, {tr2.nops} for the site update, "
@@ -2368,8 +2547,10 @@ def main():
             "library_ms": None,
             "copy_bound_ms": timed["copy_ms"] * t["nbytes"]
             / timed["copy_bytes"]})
-        if "lay" in t:          # the K1 march: its layout
+        if "lay" in t:          # the K1 and NP marches: their layout
             kernels[-1].update(layout=str(t["lay"]))
+        if "device_ms" in t:    # torch.profiler's time on the card
+            kernels[-1].update(device_ms=t["device_ms"])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

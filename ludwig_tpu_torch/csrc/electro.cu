@@ -46,16 +46,34 @@
 // iteration: memory, and in practice the grid barriers and the latency of
 // each half-sweep.
 
-// np_gradmu_kernel.  One thread per site.  The thread forms its site's
-// force from rho_el and the centred psi difference, and for each species
-// the flux through each of its six faces; the flux through a face is the
-// same expression in the two threads that share it, so they compute the
-// same bits, and nothing is written twice.  The per-block partial sums of
-// the force go to a second one-block launch (reduce_partials_kernel) in a
-// fixed order: fsum is deterministic.  No output double buffer: the DMA
-// race of the TPU kernel (ADVICE.md:3) has no counterpart.  Bound: memory,
-// psi, rho_k, u and the uint8 mask read once, rho'_k and the force
-// written once (45 B/site in f32 with two species).
+// np_gradmu_kernel.  Bound: memory in principle, psi, rho_k, u and the
+// uint8 mask read once, rho'_k and the force written once (45 B/site in
+// f32 with two species).  Each face flux costs an exp and an IEEE
+// division; the first kernel, one thread a site, computed each face in
+// both of its sites (12 exp and 12 divisions a site with two species)
+// and four integer divisions a site for its coordinates, and issued
+// about as many integer as f32 instructions.  The TPU kernel computed
+// each x face once on an x-slab and each y and z face once a window.  So
+// here a block owns a BY x 32 y-z tile (a warp along z, a thread a
+// column) and marches along its x segment: psi, the nk species' rho, u
+// (with hydrodynamics) and the mask are staged plane by plane with a y-z
+// halo of 1, the next plane in flight by cp.async (csrc/k1_march.cuh's
+// helpers); each face is computed once, the +x face carried in a
+// register to the next plane, the +y faces of the tile and of the halo
+// row below it kept in shared memory, the +z faces passed to the next
+// lane by warp shuffle (the halo column's for lane 0 in shared memory):
+// (BX+1)/BX + (BY+1)/BY + 33/32 evaluations a site and species against
+// 6.  The arithmetic and its order are the first kernel's, the face's low
+// site first and div summed x, y, z, so rho' and the force are bitwise
+// its results.  Per-block partial sums of the force go to a second
+// one-block launch (reduce_partials_kernel) in a fixed order: fsum is
+// deterministic for a layout.  No output double buffer: the DMA race of
+// the TPU kernel (ADVICE.md:3) has no counterpart.  What holds the march
+// on an H100 is its instruction stream: an exp and an IEEE division a
+// face (PERF.md).  The tile, segment and threads come from ops/_cuda.py
+// np_layout, which the launch checks; tests/test_torch_np_march.py holds
+// a torch march of the same buffers bitwise the twin on the CPU,
+// chip_smoke.py phases 16 and 18 hold and time the kernel on the card.
 //
 // Site indices are int32 (the wrappers refuse X*Y*Z, and in
 // np_gradmu_kernel max(nk, 3) * X*Y*Z, beyond 2^31 - 1); the grid-stride
@@ -65,6 +83,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "k1_march.cuh"
 #include "reduce.cuh"
 
 namespace cg = cooperative_groups;
@@ -784,7 +803,7 @@ static int launch_sor(const void* psi, void* p0, void* p1, const void* rhs,
                                   : F<float, kSorTwoBuffer>(__VA_ARGS__);   \
   } while (0)
 
-// -- Nernst-Planck + grad-mu ---------------------------------------------------
+// -- Nernst-Planck + grad-mu: an x-march ----------------------------------
 
 template <typename T>
 struct NpParams {
@@ -809,75 +828,305 @@ __device__ __forceinline__ T face_flux(T psi0, T psi1, T n0, T n1, T u0,
   return flx * (m0 * m1);
 }
 
-template <typename T, int HYDRO>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kNpBZ = 32;          // the tile's z extent: one warp
+constexpr int kNpW = kNpBZ + 2;    // a staged row: the tile's and the halo's
+constexpr int kNpSlots = 3;        // staged planes x, x+1, x+2 (in flight)
+constexpr int kNpStagePer = 2;     // staged sites a thread a plane, at most
+
+struct NpGeom {
+  int X, Y, Z;
+  int BX, BY;     // x segment, tile rows (threads = BY x kNpBZ)
+  int nty, ntz;   // tiles along y and z
+};
+
+// One block's shared buffers, in elements of T: kNpSlots staged planes of
+// (BY+2) rows, each row NF fields side by side (psi, the fluid mask as T,
+// with hydrodynamics u_x, u_y, u_z, then rho_0 .. rho_{nk-1}), each field
+// kNpW sites along z; the +y faces of the halo row and of the tile's
+// rows, (BY+1) rows of nk x kNpBZ; the +z faces of the halo column, BY x
+// nk; then the int32 offsets of the staged rows and columns.  A field is
+// a constant offset from a site's base, a row a run-time stride.
+// ops/_cuda.py np_smem_bytes mirrors it.
+struct NpLayout {
+  int FR, NF, RS, PS, fy, fz, total;
+  __host__ __device__ NpLayout(int nk, int hydro, int BY) {
+    FR = hydro ? 5 : 2;
+    NF = FR + nk;
+    RS = NF * kNpW;
+    PS = (BY + 2) * RS;
+    fy = kNpSlots * PS;
+    fz = fy + (BY + 1) * nk * kNpBZ;
+    total = fz + BY * nk;
+  }
+  __host__ __device__ size_t bytes(size_t itemsize, int BY) const {
+    return static_cast<size_t>(total) * itemsize +
+           sizeof(int) * static_cast<size_t>(BY + 2 + kNpW);
+  }
+};
+
+// A block owns a BY x kNpBZ tile of the y-z plane, a thread a column
+// (warp = row, lane = z), and marches over its x segment.  Each face
+// flux is computed once: the +x face of a column in a register, which
+// the next plane takes as its -x face; the +y face of every site (and of
+// the halo row below the tile) into shared memory, where the row above
+// reads it; the +z face by warp shuffle to the next lane (lane 0 reads
+// the halo column's face from shared memory).  The force and rho' keep
+// the old thread-per-site kernel's term order: rho' and the force are
+// bitwise the twin's where that kernel's were.  KMAX is the species the
+// unrolled per-species registers hold (nk <= KMAX).  Sites of a tile
+// beyond the lattice compute on wrapped sites and store nothing.  A
+// thread's staged sites and its own site keep their offsets for the whole
+// march, so a plane costs no index arithmetic beyond its base.  In f32
+// the launch bound asks for two blocks of the most threads an SM, so at
+// most 64 registers a thread: four 8x32 blocks an SM, where the
+// compiler's own choice (84) left two.
+template <typename T, int HYDRO, int KMAX>
+__global__ void __launch_bounds__(k1::MaxThreads<T>::value,
+                                  sizeof(T) == 4 ? 2 : 1)
 np_gradmu_kernel(const T* __restrict__ psi, const T* __restrict__ rho,
                  const T* __restrict__ u, const uint8_t* __restrict__ fluid,
                  T* __restrict__ rho_out, T* __restrict__ force,
-                 T* __restrict__ part, int X, int Y, int Z, NpParams<T> p) {
-  __shared__ T sh[kThreads / 32 + 1];
-  const int nsite = X * Y * Z;
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  T fs[3] = {T(0), T(0), T(0)};
-  if (s < nsite) {
-    const int z = s % Z;
-    const int r = s / Z;
-    const int y = r % Y;
-    const int x = r / Y;
-    const int YZ = Y * Z;
-    // neighbour sites along each axis: minus and plus
-    const int nm[3] = {s + (wrap1(x - 1, X) - x) * YZ,
-                       s + (wrap1(y - 1, Y) - y) * Z, s + wrap1(z - 1, Z) - z};
-    const int np[3] = {s + (wrap1(x + 1, X) - x) * YZ,
-                       s + (wrap1(y + 1, Y) - y) * Z, s + wrap1(z + 1, Z) - z};
-    const T ps = psi[s];
+                 T* __restrict__ part, NpGeom g, NpParams<T> p) {
+  constexpr int FM = kNpW, FU = 2 * kNpW;   // the mask, u_x; psi at 0
+  const int BY = g.BY, nk = p.nk;
+  const NpLayout L(nk, HYDRO, BY);
+  const int RS = L.RS, FR = L.FR * kNpW, NKZ = nk * kNpBZ;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  T* const fy = sm + L.fy;
+  T* const fzh = sm + L.fz;
+  int* const yoff = reinterpret_cast<int*>(sm + L.total);
+  int* const zoff = yoff + BY + 2;
 
-    T re = T(0);
-    for (int k = 0; k < p.nk; ++k) re = re + p.ez[k] * rho[k * nsite + s];
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const T e_a = T(-0.5) * (psi[np[a]] - psi[nm[a]]) * p.kt_e;
-      fs[a] = re * e_a;
-      force[a * nsite + s] = fs[a];
-    }
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  const int ly = tid >> 5, lz = tid & 31;
+  const int b = blockIdx.x;
+  const int tz = b % g.ntz, ty = (b / g.ntz) % g.nty;
+  const int seg = b / (g.ntz * g.nty);
+  const int y0 = ty * BY, z0 = tz * kNpBZ;
+  const int xs = seg * g.BX;
+  const int xe = min(xs + g.BX, g.X);
+  const int plane = g.Y * g.Z, nsite = plane * g.X;
+  const bool inside = y0 + ly < g.Y && z0 + lz < g.Z;
 
-    const T ms = static_cast<T>(fluid[s]);
-    for (int k = 0; k < p.nk; ++k) {
-      const T* rk = rho + k * nsite;
-      const T ns = rk[s];
-      T div = T(0);
+  for (int i = tid; i < BY + 2; i += nthr)
+    yoff[i] = k1::wrap(y0 + i - 1, g.Y) * g.Z;
+  for (int i = tid; i < kNpW; i += nthr) zoff[i] = k1::wrap(z0 + i - 1, g.Z);
+  __syncthreads();
+
+  // the staged sites of this thread: in-plane offset in the lattice and
+  // element offset in a slot (-1: none)
+  int goff[kNpStagePer], soff[kNpStagePer];
 #pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const T* ua = u + a * nsite;   // read only with HYDRO
-        const T us = HYDRO ? ua[s] : T(0);
-        const T up = face_flux<T, HYDRO>(
-            ps, psi[np[a]], ns, rk[np[a]], us, HYDRO ? ua[np[a]] : T(0), ms,
-            static_cast<T>(fluid[np[a]]), p.z[k], p.c[k]);
-        const T dn = face_flux<T, HYDRO>(
-            psi[nm[a]], ps, rk[nm[a]], ns, HYDRO ? ua[nm[a]] : T(0), us,
-            static_cast<T>(fluid[nm[a]]), ms, p.z[k], p.c[k]);
-        const T d = up - dn;
-        div = a == 0 ? d : div + d;
+  for (int j = 0; j < kNpStagePer; ++j) {
+    const int r = tid + j * nthr;
+    const int ry = r / kNpW, rz = r - ry * kNpW;
+    const bool ok = ry < BY + 2;
+    goff[j] = ok ? yoff[ry] + zoff[rz] : 0;
+    soff[j] = ok ? ry * RS + rz : -1;
+  }
+  // planes x in [xs, xe] -> slot (x - xs) % kNpSlots
+  auto slot = [&](int x) -> T* { return sm + ((x - xs) % kNpSlots) * L.PS; };
+  // stage plane x: the fields by cp.async, the mask into registers (the
+  // caller stores them with put_mask once the slot's old mask is read)
+  uint8_t mreg[kNpStagePer];
+  auto stage = [&](int x) {
+    T* const dst = slot(x);
+    const int pb = k1::wrap(x, g.X) * plane;
+#pragma unroll
+    for (int j = 0; j < kNpStagePer; ++j) {
+      if (soff[j] >= 0) {
+        const int o = pb + goff[j];
+        T* const d = dst + soff[j];
+        k1::cp_async(d, psi + o);
+        if (HYDRO) {
+#pragma unroll
+          for (int a = 0; a < 3; ++a)
+            k1::cp_async(d + FU + a * kNpW, u + a * nsite + o);
+        }
+        for (int k = 0; k < nk; ++k)
+          k1::cp_async(d + FR + k * kNpW, rho + k * nsite + o);
+        mreg[j] = fluid[o];
       }
-      const T upd = ns - p.dt * div;
-      rho_out[k * nsite + s] = ms > T(0) ? upd : ns;
+    }
+    k1::cp_commit();
+  };
+  auto put_mask = [&](int x) {
+    T* const dst = slot(x) + FM;
+#pragma unroll
+    for (int j = 0; j < kNpStagePer; ++j)
+      if (soff[j] >= 0) dst[soff[j]] = static_cast<T>(mreg[j]);
+  };
+
+  // prologue: planes xs and xs+1 (xs + 1 <= xe); the -x faces of plane
+  // xs and psi at xs-1, from the column's own sites of plane xs-1
+  stage(xs);
+  put_mask(xs);
+  stage(xs + 1);
+  put_mask(xs + 1);
+  const int c = (ly + 1) * RS + lz + 1;    // the site in a slot
+  const int own = yoff[ly + 1] + zoff[lz + 1];
+  const int om = k1::wrap(xs - 1, g.X) * plane + own;
+  T psi_prev = psi[om];
+  T carry[KMAX];
+  k1::cp_wait_all();
+  __syncthreads();
+  {
+    const T* const s0 = slot(xs) + c;
+    const T mm = static_cast<T>(fluid[om]);
+    const T um = HYDRO ? u[om] : T(0);
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      if (k < nk)
+        carry[k] = face_flux<T, HYDRO>(
+            psi_prev, s0[0], rho[k * nsite + om], s0[FR + k * kNpW], um,
+            HYDRO ? s0[FU] : T(0), mm, s0[FM], p.z[k], p.c[k]);
     }
   }
+
+  T fs[3] = {T(0), T(0), T(0)};
+  for (int x = xs; x < xe; ++x) {
+    // plane x+1 has landed; nobody reads plane x-1's slot or the faces
+    k1::cp_wait_all();
+    __syncthreads();
+    const bool more = x + 2 <= xe;
+    if (more) stage(x + 2);
+    const T* const sc = slot(x) + c;       // the site, plane x
+    const T* const sy = sc + RS;           // its +y neighbour
+    const T* const sn = slot(x + 1) + c;   // its +x neighbour
+    const int s = x * plane + own;
+    const T ps = sc[0];
+
+    // the raw grad-mu force rho_el E, E = -(psi+ - psi-) / 2 kt/e
+    T re = T(0);
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k)
+      if (k < nk) re = re + p.ez[k] * sc[FR + k * kNpW];
+    const T e[3] = {T(-0.5) * (sn[0] - psi_prev) * p.kt_e,
+                    T(-0.5) * (sy[0] - sc[-RS]) * p.kt_e,
+                    T(-0.5) * (sc[1] - sc[-1]) * p.kt_e};
+    if (inside) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const T f = re * e[a];
+        force[a * nsite + s] = f;
+        fs[a] = fs[a] + f;
+      }
+    }
+
+    // each species' +x, +y and +z faces of the site, low site first
+    const T ms = sc[FM];
+    T* const fyt = fy + ly * NKZ + lz;      // row ly: the face below
+    T dx[KMAX], upz[KMAX], dnz[KMAX];
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      if (k < nk) {
+        const int fk = FR + k * kNpW;
+        const T ns = sc[fk];
+        const T upx = face_flux<T, HYDRO>(
+            ps, sn[0], ns, sn[fk], HYDRO ? sc[FU] : T(0),
+            HYDRO ? sn[FU] : T(0), ms, sn[FM], p.z[k], p.c[k]);
+        dx[k] = upx - carry[k];
+        carry[k] = upx;
+        fyt[NKZ + k * kNpBZ] = face_flux<T, HYDRO>(
+            ps, sy[0], ns, sy[fk], HYDRO ? sc[FU + kNpW] : T(0),
+            HYDRO ? sy[FU + kNpW] : T(0), ms, sy[FM], p.z[k], p.c[k]);
+        upz[k] = face_flux<T, HYDRO>(
+            ps, sc[1], ns, sc[fk + 1], HYDRO ? sc[FU + 2 * kNpW] : T(0),
+            HYDRO ? sc[FU + 2 * kNpW + 1] : T(0), ms, sc[FM + 1], p.z[k],
+            p.c[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k)
+      if (k < nk) dnz[k] = __shfl_up_sync(0xffffffffu, upz[k], 1);
+    // the halo's faces: the +y faces of row -1 (threads 0..31), the +z
+    // faces of column -1 (threads 32..32+BY-1)
+    if (tid < kNpBZ + BY) {
+      const bool ry = tid < kNpBZ;
+      const T* const lo = slot(x) + (ry ? tid + 1 : (tid - kNpBZ + 1) * RS);
+      const T* const hi = lo + (ry ? RS : 1);
+      const int fu = FU + (ry ? kNpW : 2 * kNpW);
+      T* const dst = ry ? fy + tid : fzh + (tid - kNpBZ) * nk;
+      const int step = ry ? kNpBZ : 1;
+      for (int k = 0; k < nk; ++k) {
+        const int fk = FR + k * kNpW;
+        dst[k * step] = face_flux<T, HYDRO>(
+            lo[0], hi[0], lo[fk], hi[fk], HYDRO ? lo[fu] : T(0),
+            HYDRO ? hi[fu] : T(0), lo[FM], hi[FM], p.z[k], p.c[k]);
+      }
+    }
+    __syncthreads();
+
+    // div = (up - dn) summed x, y, z; rho' = n - dt div at fluid sites
+#pragma unroll
+    for (int k = 0; k < KMAX; ++k) {
+      if (k < nk) {
+        const T dnzk = lz == 0 ? fzh[ly * nk + k] : dnz[k];
+        T div = dx[k];
+        div = div + (fyt[NKZ + k * kNpBZ] - fyt[k * kNpBZ]);
+        div = div + (upz[k] - dnzk);
+        const T ns = sc[FR + k * kNpW];
+        const T upd = ns - p.dt * div;
+        if (inside) rho_out[k * nsite + s] = ms > T(0) ? upd : ns;
+      }
+    }
+    psi_prev = ps;
+    if (more) put_mask(x + 2);
+  }
+  // the block's partial sums of the force (fy is free as scratch)
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    const T b = block_sum_all(fs[a], sh);
-    if (threadIdx.x == 0) part[a * gridDim.x + blockIdx.x] = b;
+    const T v = block_sum_warps(fs[a], fy, nthr >> 5);
+    if (tid == 0) part[a * gridDim.x + blockIdx.x] = v;
   }
 }
 
+template <typename T, int HYDRO, int KMAX>
+static int launch_np_kmax(const NpGeom& g, int blocks, int threads,
+                          int smem, const NpParams<T>& p, const void* psi,
+                          const void* rho, const void* u, const void* fluid,
+                          void* rho_out, void* force, void* part,
+                          cudaStream_t stream) {
+  auto kernel = np_gradmu_kernel<T, HYDRO, KMAX>;
+  const cudaError_t e = k1::set_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<blocks, threads, smem, stream>>>(
+      static_cast<const T*>(psi), static_cast<const T*>(rho),
+      static_cast<const T*>(u), static_cast<const uint8_t*>(fluid),
+      static_cast<T*>(rho_out), static_cast<T*>(force),
+      static_cast<T*>(part), g, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the kernel instance for nk species: per-species registers for 2, or
+// for kMaxSpecies
+#define NP_DISPATCH(F, T, hydro, nk, ...)                                  \
+  ((hydro) ? ((nk) <= 2 ? F<T, 1, 2>(__VA_ARGS__)                          \
+                        : F<T, 1, kMaxSpecies>(__VA_ARGS__))               \
+           : ((nk) <= 2 ? F<T, 0, 2>(__VA_ARGS__)                          \
+                        : F<T, 0, kMaxSpecies>(__VA_ARGS__)))
+
+// lay = BX, BY, threads, shared bytes, blocks (ops/_cuda.py np_layout):
+// a layout the kernel does not take is refused, never launched; then the
+// one-block sum of the blocks' partials, in one fixed order
 template <typename T>
 static int launch_np(int hydro, const void* psi, const void* rho,
                      const void* u, const void* fluid, void* rho_out,
                      void* force, void* part, void* fsum, int X, int Y,
-                     int Z, int nk, const double* par, cudaStream_t stream) {
-  if (nk < 1 || nk > kMaxSpecies) {
+                     int Z, int nk, const double* par, const int* lay,
+                     cudaStream_t stream) {
+  const int BX = lay[0], BY = lay[1], threads = lay[2], smem = lay[3],
+            blocks = lay[4];
+  const NpGeom g{X, Y, Z, BX, BY, (Y + BY - 1) / BY, (Z + kNpBZ - 1) / kNpBZ};
+  if (nk < 1 || nk > kMaxSpecies || BX < 1 || BY < 1 ||
+      threads != BY * kNpBZ || threads > k1::MaxThreads<T>::value ||
+      (BY + 2) * kNpW > kNpStagePer * threads ||
+      static_cast<size_t>(smem) !=
+          NpLayout(nk, hydro, BY).bytes(sizeof(T), BY) ||
+      static_cast<int64_t>(blocks) !=
+          static_cast<int64_t>(g.nty) * g.ntz * ((X + BX - 1) / BX))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
   NpParams<T> p;
   p.kt_e = static_cast<T>(par[0]);
   p.dt = static_cast<T>(par[1]);
@@ -887,32 +1136,34 @@ static int launch_np(int hydro, const void* psi, const void* rho,
     p.z[k] = static_cast<T>(par[2 + nk + k]);
     p.c[k] = static_cast<T>(par[2 + 2 * nk + k]);
   }
-  const long long nsite = static_cast<long long>(X) * Y * Z;
-  const int blocks = static_cast<int>((nsite + kThreads - 1) / kThreads);
-  if (hydro) {
-    np_gradmu_kernel<T, 1><<<blocks, kThreads, 0, stream>>>(
-        static_cast<const T*>(psi), static_cast<const T*>(rho),
-        static_cast<const T*>(u), static_cast<const uint8_t*>(fluid),
-        static_cast<T*>(rho_out), static_cast<T*>(force),
-        static_cast<T*>(part), X, Y, Z, p);
-  } else {
-    np_gradmu_kernel<T, 0><<<blocks, kThreads, 0, stream>>>(
-        static_cast<const T*>(psi), static_cast<const T*>(rho),
-        static_cast<const T*>(u), static_cast<const uint8_t*>(fluid),
-        static_cast<T*>(rho_out), static_cast<T*>(force),
-        static_cast<T*>(part), X, Y, Z, p);
-  }
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const int rc = NP_DISPATCH(launch_np_kmax, T, hydro, nk, g, blocks,
+                             threads, smem, p, psi, rho, u, fluid, rho_out,
+                             force, part, stream);
+  if (rc != 0) return rc;
   reduce_partials_kernel<T><<<1, kReduceThreads, 0, stream>>>(
       static_cast<const T*>(part), blocks, 3, T(1), static_cast<T*>(fsum));
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int HYDRO, int KMAX>
+static int np_attrs(int device, int threads, int smem, int* out) {
+  return k1::attrs(np_gradmu_kernel<T, HYDRO, KMAX>, device, threads, smem,
+                   out);
+}
+
 extern "C" {
 
-int lb_np_blocks(long long nsite) {
-  return static_cast<int>((nsite + kThreads - 1) / kThreads);
+// out[0..4): the registers a thread of the instance for nk species,
+// (threads > 0) the blocks an SM the card keeps resident with `smem`
+// bytes each, the card's multiprocessors and shared-memory opt-in
+int lb_np_attrs(int is_f64, int hydro, int nk, int device, int threads,
+                int smem, int* out) {
+  if (nk < 1 || nk > kMaxSpecies)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return is_f64 ? NP_DISPATCH(np_attrs, double, hydro, nk, device, threads,
+                              smem, out)
+                : NP_DISPATCH(np_attrs, float, hydro, nk, device, threads,
+                              smem, out);
 }
 
 int lb_electro_device_info(int device, int* sms, int* smem_optin) {
@@ -946,17 +1197,21 @@ int lb_sor_solve(int is_f64, int route, const void* psi, void* p0, void* p1,
                rstats, grid, smem, par, ipar, s);
 }
 
+// par = [kt/e, dt, e z_k..., z_k..., -D_k/2...]; lay = BX, BY, threads,
+// shared bytes, blocks (ops/_cuda.py np_layout); part holds 3 x blocks
 int lb_np_gradmu(int is_f64, int hydro, const void* psi, const void* rho,
                  const void* u, const void* fluid, void* rho_out, void* force,
                  void* part, void* fsum, int X, int Y, int Z, int nk,
-                 const double* par, void* stream, int device) {
+                 const double* par, const int* lay, void* stream,
+                 int device) {
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_f64 ? launch_np<double>(hydro, psi, rho, u, fluid, rho_out,
-                                    force, part, fsum, X, Y, Z, nk, par, s)
+                                    force, part, fsum, X, Y, Z, nk, par, lay,
+                                    s)
                 : launch_np<float>(hydro, psi, rho, u, fluid, rho_out, force,
-                                   part, fsum, X, Y, Z, nk, par, s);
+                                   part, fsum, X, Y, Z, nk, par, lay, s);
 }
 
 }  // extern "C"

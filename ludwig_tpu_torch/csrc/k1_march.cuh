@@ -1,13 +1,16 @@
-// The x-march shared by the liquid-crystal and droplet K1 kernels
-// (csrc/lc_q.cu, csrc/droplet.cu) on Hopper (sm_90a).
+// The x-march shared by the three K1 kernels on Hopper (sm_90a): the
+// binary fluid's (csrc/binary_phi.cu), the liquid crystal's
+// (csrc/lc_q.cu) and the LC droplet's (csrc/droplet.cu).
 //
 // A block owns a BY x BZ column of the y-z plane (BZ = 32, a warp along
 // z) and a segment of BX x-planes, and marches along x.  What a site
-// update reads (the traces of ops/fused_lc.py _lc_site and
-// ops/fused_droplet.py _droplet_site, ops/_cuda.py k1_reads): the staged
-// fields (q5, and phi for the droplet) and u within one site, the level-1
+// update reads (the traces of ops/fused_binary.py _binary_site,
+// ops/fused_lc.py _lc_site and ops/fused_droplet.py _droplet_site,
+// ops/_cuda.py k1_reads): the staged fields (phi for the binary fluid,
+// q5, phi and q5 for the droplet) and u within one site, the level-1
 // stress pth[a][b] only at +-e_b, the level-1 mu at the six neighbours
-// and the site itself, and the site's own molecular field h.  So a block
+// and the site itself (binary, droplet), and the site's own molecular
+// field h (LC, droplet; the binary fluid has none, NH = 0).  So a block
 // keeps in shared memory:
 //   - the staged fields' planes x-1 .. x+3 with a y-z halo of 2 (five
 //     slots; plane x+3 is in flight, by cp.async, while plane x computes);
@@ -15,7 +18,8 @@
 //   - a ring of pth[:,0] (3 components) on the tile, planes x-1 .. x+1,
 //     and of mu on the tile and its y-z faces (droplet);
 //   - for planes x and x+1: pth[:,1] on the tile and its two y faces,
-//     pth[:,2] on the tile and its two z faces, and h on the tile.
+//     pth[:,2] on the tile and its two z faces, and h on the tile (no
+//     buffer where NH = 0).
 // Every buffer is laid out row by row (y), the components of a row side
 // by side, z fastest: with BZ fixed at compile time every neighbour a
 // site reads is a constant offset from one base address a plane.
@@ -34,9 +38,15 @@
 // and store nothing.  The layout (tile, segment, threads, shared bytes)
 // is chosen in Python (ops/_cuda.py k1_layout); Layout below is its
 // count of the shared buffers, which k1_buffers mirrors.  The host side
-// both kernels share (the launch bounds, the refusal of a layout the
+// the kernels share (the launch bounds, the refusal of a layout the
 // kernel does not take, the launch, the attribute query) lives here too:
 // each .cu keeps its kernel body and its extern "C" shims.
+//
+// What bounds it differs by kernel: the LC and droplet marches are held
+// by their instruction stream (thousands of generated operations a
+// site); the binary march moves 32 B a site against about 150 generated
+// operations and is held by its loads (device memory, and the staged
+// halo's reloads from L2).
 
 #pragma once
 
@@ -300,7 +310,7 @@ __device__ __forceinline__ void march(const Geom& g, const T* const* src,
         const T* bs = dx < 0 ? bm : (dx > 0 ? bp : bc);
         return bs[dy * ROW2 + comp * W2 + dz];
       };
-      T mu[1], pth[9], h[NH];
+      T mu[1], pth[9], h[NH > 0 ? NH : 1];
       level1(F, mu, pth, h);
       if (cls == 0) {
 #pragma unroll
@@ -316,9 +326,11 @@ __device__ __forceinline__ void march(const Geom& g, const T* const* src,
         for (int a = 0; a < 3; ++a)
           rz[ly * 3 * W1 + a * W1 + lz + 1] = pth[3 * a + 2];
       }
-      if (cross && cls == 0) {
+      if constexpr (NH > 0) {
+        if (cross && cls == 0) {
 #pragma unroll
-        for (int k = 0; k < NH; ++k) rh[ly * NH * BZ + k * BZ + lz] = h[k];
+          for (int k = 0; k < NH; ++k) rh[ly * NH * BZ + k * BZ + lz] = h[k];
+        }
       }
       if (HAS_MU) rmu[(ly + 1) * W1 + lz + 1] = mu[0];
     }

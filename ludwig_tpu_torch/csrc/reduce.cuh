@@ -11,10 +11,10 @@
 
 constexpr int kReduceThreads = 256;
 
-// Sum of v over the block (blockDim.x == NT), in every thread.  sh holds
-// NT / 32 + 1 values.
-template <typename T, int NT = kReduceThreads>
-__device__ __forceinline__ T block_sum_all(T v, T* sh) {
+// Sum of v over a block of nw whole warps, in every thread.  sh holds
+// nw + 1 values.
+template <typename T>
+__device__ __forceinline__ T block_sum_warps(T v, T* sh, int nw) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -23,11 +23,18 @@ __device__ __forceinline__ T block_sum_all(T v, T* sh) {
   __syncthreads();
   if (threadIdx.x == 0) {
     T s = sh[0];
-    for (int w = 1; w < NT / 32; ++w) s += sh[w];
-    sh[NT / 32] = s;
+    for (int w = 1; w < nw; ++w) s += sh[w];
+    sh[nw] = s;
   }
   __syncthreads();
-  return sh[NT / 32];
+  return sh[nw];
+}
+
+// Sum of v over the block (blockDim.x == NT), in every thread.  sh holds
+// NT / 32 + 1 values.
+template <typename T, int NT = kReduceThreads>
+__device__ __forceinline__ T block_sum_all(T v, T* sh) {
+  return block_sum_warps(v, sh, NT / 32);
 }
 
 // Sum of part[0..n) in a fixed order, in every thread of the block

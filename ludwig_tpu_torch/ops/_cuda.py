@@ -6,10 +6,10 @@ inside the package, and ``ctypes`` loads them: ``csrc/fused_lb.cu`` once
 per velocity set (the collide+stream kernels), ``csrc/binary_phi.cu``
 once (the binary fluid's order-parameter kernel), ``csrc/lc_q.cu`` once
 (the liquid crystal's Q-tensor kernel), ``csrc/droplet.cu`` once (the LC
-droplet's coupled phi + Q kernel; both march along x with
-``csrc/k1_march.cuh`` on the layout ``k1_layout`` picks),
-``csrc/electro.cu`` once (the SOR
-Poisson solve and the Nernst-Planck + grad-mu kernel),
+droplet's coupled phi + Q kernel; the three K1 kernels march along x
+with ``csrc/k1_march.cuh`` on the layout ``k1_layout`` picks),
+``csrc/electro.cu`` once (the SOR Poisson solve and the Nernst-Planck +
+grad-mu kernel, an x-march on the layout ``np_layout`` picks),
 ``csrc/stats_ref.cu`` once (the reference-ordered statistics scans).
 Nothing is built or loaded when the module is imported, so the CPU tests
 import it freely.
@@ -351,53 +351,65 @@ def _antipode_source(model) -> str:
         f"  return {chain}{rev[-1]};", "}", ""])
 
 
-def _binary_trace(order: int, level1_once: bool = False):
-    """Trace of one site of the binary order-parameter update.  Loads are
-    P(dx, dy, dz) (phi) and U(a, dx, dy, dz) (u_a) at offsets; the
-    constants are p.<name> of ops/fused_binary._Consts.  With
-    level1_once the six neighbours' level-1 values are loads too, which
-    leaves the operations an implementation computing each site's
-    level-1 values once would do (the bound's operation count)."""
+@functools.lru_cache(maxsize=None)
+def _binary_trace():
+    """(level-1 trace, its tail, {order: (site trace, its tail)}) of the
+    binary order-parameter kernel.  The level-1 function loads P(dx, dy,
+    dz) (phi, 7-point footprint) and stores mu[0] and pth[9] of one site;
+    the site functions (one per advection order) load P, U(a, ...), the
+    neighbours' S(a, b, ...) and MU(...), and store out[0] = phi',
+    out[1..4) = the force.  The constants are p.<name> of
+    ops/fused_binary._Consts."""
     from ludwig_tpu_torch.ops import fused_binary as fb
 
-    tr = _Trace()
-    load = tr.load
+    def consts(tr):
+        return fb._Consts(*(_Sym(tr, f"p.{k}") for k in fb._Consts._fields))
 
-    def P(*o):
-        return load(f"P({o[0]}, {o[1]}, {o[2]})")
+    tr1 = _Trace()
+    load = _loader(tr1)
+    mu, pth = fb._level1_march(lambda *o: load("P", *o), consts(tr1))
+    tail1 = [f"  mu[0] = {mu.name};"] + [
+        f"  pth[{3 * a + b}] = {pth[a][b].name};"
+        for a in range(3) for b in range(3)]
+    def site(order):
+        tr = _Trace()
+        load = _loader(tr)
 
-    def U(a, *o):
-        return load(f"U({a}, {o[0]}, {o[1]}, {o[2]})")
+        def select(x, p, q):
+            return tr.op(f"sel({x.name}, {tr.lit(p)}, {tr.lit(q)})")
 
-    def L1(o):
-        if level1_once and o != (0, 0, 0):
-            n = "_".join(str(v) for v in o)
-            return (P(*o), [load(f"g{a}_{n}") for a in range(3)],
-                    load(f"mu_{n}"), load(f"p0_{n}"))
-        return fb._level1(P, o, c)
+        phinew, force = fb._binary_site(
+            lambda *o: load("P", *o), lambda *a: load("U", *a),
+            lambda *a: load("S", *a), lambda *o: load("MU", *o), consts(tr),
+            order, select)
+        return tr, [f"  out[0] = {phinew.name};"] + [
+            f"  out[{1 + a}] = {force[a].name};" for a in range(3)]
 
-    def select(x, p, q):
-        return tr.op(f"sel({x.name}, {tr.lit(p)}, {tr.lit(q)})")
-
-    c = fb._Consts(*(_Sym(tr, f"p.{k}") for k in fb._Consts._fields))
-    phinew, force = fb._binary_site(L1, U, c, order, select)
-    outs = [f"  out[0] = {phinew.name};"] + [
-        f"  out[{1 + a}] = {force[a].name};" for a in range(3)]
-    return tr, outs
+    return tr1, tail1, {order: site(order) for order in (1, 2)}
 
 
 def generate_binary_header() -> str:
-    """binary_generated.h: binary_site_o1 / _o2, one site of K1 for each
-    advection order."""
+    """binary_generated.h: binary_level1 (mu and stress of one site) and
+    binary_site_o1 / _o2 (phi' and the force, one per advection
+    order)."""
+    for order in (1, 2):
+        k1_check_reads(BINARY_KERNEL, order)
+    tr1, tail1, sites = _binary_trace()
     parts = ["// Generated by ludwig_tpu_torch/ops/_cuda.py from "
              "ops/fused_binary.py; do not edit.", "#pragma once", ""]
-    for order in (1, 2):
-        tr, outs = _binary_trace(order)
+    parts.append("\n".join(
+        ["template <typename T, typename LP>",
+         "__device__ __forceinline__ void binary_level1(const LP& P, "
+         "const BinParams<T>& p, T* mu, T* pth) {"]
+        + tr1.lines + tail1 + ["}", ""]))
+    for order, (tr2, tail2) in sites.items():
         parts.append("\n".join(
-            ["template <typename T, typename LP, typename LU>",
+            ["template <typename T, typename LP, typename LU, typename LS, "
+             "typename LM>",
              f"__device__ __forceinline__ void binary_site_o{order}("
-             "const LP& P, const LU& U, const BinParams<T>& p, T* out) {"]
-            + tr.lines + outs + ["}", ""]))
+             "const LP& P, const LU& U, const LS& S, const LM& MU, "
+             "const BinParams<T>& p, T* out) {"]
+            + tr2.lines + tail2 + ["}", ""]))
     return "\n".join(parts)
 
 
@@ -655,7 +667,7 @@ def site_ops(kernel: str, nvel: int = 19, order: int = 2,
     the counter hash), the M10 collision with a per-site force
     (fused_force_step, plus the three additions of a non-zero global
     force at most), or the binary
-    site update with level-1 values computed once per site
+    site update with one level-1 evaluation per site
     (binary_phi_force_step), or the liquid-crystal update, likewise with
     one level-1 evaluation per site and the free energy in its factored
     form (lc_q_force_step), or the droplet update, with one level-1
@@ -671,7 +683,8 @@ def site_ops(kernel: str, nvel: int = 19, order: int = 2,
     if kernel == "fused_force_step":
         return _collide_trace(nvel, True, True, site_force=True)[0].nops + 3
     if kernel == "binary_phi_force_step":
-        return _binary_trace(order, level1_once=True)[0].nops
+        tr1, _t1, sites = _binary_trace()
+        return tr1.nops + sites[order][0].nops
     if kernel == "lc_q_force_step":
         tr1, _t1, tr2, _t2, _c = _lc_trace(factored=True)
         return tr1.nops + tr2.nops
@@ -777,9 +790,12 @@ def _bind_droplet(path: Path):
 def _bind_binary(path: Path):
     lib = ctypes.CDLL(str(path))
     vp, ci = ctypes.c_void_p, ctypes.c_int
+    ip = ctypes.POINTER(ci)
+    lib.lb_binary_attrs.argtypes = [ci, ci, ci, ci, ci, ip]
+    lib.lb_binary_attrs.restype = ci
     lib.lb_binary_phi_force.argtypes = [
         ci, ci, vp, vp, vp, vp, ci, ci, ci, ctypes.POINTER(ctypes.c_double),
-        vp, ci]
+        ip, vp, ci]
     lib.lb_binary_phi_force.restype = ci
     return lib
 
@@ -789,8 +805,8 @@ def _bind_electro(path: Path):
     vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     dp = ctypes.POINTER(ctypes.c_double)
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.lb_np_blocks.argtypes = [cll]
-    lib.lb_np_blocks.restype = ci
+    lib.lb_np_attrs.argtypes = [ci, ci, ci, ci, ci, ci, ip]
+    lib.lb_np_attrs.restype = ci
     lib.lb_electro_device_info.argtypes = [ci, ip, ip]
     lib.lb_electro_device_info.restype = ci
     lib.lb_sor_grid.argtypes = [ci, ci, ci, cll, ci, ip]
@@ -799,7 +815,7 @@ def _bind_electro(path: Path):
                                  ci, ci, dp, ip, vp, ci]
     lib.lb_sor_solve.restype = ci
     lib.lb_np_gradmu.argtypes = [ci, ci, vp, vp, vp, vp, vp, vp, vp, vp, ci,
-                                 ci, ci, ci, dp, vp, ci]
+                                 ci, ci, ci, dp, ip, vp, ci]
     lib.lb_np_gradmu.restype = ci
     return lib
 
@@ -998,13 +1014,15 @@ def fused_force_step(f: torch.Tensor, force: torch.Tensor, model, params):
 
 
 def binary_phi_force_step(phi: torch.Tensor, u: torch.Tensor, consts,
-                          order: int):
-    """Launch the binary order-parameter kernel; returns (phi', force).
-    `consts` is ops/fused_binary._Consts of Python floats; the caller has
-    checked shapes, dtypes and contiguity."""
+                          order: int, plan=None):
+    """Launch the binary order-parameter kernel on the layout k1_layout_on
+    picks (or the K1Plan `plan`); returns (phi', force).  `consts` is
+    ops/fused_binary._Consts of Python floats; the caller has checked
+    shapes, dtypes, contiguity and the order."""
     _check_cuda_state(phi)
     lib = _get_lib(BINARY_LIB)
     par = (ctypes.c_double * len(consts))(*(float(v) for v in consts))
+    lay = k1_layout_on(phi, BINARY_KERNEL, order=order, plan=plan)
     phi_out = torch.empty_like(phi)
     force = torch.empty_like(u)
     X, Y, Z = phi.shape
@@ -1012,8 +1030,9 @@ def binary_phi_force_step(phi: torch.Tensor, u: torch.Tensor, consts,
     rc = lib.lb_binary_phi_force(int(phi.dtype == torch.float64), order,
                                  phi.data_ptr(), u.data_ptr(),
                                  phi_out.data_ptr(), force.data_ptr(), X, Y,
-                                 Z, par, stream, phi.device.index)
-    _raise_on(rc, "binary_phi_force_step")
+                                 Z, par, lay.c_args(), stream,
+                                 phi.device.index)
+    _raise_on(rc, f"binary_phi_force_step ({lay})")
     launches.binary_phi_force_step += 1
     return phi_out, force
 
@@ -1268,21 +1287,22 @@ def sor_solve(psi: torch.Tensor, rhs: torch.Tensor, om_tab: torch.Tensor,
 
 
 def np_gradmu(psi: torch.Tensor, rho: torch.Tensor, u, fluid: torch.Tensor,
-              ez, z, c, kt_e: float, dt: float):
-    """Launch the Nernst-Planck + grad-mu kernel, then the one-block sum
-    of the force; returns (rho', force, fsum).  ez, z, c are per-species
-    e z_k, z_k and -D_k/2; u is None without advection.  The caller
-    (ops/fused_electro.py) has checked shapes, dtypes, devices and the
-    int32 index range."""
+              ez, z, c, kt_e: float, dt: float, plan=None):
+    """Launch the Nernst-Planck + grad-mu x-march on the layout
+    np_layout_on picks (or the NpPlan `plan`), then the one-block sum of
+    its blocks' partial forces; returns (rho', force, fsum).  ez, z, c are
+    per-species e z_k, z_k and -D_k/2; u is None without advection.  The
+    caller (ops/fused_electro.py) has checked shapes, dtypes, devices and
+    the int32 index range."""
     _check_cuda_state(psi)
     lib = _get_lib(ELECTRO_LIB)
     X, Y, Z = psi.shape
     nk = rho.shape[0]
-    blocks = lib.lb_np_blocks(X * Y * Z)
+    lay = np_layout_on(psi, nk, u is not None, plan)
     rho_out = torch.empty_like(rho)
     force = torch.empty((3,) + tuple(psi.shape), dtype=psi.dtype,
                         device=psi.device)
-    part = torch.empty(3 * blocks, dtype=psi.dtype, device=psi.device)
+    part = torch.empty(3 * lay.blocks, dtype=psi.dtype, device=psi.device)
     fsum = torch.empty(3, dtype=psi.dtype, device=psi.device)
     vals = [kt_e, dt, *ez, *z, *c]
     par = (ctypes.c_double * len(vals))(*vals)
@@ -1292,8 +1312,8 @@ def np_gradmu(psi: torch.Tensor, rho: torch.Tensor, u, fluid: torch.Tensor,
         rho.data_ptr(), (psi if u is None else u).data_ptr(),
         fluid.view(torch.uint8).data_ptr(), rho_out.data_ptr(),
         force.data_ptr(), part.data_ptr(), fsum.data_ptr(), X, Y, Z, nk, par,
-        stream, psi.device.index)
-    _raise_on(rc, "np_gradmu")
+        lay.c_args(), stream, psi.device.index)
+    _raise_on(rc, f"np_gradmu ({lay})")
     launches.np_gradmu += 1
     return rho_out, force, fsum
 
@@ -1436,8 +1456,9 @@ def fusedn_step(f: torch.Tensor, model, params, nsteps: int, plan,
     return out
 
 
-# -- the K1 x-march of the liquid crystal and the droplet -----------------------
+# -- the K1 x-march of the binary fluid, the liquid crystal and the droplet
 
+BINARY_KERNEL = "binary_phi_force_step"
 LC_KERNEL = "lc_q_force_step"
 DROPLET_KERNEL = "droplet_phi_q_force_step"
 # slots of the march's shared buffers (csrc/k1_march.cuh): the staged
@@ -1460,7 +1481,10 @@ def k1_reads(kernel: str, order: int = 1, level1: bool = False) -> dict:
     `level1`, one level-1 evaluation), from the traces the kernel's code
     is generated from: S(a, b, dx, dy, dz), MU(dx, dy, dz), Q(n, dx, dy,
     dz), P(dx, dy, dz), U(a, dx, dy, dz), H(n) or H(b, c)."""
-    if kernel == LC_KERNEL:
+    if kernel == BINARY_KERNEL:
+        tr1, _t1, sites = _binary_trace()
+        tr2 = sites[order][0]
+    elif kernel == LC_KERNEL:
         tr1, _t1, tr2, _t2, _c = _lc_trace()
     elif kernel == DROPLET_KERNEL:
         tr1, _t1, sites, _c = _droplet_trace()
@@ -1503,7 +1527,7 @@ def k1_buffers(kernel: str, BY: int, BZ: int) -> dict:
     components (those level 1 loads) with a halo of level 1's reach plus
     the stress's, u with the site's reach, the stress components read
     across x and across the y and z faces, mu where it is read at the
-    neighbours, and the components of h."""
+    neighbours, and the components of h (none for the binary fluid)."""
     site, lvl = k1_reads(kernel), k1_reads(kernel, level1=True)
     staged = len({a[0] for a in lvl.get("Q", ())}) + ("P" in lvl)
     reach = max(max(map(abs, a[-3:])) for v in lvl.values() for a in v)
@@ -1519,7 +1543,7 @@ def k1_buffers(kernel: str, BY: int, BZ: int) -> dict:
         "pth_x": K1_RING * len(across[0]) * ni,
         "pth_yz": K1_BUFS * (len(across[1]) * (BY + 2) * BZ
                              + len(across[2]) * BY * (BZ + 2)),
-        "h": K1_BUFS * len(site["H"]) * ni,
+        "h": K1_BUFS * len(site.get("H", ())) * ni,
         "mu": K1_RING * plane_u if "MU" in site else 0}
 
 
@@ -1534,12 +1558,14 @@ def k1_blocks_per_sm(smem: int, threads: int, regs: int,
                      optin: int = None) -> int:
     """Blocks an SM keeps resident: the least of what its shared memory
     (the opt-in plus one reserve, less a reserve a block), its registers
-    (allocated per warp in units of 256) and its threads allow."""
+    (allocated per warp in units of 256, from the register file of one of
+    the SM's four schedulers, which holds a quarter of them) and its
+    threads allow."""
     optin = SMEM_OPTIN_H100 if optin is None else optin
     by_smem = (optin + SM_RESERVED) // (smem + SM_RESERVED)
     warps = -(-threads // 32)
     warp_regs = -(-regs * 32 // 256) * 256
-    by_regs = (SM_REGS // warp_regs) // warps
+    by_regs = 4 * (SM_REGS // 4 // warp_regs) // warps
     return min(by_smem, by_regs, SM_THREADS // threads, SM_BLOCKS)
 
 
@@ -1567,8 +1593,11 @@ class K1Plan:
 # the default plan of each kernel and itemsize: the least time at 128^3
 # plus 256^3 f32 on an H100 among the plans chip_smoke.py phases 12 and
 # 15 time (K1_PLANS there), LC one 16x32 block of 512 threads an SM,
-# droplet two 8x32 blocks of 256; f64 8x32 (what fits)
-K1_DEFAULT = {(LC_KERNEL, 4): K1Plan(16, 512),
+# droplet two 8x32 blocks of 256; binary the least time at 256^3 f32 (its
+# main path's size) among the plans phase 9 times; f64 8x32 (what fits)
+K1_DEFAULT = {(BINARY_KERNEL, 4): K1Plan(8, 128),
+              (BINARY_KERNEL, 8): K1Plan(8, 256),
+              (LC_KERNEL, 4): K1Plan(16, 512),
               (LC_KERNEL, 8): K1Plan(8, 256),
               (DROPLET_KERNEL, 4): K1Plan(8, 256),
               (DROPLET_KERNEL, 8): K1Plan(8, 256)}
@@ -1646,6 +1675,9 @@ def k1_site_ops(kernel: str, evals_per_site: float, order: int = 1) -> float:
     level-1 evaluation times the evaluations a site, plus the site
     update (the issue floor's count: the kernel's own term order, none
     of it fused)."""
+    if kernel == BINARY_KERNEL:
+        tr1, _t1, sites = _binary_trace()
+        return tr1.nops * evals_per_site + sites[order][0].nops
     if kernel == LC_KERNEL:
         tr1, _t1, tr2, _t2, _c = _lc_trace()
         return tr1.nops * evals_per_site + tr2.nops
@@ -1660,7 +1692,10 @@ def _k1_attrs(kernel: str, is_f64: bool, order: int, dev: int,
     `threads` and `smem` (0 without), SMs, shared opt-in) of the K1
     kernel."""
     out = (ctypes.c_int * 4)()
-    if kernel == LC_KERNEL:
+    if kernel == BINARY_KERNEL:
+        rc = _get_lib(BINARY_LIB).lb_binary_attrs(int(is_f64), order, dev,
+                                                  threads, smem, out)
+    elif kernel == LC_KERNEL:
         rc = _get_lib(LC_LIB).lb_lc_attrs(int(is_f64), dev, threads, smem,
                                           out)
     else:
@@ -1691,4 +1726,163 @@ def k1_occupancy(x: torch.Tensor, kernel: str, lay: K1Layout,
     for the layout): the card's own count beside lay.blocks_per_sm."""
     a = _k1_attrs(kernel, x.dtype == torch.float64, order, x.device.index,
                   lay.threads, lay.smem)
+    return a[0], a[1]
+
+
+# -- the Nernst-Planck x-march -----------------------------------------------
+
+NP_BZ = 32              # the tile's z extent, fixed in csrc/electro.cu
+NP_SLOTS = 3            # staged planes x, x+1, x+2 (in flight)
+NP_STAGE_PER = 2        # staged sites a thread a plane (kNpStagePer)
+NP_MAX_SPECIES = 8      # csrc/electro.cu kMaxSpecies
+# the kernel's launch bounds: 512 threads and two blocks an SM in f32 (64
+# registers a thread), 256 threads in f64
+NP_MAX_REGS = {4: 64, 8: 255}
+
+
+@dataclasses.dataclass(frozen=True)
+class NpPlan:
+    """The tile's rows BY of the NP x-march (its z extent is NP_BZ, a
+    thread a column: BY x NP_BZ threads); the x segment BX, or None for
+    the longest that keeps every SM busy in one wave.  BY >= 3: a thread
+    stages at most NP_STAGE_PER sites of the tile and its halo."""
+    BY: int = 8
+    BX: object = None
+
+
+# the default plan of each itemsize: the least time at 128^3 plus 256^3
+# f32 on an H100 among the plans chip_smoke.py phase 18 times (NP_PLANS
+# there); f64 the same tile
+NP_DEFAULT = {4: NpPlan(8), 8: NpPlan(8)}
+
+
+@dataclasses.dataclass(frozen=True)
+class NpLayout:
+    """The NP march's launch: x segment BX, y-z tile BY x NP_BZ, threads
+    and shared bytes a block, blocks an SM and in all, waves and face
+    flux evaluations a lattice site and species."""
+    BX: int
+    BY: int
+    threads: int
+    smem: int
+    blocks_per_sm: int
+    blocks: int
+    waves: float
+    faces_per_site: float
+
+    def c_args(self):
+        return (ctypes.c_int * 5)(self.BX, self.BY, self.threads, self.smem,
+                                  self.blocks)
+
+    def __str__(self):
+        return (f"{self.BY}x{NP_BZ} tile, BX {self.BX}, {self.threads} "
+                f"threads, {self.smem} B, {self.blocks_per_sm}/SM, "
+                f"{self.blocks} blocks, {self.waves:.2f} waves, "
+                f"{self.faces_per_site:.4f} face fluxes a site and species")
+
+
+def np_smem_bytes(nk: int, hydro: bool, BY: int, itemsize: int) -> int:
+    """Shared bytes of one NP block (csrc/electro.cu NpLayout): NP_SLOTS
+    staged planes of psi, the mask, u (with hydrodynamics) and the nk rho
+    on (BY + 2) x (NP_BZ + 2) sites, the +y faces of nk species on BY + 1
+    rows, the halo column's +z faces, then the int32 offsets of the staged
+    rows and columns."""
+    nf = 2 + nk + (3 if hydro else 0)
+    elems = (NP_SLOTS * nf * (BY + 2) * (NP_BZ + 2)
+             + nk * ((BY + 1) * NP_BZ + BY))
+    return itemsize * elems + 4 * (BY + 2 + NP_BZ + 2)
+
+
+def np_faces(shape, BX: int, BY: int) -> int:
+    """Face flux evaluations of one launch, a species: per tile and
+    segment the -x face of its first plane, then per plane the tile's +x,
+    +y and +z faces, the +y faces of the halo row and the +z faces of the
+    halo column (tiles overhanging the lattice included)."""
+    X, Y, Z = shape
+    ntiles = -(-Y // BY) * -(-Z // NP_BZ)
+    tile = BY * NP_BZ
+    per = sum(tile + min(BX, X - xs) * (3 * tile + NP_BZ + BY)
+              for xs in range(0, X, BX))
+    return ntiles * per
+
+
+def np_layout(shape, nk: int, hydro: bool, itemsize: int, sms: int,
+              optin: int = SMEM_OPTIN_H100, regs=None,
+              plan=None) -> NpLayout:
+    """The NP march's layout for nk species on a lattice of `shape`, on a
+    card with `sms` multiprocessors and `optin` shared bytes a block, the
+    kernel taking `regs` registers a thread (None: its launch bound's
+    cap, NP_MAX_REGS).  The tile is `plan`'s, or NP_DEFAULT's; x is cut
+    into segments as k1_layout cuts it (one wave), or of `plan`'s BX.
+    Raises on what
+    the kernel does not take: nk outside 1..NP_MAX_SPECIES, a block of
+    more threads than its launch bound or too few to stage the tile and
+    its halo, buffers beyond the opt-in."""
+    X, Y, Z = (int(v) for v in shape)
+    if not 1 <= nk <= NP_MAX_SPECIES:
+        raise ValueError(f"np_gradmu kernel takes 1 to {NP_MAX_SPECIES} "
+                         f"species, got {nk}")
+    maxt = K1_MAX_THREADS[itemsize]
+    regs = NP_MAX_REGS[itemsize] if regs is None else int(regs)
+    chosen = plan if plan is not None else NP_DEFAULT[itemsize]
+    by = int(chosen.BY)
+    threads = by * NP_BZ
+    if threads > maxt or (by + 2) * (NP_BZ + 2) > NP_STAGE_PER * threads:
+        raise ValueError(f"np_gradmu: no {by}x{NP_BZ} tile (a thread a "
+                         f"column, at most {maxt} threads, each staging at "
+                         f"most {NP_STAGE_PER} sites: BY >= 3)")
+    smem = np_smem_bytes(nk, hydro, by, itemsize)
+    bps = k1_blocks_per_sm(smem, threads, regs, optin)
+    if smem > optin or bps < 1:
+        raise ValueError(f"np_gradmu: a {by}x{NP_BZ} tile of {nk} species "
+                         f"takes {smem} B of shared memory; the card gives "
+                         f"{optin} B a block")
+    ntiles = -(-Y // by) * -(-Z // NP_BZ)
+    if chosen.BX is not None:
+        bx = min(int(chosen.BX), X)
+        if bx < 1:
+            raise ValueError(f"np_gradmu: segment BX {chosen.BX}")
+    else:
+        bx = -(-X // min(X, max(1, sms * bps // ntiles)))
+    blocks = ntiles * -(-X // bx)
+    if blocks > INT32_MAX:
+        raise ValueError(f"np_gradmu: {blocks} blocks")
+    return NpLayout(bx, by, threads, smem, bps, blocks, blocks / (sms * bps),
+                    np_faces((X, Y, Z), bx, by) / (X * Y * Z))
+
+
+@functools.lru_cache(maxsize=64)
+def _np_attrs(is_f64: bool, hydro: bool, nk: int, dev: int,
+              threads: int = 0, smem: int = 0):
+    """(registers a thread, blocks an SM the card keeps resident with
+    `threads` and `smem` (0 without), SMs, shared opt-in) of the NP
+    kernel's instance for nk species."""
+    out = (ctypes.c_int * 4)()
+    _raise_on(_get_lib(ELECTRO_LIB).lb_np_attrs(
+        int(is_f64), int(hydro), nk, dev, threads, smem, out),
+        "np_gradmu attributes")
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=64)
+def _np_layout_on(shape, nk, hydro, itemsize, is_f64, dev, plan):
+    regs, _b, sms, optin = _np_attrs(is_f64, hydro, nk, dev)
+    return np_layout(shape, nk, hydro, itemsize, sms, optin, regs, plan)
+
+
+def np_layout_on(psi: torch.Tensor, nk: int, hydro: bool, plan=None):
+    """np_layout for the field psi on its card, with the card's SMs and
+    opt-in and the kernel's registers."""
+    _check_cuda_state(psi)
+    return _np_layout_on(tuple(psi.shape), nk, bool(hydro),
+                         psi.element_size(), psi.dtype == torch.float64,
+                         psi.device.index, plan)
+
+
+def np_occupancy(psi: torch.Tensor, nk: int, hydro: bool,
+                 lay: NpLayout) -> tuple:
+    """(registers a thread, blocks an SM the card's occupancy query gives
+    for the layout): the card's own count beside lay.blocks_per_sm."""
+    a = _np_attrs(psi.dtype == torch.float64, bool(hydro), nk,
+                  psi.device.index, lay.threads, lay.smem)
     return a[0], a[1]

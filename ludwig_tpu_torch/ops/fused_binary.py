@@ -17,11 +17,13 @@ the start), so K1 runs first.  Tensors are unpadded: phi (X, Y, Z),
 u and force (3, X, Y, Z), f (nvel, X, Y, Z); periodicity is index
 arithmetic.
 
-The arithmetic of one site is written once, below, as Python over
-neighbour accessors.  The twin evaluates it on whole tensors (the
-level-1 fields once, then rolled; a roll is exact, so this equals
-recomputing them per neighbour); ops/_cuda.py traces it with symbols
-into the kernel's straight-line C++.  Both follow the Pallas kernel's
+The arithmetic is written once, below, as Python over neighbour
+accessors, in two functions: ``_level1_march`` (mu and the stress of a
+site from phi's 7-point stencil) and ``_binary_site`` (force and phi'
+from phi, u and the neighbours' mu and stress).  The twin evaluates them
+on whole tensors (level 1 once, then rolled; a roll is exact, so this
+equals recomputing it per neighbour); ops/_cuda.py traces them with
+symbols into the kernel's straight-line C++.  Both follow the Pallas kernel's
 term order (fused_binary.py:106-158), so float64 results agree with it
 to the last bits.
 """
@@ -87,47 +89,49 @@ def _stress(lv, a, b, c: _Consts):
     return p0 + v if a == b else v
 
 
-def _binary_site(L1, U, c: _Consts, order: int, select):
+def _level1_march(P, c: _Consts):
+    """(mu, pth 3x3) at a site, what the site updates of its neighbours
+    read: _level1 at the site, then every component of _stress.  P(dx,
+    dy, dz) gives phi at an offset (|offset| <= 1)."""
+    lv = _level1(P, _O, c)
+    return lv[2], [[_stress(lv, a, b, c) for b in range(3)]
+                   for a in range(3)]
+
+
+def _binary_site(P, U, S, MU, c: _Consts, order: int, select):
     """(phi', [Fx, Fy, Fz]) at one site.
 
-    L1(o) gives _level1's values at offset o (|o| <= 1), U(a, dx, dy, dz)
-    the velocity component u_a at an offset, select(x, p, q) p where
-    x > 0 else q.  Force = -div P by central differences of the
-    neighbours' stress; the CH update subtracts, per axis, the east face
-    flux minus the west one, each advective (face velocity
-    0.5 (u_i + u_{i+e})) minus M (mu_{i+e} - mu_i)."""
-    memo = {}
-
-    def at(o):
-        if o not in memo:
-            memo[o] = L1(o)
-        return memo[o]
-
+    P(dx, dy, dz) and U(a, dx, dy, dz) give phi and u_a at an offset,
+    S(a, b, dx, dy, dz) the level-1 stress pth[a][b] there (only b = the
+    offset's axis is read), MU(dx, dy, dz) the level-1 mu (|offset| <=
+    1), select(x, p, q) p where x > 0 else q.  Force = -div P by central
+    differences of the neighbours' stress; the CH update subtracts, per
+    axis, the east face flux minus the west one, each advective (face
+    velocity 0.5 (u_i + u_{i+e})) minus M (mu_{i+e} - mu_i)."""
     force = []
     for a in range(3):
         acc = None
         for ax, e in enumerate(_E):
-            d = 0.5 * (_stress(at(_off(_O, e)), a, ax, c)
-                       - _stress(at(_off(_O, e, -1)), a, ax, c))
+            d = 0.5 * (S(a, ax, *_off(_O, e)) - S(a, ax, *_off(_O, e, -1)))
             acc = d if acc is None else acc + d
         force.append(-acc)
 
-    phi0, _g, mu0, _p0 = at(_O)
+    phi0, mu0 = P(*_O), MU(*_O)
     div = None
     for ax, e in enumerate(_E):
         pe, me = _off(_O, e), _off(_O, e, -1)
         u0 = U(ax, *_O)
         uf_i = 0.5 * (u0 + U(ax, *pe))
         uf_im = 0.5 * (U(ax, *me) + u0)
-        php, phm = at(pe)[0], at(me)[0]
+        php, phm = P(*pe), P(*me)
         if order == 1:
             adv_i = uf_i * select(uf_i, phi0, php)
             adv_im = uf_im * select(uf_im, phm, phi0)
         else:
             adv_i = uf_i * (0.5 * (phi0 + php))
             adv_im = uf_im * (0.5 * (phm + phi0))
-        flux_i = adv_i - c.mob * (at(pe)[2] - mu0)
-        flux_im = adv_im - c.mob * (mu0 - at(me)[2])
+        flux_i = adv_i - c.mob * (MU(*pe) - mu0)
+        flux_im = adv_im - c.mob * (mu0 - MU(*me))
         d = flux_i - flux_im
         div = d if div is None else div + d
     return phi0 - div, force
@@ -145,15 +149,11 @@ def _binary_phi_force_plain(phi: torch.Tensor, u: torch.Tensor, fe,
     def shift(x, o):    # value at i + o, periodic
         return roll3(x, tuple(-v for v in o))
 
-    lv0 = _level1(lambda *o: shift(phi, o), _O, c)
-
-    def L1(o):
-        ph, grad, mu, p0 = lv0
-        return (shift(ph, o), [shift(g, o) for g in grad], shift(mu, o),
-                shift(p0, o))
-
-    phinew, force = _binary_site(L1, lambda a, *o: shift(u[a], o), c, order,
-                                 _where_pos)
+    mu, pth = _level1_march(lambda *o: shift(phi, o), c)
+    phinew, force = _binary_site(
+        lambda *o: shift(phi, o), lambda a, *o: shift(u[a], o),
+        lambda a, b, *o: shift(pth[a][b], o), lambda *o: shift(mu, o), c,
+        order, _where_pos)
     return phinew, torch.stack(force)
 
 

@@ -25,8 +25,6 @@ import torch
 
 from ludwig_tpu_torch.ops import _cuda
 
-NP_MAX_SPECIES = 8       # csrc/electro.cu kMaxSpecies
-
 
 def _check_field(x: torch.Tensor, name: str, shape, dtype):
     if tuple(x.shape) != tuple(shape):
@@ -202,6 +200,19 @@ def _sor_operands(psi, rho_el, cfg, zero_mean):
 
 # -- Nernst-Planck + grad-mu -------------------------------------------------
 
+def _face_flux(psi0, psi1, n0, n1, u0, u1, m01, z, c):
+    """The flux from site 0 to site 1 through their face, in the Pallas
+    kernel's order: c (1 + 1/b) (n1 b - n0), b = exp(z (psi1 - psi0)),
+    plus 0.5 (u0 + u1) 0.5 (n0 + n1) where u0 is not None, times the
+    face mask m01 = m0 m1."""
+    b1 = torch.exp(z * (psi1 - psi0))
+    flx = c * (1.0 + 1.0 / b1) * (n1 * b1 - n0)
+    if u0 is not None:
+        ua = 0.5 * (u0 + u1)
+        flx = flx + ua * 0.5 * (n0 + n1)
+    return flx * m01
+
+
 def _np_plain(psi, rho, u, fluid, ez, z, c, kt_e, dt):
     """Twin of the NP + grad-mu kernel, in the Pallas kernel's order.
     ez, z, c are per-species e z_k, z_k and -0.5 D_k; u None without
@@ -226,13 +237,9 @@ def _np_plain(psi, rho, u, fluid, ez, z, c, kt_e, dt):
         n0 = rho[k]
         div = 0.0
         for ax in range(3):
-            n1 = up(n0, ax)
-            b1 = torch.exp(z[k] * (up(psi, ax) - psi))
-            flx = c[k] * (1.0 + 1.0 / b1) * (n1 * b1 - n0)
-            if u is not None:
-                ua = 0.5 * (u[ax] + up(u[ax], ax))
-                flx = flx + ua * 0.5 * (n0 + n1)
-            flx = flx * fm[ax]
+            u0, u1 = (None, None) if u is None else (u[ax], up(u[ax], ax))
+            flx = _face_flux(psi, up(psi, ax), n0, up(n0, ax), u0, u1,
+                             fm[ax], z[k], c[k])
             d = flx - dn(flx, ax)
             div = d if ax == 0 else div + d
         out.append(torch.where(fluid, n0 - dt * div, n0))
@@ -270,10 +277,9 @@ def np_gradmu_fused(psi: torch.Tensor, rho: torch.Tensor, u, fluid,
     kt_e = 1.0 / (float(ek.beta) * float(ek.e))
 
     def kernel():
+        # the layout (ops/_cuda.py np_layout) refuses nk beyond
+        # NP_MAX_SPECIES
         nsite = int(np.prod(size))
-        if nk > NP_MAX_SPECIES:
-            raise ValueError(f"np_gradmu kernel takes at most "
-                             f"{NP_MAX_SPECIES} species, got {nk}")
         if max(nk, 3) * nsite > _cuda.INT32_MAX:
             raise ValueError(
                 f"np_gradmu kernel indexes with int32: max(nk, 3) * X*Y*Z = "

@@ -1,4 +1,5 @@
-"""The x-march of the liquid-crystal and droplet K1 kernels, on the CPU.
+"""The x-march of the binary, liquid-crystal and droplet K1 kernels, on
+the CPU.
 
 csrc/k1_march.cuh marches a block along x over a y-z tile, evaluates
 level 1 once per site of the cross-shaped window the site update reads,
@@ -8,10 +9,11 @@ their code is generated from (ops/_cuda.py k1_reads), so it is held here
 against the hand list; the layout is a pure function, held over both
 kernels, both dtypes and ragged shapes; and a torch march that keeps
 exactly the march's buffers is bitwise the whole-tensor twins
-(ops/fused_lc.py _lc_q_force_plain, ops/fused_droplet.py
-_droplet_plain), which shows that the buffers hold everything the site
-update reads.  The kernels themselves are held on the card by
-chip_smoke.py (phases 10, 12, 13, 15)."""
+(ops/fused_binary.py _binary_phi_force_plain, ops/fused_lc.py
+_lc_q_force_plain, ops/fused_droplet.py _droplet_plain), which shows
+that the buffers hold everything the site update reads.  The kernels
+themselves are held on the card by chip_smoke.py (phases 7, 9, 10, 12,
+13, 15)."""
 
 import math
 
@@ -23,13 +25,14 @@ from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE, q33_to_q5
 from ludwig_tpu_torch.fe.lc_droplet import LCDropletFE
 from ludwig_tpu_torch.fe.symmetric import SymmetricFE
 from ludwig_tpu_torch.ops import _cuda
+from ludwig_tpu_torch.ops import fused_binary as fb
 from ludwig_tpu_torch.ops import fused_droplet as fd
 from ludwig_tpu_torch.ops import fused_lc as fl
 
 OPTIN = 232_448          # an H100's shared memory a block can opt into
 SMS = 132                # an H100 SXM's multiprocessors
 ITEMSIZE = {"float32": 4, "float64": 8}
-LC, DROP = _cuda.LC_KERNEL, _cuda.DROPLET_KERNEL
+BIN, LC, DROP = _cuda.BINARY_KERNEL, _cuda.LC_KERNEL, _cuda.DROPLET_KERNEL
 E = ((1, 0, 0), (0, 1, 0), (0, 0, 1))
 LC_FE = dict(a0=0.01, gamma=3.0, q0=0.19635, kappa0=0.000648456,
              kappa1=0.000648456, xi=0.7)
@@ -52,16 +55,27 @@ STENCIL19 = STENCIL7 | {(a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1)
                         for c in (-1, 0, 1) if abs(a) + abs(b) + abs(c) == 2}
 
 
-@pytest.mark.parametrize("kernel,order", [(LC, 1), (DROP, 1), (DROP, 2)])
+@pytest.mark.parametrize("kernel,order", [(LC, 1), (DROP, 1), (DROP, 2),
+                                          (BIN, 1), (BIN, 2)])
 def test_traced_reads_are_the_hand_list(kernel, order):
     """The site update reads pth[a][ax] only at +-e_ax (every a and ax),
     mu at the site and its six neighbours, the fields and u on the
     7-point stencil, and its own h; level 1 reads Q on the 7-point
-    stencil and phi on the 19-point one (d_a d_b phi's edges)."""
+    stencil and phi on the 19-point one (d_a d_b phi's edges); the
+    binary fluid's level 1 reads phi on the 7-point stencil and its site
+    update u_a only along axis a, and no h."""
     site = _cuda.k1_reads(kernel, order)
     lvl = _cuda.k1_reads(kernel, order, level1=True)
     assert site["S"] == {(a, ax) + o for a in range(3)
                          for ax in range(3) for o in _pm(E[ax])}
+    if kernel == BIN:    # u_a along its own axis only: no corotation
+        assert site["U"] == {(a,) + o for a in range(3)
+                             for o in _pm(E[a]) | {(0, 0, 0)}}
+        assert set(site) == {"S", "U", "P", "MU"}
+        assert site["P"] == site["MU"] == STENCIL7
+        assert lvl == {"P": STENCIL7}
+        _cuda.k1_check_reads(kernel, order)
+        return
     assert site["U"] == {(a,) + o for a in range(3) for o in STENCIL7}
     assert site["Q"] == {(n,) + o for n in range(5) for o in STENCIL7}
     assert lvl["Q"] == {(n,) + o for n in range(5) for o in STENCIL7}
@@ -79,17 +93,17 @@ def test_traced_reads_are_the_hand_list(kernel, order):
     _cuda.k1_check_reads(kernel, order)
 
 
-@pytest.mark.parametrize("kernel", [LC, DROP])
+@pytest.mark.parametrize("kernel", [LC, DROP, BIN])
 @pytest.mark.parametrize("tile", [(8, 32), (16, 32), (4, 32), (3, 5)])
 def test_k1_buffers_hold_the_traced_reads(kernel, tile):
     """One block's buffers, counted from the reads: five staged planes
-    with a halo of 2 (q5, and phi), four u planes with a halo of 1, three
-    planes of pth[:,0] on the tile, two of pth[:,1] and pth[:,2] on the
-    tile and its faces, two of h (5 or 9 components), three mu planes
-    with a halo of 1 (droplet); the bytes add the int32 row and column
-    offsets of the staged window."""
+    with a halo of 2 (q5, phi and q5, or phi), four u planes with a halo
+    of 1, three planes of pth[:,0] on the tile, two of pth[:,1] and
+    pth[:,2] on the tile and its faces, two of h (5, 9 or no components),
+    three mu planes with a halo of 1 (droplet, binary); the bytes add the
+    int32 row and column offsets of the staged window."""
     BY, BZ = tile
-    ns, nh = (5, 5) if kernel == LC else (6, 9)
+    ns, nh = {LC: (5, 5), DROP: (6, 9), BIN: (1, 0)}[kernel]
     want = {"staged": 5 * ns * (BY + 4) * (BZ + 4),
             "u": 4 * 3 * (BY + 2) * (BZ + 2),
             "pth_x": 3 * 3 * BY * BZ,
@@ -102,6 +116,7 @@ def test_k1_buffers_hold_the_traced_reads(kernel, tile):
             isz * sum(want.values()) + 4 * (BY + BZ + 8))
     assert _cuda.k1_smem_bytes(LC, 8, 32, 4) == 93_376
     assert _cuda.k1_smem_bytes(DROP, 8, 32, 4) == 114_288
+    assert _cuda.k1_smem_bytes(BIN, 8, 32, 4) == 52_656
 
 
 def _windows(shape, BX, BY, BZ):
@@ -121,11 +136,12 @@ def _windows(shape, BX, BY, BZ):
 
 def _blocks_per_sm(smem, threads, regs):
     """Blocks an H100 SM keeps resident: 233,472 B of shared memory with
-    1 KB kept back a block, 65,536 registers given out to warps in units
-    of 256, 2,048 threads, 32 blocks."""
+    1 KB kept back a block, 65,536 registers in four scheduler files of
+    16,384 given out to warps in units of 256, 2,048 threads, 32
+    blocks."""
     per_warp = math.ceil(regs * 32 / 256) * 256
     return min(233_472 // (smem + 1024),
-               (65_536 // per_warp) // math.ceil(threads / 32),
+               4 * (16_384 // per_warp) // math.ceil(threads / 32),
                2048 // threads, 32)
 
 
@@ -133,7 +149,7 @@ SHAPES = [(128, 128, 128), (256, 256, 256), (9, 5, 3), (18, 40, 70),
           (33, 17, 100), (16, 24, 40)]
 
 
-@pytest.mark.parametrize("kernel", [LC, DROP])
+@pytest.mark.parametrize("kernel", [LC, DROP, BIN])
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("shape", SHAPES)
 def test_k1_layout(kernel, dtype, shape):
@@ -184,9 +200,11 @@ def test_k1_layout_defaults_at_the_main_sizes():
     4 segments at 128^3 and one at 256^3: 1.25 and 1.1953 evaluations a
     site; droplet two 8x32 blocks of 256 threads an SM (114,288 B), 256
     blocks: 1.375 and 1.3203; against 1.66 for an 8x8x32 box with a
-    halo of 1."""
+    halo of 1; binary four 8x32 blocks of 128 threads an SM (52,656 B),
+    512 blocks, x in 8 and 2 segments: 1.4375 and 1.3281."""
     want = {LC: (16, 512, 1, 167_392, 128, (32, 256), (1.25, 1.1953)),
-            DROP: (8, 256, 2, 114_288, 256, (32, 256), (1.375, 1.3203))}
+            DROP: (8, 256, 2, 114_288, 256, (32, 256), (1.375, 1.3203)),
+            BIN: (8, 128, 4, 52_656, 512, (16, 128), (1.4375, 1.3281))}
     for kernel, (by, threads, bps, smem, blocks, bx, evals) in want.items():
         lays = [_cuda.k1_layout(kernel, (n,) * 3, 4, SMS, OPTIN)
                 for n in (128, 256)]
@@ -355,6 +373,29 @@ def _drop_march(phi, q5, u, fe, be_gamma, mobility, order, BX, BY, BZ):
     return p[0], q, f, evals
 
 
+def _binary_march(phi, u, fe, mobility, order, BX, BY, BZ):
+    fields = phi[None]
+    c = fb._consts(fe, mobility)
+
+    def P(acc):
+        return lambda *o: acc(fields, 0, *o)
+
+    def level1(acc):
+        mu, pth = fb._level1_march(P(acc), c)
+        return {"pth_x": [pth[a][0] for a in range(3)],
+                "pth_y": [pth[a][1] for a in range(3)],
+                "pth_z": [pth[a][2] for a in range(3)], "h": [], "mu": mu}
+
+    def site(acc, S, MU, H):
+        phinew, force = fb._binary_site(P(acc), lambda a, *o: acc(u, a, *o),
+                                        S, MU, c, order, fb._where_pos)
+        return [phinew] + force
+
+    (p, f), evals = _march(tuple(phi.shape), BX, BY, BZ, level1, site,
+                           (1, 3))
+    return p[0], f, evals
+
+
 def _inputs(shape, dtype, seed=5):
     rng = np.random.default_rng(seed)
 
@@ -395,6 +436,21 @@ def test_droplet_torch_march_is_the_twin(shape, plan, order, w, dtype):
     want = fd._droplet_plain(phi, q5, u, fe, 0.5, 0.05, order)
     for got, ref in zip((p, q, f), want):
         assert torch.equal(got, ref)
+    assert evals == _cuda.k1_evals(shape, *plan)
+
+
+@pytest.mark.parametrize("shape,plan", MARCH_CASES)
+@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_binary_torch_march_is_the_twin(shape, plan, order, dtype):
+    """The binary march (one staged field, mu in the x ring and on the
+    faces, no h) is bitwise the whole-tensor twin, both orders, f64 and
+    f32, with as many level-1 evaluations as k1_evals."""
+    phi, _q5, u = _inputs(shape, dtype)
+    fe = SymmetricFE(a=-0.00625, b=0.00625, kappa=0.004)
+    p, f, evals = _binary_march(phi, u, fe, 1.25, order, *plan)
+    want = fb._binary_phi_force_plain(phi, u, fe, 1.25, order)
+    assert torch.equal(p, want[0]) and torch.equal(f, want[1])
     assert evals == _cuda.k1_evals(shape, *plan)
 
 

@@ -114,8 +114,9 @@ def test_generated_force_collision_is_the_twin(nvel, scheme):
 
 @pytest.mark.parametrize("order", [1, 2])
 def test_generated_binary_site_is_the_twin(order):
-    """binary_site_o*: one site of binary_phi_force_kernel, run on whole
-    tensors with P/U as periodic neighbour fetches, against the twin."""
+    """binary_level1 and binary_site_o*: the device functions of
+    binary_phi_force_kernel, run on whole tensors with P/U/S/MU as
+    periodic neighbour fetches, against the twin."""
     from ludwig_tpu_torch.fe.symmetric import SymmetricFE
     from ludwig_tpu_torch.ops import fused_binary as fb
 
@@ -123,24 +124,37 @@ def test_generated_binary_site_is_the_twin(order):
     phi = torch.as_tensor(0.05 * rng.standard_normal(SHAPE))
     u = torch.as_tensor(0.01 * rng.standard_normal((3,) + SHAPE))
     fe = SymmetricFE(-6.25e-3, 6.25e-3, 4e-3)
-    m = re.search(rf"binary_site_o{order}\(.*?\{{\n(.*?)\n\}}",
-                  _cuda.generate_binary_header(), re.S)
-    out = [None] * 4
+    header = _cuda.generate_binary_header()
 
     def at(x, *o):
         return torch.roll(x, tuple(-v for v in o), (0, 1, 2))
 
-    _exec_body(m.group(1).splitlines(),
+    def body(name):
+        m = re.search(name + r"\(.*?\{\n(.*?)\n\}", header, re.S)
+        return m.group(1).splitlines()
+
+    p = fb._consts(fe, 0.45)
+    mu, pth, out = [None], [None] * 9, [None] * 4
+    _exec_body(body("void binary_level1"),
+               {"P": lambda *o: at(phi, *o), "p": p, "T": float, "mu": mu,
+                "pth": pth})
+    _exec_body(body(f"void binary_site_o{order}"),
                {"P": lambda *o: at(phi, *o),
                 "U": lambda a, *o: at(u[a], *o),
-                "p": fb._consts(fe, 0.45), "T": float, "out": out,
-                "sel": fb._where_pos})
+                "S": lambda a, b, *o: at(pth[3 * a + b], *o),
+                "MU": lambda *o: at(mu[0], *o), "p": p, "T": float,
+                "out": out, "sel": fb._where_pos})
     want_phi, want_force = fb.binary_phi_force_step(phi, u, fe, 0.45, order)
     assert torch.equal(out[0], want_phi)
     assert torch.equal(torch.stack(out[1:]), want_force)
-    # the bound's operation count: level-1 values once per site
-    assert 0 < _cuda.site_ops("binary_phi_force_step", order=order) < (
-        _cuda._binary_trace(order)[0].nops)
+    # the bound's operation count: one level-1 evaluation and one site
+    # update a site; the issue floor's count on a layout of 1.3 level-1
+    # evaluations a site is larger
+    tr1, _tail, sites = _cuda._binary_trace()
+    ops = _cuda.site_ops("binary_phi_force_step", order=order)
+    assert ops == tr1.nops + sites[order][0].nops
+    assert ops == _cuda.k1_site_ops(_cuda.BINARY_KERNEL, 1.0, order) < (
+        _cuda.k1_site_ops(_cuda.BINARY_KERNEL, 1.3, order))
 
 
 def test_header_declares_the_model():
@@ -368,12 +382,14 @@ def test_generated_noise_collision_is_the_twin(nvel, scheme, delta):
 
 # sha256 of the generated headers as they were before the fluctuating
 # collision was added: with noise off every generated text is unchanged
+# (the binary header's is that of its x-march form, level 1 and the site
+# update apart)
 HEADER_SHA256 = {
     15: "59379c843a6a42b23cadabad780183f320b8aec3968f26a3b2cf5e483d4923ca",
     19: "ef7a94a921fc01f1bdd1db69165f32996e652a49251522e083eb835a94180a5f",
     27: "f8fe823f91ed34d711fd401d75537ebdfa93088527cbee50aeb84d5e2571944c",
     "binary":
-        "97ac4e952239641b256f8f61d02fb91e03feac3c802ae512bf277ef1f4b06174",
+        "fae133d75d08a902f70059d1e3ab72867f2942d20725d1f7905703a262551864",
     "lc": "c7b8c0d6c8b4ef0d1294ccc6922bbdc491ec66af178fef4c764bce4fbebdd542",
     "droplet":
         "720db9e806d5e70029e4ecb0e5988dad6108a2cad339fe8eee3c90a60f8e63ba",

@@ -124,7 +124,25 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
  21. at 256^3 f32: the noise kernel against the noiseless one, with its
      bound and twin; the KISS route's step; one reference-statistics
      block at 128^3 and 256^3; each scan kernel against its CPU twin's
-     time at 128^3 (the electrokinetic main path's size).
+     time at 128^3 (the electrokinetic main path's size);
+ 22. the plain fluid's boundaries on the card against the CPU, 3 chained
+     steps from a random 16x16x64 state, f64 and f32 (TOL; the walls'
+     momentum at TOL's rtol of its terms' summed size): the fused wall
+     step (walls 1_0_0, 0_1_0 moving, 1_1_0), the unfused wall step with
+     slip and with the open boundary, the fused and unfused Lees-Edwards
+     steps with 2 and X/2 planes (f32 at t near 10^6), the porous step
+     (a simple cubic crystal); fused_step launched by each fused step;
+ 23. the JAX package's wall, Couette, duct and Lees-Edwards inputs and a
+     porous one in f64 through run_text on the card against the CPU's
+     log, `tpu_fused on` and `off` (rtol 1e-9, atol 1e-11, the [walls]
+     row included; fused_step once a cycle on the fused wall and LE
+     routes); then a checkpoint, a restart and velocity files on the
+     card: the restarted log is the straight log, the files read back;
+ 24. at 256^3 f32 (the main path's lattice, walls 0_1_0 moving at 0.01;
+     4 Lees-Edwards planes at 0.01): fused_step, the fused wall and LE
+     steps and their post-passes alone, in turns, with the post-passes'
+     CUDA kernels a call (torch.profiler), and the JAX design's plane
+     collide for comparison; then 40 cycles of each through run_text.
 
 Bounds: `bound_ms` is the larger of the bytes the function must move
 (each input read once, each output written once) over the H100 SXM's
@@ -133,10 +151,13 @@ data sheet, dense, 700 W); `copy_bound_ms` puts the same bytes
 over the device copy bandwidth measured in this run.
 
 The second-to-last line is the kernels' JSON record (ms and plain_ms per
-lattice step, CUDA events), the last line {"ok": true, "device": {...}}.
+lattice step, CUDA events; fused_step also carries phase 24's wall and
+LE step and post-pass times), the last line {"ok": true, "device":
+{...}}.
 There is no CPU path.
 """
 
+import dataclasses
 import io
 import json
 import math
@@ -2427,6 +2448,424 @@ def phase21(card, gen, copy_ms, copy_bytes):
     return res
 
 
+# the plain fluid's boundaries: the JAX package's wall, Couette, duct
+# and Lees-Edwards inputs (tests/test_ludwig_run.py:40, 195, 205, 216,
+# 273; copied, this script imports nothing of the JAX package) and a
+# porous one (its tests/test_map_file.py:129 geometry)
+BOUNDARY_INPUTS = {
+    "walls": """
+N_cycles 5
+size 18_8_8
+viscosity 0.1
+boundary_walls 1_0_0
+force 0.0_0.00001_0.0
+freq_statistics 5
+""",
+    "wall": """
+N_cycles 6
+size 16_16_32
+viscosity 0.1
+boundary_walls 1_0_0
+force 0.0_0.00001_0.0
+periodicity 0_1_1
+freq_statistics 3
+""",
+    "couette": """
+N_cycles 6
+size 16_16_32
+viscosity 0.1
+boundary_walls 0_1_0
+boundary_speed_bottom -0.001
+boundary_speed_top 0.001
+periodicity 1_0_1
+freq_statistics 3
+""",
+    "duct": """
+N_cycles 6
+size 16_16_32
+viscosity 0.1
+boundary_walls 1_1_0
+force 0.0_0.0_0.00001
+periodicity 0_0_1
+freq_statistics 3
+""",
+    "le": """
+N_cycles 6
+size 16_16_32
+viscosity 0.1
+free_energy none
+N_LE_plane 2
+LE_plane_vel 0.05
+periodicity 1_1_1
+freq_statistics 3
+""",
+    "porous": """
+N_cycles 4
+size 16_16_32
+viscosity 0.1
+force 0.00001_0.0_0.0
+porous_media_init simple_cubic
+porous_media_acell 8
+freq_statistics 2
+"""}
+BOUNDARY_SHAPE = (16, 16, 64)
+LE_T0 = 10 ** 6 - 1          # the slide's step in phase 22: uy t near 10^4
+WALL_CASES = {"1_0_0": ((True, False, False), False),
+              "0_1_0 moving": ((False, True, False), True),
+              "1_1_0": ((True, True, False), False)}
+# phase 24: the main path's lattice with moving walls (Couette) and with
+# four Lees-Edwards planes, as the JAX package's TPU history timed them
+WALL_MAIN_INPUT = MAIN_INPUT + """boundary_walls 0_1_0
+boundary_speed_top 0.01
+"""
+LE_MAIN_INPUT = MAIN_INPUT + """N_LE_plane 4
+LE_plane_vel 0.01
+"""
+
+
+def boundary_floats(log):
+    """stat_floats with the [walls] row."""
+    vals = [float(t) for line in log.splitlines()
+            if line.startswith("[walls") for t in line.split()[2:]]
+    return torch.cat([stat_floats(log),
+                      torch.tensor(vals, dtype=torch.float64)])
+
+
+def check_gwall(what, a, b, dtype, scale):
+    """The walls' momentum, a sum of terms of summed size `scale`: held at
+    TOL's rtol of that size (the card sums the planes in another
+    order)."""
+    torch.cuda.synchronize()
+    tol = TOL[dtype]["rtol"] * scale
+    err = max_err(a.cpu(), b.cpu())
+    if not err <= tol:
+        raise AssertionError(f"{what}: the walls' momentum differs by "
+                             f"{err:.3e}, beyond {tol:.3e}")
+    return err
+
+
+def boundary_planes(f, ax):
+    """The first and last plane of spatial axis ax, stacked along it (the
+    JAX package's plane2)."""
+    n = f.shape[1 + ax]
+    return f.index_select(1 + ax, torch.tensor([0, n - 1], device=f.device))
+
+
+def wall_scale(f, walls, nsteps):
+    """The summed size of the walls' momentum terms over nsteps steps: 2
+    |f| over the boundary planes of the walled axes, each step."""
+    s = 0.0
+    for ax in range(3):
+        if walls[ax]:
+            s += float(boundary_planes(f, ax).abs().sum())
+    return 2.0 * nsteps * s
+
+
+def phase22(gen):
+    phase("22 walls, Lees-Edwards planes, open boundaries and porous media "
+          "on the card vs the CPU")
+    from ludwig_tpu_torch import lb as tlb
+    from ludwig_tpu_torch.io.map_file import GEOMETRIES
+    from ludwig_tpu_torch.ops.lees_edwards import LeesEdwardsConfig
+    from ludwig_tpu_torch.ops.open_bc import OpenBCConfig
+    from ludwig_tpu_torch.ops.walls import WallSpec
+
+    worst = 0.0
+    X = BOUNDARY_SHAPE[0]
+    torch.cuda.synchronize()
+    _cuda.launches.reset()
+    expect_launches = 0
+    for dtype in ("float64", "float32"):
+        cfg = LBConfig(size=BOUNDARY_SHAPE, nvel=19, eta_shear=0.1,
+                       eta_bulk=0.14, force_global=(0.0, 1e-5, 2e-5),
+                       dtype=dtype, device="cuda")
+        ccfg = dataclasses.replace(cfg, device="cpu")
+        f0 = rand_state(cfg, gen)
+        zero = torch.zeros(3, dtype=cfg.tdtype, device="cuda")
+        runs = []
+        for name, (walls, moving) in WALL_CASES.items():
+            spec = WallSpec(walls=walls, ubot=(-0.01 * moving, 0.0, 0.0),
+                            utop=(0.02 * moving, 0.0, 0.0))
+            runs.append((f"fused wall step {name}", walls, True,
+                         lambda c, s=spec: fused.make_fused_wall_step(c, s)))
+        slip = WallSpec(walls=(True, True, False),
+                        slip_bot=(0.5, 0.25, 0.0), slip_top=(0.25, 1.0, 0.0),
+                        slip_active=True)
+        runs.append(("wall step slip 1_1_0", slip.walls, False,
+                     lambda c: tlb.make_wall_step(c, slip)))
+        runs.append(("wall step 0_1_0 + open x", (False, True, False), False,
+                     lambda c: tlb.make_wall_step(
+                         c, WallSpec(walls=(False, True, False)),
+                         open_bc=OpenBCConfig(u0=(0.01, 0.0, 0.0)))))
+        for name, walls, is_fused, make in runs:
+            out = {}
+            for dev, c, f, g in (("cuda", cfg, f0, zero),
+                                 ("cpu", ccfg, f0.cpu(), zero.cpu())):
+                step, state = make(c), (f, g)
+                for t in range(1, 4):
+                    state = step(state, t)
+                    if not is_fused:
+                        state = state[0]
+                out[dev] = state
+            expect_launches += 3 if is_fused else 0
+            what = f"{name} {dtype}"
+            err = check_close(what, out["cuda"][0], out["cpu"][0].cuda(),
+                              cfg.tdtype)
+            gerr = check_gwall(what, out["cuda"][1], out["cpu"][1],
+                               cfg.tdtype, wall_scale(f0, walls, 3))
+            worst = max(worst, err)
+            print(f"{what}, 3 steps: f max_abs_err {err:.3e}, gwall "
+                  f"{gerr:.3e} ({out['cuda'][1].tolist()})")
+        t0 = LE_T0 if dtype == "float32" else 7
+        for nplanes in (2, X // 2):
+            le = LeesEdwardsConfig(nplanes=nplanes, uy=0.05, nx=X)
+            for label, is_fused in (("fused", True), ("unfused", False)):
+                out = {}
+                for dev, c, f in (("cuda", cfg, f0), ("cpu", ccfg, f0.cpu())):
+                    if is_fused:
+                        step, state = fused.make_fused_le_step(c, le), (f,)
+                        for t in range(t0, t0 + 3):
+                            state = step(state, t)
+                        out[dev] = state[0]
+                    else:
+                        step = tlb.make_step(c, le=le)
+                        for t in range(t0, t0 + 3):
+                            f, _rho, _u = step(f, t)
+                        out[dev] = f
+                expect_launches += 3 if is_fused else 0
+                what = (f"{label} LE step {nplanes} planes {dtype} t="
+                        f"{t0}..{t0 + 2}")
+                err = check_close(what, out["cuda"], out["cpu"].cuda(),
+                                  cfg.tdtype)
+                worst = max(worst, err)
+                print(f"{what}: max_abs_err {err:.3e}")
+        porous = GEOMETRIES["simple_cubic"](BOUNDARY_SHAPE, 8) != 0
+        out = {}
+        for dev, c, f in (("cuda", cfg, f0), ("cpu", ccfg, f0.cpu())):
+            step = tlb.make_step(c, solid=tlb.solid_mask(c, porous))
+            for t in range(1, 4):
+                f, _rho, _u = step(f, t)
+            out[dev] = f
+        err = check_close(f"porous step {dtype}", out["cuda"],
+                          out["cpu"].cuda(), cfg.tdtype)
+        worst = max(worst, err)
+        print(f"porous step (simple cubic, acell 8) {dtype}, 3 steps: "
+              f"max_abs_err {err:.3e}")
+    torch.cuda.synchronize()
+    if _cuda.launches.fused_step != expect_launches:
+        raise AssertionError(f"fused_step launched {_cuda.launches.fused_step}"
+                             f" times, {expect_launches} expected")
+    print(f"fused_step launched {expect_launches} times by the fused wall "
+          "and LE steps on the card")
+    return {"fused_step": worst}
+
+
+def phase23():
+    phase("23 boundary inputs through run_text on the card vs the CPU")
+    import os
+    import tempfile
+
+    from ludwig_tpu_torch.io import read_state
+    from ludwig_tpu_torch.io.ref_format import read_ref_field
+    counts = {}
+    for name, text in BOUNDARY_INPUTS.items():
+        for fused_req in ("on", "off"):
+            logs = {}
+            for device in ("cuda", "cpu"):
+                out = io.StringIO()
+                torch.cuda.synchronize()
+                _cuda.launches.reset()
+                sys_ = run_text(f"tpu_fused {fused_req}\ndtype float64\n"
+                                + text, out=out, device=device)
+                torch.cuda.synchronize()
+                if device == "cuda":
+                    n = _cuda.launches.fused_step
+                    mode = sys_.fused_mode
+                logs[device] = out.getvalue()
+            a, b = boundary_floats(logs["cuda"]), boundary_floats(logs["cpu"])
+            if (a.numel() != b.numel() or a.numel() == 0
+                    or not torch.allclose(a, b, rtol=1e-9, atol=1e-11)):
+                raise AssertionError(f"{name} tpu_fused {fused_req}: the "
+                                     "card's log differs from the CPU's")
+            cycles = int(re.search(r"N_cycles (\d+)", text).group(1))
+            if n != (cycles if mode in ("wall", "le") else 0):
+                raise AssertionError(f"{name} tpu_fused {fused_req} "
+                                     f"({mode}): fused_step launched {n} "
+                                     "times")
+            counts[f"{name} f64 tpu_fused {fused_req}"] = {"fused_step": n}
+            print(f"{name} f64 tpu_fused {fused_req} (route {mode}): "
+                  f"{a.numel()} statistics floats on the card agree with "
+                  f"the CPU's (rtol 1e-9, atol 1e-11), max |diff| "
+                  f"{float((a - b).abs().max()):.3e}, fused_step {n}")
+    # a checkpoint, a restart and field files on the card
+    text = ("tpu_fused on\ndtype float64\nfreq_vel 3\n"
+            + BOUNDARY_INPUTS["couette"].replace("freq_statistics 3",
+                                                 "freq_statistics 1"))
+    with tempfile.TemporaryDirectory() as d:
+        io_text = text + f"io_directory {d}\n"
+        straight, first, rest = io.StringIO(), io.StringIO(), io.StringIO()
+        run_text(io_text, out=straight, device="cuda")
+        sys_ = run_text(io_text.replace("N_cycles 6", "N_cycles 3")
+                        + "config_at_end yes\n", out=first, device="cuda")
+        run_text(io_text.replace("N_cycles 6", "N_cycles 3")
+                 + "N_start 3\n", out=rest, device="cuda")
+        want = straight.getvalue()
+        want = want[want.index("\n", want.index("Completed cycle 3\n")) + 1:]
+        got = rest.getvalue()
+        got = got[got.index("\n", got.index("Starting time step loop.")) + 1:]
+        if want.split("\nTimer")[0] != got.split("\nTimer")[0]:
+            raise AssertionError("couette restart at 3: the restarted log "
+                                 "is not the straight log")
+        back = read_state(d, 3, ["dist", "state01"])
+        if (not torch.equal(torch.as_tensor(back["dist"]),
+                            sys_.state[0].cpu())
+                or not torch.equal(torch.as_tensor(back["state01"]),
+                                   sys_.state[1].cpu())):
+            raise AssertionError("the step-3 checkpoint does not read back")
+        vel = read_ref_field(os.path.join(d, "vel-00000006.001-001"),
+                             (16, 16, 32), 3)
+        if vel.shape != (3, 16, 16, 32) or not (abs(vel) < 0.1).all():
+            raise AssertionError(f"vel-00000006: {vel.shape}")
+        names = sorted(os.listdir(d))
+    print(f"couette f64 on the card: the restart from step 3 prints the "
+          f"straight log's steps 4-6 as text; the checkpoint and "
+          f"vel-00000006 read back; files {names}")
+    return counts
+
+
+def post_profile(run, reps=5):
+    """(CUDA kernels a call, device ms a call, the five kernels of most
+    device time as (name, launches a call, ms a call)) of run(), by
+    torch.profiler over `reps` calls; (None, None, []) where the
+    profiler sees no kernel or dropped some."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == cuda]
+    # a kernel seen a number of times that is not a multiple of reps
+    # means the trace dropped events: nothing counted then
+    if not events or any(e.count % reps for e in events):
+        return None, None, []
+    rows = [(e.key, e.count / reps, e.device_time_total / reps / 1e3)
+            for e in events]
+    rows.sort(key=lambda r: -r[2])
+    return (sum(r[1] for r in rows), sum(r[2] for r in rows), rows[:5])
+
+
+def phase24(card, gen):
+    phase(f"24 the wall and Lees-Edwards steps at 256^3 D3Q19 f32 on {card}")
+    from ludwig_tpu_torch.ops.collide import collide
+    from ludwig_tpu_torch.ops.lees_edwards import (LeesEdwardsConfig,
+                                                   apply_le_fused,
+                                                   le_fix_plan)
+    from ludwig_tpu_torch.ops.walls import (WallSpec, wall_bounce_back_fused,
+                                            wall_fix_plan)
+    cfg = LBConfig(size=MAIN_SIZE, nvel=19, eta_shear=0.1, eta_bulk=0.1,
+                   dtype="float32", device="cuda")
+    model, params = cfg.model, cfg.collision_params()
+    nsite = MAIN_SIZE[0] * MAIN_SIZE[1] * MAIN_SIZE[2]
+    f0 = rand_state(cfg, gen, amp=0.01)
+    res, paths = {}, {}
+    spec = WallSpec(walls=(False, True, False), utop=(0.01, 0.0, 0.0))
+    wfix = wall_fix_plan(model, spec, MAIN_SIZE, cfg.rho0, "cuda")
+    le = LeesEdwardsConfig(nplanes=4, uy=0.01, nx=MAIN_SIZE[0])
+    lfix = le_fix_plan(model, le, MAIN_SIZE, cfg.tdtype, "cuda")
+    out = fused.fused_step(f0, model, params)
+
+    def wall_post():
+        return wall_bounce_back_fused(out, model, spec, rho0=cfg.rho0,
+                                      plan=wfix)
+
+    def plane_collide():
+        # what the JAX design adds to the post-pass: a second collide of
+        # the walled axis' two boundary planes (ops/collide.py)
+        return collide(boundary_planes(f0, 1), params)[0]
+
+    def le_post():
+        return apply_le_fused(out, model, le, 10 ** 6, plan=lfix)
+
+    gwall = torch.zeros(3, dtype=cfg.tdtype, device="cuda")
+    wstep = fused.make_fused_wall_step(cfg, spec)
+    lstep = fused.make_fused_le_step(cfg, le)
+    times = {}
+    # kernel, wall step, LE step, the post-passes; then the same in turn
+    # backwards: one card, in turns
+    order = (("fused_step", lambda: fused.fused_step(f0, model, params)),
+             ("wall step", lambda: wstep((f0, gwall), 1)),
+             ("wall post-pass", wall_post),
+             ("plane collide (the JAX design's, not run)", plane_collide),
+             ("LE step", lambda: lstep((f0,), 10 ** 6)),
+             ("LE post-pass", le_post))
+    for rep in range(2):
+        for name, fn in order[::1 if rep == 0 else -1]:
+            times.setdefault(name, []).append(time_ms(fn, 20))
+    ms = {name: min(v) for name, v in times.items()}
+    profiled = {"wall step": post_profile(dict(order)["wall step"]),
+                "wall post-pass": post_profile(wall_post),
+                "LE step": post_profile(dict(order)["LE step"]),
+                "LE post-pass": post_profile(le_post),
+                "plane collide (the JAX design's, not run)":
+                post_profile(plane_collide)}
+    for name, runs in times.items():
+        n, dev_ms, top = profiled.get(name, (None, None, []))
+        prof = ("" if name not in profiled else
+                ", kernels not counted" if n is None else
+                f", {n:.0f} CUDA kernels a call, {dev_ms:.4f} ms of them on "
+                f"the device (torch.profiler)")
+        print(f"{name} 256^3 f32: {ms[name]:.4f} ms (runs "
+              f"{', '.join(f'{r:.4f}' for r in runs)}){prof}, "
+              f"{nsite / (ms[name] * 1e3):.1f} MLUPS [{card}]")
+        for key, count, k_ms in top:
+            print(f"    {k_ms:.4f} ms device, {count:.0f} a call: "
+                  f"{key[:90]}")
+    for label, text in (("wall", WALL_MAIN_INPUT), ("le", LE_MAIN_INPUT)):
+        torch.cuda.synchronize()
+        _cuda.launches.reset()
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        sys_ = run_text(text, out=log, device="cuda")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        n = _cuda.launches.fused_step
+        text_ = log.getvalue()
+        if (f"Completed cycle {MAIN_CYCLES}" not in text_
+                or sys_.fused_mode != label or n != MAIN_CYCLES):
+            raise AssertionError(f"{label} run_text: route {sys_.fused_mode}"
+                                 f", fused_step launched {n} times")
+        totals = [float(v) for v in re.findall(r"\[rho\]\s+(\S+)", text_)]
+        if not all(abs(t - nsite) <= 1e-5 * nsite for t in totals):
+            raise AssertionError(f"{label} [rho] totals {totals}")
+        if not torch.isfinite(sys_.state[0]).all():
+            raise AssertionError(f"{label}: the state is not finite")
+        paths[label] = {"fused_step": n}
+        for line in text_.splitlines():
+            if line.startswith(("[rho]", "[total", "[walls")):
+                print(line)
+        print(f"{label} run_text 256^3 f32 x {MAIN_CYCLES} cycles: "
+              f"{wall_s:.2f} s wall, [rho] totals {totals}, launches "
+              f"{paths[label]} [{card}]")
+        del sys_
+    res = {"wall_step_ms": ms["wall step"],
+           "wall_post_ms": ms["wall post-pass"],
+           "le_step_ms": ms["LE step"], "le_post_ms": ms["LE post-pass"],
+           "fused_step_ms_phase24": ms["fused_step"],
+           "plane_collide_ms": ms["plane collide (the JAX design's, not "
+                                  "run)"],
+           "wall_post_kernels": profiled["wall post-pass"][0],
+           "wall_post_device_ms": profiled["wall post-pass"][1],
+           "le_post_kernels": profiled["LE post-pass"][0],
+           "le_post_device_ms": profiled["LE post-pass"][1],
+           "wall_step_device_ms": profiled["wall step"][1],
+           "le_step_device_ms": profiled["LE step"][1]}
+    return res, paths
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -2496,6 +2935,11 @@ def main():
     for fused_req, c in small.items():
         by_path[f"noise f64 16x16x32 tpu_fused {fused_req}"] = c
     timed.update(phase21(card, gen, timed["copy_ms"], timed["copy_bytes"]))
+    worst["fused_step"] = max(worst["fused_step"], phase22(gen)["fused_step"])
+    by_path.update(phase23())
+    boundary, paths = phase24(card, gen)
+    by_path.update(paths)
+    timed["fused_step"].update(boundary)
     for name in STAT_SCANS:
         worst[name] = 0.0        # held bitwise in phases 19 and 21
     print(f"all phases passed ({time.perf_counter() - _T0:.1f} s)")
@@ -2551,6 +2995,13 @@ def main():
             kernels[-1].update(layout=str(t["lay"]))
         if "device_ms" in t:    # torch.profiler's time on the card
             kernels[-1].update(device_ms=t["device_ms"])
+        if "wall_step_ms" in t:   # the wall and LE steps around the kernel
+            kernels[-1].update({k: t[k] for k in (
+                "wall_step_ms", "wall_post_ms", "le_step_ms", "le_post_ms",
+                "fused_step_ms_phase24", "plane_collide_ms",
+                "wall_post_kernels", "wall_post_device_ms",
+                "le_post_kernels", "le_post_device_ms",
+                "wall_step_device_ms", "le_step_device_ms")})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -254,3 +254,70 @@ def electro_params_from_jax(ecfg_fields: dict,
         fields["e0"] = tuple(float(v) for v in fields["e0"])
     return ElectroSimConfig(lb=_lb_from_jax(fields.pop("lb"), device),
                             ek=ElectroConfig(**ek), **fields)
+
+
+def _unpad_fused(f: np.ndarray, size) -> np.ndarray:
+    """The JAX package's fused single-step state (nvel, X+2, Y+16, Zp),
+    Zp the lane-padded z (ops/fused.py pad_state), as (nvel, X, Y, Z);
+    an array already of the lattice's shape comes back as it is."""
+    f = np.asarray(f)
+    X, Y, Z = size
+    if f.ndim != 4:
+        raise ValueError(f"want a (nvel, X, Y, Z) state, got {f.shape}")
+    if f.shape[1:] == (X, Y, Z):
+        return f
+    if f.shape[1:3] != (X + 2 * _F_PAD[0], Y + 2 * _F_PAD[1]):
+        raise ValueError(f"state {f.shape} is neither unpadded nor padded "
+                         f"for the lattice {tuple(size)}")
+    return _unpad_xy(f, *_F_PAD)[..., :Z]
+
+
+def wall_state_from_jax(fpad_or_f, gwall, device, dtype, size=None):
+    """The JAX package's halo-wall state as the port's (f, gwall): its
+    fused wall state (fpad, gwall) - pass the lattice `size` to unpad it
+    - or its unfused (f, gwall)."""
+    f = np.asarray(fpad_or_f)
+    if size is not None:
+        f = _unpad_fused(f, size)
+    gwall = np.asarray(gwall)
+    if f.ndim != 4 or gwall.shape != (3,):
+        raise ValueError(f"inconsistent wall state: f {f.shape}, gwall "
+                         f"{gwall.shape}")
+    return _tensor(f, device, dtype), _tensor(gwall, device, dtype)
+
+
+def le_state_from_jax(fpad_or_f, device, dtype, size=None):
+    """The JAX package's Lees-Edwards state as the port's (f,): its fused
+    state (fpad,) - pass the lattice `size` to unpad it - or its unfused
+    (f,)."""
+    f = np.asarray(fpad_or_f)
+    if size is not None:
+        f = _unpad_fused(f, size)
+    return (state_from_jax(f, device, dtype),)
+
+
+def checkpoint_from_jax(directory: str, step: int, names, size,
+                        device="cuda") -> tuple:
+    """A checkpoint the JAX package wrote (ludwig_tpu io.write_state) as
+    the leaves of the port's state, in the order of `names` (for example
+    ``["dist", "state01"]`` of a walled run): `dist`, `phi` and `q`
+    unpadded where the JAX package's fused routes wrote their padded
+    state, a KISS state's uint32 words as the port's int64.  The port reads its own
+    checkpoints, which hold the unpadded layout, with
+    ludwig.read_checkpoint."""
+    from ludwig_tpu_torch.io import read_state
+
+    data = read_state(directory, step, names)
+    leaves = []
+    for name in names:
+        a = data[name]
+        if name == "dist":
+            a = _unpad_fused(a, size)
+        elif name in ("phi", "q") and a.shape[-3:] != tuple(size):
+            a = _unpad_xy(a, *_PHI_PAD)
+        if a.dtype == np.uint32:
+            leaves.append(noise_state_from_jax(a, device))
+        else:
+            leaves.append(torch.as_tensor(np.ascontiguousarray(a),
+                                          device=device))
+    return tuple(leaves)

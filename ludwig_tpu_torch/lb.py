@@ -3,9 +3,10 @@
 PyTorch port of ludwig_tpu/lb.py for the plain-fluid path (ref:
 src/model.c, src/ludwig.c:530-970).  The state is one distribution tensor
 f (nvel, NX, NY, NZ) on an explicit device; a step is collide ->
-stream(+bounce-back), run eagerly.  With isothermal fluctuations
-(``LBConfig.noise``) the per-site KISS99 state rides beside f and a step
-maps (f, nstate) to (f', nstate').
+[Lees-Edwards] -> stream(+bounce-back) [-> open boundary], run eagerly.
+With isothermal fluctuations (``LBConfig.noise``) the per-site KISS99
+state rides beside f and a step maps (f, nstate) to (f', nstate').
+Halo plane walls (make_wall_step) carry the walls' momentum beside f.
 """
 
 from __future__ import annotations
@@ -22,7 +23,13 @@ from ludwig_tpu_torch.lattice import LatticeModel, lb_model
 from ludwig_tpu_torch.ops.collide import (CollisionParams, RelaxationScheme,
                                           collide, equilibrium,
                                           unrolled_matvec)
-from ludwig_tpu_torch.ops.stream import stream_bounce_back, wall_solid_mask
+from ludwig_tpu_torch.ops.lees_edwards import apply_lb_le
+from ludwig_tpu_torch.ops.open_bc import apply_open_bc, apply_open_bc_x
+from ludwig_tpu_torch.ops.stream import (stream, stream_bounce_back,
+                                         wall_solid_mask)
+from ludwig_tpu_torch.ops.walls import (wall_bounce_back,
+                                        wall_bounce_back_slip)
+from ludwig_tpu_torch.stats import momentum_total
 
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
@@ -88,22 +95,15 @@ def initial_from_hydro(cfg: LBConfig, rho, u) -> torch.Tensor:
     return equilibrium(cfg.model, rho, u).contiguous()
 
 
-def solid_mask(cfg: LBConfig):
-    """Solid mask of the plane walls, or None without walls (porous
-    media are not ported yet)."""
-    if not any(cfg.walls):
+def solid_mask(cfg: LBConfig, porous: Optional[np.ndarray] = None):
+    """Combined solid mask from in-lattice plane walls and an optional
+    porous map (bool, True at solid sites), or None without either."""
+    if not any(cfg.walls) and porous is None:
         return None
-    return torch.as_tensor(wall_solid_mask(cfg.size, cfg.walls),
-                           device=cfg.device)
-
-
-def _not_ported(le, open_bc):
-    if le is not None:
-        raise NotImplementedError("Lees-Edwards planes not ported yet, "
-                                  "see ROADMAP")
-    if open_bc is not None:
-        raise NotImplementedError("open boundaries not ported yet, "
-                                  "see ROADMAP")
+    m = wall_solid_mask(cfg.size, cfg.walls)
+    if porous is not None:
+        m = np.logical_or(m, porous)
+    return torch.as_tensor(m, device=cfg.device)
 
 
 def _noise_terms(cfg: LBConfig, params, t, nstate=None, fluid=None):
@@ -153,9 +153,10 @@ def make_step(cfg: LBConfig, solid=None, force_field=None, le=None,
               open_bc=None):
     """Single-fluid step: step(state, t=0, force=force_field) ->
     (state', rho, u).  The state is f, or (f, nstate) when the KISS
-    fluctuation stream is on (kiss_on); t is the timestep counter (kept
-    for the Lees-Edwards hook of the JAX package, not ported yet)."""
-    _not_ported(le, open_bc)
+    fluctuation stream is on (kiss_on); t is the timestep counter, read
+    by the Lees-Edwards displacement.  le is a LeesEdwardsConfig or None
+    (order per ref ludwig.c: collide -> LE -> propagation); open_bc an
+    OpenBCConfig of inflow/outflow along x, or None."""
     params = cfg.collision_params()
     model = cfg.model
     fluid = None if solid is None else torch.logical_not(solid)
@@ -172,11 +173,59 @@ def make_step(cfg: LBConfig, solid=None, force_field=None, le=None,
             shat, ghat = _noise_terms(cfg, params, t)
         f_post, rho, u = collide(f, params, force=force, fluid_mask=fluid,
                                  shat=shat, ghat=ghat)
+        if le is not None:
+            f_post = apply_lb_le(f_post, model, le, t)
         f_new = stream_bounce_back(f_post, model, solid=solid,
                                    wall_u=wall_u, rho0=cfg.rho0)
+        if open_bc is not None:
+            f_new = apply_open_bc_x(f_new, f_post, model, open_bc)
         if kiss_rho:
             return (f_new, nstate), rho, u
         return f_new, rho, u
+
+    return step
+
+
+def make_wall_step(cfg: LBConfig, wallspec, force_field=None,
+                   open_bc=None, open_axis=0):
+    """Single-fluid step with halo plane walls (ref: wall.c wall_bbl):
+    step((f, gwall[, nstate]), t=0, force=force_field) -> ((f', gwall'[,
+    nstate']), rho, u).  gwall accumulates the bounce-back momentum
+    transfer for the [walls] statistics row, as the difference of the
+    compensated momentum totals before and after the wall fix; nstate
+    rides when the KISS fluctuation stream is on."""
+    params = cfg.collision_params()
+    model = cfg.model
+    kiss_rho = kiss_on(cfg)
+
+    def step(state, t=0, force=force_field):
+        f, gwall = state[0], state[1]
+        if kiss_rho:
+            shat, ghat, nstate = _noise_terms(cfg, params, t,
+                                              nstate=state[-1])
+        else:
+            shat, ghat = _noise_terms(cfg, params, t)
+        f_post, rho, u = collide(f, params, force=force,
+                                 shat=shat, ghat=ghat)
+        f_new = stream(f_post, model)
+        g_pre = momentum_total(f_new, model)
+        if wallspec.slip_active:
+            f_new = wall_bounce_back_slip(f_new, f_post, model, wallspec,
+                                          rho0=cfg.rho0)
+        else:
+            f_new, _, _ = wall_bounce_back(f_new, f_post, model, wallspec,
+                                           rho0=cfg.rho0)
+        gwall = gwall + (g_pre - momentum_total(f_new, model))
+        if open_bc is not None:
+            # the impose uses THIS step's collide hydro: the update at
+            # the top of the reference loop is overwritten by a second
+            # update after collision (ref: ludwig.c:599 vs :824)
+            f_new = apply_open_bc(f_new, f_post, model, open_bc,
+                                  axis=open_axis)
+        out = (f_new, gwall)
+        if kiss_rho:
+            out = out + (nstate,)
+        return out, rho, u
 
     return step
 

@@ -3,24 +3,28 @@ input file.
 
 PyTorch port of five slices of ludwig_tpu/ludwig.py (ref:
 src/ludwig.c:443 ludwig_run, src/main.c:30-46): the plain single fluid
-(`free_energy none`, with isothermal fluctuations), the symmetric binary
-fluid (`free_energy symmetric`), the blue-phase liquid crystal
-(`free_energy lc_blue_phase`) and the liquid-crystal droplet
-(`free_energy lc_droplet`), those three on the periodic,
-stress-divergence, hydrodynamics-on route the JAX package's fused path
-accepts, and electrokinetics without colloids
-(`free_energy fe_electro`: Gouy-Chapman walls, liquid junction or a
-uniform electrolyte).  It parses the same key-value input, builds the
-system without walls, Lees-Edwards planes, porous media or noise (the
-Gouy-Chapman walls are the electrokinetic initialisation's own), runs
-the time loop on a device (the GPU unless the caller asks for the CPU)
-and writes the statistics blocks in the reference's formats.
+(`free_energy none`, with isothermal fluctuations, halo or in-lattice
+plane walls - moving or with slip -, the open boundary, Lees-Edwards
+planes and porous media), the symmetric binary fluid (`free_energy
+symmetric`), the blue-phase liquid crystal (`free_energy
+lc_blue_phase`) and the liquid-crystal droplet (`free_energy
+lc_droplet`), those three on the periodic, stress-divergence,
+hydrodynamics-on route the JAX package's fused path accepts, and
+electrokinetics without colloids (`free_energy fe_electro`: Gouy-Chapman
+walls, liquid junction or a uniform electrolyte).  It parses the same
+key-value input, builds the system, runs the time loop on a device (the
+GPU unless the caller asks for the CPU), writes the statistics blocks in
+the reference's formats and the same checkpoint and field files
+(io_directory, freq_config, config_at_end, N_start, freq_phi, freq_vel,
+freq_psi).
 `tpu_fused on` (or `interpret`) selects the fused steps:
 ops.fused.fused_step for the plain fluid (with fluctuations, its
 FusedNoise counter-hash stream where the JAX package takes its fused
 kernel; elsewhere - `tpu_fused off`, float64 under `on`, a lattice with
 no fused-kernel plan - the reference-exact per-site KISS stream through
-lb.make_step, as the JAX package does),
+lb.make_step, as the JAX package does), with halo walls or Lees-Edwards
+planes ops.fused.make_fused_wall_step / make_fused_le_step (the same
+kernel and an O(surface) post-pass),
 ops.fused_binary.make_fused_binary_step, ops.fused_lc.make_fused_lc_step
 and ops.fused_droplet.make_fused_droplet_step (two kernels each, K1 and
 K2) for the binary fluid, the liquid crystal and the droplet; the
@@ -34,15 +38,17 @@ its reference-ordered scans wherever its build_system would take the
 unfused route, its plain reductions on its fused routes.
 
 Every input key outside the slices raises NotImplementedError naming the
-key, unless it is set to its inactive default (`periodicity 1_1_1`,
-`colloid_init no_colloids`, ...).  The input header of the reference log
-(fulllog.InitLog in the JAX package) is not ported yet.
+key, unless it is set to its inactive default (`boundary_walls 0_0_0`
+for the families other than the plain fluid, `colloid_init
+no_colloids`, `default_io_grid 1_1_1`, ...).  The input header of the
+reference log (fulllog.InitLog in the JAX package) is not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 import time
 from typing import Optional
@@ -60,17 +66,26 @@ from ludwig_tpu_torch.fe import lc_init
 from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE
 from ludwig_tpu_torch.fe.lc_droplet import LCDropletFE
 from ludwig_tpu_torch.fe.symmetric import SymmetricFE
+from ludwig_tpu_torch.io import read_state, write_state
+from ludwig_tpu_torch.io.map_file import GEOMETRIES, read_map
+from ludwig_tpu_torch.io.ref_format import write_ref_field
 from ludwig_tpu_torch.lb import (LBConfig, hydro_fields, initial_from_hydro,
-                                 initial_rest, kiss_on, make_step)
+                                 initial_rest, kiss_on, make_step,
+                                 make_wall_step, solid_mask)
 from ludwig_tpu_torch.noise import NoiseConfig, var_bulk, var_eta, var_ghost
 from ludwig_tpu_torch.noise_kiss import kiss_init
 from ludwig_tpu_torch.ops.collide import RelaxationScheme
-from ludwig_tpu_torch.ops.fused import FusedNoise, fused_step
+from ludwig_tpu_torch.ops.fused import (FusedNoise, fused_step,
+                                        make_fused_le_step,
+                                        make_fused_wall_step)
 from ludwig_tpu_torch.ops.fused_binary import (initial_fused_binary,
                                                make_fused_binary_step)
 from ludwig_tpu_torch.ops.fused_droplet import (initial_fused_droplet,
                                                 make_fused_droplet_step)
 from ludwig_tpu_torch.ops.fused_lc import initial_fused_lc, make_fused_lc_step
+from ludwig_tpu_torch.ops.lees_edwards import LeesEdwardsConfig
+from ludwig_tpu_torch.ops.open_bc import OpenBCConfig
+from ludwig_tpu_torch.ops.walls import WallSpec
 from ludwig_tpu_torch.ref_rng import spinodal_ref
 from ludwig_tpu_torch.runtime import RunTime
 
@@ -91,7 +106,11 @@ SLICE_KEYS = frozenset((
     "2d_kelvin_helmholtz_u0", "2d_kelvin_helmholtz_delta",
     "2d_kelvin_helmholtz_kappa", "distribution_uniform_u0",
     "distribution_uniform_u", "N_cycles", "freq_statistics", "tpu_fused",
-    "hydrodynamics"))
+    "hydrodynamics",
+    # checkpoints and field files (the periodicity is recorded in the
+    # field files' metadata)
+    "periodicity", "io_directory", "N_start", "config_at_end",
+    "freq_config", "freq_phi", "freq_vel"))
 
 # keys the binary-fluid slice reads (free_energy symmetric only)
 BINARY_KEYS = frozenset((
@@ -137,7 +156,7 @@ ELECTRO_KEYS = frozenset((
     "electrokinetics_solver_stencil", "electric_e0",
     "electrokinetics_init", "electrokinetics_init_rho_el",
     "electrokinetics_init_sigma", "electrokinetics_init_delta_el",
-    "freq_psi_resid"))
+    "freq_psi_resid", "freq_psi"))
 
 # keys the plain fluid reads for isothermal fluctuations (free_energy
 # none only; the other families refuse the noise keys while they are on)
@@ -145,8 +164,22 @@ NOISE_KEYS = frozenset((
     "temperature", "isothermal_fluctuations", "lb_fluctuations",
     "random_seed"))
 
+# keys the plain fluid reads for its boundaries (free_energy none only;
+# the other families refuse walls, Lees-Edwards planes and porous media
+# while they are on): halo or in-lattice plane walls, moving or with
+# slip, the open boundary beside halo walls, Lees-Edwards planes, and
+# porous media from a map file, a .npy mask or a geometry
+BOUNDARY_KEYS = frozenset((
+    "boundary_walls", "boundary_speed_bottom", "boundary_speed_top",
+    "boundary_walls_slip_fraction_bot", "boundary_walls_slip_fraction_top",
+    "boundary_walls_slip_active", "lb_bc_open", "lb_bc_inflow_rhou_u0",
+    "lb_bc_outflow_rhou_rho0", "N_LE_plane", "LE_plane_vel",
+    "porous_media_file", "porous_media_ndata", "porous_media_type",
+    "porous_media_format", "porous_media_init", "porous_media_acell"))
+
 # free energy -> the keys it reads beside SLICE_KEYS
-FREE_ENERGIES = {"none": NOISE_KEYS, "symmetric": BINARY_KEYS,
+FREE_ENERGIES = {"none": NOISE_KEYS | BOUNDARY_KEYS,
+                 "symmetric": BINARY_KEYS,
                  "lc_blue_phase": LC_KEYS, "lc_droplet": DROPLET_KEYS,
                  "fe_electro": ELECTRO_KEYS}
 
@@ -154,7 +187,6 @@ FREE_ENERGIES = {"none": NOISE_KEYS, "symmetric": BINARY_KEYS,
 INACTIVE = {
     "viscosity_model": lambda v: v == "newtonian",
     "colloid_init": lambda v: v == "no_colloids",
-    "periodicity": lambda v: v == "1_1_1",
     "boundary_walls": _zeros,
     "temperature": _zeros,
     "isothermal_fluctuations": _off,
@@ -163,19 +195,18 @@ INACTIVE = {
     "electric_e0": _zeros,
     "lb_fluctuations": _off,
     "N_LE_plane": _zeros,
-    "N_start": _zeros,
     "lb_bc_open": _off,
     "tpu_shard": _off,
-    "config_at_end": _off,
-    "freq_config": _zeros,
-    "freq_phi": _zeros,
-    "freq_vel": _zeros,
     "freq_psi": _zeros,
     "freq_measure": _zeros,
     "freq_shear_measurement": _zeros,
     "freq_shear_output": _zeros,
     "colloid_io_freq": _zeros,
 }
+
+
+def _one_io_group(v: str) -> bool:
+    return [int(x) for x in v.split("_")] == [1, 1, 1]
 
 
 def _not_ported(key: str, value):
@@ -191,7 +222,10 @@ def _check_keys(rt: RunTime):
     for key in rt.unused_keys():
         if key in SLICE_KEYS or key in FREE_ENERGIES[fe_name]:
             continue
-        check = INACTIVE.get(key)
+        # default_io_grid, <name>_io_grid: one I/O group only (the JAX
+        # package's sharded writer, io/sharded.py, is not ported)
+        check = (INACTIVE.get(key) if not key.endswith("_io_grid")
+                 else _one_io_group)
         value = rt.string(key)
         if check is None or not check(value):
             raise _not_ported(key, value)
@@ -203,13 +237,14 @@ class System:
 
     rt: RunTime
     lb_cfg: LBConfig
-    # (f,) or, with the KISS noise stream, (f, nstate); binary (f, phi,
-    # u); LC (f, q5, u); droplet (f, phi, q5, u); electrokinetics (f,
-    # psi, rho, u, gwall)
+    # (f,) or, with the KISS noise stream, (f, nstate); halo walls (f,
+    # gwall[, nstate]); binary (f, phi, u); LC (f, q5, u); droplet (f,
+    # phi, q5, u); electrokinetics (f, psi, rho, u, gwall)
     state: tuple
     step_fn: object
-    # 'plain': fused collide+stream; 'binary', 'lc', 'droplet': their two
-    # kernels
+    # 'plain': fused collide+stream; 'wall', 'le': the same with the wall
+    # fix or the Lees-Edwards column post-pass; 'binary', 'lc',
+    # 'droplet': their two kernels
     fused_mode: Optional[str] = None
     hydro_on: bool = True
     binary_cfg: Optional[BinaryConfig] = None
@@ -217,6 +252,13 @@ class System:
     droplet_cfg: Optional[lc_droplet.LCDropletConfig] = None
     electro_cfg: Optional[electro_sim.ElectroSimConfig] = None
     solid: Optional[torch.Tensor] = None     # in-lattice solid sites
+    wallspec: Optional[WallSpec] = None      # plain-fluid halo walls
+    le_cfg: Optional[LeesEdwardsConfig] = None   # Lees-Edwards planes
+    n_start: int = 0                         # the step a restart reads
+
+    @property
+    def fluid_mask(self) -> Optional[torch.Tensor]:
+        return None if self.solid is None else torch.logical_not(self.solid)
 
     @property
     def is_electro(self) -> bool:
@@ -575,8 +617,9 @@ def _has_fused_plan(size) -> bool:
 
 def _jax_fused_plain(rt: RunTime, lb_cfg: LBConfig) -> bool:
     """Whether the JAX package steps a plain-fluid input through its fused
-    kernel (ludwig_tpu ludwig.py:1719-1733): tpu_fused on or interpret, a
-    _fused_plan, and float32 or interpret mode."""
+    kernel (ludwig_tpu ludwig.py:1719-1733; the wall and Lees-Edwards
+    gates at :1673-1674 and :1711-1712 ask the same): tpu_fused on or
+    interpret, a _fused_plan, and float32 or interpret mode."""
     fused_req = rt.string("tpu_fused", "off")
     return (fused_req != "off" and _has_fused_plan(lb_cfg.size)
             and (fused_req == "interpret" or lb_cfg.dtype == "float32"))
@@ -593,10 +636,12 @@ def reference_statistics(sys_: System) -> bool:
     of 128 (ludwig_tpu ludwig.py:1008-1011, 1160-1163, 1329-1332,
     1709-1712, 1730-1733).  The port's noiseless step routes do not
     follow these gates, only their statistics do; a fluctuating plain
-    input's step follows the plain gate too (build_system)."""
+    input's step follows the plain gate too (build_system).  The fused
+    wall and Lees-Edwards steps follow the plain gate, and porous or
+    masked runs are unfused in both packages."""
     if sys_.fused_mode is None:
         return True
-    if sys_.fused_mode == "plain":
+    if sys_.fused_mode in ("plain", "wall", "le"):
         return not _jax_fused_plain(sys_.rt, sys_.lb_cfg)
     size, dtype = sys_.lb_cfg.size, sys_.lb_cfg.dtype
     if not _has_fused_plan(size):
@@ -630,11 +675,14 @@ def build_system(rt: RunTime, device="cuda") -> System:
     dtype = rt.string("dtype", "float64")
     nvel = rt.int("lb_nvel", 9 if size[2] == 1 else 19)
     fe_name = rt.string("free_energy", "none")
+    # the other families accept boundary_walls 0_0_0 only (INACTIVE)
+    walls = tuple(bool(w) for w in rt.int_vector("boundary_walls",
+                                                 (0, 0, 0)))
 
     lb_cfg = LBConfig(size=size, nvel=nvel, eta_shear=eta, eta_bulk=eta_b,
                       rho0=rho0, scheme=_relaxation(rt),
                       ghost_modes_on=ghosts, force_global=force,
-                      dtype=dtype, device=device,
+                      walls=walls, dtype=dtype, device=device,
                       noise=_noise_config(rt) if fe_name == "none" else None)
     if fe_name == "symmetric":
         # the fluid starts at rest (ref: the symmetric branch of
@@ -677,15 +725,128 @@ def build_system(rt: RunTime, device="cuda") -> System:
                       droplet_cfg=dcfg)
     if fe_name == "fe_electro":
         return _electro_system(rt, lb_cfg)
+    return _plain_system(rt, lb_cfg)
+
+
+def _porous(rt: RunTime, size) -> Optional[np.ndarray]:
+    """The porous-media solid mask of an input (ludwig_tpu ludwig.py:
+    641-678), or None: `porous_media_file` names a .npy mask, or is the
+    reference's switch for the map file ("capillary.001-001" by default;
+    ref: map_rt.c:100-176) with porous_media_ndata / porous_media_type
+    and porous_media_format; `porous_media_init` makes a geometry of
+    io/map_file.GEOMETRIES (ref: map_rt.c:252-295).  The map's wetting
+    data serves the binary fluid only and is not read here."""
+    pm_file = rt.string("porous_media_file")
+    if pm_file:
+        if pm_file.endswith(".npy") or os.path.exists(pm_file + ".npy"):
+            return np.load(pm_file if pm_file.endswith(".npy")
+                           else pm_file + ".npy").astype(bool)
+        ndata = rt.int("porous_media_ndata", -1)
+        if ndata < 0:
+            ndata = {"status_only": 0, "status_with_h": 1,
+                     "status_with_sigma": 1, "status_with_c_h": 2}.get(
+                rt.string("porous_media_type", "status_only"), 0)
+        fmt = rt.string("porous_media_format", "BINARY")
+        stub = pm_file if os.path.exists(pm_file) else (
+            pm_file + ".001-001" if os.path.exists(pm_file + ".001-001")
+            else "capillary.001-001")
+        status, _data = read_map(stub, size, ndata,
+                                 binary=not fmt.startswith("ASCII"))
+        return status != 0
+    gname = rt.string("porous_media_init")
+    if gname:
+        if gname not in GEOMETRIES:
+            raise ValueError(f"porous_media_init not recognised {gname}")
+        acell = (rt.int_required("porous_media_acell")
+                 if gname.endswith("cubic") else 0)
+        return GEOMETRIES[gname](size, acell) != 0
+    return None
+
+
+def _wall_system(rt: RunTime, lb_cfg: LBConfig, walls) -> System:
+    """Halo plane walls, every stored site fluid (ludwig_tpu ludwig.py:
+    1648-1701): the fused wall step where `tpu_fused` asks for it and
+    there is no slip, no noise and no open boundary (the JAX package's
+    gate, without its plan and dtype conditions: the port's kernel takes
+    every lattice and dtype); else make_wall_step, with the KISS state
+    where fluctuations are on and the open boundary along the first
+    unwalled axis."""
+    ub = rt.double("boundary_speed_bottom", 0.0)
+    ut = rt.double("boundary_speed_top", 0.0)
+    sb = tuple(rt.double_vector("boundary_walls_slip_fraction_bot",
+                                (0.0, 0.0, 0.0)))
+    st_ = tuple(rt.double_vector("boundary_walls_slip_fraction_top",
+                                 (0.0, 0.0, 0.0)))
+    slip_on = (rt.switch("boundary_walls_slip_active", False)
+               or any(sb) or any(st_))
+    ws = WallSpec(walls=walls, ubot=(ub, 0.0, 0.0), utop=(ut, 0.0, 0.0),
+                  slip_bot=sb, slip_top=st_, slip_active=slip_on)
+    lb_cfg = dataclasses.replace(lb_cfg, walls=(False,) * 3)
     f = _distribution_init(rt, lb_cfg)
+    gwall = torch.zeros((3,), dtype=lb_cfg.tdtype, device=lb_cfg.device)
+    open_on = rt.switch("lb_bc_open", False)
+    if (_fused_request(rt) and not slip_on and lb_cfg.noise is None
+            and not open_on):
+        return System(rt=rt, lb_cfg=lb_cfg, state=(f, gwall),
+                      step_fn=make_fused_wall_step(lb_cfg, ws),
+                      fused_mode="wall", wallspec=ws)
+    obc, oax = None, 0
+    if open_on:
+        obc = OpenBCConfig(
+            u0=tuple(rt.double_vector("lb_bc_inflow_rhou_u0",
+                                      (0.0, 0.0, 0.0))),
+            rho0=rt.double("lb_bc_outflow_rhou_rho0", 1.0))
+        oax = next((a for a in range(3) if not walls[a]), 0)
+    state = (f, gwall)
+    if kiss_on(lb_cfg):
+        state = state + (kiss_init(0, lb_cfg.size, device=lb_cfg.device),)
+    return System(rt=rt, lb_cfg=lb_cfg, state=state,
+                  step_fn=make_wall_step(lb_cfg, ws, open_bc=obc,
+                                         open_axis=oax),
+                  wallspec=ws)
+
+
+def _plain_system(rt: RunTime, lb_cfg: LBConfig) -> System:
+    """The `free_energy none` branch of ludwig_tpu build_system
+    (ludwig.py:1640-1767), gate for gate: halo walls without porous
+    media or Lees-Edwards planes (_wall_system); otherwise in-lattice
+    solid planes and porous sites, the fused Lees-Edwards step (no
+    solid, no noise), the fused plain step, or the unfused make_step
+    with solid sites, planes and the KISS state.  Without noise the
+    port runs its kernel wherever `tpu_fused` asks for it, f64 and
+    lattices without a JAX fused plan included (reference_statistics
+    still prints what the JAX package's route would)."""
+    size = lb_cfg.size
     nz = lb_cfg.noise
+    le = None
+    nplanes = rt.int("N_LE_plane", 0)
+    if nplanes > 0:
+        le = LeesEdwardsConfig(nplanes=nplanes,
+                               uy=rt.double_required("LE_plane_vel"),
+                               nx=size[0])
+    porous = _porous(rt, size)
+    if any(lb_cfg.walls) and le is None and porous is None:
+        return _wall_system(rt, lb_cfg, lb_cfg.walls)
+    if rt.switch("lb_bc_open", False):
+        # the JAX package imposes the open boundary beside halo walls only
+        raise _not_ported("lb_bc_open", rt.string("lb_bc_open") +
+                          " without halo walls")
+    f = _distribution_init(rt, lb_cfg)
+    solid = solid_mask(lb_cfg, porous)
+    if _fused_request(rt) and le is not None and solid is None and nz is None:
+        # the sheared fast path: the kernel + the LE column post-pass
+        # (ref: model_le.c:57; ludwig.c:811)
+        return System(rt=rt, lb_cfg=lb_cfg, state=(f,),
+                      step_fn=make_fused_le_step(lb_cfg, le),
+                      fused_mode="le", le_cfg=le)
     # with isothermal fluctuations the step follows the JAX package's
     # gate, since the two routes draw different noise: FusedNoise where
     # it takes its fused kernel, the KISS stream where it does not (f64
     # under tpu_fused on, no _fused_plan).  Without noise the fused route
     # differs from the unfused one by roundoff only, and the port keeps
     # its kernel.
-    if _fused_request(rt) and (nz is None or _jax_fused_plain(rt, lb_cfg)):
+    if (_fused_request(rt) and le is None and solid is None
+            and (nz is None or _jax_fused_plain(rt, lb_cfg))):
         # production path: the fused collide+stream (kernel on a GPU,
         # twin on the CPU); with isothermal fluctuations the kernel draws
         # the counter-hash stream of FusedNoise, keyed on random_seed
@@ -705,15 +866,15 @@ def build_system(rt: RunTime, device="cuda") -> System:
 
         return System(rt=rt, lb_cfg=lb_cfg, state=(f,), step_fn=step,
                       fused_mode="plain")
+    state = (f,)
     if kiss_on(lb_cfg):
         # the reference-exact KISS stream: the JAX package seeds it with
         # master seed 0 (hence 13), not random_seed (ludwig_tpu
         # ludwig.py:1762-1767)
-        return System(rt=rt, lb_cfg=lb_cfg,
-                      state=(f, kiss_init(0, size, device=device)),
-                      step_fn=make_step(lb_cfg))
-    return System(rt=rt, lb_cfg=lb_cfg, state=(f,),
-                  step_fn=make_step(lb_cfg))
+        state = (f, kiss_init(0, size, device=lb_cfg.device))
+    return System(rt=rt, lb_cfg=lb_cfg, state=state,
+                  step_fn=make_step(lb_cfg, solid=solid, le=le),
+                  solid=solid, le_cfg=le)
 
 
 def _make_stats_fn(sys_: System, reference: bool):
@@ -721,8 +882,9 @@ def _make_stats_fn(sys_: System, reference: bool):
     fluid, {phi, fed}, for the liquid crystal {q5, fe_lc}, for the
     droplet {phi, q5, fed}, for electrokinetics {psi3, rhok, elc, fed}
     and, with solid sites, {gwall}; {ktstats} with fluctuations.  rho, g
-    and umm are over the fluid sites.  `prev` is the order-parameter
-    state before the last step: (phi,), (q5,) or the droplet's (phi, q5).
+    and umm are over the fluid sites; with halo walls {gwall} too.
+    `prev` is the order-parameter state before the last step: (phi,),
+    (q5,) or the droplet's (phi, q5).
 
     `reference` selects the JAX package's reference-ordered statistics
     (ludwig.py _make_stats_fn: rho_stats_ref, momentum_total_ref, the
@@ -735,7 +897,7 @@ def _make_stats_fn(sys_: System, reference: bool):
     dcfg = sys_.droplet_cfg
     ecfg = sys_.electro_cfg
     nz = sys_.lb_cfg.noise
-    mask = None if sys_.solid is None else torch.logical_not(sys_.solid)
+    mask = sys_.fluid_mask
     order_stats = stats.field_stats_ref if reference else stats.field_stats
 
     def compute(state, u, prev=None):
@@ -748,6 +910,9 @@ def _make_stats_fn(sys_: System, reference: bool):
             res = {"rho": stats.field_stats(rho),
                    "g": stats.momentum_total_plain(f, model)}
         res["umm"] = stats.velocity_minmax(u, mask)
+        if sys_.wallspec is not None:
+            # halo walls: gwall rides the state (f, gwall[, nstate])
+            res["gwall"] = state[1]
         if ecfg is not None:
             # ludwig_tpu ludwig.py:2127-2161 (an electrokinetic run always
             # prints the reference statistics): site-order totals
@@ -825,14 +990,16 @@ def _make_stats_fn(sys_: System, reference: bool):
     return compute
 
 
-def _fused_u(sys_: System, f: torch.Tensor) -> torch.Tensor:
+def _fused_u(sys_: System, f: torch.Tensor, sign: float = -1.0):
     """The reference's hydro u is the collision-time force-shifted
-    velocity (g_pre + F/2)/rho; after the kick the stored momentum is
-    g_pre + F, so subtract F/2."""
+    velocity (g_pre + F/2)/rho.  After the kick the stored momentum is
+    g_pre + F, so for a post-step f (sign -1) subtract F/2; the fused
+    wall and Lees-Edwards steps log the collision-time u of the PRE-step
+    state (sign +1: ludwig_tpu ludwig.py:2970 _wall_collide_u)."""
     rho, g = hydro_fields(f, sys_.lb_cfg.model)
     fg = torch.as_tensor(np.asarray(sys_.lb_cfg.force_global[:3]),
                          dtype=g.dtype, device=g.device)
-    return (g - 0.5 * fg[:, None, None, None]) / rho
+    return (g + sign * 0.5 * fg[:, None, None, None]) / rho
 
 
 def report_statistics(sys_: System, tstep: int, u, stats_fn,
@@ -898,9 +1065,66 @@ def _sor_report(sor, multisteps: int, out):
     out.write(f"{multisteps} multisteps\n")
 
 
+def _field_names(sys_: System):
+    """The checkpoint's names for the state's leaves, in order: dist,
+    then phi (binary), q (liquid crystal), vel (binary, liquid crystal,
+    droplet), then state<i> (ludwig_tpu ludwig.py:2890-2901 and
+    :2938-2950)."""
+    names = ["dist"]
+    if sys_.binary_cfg is not None:
+        names.append("phi")
+    if sys_.lc_cfg is not None:
+        names.append("q")
+    if (sys_.binary_cfg is not None or sys_.lc_cfg is not None
+            or sys_.droplet_cfg is not None):
+        names.append("vel")
+    return [names[i] if i < len(names) else f"state{i:02d}"
+            for i in range(len(sys_.state))]
+
+
+def _leaf_to_host(x: torch.Tensor) -> np.ndarray:
+    """A state leaf as the JAX package writes it: the KISS state, whose
+    32-bit words the port keeps in int64, as uint32."""
+    a = x.detach().cpu().numpy()
+    return a.astype(np.uint32) if x.dtype == torch.int64 else a
+
+
+def write_checkpoint(sys_: System, directory: str, step: int) -> None:
+    """Every leaf of the state as <name>-<step> with its JSON sidecar, the
+    unpadded (nvel, X, Y, Z) layout on every route (the JAX package's
+    fused routes write their padded state)."""
+    write_state(directory, step, {
+        name: _leaf_to_host(x)
+        for name, x in zip(_field_names(sys_), sys_.state)})
+
+
+def read_checkpoint(sys_: System, directory: str, step: int) -> tuple:
+    """The state written by write_checkpoint (or by the JAX package's
+    unfused route) at `step`, on the state's device and in its dtypes."""
+    names = _field_names(sys_)
+    data = read_state(directory, step, names)
+    leaves = []
+    for name, x in zip(names, sys_.state):
+        a = data[name]
+        if tuple(a.shape) != tuple(x.shape):
+            raise ValueError(
+                f"checkpoint {name}-{step:08d} has shape {a.shape}, the "
+                f"state {tuple(x.shape)} (a padded fused state of the JAX "
+                "package? convert.checkpoint_from_jax unpads it)")
+        if x.dtype == torch.int64:
+            a = a.astype(np.int64)
+        leaves.append(torch.as_tensor(a, dtype=x.dtype, device=x.device))
+    return tuple(leaves)
+
+
 def run_text(text: str, out=sys.stdout, device="cuda") -> System:
     """Run a simulation from input-file text on `device`; returns the
-    final System."""
+    final System.
+
+    Checkpoints (freq_config, config_at_end) write the state into
+    io_directory and N_start reads it back, the loop continuing at
+    N_start + 1; freq_phi, freq_vel and freq_psi write reference-format
+    field files (ludwig_tpu ludwig.py:2787-2967, 3176-3230)."""
     rt = RunTime(text)
     t0 = time.time()
     sys_ = build_system(rt, device)
@@ -913,15 +1137,41 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
     sor_freq = (rt.int("freq_psi_resid", freq) if sys_.is_electro
                 and sys_.electro_cfg.ek.solver != "fft" else 0)
 
+    # checkpoint / restart (ref: ludwig.c:310-369, 868-916) and the
+    # reference-format field files (ref: ludwig.c is_phi_output_step /
+    # is_vel_output_step; io_impl_mpio.c records)
+    iodir = rt.string("io_directory", ".")
+    freq_config = rt.int("freq_config", 0)
+    config_at_end = rt.switch("config_at_end", False)
+    sys_.n_start = rt.int("N_start", 0)
+    freq_phi = rt.int("freq_phi", 0)
+    freq_vel = rt.int("freq_vel", 0)
+    freq_psi = rt.int("freq_psi", 0) if sys_.is_electro else 0
+    periodic = tuple(rt.int_vector("periodicity", (1, 1, 1)))
+    le_meta = (None if sys_.le_cfg is None
+               else (sys_.le_cfg.nplanes, sys_.le_cfg.uy))
+    has_phi = sys_.binary_cfg is not None or sys_.droplet_cfg is not None
+    has_q = sys_.lc_cfg is not None or sys_.droplet_cfg is not None
+    tend = sys_.n_start + ncycles
+
+    def write_field(name, step, arr):
+        write_ref_field(iodir, name, step, arr, periodic=periodic,
+                        le=le_meta)
+
+    if sys_.n_start > 0:
+        sys_.state = read_checkpoint(sys_, iodir, sys_.n_start)
+        # diagnostic only: no reference vintage prints a restart line
+        print(f"Restart from step {sys_.n_start}", file=sys.stderr)
+
     out.write("\nInitial conditions.\n")
     u = torch.zeros((3,) + size, dtype=sys_.lb_cfg.tdtype,
                     device=sys_.lb_cfg.device)
-    report_statistics(sys_, 0, u, stats_fn, with_velocity=False,
+    report_statistics(sys_, sys_.n_start, u, stats_fn, with_velocity=False,
                       out=out, in_loop=False)
     out.write("\nStarting time step loop.\n")
     t_init = time.time() - t0
-    sect = {"step": [0.0, float("inf"), 0.0, 0],
-            "stats": [0.0, float("inf"), 0.0, 0]}
+    sect = {key: [0.0, float("inf"), 0.0, 0]
+            for key in ("step", "stats", "cfgio", "fldio")}
 
     def _acc(key, dt_):
         s = sect[key]
@@ -930,8 +1180,9 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
         s[2] = max(s[2], dt_)
         s[3] += 1
 
-    for t in range(1, ncycles + 1):
+    for t in range(sys_.n_start + 1, tend + 1):
         ts0 = time.time()
+        vel_out = bool(freq_vel) and t % freq_vel == 0
         # the steps return new tensors and never write their inputs, so
         # the pre-step order parameters of the [fed] / [fe] statistic
         # (phi, Q, or the droplet's pair) are held by reference
@@ -950,8 +1201,16 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
         elif sys_.fused_mode == "plain":
             sys_.state = (sys_.step_fn(sys_.state[0], t),)
             u = None      # derived from f at statistics steps
-        elif sys_.has_kiss:
-            # the KISS state rides with f (ludwig_tpu ludwig.py:3395-3447)
+        elif sys_.fused_mode in ("wall", "le"):
+            # the logged u is the collision-time velocity of THIS step,
+            # (g + F/2)/rho of the PRE-step state, on the steps that read
+            # it (ludwig_tpu ludwig.py:3386-3392)
+            u = (_fused_u(sys_, sys_.state[0], +1.0)
+                 if t % freq == 0 or vel_out else None)
+            sys_.state = sys_.step_fn(sys_.state, t)
+        elif sys_.has_kiss or sys_.wallspec is not None:
+            # the KISS state or the walls' momentum rides with f
+            # (ludwig_tpu ludwig.py:3395-3447)
             sys_.state, _rho, u = sys_.step_fn(sys_.state, t)
         else:
             f, _rho, u = sys_.step_fn(sys_.state[0], t)
@@ -959,13 +1218,47 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
         _acc("step", time.time() - ts0)
         if sor_freq and t % sor_freq == 0:
             _sor_report(sor, sys_.electro_cfg.ek.multisteps, out)
+        # configuration dumps and the output lines come BEFORE the
+        # statistics block of the same step (ref: ludwig.c:866-948)
+        is_config = ((freq_config and t % freq_config == 0)
+                     or (config_at_end and t == tend))
+        if is_config:
+            ts0 = time.time()
+            out.write(f"Writing distribution output at step {t}!\n")
+            write_checkpoint(sys_, iodir, t)
+            _acc("cfgio", time.time() - ts0)
+        if (freq_phi and t % freq_phi == 0) or is_config:
+            if has_phi:
+                out.write(f"Writing phi file at step {t}!\n")
+            if has_q:
+                out.write(f"Writing q file at step {t}!\n")
+        if sys_.is_electro and ((freq_psi and t % freq_psi == 0)
+                                or is_config):
+            out.write(f"Writing psi file at step {t}!\n")
+        if sys_.hydro_on and (vel_out or is_config):
+            out.write(f"Writing rho/velocity output at step {t}!\n")
+        if u is None and (t % freq == 0 or vel_out):
+            u = _fused_u(sys_, sys_.state[0])
         if t % freq == 0:
             ts0 = time.time()
-            if u is None:
-                u = _fused_u(sys_, sys_.state[0])
             report_statistics(sys_, t, u, stats_fn, out=out,
                               with_velocity=sys_.hydro_on, prev=prev)
             _acc("stats", time.time() - ts0)
+        if freq_phi or freq_vel or freq_psi:
+            ts0 = time.time()
+            if freq_phi and t % freq_phi == 0:
+                # the liquid crystal writes q; the binary fluid and the
+                # droplet write phi (ludwig_tpu ludwig.py:2866-2880)
+                if sys_.lc_cfg is not None:
+                    write_field("q", t, sys_.state[1])
+                elif has_phi:
+                    write_field("phi", t, sys_.state[1])
+            if vel_out:
+                write_field("vel", t, u)
+            if freq_psi and t % freq_psi == 0:
+                write_field("psi", t, sys_.state[1])
+                write_field("rho", t, sys_.state[2])
+            _acc("fldio", time.time() - ts0)
 
     # timer table (ref: TIMER_statistics table shape); host clocks, the
     # device work of a step lands in the next section that synchronises
@@ -980,7 +1273,8 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
     out.write(f"      Time step loop: {per_step:10.3f} {per_step:10.3f} "
               f"{total - t_init:10.3f} {per_step:10.6f} "
               f"({max(ncycles, 1)} calls)\n")
-    for key, label in (("step", "Step dispatch"), ("stats", "Statistics")):
+    for key, label in (("step", "Step dispatch"), ("stats", "Statistics"),
+                       ("cfgio", "Config output"), ("fldio", "Field output")):
         tot, tmin, tmax, ncall = sect[key]
         if ncall:
             out.write(f"{label:>20s}: {tmin:10.3f} {tmax:10.3f} "

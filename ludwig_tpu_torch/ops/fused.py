@@ -7,6 +7,10 @@ without its solid variant) become the hand-written CUDA kernels of
 ``csrc/fused_lb.cu``; their plain PyTorch twins live here.
 Every public function takes the twin for a tensor on the CPU, launches
 the kernel for a tensor on a CUDA device, and raises on anything else.
+make_fused_wall_step and make_fused_le_step wrap the single-step kernel
+with the O(surface) post-passes of halo walls and Lees-Edwards planes
+(ops/walls.py, ops/lees_edwards.py), plain PyTorch as in the JAX
+package, where they are XLA.
 
 The state is the unpadded ``(nvel, X, Y, Z)`` array, C-contiguous with z
 fastest.  Periodicity comes from index arithmetic (``torch.roll`` in the
@@ -33,7 +37,9 @@ import torch
 from ludwig_tpu_torch.lattice import LatticeModel, lb_model
 from ludwig_tpu_torch.ops import _cuda
 from ludwig_tpu_torch.ops.collide import CollisionParams, _triu_pairs
+from ludwig_tpu_torch.ops.lees_edwards import apply_le_fused, le_fix_plan
 from ludwig_tpu_torch.ops.stream import _roll3
+from ludwig_tpu_torch.ops.walls import wall_bounce_back_fused, wall_fix_plan
 
 NSTEPS_MAX = 8   # deepest temporal blocking fusedn_step accepts
 
@@ -528,6 +534,65 @@ def make_fused_nstep(model: LatticeModel, params: CollisionParams,
         return f
 
     return nstep
+
+
+def make_fused_wall_step(cfg, spec, plan: FusedPlan = FusedPlan()):
+    """Fused collide+stream with halo plane walls: step((f, gwall), t=0)
+    -> (f', gwall').
+
+    fused_step (the kernel) streams fully periodically; the contaminated
+    boundary-plane populations are then overwritten with half-way
+    bounce-back (incl. moving walls) - O(surface) work around the
+    unmodified O(volume) kernel (ref: wall.c:860-980 wall_bbl_kernel;
+    step order ludwig.c collide -> halo -> wall -> propagation).  The
+    post-collision populations the walls reflect are those the kernel's
+    periodic stream wrapped across the lattice, gathered from its output
+    (ops/walls.wall_bounce_back_fused): the JAX package collides the
+    boundary planes a second time for them, which in eager PyTorch is
+    some 650 launches an axis.  gwall accumulates the momentum
+    transferred to the walls for the [walls] statistics row (ref: wall.c
+    fnet, wall_momentum), in gwall's dtype.  t is not read."""
+    model = cfg.model
+    params = cfg.collision_params()
+    fixes = {}
+
+    def step(state, t=0):
+        f, gwall = state
+        f = fused_step(f, model, params, plan)
+        fix = fixes.get(f.device)
+        if fix is None:
+            fix = fixes[f.device] = wall_fix_plan(model, spec, cfg.size,
+                                                  cfg.rho0, f.device)
+        f, gw = wall_bounce_back_fused(f, model, spec, rho0=cfg.rho0,
+                                       plan=fix)
+        return (f, gwall + gw.to(gwall.dtype))
+
+    return step
+
+
+def make_fused_le_step(cfg, le, plan: FusedPlan = FusedPlan()):
+    """Fused collide+stream with Lees-Edwards sliding boundaries:
+    step((f,), t=0) -> (f',).
+
+    The LE reprojection + y-displacement runs as a column post-pass
+    conjugated through streaming (ops/lees_edwards.apply_le_fused) -
+    exactly the reference's collide -> LE -> propagate order
+    (ref: model_le.c:57, ludwig.c:811) at O(surface) cost; t is the
+    step counter of the slide."""
+    model = cfg.model
+    params = cfg.collision_params()
+    fixes = {}
+
+    def step(state, t=0):
+        f = fused_step(state[0], model, params, plan)
+        key = (f.device, f.dtype)
+        fix = fixes.get(key)
+        if fix is None:
+            fix = fixes[key] = le_fix_plan(model, le, cfg.size, f.dtype,
+                                           f.device)
+        return (apply_le_fused(f, model, le, t, plan=fix),)
+
+    return step
 
 
 def make_fusedn_nstep(model: LatticeModel, params: CollisionParams,

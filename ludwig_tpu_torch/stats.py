@@ -220,6 +220,41 @@ def momentum_total_ref(f: torch.Tensor, model: LatticeModel,
     return _momentum_twin(f, model, keep)
 
 
+def _two_sum(a, b):
+    """Knuth branch-free exact addition: a + b = s + err."""
+    s = a + b
+    bp = s - a
+    return s, (a - (s - bp)) + (b - bp)
+
+
+def momentum_total(f: torch.Tensor, model: LatticeModel, fluid_mask=None):
+    """(3,) total momentum with a compensated per-site fold over the
+    velocities (Neumaier: the fold's sum and its error terms), then a
+    lattice sum of each - the JAX package's stats.momentum_total, which
+    its wall step differences for the walls' momentum."""
+    comps = []
+    for a in range(3):
+        s = c = None
+        for p in range(model.nvel):
+            cpa = float(model.cv[p][a])
+            if cpa == 0.0:
+                continue
+            t = cpa * f[p]
+            if s is None:
+                s, c = t, torch.zeros_like(t)
+            else:
+                s, e = _two_sum(s, t)
+                c = c + e
+        if s is None:   # 2-D models: no z links
+            comps.append(torch.zeros((), dtype=f.dtype, device=f.device))
+            continue
+        if fluid_mask is not None:
+            s = torch.where(fluid_mask, s, 0.0)
+            c = torch.where(fluid_mask, c, 0.0)
+        comps.append(torch.sum(s) + torch.sum(c))
+    return torch.stack(comps)
+
+
 def field_stats(x: torch.Tensor):
     """(total, mean, var, min, max) of a scalar field with plain
     reductions, as the JAX package's fused route reports them (var =

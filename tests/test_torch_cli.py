@@ -7,6 +7,7 @@ CLI path to (the port sums with plain reductions, the JAX package's jnp
 path with compensated ones)."""
 
 import io
+import os
 import re
 import subprocess
 import sys
@@ -19,9 +20,11 @@ import torch
 
 from ludwig_tpu.ludwig import run_text as jrun_text
 from ludwig_tpu_torch.ludwig import run_text
-from test_ludwig_run import (BINARY_FUSED_INPUT, DROPLET_FUSED_INPUT,
-                             LC_FUSED_INPUT, PLAIN_FUSED_INPUT, PLAIN_INPUT,
-                             _stat_floats)
+from test_ludwig_run import (BINARY_FUSED_INPUT, COUETTE_FUSED_INPUT,
+                             DROPLET_FUSED_INPUT, DUCT_FUSED_INPUT,
+                             LC_FUSED_INPUT, LE_FUSED_INPUT,
+                             PLAIN_FUSED_INPUT, PLAIN_INPUT,
+                             WALL_FUSED_INPUT, WALLS_INPUT, _stat_floats)
 
 
 def _logs(jax_text, port_text):
@@ -222,7 +225,9 @@ def test_electro_cli_matches_jax(solver):
 
 
 @pytest.mark.parametrize("line", [
-    "colloid_init input_one", "colloid_one_a0 2.3", "freq_psi 2",
+    "colloid_init input_one", "colloid_one_a0 2.3",
+    # freq_psi is written now; a psi file over several I/O groups is not
+    "psi_io_grid 2_1_1",
     "psi_io_format BINARY",
     "isothermal_fluctuations on", "boundary_walls 0_0_1",
     "porous_media_file capillary"])
@@ -274,10 +279,11 @@ def test_plain_cli_matches_jax():
 @pytest.mark.parametrize("line", [
     "free_energy brazovskii", "free_energy fe_electro_symmetric",
     "lc_noise on",
-    "lc_a0 0.01", "boundary_walls 1_0_0", "N_LE_plane 2",
-    # temperature alone (no fluctuations) is read since the plain fluid's
-    # noise is ported; a restart is not
-    "N_start 10", "bogus_key_xyz 42", "periodicity 0_1_1"])
+    # the plain fluid's walls, planes, restarts and periodicity are read
+    # since they are ported; shear measurement, sharding, several I/O
+    # groups and colloid I/O are not
+    "lc_a0 0.01", "freq_shear_measurement 10", "tpu_shard on",
+    "default_io_grid 2_1_1", "bogus_key_xyz 42", "colloid_io_freq 10"])
 def test_unported_keys_raise(line):
     with pytest.raises(NotImplementedError, match=line.split()[0]):
         run_text(PLAIN_INPUT + line + "\n", out=io.StringIO(), device="cpu")
@@ -302,14 +308,20 @@ def test_inactive_defaults_accepted():
 def test_cli_runs_without_jax(tmp_path):
     """`python -m ludwig_tpu_torch input --device cpu` in a fresh
     interpreter, for the plain, the binary, the liquid-crystal, the
-    droplet, the electrokinetic and the fluctuating plain input: all
-    run, and neither JAX nor ludwig_tpu is imported."""
+    droplet, the electrokinetic, the fluctuating plain, the walled (with
+    a velocity file) and the Lees-Edwards input: all run, and neither
+    JAX nor ludwig_tpu is imported, the boundary and I/O modules
+    included."""
     inp, inp_binary = tmp_path / "input", tmp_path / "input_binary"
     inp_lc, inp_drop = tmp_path / "input_lc", tmp_path / "input_droplet"
     inp_elec = tmp_path / "input_electro"
     inp_elec.write_text(ELECTRO_INPUT)
     inp_noise = tmp_path / "input_noise"
     inp_noise.write_text("tpu_fused off\n" + PLAIN_INPUT + NOISE_KEYS)
+    inp_wall, inp_le = tmp_path / "input_wall", tmp_path / "input_le"
+    inp_wall.write_text("tpu_fused on\n" + WALL_FUSED_INPUT
+                        + f"freq_vel 6\nio_directory {tmp_path}\n")
+    inp_le.write_text("tpu_fused on\n" + LE_FUSED_INPUT)
     inp.write_text("tpu_fused on\n" + PLAIN_INPUT)
     inp_binary.write_text("tpu_fused on\n" + BINARY_FUSED_INPUT)
     inp_lc.write_text("tpu_fused on\n" + LC_FUSED_INPUT)
@@ -318,11 +330,15 @@ def test_cli_runs_without_jax(tmp_path):
         import runpy, sys
         for path in ({str(inp)!r}, {str(inp_binary)!r}, {str(inp_lc)!r},
                      {str(inp_drop)!r}, {str(inp_elec)!r},
-                     {str(inp_noise)!r}):
+                     {str(inp_noise)!r}, {str(inp_wall)!r},
+                     {str(inp_le)!r}):
             sys.argv = ["ludwig_tpu_torch", path, "--device", "cpu"]
             runpy.run_module("ludwig_tpu_torch", run_name="__main__")
         import ludwig_tpu_torch.ops._cuda, ludwig_tpu_torch.convert
         import ludwig_tpu_torch.ops.fused_electro
+        import ludwig_tpu_torch.ops.walls, ludwig_tpu_torch.ops.open_bc
+        import ludwig_tpu_torch.ops.lees_edwards, ludwig_tpu_torch.io
+        import ludwig_tpu_torch.io.map_file, ludwig_tpu_torch.io.ref_format
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.")
                or m == "ludwig_tpu" or m.startswith("ludwig_tpu.")]
@@ -339,6 +355,10 @@ def test_cli_runs_without_jax(tmp_path):
     assert res.stdout.count("[Qyz]") == 3 + 3   # LC and droplet runs
     assert res.stdout.count("[elc]") == 3 and "[walls   ]" in res.stdout
     assert res.stdout.count("[measd/kT]") == 1     # the noise input
+    assert res.stdout.count("[walls   ]") == 3 + 3    # electro, walls
+    assert "Writing rho/velocity output at step 6!" in res.stdout
+    assert (tmp_path / "vel-00000006.001-001").exists()
+    assert res.stdout.count("Completed cycle 6") == 3   # electro, walls, LE
     assert "NO_JAX_OK" in res.stdout
 
 
@@ -350,6 +370,41 @@ isothermal_fluctuations on
 random_seed 8361235
 """
 KT_TAGS = ("[eqipart.]", "[measd/kT]")
+
+
+# the plain fluid's boundaries: porous media (a simple cubic crystal of
+# ref map_init.c), partial slip on the duct's walls, an open channel
+# (walls on y, inflow / outflow along x) and walls with the KISS stream
+POROUS_INPUT = """
+N_cycles 4
+size 8_8_8
+viscosity 0.1
+force 0.00001_0.0_0.0
+porous_media_init simple_cubic
+porous_media_acell 4
+freq_statistics 2
+"""
+SLIP_INPUT = DUCT_FUSED_INPUT + """
+boundary_walls_slip_fraction_bot 0.5_0.25_0
+boundary_walls_slip_fraction_top 0.25_1.0_0
+"""
+OPEN_INPUT = """
+N_cycles 6
+size 16_8_8
+viscosity 0.1
+boundary_walls 0_1_0
+lb_bc_open on
+lb_bc_inflow_rhou_u0 0.01_0_0
+lb_bc_outflow_rhou_rho0 1.0
+freq_statistics 3
+"""
+BOUNDARY_INPUTS = {
+    "walls": (WALLS_INPUT, "wall"), "wall": (WALL_FUSED_INPUT, "wall"),
+    "couette": (COUETTE_FUSED_INPUT, "wall"),
+    "duct": (DUCT_FUSED_INPUT, "wall"), "le": (LE_FUSED_INPUT, "le"),
+    "porous": (POROUS_INPUT, None), "slip": (SLIP_INPUT, None),
+    "open": (OPEN_INPUT, None), "walls-kiss": (WALL_FUSED_INPUT + NOISE_KEYS,
+                                               None)}
 
 
 def _kt_floats(log):
@@ -479,12 +534,23 @@ def test_reference_statistics_lines_equal_jax_electro():
      + PLAIN_FUSED_INPUT.replace("16_16_32", "16_12_32"), True),  # no plan
     ("tpu_fused on\ndtype float32\n" + BINARY_FUSED_INPUT, True),  # z 16
     ("tpu_fused interpret\n" + BINARY_FUSED_INPUT, False),
-    (ELECTRO_INPUT, True)], ids=[
+    (ELECTRO_INPUT, True),
+    ("tpu_fused on\n" + WALL_FUSED_INPUT, True),              # float64
+    ("tpu_fused interpret\n" + WALL_FUSED_INPUT, False),
+    ("tpu_fused on\ndtype float32\n" + COUETTE_FUSED_INPUT, False),
+    ("tpu_fused on\ndtype float32\n"
+     + DUCT_FUSED_INPUT.replace("16_16_32", "16_12_32"), True),  # no plan
+    ("tpu_fused interpret\n" + LE_FUSED_INPUT, False),
+    ("tpu_fused off\n" + LE_FUSED_INPUT, True),
+    ("tpu_fused interpret\n" + POROUS_INPUT, True)], ids=[
         "plain-off", "plain-interpret", "plain-on-f64", "plain-on-f32",
-        "plain-no-plan", "binary-z16", "binary-interpret", "electro"])
+        "plain-no-plan", "binary-z16", "binary-interpret", "electro",
+        "wall-on-f64", "wall-interpret", "couette-on-f32", "duct-no-plan",
+        "le-interpret", "le-off", "porous"])
 def test_statistics_follow_the_jax_route_rule(text, reference):
     """Reference statistics wherever ludwig_tpu's build_system leaves
-    fused_mode None for the same input."""
+    fused_mode None for the same input (porous media and masked runs are
+    unfused in both packages)."""
     from ludwig_tpu import ludwig as jl
     from ludwig_tpu.runtime import RunTime as JRunTime
     from ludwig_tpu_torch import ludwig as tl
@@ -493,3 +559,112 @@ def test_statistics_follow_the_jax_route_rule(text, reference):
     tsys = tl.build_system(RunTime(text), device="cpu")
     assert tl.reference_statistics(tsys) == reference
     assert (jl.build_system(JRunTime(text)).fused_mode is None) == reference
+
+
+WALL_TAGS = ("[rho]", "[total", "[fluid", "[walls", "[minimum", "[maximum",
+             "[eqipart.]", "[measd/kT]")
+
+
+def _boundary_floats(log):
+    """The statistics floats, the [walls] row and the kT block's
+    included."""
+    return np.array([float(t) for line in log.splitlines()
+                     if line.startswith(WALL_TAGS) for t in line.split()
+                     if re.match(r"^-?\d", t)])
+
+
+@pytest.mark.parametrize("name", list(BOUNDARY_INPUTS))
+def test_boundary_cli_matches_jax(name):
+    """The JAX package's wall, Couette, duct, Lees-Edwards, porous, slip,
+    open-boundary and walls-with-noise inputs in f64, through its jnp
+    route: the port's log under `tpu_fused on` (the fused wall and LE
+    steps where the gate takes them) and `off` within rtol 1e-9 / atol
+    1e-11, [walls] rows included."""
+    text, fused_mode = BOUNDARY_INPUTS[name]
+    jlog = io.StringIO()
+    jrun_text("tpu_fused off\n" + text, out=jlog)
+    want = _boundary_floats(jlog.getvalue())
+    assert want.size > 0
+    for fused, mode in (("on", fused_mode), ("off", None)):
+        log = io.StringIO()
+        sys_ = run_text(f"tpu_fused {fused}\n" + text, out=log, device="cpu")
+        assert sys_.fused_mode == mode
+        assert (log.getvalue().count("[walls   ]")
+                == jlog.getvalue().count("[walls   ]"))
+        np.testing.assert_allclose(_boundary_floats(log.getvalue()), want,
+                                   rtol=1e-9, atol=1e-11)
+
+
+IO_KEYS = "freq_config 2\nfreq_vel 3\nconfig_at_end yes\n"
+
+
+def test_io_cli_matches_jax(tmp_path):
+    """The walled input with the KISS stream (its state: dist, the walls'
+    momentum, the KISS words) and checkpoints, velocity files and the
+    end configuration: the same files as the JAX package's unfused route
+    writes, the same sidecars byte for byte, the same "Writing" lines,
+    values within rtol 1e-9 (the KISS words equal); then the port's
+    restart from its step-4 checkpoint prints its own straight log as
+    text."""
+    text = WALL_FUSED_INPUT + NOISE_KEYS + IO_KEYS
+    dj, dt = tmp_path / "jax", tmp_path / "port"
+    jlog, log, _sys = _logs(text + f"io_directory {dj}\n",
+                            text + f"io_directory {dt}\n")
+    names = sorted(os.listdir(dj))
+    assert names == sorted(os.listdir(dt))
+    assert "state02-00000006" in names and "vel-00000006.001-001" in names
+    writing = [ln for ln in log.splitlines() if ln.startswith("Writing")]
+    assert writing == [ln for ln in jlog.splitlines()
+                       if ln.startswith("Writing")]
+    assert len(writing) == 3 + 4      # configs 2, 4, 6; velocity 2, 3, 4, 6
+    for name in names:
+        a, b = (dj / name).read_bytes(), (dt / name).read_bytes()
+        if "meta" in name or name.startswith("state02"):
+            assert a == b, name
+        else:
+            np.testing.assert_allclose(np.frombuffer(b, "<f8"),
+                                       np.frombuffer(a, "<f8"), rtol=1e-9,
+                                       atol=1e-11)
+    rest = io.StringIO()
+    run_text(text.replace("N_cycles 6", "N_cycles 2")
+             + f"N_start 4\nio_directory {dt}\n", out=rest, device="cpu")
+    step6 = "Writing distribution output at step 6!"
+    straight = log[log.index(step6):]
+    resumed = rest.getvalue()
+    resumed = resumed[resumed.index(step6):]
+    assert straight.split("\nTimer")[0] == resumed.split("\nTimer")[0]
+
+
+def test_lees_edwards_field_metadata(tmp_path):
+    """A sheared run's velocity file records its planes in both metadata
+    vintages, as the JAX package's fused route writes them."""
+    text = ("tpu_fused on\n" + LE_FUSED_INPUT.replace("16_16_32", "16_8_8")
+            + f"freq_vel 6\nio_directory {tmp_path}\n")
+    run_text(text, out=io.StringIO(), device="cpu")
+    meta = (tmp_path / "vel.001-001.meta").read_text()
+    assert "Lees-Edwards planes:             2\n" in meta
+    assert "Lees-Edwards plane speed         0.05000000000000\n" in meta
+    js = (tmp_path / "vel-metadata.001-001").read_text()
+    assert '"Number of planes": 2' in js and '"Plane speed": 0.05' in js
+
+
+def test_psi_files_match_jax(tmp_path):
+    """`freq_psi` writes psi and the charge densities of the
+    Gouy-Chapman input as the JAX package does: the same files, the
+    same sidecars, values within rtol 1e-9."""
+    dj, dt = tmp_path / "jax", tmp_path / "port"
+    dj.mkdir(), dt.mkdir()      # the field writers create no directory
+    jlog, log, _sys = _logs(ELECTRO_INPUT + f"freq_psi 3\nio_directory {dj}\n",
+                            ELECTRO_INPUT + f"freq_psi 3\nio_directory {dt}\n")
+    names = sorted(os.listdir(dj))
+    assert names == sorted(os.listdir(dt))
+    assert "psi-00000006.001-001" in names and "rho-00000003.001-001" in names
+    assert log.count("Writing psi file") == jlog.count("Writing psi file") == 2
+    for name in names:
+        a, b = (dj / name).read_bytes(), (dt / name).read_bytes()
+        if "meta" in name:
+            assert a == b, name
+        else:
+            np.testing.assert_allclose(np.frombuffer(b, "<f8"),
+                                       np.frombuffer(a, "<f8"), rtol=1e-9,
+                                       atol=1e-11)

@@ -131,9 +131,14 @@ def test_port_refuses_unported_features():
         tlb.LBConfig(size=SIZE, noise=object())
     cfg = tlb.LBConfig(size=SIZE, device="cpu")
     assert tlb.LBConfig(size=SIZE).device == "cuda"   # the card by default
-    with pytest.raises(NotImplementedError):
-        tlb.make_step(cfg, le=object())
-    with pytest.raises(NotImplementedError):
-        tlb.make_nstep(cfg, open_bc=object())
+    # the n-step loop and a step without a KISS state would draw the
+    # threefry stream (Lees-Edwards planes and open boundaries, refused
+    # here before, are ported: test_torch_lees_edwards.py,
+    # test_torch_open_bc.py)
+    noisy = dataclasses.replace(cfg, noise=NoiseConfig(kt=1e-5, rho=True))
+    with pytest.raises(NotImplementedError, match="threefry"):
+        tlb.make_nstep(noisy)
+    with pytest.raises(NotImplementedError, match="threefry"):
+        tlb._noise_terms(noisy, noisy.collision_params(), 0)
     with pytest.raises(ValueError):
         tlb.LBConfig(size=SIZE, dtype="bfloat16")

@@ -142,7 +142,24 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      4 Lees-Edwards planes at 0.01): fused_step, the fused wall and LE
      steps and their post-passes alone, in turns, with the post-passes'
      CUDA kernels a call (torch.profiler), and the JAX design's plane
-     collide for comparison; then 40 cycles of each through run_text.
+     collide for comparison; then 40 cycles of each through run_text;
+ 25. the Lees-Edwards planes of the binary, blue-phase and droplet
+     families on the card against the CPU, at 16x8x16 and a ragged
+     18x10x12 with 2 planes, f64 and f32 (TOL), t = 7..9: each column
+     fix, 3 fused sheared steps (K1, the fix, K2, the LE pass; K1 and K2
+     launched 3 times each) and 3 unfused ones; the three sheared inputs
+     in f64 through run_text, `tpu_fused on` and `off`, the card's
+     statistics against the CPU's (rtol 1e-9, atol 1e-11); the unfused
+     sheared blue phase's checkpoint (its gradient leaves state03,
+     state04), a restart that prints the straight log as text, and
+     str-*.dat;
+ 26. at 128^3 and 256^3 f32, the sheared blue phase as perf_bench.py:
+     208-245 builds it (4 planes at 0.05): K1, K2, the column fix, the LE
+     pass and the whole step in turns (CUDA events), the fix's and the
+     step's CUDA kernels a call and their device time (torch.profiler);
+     then 20 cycles through run_text of it at 128^3 and 256^3, of the
+     binary cell with 4 planes at 0.01 (256^3) and of the droplet cell
+     with 4 planes (128^3), K1 and K2 launched once a cycle.
 
 Bounds: `bound_ms` is the larger of the bytes the function must move
 (each input read once, each output written once) over the H100 SXM's
@@ -2866,6 +2883,378 @@ def phase24(card, gen):
     return res, paths
 
 
+# phases 25-26: Lees-Edwards planes of the binary, blue-phase and droplet
+# families.  The JAX package's sheared test inputs (tests/test_ludwig_run.py
+# :227, :248; its droplet input at 16_8_16 with two planes), in f64.
+LE_BINARY_INPUT = """
+N_cycles 4
+size 16_8_16
+viscosity 0.00625
+free_energy symmetric
+A -0.00625
+B 0.00625
+K 0.004
+phi0 0.0
+phi_initialisation spinodal
+mobility 1.25
+fd_gradient_calculation 3d_7pt_fluid
+fd_advection_scheme_order 1
+N_LE_plane 2
+LE_plane_vel 0.04
+LE_init_profile 1
+periodicity 1_1_1
+freq_statistics 2
+random_seed 8361235
+"""
+LE_LC_INPUT = """
+N_cycles 4
+size 16_8_16
+viscosity 0.1
+free_energy lc_blue_phase
+fd_gradient_calculation 3d_7pt_fluid
+fd_advection_scheme_order 1
+lc_a0 0.01
+lc_gamma 3.0
+lc_q0 0.19635
+lc_kappa0 0.000648456
+lc_kappa1 0.000648456
+lc_xi 0.7
+lc_Gamma 0.5
+lc_q_initialisation o8m
+lc_q_init_amplitude -0.2
+lc_init_redshift 1.0
+N_LE_plane 2
+LE_plane_vel 0.04
+LE_init_profile 1
+periodicity 1_1_1
+freq_statistics 2
+colloid_init no_colloids
+"""
+LE_DROPLET_INPUT = (DROP_INPUT.replace("tpu_fused on\n", "")
+                    .replace(f"N_cycles {DROP_CYCLES}", "N_cycles 4")
+                    .replace("freq_statistics 10", "freq_statistics 2")
+                    + "size 16_8_16\nN_LE_plane 2\nLE_plane_vel 0.04\n"
+                    "LE_init_profile 1\n")
+LE_INPUTS = {"binary": LE_BINARY_INPUT, "lc": LE_LC_INPUT,
+             "droplet": LE_DROPLET_INPUT}
+# the K1 kernel of each family's fused step (K2 is fused_force_step)
+LE_K1 = {"binary": "binary_phi_force_step", "lc": "lc_q_force_step",
+         "droplet": "droplet_phi_q_force_step"}
+LE_SHAPES = ((16, 8, 16), (18, 10, 12))   # the JAX tests' lattice, ragged
+LE_T0 = 7
+# phase 26: the sheared blue phase as perf_bench.py:208-245 builds it
+# (eta 0.5, the SC16 free energy, 4 planes at 0.05), the binary and
+# droplet cells' inputs with 4 planes at 0.01
+LE_BP_FE = dict(a0=0.0069, gamma=3.0, q0=0.19635, kappa0=0.02,
+                kappa1=0.02, xi=0.7)
+LE_CYCLES = 20
+LE_BP_INPUT = f"""
+tpu_fused on
+dtype float32
+N_cycles {LE_CYCLES}
+viscosity 0.5
+free_energy lc_blue_phase
+fd_gradient_calculation 3d_7pt_fluid
+fd_advection_scheme_order 1
+lc_a0 {LE_BP_FE['a0']}
+lc_gamma {LE_BP_FE['gamma']}
+lc_q0 {LE_BP_FE['q0']}
+lc_kappa0 {LE_BP_FE['kappa0']}
+lc_kappa1 {LE_BP_FE['kappa1']}
+lc_xi {LE_BP_FE['xi']}
+lc_Gamma 0.5
+lc_q_initialisation o8m
+lc_q_init_amplitude -0.2
+N_LE_plane 4
+LE_plane_vel 0.05
+LE_init_profile 1
+freq_statistics 10
+"""
+LE_CELL_KEYS = "N_LE_plane 4\nLE_plane_vel 0.01\n"
+
+
+def le_family(name, size, dtype, gen, nplanes=2, uy=0.04):
+    """(configuration for the card, the same for the CPU, the state on
+    the card) of one sheared family: the sheared profile, a random order
+    parameter and a velocity of both signs."""
+    from ludwig_tpu_torch.binary_le import BinaryLEConfig
+    from ludwig_tpu_torch.ops.lees_edwards import (LeesEdwardsConfig,
+                                                   le_init_shear_profile)
+    le = LeesEdwardsConfig(nplanes=nplanes, uy=uy, nx=size[0])
+    if name == "binary":
+        cfg = BinaryLEConfig(binary=binary_cfg(size, dtype, 1), le=le)
+        lb = cfg.binary.lb
+        ccfg = dataclasses.replace(cfg, binary=dataclasses.replace(
+            cfg.binary, lb=dataclasses.replace(lb, device="cpu")))
+        fields = rand_phi_u(size, getattr(torch, dtype), gen)
+    elif name == "lc":
+        cfg = lc_cfg(size, dtype)
+        lb = cfg.lb
+        ccfg = dataclasses.replace(cfg, lb=dataclasses.replace(lb,
+                                                               device="cpu"))
+        fields = rand_q_u(size, getattr(torch, dtype), gen)
+    else:
+        cfg = drop_cfg(size, dtype)
+        lb = cfg.lb
+        ccfg = dataclasses.replace(cfg, lb=dataclasses.replace(lb,
+                                                               device="cpu"))
+        fields = rand_drop(size, getattr(torch, dtype), gen)
+    state = (le_init_shear_profile(lb, le),) + tuple(fields)
+    return cfg, ccfg, le, state
+
+
+def le_steps(name, cfg, le):
+    """(column fix, fused step, unfused step) of a family."""
+    from ludwig_tpu_torch import binary_le, lc as tlc, lc_droplet
+    if name == "binary":
+        return (binary_le.make_binary_le_column_fix(cfg),
+                fb.make_fused_binary_le_step(cfg),
+                binary_le.make_binary_le_step(cfg))
+    if name == "lc":
+        return (tlc.make_lc_le_column_fix(cfg, le),
+                fl.make_fused_lc_le_step(cfg, le),
+                tlc.make_lc_le_step(cfg, le))
+    return (lc_droplet.make_droplet_le_column_fix(cfg, le),
+            fd.make_fused_droplet_le_step(cfg, le),
+            lc_droplet.make_droplet_le_step(cfg, le))
+
+
+def phase25(gen):
+    phase("25 sheared binary, blue-phase and droplet steps on the card vs "
+          "the CPU")
+    import os
+    import tempfile
+
+    worst = {}
+    expect = {k: 0 for k in ("fused_force_step", *LE_K1.values())}
+    torch.cuda.synchronize()
+    _cuda.launches.reset()
+    for name in LE_INPUTS:
+        for size in LE_SHAPES:
+            for dtype in ("float64", "float32"):
+                cfg, ccfg, le, state = le_family(name, size, dtype, gen)
+                tdt = getattr(torch, dtype)
+                cstate = tuple(x.cpu() for x in state)
+                what = f"{name} LE {size} {dtype}"
+                gfix, gfused, gstep = le_steps(name, cfg, le)
+                cfix, cfused, cstep = le_steps(name, ccfg, le)
+                errs = []
+                # a fix reads the step's inputs after f
+                for a, b in zip(gfix(*state[1:], LE_T0),
+                                cfix(*cstate[1:], LE_T0)):
+                    if isinstance(a, tuple):     # (columns, values) pairs
+                        pairs = zip(a, b)
+                    else:
+                        pairs = ((a, b),)
+                    for x, y in pairs:
+                        if x.dtype == torch.int64:
+                            if not torch.equal(x.cpu(), y):
+                                raise AssertionError(f"{what} fix columns")
+                        else:
+                            errs.append(check_close(f"{what} column fix", x,
+                                                    y.cuda(), tdt))
+                outs = {}
+                for label, g, c in (("fused", gfused, cfused),
+                                    ("unfused", gstep, cstep)):
+                    gs, cs = state, cstate
+                    for t in range(LE_T0, LE_T0 + 3):
+                        gs, cs = g(gs, t), c(cs, t)
+                        if label == "unfused":
+                            gs, cs = gs[0], cs[0]
+                    outs[label] = max(check_close(f"{what} {label} step", x,
+                                                  y.cuda(), tdt)
+                                      for x, y in zip(gs, cs))
+                expect["fused_force_step"] += 3
+                expect[LE_K1[name]] += 3
+                worst[LE_K1[name]] = max(worst.get(LE_K1[name], 0.0),
+                                         outs["fused"])
+                print(f"{what}, t={LE_T0}..{LE_T0 + 2}: column fix "
+                      f"max_abs_err {max(errs):.3e}; 3 fused steps "
+                      f"{outs['fused']:.3e}; 3 unfused steps "
+                      f"{outs['unfused']:.3e} (TOL {TOL[tdt]})")
+    torch.cuda.synchronize()
+    got = {k: getattr(_cuda.launches, k) for k in expect}
+    if got != expect:
+        raise AssertionError(f"sheared steps launched {got}, {expect} "
+                             "expected")
+    print(f"the fused sheared steps launched {got} on the card")
+    counts = {}
+    for name, text in LE_INPUTS.items():
+        for fused_req in ("on", "off"):
+            logs = {}
+            for device in ("cuda", "cpu"):
+                out = io.StringIO()
+                torch.cuda.synchronize()
+                _cuda.launches.reset()
+                sys_ = run_text(f"tpu_fused {fused_req}\n" + text, out=out,
+                                device=device)
+                torch.cuda.synchronize()
+                if device == "cuda":
+                    n = {k: getattr(_cuda.launches, k)
+                         for k in ("fused_force_step", LE_K1[name])}
+                    mode = sys_.fused_mode
+                logs[device] = stat_floats(out.getvalue())
+            a, b = logs["cuda"], logs["cpu"]
+            if (a.numel() != b.numel() or a.numel() == 0
+                    or not torch.allclose(a, b, rtol=1e-9, atol=1e-11)):
+                raise AssertionError(f"{name} LE tpu_fused {fused_req}: the "
+                                     "card's log differs from the CPU's")
+            want = 4 if fused_req == "on" else 0
+            if mode != (name if fused_req == "on" else None) or any(
+                    v != want for v in n.values()):
+                raise AssertionError(f"{name} LE tpu_fused {fused_req} "
+                                     f"({mode}): launches {n}")
+            counts[f"{name} LE f64 16x8x16 tpu_fused {fused_req}"] = n
+            print(f"{name} LE f64 tpu_fused {fused_req} (route {mode}): "
+                  f"{a.numel()} statistics floats on the card agree with "
+                  f"the CPU's (rtol 1e-9, atol 1e-11), max |diff| "
+                  f"{float((a - b).abs().max()):.3e}, launches {n}")
+    # the sheared blue phase's unfused route on the card: a checkpoint
+    # with its gradient leaves, a restart, the shear observables
+    text = ("tpu_fused off\n" + LE_LC_INPUT.replace("freq_statistics 2",
+                                                    "freq_statistics 1")
+            + "freq_shear_measurement 1\nfreq_shear_output 2\n")
+    with tempfile.TemporaryDirectory() as d:
+        io_text = text + f"io_directory {d}\n"
+        straight, rest = io.StringIO(), io.StringIO()
+        run_text(io_text, out=straight, device="cuda")
+        run_text(io_text.replace("N_cycles 4", "N_cycles 2")
+                 + "config_at_end yes\n", out=io.StringIO(), device="cuda")
+        run_text(io_text.replace("N_cycles 4", "N_cycles 2")
+                 + "N_start 2\n", out=rest, device="cuda")
+        want = straight.getvalue()
+        want = want[want.index("\n", want.index("Completed cycle 2\n")) + 1:]
+        got = rest.getvalue()
+        got = got[got.index("\n", got.index("Starting time step loop.")) + 1:]
+        if want.split("\nTimer")[0] != got.split("\nTimer")[0]:
+            raise AssertionError("LC LE restart at 2: the restarted log is "
+                                 "not the straight log")
+        names = sorted(os.listdir(d))
+        section = [float(v) for v in
+                   open(os.path.join(d, "str-00000004.dat")).read().split()]
+        if ("state04-00000002" not in names or len(section) != 16 * 16 * 22
+                or not all(math.isfinite(v) for v in section)):
+            raise AssertionError(f"LC LE files {names}")
+    print(f"LC LE f64 unfused on the card: the restart from step 2 prints "
+          f"the straight log's steps 3-4 as text; files {names}")
+    return worst, counts
+
+
+def phase26(card, gen):
+    phase(f"26 sheared steps at 128^3 and 256^3 D3Q19 f32 on {card}")
+    from ludwig_tpu_torch.lc import LCConfig, make_lc_le_column_fix
+    from ludwig_tpu_torch.ops.lees_edwards import (LeesEdwardsConfig,
+                                                   le_init_shear_profile,
+                                                   make_le_post)
+    res, paths = {}, {}
+    for n in (128, 256):
+        size = (n, n, n)
+        nsite = n ** 3
+        lb = LBConfig(size=size, nvel=19, eta_shear=0.5, dtype="float32",
+                      device="cuda")
+        lcfg = LCConfig(lb=lb, fe=BluePhaseFE(**LE_BP_FE), gamma=0.5)
+        le = LeesEdwardsConfig(nplanes=4, uy=0.05, nx=n)
+        # perf_bench.py:229 makes O8M with q0 = 0.3
+        q5 = torch.as_tensor(lc_init_o8m(size, 0.3, -0.2),
+                             dtype=torch.float32, device="cuda")
+        state = (le_init_shear_profile(lb, le), q5.contiguous(),
+                 torch.zeros((3,) + size, dtype=torch.float32,
+                             device="cuda"))
+        step = fl.make_fused_lc_le_step(lcfg, le)
+        for t in range(1, 4):          # a velocity field to advect with
+            state = step(state, t)
+        f, q, u = state
+        fix = make_lc_le_column_fix(lcfg, le)
+        post = make_le_post(lb.model, le)
+        params = lb.collision_params()
+        q1, force = fl.lc_q_force_step(q, u, lcfg.fe, lcfg.gamma)
+        order = (("K1 lc_q_force_step",
+                  lambda: fl.lc_q_force_step(q, u, lcfg.fe, lcfg.gamma)),
+                 ("K2 fused_force_step",
+                  lambda: fused.fused_force_step(f, force, lb.model,
+                                                 params)),
+                 ("column fix", lambda: fix(q, u, 10 ** 4)),
+                 ("LE pass", lambda: post(f.clone(), 10 ** 4)),
+                 ("whole step", lambda: step(state, 10 ** 4)))
+        times = {}
+        for rep in range(2):
+            for name, fn in order[::1 if rep == 0 else -1]:
+                times.setdefault(name, []).append(time_ms(fn, 10))
+        clone_ms = time_ms(lambda: f.clone(), 10)
+        ms = {k: min(v) for k, v in times.items()}
+        ms["LE pass"] = ms["LE pass"] - clone_ms
+        # two calls a profile: thousands of kernels a call fill the
+        # profiler's buffers
+        prof = {"column fix": post_profile(lambda: fix(q, u, 10 ** 4), 2),
+                "whole step": post_profile(lambda: step(state, 10 ** 4), 2)}
+        for name, runs in times.items():
+            k, dev_ms, top = prof.get(name, (None, None, []))
+            extra = ("" if name not in prof else
+                     ", kernels not counted" if k is None else
+                     f", {k:.0f} CUDA kernels a call, {dev_ms:.4f} ms of "
+                     "them on the device (torch.profiler)")
+            copy = (f"; a copy of f, {clone_ms:.4f} ms, taken off"
+                    if name == "LE pass" else "")
+            print(f"sheared blue phase {n}^3 f32 {name}: {ms[name]:.4f} ms "
+                  f"(runs {', '.join(f'{r:.4f}' for r in runs)}{copy})"
+                  f"{extra} [{card}]")
+            for key, count, k_ms in top:
+                print(f"    {k_ms:.4f} ms device, {count:.0f} a call: "
+                      f"{key[:90]}")
+        print(f"sheared blue phase {n}^3 f32 whole step: "
+              f"{nsite / (ms['whole step'] * 1e3):.1f} MLUPS [{card}]")
+        res[n] = {"k1_ms": ms["K1 lc_q_force_step"],
+                  "k2_ms": ms["K2 fused_force_step"],
+                  "fix_ms": ms["column fix"], "le_pass_ms": ms["LE pass"],
+                  "step_ms": ms["whole step"],
+                  "fix_kernels": prof["column fix"][0],
+                  "fix_device_ms": prof["column fix"][1],
+                  "step_kernels": prof["whole step"][0],
+                  "step_device_ms": prof["whole step"][1]}
+        del state, f, q, u, q1, force, step
+    runs = (("lc LE 128^3", "lc", "size 128_128_128\n" + LE_BP_INPUT),
+            ("lc LE 256^3", "lc", "size 256_256_256\n" + LE_BP_INPUT),
+            ("binary LE 256^3", "binary",
+             BINARY_INPUT.replace(f"N_cycles {BINARY_CYCLES}",
+                                  f"N_cycles {LE_CYCLES}") + LE_CELL_KEYS),
+            ("droplet LE 128^3", "droplet",
+             drop_input(DROP_SIZE, "float32").replace(
+                 f"N_cycles {DROP_CYCLES}", f"N_cycles {LE_CYCLES}")
+             + LE_CELL_KEYS))
+    for label, fam, text in runs:
+        torch.cuda.synchronize()
+        _cuda.launches.reset()
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        sys_ = run_text(text, out=log, device="cuda")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        n = {k: getattr(_cuda.launches, k)
+             for k in ("fused_force_step", LE_K1[fam])}
+        out = log.getvalue()
+        if (f"Completed cycle {LE_CYCLES}" not in out
+                or sys_.fused_mode != fam or sys_.le_cfg is None
+                or any(v != LE_CYCLES for v in n.values())):
+            raise AssertionError(f"{label} run_text: route {sys_.fused_mode}"
+                                 f", launches {n}")
+        if not all(torch.isfinite(x).all() for x in sys_.state):
+            raise AssertionError(f"{label}: the state is not finite")
+        nsite = math.prod(sys_.lb_cfg.size)
+        totals = [float(v) for v in re.findall(r"\[rho\]\s+(\S+)", out)]
+        if not all(abs(t - nsite) <= 1e-5 * nsite for t in totals):
+            raise AssertionError(f"{label} [rho] totals {totals}")
+        step = re.search(r"Step dispatch:\s+\S+\s+\S+\s+\S+\s+(\S+)", out)
+        paths[label] = n
+        res[label] = {"run_text_s": wall_s,
+                      "step_dispatch_ms": 1e3 * float(step.group(1))}
+        print(f"{label} f32 run_text x {LE_CYCLES} cycles: {wall_s:.2f} s "
+              f"wall (init on the host included), step dispatch "
+              f"{res[label]['step_dispatch_ms']:.3f} ms a cycle (host clock), "
+              f"[rho] totals {totals}, launches {n} [{card}]")
+        del sys_
+    return res, paths
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -2940,6 +3329,13 @@ def main():
     boundary, paths = phase24(card, gen)
     by_path.update(paths)
     timed["fused_step"].update(boundary)
+    le_worst, le_counts = phase25(gen)
+    for name, err in le_worst.items():
+        worst[name] = max(worst[name], err)
+    by_path.update(le_counts)
+    le_times, le_paths = phase26(card, gen)
+    by_path.update(le_paths)
+    timed["lc_q_force_step"]["sheared"] = le_times
     for name in STAT_SCANS:
         worst[name] = 0.0        # held bitwise in phases 19 and 21
     print(f"all phases passed ({time.perf_counter() - _T0:.1f} s)")
@@ -2995,6 +3391,8 @@ def main():
             kernels[-1].update(layout=str(t["lay"]))
         if "device_ms" in t:    # torch.profiler's time on the card
             kernels[-1].update(device_ms=t["device_ms"])
+        if "sheared" in t:      # phase 26: the sheared blue phase, cells
+            kernels[-1].update(sheared=t["sheared"])
         if "wall_step_ms" in t:   # the wall and LE steps around the kernel
             kernels[-1].update({k: t[k] for k in (
                 "wall_step_ms", "wall_post_ms", "le_step_ms", "le_post_ms",

@@ -296,13 +296,47 @@ def le_state_from_jax(fpad_or_f, device, dtype, size=None):
     return (state_from_jax(f, device, dtype),)
 
 
+def _le_state(state, unpad, nfields, device, dtype):
+    """A sheared state of the JAX package as the port's: its fused state,
+    whose f is padded (f's lattice is not u's; u, after the nfields
+    order parameters, is never padded), through `unpad`; its unfused one,
+    gradient leaves and all, as it is."""
+    if np.shape(state[0])[1:] != np.shape(state[1 + nfields])[1:]:
+        return unpad(*state, device, dtype)
+    return tuple(_tensor(np.asarray(a), device, dtype) for a in state)
+
+
+def binary_le_state_from_jax(state, device, dtype):
+    """The JAX package's sheared binary state: its fused (fpad, ppad, u)
+    unpadded as binary_state_from_jax unpads it, its unfused (f, phi, u,
+    grad, delsq) as it is."""
+    return _le_state(state, binary_state_from_jax, 1, device, dtype)
+
+
+def lc_le_state_from_jax(state, device, dtype):
+    """The JAX package's sheared LC state: its fused (fpad, qpad, u)
+    unpadded as lc_state_from_jax unpads it, its unfused (f, q5, u,
+    grad_q, delsq_q) as it is."""
+    return _le_state(state, lc_state_from_jax, 1, device, dtype)
+
+
+def droplet_le_state_from_jax(state, device, dtype):
+    """The JAX package's sheared droplet state: its fused (fpad, ppad,
+    qpad, u) unpadded as droplet_state_from_jax unpads it, its unfused
+    (f, phi, q5, u) as it is."""
+    return _le_state(state, droplet_state_from_jax, 2, device, dtype)
+
+
 def checkpoint_from_jax(directory: str, step: int, names, size,
                         device="cuda") -> tuple:
     """A checkpoint the JAX package wrote (ludwig_tpu io.write_state) as
     the leaves of the port's state, in the order of `names` (for example
-    ``["dist", "state01"]`` of a walled run): `dist`, `phi` and `q`
-    unpadded where the JAX package's fused routes wrote their padded
-    state, a KISS state's uint32 words as the port's int64.  The port reads its own
+    ``["dist", "state01"]`` of a walled run, or ``["dist", "q", "vel",
+    "state03", "state04"]`` of the unfused LC, sheared binary and sheared
+    LC routes, whose gradient leaves pass as they are): `dist`, `phi` and
+    `q` unpadded where the JAX package's fused routes (the sheared ones
+    included) wrote their padded state, a KISS state's uint32 words as
+    the port's int64.  The port reads its own
     checkpoints, which hold the unpadded layout, with
     ludwig.read_checkpoint."""
     from ludwig_tpu_torch.io import read_state

@@ -9,8 +9,11 @@ state's device.  This is the unfused step (the CLI's `tpu_fused off`
 route) and the reference the fused step of ops/fused_droplet.py is held
 to.
 
-Solids and walls, `fe_force_method relaxation_antisymmetric`, Lees-Edwards
-shear (`make_droplet_le_step`), the other gradient stencils and advection
+Under Lees-Edwards shear, make_droplet_le_step is the whole sheared step
+and make_droplet_le_column_fix the column work around the fused kernel
+(ops/fused_droplet.make_fused_droplet_le_step), both over all planes at
+once (ops/le_ref.py).  Solids and walls, `fe_force_method
+relaxation_antisymmetric`, the other gradient stencils and advection
 orders 3 and up are not ported yet (ROADMAP, slice 5).
 """
 
@@ -25,11 +28,21 @@ from ludwig_tpu_torch.dynamics.beris_edwards import (BerisEdwardsParams,
                                                      beris_edwards_update)
 from ludwig_tpu_torch.dynamics.cahn_hilliard import (CahnHilliardParams,
                                                      cahn_hilliard_update)
+from ludwig_tpu_torch.binary_le import le_cahn_hilliard
+from ludwig_tpu_torch.fe.blue_phase import dq_tensor, q5_to_q33
 from ludwig_tpu_torch.fe.lc_droplet import LCDropletFE
 from ludwig_tpu_torch.lb import LBConfig, initial_rest
-from ludwig_tpu_torch.lc import stack33
+from ludwig_tpu_torch.lc import (_h5, _s5_corotation, col_advection, col_w,
+                                 le_beris_edwards, stack33)
 from ludwig_tpu_torch.ops.collide import collide
 from ludwig_tpu_torch.ops.force import stress_divergence_force
+from ludwig_tpu_torch.ops.le_ref import (LEContext, col_grad7, dab_from_cols,
+                                         face_slab, le_buffer_dab,
+                                         le_buffer_fields, le_dab_7pt,
+                                         le_force_cols, le_gradient,
+                                         le_stress_force, replace_col,
+                                         sample_linear, slab_neighbours)
+from ludwig_tpu_torch.ops.lees_edwards import apply_lb_le
 from ludwig_tpu_torch.ops.stencil import dab_7pt, gradient_ops
 from ludwig_tpu_torch.ops.stream import stream
 
@@ -122,6 +135,191 @@ def make_droplet_nstep(cfg: LCDropletConfig):
         return state
 
     return nstep
+
+
+def _flds(phi, gp, dp, dab, q5, gq, dq):
+    return {"phi": phi, "grad_phi": gp, "delsq_phi": dp, "dab_phi": dab,
+            "q": q5, "grad_q": gq, "delsq_q": dq}
+
+
+def _buffer_flds(phi, q5, ctx: LEContext, up: bool):
+    """The droplet's fields at the buffer column above (up) or below each
+    plane: the displaced columns with gradients and dab through the
+    buffer chains."""
+    pb, gp, dp = le_buffer_fields(phi, ctx, up)
+    qb, gq, dq = le_buffer_fields(q5, ctx, up)
+    return _flds(pb, gp, dp, le_buffer_dab(phi, ctx, up), qb, gq, dq)
+
+
+def make_droplet_le_step(cfg: LCDropletConfig, le):
+    """Sheared droplet step: ((f, phi, q5, u), t=0) -> (state', rho) (ref:
+    ludwig.c:693-742 with lees_edw planes): the droplet body force with
+    plain stencils (lc_droplet.c:826) and the momentum correction, the
+    flux-route force of the droplet stress (phi_force.c:91 'Must use the
+    flux method for LE planes'), phi by Cahn-Hilliard with LE advection
+    and the plane flux averaging, Q by Beris-Edwards with LE advection
+    and LE velocity gradients, the LB reproject + displace.  The state
+    carries no gradients, as the JAX package's CLI route runs it."""
+    params = cfg.lb.collision_params()
+    model = cfg.lb.model
+    fe = cfg.fe
+
+    def step(state, t=0):
+        f, phi, q5, u = state
+        ctx = LEContext(le, t, phi)
+        grad_p, delsq_p = le_gradient(phi, le, t)
+        grad_q, delsq_q = le_gradient(q5, le, t)
+        fields = _flds(phi, grad_p, delsq_p, le_dab_7pt(phi, le, t), q5,
+                       grad_q, delsq_q)
+        mu = fe.mu(fields)
+        h = fe.molecular_field(fields)
+        # the body force (plain stencils, less its mean), then the
+        # droplet stress's two-sided plane fluxes
+        force = fe.body_force(fields, mu, h)
+        pth = stack33(fe.stress_qh(fields, h))
+        fb1 = _buffer_flds(phi, q5, ctx, True)
+        fd0 = _buffer_flds(phi, q5, ctx, False)
+        phi_new = le_cahn_hilliard(phi, mu, u, ctx, cfg.mobility,
+                                   cfg.advection_order, fe.mu(fb1),
+                                   fe.mu(fd0))
+        area = float(phi.shape[1] * phi.shape[2])
+        force = (force + le_stress_force(
+            pth, stack33(fe.stress_qh(fb1)), stack33(fe.stress_qh(fd0)),
+            ctx, area)).to(f.dtype)
+        # gamma(phi') with the stale gradients (ref: ludwig.c order)
+        fields_be = dict(fields)
+        fields_be["phi"] = phi_new
+        q5_new = le_beris_edwards(q5, fe.molecular_field(fields_be), u, ctx,
+                                  cfg.gamma, fe.lc.xi, cfg.advection_order)
+        f, rho, u_new = collide(f, params, force=force)
+        f = stream(apply_lb_le(f, model, le, t), model)
+        return (f, phi_new, q5_new, u_new), rho
+
+    return step
+
+
+def make_droplet_le_column_fix(cfg: LCDropletConfig, le):
+    """Column corrections turning the PLAIN-periodic fused droplet outputs
+    into the Lees-Edwards ones.
+
+    The LE-corrected chemical potential at {c, c+1} feeds the CH diffusive
+    flux of the faces (c-1, c) and (c+1, c+2), so phi', q5' (through
+    gamma(phi')) and the force all differ at {c-1 .. c+2} of each plane;
+    the plane face also takes the frame-displaced advection and the flux
+    averaging (ref: phi_ch_le_fix_fluxes, phi_force_flux_fix_local,
+    lc_droplet.c body force with plain stencils).  All planes at once.
+
+    Returns fix(phi, q5, u, t) -> (idx, phi_cols, q_cols, force_cols):
+    idx (4 P,) the columns c-1 .. c+2 of every plane (offset outer),
+    phi_cols (4 P, Y, Z), q_cols (5, 4 P, Y, Z), force_cols (3, 4 P, Y,
+    Z).  phi, q5 and u are the step's INPUTS."""
+    if cfg.advection_order != 1:
+        raise ValueError("fused droplet LE fix needs order-1 advection")
+    if le.nx < 8 * le.nplanes:
+        raise ValueError("fused droplet LE fix needs plane separation >= 8")
+    fe = cfg.fe
+    M = cfg.mobility
+
+    def fix(phi, q5, u, t):
+        ctx = LEContext(le, t, phi)
+        P = le.nplanes
+        yz = tuple(phi.shape[1:])
+        area = float(yz[0] * yz[1])
+        sp = ctx.slab(phi, -3, 4)           # phi at c-3 .. c+4
+        sq = ctx.slab(q5, -3, 4)            # Q at c-3 .. c+4
+        su = ctx.slab(u, -2, 3)             # u at c-2 .. c+3
+        pb1 = ctx.col_field(phi, 1, True)
+        pd0 = ctx.col_field(phi, 0, False)
+        qb1 = ctx.col_field(q5, 1, True)
+        qd0 = ctx.col_field(q5, 0, False)
+        bufs = (_buffer_flds(phi, q5, ctx, True),
+                _buffer_flds(phi, q5, ctx, False))
+
+        # the fields at c-2 .. c+3: LE-corrected x neighbours at c and
+        # c+1, plain elsewhere
+        p6, q6 = sp[1:7], sq[:, 1:7]
+        pm1 = slab_neighbours(sp, 0, 6, {3: pd0})
+        pp1 = slab_neighbours(sp, 2, 6, {2: pb1})
+        gp, dp = col_grad7(pm1, p6, pp1)
+        gq, dq = col_grad7(slab_neighbours(sq, 0, 6, {3: qd0}), q6,
+                           slab_neighbours(sq, 2, 6, {2: qb1}))
+        f6 = _flds(p6, gp, dp, dab_from_cols(pm1, p6, pp1), q6, gq, dq)
+        # with the buffer columns above and below each plane as columns
+        # 6 and 7: one evaluation of the free energy's terms (a PyTorch
+        # kernel each) for all eight
+        f8 = {k: torch.cat([v] + [b[k].unsqueeze(-4) for b in bufs], dim=-4)
+              for k, v in f6.items()}
+        mu8 = fe.mu(f8)
+        h8 = fe.molecular_field(f8)
+        pth8 = stack33(fe.stress_qh(f8, h8))
+        mu6, mu_b1, mu_d0 = mu8[:6], mu8[6], mu8[7]
+        h6 = [[v[:6] for v in row] for row in h8]
+        pth6 = pth8[:, :, :6]
+
+        # Cahn-Hilliard: faces c-2 .. c+2, the plane face from both
+        # frames with the averaging fix, the divergence at c-1 .. c+2
+        ub1 = ctx.col_u(u, 1, True)
+        ud0 = ctx.col_u(u, 0, False)
+        uf5 = face_slab(su[0], 0, 5)
+        faces = (uf5 * torch.where(uf5 > 0.0, sp[1:6], sp[2:7])
+                 - M * (mu6[1:6] - mu6[0:5]))
+        uu = 0.5 * (su[0, 2] + ub1[0])
+        fe_c = (uu * torch.where(uu > 0.0, sp[3], pb1)
+                - M * (mu_b1 - mu6[2]))
+        uu = 0.5 * (ud0[0] + su[0, 3])
+        fw_c = (uu * torch.where(uu > 0.0, pd0, sp[4])
+                - M * (mu6[3] - mu_d0))
+        fe_fix = 0.5 * (fe_c + sample_linear(fw_c, ctx.dy_field))
+        fw_fix = 0.5 * (fw_c + sample_linear(fe_c, -ctx.dy_field))
+        east = replace_col(faces[1:5], 1, fe_fix)
+        west = replace_col(faces[0:4], 2, fw_fix)
+        p4, m4, u4 = sp[2:6], mu6[1:5], su[:, 1:5]
+        ufy = 0.5 * (u4[1] + torch.roll(u4[1], -1, -2))
+        fy = (ufy * torch.where(ufy > 0.0, p4, torch.roll(p4, -1, -2))
+              - M * (torch.roll(m4, -1, -2) - m4))
+        ufz = 0.5 * (u4[2] + torch.roll(u4[2], -1, -1))
+        fz = (ufz * torch.where(ufz > 0.0, p4, torch.roll(p4, -1, -1))
+              - M * (torch.roll(m4, -1, -1) - m4))
+        pcols = p4 - (east - west + fy - torch.roll(fy, 1, -2)
+                      + fz - torch.roll(fz, 1, -1))
+
+        # the force: the body part with plain mu stencils (ref:
+        # lc_droplet.c:826 kernel_coords_index), then the two-sided stress
+        # fluxes
+        dq4 = dq_tensor(gq[:, :, 1:5])
+        gmu = [0.5 * (mu6[2:6] - mu6[0:4]),
+               0.5 * (torch.roll(m4, -1, -2) - torch.roll(m4, 1, -2)),
+               0.5 * (torch.roll(m4, -1, -1) - torch.roll(m4, 1, -1))]
+        body = []
+        for a in range(3):
+            v = -p4 * gmu[a]
+            for b in range(3):
+                for cc in range(3):
+                    v = v - h6[b][cc][1:5] * dq4[a][b][cc]
+            body.append(v)
+        force = torch.stack(body) + le_force_cols(pth6, pth8[:, :, 6],
+                                                  pth8[:, :, 7], area)
+
+        # Beris-Edwards at c-1 .. c+2 with gamma(phi') and the stale
+        # gradients (ref: ludwig.c order)
+        q4 = sq[:, 2:6]
+        w = col_w(slab_neighbours(su, 0, 4, {2: ud0}), u4,
+                  slab_neighbours(su, 2, 4, {1: ub1}))
+        div = col_advection(
+            q4, slab_neighbours(sq, 1, 4, {2: qd0}),
+            slab_neighbours(sq, 3, 4, {1: qb1}), u4[0],
+            slab_neighbours(su[0], 0, 4, {2: ud0[0]}),
+            slab_neighbours(su[0], 2, 4, {1: ub1[0]}), u4[1], u4[2])
+        fbe = {k: v[..., 1:5, :, :, :] for k, v in f6.items()}
+        fbe["phi"] = pcols
+        hbe = _h5(fe.molecular_field(fbe))
+        s5 = _s5_corotation(q5_to_q33(q4), w, fe.lc.xi)
+        qcols = q4 + (torch.stack([cfg.gamma * hbe[n] + s5[n]
+                                   for n in range(5)]) - div)
+        return (ctx.index(-1, 0, 1, 2), pcols.reshape(4 * P, *yz),
+                qcols.reshape(5, 4 * P, *yz), force.reshape(3, 4 * P, *yz))
+
+    return fix
 
 
 def initial_droplet(cfg: LCDropletConfig, phi0: np.ndarray, q0: np.ndarray):

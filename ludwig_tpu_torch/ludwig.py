@@ -8,15 +8,18 @@ plane walls - moving or with slip -, the open boundary, Lees-Edwards
 planes and porous media), the symmetric binary fluid (`free_energy
 symmetric`), the blue-phase liquid crystal (`free_energy
 lc_blue_phase`) and the liquid-crystal droplet (`free_energy
-lc_droplet`), those three on the periodic, stress-divergence,
-hydrodynamics-on route the JAX package's fused path accepts, and
+lc_droplet`), those three on the stress-divergence, hydrodynamics-on
+route the JAX package's fused path accepts, periodic or with
+Lees-Edwards planes (binary_le.py, lc.py, lc_droplet.py and their
+fused steps), and
 electrokinetics without colloids (`free_energy fe_electro`: Gouy-Chapman
 walls, liquid junction or a uniform electrolyte).  It parses the same
 key-value input, builds the system, runs the time loop on a device (the
 GPU unless the caller asks for the CPU), writes the statistics blocks in
 the reference's formats and the same checkpoint and field files
 (io_directory, freq_config, config_at_end, N_start, freq_phi, freq_vel,
-freq_psi).
+freq_psi) and shear observables (freq_shear_measurement,
+freq_shear_output).
 `tpu_fused on` (or `interpret`) selects the fused steps:
 ops.fused.fused_step for the plain fluid (with fluctuations, its
 FusedNoise counter-hash stream where the JAX package takes its fused
@@ -60,6 +63,7 @@ from ludwig_tpu_torch import stats
 from ludwig_tpu_torch.binary import (GRADIENT, ORDERS, BinaryConfig,
                                      fe_fields, initial_binary,
                                      make_binary_step)
+from ludwig_tpu_torch.binary_le import BinaryLEConfig, make_binary_le_step
 from ludwig_tpu_torch import electro_sim, lc, lc_droplet
 from ludwig_tpu_torch.electro import ElectroConfig, fe_electro_fed, rho_elec
 from ludwig_tpu_torch.fe import lc_init
@@ -79,15 +83,23 @@ from ludwig_tpu_torch.ops.fused import (FusedNoise, fused_step,
                                         make_fused_le_step,
                                         make_fused_wall_step)
 from ludwig_tpu_torch.ops.fused_binary import (initial_fused_binary,
+                                               make_fused_binary_le_step,
                                                make_fused_binary_step)
 from ludwig_tpu_torch.ops.fused_droplet import (initial_fused_droplet,
+                                                make_fused_droplet_le_step,
                                                 make_fused_droplet_step)
-from ludwig_tpu_torch.ops.fused_lc import initial_fused_lc, make_fused_lc_step
-from ludwig_tpu_torch.ops.lees_edwards import LeesEdwardsConfig
+from ludwig_tpu_torch.ops.fused_lc import (initial_fused_lc,
+                                           make_fused_lc_le_step,
+                                           make_fused_lc_step)
+from ludwig_tpu_torch.ops.le_ref import le_gradient
+from ludwig_tpu_torch.ops.lees_edwards import (LeesEdwardsConfig,
+                                               le_init_shear_profile)
 from ludwig_tpu_torch.ops.open_bc import OpenBCConfig
+from ludwig_tpu_torch.ops.stencil import delsq_7pt, grad_7pt
 from ludwig_tpu_torch.ops.walls import WallSpec
 from ludwig_tpu_torch.ref_rng import spinodal_ref
 from ludwig_tpu_torch.runtime import RunTime
+from ludwig_tpu_torch.stats_extra import RheologyAccumulator
 
 
 def _off(v: str) -> bool:
@@ -108,9 +120,14 @@ SLICE_KEYS = frozenset((
     "distribution_uniform_u", "N_cycles", "freq_statistics", "tpu_fused",
     "hydrodynamics",
     # checkpoints and field files (the periodicity is recorded in the
-    # field files' metadata)
+    # field files' metadata), the shear observables (str-%08d.dat)
     "periodicity", "io_directory", "N_start", "config_at_end",
-    "freq_config", "freq_phi", "freq_vel"))
+    "freq_config", "freq_phi", "freq_vel", "freq_shear_measurement",
+    "freq_shear_output"))
+
+# Lees-Edwards planes of the binary, LC and droplet families (the plain
+# fluid reads N_LE_plane and LE_plane_vel with its boundaries)
+LE_KEYS = frozenset(("N_LE_plane", "LE_plane_vel", "LE_init_profile"))
 
 # keys the binary-fluid slice reads (free_energy symmetric only)
 BINARY_KEYS = frozenset((
@@ -119,7 +136,7 @@ BINARY_KEYS = frozenset((
     "fe_force_method", "grad_mu", "phi_initialisation", "phi0",
     "random_seed", "noise", "phi_init_drop_radius",
     "phi_init_drop_amplitude", "phi_init_drop_centred",
-    "phi_init_block_dimension"))
+    "phi_init_block_dimension", "LE_oscillation_period")) | LE_KEYS
 
 # keys the liquid-crystal slice reads (free_energy lc_blue_phase only)
 LC_KEYS = frozenset((
@@ -129,7 +146,7 @@ LC_KEYS = frozenset((
     "lc_q_init_amplitude", "lc_q_init_euler_angles", "lc_init_nematic",
     "fd_advection_scheme_order", "fd_gradient_calculation",
     # read by features that are off here (the electric field, the noise)
-    "lc_dielectric_anisotropy", "random_seed"))
+    "lc_dielectric_anisotropy", "random_seed")) | LE_KEYS
 
 # keys the droplet slice reads (free_energy lc_droplet only)
 DROPLET_KEYS = frozenset((
@@ -141,7 +158,7 @@ DROPLET_KEYS = frozenset((
     "lc_Gamma", "lc_init_redshift", "lc_q_initialisation",
     "lc_q_init_amplitude", "lc_init_nematic", "lc_droplet_gamma",
     "lc_droplet_delta", "lc_droplet_W", "fd_advection_scheme_order",
-    "fd_gradient_calculation", "fe_force_method"))
+    "fd_gradient_calculation", "fe_force_method")) | LE_KEYS
 
 # keys the electrokinetic slice reads (free_energy fe_electro only);
 # temperature is the electrolyte's kT here, and the LB noise it would
@@ -199,8 +216,6 @@ INACTIVE = {
     "tpu_shard": _off,
     "freq_psi": _zeros,
     "freq_measure": _zeros,
-    "freq_shear_measurement": _zeros,
-    "freq_shear_output": _zeros,
     "colloid_io_freq": _zeros,
 }
 
@@ -254,6 +269,9 @@ class System:
     solid: Optional[torch.Tensor] = None     # in-lattice solid sites
     wallspec: Optional[WallSpec] = None      # plain-fluid halo walls
     le_cfg: Optional[LeesEdwardsConfig] = None   # Lees-Edwards planes
+    # the state ends with the gradients (grad, delsq) of the step's
+    # pre-update order parameter (_keeps_grads)
+    keep_grads: bool = False
     n_start: int = 0                         # the step a restart reads
 
     @property
@@ -263,6 +281,15 @@ class System:
     @property
     def is_electro(self) -> bool:
         return self.electro_cfg is not None
+
+    @property
+    def n_fields(self) -> int:
+        """The order-parameter leaves after f: phi (binary), Q (liquid
+        crystal), phi and Q (droplet); u follows them, then the kept
+        gradients."""
+        if self.droplet_cfg is not None:
+            return 2
+        return int(self.binary_cfg is not None or self.lc_cfg is not None)
 
     @property
     def has_kiss(self) -> bool:
@@ -659,6 +686,111 @@ def _fused_request(rt: RunTime) -> bool:
     return fused_req != "off"
 
 
+def _le_config(rt: RunTime, size,
+               oscillation: bool = False) -> Optional[LeesEdwardsConfig]:
+    """The Lees-Edwards planes of an input, or None (ludwig_tpu
+    ludwig.py:941-995, 1099-1151, 1220-1305, 1640-1767): N_LE_plane planes
+    sliding at LE_plane_vel, oscillating with LE_oscillation_period where
+    the family reads it (the binary fluid)."""
+    nplanes = rt.int("N_LE_plane", 0)
+    if nplanes <= 0:
+        return None
+    period = rt.double("LE_oscillation_period", 0.0) if oscillation else 0.0
+    return LeesEdwardsConfig(nplanes=nplanes,
+                             uy=rt.double_required("LE_plane_vel"),
+                             nx=size[0],
+                             omega=2.0 * np.pi / period if period else 0.0)
+
+
+def _le_f0(rt: RunTime, lb_cfg: LBConfig, le: LeesEdwardsConfig):
+    """f at rest, or with LE_init_profile the steady sawtooth profile."""
+    if rt.switch("LE_init_profile", False):
+        return le_init_shear_profile(lb_cfg, le)
+    return initial_rest(lb_cfg)
+
+
+def _keeps_grads(fe_name: str, le: Optional[LeesEdwardsConfig]) -> bool:
+    """Whether an unfused route's state carries the gradients of the
+    step's pre-update order parameter, (grad, delsq) after u: where the
+    JAX package's does (keep_grads: the LC route, ludwig_tpu
+    ludwig.py:1215, and the sheared binary and LC routes, :992, :1302;
+    not the sheared droplet, :1148), so that each package restarts from
+    the other's checkpoint.  The fused routes carry none, as in the JAX
+    package."""
+    return fe_name == "lc_blue_phase" or (fe_name == "symmetric"
+                                          and le is not None)
+
+
+def _tensors(lb_cfg: LBConfig, *arrays):
+    return tuple(torch.as_tensor(a, dtype=lb_cfg.tdtype,
+                                 device=lb_cfg.device).contiguous()
+                 for a in arrays)
+
+
+def _binary_le_system(rt, lb_cfg, bcfg, le, phi0) -> System:
+    """The sheared binary fluid (ludwig_tpu ludwig.py:941-995): the fused
+    K1 + column fix + K2 + LE post-pass where `tpu_fused` asks and the
+    planes are 6 columns apart, else the unfused step carrying the LE
+    gradients."""
+    lecfg = BinaryLEConfig(binary=bcfg, le=le)
+    f = _le_f0(rt, lb_cfg, le)
+    phi, = _tensors(lb_cfg, phi0)
+    u = torch.zeros((3,) + lb_cfg.size, dtype=lb_cfg.tdtype,
+                    device=lb_cfg.device)
+    if _fused_request(rt) and lb_cfg.size[0] >= 6 * le.nplanes:
+        return System(rt=rt, lb_cfg=lb_cfg, state=(f, phi, u),
+                      step_fn=make_fused_binary_le_step(lecfg),
+                      fused_mode="binary", binary_cfg=bcfg, le_cfg=le)
+    keep = _keeps_grads("symmetric", le)
+    return System(rt=rt, lb_cfg=lb_cfg,
+                  state=(f, phi, u) + (le_gradient(phi, le, 0) if keep
+                                       else ()),
+                  step_fn=make_binary_le_step(lecfg, keep_grads=keep),
+                  binary_cfg=bcfg, le_cfg=le, keep_grads=keep)
+
+
+def _lc_le_system(rt, lb_cfg, lcfg, le, q0) -> System:
+    """The sheared blue phase (ludwig_tpu ludwig.py:1255-1305): the fused
+    K1 + column fix + K2 + LE post-pass where `tpu_fused` asks, the
+    advection is order 1 and the planes are 6 columns apart, else the
+    unfused step carrying the LE gradients."""
+    f = _le_f0(rt, lb_cfg, le)
+    q5, = _tensors(lb_cfg, q0)
+    u = torch.zeros((3,) + lb_cfg.size, dtype=lb_cfg.tdtype,
+                    device=lb_cfg.device)
+    if (_fused_request(rt) and lcfg.advection_order == 1
+            and lb_cfg.size[0] >= 6 * le.nplanes):
+        return System(rt=rt, lb_cfg=lb_cfg, state=(f, q5, u),
+                      step_fn=make_fused_lc_le_step(lcfg, le),
+                      fused_mode="lc", lc_cfg=lcfg, le_cfg=le)
+    keep = _keeps_grads("lc_blue_phase", le)
+    return System(rt=rt, lb_cfg=lb_cfg,
+                  state=(f, q5, u) + (le_gradient(q5, le, 0) if keep
+                                      else ()),
+                  step_fn=lc.make_lc_le_step(lcfg, le, keep_grads=keep),
+                  lc_cfg=lcfg, le_cfg=le, keep_grads=keep)
+
+
+def _droplet_le_system(rt, lb_cfg, dcfg, le, phi0, q0) -> System:
+    """The sheared LC droplet (ludwig_tpu ludwig.py:1099-1151; walls and
+    porous media beside planes are refused with their keys): the fused
+    K1 + column fix + mean subtraction + K2 + LE post-pass where
+    `tpu_fused` asks, the advection is order 1 and the planes are 8
+    columns apart, else the unfused step."""
+    f = _le_f0(rt, lb_cfg, le)
+    phi, q5 = _tensors(lb_cfg, phi0, q0)
+    u = torch.zeros((3,) + lb_cfg.size, dtype=lb_cfg.tdtype,
+                    device=lb_cfg.device)
+    if (_fused_request(rt) and dcfg.advection_order == 1
+            and lb_cfg.size[0] >= 8 * le.nplanes):
+        return System(rt=rt, lb_cfg=lb_cfg, state=(f, phi, q5, u),
+                      step_fn=make_fused_droplet_le_step(dcfg, le),
+                      fused_mode="droplet", droplet_cfg=dcfg, le_cfg=le)
+    return System(rt=rt, lb_cfg=lb_cfg, state=(f, phi, q5, u),
+                  step_fn=lc_droplet.make_droplet_le_step(dcfg, le),
+                  droplet_cfg=dcfg, le_cfg=le)
+
+
 def build_system(rt: RunTime, device="cuda") -> System:
     """The system of an input on `device` (the GPU unless the caller
     asks for the CPU)."""
@@ -690,6 +822,9 @@ def build_system(rt: RunTime, device="cuda") -> System:
         # read)
         bcfg = _binary_config(rt, lb_cfg)
         phi0 = _phi_init(rt, size, bcfg.fe)
+        le = _le_config(rt, size, oscillation=True)
+        if le is not None:
+            return _binary_le_system(rt, lb_cfg, bcfg, le, phi0)
         if _fused_request(rt):
             # production path: the two fused kernels (K1, K2)
             return System(rt=rt, lb_cfg=lb_cfg,
@@ -701,6 +836,9 @@ def build_system(rt: RunTime, device="cuda") -> System:
     if fe_name == "lc_blue_phase":
         lcfg = _lc_config(rt, lb_cfg)
         q0 = _q_init(rt, size, lcfg.fe)
+        le = _le_config(rt, size)
+        if le is not None:
+            return _lc_le_system(rt, lb_cfg, lcfg, le, q0)
         # as in the JAX package, the two fused kernels (K1, K2) take the
         # order-1 upwind scheme only; order 2 runs the unfused step
         if _fused_request(rt) and lcfg.advection_order == 1:
@@ -708,12 +846,18 @@ def build_system(rt: RunTime, device="cuda") -> System:
                           state=initial_fused_lc(lcfg, q0),
                           step_fn=make_fused_lc_step(lcfg),
                           fused_mode="lc", lc_cfg=lcfg)
-        return System(rt=rt, lb_cfg=lb_cfg, state=lc.initial_lc(lcfg, q0),
-                      step_fn=lc.make_lc_step(lcfg), lc_cfg=lcfg)
+        keep = _keeps_grads("lc_blue_phase", None)
+        return System(rt=rt, lb_cfg=lb_cfg,
+                      state=lc.initial_lc(lcfg, q0, keep_grads=keep),
+                      step_fn=lc.make_lc_step(lcfg, keep_grads=keep),
+                      lc_cfg=lcfg, keep_grads=keep)
     if fe_name == "lc_droplet":
         dcfg = _droplet_config(rt, lb_cfg)
         phi0 = _phi_init(rt, size, dcfg.fe.symm)
         q0 = _droplet_q_init(rt, size, dcfg.fe.lc)
+        le = _le_config(rt, size)
+        if le is not None:
+            return _droplet_le_system(rt, lb_cfg, dcfg, le, phi0, q0)
         if _fused_request(rt):
             return System(rt=rt, lb_cfg=lb_cfg,
                           state=initial_fused_droplet(dcfg, phi0, q0),
@@ -818,12 +962,7 @@ def _plain_system(rt: RunTime, lb_cfg: LBConfig) -> System:
     still prints what the JAX package's route would)."""
     size = lb_cfg.size
     nz = lb_cfg.noise
-    le = None
-    nplanes = rt.int("N_LE_plane", 0)
-    if nplanes > 0:
-        le = LeesEdwardsConfig(nplanes=nplanes,
-                               uy=rt.double_required("LE_plane_vel"),
-                               nx=size[0])
+    le = _le_config(rt, size)
     porous = _porous(rt, size)
     if any(lb_cfg.walls) and le is None and porous is None:
         return _wall_system(rt, lb_cfg, lb_cfg.walls)
@@ -878,13 +1017,14 @@ def _plain_system(rt: RunTime, lb_cfg: LBConfig) -> System:
 
 
 def _make_stats_fn(sys_: System, reference: bool):
-    """compute(state, u, prev=None) -> {rho, g, umm} and, for the binary
+    """compute(state, u, prev=None, tstep=0) -> {rho, g, umm} and, for the binary
     fluid, {phi, fed}, for the liquid crystal {q5, fe_lc}, for the
     droplet {phi, q5, fed}, for electrokinetics {psi3, rhok, elc, fed}
     and, with solid sites, {gwall}; {ktstats} with fluctuations.  rho, g
     and umm are over the fluid sites; with halo walls {gwall} too.
     `prev` is the order-parameter state before the last step: (phi,),
-    (q5,) or the droplet's (phi, q5).
+    (q5,) or the droplet's (phi, q5); tstep the step just taken, which
+    the Lees-Edwards gradients of a sheared binary or LC run read.
 
     `reference` selects the JAX package's reference-ordered statistics
     (ludwig.py _make_stats_fn: rho_stats_ref, momentum_total_ref, the
@@ -900,7 +1040,22 @@ def _make_stats_fn(sys_: System, reference: bool):
     mask = sys_.fluid_mask
     order_stats = stats.field_stats_ref if reference else stats.field_stats
 
-    def compute(state, u, prev=None):
+    def grads(state, prev, tstep):
+        """(grad, delsq) of the order parameter before the step, with
+        which the [fed] / [fe] statistics evaluate the updated field:
+        those the state carries (the JAX package's unfused routes read
+        its keep_grads tail), else computed from `prev` (the field
+        itself at the initial statistics) - LE-aware on a sheared run,
+        as the JAX package's fused route computes them."""
+        if sys_.keep_grads:
+            n = sys_.n_fields
+            return state[2 + n], state[3 + n]
+        src = state[1] if prev is None else prev[0]
+        if sys_.le_cfg is not None:
+            return le_gradient(src, sys_.le_cfg, tstep)
+        return grad_7pt(src), delsq_7pt(src)
+
+    def compute(state, u, prev=None, tstep=0):
         f = state[0]
         if reference:
             res = {"rho": stats.rho_stats_ref(f, model, mask),
@@ -939,8 +1094,8 @@ def _make_stats_fn(sys_: System, reference: bool):
             phi = state[1]
             res["phi"] = (stats._compensated_stats(phi, mask) if reference
                           else stats.field_stats(phi))
-            fields = fe_fields(phi if prev is None else prev[0])
-            fields["phi"] = phi
+            grad, delsq = grads(state, prev, tstep)
+            fields = {"phi": phi, "grad_phi": grad, "delsq_phi": delsq}
             m = torch.mean(bcfg.fe.fed(fields))
             res["fed"] = (m, m)
         if lcfg is not None:
@@ -948,8 +1103,8 @@ def _make_stats_fn(sys_: System, reference: bool):
             # the step, the updated Q in place of Q
             q5 = state[1]
             res["q5"] = [order_stats(q5[n]) for n in range(5)]
-            fields = lc.lc_fields(q5 if prev is None else prev[0])
-            fields["q"] = q5
+            grad, delsq = grads(state, prev, tstep)
+            fields = {"q": q5, "grad_q": grad, "delsq_q": delsq}
             bulk, grad = lcfg.fe.fed_bulk_grad(fields)
             res["fe_lc"] = (torch.sum(lcfg.fe.fed(fields)),
                             float(q5[0].numel()), torch.sum(bulk),
@@ -1008,7 +1163,7 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
     """One statistics block set in the reference formats.  The
     'Completed cycle' trailer only appears inside the time loop (ref:
     ludwig.c:961)."""
-    res = stats_fn(sys_.state, u, prev)
+    res = stats_fn(sys_.state, u, prev, tstep)
     out.write(stats.format_rho_block(*res["rho"]))
     if sys_.is_electro:
         # ref: ludwig_tpu ludwig.py:2410-2434
@@ -1069,7 +1224,9 @@ def _field_names(sys_: System):
     """The checkpoint's names for the state's leaves, in order: dist,
     then phi (binary), q (liquid crystal), vel (binary, liquid crystal,
     droplet), then state<i> (ludwig_tpu ludwig.py:2890-2901 and
-    :2938-2950)."""
+    :2938-2950): the kept gradients of the unfused LC and sheared
+    binary and LC routes are state03 and state04, as the JAX package
+    writes them."""
     names = ["dist"]
     if sys_.binary_cfg is not None:
         names.append("phi")
@@ -1117,6 +1274,17 @@ def read_checkpoint(sys_: System, directory: str, step: int) -> tuple:
     return tuple(leaves)
 
 
+def _rheo_pth(sys_: System) -> Optional[torch.Tensor]:
+    """The thermodynamic stress of the shear profile: the binary fluid's,
+    from plain-stencil gradients of the current phi (ref:
+    fe->func->stress in stats_rheology_stress_profile_accumulate;
+    ludwig_tpu ludwig.py:2822-2828); None (zeros) for the other families,
+    as the JAX package reports them."""
+    if sys_.binary_cfg is None:
+        return None
+    return sys_.binary_cfg.fe.stress(fe_fields(sys_.state[1]))
+
+
 def run_text(text: str, out=sys.stdout, device="cuda") -> System:
     """Run a simulation from input-file text on `device`; returns the
     final System.
@@ -1151,6 +1319,11 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
     le_meta = (None if sys_.le_cfg is None
                else (sys_.le_cfg.nplanes, sys_.le_cfg.uy))
     has_phi = sys_.binary_cfg is not None or sys_.droplet_cfg is not None
+    # the shear observables (ludwig_tpu ludwig.py:2803-2830)
+    freq_shear_meas = rt.int("freq_shear_measurement", 0)
+    freq_shear_io = rt.int("freq_shear_output", 0)
+    rheo = (RheologyAccumulator(size, sys_.lb_cfg.device)
+            if freq_shear_meas or freq_shear_io else None)
     has_q = sys_.lc_cfg is not None or sys_.droplet_cfg is not None
     tend = sys_.n_start + ncycles
 
@@ -1187,14 +1360,14 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
         # the pre-step order parameters of the [fed] / [fe] statistic
         # (phi, Q, or the droplet's pair) are held by reference
         prev = None
-        if (sys_.binary_cfg is not None or sys_.lc_cfg is not None
-                or sys_.droplet_cfg is not None):
-            prev = sys_.state[1:-1]
+        nfld = sys_.n_fields
+        if nfld:
+            prev = sys_.state[1:1 + nfld]
             if sys_.fused_mode in ("binary", "lc", "droplet"):
                 sys_.state = sys_.step_fn(sys_.state, t)
             else:
                 sys_.state, _rho = sys_.step_fn(sys_.state, t)
-            u = sys_.state[-1]    # u rides at the tail of the state
+            u = sys_.state[1 + nfld]    # u follows the order parameters
         elif sys_.is_electro:
             sys_.state, (_none, sor) = sys_.step_fn(sys_.state, t)
             u = sys_.state[3]
@@ -1237,6 +1410,15 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
             out.write(f"Writing psi file at step {t}!\n")
         if sys_.hydro_on and (vel_out or is_config):
             out.write(f"Writing rho/velocity output at step {t}!\n")
+        if freq_shear_meas and t % freq_shear_meas == 0:
+            # (ref: ludwig.c:925-929, stats_rheology accumulate)
+            rheo.accumulate(sys_.state[0], sys_.lb_cfg.model,
+                            _rheo_pth(sys_))
+        if freq_shear_io and t % freq_shear_io == 0:
+            # (ref: ludwig.c:931-935, str-%8.8d.dat, then zero)
+            rheo.write_section(os.path.join(iodir, f"str-{t:08d}.dat"),
+                               sys_.lb_cfg.eta_shear)
+            rheo.zero()
         if u is None and (t % freq == 0 or vel_out):
             u = _fused_u(sys_, sys_.state[0])
         if t % freq == 0:

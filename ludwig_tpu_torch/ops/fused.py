@@ -37,7 +37,7 @@ import torch
 from ludwig_tpu_torch.lattice import LatticeModel, lb_model
 from ludwig_tpu_torch.ops import _cuda
 from ludwig_tpu_torch.ops.collide import CollisionParams, _triu_pairs
-from ludwig_tpu_torch.ops.lees_edwards import apply_le_fused, le_fix_plan
+from ludwig_tpu_torch.ops.lees_edwards import make_le_post
 from ludwig_tpu_torch.ops.stream import _roll3
 from ludwig_tpu_torch.ops.walls import wall_bounce_back_fused, wall_fix_plan
 
@@ -581,16 +581,10 @@ def make_fused_le_step(cfg, le, plan: FusedPlan = FusedPlan()):
     step counter of the slide."""
     model = cfg.model
     params = cfg.collision_params()
-    fixes = {}
+    post = make_le_post(model, le)
 
     def step(state, t=0):
-        f = fused_step(state[0], model, params, plan)
-        key = (f.device, f.dtype)
-        fix = fixes.get(key)
-        if fix is None:
-            fix = fixes[key] = le_fix_plan(model, le, cfg.size, f.dtype,
-                                           f.device)
-        return (apply_le_fused(f, model, le, t, plan=fix),)
+        return (post(fused_step(state[0], model, params, plan), t),)
 
     return step
 

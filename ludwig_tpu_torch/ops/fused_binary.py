@@ -35,8 +35,10 @@ from typing import NamedTuple
 import torch
 
 from ludwig_tpu_torch.binary import ORDERS, BinaryConfig, initial_binary
+from ludwig_tpu_torch.binary_le import make_binary_le_column_fix
 from ludwig_tpu_torch.ops import _cuda
 from ludwig_tpu_torch.ops.fused import fused_force_step
+from ludwig_tpu_torch.ops.lees_edwards import make_le_post
 from ludwig_tpu_torch.ops.stencil import roll3
 
 _E = ((1, 0, 0), (0, 1, 0), (0, 0, 1))
@@ -192,8 +194,9 @@ def make_fused_binary_step(bcfg: BinaryConfig):
 
     Periodic fluid, stress-divergence force, 7-point gradients, advection
     order 1 or 2, hydrodynamics on (what BinaryConfig admits): the
-    flagship spinodal configuration.  The sheared and sharded variants
-    of the JAX package are not ported yet."""
+    flagship spinodal configuration.  The sheared variant is
+    make_fused_binary_le_step; the sharded one of the JAX package is not
+    ported."""
     model = bcfg.lb.model
     params = bcfg.lb.collision_params()
 
@@ -204,6 +207,36 @@ def make_fused_binary_step(bcfg: BinaryConfig):
                                            bcfg.advection_order)
         f, u = fused_force_step(f, force, model, params)
         return (f, phi, u)
+
+    return step
+
+
+def make_fused_binary_le_step(lecfg):
+    """Fused binary step under Lees-Edwards shear: state (f, phi, u) ->
+    state (ref: model_le.c:57 + phi_ch_le_fix_fluxes).
+
+    The two kernels run unmodified, x plain periodic; the shear enters as
+    O(planes Y Z) column work: binary_le.make_binary_le_column_fix
+    rewrites the plane-adjacent columns of phi' and the force between K1
+    and K2, and ops/lees_edwards.apply_le_fused reprojects and displaces
+    the crossing populations of K2's output."""
+
+    bcfg = lecfg.binary
+    le = lecfg.le
+    model = bcfg.lb.model
+    params = bcfg.lb.collision_params()
+    fix = make_binary_le_column_fix(lecfg)
+    post = make_le_post(model, le)
+
+    def step(state, t=0):
+        f, phi, u = state
+        phi_new, force = binary_phi_force_step(phi, u, bcfg.fe, bcfg.mobility,
+                                               bcfg.advection_order)
+        (pidx, pcols), (fidx, fcols) = fix(phi, u, t)
+        phi_new.index_copy_(0, pidx, pcols)
+        force.index_copy_(1, fidx, fcols)
+        f, u_new = fused_force_step(f, force, model, params)
+        return (post(f, t), phi_new, u_new)
 
     return step
 

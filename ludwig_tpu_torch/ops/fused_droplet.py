@@ -42,10 +42,12 @@ import torch
 from ludwig_tpu_torch.fe.blue_phase import q5_to_q33
 from ludwig_tpu_torch.lc import _s5_corotation
 from ludwig_tpu_torch.lc_droplet import (ORDERS, LCDropletConfig,
-                                         initial_droplet)
+                                         initial_droplet,
+                                         make_droplet_le_column_fix)
 from ludwig_tpu_torch.ops import _cuda
 from ludwig_tpu_torch.ops.force import correct_momentum
 from ludwig_tpu_torch.ops.fused import fused_force_step
+from ludwig_tpu_torch.ops.lees_edwards import make_le_post
 from ludwig_tpu_torch.ops.stencil import roll3
 
 _E = ((1, 0, 0), (0, 1, 0), (0, 0, 1))
@@ -241,8 +243,9 @@ def make_fused_droplet_step(dcfg: LCDropletConfig):
     subtraction, then K2.
 
     Periodic fluid, 7-point gradients, stress-divergence force, advection
-    order 1 or 2 (what LCDropletConfig admits).  The sheared and sharded
-    variants of the JAX package are not ported yet."""
+    order 1 or 2 (what LCDropletConfig admits).  The sheared variant is
+    make_fused_droplet_le_step; the sharded one of the JAX package is not
+    ported."""
     model = dcfg.lb.model
     params = dcfg.lb.collision_params()
 
@@ -257,6 +260,38 @@ def make_fused_droplet_step(dcfg: LCDropletConfig):
         # round-off
         f, u = fused_force_step(f, correct_momentum(force), model, params)
         return (f, phi, q5, u)
+
+    return step
+
+
+def make_fused_droplet_le_step(dcfg: LCDropletConfig, le):
+    """Fused droplet step under Lees-Edwards shear: state (f, phi, q5, u)
+    -> state (ref: lc_droplet.c + model_le.c:57).
+
+    K1 runs unmodified, x plain periodic; lc_droplet.
+    make_droplet_le_column_fix rewrites the plane-adjacent columns of
+    phi', q5' and the force, then the force's mean is subtracted (after
+    the fix: the LE flux divergence sums to its round-off after the
+    per-plane mean fix), K2 runs, and ops/lees_edwards.apply_le_fused
+    reprojects and displaces the crossing populations of its output."""
+
+    model = dcfg.lb.model
+    params = dcfg.lb.collision_params()
+    fix = make_droplet_le_column_fix(dcfg, le)
+    post = make_le_post(model, le)
+
+    def step(state, t=0):
+        f, phi, q5, u = state
+        phi_new, q5_new, force = droplet_phi_q_force_step(
+            phi, q5, u, dcfg.fe, dcfg.gamma, dcfg.mobility,
+            dcfg.advection_order)
+        idx, pcols, qcols, fcols = fix(phi, q5, u, t)
+        phi_new.index_copy_(0, idx, pcols)
+        q5_new.index_copy_(1, idx, qcols)
+        force.index_copy_(1, idx, fcols)
+        f, u_new = fused_force_step(f, correct_momentum(force), model,
+                                    params)
+        return (post(f, t), phi_new, q5_new, u_new)
 
     return step
 

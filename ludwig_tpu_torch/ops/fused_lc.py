@@ -32,9 +32,11 @@ from __future__ import annotations
 import torch
 
 from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE, q5_to_q33, q33_to_q5
-from ludwig_tpu_torch.lc import LCConfig, _s5_corotation, initial_lc
+from ludwig_tpu_torch.lc import (LCConfig, _s5_corotation, initial_lc,
+                                 make_lc_le_column_fix)
 from ludwig_tpu_torch.ops import _cuda
 from ludwig_tpu_torch.ops.fused import fused_force_step
+from ludwig_tpu_torch.ops.lees_edwards import make_le_post
 from ludwig_tpu_torch.ops.stencil import roll3
 
 _E = ((1, 0, 0), (0, 1, 0), (0, 0, 1))
@@ -156,8 +158,8 @@ def make_fused_lc_step(lcfg: LCConfig):
 
     Periodic fluid, 7-point gradients, order-1 upwind advection,
     hydrodynamics on: the blue-phase benchmark configuration.  The
-    sheared and sharded variants of the JAX package are not ported
-    yet."""
+    sheared variant is make_fused_lc_le_step; the sharded one of the JAX
+    package is not ported."""
     if lcfg.advection_order != 1:
         raise ValueError("the fused LC step has order-1 advection only, "
                          f"got order {lcfg.advection_order}")
@@ -170,6 +172,34 @@ def make_fused_lc_step(lcfg: LCConfig):
         q5, force = lc_q_force_step(q5, u, lcfg.fe, lcfg.gamma)
         f, u = fused_force_step(f, force, model, params)
         return (f, q5, u)
+
+    return step
+
+
+def make_fused_lc_le_step(lcfg: LCConfig, le):
+    """Fused LC step under Lees-Edwards shear: state (f, q5, u) -> state.
+
+    The sheared blue phase is the reference's production configuration
+    (ref: model_le.c:57 with the q-tensor branch of ludwig.c).  The two
+    kernels run unmodified, x plain periodic; the shear enters as
+    O(planes Y Z) column work: lc.make_lc_le_column_fix rewrites the
+    plane-adjacent columns of q5' and the force between K1 and K2, and
+    ops/lees_edwards.apply_le_fused reprojects and displaces the
+    crossing populations of K2's output."""
+
+    model = lcfg.lb.model
+    params = lcfg.lb.collision_params()
+    fix = make_lc_le_column_fix(lcfg, le)
+    post = make_le_post(model, le)
+
+    def step(state, t=0):
+        f, q5, u = state
+        q5_new, force = lc_q_force_step(q5, u, lcfg.fe, lcfg.gamma)
+        (qidx, qcols), (fidx, fcols) = fix(q5, u, t)
+        q5_new.index_copy_(1, qidx, qcols)
+        force.index_copy_(1, fidx, fcols)
+        f, u_new = fused_force_step(f, force, model, params)
+        return (post(f, t), q5_new, u_new)
 
     return step
 

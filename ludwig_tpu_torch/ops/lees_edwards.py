@@ -304,6 +304,21 @@ def apply_le_fused(f: torch.Tensor, model: LatticeModel,
     return f
 
 
+def make_le_post(model: LatticeModel, cfg: LeesEdwardsConfig):
+    """post(f, t) -> apply_le_fused(f, model, cfg, t) with the plan built
+    once for each device and dtype it meets (a step's post-pass)."""
+    plans = {}
+
+    def post(f: torch.Tensor, t) -> torch.Tensor:
+        key = (f.device, f.dtype)
+        if key not in plans:
+            plans[key] = le_fix_plan(model, cfg, f.shape[1:], f.dtype,
+                                     f.device)
+        return apply_le_fused(f, model, cfg, t, plan=plans[key])
+
+    return post
+
+
 def _interp_y(col: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """Sample a (.., Y, Z) column at y + dy (linear, periodic; dy a
     0-dim tensor)."""

@@ -20,9 +20,10 @@ import torch
 
 from ludwig_tpu.ludwig import run_text as jrun_text
 from ludwig_tpu_torch.ludwig import run_text
-from test_ludwig_run import (BINARY_FUSED_INPUT, COUETTE_FUSED_INPUT,
-                             DROPLET_FUSED_INPUT, DUCT_FUSED_INPUT,
-                             LC_FUSED_INPUT, LE_FUSED_INPUT,
+from test_ludwig_run import (BINARY_FUSED_INPUT, BINARY_LE_FUSED_INPUT,
+                             COUETTE_FUSED_INPUT, DROPLET_FUSED_INPUT,
+                             DUCT_FUSED_INPUT, LC_FUSED_INPUT,
+                             LC_LE_FUSED_INPUT, LE_FUSED_INPUT,
                              PLAIN_FUSED_INPUT, PLAIN_INPUT,
                              WALL_FUSED_INPUT, WALLS_INPUT, _stat_floats)
 
@@ -32,6 +33,16 @@ def _logs(jax_text, port_text):
     jrun_text(jax_text, out=a)
     sys_ = run_text(port_text, out=b, device="cpu")
     return a.getvalue(), b.getvalue(), sys_
+
+
+# the sheared inputs: the JAX package's binary and blue-phase ones
+# (tests/test_ludwig_run.py:227, :248) and its droplet input at 16_8_16
+# with two planes; the shear observables on
+DROPLET_LE_INPUT = (DROPLET_FUSED_INPUT.replace("size 8_8_16", "size 16_8_16")
+                    + "N_LE_plane 2\nLE_plane_vel 0.04\nLE_init_profile 1\n")
+LE_INPUTS = {"binary": BINARY_LE_FUSED_INPUT, "lc": LC_LE_FUSED_INPUT,
+             "droplet": DROPLET_LE_INPUT}
+SHEAR_KEYS = "freq_shear_measurement 1\nfreq_shear_output 2\n"
 
 
 def _binary_input(order):
@@ -114,7 +125,9 @@ def test_lc_cli_order_2_runs_unfused():
     "fd_gradient_calculation s7_anchoring", "electric_e0 0.0_0.0_0.01",
     "fd_advection_scheme_order 3", "hydrodynamics off",
     "lc_q_init_rectangle_min 1_1_1", "lc_anchoring_method two",
-    "boundary_walls 1_0_0", "N_LE_plane 2", "isothermal_fluctuations on"])
+    "boundary_walls 1_0_0",
+    # the planes are ported; their oscillation the LC does not read
+    "LE_oscillation_period 100", "isothermal_fluctuations on"])
 def test_unported_lc_keys_raise(line):
     with pytest.raises(NotImplementedError, match=line.split()[0]):
         run_text("tpu_fused on\n" + LC_FUSED_INPUT + line + "\n",
@@ -142,7 +155,7 @@ def test_droplet_cli_matches_jax(fused):
 @pytest.mark.parametrize("line", [
     "fe_force_method relaxation_antisymmetric",
     "fd_gradient_calculation 3d_27pt_fluid", "fd_advection_scheme_order 3",
-    "hydrodynamics off", "N_LE_plane 2", "boundary_walls 0_0_1",
+    "hydrodynamics off", "freq_measure 10", "boundary_walls 0_0_1",
     "porous_media_file capillary", "lc_noise on", "temperature 0.001",
     "lc_activity yes", "lb_fluctuations on"])
 def test_unported_droplet_keys_raise(line):
@@ -279,10 +292,10 @@ def test_plain_cli_matches_jax():
 @pytest.mark.parametrize("line", [
     "free_energy brazovskii", "free_energy fe_electro_symmetric",
     "lc_noise on",
-    # the plain fluid's walls, planes, restarts and periodicity are read
-    # since they are ported; shear measurement, sharding, several I/O
-    # groups and colloid I/O are not
-    "lc_a0 0.01", "freq_shear_measurement 10", "tpu_shard on",
+    # the plain fluid's walls, planes, restarts, periodicity and shear
+    # observables are read since they are ported; the sigma measurement,
+    # sharding, several I/O groups and colloid I/O are not
+    "lc_a0 0.01", "freq_measure 10", "tpu_shard on",
     "default_io_grid 2_1_1", "bogus_key_xyz 42", "colloid_io_freq 10"])
 def test_unported_keys_raise(line):
     with pytest.raises(NotImplementedError, match=line.split()[0]):
@@ -309,9 +322,10 @@ def test_cli_runs_without_jax(tmp_path):
     """`python -m ludwig_tpu_torch input --device cpu` in a fresh
     interpreter, for the plain, the binary, the liquid-crystal, the
     droplet, the electrokinetic, the fluctuating plain, the walled (with
-    a velocity file) and the Lees-Edwards input: all run, and neither
-    JAX nor ludwig_tpu is imported, the boundary and I/O modules
-    included."""
+    a velocity file) and the Lees-Edwards input, and the sheared binary
+    (fused, with the shear observables), blue-phase (unfused) and droplet
+    (fused) inputs: all run, and neither JAX nor ludwig_tpu is imported,
+    the boundary, I/O and shear modules included."""
     inp, inp_binary = tmp_path / "input", tmp_path / "input_binary"
     inp_lc, inp_drop = tmp_path / "input_lc", tmp_path / "input_droplet"
     inp_elec = tmp_path / "input_electro"
@@ -326,17 +340,24 @@ def test_cli_runs_without_jax(tmp_path):
     inp_binary.write_text("tpu_fused on\n" + BINARY_FUSED_INPUT)
     inp_lc.write_text("tpu_fused on\n" + LC_FUSED_INPUT)
     inp_drop.write_text("tpu_fused on\n" + DROPLET_FUSED_INPUT)
+    sheared = []
+    for name, fused in (("binary", "on"), ("lc", "off"), ("droplet", "on")):
+        sheared.append(tmp_path / f"input_le_{name}")
+        sheared[-1].write_text(f"tpu_fused {fused}\n" + LE_INPUTS[name]
+                               + SHEAR_KEYS + f"io_directory {tmp_path}\n")
     probe = textwrap.dedent(f"""
         import runpy, sys
         for path in ({str(inp)!r}, {str(inp_binary)!r}, {str(inp_lc)!r},
                      {str(inp_drop)!r}, {str(inp_elec)!r},
                      {str(inp_noise)!r}, {str(inp_wall)!r},
-                     {str(inp_le)!r}):
+                     {str(inp_le)!r}) + {tuple(str(p) for p in sheared)!r}:
             sys.argv = ["ludwig_tpu_torch", path, "--device", "cpu"]
             runpy.run_module("ludwig_tpu_torch", run_name="__main__")
         import ludwig_tpu_torch.ops._cuda, ludwig_tpu_torch.convert
         import ludwig_tpu_torch.ops.fused_electro
         import ludwig_tpu_torch.ops.walls, ludwig_tpu_torch.ops.open_bc
+        import ludwig_tpu_torch.ops.le_ref, ludwig_tpu_torch.binary_le
+        import ludwig_tpu_torch.stats_extra
         import ludwig_tpu_torch.ops.lees_edwards, ludwig_tpu_torch.io
         import ludwig_tpu_torch.io.map_file, ludwig_tpu_torch.io.ref_format
         bad = [m for m in sys.modules
@@ -352,7 +373,9 @@ def test_cli_runs_without_jax(tmp_path):
     assert "Completed cycle 5" in res.stdout
     assert "[fed]" in res.stdout and "Completed cycle 4" in res.stdout
     assert "[Qxx]" in res.stdout and "[fe]" in res.stdout
-    assert res.stdout.count("[Qyz]") == 3 + 3   # LC and droplet runs
+    # LC and droplet runs, plain and sheared
+    assert res.stdout.count("[Qyz]") == 3 + 3 + 3 + 3
+    assert (tmp_path / "str-00000004.dat").exists()
     assert res.stdout.count("[elc]") == 3 and "[walls   ]" in res.stdout
     assert res.stdout.count("[measd/kT]") == 1     # the noise input
     assert res.stdout.count("[walls   ]") == 3 + 3    # electro, walls
@@ -542,11 +565,20 @@ def test_reference_statistics_lines_equal_jax_electro():
      + DUCT_FUSED_INPUT.replace("16_16_32", "16_12_32"), True),  # no plan
     ("tpu_fused interpret\n" + LE_FUSED_INPUT, False),
     ("tpu_fused off\n" + LE_FUSED_INPUT, True),
-    ("tpu_fused interpret\n" + POROUS_INPUT, True)], ids=[
+    ("tpu_fused interpret\n" + POROUS_INPUT, True),
+    ("tpu_fused interpret\n" + BINARY_LE_FUSED_INPUT, False),
+    ("tpu_fused on\n" + BINARY_LE_FUSED_INPUT, True),        # float64
+    ("tpu_fused off\n" + BINARY_LE_FUSED_INPUT, True),
+    ("tpu_fused interpret\n" + LC_LE_FUSED_INPUT, False),
+    ("tpu_fused off\n" + LC_LE_FUSED_INPUT, True),
+    ("tpu_fused interpret\n" + DROPLET_LE_INPUT, False),
+    ("tpu_fused on\ndtype float32\n" + DROPLET_LE_INPUT, True)], ids=[
         "plain-off", "plain-interpret", "plain-on-f64", "plain-on-f32",
         "plain-no-plan", "binary-z16", "binary-interpret", "electro",
         "wall-on-f64", "wall-interpret", "couette-on-f32", "duct-no-plan",
-        "le-interpret", "le-off", "porous"])
+        "le-interpret", "le-off", "porous", "binary-le-interpret",
+        "binary-le-on-f64", "binary-le-off", "lc-le-interpret", "lc-le-off",
+        "droplet-le-interpret", "droplet-le-on-f32-z16"])
 def test_statistics_follow_the_jax_route_rule(text, reference):
     """Reference statistics wherever ludwig_tpu's build_system leaves
     fused_mode None for the same input (porous media and masked runs are
@@ -668,3 +700,208 @@ def test_psi_files_match_jax(tmp_path):
             np.testing.assert_allclose(np.frombuffer(b, "<f8"),
                                        np.frombuffer(a, "<f8"), rtol=1e-9,
                                        atol=1e-11)
+
+
+@pytest.fixture(scope="module")
+def jax_le_logs(tmp_path_factory):
+    """ludwig_tpu's `tpu_fused off` run of each sheared input with the
+    shear observables on: {name: (log, io directory)}, made once."""
+    runs = {}
+    for name, text in LE_INPUTS.items():
+        d = tmp_path_factory.mktemp(f"jax_{name}")
+        out = io.StringIO()
+        jrun_text(f"tpu_fused off\n{text}{SHEAR_KEYS}io_directory {d}\n",
+                  out=out)
+        runs[name] = (out.getvalue(), d)
+    return runs
+
+
+VELOCITY = ("[minimum", "[maximum")
+
+
+def _velocity_floats(log):
+    return np.array([float(t) for line in log.splitlines()
+                     if line.startswith(VELOCITY) for t in line.split()[2:]])
+
+
+def _without(log, tags):
+    return "\n".join(ln for ln in log.splitlines() if not ln.startswith(tags))
+
+
+def _str_floats(path):
+    return np.array([float(t) for t in path.read_text().split()])
+
+
+def hold_str(got, want):
+    """str-*.dat floats within rtol 1e-12; entries that cancel to the
+    round-off of the two packages' states (the mean u_x of a sheared
+    flow, ~1e-17) are held to 1e-12 of the file's largest magnitude."""
+    np.testing.assert_allclose(got, want, rtol=1e-12,
+                               atol=1e-12 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("fused", ["on", "off"])
+@pytest.mark.parametrize("name", list(LE_INPUTS))
+def test_le_cli_matches_jax(name, fused, jax_le_logs, tmp_path):
+    """The sheared binary, blue-phase and droplet inputs on the port's
+    fused route (K1, the column fix, K2, the LE post-pass) and its
+    unfused one (carrying the LE gradients where the JAX package's does)
+    against ludwig_tpu's unfused log: the statistics floats within rtol
+    1e-9 / atol 1e-11, the [fed] / [fe] lines with the LE gradients of the
+    pre-update field; the binary fluid's str-*.dat files (its stress
+    included) as hold_str holds them.
+
+    ludwig_tpu logs the min and max of Q's first three components as the
+    velocity of its unfused sheared droplet (ludwig.py:3436-3438 take u =
+    state[2] wherever le_cfg is set, which is Q in (f, phi, Q, u)).  The
+    port logs u: the droplet's velocity block is held to the port's other
+    route, and the JAX block to Q's extremes, which shows the fault."""
+    jlog, jdir = jax_le_logs[name]
+    text = f"tpu_fused {fused}\n{LE_INPUTS[name]}{SHEAR_KEYS}"
+    out = io.StringIO()
+    sys_ = run_text(text + f"io_directory {tmp_path}\n", out=out,
+                    device="cpu")
+    log = out.getvalue()
+    assert sys_.le_cfg is not None and "Completed cycle 4" in log
+    assert sys_.fused_mode == (name if fused == "on" else None)
+    assert sys_.keep_grads == (fused == "off" and name != "droplet")
+    tags = {"binary": ("[phi]", "[fed]"), "lc": ("[Qxx]", "[fe]"),
+            "droplet": ("[phi]", "[Qyz]", "[fed]")}[name]
+    for tag in tags:
+        assert log.count(tag) == jlog.count(tag) == 3
+    if name == "droplet":
+        other = io.StringIO()
+        run_text(text.replace(f"tpu_fused {fused}", "tpu_fused " + (
+            "off" if fused == "on" else "on")), out=other, device="cpu")
+        np.testing.assert_allclose(_velocity_floats(log),
+                                   _velocity_floats(other.getvalue()),
+                                   rtol=1e-9, atol=1e-11)
+        for block in jlog.split("Completed cycle")[1:-1]:
+            rows = {ln.split()[0]: ln.split() for ln in block.splitlines()
+                    if ln.startswith("[")}
+            assert ([float(rows[q][4]) for q in ("[Qxx]", "[Qxy]", "[Qxz]")]
+                    == [float(v) for v in rows["[minimum"][2:5]])
+        jlog, log = (_without(lg, VELOCITY) for lg in (jlog, log))
+    a, b = _stat_floats(jlog), _stat_floats(log)
+    assert a.size == b.size > 0
+    np.testing.assert_allclose(b, a, rtol=1e-9, atol=1e-11)
+    names = sorted(p.name for p in tmp_path.glob("str-*.dat"))
+    assert names == sorted(p.name for p in jdir.glob("str-*.dat")) == [
+        "str-00000002.dat", "str-00000004.dat"]
+    if name == "binary":
+        for n in names:
+            hold_str(_str_floats(tmp_path / n), _str_floats(jdir / n))
+
+
+def test_plain_le_shear_observables_match_jax(tmp_path):
+    """The plain fluid's Lees-Edwards input with the shear observables on
+    both routes: the same str-*.dat files as ludwig_tpu's, the stress
+    slots zero, the floats as hold_str holds them."""
+    text = LE_FUSED_INPUT + "freq_shear_measurement 2\nfreq_shear_output 3\n"
+    dj = tmp_path / "jax"
+    dj.mkdir()
+    jrun_text(f"tpu_fused off\n{text}io_directory {dj}\n", out=io.StringIO())
+    want = sorted(p.name for p in dj.glob("str-*.dat"))
+    assert want == ["str-00000003.dat", "str-00000006.dat"]
+    for fused in ("on", "off"):
+        dt = tmp_path / fused
+        dt.mkdir()
+        run_text(f"tpu_fused {fused}\n{text}io_directory {dt}\n",
+                 out=io.StringIO(), device="cpu")
+        assert sorted(p.name for p in dt.glob("str-*.dat")) == want
+        for n in want:
+            got = _str_floats(dt / n).reshape(-1, 22)
+            assert not got[:, 6:12].any() and not got[:, 21].any()
+            hold_str(got.ravel(), _str_floats(dj / n))
+
+
+@pytest.mark.parametrize("name", ["binary", "lc"])
+def test_reference_statistics_lines_equal_jax_le(name):
+    """For one state (three steps of the JAX package's unfused sheared
+    route, its kept LE gradients included, carried across) the port's
+    reference statistics lines are ludwig_tpu's as text, [fed] / [fe]
+    read from the kept gradients."""
+    from ludwig_tpu import ludwig as jl
+    from ludwig_tpu.runtime import RunTime as JRunTime
+    from ludwig_tpu_torch import ludwig as tl
+    from ludwig_tpu_torch.runtime import RunTime
+
+    text = "tpu_fused off\n" + LE_INPUTS[name]
+    jsys = jl.build_system(JRunTime(text))
+    state = jsys.state
+    step = jsys.step_fn.__wrapped__      # op by op: no XLA compile
+    for t in range(1, 4):
+        state, _rho = step(state, t)
+    jsys.state = state
+    want = io.StringIO()
+    jl.report_statistics(jsys, 3, state[2], jl._make_stats_fn(jsys),
+                         out=want)
+    tsys = tl.build_system(RunTime(text), device="cpu")
+    assert tl.reference_statistics(tsys) and tsys.keep_grads
+    tsys.state = tuple(torch.as_tensor(np.array(a)) for a in state)
+    got = io.StringIO()
+    tl.report_statistics(tsys, 3, tsys.state[2],
+                         tl._make_stats_fn(tsys, reference=True), out=got)
+    assert "[fe" in got.getvalue()
+    assert got.getvalue() == want.getvalue()
+
+
+RESTART_INPUTS = {"lc": LC_FUSED_INPUT, "binary-le": BINARY_LE_FUSED_INPUT,
+                  "lc-le": LC_LE_FUSED_INPUT}
+
+
+def _steps(log, after, last):
+    """The statistics floats of a log after the line `after`, up to
+    'Completed cycle <last>'."""
+    tail = log[log.index(after):]
+    return _stat_floats(tail[:tail.index(f"Completed cycle {last}\n")])
+
+
+@pytest.mark.parametrize("name", list(RESTART_INPUTS))
+def test_restart_across_packages(name, tmp_path):
+    """The unfused LC route (the repaired checkpoint: the gradient leaves
+    state03 and state04 ride as the JAX package's do) and the unfused
+    sheared binary and LC routes, in float64: the port writes its step-3
+    checkpoint, ludwig_tpu.run_text restarts from it (N_start 3) and runs
+    steps 4-6 and writes its step-6 checkpoint, from which the port
+    restarts for step 7.  Each package's checkpoint is the other's file
+    set; the states after steps 6 and 7 are the port's straight run's
+    within 2e-15, the logged steps within rtol 1e-9."""
+    from ludwig_tpu_torch.io import read_state
+
+    base = (f"tpu_fused off\n{RESTART_INPUTS[name]}"
+            .replace("N_cycles 4", "N_cycles 7")
+            .replace("freq_statistics 2", "freq_statistics 1"))
+    ds, dx = tmp_path / "straight", tmp_path / "shared"
+    ds.mkdir(), dx.mkdir()
+    out = io.StringIO()
+    straight = run_text(base + f"freq_config 6\nio_directory {ds}\n",
+                        out=out, device="cpu")
+    slog = out.getvalue()
+    steps = base.replace("N_cycles 7", "N_cycles 3")
+    run_text(steps + f"config_at_end yes\nio_directory {dx}\n",
+             out=io.StringIO(), device="cpu")
+    assert {"state03-00000003", "state04-00000003"} <= set(os.listdir(dx))
+    jout = io.StringIO()
+    jsys = jrun_text(steps + f"N_start 3\nconfig_at_end yes\n"
+                     f"io_directory {dx}\n", out=jout)
+    assert (sorted(n.replace("00000003", "0000000N") for n in os.listdir(dx)
+                   if "00000003" in n)
+            == sorted(n.replace("00000006", "0000000N")
+                      for n in os.listdir(ds) if "00000006" in n)
+            == sorted(n.replace("00000006", "0000000N")
+                      for n in os.listdir(dx) if "00000006" in n))
+    names = ["dist", "phi" if "binary" in name else "q", "vel", "state03",
+             "state04"]
+    port6 = read_state(str(ds), 6, names)
+    for leaf, key in zip(jsys.state, names):
+        np.testing.assert_allclose(np.asarray(leaf), port6[key], rtol=0,
+                                   atol=2e-15)
+    np.testing.assert_allclose(
+        _steps(jout.getvalue(), "Starting time step loop.", 6),
+        _steps(slog, "Completed cycle 3\n", 6), rtol=1e-9, atol=1e-11)
+    rest = run_text(base.replace("N_cycles 7", "N_cycles 1")
+                    + f"N_start 6\nio_directory {dx}\n", out=io.StringIO(),
+                    device="cpu")
+    for a, b in zip(rest.state, straight.state):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=2e-15)

@@ -159,7 +159,23 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      step's CUDA kernels a call and their device time (torch.profiler);
      then 20 cycles through run_text of it at 128^3 and 256^3, of the
      binary cell with 4 planes at 0.01 (256^3) and of the droplet cell
-     with 4 planes (128^3), K1 and K2 launched once a cycle.
+     with 4 planes (128^3), K1 and K2 launched once a cycle;
+ 27. resolved colloids on the card against the CPU at 16^3, 4 steps of
+     each route (COLLOID_ROUTES: the reference-order route in f64 and f32,
+     with squirmers and walls, and the f64 exact route of 6 particles,
+     whose chains run as chain_sums; the f32 segment-sum route, passive,
+     squirmers, walls; COLLOID_TOL), the maps identical; the colloid inputs
+     (two particles with soft spheres, random placement between walls,
+     the 30 subgrid particles of config.cds.init.001-001) in f64 through
+     run_text on both (rtol 1e-9, atol 1e-11, the lines equal as text
+     but the floats); a colloid restart on the card that prints the
+     straight log as text;
+ 28. the 64^3 N=1000 suspensions of perf_bench.py (passive and squirmers,
+     f32, RandomState(3)): ms a step on rebuild and other steps (CUDA
+     events), CUDA kernels a step and their device time (torch.profiler),
+     a step of each kind under CUDA's sync debug mode "error" (no host
+     synchronisation), 20 cycles of each through run_text; then chain_sums against its CPU
+     twin at the f64 route's largest call.
 
 Bounds: `bound_ms` is the larger of the bytes the function must move
 (each input read once, each output written once) over the H100 SXM's
@@ -3255,6 +3271,372 @@ def phase26(card, gen):
     return res, paths
 
 
+# -- resolved colloids in the single fluid (phases 27-28) ----------------------
+
+COLLOID_SIZE = (16, 16, 16)
+# the card against the CPU: float64 elementwise the same IEEE operations
+# and the reference-order chains added in order on both (the card's
+# sqrt, sin and cos are not correctly rounded, which moves the swimming
+# directions in their last places); the float32 segment sums are atomic
+# additions in an order the card picks
+COLLOID_TOL = {torch.float64: dict(rtol=1e-12, atol=1e-13),
+               torch.float32: dict(rtol=1e-4, atol=1e-6)}
+# name -> (n, dtype, rebuild_freq, walls, squirmers, route)
+COLLOID_ROUTES = {
+    "f64 n=2 rebuild 2": (2, "float64", 2, None, False, "ordered"),
+    "f64 n=3 squirmers walls": (3, "float64", 1, (True, False, False), True,
+                                "ordered"),
+    "f64 n=6 exact": (6, "float64", 1, None, False, "ordered"),
+    "f32 n=2": (2, "float32", 1, None, False, "ordered"),
+    "f32 n=6": (6, "float32", 2, None, False, "segment"),
+    "f32 n=6 squirmers walls": (6, "float32", 1, (True, False, False), True,
+                                "segment")}
+COLLOID_CLI = """
+N_cycles 4
+size 16_16_16
+viscosity 0.1
+free_energy none
+freq_statistics 2
+"""
+COLLOID_INPUTS = {
+    "input_two": COLLOID_CLI + """
+colloid_init input_two
+colloid_one_a0 2.3
+colloid_one_ah 2.3
+colloid_one_r 5.0_8.5_8.5
+colloid_one_v 0.01_0.0_0.0
+colloid_two_a0 2.3
+colloid_two_ah 2.3
+colloid_two_r 11.0_8.5_8.5
+colloid_gravity 0.0_0.0_-0.0001
+soft_sphere_on 1
+soft_sphere_epsilon 0.0004
+soft_sphere_sigma 0.1
+soft_sphere_nu 1.0
+soft_sphere_cutoff 1.5
+colloid_io_freq 2
+""",
+    "input_random_walls": COLLOID_CLI + """
+colloid_init input_random
+colloid_random_no 3
+colloid_random_a0 2.3
+colloid_random_ah 2.3
+colloid_random_dh 0.5
+random_seed 102
+periodicity 0_1_1
+boundary_walls 1_0_0
+wall_ss_cut_on 1
+wall_ss_cut_epsilon 0.001
+wall_ss_cut_sigma 0.1
+wall_ss_cut_nu 1.0
+wall_ss_cut_hc 0.8
+boundary_lubrication_rcnormal 0.6
+boundary_lubrication_dhnormal 0.1
+colloid_gravity -0.0001_0.0_0.0
+""",
+    "subgrid": COLLOID_CLI.replace("16_16_16", "24_8_16") + """
+colloid_init from_file
+colloid_file_stub config.cds
+colloid_gravity 0.0_0.0_-0.0001
+bond_fene_on 1
+bond_fene_k 0.001
+bond_fene_r0 5.0
+"""}
+SUSPENSION_SIZE = (64, 64, 64)
+SUSPENSION_N = 1000
+
+
+def colloid_start(n, dtype, walls, squirmers, device, seed=5):
+    """(ColloidParams, ColloidState) from a numpy seed at COLLOID_SIZE:
+    moving particles of radius 2.3, the fluid near rest, gravity."""
+    import numpy as np
+
+    from ludwig_tpu_torch.colloids import ColloidParams, ColloidState
+    rng = np.random.RandomState(seed)
+    R = rng.uniform(3, 13, (n, 3))
+    if walls:
+        R[0, 0] = 1.6
+    kw = dict(a0=(2.3,) * n, ah=(2.3,) * n, gravity=(0.0, 0.0, -1e-4))
+    m = np.tile([1.0, 0.0, 0.0], (n, 1))
+    if squirmers:
+        m = rng.standard_normal((n, 3))
+        m /= np.linalg.norm(m, axis=1, keepdims=True)
+        kw.update(b1=(0.02,) * n, b2=(0.01,) * n, m=tuple(map(tuple, m)),
+                  types=("active",) * n)
+    w = np.asarray(LBConfig(size=COLLOID_SIZE).model.wv)
+    f = (w[:, None, None, None] * np.ones((1,) + COLLOID_SIZE)
+         + 1e-3 * rng.standard_normal((19,) + COLLOID_SIZE))
+    V = 0.01 * rng.standard_normal((n, 3))
+    W = 0.001 * rng.standard_normal((n, 3))
+    dr = 0.3 * rng.standard_normal((n, 3))
+    dt = torch.float64 if dtype == "float64" else torch.float32
+    leaves = [torch.as_tensor(a, dtype=dt, device=device)
+              for a in (f, R, V, W, dr, R, m)]
+    state = ColloidState(*leaves)
+    if walls:
+        state = state._replace(gwall=torch.zeros(3, dtype=dt, device=device))
+    return ColloidParams(**kw), state
+
+
+def colloid_chain(name, device, nsteps=4):
+    from ludwig_tpu_torch.colloids import make_colloid_step
+    from ludwig_tpu_torch.ops.walls import WallSpec
+    n, dtype, rf, walls, squirmers, route = COLLOID_ROUTES[name]
+    params, state = colloid_start(n, dtype, walls, squirmers, device)
+    extra = {}
+    if walls:
+        extra = dict(wallspec=WallSpec(walls=walls), lubr_rc=(0.5,) * 3,
+                     lubr_dh=(0.1,) * 3, wall_ss=dict(epsilon=1e-3, sigma=0.1,
+                                                      nu=1.0, hc=0.5))
+    step = make_colloid_step(
+        LBConfig(size=COLLOID_SIZE, nvel=19, eta_shear=0.1, dtype=dtype,
+                 device=device), params, rebuild_freq=rf, **extra)
+    if step.route != route:
+        raise AssertionError(f"colloids {name}: route {step.route}, not "
+                             f"{route}")
+    for t in range(1, nsteps + 1):
+        state, _ = step(state, t)
+    return state
+
+
+def colloid_floats(log):
+    """The floats of the statistics and particle lines of a colloid log,
+    and its lines with the floats blanked."""
+    body = log[log.index("\nInitial conditions."):log.rindex("Completed")]
+    words, vals = [], []
+    for line in body.splitlines():
+        toks = line.split()
+        words.append(" ".join("#" if re.match(r"^[-+]?\d+\.", t) else t
+                              for t in toks))
+        vals += [float(t) for t in toks if re.match(r"^[-+]?\d+\.", t)]
+    return words, torch.tensor(vals, dtype=torch.float64)
+
+
+def phase27():
+    phase("27 colloid routes and inputs on the card vs the CPU")
+    import tempfile
+    worst = 0.0
+    for name in COLLOID_ROUTES:
+        torch.cuda.synchronize()
+        _cuda.launches.reset()
+        a = colloid_chain(name, "cuda")
+        torch.cuda.synchronize()
+        chains = _cuda.launches.chain_sums
+        b = colloid_chain(name, "cpu")
+        tol = COLLOID_TOL[a.f.dtype]
+        errs = []
+        for i, what in enumerate(("f", "R", "V", "W", "dr", "Rmap", "M")):
+            if not torch.allclose(a[i].cpu(), b[i], **tol):
+                raise AssertionError(f"colloids {name}: {what} on the card "
+                                     f"differs from the CPU's beyond {tol}")
+            errs.append(max_err(a[i].cpu(), b[i]))
+        if not torch.equal(a.pmap[0].cpu(), b.pmap[0]):
+            raise AssertionError(f"colloids {name}: the maps differ")
+        ordered = COLLOID_ROUTES[name][5] == "ordered"
+        if ordered != (chains > 0):
+            raise AssertionError(f"colloids {name}: chain_sums launched "
+                                 f"{chains} times")
+        if a.f.dtype == torch.float64:
+            worst = max(worst, max(errs))
+        print(f"colloids {name}: 4 steps on the card against the CPU "
+              f"within {tol}, max |diff| {max(errs):.3e}, maps identical, "
+              f"chain_sums {chains}")
+    counts = {}
+    with tempfile.TemporaryDirectory() as d:
+        for name, text in COLLOID_INPUTS.items():
+            logs = {}
+            for device in ("cuda", "cpu"):
+                out = io.StringIO()
+                torch.cuda.synchronize()
+                _cuda.launches.reset()
+                run_text(f"dtype float64\nio_directory {d}/{device}\n" + text,
+                         out=out, device=device)
+                torch.cuda.synchronize()
+                if device == "cuda":
+                    n = _cuda.launches.chain_sums
+                logs[device] = out.getvalue()
+            (wa, a), (wb, b) = (colloid_floats(logs[k])
+                                for k in ("cuda", "cpu"))
+            if (wa != wb or a.numel() == 0
+                    or not torch.allclose(a, b, rtol=1e-9, atol=1e-11)):
+                raise AssertionError(f"colloid input {name}: the card's log "
+                                     "differs from the CPU's")
+            counts[f"colloids f64 16^3 {name}"] = {"chain_sums": n}
+            print(f"colloid input {name} f64 through run_text: {a.numel()} "
+                  f"floats on the card agree with the CPU's (rtol 1e-9, "
+                  f"atol 1e-11), max |diff| {float((a - b).abs().max()):.3e},"
+                  f" chain_sums {n}")
+        # a restart on the card: steps 3-4 from the step-2 checkpoint print
+        # the straight run's log
+        text = ("dtype float64\nfreq_statistics 1\n"
+                + COLLOID_INPUTS["input_two"] + f"io_directory {d}/r\n")
+        straight, rest = io.StringIO(), io.StringIO()
+        run_text(text, out=straight, device="cuda")
+        run_text(text.replace("N_cycles 4", "N_cycles 2")
+                 + "config_at_end yes\n", out=io.StringIO(), device="cuda")
+        run_text(text.replace("N_cycles 4", "N_cycles 2") + "N_start 2\n",
+                 out=rest, device="cuda")
+        want = straight.getvalue()
+        want = want[want.index("\n", want.index("Completed cycle 2\n")) + 1:]
+        got = rest.getvalue()
+        got = got[got.index("\n", got.index("Starting time step loop.")) + 1:]
+        if want.split("\nTimer")[0] != got.split("\nTimer")[0]:
+            raise AssertionError("colloid restart at 2: the restarted log is "
+                                 "not the straight log")
+    print("colloids f64 on the card: the restart from step 2 prints the "
+          "straight log's steps 3-4 as text")
+    return worst, counts
+
+
+def suspension(squirmers):
+    """perf_bench.py:50-66 / :255-266 on the card: 1000 particles of
+    radius 2.3 on a jittered 10^3 grid at 64^3, float32, from
+    RandomState(3); squirmers b1 = 0.02, b2 = 0.01, random directions."""
+    import numpy as np
+
+    from ludwig_tpu_torch.colloids import (ColloidParams, ColloidState,
+                                           make_colloid_step)
+    from ludwig_tpu_torch.lb import initial_rest
+    N = SUSPENSION_N
+    cfg = LBConfig(size=SUSPENSION_SIZE, nvel=19, eta_shear=0.1,
+                   dtype="float32", device="cuda")
+    rng = np.random.RandomState(3)
+    kw = dict(a0=(2.3,) * N, ah=(2.3,) * N)
+    m = np.tile([1.0, 0.0, 0.0], (N, 1))
+    if squirmers:
+        m = rng.standard_normal((N, 3))
+        m /= np.linalg.norm(m, axis=1, keepdims=True)
+        kw.update(b1=(0.02,) * N, b2=(0.01,) * N, m=tuple(map(tuple, m)),
+                  types=("active",) * N)
+    g = (np.indices((10, 10, 10)).reshape(3, -1).T + 0.5) * 6.4
+    R = g + rng.uniform(-1.0, 1.0, g.shape)
+    Rt = torch.as_tensor(R, dtype=torch.float32, device="cuda")
+    z = torch.zeros((N, 3), dtype=torch.float32, device="cuda")
+    state = ColloidState(initial_rest(cfg), Rt, z, z, z, Rt.clone(),
+                         torch.as_tensor(m, dtype=torch.float32,
+                                         device="cuda"))
+    params = ColloidParams(**kw)
+    return make_colloid_step(cfg, params, rebuild_freq=1), state, R, m
+
+
+def phase28(card):
+    phase(f"28 the 64^3 N=1000 suspensions (perf_bench.py) f32 on {card}")
+    import tempfile
+
+    import numpy as np
+
+    from ludwig_tpu_torch.io.colloid_io import (default_state,
+                                                write_colloid_file)
+    res, paths = {}, {}
+    for squirmers in (False, True):
+        name = "squirmers" if squirmers else "suspension"
+        step, state, R, m = suspension(squirmers)
+        holder = {"s": step.prepare(state)}
+        out = {"route": step.route}
+        for rebuild in (True, False):
+            def run(rebuild=rebuild):
+                holder["s"], _ = step(holder["s"], 1, rebuild=rebuild)
+
+            torch.cuda.synchronize()
+            _cuda.launches.reset()
+            ms = time_ms(run, 10, warm=3)
+            n_chain = _cuda.launches.chain_sums
+            kernels, dev_ms, top = post_profile(run, reps=3)
+            key = "rebuild" if rebuild else "no_rebuild"
+            out[key] = dict(ms=ms, kernels=kernels, device_ms=dev_ms,
+                            top=[(k, c, round(t, 4)) for k, c, t in top])
+            if n_chain:
+                raise AssertionError(f"{name}: the float32 route launched "
+                                     f"chain_sums {n_chain} times")
+            f = holder["s"].f
+            if not bool(torch.isfinite(f).all()):
+                raise AssertionError(f"{name}: non-finite distributions")
+            print(f"{name} 64^3 N={SUSPENSION_N} f32 ({step.route} route), "
+                  f"{key} step: {ms:.4f} ms (CUDA events, 10 steps after 3); "
+                  f"{kernels} CUDA kernels a step, {dev_ms} ms of device "
+                  f"time (torch.profiler); top {out[key]['top'][:3]}")
+        # no step reads back or copies from the host once its constants
+        # are on the card: CUDA's sync debug mode raises on any
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for rebuild in (True, False):
+                holder["s"], _ = step(holder["s"], 1, rebuild=rebuild)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        print(f"{name}: a rebuild step and another under CUDA's sync debug "
+              "mode 'error': no host synchronisation")
+        res[name] = out
+        # 20 cycles through run_text of the same configuration from a file
+        with tempfile.TemporaryDirectory() as d:
+            recs = []
+            for i in range(SUSPENSION_N):
+                rec = default_state()
+                rec["index"] = i + 1
+                rec["a0"] = rec["ah"] = 2.3
+                rec["r"] = [float(c) + 1.0 for c in R[i]]
+                rec["m"] = [float(c) for c in m[i]]
+                if squirmers:
+                    rec["type"], rec["b1"], rec["b2"] = 1, 0.02, 0.01
+                recs.append(rec)
+            write_colloid_file(f"{d}/config.cds.init", recs)
+            text = ("size 64_64_64\nviscosity 0.1\ndtype float32\n"
+                    "free_energy none\ncolloid_init from_file\n"
+                    f"colloid_file_stub {d}/config.cds\nN_cycles 20\n"
+                    "freq_statistics 20\n")
+            log = io.StringIO()
+            torch.cuda.synchronize()
+            _cuda.launches.reset()
+            t0 = time.perf_counter()
+            run_text(text, out=log, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            paths[f"colloids {name} 64^3 f32"] = {
+                "chain_sums": _cuda.launches.chain_sums}
+            lg = log.getvalue()
+            loop = float(re.search(r"Time step loop:\s+(\S+)", lg).group(1))
+            if "[colloids]" not in lg or "Completed cycle 20" not in lg:
+                raise AssertionError(f"{name}: run_text log incomplete")
+            out["run_text_ms_per_cycle"] = 1e3 * loop
+            out["run_text_s"] = wall
+            print(f"{name} through run_text: 20 cycles, {1e3 * loop:.2f} ms "
+                  f"a cycle (the log's time step loop), {wall:.2f} s in all")
+    return res, paths
+
+
+def chain_sums_timing(card):
+    """The chain kernel on the reference-order route's largest call at
+    16^3 (pass-1 sums, 28 terms, 8 images of 6 particles, cubes of 11^3
+    sites x 18 velocities) against its CPU twin, with its bound: the
+    bytes (each value read once) and the dependent chain (one addition a
+    value of a chain, ~4 cycles at 1.98 GHz) - the chain is the floor."""
+    from ludwig_tpu_torch.colloids import chain_sums
+    g = torch.Generator(device="cuda").manual_seed(27)
+    B, L, nt = 48, 11 ** 3 * 18, 28
+    seq = torch.randn((B, L, nt), generator=g, dtype=torch.float64,
+                      device="cuda")
+    seed = torch.randn((B, nt), generator=g, dtype=torch.float64,
+                       device="cuda")
+    v = seq.permute(1, 0, 2).reshape(L, B * nt).contiguous()
+    s = seed.reshape(-1).contiguous()
+    ms = time_ms(lambda: _cuda.chain_sums(v, s), 10)
+    got = _cuda.chain_sums(v, s).reshape(B, nt).cpu()
+    t0 = time.perf_counter()
+    want = chain_sums(seq.cpu(), seed.cpu())
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    if not torch.equal(got, want):
+        raise AssertionError("chain_sums: the kernel's sums are not the "
+                             "CPU twin's bits")
+    chain_ms = 1e3 * L * 4 / 1.98e9
+    print(f"chain_sums {B * nt} chains of {L}: {ms:.4f} ms on {card}, CPU "
+          f"twin {plain_ms:.2f} ms, bitwise; the dependent chain takes "
+          f"{chain_ms:.4f} ms at 4 cycles an addition")
+    return {"ms": ms, "plain_ms": plain_ms, "nbytes": v.numel() * 8 + 16
+            * s.numel(), "nops": v.numel(), "max_abs_err": 0.0,
+            "chain_ms": chain_ms}
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -3336,6 +3718,13 @@ def main():
     le_times, le_paths = phase26(card, gen)
     by_path.update(le_paths)
     timed["lc_q_force_step"]["sheared"] = le_times
+    colloid_err, colloid_counts = phase27()
+    by_path.update(colloid_counts)
+    suspensions, colloid_paths = phase28(card)
+    by_path.update(colloid_paths)
+    timed["chain_sums"] = chain_sums_timing(card)
+    timed["chain_sums"]["suspensions"] = suspensions
+    worst["chain_sums"] = colloid_err
     for name in STAT_SCANS:
         worst[name] = 0.0        # held bitwise in phases 19 and 21
     print(f"all phases passed ({time.perf_counter() - _T0:.1f} s)")
@@ -3367,7 +3756,10 @@ def main():
             ("rho_stats_ref", SOURCE_STATS,
              "ludwig_tpu/stats.py:155 (lax.scan)"),
             ("momentum_total_ref", SOURCE_STATS,
-             "ludwig_tpu/stats.py:239 (lax.scan)")):
+             "ludwig_tpu/stats.py:239 (lax.scan)"),
+            # the colloids' reference-order link sums: lax.scan too
+            ("chain_sums", SOURCE_STATS,
+             "ludwig_tpu/colloids.py:280 (lax.scan)")):
         t = timed[name]
         bound_ms, bound_by = bound(t["nbytes"], t["nops"])
         # each main path was driven with the counts at 0 just before it
@@ -3393,6 +3785,10 @@ def main():
             kernels[-1].update(device_ms=t["device_ms"])
         if "sheared" in t:      # phase 26: the sheared blue phase, cells
             kernels[-1].update(sheared=t["sheared"])
+        if "suspensions" in t:  # phase 28: the colloid cells (no kernel
+            # of theirs: their float32 route is PyTorch)
+            kernels[-1].update(chain_ms=t["chain_ms"],
+                               suspensions=t["suspensions"])
         if "wall_step_ms" in t:   # the wall and LE steps around the kernel
             kernels[-1].update({k: t[k] for k in (
                 "wall_step_ms", "wall_post_ms", "le_step_ms", "le_post_ms",

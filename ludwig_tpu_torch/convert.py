@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ludwig_tpu_torch.binary import GRADIENT, BinaryConfig
+from ludwig_tpu_torch.colloids import ColloidState
 from ludwig_tpu_torch.electro import ElectroConfig
 from ludwig_tpu_torch.electro_sim import ElectroSimConfig
 from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE
@@ -294,6 +295,23 @@ def le_state_from_jax(fpad_or_f, device, dtype, size=None):
     if size is not None:
         f = _unpad_fused(f, size)
     return (state_from_jax(f, device, dtype),)
+
+
+def colloid_state_from_jax(state, device="cuda", dtype=None):
+    """The JAX package's ColloidState (its leaves as numpy arrays, in its
+    field order: f, R, V, W, dr, Rmap, M, noise, gwall, pmap) as the
+    port's, in `dtype` (default: f's).  The map cache pmap is dropped:
+    the step's prepare rebuilds it from Rmap.  A KISS noise state beside
+    colloids is not ported."""
+    leaves = [np.asarray(x) for x in state[:7]]
+    if len(state) > 7 and state[7] is not None:
+        raise ValueError("colloids with isothermal fluctuations are not "
+                         "ported")
+    dtype = dtype or str(leaves[0].dtype)
+    gwall = state[8] if len(state) > 8 else None
+    return ColloidState(*(_tensor(a, device, dtype) for a in leaves),
+                        gwall=None if gwall is None
+                        else _tensor(np.asarray(gwall), device, dtype))
 
 
 def _le_state(state, unpad, nfields, device, dtype):

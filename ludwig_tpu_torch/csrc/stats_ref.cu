@@ -7,6 +7,10 @@
 //                      mode KLEIN / KAHAN / PLAIN
 //                                 <- field_stats_ref    (stats.py:84)
 //   momentum_scan_kernel          <- momentum_total_ref (stats.py:239)
+//   chain_sums_kernel             <- the per-particle, per-image link sums
+//                                    of the colloids' reference order
+//                                    (colloids.py:233 _ordered_image_reduce,
+//                                    colloids_fast.py:581)
 // None of them is a Pallas kernel: on the TPU they are XLA scans.
 //
 // A site-order Klein or Kahan sum is one chain of dependent additions;
@@ -266,9 +270,50 @@ int launch_scan(int mode, const void* x, const void* keep, long long n,
   return static_cast<int>(cudaGetLastError());
 }
 
+// chain c of nchain: out[c] = seed[c] + v[0][c] + v[1][c] + ... in that
+// order, v laid out (len, nchain) so that a warp reads 32 consecutive
+// chains of one step; one thread a chain, in the values' dtype
+template <typename T>
+__global__ void chain_sums_kernel(const T* __restrict__ v,
+                                  const T* __restrict__ seed,
+                                  long long len, long long nchain,
+                                  T* __restrict__ out) {
+  const long long c = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (c >= nchain) return;
+  T s = seed[c];
+  // the loads do not depend on the sum: unrolled, several are in flight
+  // while the additions wait on each other
+#pragma unroll 8
+  for (long long i = 0; i < len; ++i) s = s + v[i * nchain + c];
+  out[c] = s;
+}
+
+template <typename T>
+int launch_chains(const void* v, const void* seed, long long len,
+                  long long nchain, void* out, cudaStream_t stream) {
+  const long long blocks = (nchain + kThreads - 1) / kThreads;
+  chain_sums_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0,
+                         stream>>>(static_cast<const T*>(v),
+                                   static_cast<const T*>(seed), len, nchain,
+                                   static_cast<T*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
+
+// out[c] = seed[c] + v[0][c] + ... + v[len - 1][c], added in that order,
+// for the nchain chains of v (len, nchain)
+int lb_chain_sums(int is_f64, const void* v, const void* seed, long long len,
+                  long long nchain, void* out, void* stream, int device) {
+  if (nchain <= 0) return 0;
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return is_f64 ? launch_chains<double>(v, seed, len, nchain, out, s)
+                : launch_chains<float>(v, seed, len, nchain, out, s);
+}
 
 // out[0] the total, out[1] the second sum (nothing for SEQ) of the scan
 // `mode` over the n values of x (keep: a uint8 per value, or null)

@@ -5,7 +5,8 @@ PyTorch port of five slices of ludwig_tpu/ludwig.py (ref:
 src/ludwig.c:443 ludwig_run, src/main.c:30-46): the plain single fluid
 (`free_energy none`, with isothermal fluctuations, halo or in-lattice
 plane walls - moving or with slip -, the open boundary, Lees-Edwards
-planes and porous media), the symmetric binary fluid (`free_energy
+planes and porous media, or with resolved or subgrid colloids:
+colloids.py, colloids_fast.py, subgrid.py), the symmetric binary fluid (`free_energy
 symmetric`), the blue-phase liquid crystal (`free_energy
 lc_blue_phase`) and the liquid-crystal droplet (`free_energy
 lc_droplet`), those three on the stress-divergence, hydrodynamics-on
@@ -18,8 +19,8 @@ key-value input, builds the system, runs the time loop on a device (the
 GPU unless the caller asks for the CPU), writes the statistics blocks in
 the reference's formats and the same checkpoint and field files
 (io_directory, freq_config, config_at_end, N_start, freq_phi, freq_vel,
-freq_psi) and shear observables (freq_shear_measurement,
-freq_shear_output).
+freq_psi), the colloids' config.cds (colloid_io_freq) and shear
+observables (freq_shear_measurement, freq_shear_output).
 `tpu_fused on` (or `interpret`) selects the fused steps:
 ops.fused.fused_step for the plain fluid (with fluctuations, its
 FusedNoise counter-hash stream where the JAX package takes its fused
@@ -42,8 +43,8 @@ unfused route, its plain reductions on its fused routes.
 
 Every input key outside the slices raises NotImplementedError naming the
 key, unless it is set to its inactive default (`boundary_walls 0_0_0`
-for the families other than the plain fluid, `colloid_init
-no_colloids`, `default_io_grid 1_1_1`, ...).  The input header of the
+and `colloid_init no_colloids` for the families other than the plain
+fluid, `default_io_grid 1_1_1`, ...).  The input header of the
 reference log (fulllog.InitLog in the JAX package) is not ported yet.
 """
 
@@ -64,7 +65,13 @@ from ludwig_tpu_torch.binary import (GRADIENT, ORDERS, BinaryConfig,
                                      fe_fields, initial_binary,
                                      make_binary_step)
 from ludwig_tpu_torch.binary_le import BinaryLEConfig, make_binary_le_step
-from ludwig_tpu_torch import electro_sim, lc, lc_droplet
+from ludwig_tpu_torch import electro_sim, interactions, lc, lc_droplet
+from ludwig_tpu_torch.colloids import (ColloidParams, ColloidState, TYPES,
+                                       build_map, make_colloid_step,
+                                       total_colloid_momentum)
+from ludwig_tpu_torch.ewald import ewald_sum
+from ludwig_tpu_torch.io.colloid_io import (default_state, read_colloid_file,
+                                            write_colloid_file)
 from ludwig_tpu_torch.electro import ElectroConfig, fe_electro_fed, rho_elec
 from ludwig_tpu_torch.fe import lc_init
 from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE
@@ -97,9 +104,12 @@ from ludwig_tpu_torch.ops.lees_edwards import (LeesEdwardsConfig,
 from ludwig_tpu_torch.ops.open_bc import OpenBCConfig
 from ludwig_tpu_torch.ops.stencil import delsq_7pt, grad_7pt
 from ludwig_tpu_torch.ops.walls import WallSpec
-from ludwig_tpu_torch.ref_rng import spinodal_ref
+from ludwig_tpu_torch.ref_rng import RanSerial, spinodal_ref
 from ludwig_tpu_torch.runtime import RunTime
-from ludwig_tpu_torch.stats_extra import RheologyAccumulator
+from ludwig_tpu_torch.stats_extra import (AhydroCalibration,
+                                          RheologyAccumulator,
+                                          interact_stats_lines)
+from ludwig_tpu_torch.subgrid import make_subgrid_step
 
 
 def _off(v: str) -> bool:
@@ -194,16 +204,46 @@ BOUNDARY_KEYS = frozenset((
     "porous_media_file", "porous_media_ndata", "porous_media_type",
     "porous_media_format", "porous_media_init", "porous_media_acell"))
 
+# keys the plain fluid reads for resolved or subgrid colloids (free_energy
+# none only): placement, the particles' keys colloid_one_* ... three_*
+# (COLLOID_PREFIXES), interactions, walls around the suspension, the
+# dipolar Ewald sum and the colloid I/O
+COLLOID_KEYS = frozenset((
+    "colloid_init", "colloid_rebuild_freq", "colloid_random_no",
+    "colloid_random_dh", "colloid_random_a0", "colloid_random_ah",
+    "colloid_random_type", "colloid_file_stub", "colloid_gravity",
+    "random_seed", "angle_cosine_on", "angle_cosine_k", "bond_fene_on",
+    "bond_fene_k", "bond_fene_r0", "pair_ss_cut_ij", "pair_ss_cut_ij_ntypes",
+    "pair_ss_cut_ij_epsilon", "pair_ss_cut_ij_sigma", "pair_ss_cut_ij_nu",
+    "pair_ss_cut_ij_hc", "soft_sphere_on", "soft_sphere_epsilon",
+    "soft_sphere_sigma", "soft_sphere_nu", "soft_sphere_cutoff",
+    "lennard_jones_on", "lj_epsilon", "lj_sigma", "lj_cutoff", "yukawa_on",
+    "yukawa_epsilon", "yukawa_kappa", "yukawa_cutoff",
+    "driving_force_magnitude", "lubrication_on",
+    "lubrication_normal_cutoff", "lubrication_tangential_cutoff",
+    "boundary_lubrication_rcnormal", "boundary_lubrication_dhnormal",
+    "wall_ss_cut_on", "wall_ss_cut_epsilon", "wall_ss_cut_sigma",
+    "wall_ss_cut_nu", "wall_ss_cut_hc", "ewald_sum", "ewald_mu", "ewald_rc",
+    "magnetic_b0", "colloid_io_freq", "calibration"))
+COLLOID_PREFIXES = ("colloid_one_", "colloid_two_", "colloid_three_")
+
 # free energy -> the keys it reads beside SLICE_KEYS
-FREE_ENERGIES = {"none": NOISE_KEYS | BOUNDARY_KEYS,
+FREE_ENERGIES = {"none": NOISE_KEYS | BOUNDARY_KEYS | COLLOID_KEYS,
                  "symmetric": BINARY_KEYS,
                  "lc_blue_phase": LC_KEYS, "lc_droplet": DROPLET_KEYS,
                  "fe_electro": ELECTRO_KEYS}
 
 # keys of features outside the slices, accepted while they leave them off
+def _no_colloids(v: str) -> bool:
+    """colloid_init values that place no particles (ludwig_tpu ludwig.py:
+    342: only input_* and from_file do)."""
+    return not (v.startswith("input_") or v == "from_file")
+
+
 INACTIVE = {
     "viscosity_model": lambda v: v == "newtonian",
-    "colloid_init": lambda v: v == "no_colloids",
+    # colloids of the families other than the plain fluid
+    "colloid_init": _no_colloids,
     "boundary_walls": _zeros,
     "temperature": _zeros,
     "isothermal_fluctuations": _off,
@@ -236,6 +276,8 @@ def _check_keys(rt: RunTime):
         raise _not_ported("free_energy", fe_name)
     for key in rt.unused_keys():
         if key in SLICE_KEYS or key in FREE_ENERGIES[fe_name]:
+            continue
+        if fe_name == "none" and key.startswith(COLLOID_PREFIXES):
             continue
         # default_io_grid, <name>_io_grid: one I/O group only (the JAX
         # package's sharded writer, io/sharded.py, is not ported)
@@ -272,6 +314,14 @@ class System:
     # the state ends with the gradients (grad, delsq) of the step's
     # pre-update order parameter (_keeps_grads)
     keep_grads: bool = False
+    # resolved or subgrid colloids: (f, R, V, W, dr, Rmap, M) as a
+    # ColloidState, or the subgrid (f, R, V)
+    colloid_params: Optional[ColloidParams] = None
+    subgrid: bool = False
+    # a fused route where the JAX package's route keeps the gradients:
+    # (field, t) -> (grad, delsq) of the pre-update field of step t, the
+    # checkpoint's state03 / state04 (_grad_leaves)
+    grad_leaves: Optional[object] = None
     n_start: int = 0                         # the step a restart reads
 
     @property
@@ -281,6 +331,10 @@ class System:
     @property
     def is_electro(self) -> bool:
         return self.electro_cfg is not None
+
+    @property
+    def is_colloid(self) -> bool:
+        return self.colloid_params is not None
 
     @property
     def n_fields(self) -> int:
@@ -670,12 +724,21 @@ def reference_statistics(sys_: System) -> bool:
         return True
     if sys_.fused_mode in ("plain", "wall", "le"):
         return not _jax_fused_plain(sys_.rt, sys_.lb_cfg)
-    size, dtype = sys_.lb_cfg.size, sys_.lb_cfg.dtype
+    return not _jax_fused_two_kernel(sys_.rt, sys_.lb_cfg)
+
+
+def _jax_fused_two_kernel(rt: RunTime, lb_cfg: LBConfig) -> bool:
+    """Whether the JAX package takes its two-kernel fused route (binary,
+    LC, droplet; periodic or sheared) where the port takes its own: a
+    _fused_plan, and `tpu_fused interpret` or z a multiple of 128 in
+    float32 (ludwig_tpu ludwig.py:958-970, 1008-1011, 1160-1163,
+    1290-1293, 1329-1332)."""
+    size = lb_cfg.size
     if not _has_fused_plan(size):
-        return True
-    if sys_.rt.string("tpu_fused", "off") == "interpret":
         return False
-    return not (size[2] % 128 == 0 and dtype == "float32")
+    if rt.string("tpu_fused", "off") == "interpret":
+        return True
+    return size[2] % 128 == 0 and lb_cfg.dtype == "float32"
 
 
 def _fused_request(rt: RunTime) -> bool:
@@ -710,15 +773,31 @@ def _le_f0(rt: RunTime, lb_cfg: LBConfig, le: LeesEdwardsConfig):
 
 
 def _keeps_grads(fe_name: str, le: Optional[LeesEdwardsConfig]) -> bool:
-    """Whether an unfused route's state carries the gradients of the
-    step's pre-update order parameter, (grad, delsq) after u: where the
-    JAX package's does (keep_grads: the LC route, ludwig_tpu
-    ludwig.py:1215, and the sheared binary and LC routes, :992, :1302;
-    not the sheared droplet, :1148), so that each package restarts from
-    the other's checkpoint.  The fused routes carry none, as in the JAX
-    package."""
+    """Whether the JAX package's unfused route for this family carries the
+    gradients of the step's pre-update order parameter, (grad, delsq)
+    after u (keep_grads: the LC route, ludwig_tpu ludwig.py:1215, and the
+    sheared binary and LC routes, :992, :1302; not the sheared droplet,
+    :1148), so that each package restarts from the other's checkpoint.
+    The port's unfused routes carry them in their state; its fused routes
+    add them to the checkpoint where the JAX package's route for the
+    input is unfused (_grad_leaves)."""
     return fe_name == "lc_blue_phase" or (fe_name == "symmetric"
                                           and le is not None)
+
+
+def _grad_leaves(rt: RunTime, lb_cfg: LBConfig, fe_name: str,
+                 le: Optional[LeesEdwardsConfig]):
+    """For a fused route: None where the JAX package's route for the input
+    is fused too (its checkpoint has no gradient leaves), else (field, t)
+    -> (grad, delsq) of the field before step t, the bits the JAX
+    package's unfused route holds as state03 / state04 after that step:
+    the LE-aware gradients on a sheared run, the 7-point ones otherwise.
+    The run loop takes them before the fused step of a checkpoint step."""
+    if not _keeps_grads(fe_name, le) or _jax_fused_two_kernel(rt, lb_cfg):
+        return None
+    if le is not None:
+        return lambda field, t: le_gradient(field, le, t)
+    return lambda field, t: (grad_7pt(field), delsq_7pt(field))
 
 
 def _tensors(lb_cfg: LBConfig, *arrays):
@@ -740,7 +819,8 @@ def _binary_le_system(rt, lb_cfg, bcfg, le, phi0) -> System:
     if _fused_request(rt) and lb_cfg.size[0] >= 6 * le.nplanes:
         return System(rt=rt, lb_cfg=lb_cfg, state=(f, phi, u),
                       step_fn=make_fused_binary_le_step(lecfg),
-                      fused_mode="binary", binary_cfg=bcfg, le_cfg=le)
+                      fused_mode="binary", binary_cfg=bcfg, le_cfg=le,
+                      grad_leaves=_grad_leaves(rt, lb_cfg, "symmetric", le))
     keep = _keeps_grads("symmetric", le)
     return System(rt=rt, lb_cfg=lb_cfg,
                   state=(f, phi, u) + (le_gradient(phi, le, 0) if keep
@@ -762,7 +842,9 @@ def _lc_le_system(rt, lb_cfg, lcfg, le, q0) -> System:
             and lb_cfg.size[0] >= 6 * le.nplanes):
         return System(rt=rt, lb_cfg=lb_cfg, state=(f, q5, u),
                       step_fn=make_fused_lc_le_step(lcfg, le),
-                      fused_mode="lc", lc_cfg=lcfg, le_cfg=le)
+                      fused_mode="lc", lc_cfg=lcfg, le_cfg=le,
+                      grad_leaves=_grad_leaves(rt, lb_cfg, "lc_blue_phase",
+                                               le))
     keep = _keeps_grads("lc_blue_phase", le)
     return System(rt=rt, lb_cfg=lb_cfg,
                   state=(f, q5, u) + (le_gradient(q5, le, 0) if keep
@@ -845,7 +927,9 @@ def build_system(rt: RunTime, device="cuda") -> System:
             return System(rt=rt, lb_cfg=lb_cfg,
                           state=initial_fused_lc(lcfg, q0),
                           step_fn=make_fused_lc_step(lcfg),
-                          fused_mode="lc", lc_cfg=lcfg)
+                          fused_mode="lc", lc_cfg=lcfg,
+                          grad_leaves=_grad_leaves(rt, lb_cfg,
+                                                   "lc_blue_phase", None))
         keep = _keeps_grads("lc_blue_phase", None)
         return System(rt=rt, lb_cfg=lb_cfg,
                       state=lc.initial_lc(lcfg, q0, keep_grads=keep),
@@ -869,6 +953,9 @@ def build_system(rt: RunTime, device="cuda") -> System:
                       droplet_cfg=dcfg)
     if fe_name == "fe_electro":
         return _electro_system(rt, lb_cfg)
+    colloids = _parse_colloids(rt, size, rho0, eta, lb_cfg)
+    if colloids is not None:
+        return _colloid_system(rt, lb_cfg, colloids)
     return _plain_system(rt, lb_cfg)
 
 
@@ -1016,6 +1103,316 @@ def _plain_system(rt: RunTime, lb_cfg: LBConfig) -> System:
                   solid=solid, le_cfg=le)
 
 
+def _parse_colloids(rt: RunTime, size, rho0: float, eta: float,
+                    lb_cfg: LBConfig):
+    """The colloid_* keys of a `free_energy none` input (ludwig_tpu
+    ludwig.py:334-592; ref: colloids_rt.c colloids_init_rt, interaction.c
+    interact_compute): None when no particles are placed, else a dict of
+    the ColloidParams, the initial R, V, W, dr (0-based), the subgrid
+    particles' al and the force and torque callbacks (pair, bond, angle,
+    lubrication, driving and dipolar terms, the magnetic torque)."""
+    cinit = rt.string("colloid_init", "none")
+    if _no_colloids(cinit):
+        return None
+    a0, ah, rr, vv, b1, b2, mm, typ, al = ([] for _ in range(9))
+    ss, drs, ws, fixedr, bonds, angles, itypes = ([] for _ in range(7))
+    if cinit == "input_random":
+        # serial random placement (ref: colloids_init.c:82-123, ran.c's
+        # serial stream seeded by random_seed; 1-based positions there)
+        nc = rt.int("colloid_random_no", 0)
+        dh = rt.double("colloid_random_dh", 0.0)
+        ra0 = rt.double_required("colloid_random_a0")
+        rah = rt.double("colloid_random_ah", ra0)
+        rng = RanSerial(rt.int("random_seed", 7361237))
+        amax = rah + dh
+        lex = [amax * (0.0 if p else 1.0)
+               for p in rt.int_vector("periodicity", (1, 1, 1))]
+        rtype = rt.string("colloid_random_type", "default")
+        for _ in range(nc):
+            r0 = [0.5 + lex[a] + rng.uniform() * (size[a] - 2.0 * lex[a])
+                  for a in range(3)]
+            rr.append([c - 1.0 for c in r0])
+            a0.append(ra0)
+            ah.append(rah)
+            vv.append((0.0, 0.0, 0.0))
+            b1.append(0.0)
+            b2.append(0.0)
+            mm.append((1.0, 0.0, 0.0))
+            typ.append(rtype)
+    elif cinit == "from_file":
+        stub = rt.string("colloid_file_stub", "config.cds")
+        nstart = rt.int("N_start", 0)
+        if nstart > 0:
+            # a restart reads the generating run's dump (ref: colloid_io.c
+            # config.cds%8.8d.%3.3d-%3.3d)
+            path = f"{stub}{nstart:08d}.001-001"
+        else:
+            path = next((c for c in (stub + ".init", stub + ".init.001-001",
+                                     stub + ".001-001", stub)
+                         if os.path.exists(c)), stub + ".init")
+        for ni, rec in enumerate(read_colloid_file(path)):
+            a0.append(rec["a0"])
+            ah.append(rec["ah"])
+            al.append(rec.get("al", 0.0))
+            rr.append([c - 1.0 for c in rec["r"]])
+            vv.append(tuple(rec["v"]))
+            drs.append(tuple(rec.get("dr", (0.0, 0.0, 0.0))))
+            ws.append(tuple(rec.get("w", (0.0, 0.0, 0.0))))
+            b1.append(rec["b1"])
+            b2.append(rec["b2"])
+            mm.append(tuple(rec["m"]) if any(rec["m"]) else (1.0, 0.0, 0.0))
+            typ.append({0: "default", 1: "active", 2: "subgrid"}.get(
+                rec["type"], "default"))
+            ss.append(tuple(rec.get("s", (0.0, 0.0, 0.0))))
+            fx = rec.get("isfixedr", 0)
+            fxv = rec.get("isfixedrxyz", [fx, fx, fx])
+            fixedr.append(tuple(fxv) if not (fx and not any(fxv))
+                          else (1, 1, 1))
+            for bi in range(rec.get("nbonds", 0)):
+                other = rec["bond"][bi] - 1
+                if other > ni:            # each bond once
+                    bonds.append((ni, other))
+    else:
+        nc = {"input_one": 1, "input_two": 2, "input_three": 3}.get(cinit)
+        if nc is None:
+            raise ValueError(f"colloid_init '{cinit}' not recognised")
+        for ni, nm in enumerate(("one", "two", "three")[:nc]):
+            key = f"colloid_{nm}_"
+            a0.append(rt.double_required(key + "a0"))
+            ah.append(rt.double(key + "ah", a0[-1]))
+            al.append(rt.double(key + "al", 0.0))
+            rr.append([c - 1.0 for c in rt.double_vector(key + "r",
+                                                         (0.0, 0.0, 0.0))])
+            vv.append(rt.double_vector(key + "v", (0.0, 0.0, 0.0)))
+            b1.append(rt.double(key + "b1", 0.0))
+            b2.append(rt.double(key + "b2", 0.0))
+            ss.append(tuple(rt.double_vector(key + "s", (0.0, 0.0, 0.0))))
+            mv = rt.double_vector(key + "m", (1.0, 0.0, 0.0))
+            nrm = np.sqrt(sum(c * c for c in mv)) or 1.0
+            mm.append(tuple(c / nrm for c in mv))
+            typ.append(rt.string(key + "type", "default"))
+            itypes.append(rt.int(key + "interact_type", 0))
+            rt.double(key + "q0", 0.0)       # the charges serve fe_electro
+            rt.double(key + "q1", 0.0)
+            fx = rt.int(key + "isfixedr", 0)
+            fixedr.append(tuple(rt.int_vector(key + "isfixedrxyz",
+                                              (fx, fx, fx))))
+            mybonds = []
+            for bi in range(rt.int(key + "nbonds", 0)):
+                other = rt.int(f"{key}bond{bi + 1}", 0) - 1
+                mybonds.append(other)
+                if other > ni:
+                    bonds.append((ni, other))
+            if rt.int(key + "nangles", 0) and len(mybonds) >= 2:
+                # the one angle spans the two bonds (ref:
+                # angle_cosine.c:161-167)
+                angles.append((mybonds[0], ni, mybonds[1]))
+    nc = len(rr)
+    if lb_cfg.noise is not None:
+        raise _not_ported("isothermal_fluctuations",
+                          rt.string("isothermal_fluctuations",
+                                    rt.string("lb_fluctuations", "on"))
+                          + " beside colloids")
+    for key, on in (("porous_media_file", rt.has_key("porous_media_file")),
+                    ("porous_media_init", rt.has_key("porous_media_init")),
+                    ("N_LE_plane", rt.int("N_LE_plane", 0) > 0),
+                    ("lb_bc_open", rt.switch("lb_bc_open", False))):
+        if on:
+            raise _not_ported(key, rt.string(key) + " beside colloids")
+    grav = tuple(rt.double_vector("colloid_gravity", (0.0, 0.0, 0.0)))
+    if rt.switch("calibration", False):
+        # the hydrodynamic-radius calibration drives the particle with a
+        # fixed force along the reference's literal random direction (ref:
+        # stats_calibration.c:120-143)
+        a_, L_ = max(ah), float(size[2])
+        fh = (1.0 - 2.837 * (a_ / L_) + 4.19 * (a_ / L_) ** 3
+              - 27.4 * (a_ / L_) ** 6)
+        ftarget = 6.0 * np.pi * eta * a_ * (eta * 0.05 / (a_ * rho0)) / fh
+        grav = (+5.02274083742018e-01 * ftarget,
+                -1.05061333197473e-01 * ftarget,
+                -8.58302313330149e-01 * ftarget)
+    cparams = ColloidParams(
+        a0=tuple(a0), ah=tuple(ah), rho0=rho0, gravity=grav,
+        b1=tuple(b1), b2=tuple(b2), m=tuple(mm), types=tuple(typ),
+        isfixedr=tuple(fixedr), bonds=tuple(bonds), angles=tuple(angles))
+    terms = _force_terms(rt, size, eta, cparams, ss, itypes)
+    force_fn = torque_fn = None
+    if terms:
+        def force_fn(R, V):
+            out = terms[0](R, V)
+            for term in terms[1:]:
+                out = out + term(R, V)
+            return out
+    if rt.int("ewald_sum", 0):
+        # dipolar Ewald interactions (ref: ewald.c via interact_compute),
+        # the dipoles s as read
+        emu = rt.double("ewald_mu", 0.0)
+        erc = rt.double("ewald_rc", float(min(size)) / 2.0)
+        s0 = np.array([list(v) if any(v) else [0.0, 0.0, 0.0]
+                       for v in (ss or [(0.0, 0.0, 0.0)] * nc)])
+        if np.any(s0 != 0.0):
+            S0 = torch.as_tensor(s0, dtype=lb_cfg.tdtype,
+                                 device=lb_cfg.device)
+            prev = force_fn
+
+            def force_fn(R, V, _p=prev):
+                F, _ = ewald_sum(R, S0, emu, erc, size)
+                return F + (_p(R, V) if _p is not None else 0.0)
+
+            def torque_fn(R, V):
+                return ewald_sum(R, S0, emu, erc, size)[1]
+    b0 = tuple(rt.double_vector("magnetic_b0", (0.0, 0.0, 0.0)))
+    if any(b0):
+        # the torque s x B on each dipole (ref: interaction.c:417-419)
+        S0b = torch.as_tensor(np.array([list(v) for v in (
+            ss or [(0.0, 0.0, 0.0)] * nc)], np.float64),
+            dtype=lb_cfg.tdtype, device=lb_cfg.device)
+        b0t = torch.as_tensor(np.array(b0), dtype=lb_cfg.tdtype,
+                              device=lb_cfg.device)
+        prev_t = torque_fn
+
+        def torque_fn(R, V, _p=prev_t):
+            tq = torch.linalg.cross(S0b, b0t[None, :].expand_as(S0b))
+            return tq + (_p(R, V) if _p is not None else 0.0)
+
+    zeros = [(0.0, 0.0, 0.0)] * nc
+    return dict(params=cparams, R=rr, V=vv, W=ws or zeros, dr=drs or zeros,
+                al=al, force_fn=force_fn, torque_fn=torque_fn)
+
+
+def _force_terms(rt: RunTime, size, eta: float, cp: ColloidParams, ss,
+                 itypes):
+    """The per-particle force callbacks (R, V) -> (N, 3) of the pair,
+    bond, angle, driving and lubrication keys (ludwig_tpu ludwig.py:
+    491-575), in the JAX package's order."""
+    nc = cp.n
+    ah = cp.ah
+    terms = []
+    if rt.int("angle_cosine_on", 0) and cp.angles:
+        ak = rt.double_required("angle_cosine_k")
+        aarr = np.array(cp.angles, np.int64)
+        terms.append(lambda R, V: interactions.angle_cosine_forces(
+            R, size, aarr, ak))
+    if rt.int("bond_fene_on", 0) and cp.bonds:
+        fk = rt.double_required("bond_fene_k")
+        fr0 = rt.double_required("bond_fene_r0")
+        barr = np.array(cp.bonds, np.int64)
+        terms.append(lambda R, V: interactions.fene_bond_forces(
+            R, size, barr, fk, fr0))
+    if rt.switch("pair_ss_cut_ij", False) and nc > 1:
+        # the soft spheres by type pair; the vector keys hold the upper
+        # triangle (ref: pair_ss_cut_ij.c)
+        nt = rt.int("pair_ss_cut_ij_ntypes", 1)
+        tri = [(i, j) for i in range(nt) for j in range(i, nt)]
+
+        def mat(key):
+            vals = rt.double_vector(key, (0.0,) * len(tri))
+            m = np.zeros((nt, nt))
+            for (i, j), v in zip(tri, vals):
+                m[i, j] = m[j, i] = v
+            return m
+
+        eps_m, sig_m = mat("pair_ss_cut_ij_epsilon"), mat("pair_ss_cut_ij_sigma")
+        nu_m, hc_m = mat("pair_ss_cut_ij_nu"), mat("pair_ss_cut_ij_hc")
+        it = np.array(itypes + [0] * (nc - len(itypes)), int)
+        pp = [m[np.ix_(it, it)] for m in (eps_m, sig_m, nu_m, hc_m)]
+        pp[1] = np.where(pp[1] == 0.0, 1.0, pp[1])    # finite where eps = 0
+        pp[3] = np.where(pp[3] == 0.0, 1.0, pp[3])
+        terms.append(lambda R, V: interactions.soft_sphere_ij_forces(
+            R, ah, size, *pp)[0])
+    if rt.int("soft_sphere_on", 0) and nc > 1:
+        ssp = (rt.double_required("soft_sphere_epsilon"),
+               rt.double_required("soft_sphere_sigma"),
+               rt.double_required("soft_sphere_nu"),
+               rt.double_required("soft_sphere_cutoff"))
+        terms.append(lambda R, V: interactions.soft_sphere_forces(
+            R, ah, size, *ssp)[0])
+    if rt.int("lennard_jones_on", 0) and nc > 1:
+        ljp = (rt.double_required("lj_epsilon"),
+               rt.double_required("lj_sigma"), rt.double_required("lj_cutoff"))
+        terms.append(lambda R, V: interactions.lj_cut_forces(R, size, *ljp))
+    if rt.int("yukawa_on", 0) and nc > 1:
+        ykp = (rt.double_required("yukawa_epsilon"),
+               rt.double_required("yukawa_kappa"),
+               rt.double_required("yukawa_cutoff"))
+        terms.append(lambda R, V: interactions.yukawa_forces(R, size, *ykp))
+    f0_driven = rt.double("driving_force_magnitude", 0.0)
+    if f0_driven != 0.0:
+        # a constant force along each particle's s (ref: driven_colloid.c)
+        s_arr = np.array(list(ss) + [(0.0, 0.0, 0.0)] * (nc - len(ss)),
+                         np.float64)
+        terms.append(lambda R, V: f0_driven * torch.as_tensor(
+            s_arr, dtype=R.dtype, device=R.device))
+    if rt.int("lubrication_on", 0) and nc > 1:
+        rcn = rt.double("lubrication_normal_cutoff", 0.0)
+        rct = rt.double("lubrication_tangential_cutoff", 0.0)
+        if rcn > 0.0:
+            terms.append(lambda R, V: interactions.lubrication_normal(
+                R, V, ah, size, eta, rcn))
+        if rct > 0.0:
+            terms.append(lambda R, V: interactions.lubrication_tangential(
+                R, V, ah, size, eta, rct))
+    return terms
+
+
+def _colloid_system(rt: RunTime, lb_cfg: LBConfig, col: dict) -> System:
+    """The plain fluid with colloids (ludwig_tpu ludwig.py:1465-1487,
+    1559-1638): subgrid particles where every particle is of that type,
+    else resolved particles, with halo walls around the suspension
+    (wall_ss_cut_*, boundary_lubrication_*)."""
+    cp = col["params"]
+    dev, tdt = lb_cfg.device, lb_cfg.tdtype
+
+    def t(a):
+        return torch.as_tensor(np.array(a, np.float64).reshape(-1, 3),
+                               dtype=tdt, device=dev)
+
+    f = _distribution_init(rt, lb_cfg)
+    R0 = t(col["R"])
+    if cp.types and all(tp == "subgrid" for tp in cp.types):
+        return System(rt=rt, lb_cfg=lb_cfg, state=(f, R0, t(col["V"])),
+                      step_fn=make_subgrid_step(lb_cfg, cp, col["al"],
+                                                force_fn=col["force_fn"]),
+                      colloid_params=cp, subgrid=True)
+    # from_file configurations carry the angular velocity and the deferred
+    # move dr: the first update moves each particle by it
+    state = ColloidState(f, R0, t(col["V"]), t(col["W"]), t(col["dr"]),
+                         R0.clone(), t(cp.m))
+    ws, wall_ss = None, None
+    lubr_rc = lubr_dh = (0.0,) * 3
+    if any(lb_cfg.walls):
+        # halo plane walls around the suspension (ref: wall.c;
+        # wall_ss_cut.c; wall_lubr_sphere)
+        ws = WallSpec(walls=lb_cfg.walls)
+        lb_cfg = dataclasses.replace(lb_cfg, walls=(False,) * 3)
+        state = state._replace(gwall=torch.zeros((3,), dtype=tdt,
+                                                 device=dev))
+        rc = rt.double("boundary_lubrication_rcnormal", 0.0)
+        dh = rt.double("boundary_lubrication_dhnormal", 0.0)
+        lubr_rc, lubr_dh = (rc,) * 3, (dh,) * 3
+        if rt.switch("wall_ss_cut_on", False):
+            wall_ss = {k: rt.double_required(f"wall_ss_cut_{k}")
+                       for k in ("epsilon", "sigma", "nu", "hc")}
+    step = make_colloid_step(
+        lb_cfg, cp, rebuild_freq=rt.int("colloid_rebuild_freq", 1),
+        force_fn=col["force_fn"], wallspec=ws, lubr_rc=lubr_rc,
+        lubr_dh=lubr_dh, wall_ss=wall_ss, torque_fn=col["torque_fn"])
+    return System(rt=rt, lb_cfg=lb_cfg, state=state, step_fn=step,
+                  wallspec=ws, colloid_params=cp)
+
+
+def _colloid_fluid(sys_: System, R: torch.Tensor):
+    """The fluid mask of the particles at R, by the map builder the JAX
+    package's statistics use (n > 4: build_map_fast; ludwig_tpu
+    ludwig.py:1911-1917); None for subgrid particles."""
+    if sys_.subgrid:
+        return None
+    cp = sys_.colloid_params
+    _pid, inside = build_map(R, cp, sys_.lb_cfg.size,
+                             "window" if cp.n > 4 else "min_image")
+    return ~inside
+
+
 def _make_stats_fn(sys_: System, reference: bool):
     """compute(state, u, prev=None, tstep=0) -> {rho, g, umm} and, for the binary
     fluid, {phi, fed}, for the liquid crystal {q5, fe_lc}, for the
@@ -1057,6 +1454,24 @@ def _make_stats_fn(sys_: System, reference: bool):
 
     def compute(state, u, prev=None, tstep=0):
         f = state[0]
+        if sys_.is_colloid:
+            # the fluid sites of the particles' current map, the colloids'
+            # momentum, their velocities before the step (the reference
+            # prints them from the top of the step; ludwig_tpu
+            # ludwig.py:1908-1960)
+            fl = _colloid_fluid(sys_, state[1])
+            V = state[2]
+            res = {"rho": stats.rho_stats_ref(f, model, fl),
+                   "g": stats.momentum_total_ref(f, model, fl),
+                   "gc": (torch.zeros((3,), dtype=f.dtype, device=f.device)
+                          if sys_.subgrid
+                          else total_colloid_momentum(V, sys_.colloid_params)),
+                   "umm": stats.velocity_minmax(u, fl)}
+            if sys_.wallspec is not None:
+                res["gwall"] = state.gwall
+            vstat = prev[0] if prev else V
+            res["vcol"] = (torch.amin(vstat, dim=0), torch.amax(vstat, dim=0))
+            return res
         if reference:
             res = {"rho": stats.rho_stats_ref(f, model, mask),
                    "g": stats.momentum_total_ref(f, model, mask)}
@@ -1157,13 +1572,32 @@ def _fused_u(sys_: System, f: torch.Tensor, sign: float = -1.0):
     return (g + sign * 0.5 * fg[:, None, None, None]) / rho
 
 
+def report_particle_block(sys_: System, res, out=sys.stdout):
+    """The "Particle statistics:" section of a colloid run: the
+    interaction statistics at the current positions and the colloid
+    velocities of the top of the step (ludwig_tpu ludwig.py:2375-2395; ref:
+    interaction.c:207-213, printed before the step's I/O lines)."""
+    vmin, vmax = (v.tolist() for v in res["vcol"])
+    out.write("\nParticle statistics:\n")
+    R_now = sys_.state[1].detach().cpu().numpy()
+    for line in interact_stats_lines(sys_.rt, sys_.colloid_params, R_now,
+                                     sys_.lb_cfg.size):
+        out.write(line)
+    out.write("\nColloid velocities - x y z\n")
+    out.write(f"[minimum ] {vmin[0]:14.7e} {vmin[1]:14.7e} {vmin[2]:14.7e}\n")
+    out.write(f"[maximum ] {vmax[0]:14.7e} {vmax[1]:14.7e} "
+              f"{vmax[2]:14.7e}\n\n")
+
+
 def report_statistics(sys_: System, tstep: int, u, stats_fn,
                       with_velocity=True, out=sys.stdout, in_loop=True,
-                      prev=None):
+                      prev=None, res=None):
     """One statistics block set in the reference formats.  The
     'Completed cycle' trailer only appears inside the time loop (ref:
-    ludwig.c:961)."""
-    res = stats_fn(sys_.state, u, prev, tstep)
+    ludwig.c:961).  `res`: the statistics already computed (a colloid
+    run prints its particle block from them first)."""
+    if res is None:
+        res = stats_fn(sys_.state, u, prev, tstep)
     out.write(stats.format_rho_block(*res["rho"]))
     if sys_.is_electro:
         # ref: ludwig_tpu ludwig.py:2410-2434
@@ -1189,7 +1623,14 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
         out.write(stats.format_fe_lc_block(tstep, *res["fe_lc"],
                                            sys_.lc_cfg.fe.redshift))
     g = res["g"]
-    if "gwall" in res:
+    if "gc" in res:
+        # (ref: ludwig_tpu ludwig.py:2560-2578) total = fluid + colloids
+        # (+ walls)
+        gc, gw = res["gc"], res.get("gwall")
+        gt = [g[a] + gc[a] + (gw[a] if gw is not None else 0.0)
+              for a in range(3)]
+        out.write(stats.format_momentum_block(gt, g, gw, gcolloid=gc))
+    elif "gwall" in res:
         gw = res["gwall"]
         out.write(stats.format_momentum_block(
             [g[a] + gw[a] for a in range(3)], g, gw))
@@ -1220,7 +1661,7 @@ def _sor_report(sor, multisteps: int, out):
     out.write(f"{multisteps} multisteps\n")
 
 
-def _field_names(sys_: System):
+def _field_names(sys_: System, nleaves: Optional[int] = None):
     """The checkpoint's names for the state's leaves, in order: dist,
     then phi (binary), q (liquid crystal), vel (binary, liquid crystal,
     droplet), then state<i> (ludwig_tpu ludwig.py:2890-2901 and
@@ -1236,7 +1677,19 @@ def _field_names(sys_: System):
             or sys_.droplet_cfg is not None):
         names.append("vel")
     return [names[i] if i < len(names) else f"state{i:02d}"
-            for i in range(len(sys_.state))]
+            for i in range(len(sys_.state) if nleaves is None else nleaves)]
+
+
+def _state_leaves(state) -> list:
+    """The leaves of a state in the JAX package's pytree order: a
+    ColloidState's seven arrays, gwall where there are walls, then the
+    map (pid, inside) it carries after a step."""
+    if not isinstance(state, ColloidState):
+        return list(state)
+    leaves = list(state[:7])
+    if state.gwall is not None:
+        leaves.append(state.gwall)
+    return leaves + list(state.pmap or ())
 
 
 def _leaf_to_host(x: torch.Tensor) -> np.ndarray:
@@ -1246,22 +1699,26 @@ def _leaf_to_host(x: torch.Tensor) -> np.ndarray:
     return a.astype(np.uint32) if x.dtype == torch.int64 else a
 
 
-def write_checkpoint(sys_: System, directory: str, step: int) -> None:
-    """Every leaf of the state as <name>-<step> with its JSON sidecar, the
-    unpadded (nvel, X, Y, Z) layout on every route (the JAX package's
-    fused routes write their padded state)."""
+def write_checkpoint(sys_: System, directory: str, step: int,
+                     extra=()) -> None:
+    """Every leaf of the state, then the leaves `extra` (the gradients a
+    fused route adds, _grad_leaves), as <name>-<step> with its JSON
+    sidecar, the unpadded (nvel, X, Y, Z) layout on every route (the JAX
+    package's fused routes write their padded state)."""
+    leaves = _state_leaves(sys_.state) + list(extra)
+    names = _field_names(sys_, len(leaves))
     write_state(directory, step, {
-        name: _leaf_to_host(x)
-        for name, x in zip(_field_names(sys_), sys_.state)})
+        name: _leaf_to_host(x) for name, x in zip(names, leaves)})
 
 
 def read_checkpoint(sys_: System, directory: str, step: int) -> tuple:
     """The state written by write_checkpoint (or by the JAX package's
     unfused route) at `step`, on the state's device and in its dtypes."""
-    names = _field_names(sys_)
+    state = _state_leaves(sys_.state)
+    names = _field_names(sys_, len(state))
     data = read_state(directory, step, names)
     leaves = []
-    for name, x in zip(names, sys_.state):
+    for name, x in zip(names, state):
         a = data[name]
         if tuple(a.shape) != tuple(x.shape):
             raise ValueError(
@@ -1271,7 +1728,39 @@ def read_checkpoint(sys_: System, directory: str, step: int) -> tuple:
         if x.dtype == torch.int64:
             a = a.astype(np.int64)
         leaves.append(torch.as_tensor(a, dtype=x.dtype, device=x.device))
+    if isinstance(sys_.state, ColloidState):
+        # the map is rebuilt from Rmap (the step's prepare)
+        return ColloidState(*leaves[:7], gwall=(leaves[7] if len(leaves) > 7
+                                                else None))
     return tuple(leaves)
+
+
+def write_colloid_config(sys_: System, directory: str, step: int) -> None:
+    """config.cds%08d.001-001 in the reference's ASCII format (ludwig_tpu
+    ludwig.py:2901-2937; ref: colloid_io.c colloid_io_write)."""
+    cp = sys_.colloid_params
+    R, V = (sys_.state[i].detach().cpu().numpy() for i in (1, 2))
+    if sys_.subgrid:
+        W = dr = np.zeros_like(R)
+        M = np.asarray(cp.m, np.float64).reshape(-1, 3)
+    else:
+        W, dr, M = (sys_.state[i].detach().cpu().numpy() for i in (3, 4, 6))
+    recs = []
+    for n in range(cp.n):
+        rec = default_state()
+        rec["index"] = n + 1
+        rec["a0"], rec["ah"] = cp.a0[n], cp.ah[n]
+        rec["r"] = [float(c) + 1.0 for c in R[n]]
+        rec["v"] = [float(c) for c in V[n]]
+        rec["w"] = [float(c) for c in W[n]]
+        rec["dr"] = [float(c) for c in dr[n]]
+        rec["m"] = [float(c) for c in M[n]]
+        rec["b1"], rec["b2"] = cp.b1[n], cp.b2[n]
+        rec["type"] = TYPES.get(cp.types[n], 0) if cp.types else 0
+        recs.append(rec)
+    os.makedirs(directory, exist_ok=True)
+    write_colloid_file(os.path.join(directory,
+                                    f"config.cds{step:08d}.001-001"), recs)
 
 
 def _rheo_pth(sys_: System) -> Optional[torch.Tensor]:
@@ -1311,6 +1800,7 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
     iodir = rt.string("io_directory", ".")
     freq_config = rt.int("freq_config", 0)
     config_at_end = rt.switch("config_at_end", False)
+    freq_colloid_io = rt.int("colloid_io_freq", 0)
     sys_.n_start = rt.int("N_start", 0)
     freq_phi = rt.int("freq_phi", 0)
     freq_vel = rt.int("freq_vel", 0)
@@ -1336,6 +1826,16 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
         # diagnostic only: no reference vintage prints a restart line
         print(f"Restart from step {sys_.n_start}", file=sys.stderr)
 
+    # the hydrodynamic-radius calibration of one particle (ludwig_tpu
+    # ludwig.py:3076-3100; ref: stats_calibration.c); its banner stands in
+    # the JAX package's input header
+    ahydro = None
+    cp = sys_.colloid_params
+    if rt.switch("calibration", False) and cp is not None and cp.n == 1:
+        ahydro = AhydroCalibration(max(cp.ah), cp.a0[0], sys_.lb_cfg.eta_shear,
+                                   sys_.lb_cfg.rho0, cp.rho0, size,
+                                   cp.gravity)
+        ahydro.banner(out)
     out.write("\nInitial conditions.\n")
     u = torch.zeros((3,) + size, dtype=sys_.lb_cfg.tdtype,
                     device=sys_.lb_cfg.device)
@@ -1360,8 +1860,28 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
         # the pre-step order parameters of the [fed] / [fe] statistic
         # (phi, Q, or the droplet's pair) are held by reference
         prev = None
+        res = None
         nfld = sys_.n_fields
-        if nfld:
+        is_config = ((freq_config and t % freq_config == 0)
+                     or (config_at_end and t == tend))
+        # the pre-update field's gradients a fused route's checkpoint
+        # carries where the JAX package's route keeps them
+        extra = (sys_.grad_leaves(sys_.state[1], t)
+                 if is_config and sys_.grad_leaves is not None else ())
+        if sys_.is_colloid:
+            # the velocities before the step feed the particle block
+            prev = (sys_.state[2],)
+            sys_.state, (_rho, u) = sys_.step_fn(sys_.state, t)
+            if ahydro is not None and ahydro.wants(t):
+                # the particle's velocity less the fluid sites' mean
+                # (ref: stats_ahydro_measure)
+                fl = _colloid_fluid(sys_, sys_.state[1])
+                um = (torch.where(fl[None], u, 0.0).sum(dim=(1, 2, 3))
+                      / fl.sum().to(u.dtype))
+                ahydro.accumulate(sys_.state[2][0].tolist(),
+                                  prev[0][0].tolist(),
+                                  (sys_.state[2][0] - um).tolist())
+        elif nfld:
             prev = sys_.state[1:1 + nfld]
             if sys_.fused_mode in ("binary", "lc", "droplet"):
                 sys_.state = sys_.step_fn(sys_.state, t)
@@ -1389,16 +1909,31 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
             f, _rho, u = sys_.step_fn(sys_.state[0], t)
             sys_.state = (f,)
         _acc("step", time.time() - ts0)
+        if sys_.is_colloid and t % freq == 0:
+            # the particle block comes first, before the I/O lines
+            # (ludwig_tpu ludwig.py:3142-3156)
+            ts0 = time.time()
+            res = stats_fn(sys_.state, u, prev, t)
+            report_particle_block(sys_, res, out=out)
+            _acc("stats", time.time() - ts0)
         if sor_freq and t % sor_freq == 0:
             _sor_report(sor, sys_.electro_cfg.ek.multisteps, out)
         # configuration dumps and the output lines come BEFORE the
         # statistics block of the same step (ref: ludwig.c:866-948)
-        is_config = ((freq_config and t % freq_config == 0)
-                     or (config_at_end and t == tend))
         if is_config:
             ts0 = time.time()
             out.write(f"Writing distribution output at step {t}!\n")
-            write_checkpoint(sys_, iodir, t)
+            write_checkpoint(sys_, iodir, t, extra)
+            _acc("cfgio", time.time() - ts0)
+        if sys_.is_colloid and (is_config or (freq_colloid_io and
+                                              t % freq_colloid_io == 0)):
+            # (ludwig_tpu ludwig.py:3186-3204; ref: ludwig.c:875-884)
+            ts0 = time.time()
+            out.write(f"Writing colloid output at step {t}!\n")
+            out.write("\ncolloid_io_write:\n")
+            out.write(f"writing colloid information to "
+                      f"config.cds{t:08d}.001-001 etc\n")
+            write_colloid_config(sys_, iodir, t)
             _acc("cfgio", time.time() - ts0)
         if (freq_phi and t % freq_phi == 0) or is_config:
             if has_phi:
@@ -1424,7 +1959,8 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
         if t % freq == 0:
             ts0 = time.time()
             report_statistics(sys_, t, u, stats_fn, out=out,
-                              with_velocity=sys_.hydro_on, prev=prev)
+                              with_velocity=sys_.hydro_on, prev=prev,
+                              res=res)
             _acc("stats", time.time() - ts0)
         if freq_phi or freq_vel or freq_psi:
             ts0 = time.time()
@@ -1441,6 +1977,9 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
                 write_field("psi", t, sys_.state[1])
                 write_field("rho", t, sys_.state[2])
             _acc("fldio", time.time() - ts0)
+
+    if ahydro is not None:
+        ahydro.report(out)
 
     # timer table (ref: TIMER_statistics table shape); host clocks, the
     # device work of a step lands in the next section that synchronises
@@ -1461,6 +2000,14 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
         if ncall:
             out.write(f"{label:>20s}: {tmin:10.3f} {tmax:10.3f} "
                       f"{tot:10.3f} {tot / ncall:10.6f} ({ncall} calls)\n")
+    if sys_.is_colloid and not sys_.subgrid:
+        # one map build at the final positions (ludwig_tpu ludwig.py:
+        # 3594-3600)
+        ts0 = time.time()
+        _colloid_fluid(sys_, sys_.state[1]).sum().item()
+        tm = time.time() - ts0
+        out.write(f"{'Colloid map build':>20s}: {tm:10.3f} {tm:10.3f} "
+                  f"{tm:10.3f} {tm:10.6f} (1 call)\n")
     out.write("Ludwig finished normally.\n")
     out.flush()
     return sys_
@@ -1475,7 +2022,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="python -m ludwig_tpu_torch",
         description="Run a lattice Boltzmann input file (plain fluid, "
-                    "symmetric binary fluid, blue-phase liquid crystal, "
+                    "with or without colloids, symmetric binary fluid, "
+                    "blue-phase liquid crystal, "
                     "liquid-crystal droplet or electrokinetics).")
     ap.add_argument("input", nargs="?", default="input",
                     help="input file (default: ./input)")

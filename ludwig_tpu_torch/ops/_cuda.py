@@ -92,6 +92,7 @@ class LaunchCounts:
     field_stats_ref: int = 0
     rho_stats_ref: int = 0
     momentum_total_ref: int = 0
+    chain_sums: int = 0
 
     def reset(self):
         for field in dataclasses.fields(self):
@@ -828,6 +829,8 @@ def _bind_stats(path: Path):
     lib.lb_stats_momentum.argtypes = [ci, ci, vp, vp, cll,
                                       ctypes.POINTER(ci), vp, vp, ci]
     lib.lb_stats_momentum.restype = ci
+    lib.lb_chain_sums.argtypes = [ci, vp, vp, cll, cll, vp, vp, ci]
+    lib.lb_chain_sums.restype = ci
     return lib
 
 
@@ -1353,6 +1356,26 @@ def momentum_total_ref(f: torch.Tensor, keep, model) -> torch.Tensor:
         f[0].numel(), cvp, out.data_ptr(), stream, f.device.index)
     _raise_on(rc, "momentum_total_ref")
     launches.momentum_total_ref += 1
+    return out
+
+
+def chain_sums(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """Launch csrc/stats_ref.cu's chain_sums_kernel: (nchain,) sums
+    seed[c] + v[0, c] + v[1, c] + ... added in that order, one thread a
+    chain, for the contiguous (len, nchain) tensor v on the device."""
+    _check_cuda_state(v)
+    if v.dim() != 2 or seed.shape != (v.shape[1],) or not (
+            v.is_contiguous() and seed.is_contiguous()):
+        raise ValueError("chain_sums takes contiguous v (len, nchain) and "
+                         "seed (nchain,)")
+    lib = _get_lib(STATS_LIB)
+    out = torch.empty_like(seed)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    rc = lib.lb_chain_sums(int(v.dtype == torch.float64), v.data_ptr(),
+                           seed.data_ptr(), v.shape[0], v.shape[1],
+                           out.data_ptr(), stream, v.device.index)
+    _raise_on(rc, "chain_sums")
+    launches.chain_sums += 1
     return out
 
 

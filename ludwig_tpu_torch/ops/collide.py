@@ -183,7 +183,8 @@ def collide(f: torch.Tensor,
 
     fg = [float(v) for v in params.force_global[:ndim]]
     if force is None:
-        force = [torch.tensor(fg[a], dtype=dtype, device=f.device)
+        # scalars filled on the device: a host copy would wait on it
+        force = [torch.full((), fg[a], dtype=dtype, device=f.device)
                  for a in range(ndim)]
     else:
         force = [force[a] + fg[a] if fg[a] else force[a] for a in range(ndim)]
@@ -193,8 +194,9 @@ def collide(f: torch.Tensor,
 
     # Relaxation rates (scalar, or per-site under a viscosity model).
     if eta_local is None:
-        rtau = torch.tensor(params.rtau_shear, dtype=dtype, device=f.device)
-        rtau_b = torch.tensor(params.rtau_bulk, dtype=dtype, device=f.device)
+        rtau = torch.full((), params.rtau_shear, dtype=dtype, device=f.device)
+        rtau_b = torch.full((), params.rtau_bulk, dtype=dtype,
+                            device=f.device)
     else:
         ratio = params.eta_bulk / params.eta_shear
         rtau = rtau_shear(eta_local, params.rho0).to(dtype)

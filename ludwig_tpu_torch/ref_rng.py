@@ -1,7 +1,8 @@
 """The reference's per-site initial-condition RNG, vectorised (numpy only).
 
 Copied from ludwig_tpu/ref_rng.py (kiss_advance, RefNoise, spinodal_ref,
-random_director_q5;
+random_director_q5, and RanSerial, the scalar serial stream that places
+`colloid_init input_random` particles;
 ref: src/noise.c:136-233 noise_init, noise_uniform,
 noise_uniform_double_reap): a 4-word KISS-style generator (LCG +
 xorshift + two 16-bit MWC) seeded per site from the global coordinates,
@@ -105,3 +106,70 @@ def random_director_q5(size, amplitude, two_d=False, seed=13):
                      0.5 * a * 3.0 * n[0] * n[2],
                      0.5 * a * (3.0 * n[1] * n[1] - 1.0),
                      0.5 * a * 3.0 * n[1] * n[2]])
+
+
+class RanSerial:
+    """The reference's scalar serial RNG (ref: src/ran.c:35-41 constants,
+    ran_init_seed:83-96 state, ran_lecuyer:190-214).
+
+    A 5-word lagged L'Ecuyer-style generator.  Note ran.c:206 computes
+    ``p1 = a1*(s0 - h*q1) - h*s0`` (the last term uses the STATE, not
+    the remainder constant r1); the quirk is reproduced since the
+    regression initial conditions depend on the exact stream.
+    """
+
+    _M = 2147483647
+    _A1, _Q1 = 107374182, 20
+    _A5, _Q5, _R5 = 104480, 20554, 1727
+    _RMOD = 4.656612873077393e-10
+
+    def __init__(self, seed: int = 7361237):
+        self.s = [int(seed), 1, 0, 3, 4]
+        self.ispare = 0
+        self.rspare = 0.0
+
+    @staticmethod
+    def _i32(x: int) -> int:
+        """Two's-complement wrap to C int (the reference relies on it)."""
+        x &= 0xFFFFFFFF
+        return x - 0x100000000 if x & 0x80000000 else x
+
+    @classmethod
+    def _cdiv(cls, a: int, b: int) -> int:
+        q = abs(a) // abs(b)
+        return -q if (a < 0) != (b < 0) else q
+
+    def uniform(self) -> float:
+        i32, cdiv = self._i32, self._cdiv
+        s = self.s
+        h = cdiv(s[4], self._Q5)
+        p5 = i32(i32(self._A5 * i32(s[4] - i32(h * self._Q5)))
+                 - i32(h * self._R5))
+        s[4], s[3], s[2], s[1] = s[3], s[2], s[1], s[0]
+        h = cdiv(s[0], self._Q1)
+        p1 = i32(i32(self._A1 * i32(s[0] - i32(h * self._Q1)))
+                 - i32(h * s[0]))
+        if p1 < 0:
+            p1 += self._M
+        if p5 > 0:
+            p5 -= self._M
+        s[0] = i32(p1 + p5)
+        if s[0] < 0:
+            s[0] += self._M
+        return self._RMOD * s[0]
+
+    def gaussian(self) -> float:
+        """Polar Box-Muller with a spare (ref: ran.c ran_gaussian)."""
+        if self.ispare:
+            self.ispare = 0
+            return self.rspare
+        while True:
+            r1 = 2.0 * self.uniform() - 1.0
+            r2 = 2.0 * self.uniform() - 1.0
+            rsq = r1 * r1 + r2 * r2
+            if 0.0 < rsq < 1.0:
+                break
+        f = np.sqrt(-2.0 * np.log(rsq) / rsq)
+        self.rspare = f * r1
+        self.ispare = 1
+        return f * r2

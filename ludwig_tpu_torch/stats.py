@@ -329,13 +329,16 @@ def format_fe_lc_block(tstep, ftot, vol, fbulk, fgrad, redshift) -> str:
             f"{float(fgrad) / vol:17.10e} {float(redshift):17.10e}\n")
 
 
-def format_momentum_block(gtotal, gfluid, gwall=None) -> str:
-    # ref: ludwig.c:1079-1087
+def format_momentum_block(gtotal, gfluid, gwall=None, gcolloid=None) -> str:
+    # ref: ludwig.c:1079-1087; stats_colloid.c for the [colloids] row
     s = ("\nMomentum - x y z\n"
          f"[total   ] {float(gtotal[0]):14.7e} {float(gtotal[1]):14.7e} "
          f"{float(gtotal[2]):14.7e}\n"
          f"[fluid   ] {float(gfluid[0]):14.7e} {float(gfluid[1]):14.7e} "
          f"{float(gfluid[2]):14.7e}\n")
+    if gcolloid is not None:
+        s += (f"[colloids] {float(gcolloid[0]):14.7e} "
+              f"{float(gcolloid[1]):14.7e} {float(gcolloid[2]):14.7e}\n")
     if gwall is not None:
         s += (f"[walls   ] {float(gwall[0]):14.7e} {float(gwall[1]):14.7e} "
               f"{float(gwall[2]):14.7e}\n")

@@ -293,10 +293,11 @@ def test_plain_cli_matches_jax():
     "free_energy brazovskii", "free_energy fe_electro_symmetric",
     "lc_noise on",
     # the plain fluid's walls, planes, restarts, periodicity and shear
-    # observables are read since they are ported; the sigma measurement,
-    # sharding, several I/O groups and colloid I/O are not
+    # observables are read since they are ported, and so are the colloids'
+    # keys; the sigma measurement, sharding, several I/O groups and the
+    # viscosity models are not
     "lc_a0 0.01", "freq_measure 10", "tpu_shard on",
-    "default_io_grid 2_1_1", "bogus_key_xyz 42", "colloid_io_freq 10"])
+    "default_io_grid 2_1_1", "bogus_key_xyz 42", "viscosity_model arrhenius"])
 def test_unported_keys_raise(line):
     with pytest.raises(NotImplementedError, match=line.split()[0]):
         run_text(PLAIN_INPUT + line + "\n", out=io.StringIO(), device="cpu")
@@ -325,7 +326,9 @@ def test_cli_runs_without_jax(tmp_path):
     a velocity file) and the Lees-Edwards input, and the sheared binary
     (fused, with the shear observables), blue-phase (unfused) and droplet
     (fused) inputs: all run, and neither JAX nor ludwig_tpu is imported,
-    the boundary, I/O and shear modules included."""
+    the boundary, I/O and shear modules included; and the two-particle
+    colloid input, with the colloid, interaction, Ewald and subgrid
+    modules."""
     inp, inp_binary = tmp_path / "input", tmp_path / "input_binary"
     inp_lc, inp_drop = tmp_path / "input_lc", tmp_path / "input_droplet"
     inp_elec = tmp_path / "input_electro"
@@ -345,12 +348,16 @@ def test_cli_runs_without_jax(tmp_path):
         sheared.append(tmp_path / f"input_le_{name}")
         sheared[-1].write_text(f"tpu_fused {fused}\n" + LE_INPUTS[name]
                                + SHEAR_KEYS + f"io_directory {tmp_path}\n")
+    inp_col = tmp_path / "input_colloids"
+    inp_col.write_text(COLLOID_INPUTS["input_two"]
+                       + f"io_directory {tmp_path}\n")
     probe = textwrap.dedent(f"""
         import runpy, sys
         for path in ({str(inp)!r}, {str(inp_binary)!r}, {str(inp_lc)!r},
                      {str(inp_drop)!r}, {str(inp_elec)!r},
                      {str(inp_noise)!r}, {str(inp_wall)!r},
-                     {str(inp_le)!r}) + {tuple(str(p) for p in sheared)!r}:
+                     {str(inp_le)!r}, {str(inp_col)!r}) + {
+                     tuple(str(p) for p in sheared)!r}:
             sys.argv = ["ludwig_tpu_torch", path, "--device", "cpu"]
             runpy.run_module("ludwig_tpu_torch", run_name="__main__")
         import ludwig_tpu_torch.ops._cuda, ludwig_tpu_torch.convert
@@ -360,6 +367,9 @@ def test_cli_runs_without_jax(tmp_path):
         import ludwig_tpu_torch.stats_extra
         import ludwig_tpu_torch.ops.lees_edwards, ludwig_tpu_torch.io
         import ludwig_tpu_torch.io.map_file, ludwig_tpu_torch.io.ref_format
+        import ludwig_tpu_torch.colloids, ludwig_tpu_torch.colloids_fast
+        import ludwig_tpu_torch.interactions, ludwig_tpu_torch.ewald
+        import ludwig_tpu_torch.subgrid, ludwig_tpu_torch.io.colloid_io
         bad = [m for m in sys.modules
                if m == "jax" or m.startswith("jax.")
                or m == "ludwig_tpu" or m.startswith("ludwig_tpu.")]
@@ -382,6 +392,8 @@ def test_cli_runs_without_jax(tmp_path):
     assert "Writing rho/velocity output at step 6!" in res.stdout
     assert (tmp_path / "vel-00000006.001-001").exists()
     assert res.stdout.count("Completed cycle 6") == 3   # electro, walls, LE
+    assert "[colloids]" in res.stdout and "Particle statistics:" in res.stdout
+    assert (tmp_path / "config.cds00000004.001-001").exists()
     assert "NO_JAX_OK" in res.stdout
 
 
@@ -848,6 +860,26 @@ def test_reference_statistics_lines_equal_jax_le(name):
 
 RESTART_INPUTS = {"lc": LC_FUSED_INPUT, "binary-le": BINARY_LE_FUSED_INPUT,
                   "lc-le": LC_LE_FUSED_INPUT}
+# the port's fused routes where the JAX package's route is unfused and
+# keeps the gradients: the blue phase under `tpu_fused on` in float64, the
+# sheared binary fluid with z = 16 (not a multiple of 128); the port's
+# checkpoint adds the pre-update field's gradients as state03 / state04.
+# The fused and unfused routes round differently: 1e-13 on the states.
+FUSED_RESTART = {"lc-fused-f64": LC_FUSED_INPUT,
+                 "binary-le-fused-z16": BINARY_LE_FUSED_INPUT}
+# two resolved particles from a config.cds.init in each run's io
+# directory (@DIR@): the port's checkpoint carries the JAX package's
+# ColloidState leaves and map, the restart reads config.cds00000003
+COLLOID_RESTART = {"colloids-from-file": """
+N_cycles 4
+size 16_16_16
+viscosity 0.1
+free_energy none
+colloid_init from_file
+colloid_file_stub @DIR@/config.cds
+colloid_gravity 0.0_0.0_-0.0001
+freq_statistics 2
+"""}
 
 
 def _steps(log, after, last):
@@ -857,7 +889,34 @@ def _steps(log, after, last):
     return _stat_floats(tail[:tail.index(f"Completed cycle {last}\n")])
 
 
-@pytest.mark.parametrize("name", list(RESTART_INPUTS))
+def _colloid_records(n, seed=1, a0=2.3):
+    """config.cds records of n particles from a numpy seed, spread along
+    x, moving."""
+    from ludwig_tpu_torch.io.colloid_io import default_state
+    rng = np.random.RandomState(seed)
+    recs = []
+    for i in range(n):
+        rec = default_state()
+        rec["index"] = i + 1
+        rec["a0"] = rec["ah"] = a0
+        rec["r"] = [1.0 + (i + 0.5) * 16.0 / n + rng.uniform(-0.5, 0.5),
+                    float(rng.uniform(3.0, 14.0)),
+                    float(rng.uniform(3.0, 14.0))]
+        rec["v"] = [float(v) for v in 0.005 * rng.standard_normal(3)]
+        rec["w"] = [float(v) for v in 0.001 * rng.standard_normal(3)]
+        rec["dr"] = list(rec["v"])
+        rec["m"] = [1.0, 0.0, 0.0]
+        recs.append(rec)
+    return recs
+
+
+def _write_init(directory, recs):
+    from ludwig_tpu_torch.io.colloid_io import write_colloid_file
+    write_colloid_file(os.path.join(str(directory), "config.cds.init"), recs)
+
+
+@pytest.mark.parametrize("name", list(RESTART_INPUTS) + list(FUSED_RESTART)
+                         + list(COLLOID_RESTART))
 def test_restart_across_packages(name, tmp_path):
     """The unfused LC route (the repaired checkpoint: the gradient leaves
     state03 and state04 ride as the JAX package's do) and the unfused
@@ -869,21 +928,36 @@ def test_restart_across_packages(name, tmp_path):
     within 2e-15, the logged steps within rtol 1e-9."""
     from ludwig_tpu_torch.io import read_state
 
-    base = (f"tpu_fused off\n{RESTART_INPUTS[name]}"
-            .replace("N_cycles 4", "N_cycles 7")
+    import jax
+    from ludwig_tpu_torch.ludwig import _state_leaves
+    if name in FUSED_RESTART:
+        text = f"tpu_fused on\n{FUSED_RESTART[name]}"
+    elif name in COLLOID_RESTART:
+        text = COLLOID_RESTART[name]
+    else:
+        text = f"tpu_fused off\n{RESTART_INPUTS[name]}"
+    atol = 1e-13 if name in FUSED_RESTART else 2e-15
+    base = (text.replace("N_cycles 4", "N_cycles 7")
             .replace("freq_statistics 2", "freq_statistics 1"))
     ds, dx = tmp_path / "straight", tmp_path / "shared"
     ds.mkdir(), dx.mkdir()
+    if name in COLLOID_RESTART:
+        for d in (ds, dx):
+            _write_init(d, _colloid_records(2))
+
+    def at(d, t):
+        return t.replace("@DIR@", str(d))
+
     out = io.StringIO()
-    straight = run_text(base + f"freq_config 6\nio_directory {ds}\n",
+    straight = run_text(at(ds, base) + f"freq_config 6\nio_directory {ds}\n",
                         out=out, device="cpu")
     slog = out.getvalue()
     steps = base.replace("N_cycles 7", "N_cycles 3")
-    run_text(steps + f"config_at_end yes\nio_directory {dx}\n",
+    run_text(at(dx, steps) + f"config_at_end yes\nio_directory {dx}\n",
              out=io.StringIO(), device="cpu")
     assert {"state03-00000003", "state04-00000003"} <= set(os.listdir(dx))
     jout = io.StringIO()
-    jsys = jrun_text(steps + f"N_start 3\nconfig_at_end yes\n"
+    jsys = jrun_text(at(dx, steps) + f"N_start 3\nconfig_at_end yes\n"
                      f"io_directory {dx}\n", out=jout)
     assert (sorted(n.replace("00000003", "0000000N") for n in os.listdir(dx)
                    if "00000003" in n)
@@ -891,17 +965,173 @@ def test_restart_across_packages(name, tmp_path):
                       for n in os.listdir(ds) if "00000006" in n)
             == sorted(n.replace("00000006", "0000000N")
                       for n in os.listdir(dx) if "00000006" in n))
-    names = ["dist", "phi" if "binary" in name else "q", "vel", "state03",
-             "state04"]
+    if name in COLLOID_RESTART:
+        # f, R, V, W, dr, Rmap, M, then the map (pid, inside)
+        names = ["dist"] + [f"state{i:02d}" for i in range(1, 9)]
+        assert ((dx / "config.cds00000006.001-001").read_bytes()
+                == (ds / "config.cds00000006.001-001").read_bytes())
+    else:
+        names = ["dist", "phi" if "binary" in name else "q", "vel",
+                 "state03", "state04"]
     port6 = read_state(str(ds), 6, names)
-    for leaf, key in zip(jsys.state, names):
+    for leaf, key in zip(jax.tree_util.tree_leaves(jsys.state), names):
         np.testing.assert_allclose(np.asarray(leaf), port6[key], rtol=0,
-                                   atol=2e-15)
+                                   atol=atol)
     np.testing.assert_allclose(
         _steps(jout.getvalue(), "Starting time step loop.", 6),
         _steps(slog, "Completed cycle 3\n", 6), rtol=1e-9, atol=1e-11)
-    rest = run_text(base.replace("N_cycles 7", "N_cycles 1")
+    rest = run_text(at(dx, base).replace("N_cycles 7", "N_cycles 1")
                     + f"N_start 6\nio_directory {dx}\n", out=io.StringIO(),
                     device="cpu")
-    for a, b in zip(rest.state, straight.state):
-        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=2e-15)
+    for a, b in zip(_state_leaves(rest.state), _state_leaves(straight.state)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=atol)
+
+
+# colloid inputs of the plain fluid (f64, 16^3): two particles with a
+# soft-sphere pair and gravity (as the reference's serial-pair), random
+# placement between halo walls with the soft-sphere wall and the wall
+# lubrication, six bonded particles from a file (the JAX package's exact
+# route) with the pair lubrication, and the repository's 30 subgrid
+# particles with FENE bonds
+COLLOID_BASE = """
+N_cycles 4
+size 16_16_16
+viscosity 0.1
+free_energy none
+freq_statistics 2
+"""
+COLLOID_INPUTS = {
+    "input_two": COLLOID_BASE + """
+colloid_init input_two
+colloid_one_a0 2.3
+colloid_one_ah 2.3
+colloid_one_r 5.0_8.5_8.5
+colloid_one_v 0.01_0.0_0.0
+colloid_two_a0 2.3
+colloid_two_ah 2.3
+colloid_two_r 11.0_8.5_8.5
+colloid_gravity 0.0_0.0_-0.0001
+soft_sphere_on 1
+soft_sphere_epsilon 0.0004
+soft_sphere_sigma 0.1
+soft_sphere_nu 1.0
+soft_sphere_cutoff 1.5
+freq_config 4
+colloid_io_freq 2
+""",
+    "input_random_walls": COLLOID_BASE + """
+colloid_init input_random
+colloid_random_no 3
+colloid_random_a0 2.3
+colloid_random_ah 2.3
+colloid_random_dh 0.5
+random_seed 102
+periodicity 0_1_1
+boundary_walls 1_0_0
+wall_ss_cut_on 1
+wall_ss_cut_epsilon 0.001
+wall_ss_cut_sigma 0.1
+wall_ss_cut_nu 1.0
+wall_ss_cut_hc 0.8
+boundary_lubrication_rcnormal 0.6
+boundary_lubrication_dhnormal 0.1
+colloid_gravity -0.0001_0.0_0.0
+""",
+    "from_file": COLLOID_BASE + """
+colloid_init from_file
+colloid_file_stub @DIR@/config.cds
+lubrication_on 1
+lubrication_normal_cutoff 0.5
+lubrication_tangential_cutoff 0.3
+freq_config 4
+""",
+    # the hydrodynamic-radius calibration: the driving force and the
+    # report (its spin-up, 64 steps at 8^3, is past the run; the
+    # measurements are tests/test_torch_interactions.py's)
+    "calibration": """
+N_cycles 4
+size 8_8_8
+viscosity 1.0
+free_energy none
+colloid_init input_one
+colloid_one_a0 2.3
+colloid_one_ah 2.3
+colloid_one_r 4.5_4.5_4.5
+calibration on
+freq_statistics 2
+""",
+    "subgrid": COLLOID_BASE.replace("16_16_16", "24_8_16") + f"""
+colloid_init from_file
+colloid_file_stub {Path(__file__).resolve().parent.parent / "config.cds"}
+colloid_gravity 0.0_0.0_-0.0001
+bond_fene_on 1
+bond_fene_k 0.001
+bond_fene_r0 5.0
+""",
+}
+FLOAT = re.compile(r"^[-+]?\d+\.\d*(e[-+]\d+)?$")
+
+
+def _colloid_log(log):
+    """The lines of a log from 'Initial conditions.' to the last
+    'Completed cycle', split into (text with the floats blanked, floats)."""
+    body = log[log.index("\nInitial conditions."):]
+    body = body[:body.rindex("Completed cycle")]
+    words, vals = [], []
+    for line in body.splitlines():
+        toks = line.split()
+        words.append(" ".join("#" if FLOAT.match(t) else t for t in toks))
+        vals += [float(t) for t in toks if FLOAT.match(t)]
+    return words, np.array(vals)
+
+
+@pytest.mark.parametrize("name", list(COLLOID_INPUTS))
+def test_colloid_cli_matches_jax(name, tmp_path):
+    """The port's log of each colloid input against ludwig_tpu.run_text's:
+    the same lines (particle statistics, the [colloids] and [walls] rows,
+    the colloid I/O lines), their floats at rtol 1e-9 / atol 1e-11; the
+    config.cds files of both byte-identical."""
+    dj, dt = tmp_path / "jax", tmp_path / "port"
+    dj.mkdir(), dt.mkdir()
+    if name == "from_file":
+        recs = _colloid_records(6, seed=4)
+        for i, rec in enumerate(recs):
+            rec["nbonds"], rec["bond"] = 1, [(i + 1) % 6 + 1, 0]
+        for d in (dj, dt):
+            _write_init(d, recs)
+    a, b = io.StringIO(), io.StringIO()
+    jrun_text(COLLOID_INPUTS[name].replace("@DIR@", str(dj))
+              + f"io_directory {dj}\n", out=a)
+    sys_ = run_text(COLLOID_INPUTS[name].replace("@DIR@", str(dt))
+                    + f"io_directory {dt}\n", out=b, device="cpu")
+    assert sys_.is_colloid and sys_.state[0].device.type == "cpu"
+    (wj, vj), (wt, vt) = _colloid_log(a.getvalue()), _colloid_log(b.getvalue())
+    assert wt == wj
+    assert "[colloids]" in b.getvalue() and "Particle statistics:" in wt
+    np.testing.assert_allclose(vt, vj, rtol=1e-9, atol=1e-11)
+    if name == "calibration":
+        def report(log):
+            return log[log.index("Calibration result"):log.index("Timer")]
+        assert report(b.getvalue()) == report(a.getvalue())
+        assert "Number of measurements:              0" in b.getvalue()
+    cds = sorted(p.name for p in dj.glob("config.cds0*"))
+    assert cds == sorted(p.name for p in dt.glob("config.cds0*"))
+    assert bool(cds) == (name in ("input_two", "from_file"))
+    for p in cds:
+        assert (dj / p).read_bytes() == (dt / p).read_bytes()
+
+
+@pytest.mark.parametrize("line", [
+    "free_energy symmetric", "free_energy lc_blue_phase",
+    "isothermal_fluctuations on\ntemperature 0.0001",
+    "porous_media_init simple_cubic\nporous_media_acell 8",
+    "N_LE_plane 2\nLE_plane_vel 0.01"])
+def test_colloids_beside_unported_features_raise(line):
+    """Colloids of the other families, with fluctuations, beside porous
+    media or Lees-Edwards planes raise NotImplementedError naming the
+    key."""
+    key = "colloid_init" if line.startswith("free_energy") else \
+        line.split()[0]
+    text = COLLOID_INPUTS["input_two"] + line + "\n"
+    with pytest.raises(NotImplementedError, match=key):
+        run_text(text, out=io.StringIO(), device="cpu")

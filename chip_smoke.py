@@ -173,8 +173,11 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
  28. the 64^3 N=1000 suspensions of perf_bench.py (passive and squirmers,
      f32, RandomState(3)): ms a step on rebuild and other steps (CUDA
      events), CUDA kernels a step and their device time (torch.profiler),
-     a step of each kind under CUDA's sync debug mode "error" (no host
-     synchronisation), 20 cycles of each through run_text; then chain_sums against its CPU
+     a rebuild step and another from one state on the card against the
+     CPU (COLLOID_TOL, the maps identical), a step of each kind under
+     CUDA's sync debug mode "error" (no host synchronisation), also the
+     CLI's step with its per-step force terms (SYNC_FORCE_KEYS), 20
+     cycles of each through run_text; then chain_sums against its CPU
      twin at the f64 route's largest call.
 
 Bounds: `bound_ms` is the larger of the bytes the function must move
@@ -3412,6 +3415,21 @@ def colloid_floats(log):
     return words, torch.tensor(vals, dtype=torch.float64)
 
 
+def hold_colloid_state(a, b, name):
+    """The card's ColloidState a against the CPU's b: each field within
+    COLLOID_TOL, the maps identical; returns each field's max |diff|."""
+    tol = COLLOID_TOL[a.f.dtype]
+    errs = []
+    for i, what in enumerate(("f", "R", "V", "W", "dr", "Rmap", "M")):
+        if not torch.allclose(a[i].cpu(), b[i], **tol):
+            raise AssertionError(f"{name}: {what} on the card differs from "
+                                 f"the CPU's beyond {tol}")
+        errs.append(max_err(a[i].cpu(), b[i]))
+    if not torch.equal(a.pmap[0].cpu(), b.pmap[0]):
+        raise AssertionError(f"{name}: the maps differ")
+    return errs
+
+
 def phase27():
     phase("27 colloid routes and inputs on the card vs the CPU")
     import tempfile
@@ -3424,14 +3442,7 @@ def phase27():
         chains = _cuda.launches.chain_sums
         b = colloid_chain(name, "cpu")
         tol = COLLOID_TOL[a.f.dtype]
-        errs = []
-        for i, what in enumerate(("f", "R", "V", "W", "dr", "Rmap", "M")):
-            if not torch.allclose(a[i].cpu(), b[i], **tol):
-                raise AssertionError(f"colloids {name}: {what} on the card "
-                                     f"differs from the CPU's beyond {tol}")
-            errs.append(max_err(a[i].cpu(), b[i]))
-        if not torch.equal(a.pmap[0].cpu(), b.pmap[0]):
-            raise AssertionError(f"colloids {name}: the maps differ")
+        errs = hold_colloid_state(a, b, f"colloids {name}")
         ordered = COLLOID_ROUTES[name][5] == "ordered"
         if ordered != (chains > 0):
             raise AssertionError(f"colloids {name}: chain_sums launched "
@@ -3488,8 +3499,8 @@ def phase27():
     return worst, counts
 
 
-def suspension(squirmers):
-    """perf_bench.py:50-66 / :255-266 on the card: 1000 particles of
+def suspension(squirmers, device="cuda"):
+    """perf_bench.py:50-66 / :255-266 on device: 1000 particles of
     radius 2.3 on a jittered 10^3 grid at 64^3, float32, from
     RandomState(3); squirmers b1 = 0.02, b2 = 0.01, random directions."""
     import numpy as np
@@ -3499,7 +3510,7 @@ def suspension(squirmers):
     from ludwig_tpu_torch.lb import initial_rest
     N = SUSPENSION_N
     cfg = LBConfig(size=SUSPENSION_SIZE, nvel=19, eta_shear=0.1,
-                   dtype="float32", device="cuda")
+                   dtype="float32", device=device)
     rng = np.random.RandomState(3)
     kw = dict(a0=(2.3,) * N, ah=(2.3,) * N)
     m = np.tile([1.0, 0.0, 0.0], (N, 1))
@@ -3510,11 +3521,11 @@ def suspension(squirmers):
                   types=("active",) * N)
     g = (np.indices((10, 10, 10)).reshape(3, -1).T + 0.5) * 6.4
     R = g + rng.uniform(-1.0, 1.0, g.shape)
-    Rt = torch.as_tensor(R, dtype=torch.float32, device="cuda")
-    z = torch.zeros((N, 3), dtype=torch.float32, device="cuda")
+    Rt = torch.as_tensor(R, dtype=torch.float32, device=device)
+    z = torch.zeros((N, 3), dtype=torch.float32, device=device)
     state = ColloidState(initial_rest(cfg), Rt, z, z, z, Rt.clone(),
                          torch.as_tensor(m, dtype=torch.float32,
-                                         device="cuda"))
+                                         device=device))
     params = ColloidParams(**kw)
     return make_colloid_step(cfg, params, rebuild_freq=1), state, R, m
 
@@ -3555,6 +3566,13 @@ def phase28(card):
                   f"{key} step: {ms:.4f} ms (CUDA events, 10 steps after 3); "
                   f"{kernels} CUDA kernels a step, {dev_ms} ms of device "
                   f"time (torch.profiler); top {out[key]['top'][:3]}")
+        errs = suspension_parity(squirmers)
+        out["card_vs_cpu_max_abs_diff"] = errs
+        print(f"{name}: a rebuild step and another from the same state on "
+              f"the card and on the CPU agree within "
+              f"{COLLOID_TOL[torch.float32]}, maps identical; max |diff| "
+              f"f {errs[0]:.3e}, R {errs[1]:.3e}, V {errs[2]:.3e}, "
+              f"W {errs[3]:.3e}")
         # no step reads back or copies from the host once its constants
         # are on the card: CUDA's sync debug mode raises on any
         torch.cuda.synchronize()
@@ -3585,6 +3603,18 @@ def phase28(card):
                     "free_energy none\ncolloid_init from_file\n"
                     f"colloid_file_stub {d}/config.cds\nN_cycles 20\n"
                     "freq_statistics 20\n")
+            # the CLI's force terms under the sync debug mode too: the
+            # same particles with dipoles s = m and a hydrodynamic radius
+            # of 1.5, which keeps the pair gaps (r - 2 ah > 1.4) finite
+            for rec in recs:
+                rec["s"], rec["ah"] = list(rec["m"]), 1.5
+            write_colloid_file(f"{d}/forces.cds.init", recs)
+            cli_sync_check(text.replace("config.cds", "forces.cds")
+                           + SYNC_FORCE_KEYS)
+            print(f"{name}: the CLI's step with soft spheres, Yukawa, pair "
+                  "lubrication, gravity and Ewald sums, a rebuild step and "
+                  "another under the sync debug mode: no host "
+                  "synchronisation")
             log = io.StringIO()
             torch.cuda.synchronize()
             _cuda.launches.reset()
@@ -3603,6 +3633,61 @@ def phase28(card):
             print(f"{name} through run_text: 20 cycles, {1e3 * loop:.2f} ms "
                   f"a cycle (the log's time step loop), {wall:.2f} s in all")
     return res, paths
+
+
+def suspension_parity(squirmers):
+    """One rebuild step and one other of the 64^3 suspension from the same
+    state on the card and on the CPU, held to COLLOID_TOL: the map of
+    the first step is built from the same positions on both."""
+    got = {}
+    for device in ("cuda", "cpu"):
+        step, state, _, _ = suspension(squirmers, device)
+        state = step.prepare(state)
+        for rebuild in (True, False):
+            state, _ = step(state, 1, rebuild=rebuild)
+        got[device] = state
+    return hold_colloid_state(got["cuda"], got["cpu"],
+                              "squirmers 64^3" if squirmers
+                              else "suspension 64^3")
+
+
+# every pair term the CLI builds per step, gravity and the dipolar sums
+SYNC_FORCE_KEYS = """soft_sphere_on 1
+soft_sphere_epsilon 0.0004
+soft_sphere_sigma 0.1
+soft_sphere_nu 1.0
+soft_sphere_cutoff 0.25
+yukawa_on 1
+yukawa_epsilon 0.0001
+yukawa_kappa 1.0
+yukawa_cutoff 6.0
+lubrication_on 1
+lubrication_normal_cutoff 0.5
+lubrication_tangential_cutoff 0.25
+colloid_gravity 0.0_0.0_-0.00001
+ewald_sum 1
+ewald_mu 0.03
+colloid_rebuild_freq 2
+"""
+
+
+def cli_sync_check(text):
+    """The CLI's colloid step of text on the card: two steps to put its
+    constants on the device, then a rebuild step and another under
+    CUDA's sync debug mode 'error'."""
+    from ludwig_tpu_torch.ludwig import build_system
+    from ludwig_tpu_torch.runtime import RunTime
+    sys_ = build_system(RunTime(text), "cuda")
+    for t in (1, 2):
+        sys_.state, _ = sys_.step_fn(sys_.state, t)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for t in (3, 4):
+            sys_.state, _ = sys_.step_fn(sys_.state, t)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
 
 
 def chain_sums_timing(card):
@@ -3633,8 +3718,7 @@ def chain_sums_timing(card):
           f"twin {plain_ms:.2f} ms, bitwise; the dependent chain takes "
           f"{chain_ms:.4f} ms at 4 cycles an addition")
     return {"ms": ms, "plain_ms": plain_ms, "nbytes": v.numel() * 8 + 16
-            * s.numel(), "nops": v.numel(), "max_abs_err": 0.0,
-            "chain_ms": chain_ms}
+            * s.numel(), "nops": v.numel(), "max_abs_err": 0.0}
 
 
 def main():
@@ -3787,8 +3871,7 @@ def main():
             kernels[-1].update(sheared=t["sheared"])
         if "suspensions" in t:  # phase 28: the colloid cells (no kernel
             # of theirs: their float32 route is PyTorch)
-            kernels[-1].update(chain_ms=t["chain_ms"],
-                               suspensions=t["suspensions"])
+            kernels[-1].update(suspensions=t["suspensions"])
         if "wall_step_ms" in t:   # the wall and LE steps around the kernel
             kernels[-1].update({k: t[k] for k in (
                 "wall_step_ms", "wall_post_ms", "le_step_ms", "le_post_ms",

@@ -30,7 +30,8 @@ from ludwig_tpu_torch.colloids import (RCS2, ColloidParams, _active_arrays,
                                        _ftensor, _lengths, _min_image,
                                        _on_device,
                                        _squirm, _walled_faces, link_tables,
-                                       rotate_vector, site_coords, solve6)
+                                       rotate_vector, rr_replacement_field,
+                                       site_coords, solve6)
 from ludwig_tpu_torch.lattice import LatticeModel
 from ludwig_tpu_torch.ops.collide import unrolled_matvec
 
@@ -67,16 +68,7 @@ def remove_replace_fast(f, R, inside_old, pid_old, inside_new, pid_new,
     dt = f.dtype
     covered = inside_new & ~inside_old
     uncovered = inside_old & ~inside_new
-    fluid_old = ~inside_old
-    wsum = 0.0
-    newf = torch.zeros_like(f)
-    for p in range(1, model.nvel):
-        shift = tuple(-int(v) for v in model.cv[p])
-        w = float(model.wv[p])
-        m = torch.roll(fluid_old, shift, (0, 1, 2)).to(dt)
-        wsum = wsum + w * m
-        newf = newf + (w * m[None]) * torch.roll(f, shift, (1, 2, 3))
-    newf = newf / torch.clamp(wsum, min=1e-30)[None]
+    newf, _ = rr_replacement_field(f, inside_old, model)
     cvt = model.cv.T.astype(np.float64)
     rho_f = sum(f[q] for q in range(model.nvel))
     g_f = unrolled_matvec(cvt, [f[q] for q in range(model.nvel)])

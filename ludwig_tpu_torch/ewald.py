@@ -11,8 +11,12 @@ once.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+
+from ludwig_tpu_torch.colloids import _ftensor
 
 
 def ewald_params(mu: float, rc: float, size):
@@ -33,8 +37,7 @@ def real_space(R, S, mu, rc, size):
     N = R.shape[0]
     kappa = 5.0 / (2.0 * rc)
     rpi = 1.0 / np.sqrt(np.pi)
-    L = torch.as_tensor(np.array(size, np.float64), dtype=R.dtype,
-                        device=R.device)
+    L = _ftensor(size, R)
     r12 = R[:, None, :] - R[None, :, :]            # R_i - R_j
     r12 = r12 - L * torch.round(r12 / L)
     r2 = torch.sum(r12 * r12, dim=-1)
@@ -61,14 +64,12 @@ def real_space(R, S, mu, rc, size):
     return energy, F, -torch.linalg.cross(S, g)
 
 
-def fourier_space(R, S, mu, rc, size):
-    """(energy, F (N, 3), T (N, 3)): the reciprocal sum (ref:
-    ewald_fourier_space_sum; kz >= 0 half-space with doubling)."""
-    kappa, nk, kmax = ewald_params(mu, rc, size)
-    L = np.array(size, np.float64)
-    fk = 2.0 * np.pi / L
-    b0 = (4.0 * np.pi / (L[0] * L[1] * L[2])) * mu * mu
-    r4k = 1.0 / (4.0 * kappa * kappa)
+@functools.lru_cache(maxsize=8)
+def _wavevectors(rc: float, size):
+    """(k (K, 3), weight (K,)): the retained wavevectors of the kz >= 0
+    half-space, those of kz > 0 counted twice."""
+    _, nk, kmax = ewald_params(1.0, rc, size)
+    fk = 2.0 * np.pi / np.array(size, np.float64)
     ks, wt = [], []
     for kz in range(0, nk + 1):
         for ky in range(-nk, nk + 1):
@@ -79,8 +80,18 @@ def fourier_space(R, S, mu, rc, size):
                     continue
                 ks.append(k)
                 wt.append(2.0 if kz > 0 else 1.0)
-    k = torch.as_tensor(np.array(ks), dtype=R.dtype, device=R.device)
-    wt = torch.as_tensor(np.array(wt), dtype=R.dtype, device=R.device)
+    return np.array(ks), np.array(wt)
+
+
+def fourier_space(R, S, mu, rc, size):
+    """(energy, F (N, 3), T (N, 3)): the reciprocal sum (ref:
+    ewald_fourier_space_sum; kz >= 0 half-space with doubling)."""
+    kappa = 5.0 / (2.0 * rc)
+    L = np.array(size, np.float64)
+    b0 = (4.0 * np.pi / (L[0] * L[1] * L[2])) * mu * mu
+    r4k = 1.0 / (4.0 * kappa * kappa)
+    ks, wt = _wavevectors(float(rc), tuple(size))
+    k, wt = _ftensor(ks, R), _ftensor(wt, R)
     ksq = torch.sum(k * k, dim=1)
     b = b0 * torch.exp(-r4k * ksq) / ksq * wt                     # (K,)
     kr = torch.einsum("ka,na->kn", k, R)

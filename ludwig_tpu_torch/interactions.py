@@ -16,15 +16,12 @@ import math
 import numpy as np
 import torch
 
-
-def _box(box, R: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(np.array(box, np.float64), dtype=R.dtype,
-                           device=R.device)
+from ludwig_tpu_torch.colloids import _ftensor, _on_device
 
 
 def pair_separations(R: torch.Tensor, box) -> torch.Tensor:
     """r12[i, j] = R_j - R_i with minimum image; (N, N, 3)."""
-    L = _box(box, R)
+    L = _ftensor(box, R)
     d = R[None, :, :] - R[:, None, :]
     return d - L * torch.round(d / L)
 
@@ -58,8 +55,11 @@ def _pair_force(act, fmod, r12, r):
 
 
 def _tensor(a, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a, np.float64), dtype=like.dtype,
-                           device=like.device)
+    """a in like's dtype on its device: a tensor as it is, host values
+    copied once (_ftensor)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dtype=like.dtype, device=like.device)
+    return _ftensor(a, like)
 
 
 def soft_sphere_forces(R, ah, box, epsilon: float, sigma: float, nu: float,
@@ -163,9 +163,9 @@ def fene_bond_forces(R, box, bonds: np.ndarray, kappa: float, r0: float):
     out = torch.zeros_like(R)
     if len(bonds) == 0:
         return out
-    L = _box(box, R)
-    i = torch.as_tensor(np.asarray(bonds)[:, 0], device=R.device)
-    j = torch.as_tensor(np.asarray(bonds)[:, 1], device=R.device)
+    L = _ftensor(box, R)
+    i = _on_device(np.asarray(bonds)[:, 0], R.device)
+    j = _on_device(np.asarray(bonds)[:, 1], R.device)
     d = R[j] - R[i]
     d = d - L * torch.round(d / L)
     r2 = _dot3(d, d)
@@ -181,8 +181,8 @@ def angle_cosine_forces(R, box, angles: np.ndarray, kappa: float):
     out = torch.zeros_like(R)
     if len(angles) == 0:
         return out
-    L = _box(box, R)
-    i, j, k = (torch.as_tensor(np.asarray(angles)[:, c], device=R.device)
+    L = _ftensor(box, R)
+    i, j, k = (_on_device(np.asarray(angles)[:, c], R.device)
                for c in range(3))
     r_ij = R[i] - R[j]
     r_kj = R[k] - R[j]

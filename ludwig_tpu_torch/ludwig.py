@@ -1235,7 +1235,7 @@ def _parse_colloids(rt: RunTime, size, rho0: float, eta: float,
         a0=tuple(a0), ah=tuple(ah), rho0=rho0, gravity=grav,
         b1=tuple(b1), b2=tuple(b2), m=tuple(mm), types=tuple(typ),
         isfixedr=tuple(fixedr), bonds=tuple(bonds), angles=tuple(angles))
-    terms = _force_terms(rt, size, eta, cparams, ss, itypes)
+    terms = _force_terms(rt, lb_cfg, size, eta, cparams, ss, itypes)
     force_fn = torque_fn = None
     if terms:
         def force_fn(R, V):
@@ -1280,13 +1280,19 @@ def _parse_colloids(rt: RunTime, size, rho0: float, eta: float,
                 al=al, force_fn=force_fn, torque_fn=torque_fn)
 
 
-def _force_terms(rt: RunTime, size, eta: float, cp: ColloidParams, ss,
-                 itypes):
+def _force_terms(rt: RunTime, lb_cfg: LBConfig, size, eta: float,
+                 cp: ColloidParams, ss, itypes):
     """The per-particle force callbacks (R, V) -> (N, 3) of the pair,
     bond, angle, driving and lubrication keys (ludwig_tpu ludwig.py:
-    491-575), in the JAX package's order."""
+    491-575), in the JAX package's order.  Their constants go to the
+    device here, once, so that no step copies from the host."""
     nc = cp.n
-    ah = cp.ah
+
+    def dev(a):
+        return torch.as_tensor(np.asarray(a, np.float64),
+                               dtype=lb_cfg.tdtype, device=lb_cfg.device)
+
+    ah = dev(cp.ah)
     terms = []
     if rt.int("angle_cosine_on", 0) and cp.angles:
         ak = rt.double_required("angle_cosine_k")
@@ -1318,6 +1324,7 @@ def _force_terms(rt: RunTime, size, eta: float, cp: ColloidParams, ss,
         pp = [m[np.ix_(it, it)] for m in (eps_m, sig_m, nu_m, hc_m)]
         pp[1] = np.where(pp[1] == 0.0, 1.0, pp[1])    # finite where eps = 0
         pp[3] = np.where(pp[3] == 0.0, 1.0, pp[3])
+        pp = [dev(m) for m in pp]
         terms.append(lambda R, V: interactions.soft_sphere_ij_forces(
             R, ah, size, *pp)[0])
     if rt.int("soft_sphere_on", 0) and nc > 1:
@@ -1339,10 +1346,9 @@ def _force_terms(rt: RunTime, size, eta: float, cp: ColloidParams, ss,
     f0_driven = rt.double("driving_force_magnitude", 0.0)
     if f0_driven != 0.0:
         # a constant force along each particle's s (ref: driven_colloid.c)
-        s_arr = np.array(list(ss) + [(0.0, 0.0, 0.0)] * (nc - len(ss)),
-                         np.float64)
-        terms.append(lambda R, V: f0_driven * torch.as_tensor(
-            s_arr, dtype=R.dtype, device=R.device))
+        s_drive = f0_driven * dev(list(ss) + [(0.0, 0.0, 0.0)]
+                                  * (nc - len(ss)))
+        terms.append(lambda R, V: s_drive)
     if rt.int("lubrication_on", 0) and nc > 1:
         rcn = rt.double("lubrication_normal_cutoff", 0.0)
         rct = rt.double("lubrication_tangential_cutoff", 0.0)

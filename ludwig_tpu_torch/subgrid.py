@@ -15,7 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ludwig_tpu_torch.colloids import _lengths, _min_image, site_coords
+from ludwig_tpu_torch.colloids import (_ftensor, _lengths, _min_image,
+                                       site_coords)
 from ludwig_tpu_torch.ops.collide import collide
 from ludwig_tpu_torch.ops.stream import stream
 
@@ -56,8 +57,7 @@ def subgrid_update(R, F, u, size, ah, al, eta: float):
     """(positions moved by v, v = u(R) + drag F) with the local drag
     correction (1/ah - 1/al) / (6 pi eta) (ref: subgrid.c:257)."""
     us = interpolate_velocity(u, R, size)
-    ah = torch.as_tensor(ah, dtype=R.dtype, device=R.device)
-    al = torch.as_tensor(al, dtype=R.dtype, device=R.device)
+    ah, al = _ftensor(ah, R), _ftensor(al, R)
     drag = (1.0 / ah - 1.0 / al) / (6.0 * np.pi * eta)
     v = us + drag[:, None] * F
     return torch.remainder(R + v, _lengths(size, R)), v
@@ -85,8 +85,7 @@ def make_subgrid_step(cfg, params, al, force_fn=None):
         del t, rebuild          # no rebuild: subgrid particles have no map
         f, R, V = state[0], state[1], state[2]
         R = torch.remainder(R + V, _lengths(size, R))
-        grav = torch.as_tensor(np.array(params.gravity, np.float64),
-                               dtype=R.dtype, device=R.device)
+        grav = _ftensor(params.gravity, R)
         F = grav[None].expand(params.n, 3)
         if force_fn is not None:
             F = F + force_fn(R, V).to(F.dtype)

@@ -178,7 +178,26 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      CUDA's sync debug mode "error" (no host synchronisation), also the
      CLI's step with its per-step force terms (SYNC_FORCE_KEYS), 20
      cycles of each through run_text; then chain_sums against its CPU
-     twin at the f64 route's largest call.
+     twin at the f64 route's largest call;
+ 29. the binary fluid's boundary and option routes (BINARY_ROUTES: halo
+     walls with the 27-point wetting stencil and the 7-point one, porous
+     media with per-site wetting, the phi-grad-mu force with grad_mu,
+     Arrhenius viscosity with order-3 advection, `hydrodynamics off`, the
+     KISS phi and rho noise alone and beside walls, the open x boundary,
+     Lees-Edwards planes with 27-point gradients and the LB's noise) on
+     the card against the CPU, 3 chained steps from a random 16x16x32
+     state in f64 and f32 (TOL; the KISS states bitwise); the inputs
+     BINARY_ROUTE_INPUTS in f64 through run_text on both (rtol 1e-9, atol
+     1e-11, the lines equal but the floats); a walls + noise restart on
+     the card that prints the straight log as text;
+ 30. at full width in f32: phase 8's 256^3 spinodal binary with
+     `boundary_walls 0_0_1` and the 27-point wetting stencil, a 128^3
+     porous binary read from a status_with_c_h map and a 128^3
+     symmetric_noise run with the LB's fluctuations, each for 20 cycles
+     through run_text ([phi] total conserved, the [walls] row where walls
+     exist), ms a step (CUDA events), CUDA kernels a step and their device
+     time (torch.profiler), and one step under CUDA's sync debug mode
+     "error"; their reference statistics launch the stats_ref scans.
 
 Bounds: `bound_ms` is the larger of the bytes the function must move
 (each input read once, each output written once) over the H100 SXM's
@@ -3721,6 +3740,352 @@ def chain_sums_timing(card):
             * s.numel(), "nops": v.numel(), "max_abs_err": 0.0}
 
 
+# -- the binary fluid's boundaries and options (phases 29-30) ------------------
+
+BINARY_ROUTE_SIZE = (16, 16, 32)
+BINARY_KT = 2e-5
+# name -> (BinaryConfig changes, noise (phi, rho) or None, halo walls,
+# porous, kind): kind "step" binary.make_binary_step, "open" the open x
+# boundary beside walls, "le" two Lees-Edwards planes
+BINARY_ROUTES = {
+    "walls 0_0_1 27pt solid": (dict(gradient="3d_27pt_solid",
+                                    wetting=(0.02, -0.001)), None,
+                               (False, False, True), False, "step"),
+    "walls 1_1_0": ({}, None, (True, True, False), False, "step"),
+    "porous 27pt per-site wetting": (dict(gradient="3d_27pt_solid",
+                                          wetting="map"), None, None, True,
+                                     "step"),
+    "porous 7pt solid": (dict(gradient="3d_7pt_solid", wetting=(0.01, 0.0)),
+                         None, None, True, "step"),
+    "phi_gradmu grad_mu porous": (dict(force_method="phi_gradmu",
+                                       gradmu_ex=(1e-4, 0.0, -2e-4)), None,
+                                  None, True, "step"),
+    "arrhenius order 3": (dict(visc="arrhenius", advection_order=3), None,
+                          None, False, "step"),
+    "hydrodynamics off order 5": (dict(hydrodynamics=False,
+                                       advection_order=5), None, None,
+                                  False, "step"),
+    "kiss phi rho": ({}, (True, True), None, False, "step"),
+    "kiss walls 0_1_0": ({}, (True, True), (False, True, False), False,
+                         "step"),
+    "open x walls 0_1_1": (dict(advection_order=2), None,
+                           (False, True, True), False, "open"),
+    "le 27pt order 3 kiss": (dict(gradient="3d_27pt_fluid",
+                                  advection_order=3), (False, True), None,
+                             False, "le"),
+}
+
+
+def binary_route(name, dtype, device, size=BINARY_ROUTE_SIZE):
+    """(step, state) of a BINARY_ROUTES route at `size` on `device`: the
+    state from numpy seeds (phi spinodal-like, u random, f perturbed), so
+    the card and the CPU start from the same bits."""
+    import numpy as np
+
+    from ludwig_tpu_torch import binary, binary_le
+    from ludwig_tpu_torch.noise import NoiseConfig
+    from ludwig_tpu_torch.ops.lees_edwards import LeesEdwardsConfig
+    from ludwig_tpu_torch.ops.open_bc import OpenBCConfig
+    from ludwig_tpu_torch.ops.walls import WallSpec
+    from ludwig_tpu_torch.visc import ViscArrhenius
+    bch, nz, walls, porous, kind = BINARY_ROUTES[name]
+    bch = dict(bch)
+    rng = np.random.default_rng(29)
+    nzc = (None if nz is None else
+           NoiseConfig(kt=BINARY_KT, phi=nz[0], rho=nz[1]))
+    lb = LBConfig(size=size, nvel=19, eta_shear=0.00625, dtype=dtype,
+                  device=device, noise=nzc)
+    tdt = lb.tdtype
+    if bch.pop("visc", None):
+        bch["visc_model"] = ViscArrhenius(0.01, 0.004)
+    solid = None
+    if porous:
+        m = rng.random(size) < 0.1
+        m[0] = True
+        solid = torch.as_tensor(m, device=device)
+    if bch.get("wetting") == "map":
+        bch["wetting"] = tuple(torch.as_tensor(a, dtype=tdt, device=device)
+                               for a in (0.01 * rng.random(size),
+                                         0.002 * rng.standard_normal(size)))
+    cfg = binary.BinaryConfig(lb=lb, fe=FE, mobility=MOBILITY, **bch)
+    phi0 = 0.05 * rng.standard_normal(size)
+    state = list(binary.initial_binary(cfg, phi0, walls=walls is not None))
+    w = np.asarray(lb.model.wv)[:, None, None, None]
+    state[0] = torch.as_tensor(
+        w * (1.0 + 0.05 * rng.standard_normal((19,) + size)), dtype=tdt,
+        device=device)
+    state[2] = torch.as_tensor(0.01 * rng.standard_normal((3,) + size),
+                               dtype=tdt, device=device)
+    ws = None if walls is None else WallSpec(walls=walls)
+    if kind == "open":
+        step = binary.make_binary_open_step(
+            cfg, ws, OpenBCConfig(u0=(1e-3, 0.0, 0.0)), -0.8)
+    elif kind == "le":
+        le = LeesEdwardsConfig(nplanes=2, uy=0.04, nx=size[0])
+        step = binary_le.make_binary_le_step(
+            binary_le.BinaryLEConfig(binary=cfg, le=le))
+    else:
+        step = binary.make_binary_step(cfg, solid=solid, wallspec=ws)
+    return step, tuple(state)
+
+
+def hold_binary_states(what, a, b, walls=None):
+    """The card's state a against the CPU's b: float leaves within TOL,
+    the KISS states (int64) bitwise, gwall (leaf 3 where there are halo
+    walls, a sum of terms in another order on the card) at TOL's rtol of
+    its terms' summed size (check_gwall); returns the max |diff| of the
+    fields."""
+    worst = 0.0
+    for k, (x, y) in enumerate(zip(a, b)):
+        x = x.cpu()
+        if y.dtype == torch.int64:
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: KISS state {k} differs")
+            continue
+        if walls is not None and k == 3:
+            check_gwall(f"{what} gwall", x, y, y.dtype,
+                        wall_scale(b[0], walls, 3))
+            continue
+        if not torch.allclose(x, y, **TOL[y.dtype]):
+            raise AssertionError(f"{what}: leaf {k} differs by "
+                                 f"{max_err(x, y):.3e} beyond {TOL[y.dtype]}")
+        worst = max(worst, max_err(x, y))
+    return worst
+
+
+BINARY_SMALL = """
+N_cycles 4
+size 8_8_16
+viscosity 0.00625
+free_energy symmetric
+A -0.00625
+B 0.00625
+K 0.004
+phi0 0.0
+phi_initialisation spinodal
+mobility 1.25
+fd_gradient_calculation 3d_7pt_fluid
+fd_advection_scheme_order 2
+periodicity 1_1_1
+freq_statistics 2
+random_seed 8361235
+"""
+BINARY_S27 = BINARY_SMALL.replace("3d_7pt_fluid", "3d_27pt_solid")
+BINARY_NOISE_KEYS = ("temperature 0.00002\nisothermal_fluctuations on\n"
+                     "fd_phi_fluctuations 1\n")
+# the binary route inputs of tests/test_torch_binary_cli.py (the 3-D ones)
+# and a walls + noise input the JAX package's builder does not run
+BINARY_ROUTE_INPUTS = {
+    "walls_0_0_1": BINARY_S27 + "boundary_walls 0_0_1\n",
+    "walls_1_1_0": BINARY_SMALL + "boundary_walls 1_1_0\n",
+    "porous_c_h": BINARY_S27 + "porous_media_file @DIR@/capillary\n"
+                               "porous_media_type status_with_c_h\n",
+    "open_x_walls": BINARY_SMALL + "boundary_walls 0_1_1\nlb_bc_open 1\n"
+                                   "lb_bc_inflow_rhou_u0 0.001_0_0\n"
+                                   "phi_bc_inflow_fixed_phib -0.5\n",
+    "phi_gradmu_grad_mu": BINARY_SMALL + "fe_force_method phi_gradmu\n"
+                                         "grad_mu 0.0001_0_-0.0002\n",
+    "arrhenius": BINARY_SMALL + "viscosity_model arrhenius\n"
+                                "viscosity_arrhenius_eta_minus 0.01\n"
+                                "viscosity_arrhenius_eta_plus 0.004\n",
+    "hydrodynamics_off": BINARY_SMALL.replace(
+        "fd_advection_scheme_order 2", "fd_advection_scheme_order 4")
+    + "hydrodynamics off\n",
+    "kiss_noise": BINARY_SMALL.replace("free_energy symmetric",
+                                       "free_energy symmetric_noise")
+    + BINARY_NOISE_KEYS,
+    "le_27pt": BINARY_SMALL.replace("size 8_8_16", "size 16_8_16").replace(
+        "3d_7pt_fluid", "3d_27pt_fluid") + "N_LE_plane 2\n"
+                                           "LE_plane_vel 0.01\n",
+    "walls_kiss_noise": BINARY_S27.replace(
+        "free_energy symmetric", "free_energy symmetric_noise")
+    + BINARY_NOISE_KEYS + "boundary_walls 0_1_0\n",
+}
+
+
+def write_porous_map(path, size, seed=7):
+    """A status_with_c_h map file at `size` from a numpy seed: scattered
+    solid sites, a solid column along z, per-site C and H."""
+    import numpy as np
+
+    from ludwig_tpu_torch.io.map_file import write_map
+    rng = np.random.default_rng(seed)
+    status = (rng.random(size) < 0.08).astype(np.int8)
+    status[2:4, 2:4, :] = 1
+    data = np.stack([0.01 * rng.random(size),
+                     0.002 * rng.standard_normal(size)])
+    write_map(path, status, data)
+
+
+def phase29():
+    phase("29 binary boundaries and options on the card vs the CPU")
+    import tempfile
+    worst = 0.0
+    for name in BINARY_ROUTES:
+        for dtype in ("float64", "float32"):
+            got = {}
+            for device in ("cuda", "cpu"):
+                step, state = binary_route(name, dtype, device)
+                for t in range(1, 4):
+                    state, _ = step(state, t)
+                got[device] = state
+            err = hold_binary_states(f"binary {name} {dtype}",
+                                     got["cuda"], got["cpu"],
+                                     BINARY_ROUTES[name][2])
+            if dtype == "float64":
+                worst = max(worst, err)
+            print(f"binary {name} {dtype}: 3 steps at 16x16x32 on the card "
+                  f"against the CPU within {TOL[getattr(torch, dtype)]}, "
+                  f"max |diff| {err:.3e}"
+                  + (", KISS states bitwise" if BINARY_ROUTES[name][1]
+                     else ""))
+    with tempfile.TemporaryDirectory() as d:
+        write_porous_map(f"{d}/capillary.001-001", (8, 8, 16))
+        for name, text in BINARY_ROUTE_INPUTS.items():
+            text = "dtype float64\n" + text.replace("@DIR@", d)
+            logs = {}
+            for device in ("cuda", "cpu"):
+                out = io.StringIO()
+                run_text(text, out=out, device=device)
+                logs[device] = out.getvalue()
+            (wa, a), (wb, b) = (colloid_floats(logs[k])
+                                for k in ("cuda", "cpu"))
+            if (wa != wb or a.numel() == 0
+                    or not torch.allclose(a, b, rtol=1e-9, atol=1e-11)):
+                raise AssertionError(f"binary input {name}: the card's log "
+                                     "differs from the CPU's")
+            print(f"binary input {name} f64 through run_text: {a.numel()} "
+                  f"floats on the card agree with the CPU's (rtol 1e-9, "
+                  f"atol 1e-11), max |diff| {float((a - b).abs().max()):.3e}"
+                  + (", [walls] rows" if "[walls   ]" in logs["cuda"]
+                     else ""))
+        # a restart on the card: steps 3-4 from the step-2 checkpoint (the
+        # KISS states and gwall ride) print the straight run's log
+        text = ("dtype float64\nfreq_statistics 1\n"
+                + BINARY_ROUTE_INPUTS["walls_kiss_noise"]
+                + f"io_directory {d}/r\n")
+        straight, rest = io.StringIO(), io.StringIO()
+        run_text(text, out=straight, device="cuda")
+        run_text(text.replace("N_cycles 4", "N_cycles 2")
+                 + "config_at_end yes\n", out=io.StringIO(), device="cuda")
+        run_text(text.replace("N_cycles 4", "N_cycles 2") + "N_start 2\n",
+                 out=rest, device="cuda")
+        want = straight.getvalue()
+        want = want[want.index("\n", want.index("Completed cycle 2\n")) + 1:]
+        got = rest.getvalue()
+        got = got[got.index("\n", got.index("Starting time step loop.")) + 1:]
+        if want.split("\nTimer")[0] != got.split("\nTimer")[0]:
+            raise AssertionError("binary walls + noise restart at 2: the "
+                                 "restarted log is not the straight log")
+    print("binary walls + noise f64 on the card: the restart from step 2 "
+          "prints the straight log's steps 3-4 as text")
+    return worst
+
+
+BINARY_CELL_CYCLES = 20
+BINARY_WALL_INPUT = (BINARY_INPUT.replace("3d_7pt_fluid", "3d_27pt_solid")
+                     .replace("freq_statistics 10",
+                              f"freq_statistics {BINARY_CELL_CYCLES}")
+                     + "boundary_walls 0_0_1\n")
+BINARY_128 = (BINARY_INPUT.replace("size 256_256_256", "size 128_128_128")
+              .replace("freq_statistics 10",
+                       f"freq_statistics {BINARY_CELL_CYCLES}"))
+BINARY_POROUS_INPUT = (BINARY_128.replace("3d_7pt_fluid", "3d_27pt_solid")
+                       + "porous_media_file @DIR@/capillary\n"
+                         "porous_media_type status_with_c_h\n")
+BINARY_NOISE_INPUT = (BINARY_128.replace("free_energy symmetric",
+                                         "free_energy symmetric_noise")
+                      + BINARY_NOISE_KEYS)
+BINARY_CELLS = {"binary walls 0_0_1 27pt 256^3": BINARY_WALL_INPUT,
+                "binary porous c_h 27pt 128^3": BINARY_POROUS_INPUT,
+                "binary symmetric_noise 128^3": BINARY_NOISE_INPUT}
+
+
+def phase30(card):
+    phase(f"30 binary walls, porous media and noise at full width f32 on "
+          f"{card}")
+    import tempfile
+
+    from ludwig_tpu_torch.ludwig import build_system
+    from ludwig_tpu_torch.runtime import RunTime
+    res, paths = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        write_porous_map(f"{d}/capillary.001-001", (128, 128, 128))
+        for label, text in BINARY_CELLS.items():
+            text = text.replace("@DIR@", d)
+            torch.cuda.synchronize()
+            _cuda.launches.reset()
+            log = io.StringIO()
+            t0 = time.perf_counter()
+            sys_ = run_text(text, out=log, device="cuda")
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            paths[label] = stat_scan_counts()
+            out = log.getvalue()
+            if (f"Completed cycle {BINARY_CELL_CYCLES}" not in out
+                    or sys_.fused_mode is not None):
+                raise AssertionError(f"{label}: route {sys_.fused_mode}, "
+                                     "cycles incomplete")
+            if not all(torch.isfinite(x).all() for x in sys_.state
+                       if x.is_floating_point()):
+                raise AssertionError(f"{label}: the state is not finite")
+            phis = [float(v) for v in re.findall(r"\[phi\]\s+(\S+)", out)]
+            scale = 1e-6 * float(sys_.state[1].double().abs().sum())
+            if len(phis) != 2 or max(phis) - min(phis) > scale:
+                raise AssertionError(f"{label}: [phi] totals {phis} not "
+                                     f"conserved within {scale:.3e}")
+            walls = re.findall(r"\[walls   \]\s+(\S+)\s+(\S+)\s+(\S+)", out)
+            if (sys_.wallspec is not None) != (len(walls) == 2):
+                raise AssertionError(f"{label}: [walls] rows {walls}")
+            del sys_
+            # the step alone: ms (CUDA events), kernels and device time
+            # (torch.profiler), one step under the sync debug mode
+            sys_ = build_system(RunTime(text), "cuda")
+            holder = {"s": sys_.state, "t": 1}
+
+            def run():
+                holder["s"], _ = sys_.step_fn(holder["s"], holder["t"])
+                holder["t"] += 1
+
+            ms = time_ms(run, 5, warm=2)
+            kernels, dev_ms, top = post_profile(run, reps=2)
+            reps = 2
+            if kernels is None:
+                # two steps' events overflowed the trace: count one step
+                # (a drop there would go unseen)
+                kernels, dev_ms, top = post_profile(run, reps=1)
+                reps = 1
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                run()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            nsite = math.prod(sys_.lb_cfg.size)
+            res[label] = {"ms": ms, "mlups": nsite / (ms * 1e3),
+                          "kernels": kernels, "device_ms": dev_ms,
+                          "profiled_steps": reps,
+                          "run_text_s": wall_s, "phi_totals": phis,
+                          "walls": walls,
+                          "top": [(k[:60], c, round(t, 4))
+                                  for k, c, t in top]}
+            print(f"{label} f32: {ms:.3f} ms a step (CUDA events, 5 steps "
+                  f"after 2), {nsite / (ms * 1e3):.1f} MLUPS, "
+                  f"{kernels} CUDA kernels a step, {dev_ms} ms of them on "
+                  f"the device (torch.profiler, {reps} step(s)); one step "
+                  f"under the sync "
+                  f"debug mode 'error': no host synchronisation; run_text "
+                  f"x {BINARY_CELL_CYCLES} cycles {wall_s:.2f} s, [phi] "
+                  f"totals {phis}, [walls] {walls}, scans {paths[label]} "
+                  f"[{card}]")
+            for key, count, k_ms in top[:3]:
+                print(f"    {k_ms:.4f} ms device, {count:.0f} a step: "
+                      f"{key[:90]}")
+            del sys_, holder
+    return res, paths
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -3809,6 +4174,10 @@ def main():
     timed["chain_sums"] = chain_sums_timing(card)
     timed["chain_sums"]["suspensions"] = suspensions
     worst["chain_sums"] = colloid_err
+    binary_worst = phase29()
+    binary_cells, binary_paths = phase30(card)
+    by_path.update(binary_paths)
+    timed["momentum_total_ref"]["binary_cells"] = binary_cells
     for name in STAT_SCANS:
         worst[name] = 0.0        # held bitwise in phases 19 and 21
     print(f"all phases passed ({time.perf_counter() - _T0:.1f} s)")
@@ -3872,6 +4241,11 @@ def main():
         if "suspensions" in t:  # phase 28: the colloid cells (no kernel
             # of theirs: their float32 route is PyTorch)
             kernels[-1].update(suspensions=t["suspensions"])
+        if "binary_cells" in t:  # phase 30: the binary boundary cells (no
+            # kernel of theirs: their route is PyTorch; their statistics
+            # launch the scans)
+            kernels[-1].update(binary_cells=t["binary_cells"],
+                               binary_routes_f64_max_abs_diff=binary_worst)
         if "wall_step_ms" in t:   # the wall and LE steps around the kernel
             kernels[-1].update({k: t[k] for k in (
                 "wall_step_ms", "wall_post_ms", "le_step_ms", "le_post_ms",

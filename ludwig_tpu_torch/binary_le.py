@@ -18,8 +18,10 @@ Two forms, both written over all planes at once (ops/le_ref.py):
                              plain-periodic outputs of the fused kernels
                              (ops/fused_binary.py) into the sheared ones.
 
-The Brazovskii free energy and the KISS fluctuations of the JAX step are
-not ported yet and raise, naming them.
+The 7- and 27-point gradients and advection orders 1-5 run on the
+unfused step, with the LB's KISS fluctuations where they are on (the
+state then carries the per-site KISS state after u).  The Brazovskii
+free energy of the JAX step is not ported yet and raises, naming it.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import dataclasses
 import torch
 
 from ludwig_tpu_torch.binary import BinaryConfig
+from ludwig_tpu_torch.lb import _noise_terms, kiss_on
 from ludwig_tpu_torch.ops.collide import collide
 from ludwig_tpu_torch.ops.le_ref import (ADV_STENCIL, LEContext, col_grad7,
                                          face_slab, le_buffer_fields,
@@ -52,10 +55,6 @@ def _check(cfg: BinaryLEConfig):
         raise NotImplementedError(
             "the sheared Brazovskii free energy (fourth-order LE fields) is "
             "not ported yet, see ROADMAP")
-    if cfg.binary.lb.noise is not None:
-        raise NotImplementedError(
-            "isothermal fluctuations of the sheared binary fluid (the KISS "
-            "noise branch) are not ported yet, see ROADMAP")
 
 
 def le_cahn_hilliard(phi, mu, u, ctx: LEContext, mobility: float,
@@ -116,16 +115,21 @@ def le_cahn_hilliard(phi, mu, u, ctx: LEContext, mobility: float,
 
 
 def make_binary_le_step(cfg: BinaryLEConfig, keep_grads: bool = False):
-    """Sheared binary step: ((f, phi, u[, grad, delsq]), t=0) -> (state',
-    rho).  keep_grads carries the LE-aware gradients of the step's
-    pre-update phi at the tail of the state, for the statistics and the
-    checkpoint (the reference's stale-gradient convention)."""
+    """Sheared binary step: ((f, phi, u[, nstate][, grad, delsq]), t=0) ->
+    (state', rho).  nstate, the per-site KISS state, rides with the LB's
+    isothermal fluctuations (the f-collision then takes the KISS stress
+    and ghost noise, ref: collision.c noise branch); keep_grads carries
+    the LE-aware gradients of the step's pre-update phi at the tail of
+    the state, for the statistics and the checkpoint (the reference's
+    stale-gradient convention)."""
     _check(cfg)
     bcfg = cfg.binary
     params = bcfg.lb.collision_params()
     model = bcfg.lb.model
     le = cfg.le
     fe = bcfg.fe
+    gradient = bcfg.gradient
+    kiss_rho = kiss_on(bcfg.lb)
 
     def mu_of(phi0, delsq0):
         return fe.mu({"phi": phi0, "delsq_phi": delsq0})
@@ -137,13 +141,13 @@ def make_binary_le_step(cfg: BinaryLEConfig, keep_grads: bool = False):
     def step(state, t=0):
         f, phi, u = state[:3]
         ctx = LEContext(le, t, phi)
-        grad, delsq = le_gradient(phi, le, t)
+        grad, delsq = le_gradient(phi, le, t, gradient)
         mu = mu_of(phi, delsq)
         pth = pth_of(phi, grad, delsq)
         # the buffer-frame columns: looking up from the lower frame
         # (above each plane), looking down from the upper one
-        pb1, grad_b1, dsq_b1 = le_buffer_fields(phi, ctx, True)
-        pd0, grad_d0, dsq_d0 = le_buffer_fields(phi, ctx, False)
+        pb1, grad_b1, dsq_b1 = le_buffer_fields(phi, ctx, True, gradient)
+        pd0, grad_d0, dsq_d0 = le_buffer_fields(phi, ctx, False, gradient)
 
         phi_new = le_cahn_hilliard(phi, mu, u, ctx, bcfg.mobility,
                                    bcfg.advection_order, mu_of(pb1, dsq_b1),
@@ -153,9 +157,17 @@ def make_binary_le_step(cfg: BinaryLEConfig, keep_grads: bool = False):
                                 pth_of(pd0, grad_d0, dsq_d0), ctx,
                                 area).to(f.dtype)
 
-        f, rho, u_new = collide(f, params, force=force)
+        if kiss_rho:
+            shat, ghat, nstate = _noise_terms(bcfg.lb, params, t,
+                                              nstate=state[3])
+        else:
+            shat = ghat = None
+        f, rho, u_new = collide(f, params, force=force, shat=shat,
+                                ghat=ghat)
         f = stream(apply_lb_le(f, model, le, t), model)
         out = (f, phi_new, u_new)
+        if kiss_rho:
+            out = out + (nstate,)
         if keep_grads:
             out = out + (grad, delsq)
         return out, rho
@@ -187,6 +199,9 @@ def make_binary_le_column_fix(cfg: BinaryLEConfig):
     order = bcfg.advection_order
     if order not in (1, 2):
         raise ValueError("fused LE fix needs order 1-2 advection")
+    if bcfg.gradient != "3d_7pt_fluid" or bcfg.lb.noise is not None:
+        raise ValueError("fused LE fix needs 7-point gradients and no "
+                         "fluctuations")
     if le.nx < 6 * le.nplanes:
         raise ValueError("fused LE fix needs plane separation >= 6")
 

@@ -27,6 +27,7 @@ from ludwig_tpu_torch.lb import DTYPES, LBConfig
 from ludwig_tpu_torch.noise import NoiseConfig
 from ludwig_tpu_torch.ops.collide import RelaxationScheme
 from ludwig_tpu_torch.ops.fused import FusedNoise
+from ludwig_tpu_torch.visc import ViscArrhenius
 
 # pad widths of the JAX package's fused binary, LC and droplet states
 # (ops/fused.py HX, HY for f; ops/fused_lc.py HX, HY for phi and q)
@@ -124,21 +125,43 @@ def _lb_from_jax(lb, device) -> LBConfig:
 
 def binary_params_from_jax(bcfg_fields: dict, device="cuda") -> BinaryConfig:
     """BinaryConfig from the fields of a ludwig_tpu BinaryConfig, for
-    example ``dataclasses.asdict(bcfg)``: "lb" the LBConfig's fields,
-    "fe" the symmetric free energy's a, b and kappa (a dict or an object
-    with those attributes), the mobility and the advection order.
-    Fields of features the port has not taken over must be at their
-    inactive defaults."""
+    example ``dataclasses.asdict(bcfg)``: "lb" the LBConfig's fields
+    (its noise a NoiseConfig's fields), "fe" the symmetric free energy's
+    a, b and kappa (a dict or an object with those attributes), the
+    mobility, advection order, stencil, hydrodynamics switch, force
+    method, external chemical-potential gradient, "visc_model" an
+    Arrhenius model's eta_minus, eta_plus and phistar (or None) and the
+    wetting (C, H), floats or per-site arrays (tensors on `device` in the
+    lattice's dtype).  The Brazovskii free energy (a fourth coefficient
+    c) and the threefry noise stream are not ported and raise."""
     fields = dict(bcfg_fields)
-    fe = fields.pop("fe")
-    if not isinstance(fe, dict):
-        fe = {k: getattr(fe, k) for k in ("a", "b", "kappa")}
-    _take_inactive(fields, {"gradient": GRADIENT, "hydrodynamics": True,
-                            "visc_model": None, "wetting": (0.0, 0.0),
-                            "force_method": "stress_divergence",
-                            "gradmu_ex": (0.0, 0.0, 0.0)}, "BinaryConfig")
-    return BinaryConfig(lb=_lb_from_jax(fields.pop("lb"), device),
-                        fe=SymmetricFE(**fe), **fields)
+    fe = _fields_of(fields.pop("fe"))
+    if set(fe) - {"a", "b", "kappa"}:
+        raise NotImplementedError(
+            f"BinaryConfig.fe with fields {sorted(fe)} (the Brazovskii free "
+            "energy) is not ported yet, see ROADMAP")
+    lb = _lb_from_jax(fields.pop("lb"), device)
+    visc = fields.get("visc_model")
+    if visc is not None:
+        fields["visc_model"] = ViscArrhenius(**_fields_of(visc))
+    wet = fields.get("wetting", (0.0, 0.0))
+    fields["wetting"] = tuple(
+        float(w) if np.ndim(w) == 0 else _tensor(np.asarray(w), device,
+                                                  lb.dtype)
+        for w in wet)
+    if "gradmu_ex" in fields:
+        fields["gradmu_ex"] = tuple(float(g) for g in fields["gradmu_ex"])
+    return BinaryConfig(lb=lb, fe=SymmetricFE(**fe), **fields)
+
+
+def binary_state_leaves_from_jax(state, device, dtype):
+    """The JAX package's unfused binary state (f, phi, u[, gwall][,
+    nstate_phi][, nstate_rho]) - or any state whose leaves are unpadded
+    - as the port's: the KISS states (uint32) as the port's int64 words,
+    the other leaves in `dtype`."""
+    return tuple(noise_state_from_jax(a, device)
+                 if np.asarray(a).dtype == np.uint32
+                 else _tensor(np.asarray(a), device, dtype) for a in state)
 
 
 def lc_state_from_jax(fpad, qpad, u, device, dtype):
@@ -321,7 +344,7 @@ def _le_state(state, unpad, nfields, device, dtype):
     gradient leaves and all, as it is."""
     if np.shape(state[0])[1:] != np.shape(state[1 + nfields])[1:]:
         return unpad(*state, device, dtype)
-    return tuple(_tensor(np.asarray(a), device, dtype) for a in state)
+    return binary_state_leaves_from_jax(state, device, dtype)
 
 
 def binary_le_state_from_jax(state, device, dtype):

@@ -64,7 +64,12 @@ class LCConfig:
 
 
 def lc_fields(q5, gradient: str = GRADIENT):
-    """Q and its gradients, the dict the free energy's methods take."""
+    """Q and its gradients, the dict the free energy's methods take.  The
+    LC slice takes the 7-point stencil only."""
+    if gradient != GRADIENT:
+        raise NotImplementedError(
+            f"gradient '{gradient}' of the liquid crystal is not ported yet "
+            f"(have '{GRADIENT}'), see ROADMAP")
     g, d = gradient_ops(gradient)
     return {"q": q5, "grad_q": g(q5), "delsq_q": d(q5)}
 

@@ -7,12 +7,16 @@ src/ludwig.c:443 ludwig_run, src/main.c:30-46): the plain single fluid
 plane walls - moving or with slip -, the open boundary, Lees-Edwards
 planes and porous media, or with resolved or subgrid colloids:
 colloids.py, colloids_fast.py, subgrid.py), the symmetric binary fluid (`free_energy
-symmetric`), the blue-phase liquid crystal (`free_energy
-lc_blue_phase`) and the liquid-crystal droplet (`free_energy
-lc_droplet`), those three on the stress-divergence, hydrodynamics-on
-route the JAX package's fused path accepts, periodic or with
-Lees-Edwards planes (binary_le.py, lc.py, lc_droplet.py and their
-fused steps), and
+symmetric` and `symmetric_noise`: every route of the JAX package's
+binary branch but colloids - halo walls and the open boundary, porous
+media with wetting, its stencils, advection orders, force methods,
+viscosity model, noise and Lees-Edwards planes; binary.py,
+binary_le.py and the fused step), the blue-phase liquid crystal
+(`free_energy lc_blue_phase`) and the liquid-crystal droplet
+(`free_energy lc_droplet`), those two on the stress-divergence,
+hydrodynamics-on route the JAX package's fused path accepts, periodic
+or with Lees-Edwards planes (lc.py, lc_droplet.py and their fused
+steps), and
 electrokinetics without colloids (`free_energy fe_electro`: Gouy-Chapman
 walls, liquid junction or a uniform electrolyte).  It parses the same
 key-value input, builds the system, runs the time loop on a device (the
@@ -43,8 +47,8 @@ unfused route, its plain reductions on its fused routes.
 
 Every input key outside the slices raises NotImplementedError naming the
 key, unless it is set to its inactive default (`boundary_walls 0_0_0`
-and `colloid_init no_colloids` for the families other than the plain
-fluid, `default_io_grid 1_1_1`, ...).  The input header of the
+for the families without walls, `colloid_init no_colloids` for those
+other than the plain fluid, `default_io_grid 1_1_1`, ...).  The input header of the
 reference log (fulllog.InitLog in the JAX package) is not ported yet.
 """
 
@@ -61,9 +65,10 @@ import numpy as np
 import torch
 
 from ludwig_tpu_torch import stats
-from ludwig_tpu_torch.binary import (GRADIENT, ORDERS, BinaryConfig,
-                                     fe_fields, initial_binary,
-                                     make_binary_step)
+from ludwig_tpu_torch.binary import (GRADIENT, BinaryConfig,
+                                     OpenXScalarOps, binary_solid_ops, fe_fields,
+                                     initial_binary, make_binary_open_step,
+                                     make_binary_step, open_x_scalar_ops)
 from ludwig_tpu_torch.binary_le import BinaryLEConfig, make_binary_le_step
 from ludwig_tpu_torch import electro_sim, interactions, lc, lc_droplet
 from ludwig_tpu_torch.colloids import (ColloidParams, ColloidState, TYPES,
@@ -89,7 +94,8 @@ from ludwig_tpu_torch.ops.collide import RelaxationScheme
 from ludwig_tpu_torch.ops.fused import (FusedNoise, fused_step,
                                         make_fused_le_step,
                                         make_fused_wall_step)
-from ludwig_tpu_torch.ops.fused_binary import (initial_fused_binary,
+from ludwig_tpu_torch.ops.fused_binary import (fused_binary_ok,
+                                               initial_fused_binary,
                                                make_fused_binary_le_step,
                                                make_fused_binary_step)
 from ludwig_tpu_torch.ops.fused_droplet import (initial_fused_droplet,
@@ -104,12 +110,13 @@ from ludwig_tpu_torch.ops.lees_edwards import (LeesEdwardsConfig,
 from ludwig_tpu_torch.ops.open_bc import OpenBCConfig
 from ludwig_tpu_torch.ops.stencil import delsq_7pt, grad_7pt
 from ludwig_tpu_torch.ops.walls import WallSpec
-from ludwig_tpu_torch.ref_rng import RanSerial, spinodal_ref
+from ludwig_tpu_torch.ref_rng import RanSerial, patches_ref, spinodal_ref
 from ludwig_tpu_torch.runtime import RunTime
 from ludwig_tpu_torch.stats_extra import (AhydroCalibration,
                                           RheologyAccumulator,
                                           interact_stats_lines)
 from ludwig_tpu_torch.subgrid import make_subgrid_step
+from ludwig_tpu_torch.visc import ViscArrhenius
 
 
 def _off(v: str) -> bool:
@@ -139,14 +146,26 @@ SLICE_KEYS = frozenset((
 # fluid reads N_LE_plane and LE_plane_vel with its boundaries)
 LE_KEYS = frozenset(("N_LE_plane", "LE_plane_vel", "LE_init_profile"))
 
-# keys the binary-fluid slice reads (free_energy symmetric only)
+# keys the binary fluid reads (free_energy symmetric and symmetric_noise):
+# its stencils, advection orders, force methods and grad_mu, the
+# viscosity model, halo walls and the open boundary beside them, porous
+# media with their wetting data, the fluctuations of phi and of the LB,
+# and Lees-Edwards planes
 BINARY_KEYS = frozenset((
     "A", "B", "K", "symmetric_a", "symmetric_b", "symmetric_kappa",
     "mobility", "fd_advection_scheme_order", "fd_gradient_calculation",
     "fe_force_method", "grad_mu", "phi_initialisation", "phi0",
     "random_seed", "noise", "phi_init_drop_radius",
     "phi_init_drop_amplitude", "phi_init_drop_centred",
-    "phi_init_block_dimension", "LE_oscillation_period")) | LE_KEYS
+    "phi_init_block_dimension", "phi_init_patch_size", "phi_init_patch_vol",
+    "LE_oscillation_period", "viscosity_model",
+    "viscosity_arrhenius_eta_minus", "viscosity_arrhenius_eta_plus",
+    "viscosity_arrhenius_phistar", "boundary_walls", "lb_bc_open",
+    "lb_bc_inflow_rhou_u0", "lb_bc_outflow_rhou_rho0",
+    "phi_bc_inflow_fixed_phib", "porous_media_file", "porous_media_ndata",
+    "porous_media_type", "porous_media_format", "porous_media_init",
+    "porous_media_acell", "temperature", "isothermal_fluctuations",
+    "lb_fluctuations", "fd_phi_fluctuations")) | LE_KEYS
 
 # keys the liquid-crystal slice reads (free_energy lc_blue_phase only)
 LC_KEYS = frozenset((
@@ -229,7 +248,7 @@ COLLOID_PREFIXES = ("colloid_one_", "colloid_two_", "colloid_three_")
 
 # free energy -> the keys it reads beside SLICE_KEYS
 FREE_ENERGIES = {"none": NOISE_KEYS | BOUNDARY_KEYS | COLLOID_KEYS,
-                 "symmetric": BINARY_KEYS,
+                 "symmetric": BINARY_KEYS, "symmetric_noise": BINARY_KEYS,
                  "lc_blue_phase": LC_KEYS, "lc_droplet": DROPLET_KEYS,
                  "fe_electro": ELECTRO_KEYS}
 
@@ -295,8 +314,10 @@ class System:
     rt: RunTime
     lb_cfg: LBConfig
     # (f,) or, with the KISS noise stream, (f, nstate); halo walls (f,
-    # gwall[, nstate]); binary (f, phi, u); LC (f, q5, u); droplet (f,
-    # phi, q5, u); electrokinetics (f, psi, rho, u, gwall)
+    # gwall[, nstate]); binary (f, phi, u[, gwall][, nstate_phi][,
+    # nstate_rho]) or, sheared, (f, phi, u[, nstate][, grad, delsq]); LC
+    # (f, q5, u); droplet (f, phi, q5, u); electrokinetics (f, psi, rho,
+    # u, gwall)
     state: tuple
     step_fn: object
     # 'plain': fused collide+stream; 'wall', 'le': the same with the wall
@@ -322,6 +343,10 @@ class System:
     # (field, t) -> (grad, delsq) of the pre-update field of step t, the
     # checkpoint's state03 / state04 (_grad_leaves)
     grad_leaves: Optional[object] = None
+    # the binary fluid's (grad, delsq) stencils for its statistics where
+    # they are not the configuration's fluid ones: the wetting-aware
+    # solid stencils the step shares, or the open boundary's
+    fe_ops: Optional[object] = None
     n_start: int = 0                         # the step a restart reads
 
     @property
@@ -433,12 +458,16 @@ def _symm_fe(rt: RunTime) -> SymmetricFE:
 
 def _phi_init(rt: RunTime, size, fe: SymmetricFE) -> np.ndarray:
     """phi initialisation modes, on the host (ref: src/phi_rt.c /
-    field_phi_init.c); `patches` is not ported yet."""
+    field_phi_init.c)."""
     mode = rt.string("phi_initialisation", "spinodal")
     phi0 = rt.double("phi0", 0.0)
     seed = rt.int("random_seed", 13)
     if mode == "spinodal":
         return spinodal_ref(size, seed, phi0, amp=rt.double("noise", 0.1))
+    if mode == "patches":
+        return patches_ref(size, seed,
+                           patch=rt.int("phi_init_patch_size", 1),
+                           volminus1=rt.double("phi_init_patch_vol", 0.5))
     if mode == "uniform":
         return np.full(size, phi0)
     if mode == "drop":
@@ -479,31 +508,45 @@ def _phi_init(rt: RunTime, size, fe: SymmetricFE) -> np.ndarray:
     raise _not_ported("phi_initialisation", mode)
 
 
-def _binary_config(rt: RunTime, lb_cfg: LBConfig) -> BinaryConfig:
-    """The `free_energy symmetric` configuration, limited to what the
-    JAX package's fused route accepts (ludwig.py:996-1004): periodic,
-    stress-divergence force, 7-point gradients, advection order 1 or 2,
-    hydrodynamics on.  Anything else raises naming its key."""
+_FORCE_METHODS = ("no_force", "stress_divergence", "phi_gradmu",
+                  "phi_gradmu_correction", "relaxation_symmetric",
+                  "relaxation_antisymmetric")
+
+
+def _binary_config(rt: RunTime, lb_cfg: LBConfig,
+                   wetting=(0.0, 0.0)) -> BinaryConfig:
+    """The `free_energy symmetric` / `symmetric_noise` configuration
+    (ludwig_tpu ludwig.py:884-904): the stencil, advection order, force
+    method, external chemical-potential gradient, viscosity model and
+    wetting (the porous map's per-site (C, H)).  The force methods other
+    than stress_divergence and phi_gradmu (the JAX package runs them as
+    stress_divergence) raise naming fe_force_method, as does a viscosity
+    model other than arrhenius."""
     size = lb_cfg.size
-    gradient = rt.string("fd_gradient_calculation",
-                         GRADIENT if size[2] > 1 else "2d_5pt_fluid")
-    order = rt.int("fd_advection_scheme_order", 1)
-    hydro = rt.switch("hydrodynamics", True)
     method = rt.string("fe_force_method", "stress_divergence")
-    grad_mu = rt.double_vector("grad_mu", (0.0, 0.0, 0.0))
-    if gradient != GRADIENT:
-        raise _not_ported("fd_gradient_calculation", gradient)
-    if order not in ORDERS:
-        raise _not_ported("fd_advection_scheme_order", order)
-    if not hydro:
-        raise _not_ported("hydrodynamics", rt.string("hydrodynamics"))
-    if method != "stress_divergence":
+    if method not in _FORCE_METHODS:
+        raise ValueError(f"fe_force_method '{method}' not recognised")
+    if method not in ("stress_divergence", "phi_gradmu"):
         raise _not_ported("fe_force_method", method)
-    if any(g != 0.0 for g in grad_mu):
-        raise _not_ported("grad_mu", rt.string("grad_mu"))
-    return BinaryConfig(lb=lb_cfg, fe=_symm_fe(rt),
-                        mobility=rt.double("mobility", 1.0),
-                        advection_order=order)
+    visc = rt.string("viscosity_model", "newtonian")
+    visc_model = None
+    if visc == "arrhenius":
+        # ref: visc_rt.c, visc_arrhenius.c
+        visc_model = ViscArrhenius(
+            eta_minus=rt.double_required("viscosity_arrhenius_eta_minus"),
+            eta_plus=rt.double_required("viscosity_arrhenius_eta_plus"),
+            phistar=rt.double("viscosity_arrhenius_phistar", 1.0))
+    elif visc != "newtonian":
+        raise _not_ported("viscosity_model", visc)
+    return BinaryConfig(
+        lb=lb_cfg, fe=_symm_fe(rt), mobility=rt.double("mobility", 1.0),
+        advection_order=rt.int("fd_advection_scheme_order", 1),
+        gradient=rt.string("fd_gradient_calculation",
+                           GRADIENT if size[2] > 1 else "2d_5pt_fluid"),
+        hydrodynamics=rt.switch("hydrodynamics", True),
+        force_method=method,
+        gradmu_ex=tuple(rt.double_vector("grad_mu", (0.0, 0.0, 0.0))),
+        visc_model=visc_model, wetting=wetting)
 
 
 def _blue_phase_fe(rt: RunTime, active: bool) -> BluePhaseFE:
@@ -786,7 +829,7 @@ def _keeps_grads(fe_name: str, le: Optional[LeesEdwardsConfig]) -> bool:
 
 
 def _grad_leaves(rt: RunTime, lb_cfg: LBConfig, fe_name: str,
-                 le: Optional[LeesEdwardsConfig]):
+                 le: Optional[LeesEdwardsConfig], gradient=GRADIENT):
     """For a fused route: None where the JAX package's route for the input
     is fused too (its checkpoint has no gradient leaves), else (field, t)
     -> (grad, delsq) of the field before step t, the bits the JAX
@@ -796,7 +839,7 @@ def _grad_leaves(rt: RunTime, lb_cfg: LBConfig, fe_name: str,
     if not _keeps_grads(fe_name, le) or _jax_fused_two_kernel(rt, lb_cfg):
         return None
     if le is not None:
-        return lambda field, t: le_gradient(field, le, t)
+        return lambda field, t: le_gradient(field, le, t, gradient)
     return lambda field, t: (grad_7pt(field), delsq_7pt(field))
 
 
@@ -806,25 +849,126 @@ def _tensors(lb_cfg: LBConfig, *arrays):
                  for a in arrays)
 
 
+def _binary_noise(rt: RunTime, fe_name: str) -> Optional[NoiseConfig]:
+    """The binary fluid's fluctuations (ludwig_tpu ludwig.py:604-617):
+    with temperature > 0, the LB's isothermal fluctuations and, under
+    symmetric_noise with fd_phi_fluctuations on, the CH flux noise; None
+    when neither is on.  Both draw the per-site KISS streams."""
+    kt = rt.double("temperature", 0.0)
+    if kt <= 0.0:
+        return None
+    nz = NoiseConfig(
+        kt=kt, seed=rt.int("random_seed", 8361235),
+        rho=rt.switch("isothermal_fluctuations",
+                      rt.switch("lb_fluctuations", False)),
+        phi=(fe_name == "symmetric_noise"
+             and rt.int("fd_phi_fluctuations", 0) != 0))
+    return nz if (nz.rho or nz.phi) else None
+
+
+def _binary_system(rt: RunTime, lb_cfg: LBConfig, fe_name: str) -> System:
+    """The symmetric and symmetric_noise branch of ludwig_tpu
+    build_system (ludwig.py:884-1026), gate for gate: halo walls without
+    porous media (with the open x boundary where lb_bc_open asks), then
+    Lees-Edwards planes (symmetric only; porous media beside them are
+    not read, as there), then the two fused kernels where `tpu_fused`
+    asks and the JAX package's fused gate admits the configuration
+    (fused_binary_ok; its plan and dtype conditions set only which
+    statistics print), else the unfused step with porous media, wetting,
+    noise and the other options.  The fluid starts at rest (only the open
+    boundary reads distribution_initialisation)."""
+    size = lb_cfg.size
+    porous, pm_wetting = _porous_map(rt, size)
+    wetting = (0.0, 0.0)
+    if pm_wetting is not None:
+        wetting = _tensors(lb_cfg, *pm_wetting)
+    bcfg = _binary_config(rt, lb_cfg, wetting)
+    walls = lb_cfg.walls
+    if bcfg.gradient == "3d_27pt_solid" and porous is None and not any(
+            walls):
+        # no solid sites anywhere: the solid stencil reduces to the fluid
+        # 27-point one (ref: gradient_3d_27pt_solid.c:5-7)
+        bcfg = dataclasses.replace(bcfg, gradient="3d_27pt_fluid")
+    phi0 = _phi_init(rt, size, bcfg.fe)
+    if any(walls) and porous is None:
+        # halo plane walls: every stored site stays fluid
+        ws = WallSpec(walls=walls)
+        lb_cfg = dataclasses.replace(lb_cfg, walls=(False,) * 3)
+        bcfg = dataclasses.replace(bcfg, lb=lb_cfg)
+        if rt.switch("lb_bc_open", False):
+            # open x boundary + transverse walls (ref: serial-open-phi)
+            obc = OpenBCConfig(
+                u0=tuple(rt.double_vector("lb_bc_inflow_rhou_u0",
+                                          (0.0, 0.0, 0.0))),
+                rho0=rt.double("lb_bc_outflow_rhou_rho0", 1.0))
+            phib = rt.double("phi_bc_inflow_fixed_phib", 0.0)
+            phi, = _tensors(lb_cfg, phi0)
+            zeros = torch.zeros((3,) + size, dtype=lb_cfg.tdtype,
+                                device=lb_cfg.device)
+            gwall = torch.zeros((3,), dtype=lb_cfg.tdtype,
+                                device=lb_cfg.device)
+            return System(rt=rt, lb_cfg=lb_cfg,
+                          state=(_distribution_init(rt, lb_cfg), phi, zeros,
+                                 gwall),
+                          step_fn=make_binary_open_step(bcfg, ws, obc, phib),
+                          binary_cfg=bcfg, wallspec=ws,
+                          fe_ops=open_x_scalar_ops(bcfg, ws, phib))
+        ops = binary_solid_ops(bcfg, wallspec=ws)
+        return System(rt=rt, lb_cfg=lb_cfg,
+                      state=initial_binary(bcfg, phi0, walls=True),
+                      step_fn=make_binary_step(bcfg, wallspec=ws,
+                                               solid_ops=ops),
+                      binary_cfg=bcfg, wallspec=ws, fe_ops=ops)
+    if rt.switch("lb_bc_open", False):
+        # the JAX package imposes the open boundary beside halo walls only
+        # (beside porous media it reads the key and ignores it)
+        raise _not_ported("lb_bc_open", rt.string("lb_bc_open") +
+                          " without halo walls or beside porous media")
+    le = (_le_config(rt, size, oscillation=True) if fe_name == "symmetric"
+          else None)
+    if le is not None:
+        return _binary_le_system(rt, lb_cfg, bcfg, le, phi0)
+    solid = solid_mask(lb_cfg, porous)
+    if (_fused_request(rt) and fe_name == "symmetric" and solid is None
+            and fused_binary_ok(bcfg)):
+        # production path: the two fused kernels (K1, K2)
+        return System(rt=rt, lb_cfg=lb_cfg,
+                      state=initial_fused_binary(bcfg, phi0),
+                      step_fn=make_fused_binary_step(bcfg),
+                      fused_mode="binary", binary_cfg=bcfg)
+    ops = binary_solid_ops(bcfg, solid=solid)
+    return System(rt=rt, lb_cfg=lb_cfg, state=initial_binary(bcfg, phi0),
+                  step_fn=make_binary_step(bcfg, solid=solid, solid_ops=ops),
+                  binary_cfg=bcfg, solid=solid, fe_ops=ops)
+
+
 def _binary_le_system(rt, lb_cfg, bcfg, le, phi0) -> System:
     """The sheared binary fluid (ludwig_tpu ludwig.py:941-995): the fused
-    K1 + column fix + K2 + LE post-pass where `tpu_fused` asks and the
-    planes are 6 columns apart, else the unfused step carrying the LE
-    gradients."""
+    K1 + column fix + K2 + LE post-pass where `tpu_fused` asks, the JAX
+    package's fused gate admits the configuration and the planes are 6
+    columns apart, else the unfused step carrying the KISS state of the
+    LB's fluctuations, where they are on, and the LE gradients (the JAX
+    package's builder leaves the KISS state out, and its step then
+    fails)."""
     lecfg = BinaryLEConfig(binary=bcfg, le=le)
     f = _le_f0(rt, lb_cfg, le)
     phi, = _tensors(lb_cfg, phi0)
     u = torch.zeros((3,) + lb_cfg.size, dtype=lb_cfg.tdtype,
                     device=lb_cfg.device)
-    if _fused_request(rt) and lb_cfg.size[0] >= 6 * le.nplanes:
+    if (_fused_request(rt) and fused_binary_ok(bcfg)
+            and lb_cfg.size[0] >= 6 * le.nplanes):
         return System(rt=rt, lb_cfg=lb_cfg, state=(f, phi, u),
                       step_fn=make_fused_binary_le_step(lecfg),
                       fused_mode="binary", binary_cfg=bcfg, le_cfg=le,
-                      grad_leaves=_grad_leaves(rt, lb_cfg, "symmetric", le))
+                      grad_leaves=_grad_leaves(rt, lb_cfg, "symmetric", le,
+                                               bcfg.gradient))
     keep = _keeps_grads("symmetric", le)
+    state = (f, phi, u)
+    if kiss_on(lb_cfg):
+        state = state + (kiss_init(0, lb_cfg.size, device=lb_cfg.device),)
     return System(rt=rt, lb_cfg=lb_cfg,
-                  state=(f, phi, u) + (le_gradient(phi, le, 0) if keep
-                                       else ()),
+                  state=state + (le_gradient(phi, le, 0, bcfg.gradient)
+                                 if keep else ()),
                   step_fn=make_binary_le_step(lecfg, keep_grads=keep),
                   binary_cfg=bcfg, le_cfg=le, keep_grads=keep)
 
@@ -898,23 +1042,9 @@ def build_system(rt: RunTime, device="cuda") -> System:
                       ghost_modes_on=ghosts, force_global=force,
                       walls=walls, dtype=dtype, device=device,
                       noise=_noise_config(rt) if fe_name == "none" else None)
-    if fe_name == "symmetric":
-        # the fluid starts at rest (ref: the symmetric branch of
-        # ludwig_tpu build_system; distribution_initialisation is not
-        # read)
-        bcfg = _binary_config(rt, lb_cfg)
-        phi0 = _phi_init(rt, size, bcfg.fe)
-        le = _le_config(rt, size, oscillation=True)
-        if le is not None:
-            return _binary_le_system(rt, lb_cfg, bcfg, le, phi0)
-        if _fused_request(rt):
-            # production path: the two fused kernels (K1, K2)
-            return System(rt=rt, lb_cfg=lb_cfg,
-                          state=initial_fused_binary(bcfg, phi0),
-                          step_fn=make_fused_binary_step(bcfg),
-                          fused_mode="binary", binary_cfg=bcfg)
-        return System(rt=rt, lb_cfg=lb_cfg, state=initial_binary(bcfg, phi0),
-                      step_fn=make_binary_step(bcfg), binary_cfg=bcfg)
+    if fe_name in ("symmetric", "symmetric_noise"):
+        return _binary_system(rt, dataclasses.replace(
+            lb_cfg, noise=_binary_noise(rt, fe_name)), fe_name)
     if fe_name == "lc_blue_phase":
         lcfg = _lc_config(rt, lb_cfg)
         q0 = _q_init(rt, size, lcfg.fe)
@@ -960,18 +1090,25 @@ def build_system(rt: RunTime, device="cuda") -> System:
 
 
 def _porous(rt: RunTime, size) -> Optional[np.ndarray]:
-    """The porous-media solid mask of an input (ludwig_tpu ludwig.py:
-    641-678), or None: `porous_media_file` names a .npy mask, or is the
-    reference's switch for the map file ("capillary.001-001" by default;
-    ref: map_rt.c:100-176) with porous_media_ndata / porous_media_type
-    and porous_media_format; `porous_media_init` makes a geometry of
-    io/map_file.GEOMETRIES (ref: map_rt.c:252-295).  The map's wetting
-    data serves the binary fluid only and is not read here."""
+    """The porous-media solid mask of an input, or None (_porous_map)."""
+    return _porous_map(rt, size)[0]
+
+
+def _porous_map(rt: RunTime, size):
+    """(solid mask, wetting) of an input's porous media (ludwig_tpu
+    ludwig.py:624-666), or (None, None): `porous_media_file` names a .npy
+    mask, or is the reference's switch for the map file
+    ("capillary.001-001" by default; ref: map_rt.c:100-176) with
+    porous_media_ndata / porous_media_type and porous_media_format;
+    `porous_media_init` makes a geometry of io/map_file.GEOMETRIES (ref:
+    map_rt.c:252-295).  wetting is the map's per-site (C, H), numpy
+    arrays, where it carries them (ndata 2: C and H; ndata 1: H, C = 0),
+    else None; the binary fluid's solid stencils read it."""
     pm_file = rt.string("porous_media_file")
     if pm_file:
         if pm_file.endswith(".npy") or os.path.exists(pm_file + ".npy"):
             return np.load(pm_file if pm_file.endswith(".npy")
-                           else pm_file + ".npy").astype(bool)
+                           else pm_file + ".npy").astype(bool), None
         ndata = rt.int("porous_media_ndata", -1)
         if ndata < 0:
             ndata = {"status_only": 0, "status_with_h": 1,
@@ -981,17 +1118,22 @@ def _porous(rt: RunTime, size) -> Optional[np.ndarray]:
         stub = pm_file if os.path.exists(pm_file) else (
             pm_file + ".001-001" if os.path.exists(pm_file + ".001-001")
             else "capillary.001-001")
-        status, _data = read_map(stub, size, ndata,
-                                 binary=not fmt.startswith("ASCII"))
-        return status != 0
+        status, data = read_map(stub, size, ndata,
+                                binary=not fmt.startswith("ASCII"))
+        wetting = None
+        if ndata == 2:
+            wetting = (data[0], data[1])
+        elif ndata == 1:
+            wetting = (np.zeros(size), data[0])
+        return status != 0, wetting
     gname = rt.string("porous_media_init")
     if gname:
         if gname not in GEOMETRIES:
             raise ValueError(f"porous_media_init not recognised {gname}")
         acell = (rt.int_required("porous_media_acell")
                  if gname.endswith("cubic") else 0)
-        return GEOMETRIES[gname](size, acell) != 0
-    return None
+        return GEOMETRIES[gname](size, acell) != 0, None
+    return None, None
 
 
 def _wall_system(rt: RunTime, lb_cfg: LBConfig, walls) -> System:
@@ -1451,11 +1593,15 @@ def _make_stats_fn(sys_: System, reference: bool):
         itself at the initial statistics) - LE-aware on a sheared run,
         as the JAX package's fused route computes them."""
         if sys_.keep_grads:
-            n = sys_.n_fields
-            return state[2 + n], state[3 + n]
+            return state[-2], state[-1]
         src = state[1] if prev is None else prev[0]
         if sys_.le_cfg is not None:
-            return le_gradient(src, sys_.le_cfg, tstep)
+            return le_gradient(src, sys_.le_cfg, tstep,
+                               bcfg.gradient if bcfg is not None
+                               else GRADIENT)
+        if bcfg is not None:
+            fl = fe_fields(src, bcfg.gradient, solid_ops=sys_.fe_ops)
+            return fl["grad_phi"], fl["delsq_phi"]
         return grad_7pt(src), delsq_7pt(src)
 
     def compute(state, u, prev=None, tstep=0):
@@ -1487,8 +1633,9 @@ def _make_stats_fn(sys_: System, reference: bool):
                    "g": stats.momentum_total_plain(f, model)}
         res["umm"] = stats.velocity_minmax(u, mask)
         if sys_.wallspec is not None:
-            # halo walls: gwall rides the state (f, gwall[, nstate])
-            res["gwall"] = state[1]
+            # halo walls: gwall rides the state, (f, gwall[, nstate]) or
+            # the binary fluid's (f, phi, u, gwall, ...)
+            res["gwall"] = state[3] if bcfg is not None else state[1]
         if ecfg is not None:
             # ludwig_tpu ludwig.py:2127-2161 (an electrokinetic run always
             # prints the reference statistics): site-order totals
@@ -1517,8 +1664,23 @@ def _make_stats_fn(sys_: System, reference: bool):
                           else stats.field_stats(phi))
             grad, delsq = grads(state, prev, tstep)
             fields = {"phi": phi, "grad_phi": grad, "delsq_phi": delsq}
-            m = torch.mean(bcfg.fe.fed(fields))
-            res["fed"] = (m, m)
+            fed = bcfg.fe.fed(fields)
+            if mask is None:
+                m = torch.mean(fed)
+                res["fed"] = (m, m)
+                fsum = torch.sum(fed)
+                vol = torch.full((), float(fed.numel()), dtype=fed.dtype,
+                                 device=fed.device)
+            else:
+                fsum = torch.sum(torch.where(mask, fed, 0.0))
+                vol = torch.sum(mask).to(fed.dtype)
+                res["fed"] = (torch.mean(torch.where(mask, fed, 0.0)),
+                              fsum / vol)
+            if sys_.wallspec is not None:
+                # the walls' free-energy row: the fluid sum and volume,
+                # the surface terms never accumulated (ref:
+                # stats_free_energy.c:103-105)
+                res["fe_sum_v"] = (fsum, vol)
         if lcfg is not None:
             # the same convention for [fe]: gradients of the Q before
             # the step, the updated Q in place of Q
@@ -1623,7 +1785,14 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
         for name, q_stats in zip(("Qxx", "Qxy", "Qxz", "Qyy", "Qyz"),
                                  res["q5"]):
             out.write(stats.format_phi_line(name, *q_stats))
-    if "fed" in res:
+    if "fe_sum_v" in res:
+        # walls present (ref: ludwig_tpu ludwig.py:2455-2460;
+        # stats_free_energy.c:103-105)
+        fsum, vol = (float(v) for v in res["fe_sum_v"])
+        out.write("\nFree energies - timestep f v f/v f_s1 fs_s2 \n")
+        out.write(f"[fe] {int(tstep):14d} {fsum:17.10e} {vol:17.10e} "
+                  f"{fsum / vol:17.10e} {0.0:17.10e} {0.0:17.10e}\n")
+    elif "fed" in res:
         out.write(stats.format_fed_block(tstep, *res["fed"]))
     if "fe_lc" in res:
         out.write(stats.format_fe_lc_block(tstep, *res["fe_lc"],
@@ -1775,9 +1944,13 @@ def _rheo_pth(sys_: System) -> Optional[torch.Tensor]:
     fe->func->stress in stats_rheology_stress_profile_accumulate;
     ludwig_tpu ludwig.py:2822-2828); None (zeros) for the other families,
     as the JAX package reports them."""
-    if sys_.binary_cfg is None:
+    bcfg = sys_.binary_cfg
+    if bcfg is None:
         return None
-    return sys_.binary_cfg.fe.stress(fe_fields(sys_.state[1]))
+    ops = (binary_solid_ops(bcfg, solid=sys_.solid, wallspec=sys_.wallspec)
+           if isinstance(sys_.fe_ops, OpenXScalarOps) else sys_.fe_ops)
+    return bcfg.fe.stress(fe_fields(sys_.state[1], bcfg.gradient,
+                                    solid_ops=ops))
 
 
 def run_text(text: str, out=sys.stdout, device="cuda") -> System:

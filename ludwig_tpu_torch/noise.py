@@ -1,9 +1,10 @@
-"""Fluctuations: the noise configuration, its variances and the
-fluctuating stress and ghost terms built from unit-variance deviates.
+"""Fluctuations: the noise configuration, its variances, the
+fluctuating stress and ghost terms and the Cahn-Hilliard random fluxes
+built from unit-variance deviates.
 
 PyTorch port of the KISS-stream part of ludwig_tpu/noise.py (ref:
 src/collision.c:1754-1816 variances, :1818-1906 stress/ghost
-construction).  The deviates come from the per-site KISS99 stream
+construction; src/phi_cahn_hilliard.c:510 var = sqrt(2 kT M)).  The deviates come from the per-site KISS99 stream
 (noise_kiss.py) or, inside the fused kernel, from the counter hash of
 ops/fused.py; the JAX package's stateless threefry stream
 (discrete_deviates, fluctuating_stress, ghost_noise, qab_noise5) is not
@@ -94,3 +95,18 @@ def ghost_from_deviates(r, model: LatticeModel, v_ghost: np.ndarray):
     for i, m in enumerate(range(model.nhydro, model.nvel)):
         rows.append(float(v_ghost[m]) * r[i])
     return torch.stack(rows)
+
+
+def ch_flux_from_deviates(r_ext, kt: float, mobility: float):
+    """Face random fluxes [fe_x, fe_y, fe_z] (east faces) from 3
+    deviates on the EXTENDED (1-halo) lattice: mid-point average of
+    site-centred var*r (ref: phi_ch_random_flux mid-point accumulate)."""
+    var = math.sqrt(2.0 * kt * mobility)
+    out = []
+    for ax in range(3):
+        r = var * r_ext[ax]
+        int_sl = [slice(1, -1)] * 3
+        up_sl = [slice(1, -1)] * 3
+        up_sl[ax] = slice(2, None)
+        out.append(0.5 * (r[tuple(int_sl)] + r[tuple(up_sl)]))
+    return out

@@ -26,6 +26,7 @@ vectorised over the lattice on the state's device:
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 from typing import Tuple
 
 import numpy as np
@@ -82,12 +83,19 @@ def kiss_init(master_seed: int, size: Tuple[int, int, int],
     return torch.stack(outs)
 
 
+@lru_cache(maxsize=8)
+def _table(dtype, device: str) -> torch.Tensor:
+    """The deviate table on `device`, made once: a draw copies nothing
+    from the host."""
+    return torch.as_tensor(RTABLE, dtype=dtype, device=device)
+
+
 def reap(state: torch.Tensor, n: int, dtype=torch.float64):
     """(state', deviates (n, ...)): one uniform per site, 3 bits per
     deviate from bit 2 upward (ref: noise.c noise_reap_n)."""
     state, u = _uniform(state)
     u = u >> 2
-    table = torch.as_tensor(RTABLE, dtype=dtype, device=state.device)
+    table = _table(dtype, str(state.device))
     vals = [table[(u >> (3 * i)) & 7] for i in range(n)]
     return state, torch.stack(vals)
 

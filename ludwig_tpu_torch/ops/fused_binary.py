@@ -34,12 +34,14 @@ from typing import NamedTuple
 
 import torch
 
-from ludwig_tpu_torch.binary import ORDERS, BinaryConfig, initial_binary
+from ludwig_tpu_torch.binary import BinaryConfig, initial_binary
 from ludwig_tpu_torch.binary_le import make_binary_le_column_fix
 from ludwig_tpu_torch.ops import _cuda
 from ludwig_tpu_torch.ops.fused import fused_force_step
 from ludwig_tpu_torch.ops.lees_edwards import make_le_post
 from ludwig_tpu_torch.ops.stencil import roll3
+
+ORDERS = (1, 2)     # the advection orders the fused kernels take
 
 _E = ((1, 0, 0), (0, 1, 0), (0, 0, 1))
 _O = (0, 0, 0)
@@ -189,14 +191,38 @@ def binary_phi_force_step(phi: torch.Tensor, u: torch.Tensor, fe,
     raise ValueError(f"no binary_phi_force_step for device {phi.device}")
 
 
+def fused_binary_ok(bcfg: BinaryConfig) -> bool:
+    """Whether the two kernels compute bcfg's step: the options the JAX
+    package's fused gate admits (ludwig_tpu ludwig.py:996-1004), less
+    its plan and dtype conditions."""
+    return (bcfg.lb.noise is None and bcfg.visc_model is None
+            and bcfg.force_method == "stress_divergence"
+            and not any(g != 0.0 for g in bcfg.gradmu_ex)
+            and all(isinstance(w, (int, float)) and w == 0.0
+                    for w in bcfg.wetting)
+            and bcfg.gradient == "3d_7pt_fluid"
+            and bcfg.advection_order in ORDERS and bcfg.hydrodynamics
+            and not any(bcfg.lb.walls))
+
+
+def _check_fusable(bcfg: BinaryConfig):
+    if not fused_binary_ok(bcfg):
+        raise ValueError("the fused binary step takes the periodic, "
+                         "stress-divergence, 7-point, order 1-2, noiseless "
+                         "configuration only (fused_binary_ok); use "
+                         "binary.make_binary_step")
+
+
 def make_fused_binary_step(bcfg: BinaryConfig):
     """Fused binary step: state (f, phi, u) -> state, K1 then K2.
 
     Periodic fluid, stress-divergence force, 7-point gradients, advection
-    order 1 or 2, hydrodynamics on (what BinaryConfig admits): the
-    flagship spinodal configuration.  The sheared variant is
+    order 1 or 2, hydrodynamics on, no noise, viscosity model, wetting or
+    external chemical-potential gradient (fused_binary_ok): the flagship
+    spinodal configuration.  The sheared variant is
     make_fused_binary_le_step; the sharded one of the JAX package is not
     ported."""
+    _check_fusable(bcfg)
     model = bcfg.lb.model
     params = bcfg.lb.collision_params()
 
@@ -222,6 +248,7 @@ def make_fused_binary_le_step(lecfg):
     the crossing populations of K2's output."""
 
     bcfg = lecfg.binary
+    _check_fusable(bcfg)
     le = lecfg.le
     model = bcfg.lb.model
     params = bcfg.lb.collision_params()

@@ -1,9 +1,10 @@
 """Lees-Edwards machinery for finite-difference fields.
 
-PyTorch port of the 7-point slice of ludwig_tpu/ops/le_ref.py (ref:
-src/field.c:490-596 4-point Lagrange buffer columns, src/hydro.c
+PyTorch port of the 7- and 27-point slices of ludwig_tpu/ops/le_ref.py
+(ref: src/field.c:490-596 4-point Lagrange buffer columns, src/hydro.c
 hydro_lees_edwards linear interpolation with the +/-uy frame jump,
-src/gradient_3d_7pt_fluid.c grad_3d_7pt_fluid_le, src/advection.c LE
+src/gradient_3d_7pt_fluid.c grad_3d_7pt_fluid_le,
+src/gradient_3d_27pt_fluid.c and its _le correction, src/advection.c LE
 kernels, src/phi_force.c phi_force_flux + phi_force_flux_fix_local).
 
 No buffer columns are materialised: a cross-plane x neighbour is the
@@ -22,8 +23,8 @@ pass reads what an earlier pass wrote (the stress flux at the plane
 face), every plane's writes land before the next pass reads.
 
 The displacement is computed on the device from the step counter: no
-host sync.  The 27-point and fourth-order (Brazovskii) forms of the
-JAX module wait for those stencils and raise.
+host sync.  The fourth-order (Brazovskii) forms of the JAX module wait
+for that free energy and raise.
 """
 
 from __future__ import annotations
@@ -34,9 +35,10 @@ import torch
 
 from ludwig_tpu_torch.ops.lees_edwards import (LeesEdwardsConfig, _t,
                                                _wrapped_mod)
-from ludwig_tpu_torch.ops.stencil import dab_7pt
+from ludwig_tpu_torch.ops.stencil import dab_7pt, grad27_terms, roll3
 
 GRADIENT = "3d_7pt_fluid"
+LE_GRADIENTS = (GRADIENT, "3d_27pt_fluid")
 
 
 def _rolled(col: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
@@ -214,15 +216,17 @@ def le_force_cols(pth6: torch.Tensor, pth_b1: torch.Tensor,
 def _not_7pt(gradient: str):
     return NotImplementedError(
         f"the Lees-Edwards form of gradient '{gradient}' is not ported yet "
-        f"(have '{GRADIENT}'), see ROADMAP")
+        f"(have {LE_GRADIENTS}), see ROADMAP")
 
 
 def le_gradient(phi: torch.Tensor, cfg: LeesEdwardsConfig, t,
                 gradient: str = GRADIENT):
     """(grad (3, ..., X, Y, Z), delsq) with LE-aware x neighbours at the
-    plane columns (ref: grad_3d_7pt_fluid_operator + _le)."""
-    if gradient != GRADIENT:
-        raise _not_7pt(gradient)
+    plane columns (ref: grad_3d_7pt_fluid_operator + _le; the JAX
+    package's other stencils take the 7-point form, as its le_gradient
+    does)."""
+    if gradient == "3d_27pt_fluid":
+        return le_gradient_27pt(phi, cfg, t)
     return le_gradient_7pt(phi, cfg, t)
 
 
@@ -270,10 +274,11 @@ def le_buffer_fields(phi, ctx: LEContext, up: bool,
     """(phi_b, grad_b, delsq_b) at the buffer column adjacent to every
     plane (above it where `up`, below it otherwise): the displaced column
     with gradients computed through the buffer chain (ref:
-    grad_3d_7pt_fluid_le, nh = 1)."""
-    if gradient != GRADIENT:
-        raise _not_7pt(gradient)
+    grad_3d_7pt_fluid_le, nh = 1; the 27-point chain for 3d_27pt_fluid)."""
     colm = _buffer_cols(phi, ctx, up)
+    if gradient == "3d_27pt_fluid":
+        gx, gy, gz, d2 = grad27_terms(_col_fetch(colm), colm[0])
+        return colm[0], torch.stack([gx, gy, gz]), d2
     p0 = colm[0]
     yp, ym = _colroll(p0, 1, 0), _colroll(p0, -1, 0)
     zp, zm = _colroll(p0, 0, 1), _colroll(p0, 0, -1)
@@ -445,9 +450,47 @@ def le_stress_force(pth: torch.Tensor, pth_b1: torch.Tensor,
     return torch.stack(comps)
 
 
-def le_gradient_27pt(*_args, **_kwargs):
-    """The 27-point LE gradient (ref: gradient_3d_27pt_fluid.c + _le)."""
-    raise _not_7pt("3d_27pt_fluid")
+def _col_fetch(colm):
+    """v(dx, dy, dz) over the x chain colm {-1, 0, 1} of (..., Y, Z)
+    columns, each y/z shift made once."""
+    cache = {}
+
+    def v(dx, dy_, dz_):
+        key = (dx, dy_, dz_)
+        if key not in cache:
+            cache[key] = _colroll(colm[dx], dy_, dz_)
+        return cache[key]
+    return v
+
+
+def le_gradient_27pt(phi: torch.Tensor, cfg: LeesEdwardsConfig, t):
+    """27-point gradient/Laplacian with LE-aware plane columns (ref:
+    gradient_3d_27pt_fluid.c + its _le correction): the periodic stencil,
+    then columns c and c+1 of every plane recomputed from their x chains
+    with the cross-plane column sampled in the other frame."""
+    ctx = LEContext(cfg, t, phi)
+    ax = phi.dim() - 3
+    cache = {}
+
+    def v_full(dx, dy_, dz_):
+        key = (dx, dy_, dz_)
+        if key not in cache:
+            cache[key] = roll3(phi, (-dx, -dy_, -dz_), first_axis=ax)
+        return cache[key]
+
+    gx, gy, gz, d2 = grad27_terms(v_full, phi)
+    grad = torch.stack([gx, gy, gz])
+    # column c sees c+1 through the lower frame; c+1 sees c through the
+    # upper one
+    lo = {-1: ctx.col(phi, -1), 0: ctx.col(phi, 0),
+          1: ctx.col_field(phi, 1, True)}
+    hi = {-1: ctx.col_field(phi, 0, False), 0: ctx.col(phi, 1),
+          1: ctx.col(phi, 2)}
+    for d, colm in ((0, lo), (1, hi)):
+        gxc, gyc, gzc, d2c = grad27_terms(_col_fetch(colm), colm[0])
+        grad = ctx.put(grad, 1 + ax, d, torch.stack([gxc, gyc, gzc]))
+        d2 = ctx.put(d2, ax, d, d2c)
+    return grad, d2
 
 
 def le_fields_2d5pt_d4(*_args, **_kwargs):

@@ -16,12 +16,32 @@ wall_bbl, src/wall.c:901 moving distributions).
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ludwig_tpu_torch.lattice import CS2, LatticeModel
+from ludwig_tpu_torch.lattice import CS2, LatticeModel, lb_model
+
+
+@lru_cache(maxsize=16)
+def _reverse_index(nvel: int, device: str) -> torch.Tensor:
+    """The reversed-velocity index on `device`, made once: a step copies
+    nothing from the host."""
+    return torch.as_tensor(lb_model(nvel).reverse, device=device)
+
+
+@lru_cache(maxsize=16)
+def _wall_corr(nvel: int, wall_u: tuple, rho0: float, dtype,
+               device: str) -> torch.Tensor:
+    """The moving-wall terms 2 w_p rho0 (c_p . u_w) / cs2, (nvel, 1, 1, 1)
+    on `device`."""
+    model = lb_model(nvel)
+    cdotu = np.asarray(model.cv, np.float64) @ np.asarray(wall_u, np.float64)
+    corr = (2.0 * rho0 / CS2) * model.wv * cdotu
+    return torch.as_tensor(corr, dtype=dtype,
+                           device=device).reshape(-1, 1, 1, 1)
 
 
 def _roll3(x: torch.Tensor, shift, first_axis: int) -> torch.Tensor:
@@ -72,15 +92,14 @@ def stream_bounce_back(f_post: torch.Tensor,
         return f_new
 
     from_solid = solid_neighbour_masks(model, solid)
-    f_bb = f_post[torch.as_tensor(model.reverse, device=f_post.device)]
+    f_bb = f_post[_reverse_index(model.nvel, str(f_post.device))]
     if wall_u is not None and any(float(v) != 0.0 for v in np.asarray(wall_u)):
-        cdotu = np.asarray(model.cv, np.float64) @ np.asarray(wall_u,
-                                                              np.float64)
         # replaced incoming f_p = f*_{p_bar} - 2 w_{p_bar} rho (c_{p_bar}.u_w)/cs2
         #                       = f*_{p_bar} + 2 w_p rho (c_p.u_w)/cs2
-        corr = (2.0 * rho0 / CS2) * model.wv * cdotu
-        f_bb = f_bb + torch.as_tensor(corr, dtype=f_post.dtype,
-                                      device=f_post.device).reshape(-1, 1, 1, 1)
+        f_bb = f_bb + _wall_corr(model.nvel,
+                                 tuple(float(v) for v in np.asarray(wall_u)),
+                                 float(rho0), f_post.dtype,
+                                 str(f_post.device))
     f_new = torch.where(from_solid, f_bb, f_new)
     return torch.where(solid[None], f_post, f_new)
 
@@ -97,7 +116,7 @@ def wall_momentum_transfer(f_post: torch.Tensor, model: LatticeModel,
     from_solid = solid_neighbour_masks(model, solid)
     live = torch.logical_and(from_solid, torch.logical_not(solid)[None])
     # link p at r pulls from solid: the outgoing f*_rev(p) hits the wall
-    f_out = f_post[torch.as_tensor(model.reverse, device=f_post.device)]
+    f_out = f_post[_reverse_index(model.nvel, str(f_post.device))]
     contrib = torch.where(live, f_out, torch.zeros((), dtype=f_post.dtype,
                                                    device=f_post.device))
     sums = [torch.sum(contrib[p]) for p in range(model.nvel)]

@@ -17,15 +17,17 @@ reduction.
 
 The JAX package forms the bounce-back values from float64 numpy
 constants, so a float32 state receives `float32(f* - corr)` evaluated in
-double; the port does the same.  The binary and LC wall helpers of the
-JAX module (no_flux_at_walls, stress_divergence_force_walls,
-wall_velocity_gradient_fix) are not ported yet: they serve walls of
-those families, which the port refuses.
+double; the port does the same.  The binary fluid's wall helpers
+(no_flux_at_walls, stress_divergence_force_walls) are ported with it;
+the liquid crystal's wall_velocity_gradient_fix waits for the LC walls.
+The index masks and constants a step needs are made once per lattice
+and device, so a step on the card copies nothing from the host.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from functools import lru_cache
 from itertools import combinations
 from typing import Optional, Tuple
 
@@ -92,6 +94,26 @@ def _overlap(model: LatticeModel, spec: WallSpec, q: int, ax: int,
     return ov
 
 
+@lru_cache(maxsize=16)
+def _cv_tensor(nvel: int, device: str) -> torch.Tensor:
+    """The velocity set as a float64 (nvel, 3) tensor on `device`."""
+    from ludwig_tpu_torch.lattice import lb_model
+    return torch.as_tensor(np.asarray(lb_model(nvel).cv, np.float64),
+                           device=device)
+
+
+@lru_cache(maxsize=256)
+def _keep_tensor(nvel: int, walls, q: int, ax: int, extents,
+                 device: str) -> torch.Tensor:
+    """The plane sites whose link q counts on axis ax's plane pass (the
+    complement of _overlap), on `device`."""
+    from ludwig_tpu_torch.lattice import lb_model
+    plane_shape = tuple(extents[a] for a in range(3) if a != ax)
+    ov = _overlap(lb_model(nvel), WallSpec(walls=tuple(walls)), q, ax,
+                  plane_shape, extents)
+    return torch.as_tensor(~ov, device=device)
+
+
 def wall_bounce_back(f_new: torch.Tensor, f_post: torch.Tensor,
                      model: LatticeModel, spec: WallSpec,
                      rho0: float = 1.0, g_post: Optional[torch.Tensor] = None,
@@ -114,13 +136,13 @@ def wall_bounce_back(f_new: torch.Tensor, f_post: torch.Tensor,
     """
     cv, wv, rev = model.cv, model.wv, model.reverse
     dtype, dev = f_post.dtype, f_post.device
-    extents = f_post.shape[1:]
+    extents = tuple(f_post.shape[1:])
     f_new = f_new.clone()
     if g_new is not None:
         g_new = g_new.clone()
     gw = torch.zeros((3,), dtype=torch.float64, device=dev)
     zero = torch.zeros((), dtype=dtype, device=dev)
-    cvt = torch.as_tensor(np.asarray(cv, np.float64), device=dev)
+    cvt = _cv_tensor(model.nvel, str(dev))
 
     for ax in range(3):
         if not spec.walls[ax]:
@@ -143,15 +165,16 @@ def wall_bounce_back(f_new: torch.Tensor, f_post: torch.Tensor,
                 else:
                     f_new[(p,) + sl] = torch.where(
                         fluid[sl], _minus64(fq, corr),
-                        torch.as_tensor(float(wv[q] * rho0), dtype=dtype,
-                                        device=dev))
+                        torch.full((), float(wv[q] * rho0), dtype=dtype,
+                                   device=dev))
                 if g_post is not None:
                     g_new[(p,) + sl] = _minus64(g_post[(q,) + sl], corr)
                 ov = _overlap(model, spec, q, ax, tuple(fq.shape), extents)
                 small = corr + 2.0 * wv[q]
                 if fluid is None:
                     if ov.any():
-                        keep = torch.as_tensor(~ov, device=dev)
+                        keep = _keep_tensor(model.nvel, spec.walls, q, ax,
+                                            extents, str(dev))
                         link = (torch.sum(torch.where(keep, 2.0 * fq, zero))
                                 .double() - small * float((~ov).sum()))
                     else:
@@ -160,7 +183,8 @@ def wall_bounce_back(f_new: torch.Tensor, f_post: torch.Tensor,
                 else:
                     # small-per-link accumulation as the reference's fnet
                     # (anti-roundoff; ref: wall.c:1066-1076)
-                    keep = torch.as_tensor(~ov, device=dev) & fluid[sl]
+                    keep = _keep_tensor(model.nvel, spec.walls, q, ax,
+                                        extents, str(dev)) & fluid[sl]
                     link = torch.sum(torch.where(
                         keep, 2.0 * fq.double() - small, 0.0))
                 gw = gw + link * cvt[q]
@@ -318,3 +342,61 @@ def wall_bounce_back_slip(f_new: torch.Tensor, f_post: torch.Tensor,
                     val = (1.0 - s) * f_post[(q,) + sl] + s * fk[sl]
                 f_new[(p,) + sl] = val
     return f_new
+
+
+def no_flux_at_walls(fluxes, spec: WallSpec):
+    """Zero the face fluxes crossing a wall: the wrap face (between site
+    N-1 and site 0) of each walled axis (ref: advection_bcs.c
+    advection_bcs_no_normal_flux with the halo-wall map).  Returns new
+    tensors for the walled axes."""
+    if not spec.any:
+        return fluxes
+    out = []
+    for ax in range(3):
+        fl = fluxes[ax]
+        if spec.walls[ax]:
+            nlead = fl.dim() - 3
+            sl = [slice(None)] * 3
+            sl[ax] = fl.shape[nlead + ax] - 1
+            fl = fl.clone()
+            fl[(slice(None),) * nlead + tuple(sl)] = 0.0
+        out.append(fl)
+    return out
+
+
+def stress_divergence_force_walls(pth: torch.Tensor, spec: WallSpec):
+    """Force = -div(pth) with one-sided fluxes at the wall faces, plus
+    the momentum flowing into the walls (ref: phi_force_colloid.c
+    pth_force_map_kernel / pth_force_wall_kernel).
+
+    Face flux between fluid sites: 0.5 (pth(i) + pth(i+1)); at a wall
+    face the one-sided value pth(i) of the adjacent fluid site is used.
+    Returns (force (3, X, Y, Z), fwall (3,)): fwall is minus everything
+    injected into the fluid (the interior faces telescope; only the
+    one-sided wall-face fluxes survive), with the accounting sense of
+    ludwig.c:1076 [total] = g + gwall."""
+    shape = pth.shape[2:]
+    comps = []
+    for a in range(3):
+        acc = None
+        for ax in range(3):
+            pax = pth[a, ax]
+            face = 0.5 * (pax + torch.roll(pax, -1, ax))
+            lo = [slice(None)] * 3
+            lo[ax] = 0
+            lo = tuple(lo)
+            if spec.walls[ax]:
+                hi = [slice(None)] * 3
+                hi[ax] = shape[ax] - 1
+                hi = tuple(hi)
+                # one-sided at both wall faces (the wrap face belongs to
+                # the high plane's up-neighbour and the low plane's down)
+                face[hi] = pax[hi]
+            d = face - torch.roll(face, 1, ax)
+            if spec.walls[ax]:
+                # the down-face of plane 0 is the wall: one-sided pth(0)
+                d[lo] = face[lo] - pax[lo]
+            acc = d if acc is None else acc + d
+        comps.append(-acc)
+    force = torch.stack(comps)
+    return force, -torch.sum(force, dim=(1, 2, 3))

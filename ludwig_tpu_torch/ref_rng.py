@@ -84,6 +84,21 @@ def spinodal_ref(size, seed, phi0, amp=0.1):
     return phi0 + amp * (rng.reap_uniform() - 0.5)
 
 
+def patches_ref(size, seed, patch=1, volminus1=0.5):
+    """Patchwise +/-1: each patch takes -1 where the uniform of its first
+    site is below volminus1 (ref: field_phi_init_spinodal_patches)."""
+    rng = RefNoise(size, seed)
+    r = rng.reap_uniform()
+    nx, ny, nz = size
+    phi = np.ones(size)
+    for ic in range(0, nx, patch):
+        for jc in range(0, ny, patch):
+            for kc in range(0, nz, patch):
+                val = -1.0 if r[ic, jc, kc] < volminus1 else 1.0
+                phi[ic:ic + patch, jc:jc + patch, kc:kc + patch] = val
+    return phi
+
+
 def random_director_q5(size, amplitude, two_d=False, seed=13):
     """Random uniaxial Q (ref: blue_phase_random_q_init / _q_2d;
     fixed DEFAULT_SEED=13).  Returns (5, X, Y, Z)."""

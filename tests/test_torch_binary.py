@@ -76,14 +76,15 @@ def test_symmetric_fe_matches_jax():
         assert getattr(tfe, prop) == getattr(jfe, prop)
 
 
-def test_stencils_match_jax():
+@pytest.mark.parametrize("name", ["3d_7pt_fluid", "3d_27pt_fluid"])
+def test_stencils_match_jax(name):
     phi = _rand((2,) + N, 2)       # a leading axis, as q-tensors carry
-    tgrad, tdelsq = stencil.gradient_ops("3d_7pt_fluid")
-    jgrad, jdelsq = jstencil.gradient_ops("3d_7pt_fluid")
+    tgrad, tdelsq = stencil.gradient_ops(name)
+    jgrad, jdelsq = jstencil.gradient_ops(name)
     _close(tgrad(_t(phi)), jgrad(jnp.asarray(phi)))
     _close(tdelsq(_t(phi)), jdelsq(jnp.asarray(phi)))
-    with pytest.raises(NotImplementedError):
-        stencil.gradient_ops("3d_27pt_fluid")
+    with pytest.raises(ValueError):
+        stencil.gradient_ops("3d_27pt_nonesuch")
 
 
 def test_stress_divergence_force_matches_jax():
@@ -95,7 +96,7 @@ def test_stress_divergence_force_matches_jax():
     assert float(got.sum(dim=(1, 2, 3)).abs().max()) < 1e-16
 
 
-@pytest.mark.parametrize("order", [1, 2])
+@pytest.mark.parametrize("order", [1, 2, 3, 4, 5])
 def test_advection_matches_jax(order):
     u, phi = _rand((3,) + N, 4, 0.01), _rand(N, 5)
     for ax in range(3):
@@ -106,8 +107,8 @@ def test_advection_matches_jax(order):
     for a, b in zip(tfl, jfl):
         _close(a, b)
     _close(advect.flux_divergence(tfl), jadvect.flux_divergence(jfl))
-    with pytest.raises(NotImplementedError):
-        advect.advective_fluxes(_t(u), _t(phi), 3)
+    with pytest.raises(ValueError):
+        advect.advective_fluxes(_t(u), _t(phi), 6)
 
 
 @pytest.mark.parametrize("order", [1, 2])
@@ -153,23 +154,57 @@ def test_make_binary_step_matches_jax(order):
     _close(trho, jrho, STEP_TOL)
 
 
-@pytest.mark.parametrize("change", [
+PORTED_CHANGES = [
     dict(advection_order=3), dict(hydrodynamics=False),
     dict(gradient="3d_27pt_fluid"), dict(gradmu_ex=(1e-3, 0.0, 0.0)),
-    dict(force_method="phi_gradmu"), dict(wetting=(0.1, 0.0))],
-    ids=lambda c: next(iter(c)))
-def test_binary_config_refuses_what_is_not_ported(change):
-    """A JAX BinaryConfig using a feature the port has not taken over is
-    refused when carried across, and so is the port's own config for an
-    unported advection order."""
+    dict(force_method="phi_gradmu"), dict(wetting=(0.1, 0.0))]
+
+
+@pytest.mark.parametrize("change", PORTED_CHANGES,
+                         ids=lambda c: next(iter(c)))
+def test_binary_config_carries_across(change):
+    """A JAX BinaryConfig using a feature the port has taken over is
+    carried across field for field."""
+    jcfg, _ = _bcfgs(2)
+    jcfg = dataclasses.replace(jcfg, **change)
+    tcfg = binary_params_from_jax(dataclasses.asdict(jcfg), device="cpu")
+    for key in ("mobility", "advection_order", "gradient", "hydrodynamics",
+                "force_method", "gradmu_ex", "wetting"):
+        want = getattr(jcfg, key)
+        assert getattr(tcfg, key) == (tuple(want) if isinstance(want, tuple)
+                                      else want), key
+
+
+def _refused(jcfg, name):
+    from ludwig_tpu.fe.brazovskii import BrazovskiiFE
+    from ludwig_tpu.noise import NoiseConfig as JNoise
+    if name == "brazovskii":
+        return dataclasses.replace(jcfg, fe=BrazovskiiFE(
+            a=-6.25e-3, b=6.25e-3, kappa=4e-3, c=1e-3))
+    if name.startswith("threefry"):
+        nz = JNoise(kt=1e-5, rho=name != "threefry_phi",
+                    phi=name != "threefry_rho", kiss=False)
+        return dataclasses.replace(jcfg, lb=dataclasses.replace(jcfg.lb,
+                                                                noise=nz))
+    return dataclasses.replace(jcfg, force_method=name)
+
+
+@pytest.mark.parametrize("name", [
+    "brazovskii", "threefry_rho", "threefry_phi", "no_force",
+    "phi_gradmu_correction", "relaxation_symmetric"])
+def test_binary_config_refuses_what_is_not_ported(name):
+    """A JAX BinaryConfig using a feature the port has not taken over (the
+    Brazovskii free energy, the threefry noise stream, the force methods
+    the JAX binary step runs as stress_divergence) is refused when
+    carried across, and so is the port's own config for such a force
+    method."""
     jcfg, tcfg = _bcfgs(2)
     with pytest.raises(NotImplementedError):
-        binary_params_from_jax(
-            dataclasses.asdict(dataclasses.replace(jcfg, **change)),
-            device="cpu")
-    if "advection_order" in change:
+        binary_params_from_jax(dataclasses.asdict(_refused(jcfg, name)),
+                               device="cpu")
+    if name in ("no_force", "phi_gradmu_correction", "relaxation_symmetric"):
         with pytest.raises(NotImplementedError):
-            dataclasses.replace(tcfg, **change)
+            dataclasses.replace(tcfg, force_method=name)
 
 
 @pytest.mark.parametrize("text", [

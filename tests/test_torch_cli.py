@@ -72,15 +72,43 @@ def test_binary_cli_unfused_route_matches_jax():
     np.testing.assert_allclose(b, a, rtol=1e-9, atol=1e-11)
 
 
-@pytest.mark.parametrize("line", [
+# the binary keys the port refused until it took over the binary fluid's
+# boundaries and options: each now runs and prints the JAX package's log
+NOW_PORTED_BINARY = [
     "fd_advection_scheme_order 3", "fe_force_method phi_gradmu",
     "fd_gradient_calculation 3d_27pt_fluid", "hydrodynamics off",
     "phi_initialisation patches", "grad_mu 0.001_0_0",
-    "viscosity_model arrhenius", "boundary_walls 0_0_1",
-    # kT of the electrolyte under fe_electro only
+    "viscosity_model arrhenius\nviscosity_arrhenius_eta_minus 0.01\n"
+    "viscosity_arrhenius_eta_plus 0.005", "boundary_walls 0_0_1",
+    # kT alone switches no fluctuations on; with the switch the LB's KISS
+    # stream runs
     "temperature 0.001",
-    # the binary fluid's noise is not ported (the plain fluid's is)
-    "isothermal_fluctuations on"])
+    "temperature 0.00002\nisothermal_fluctuations on"]
+
+
+@pytest.mark.parametrize("line", NOW_PORTED_BINARY,
+                         ids=lambda ln: ln.split("\n")[-1])
+def test_binary_keys_now_ported_match_jax(line):
+    text = BINARY_FUSED_INPUT + line + "\n"
+    jlog, log, sys_ = _logs(text, text)
+    assert sys_.binary_cfg is not None and sys_.fused_mode is None
+    a, b = _stat_floats(jlog), _stat_floats(log)
+    assert a.size == b.size and a.size > 0
+    np.testing.assert_allclose(b, a, rtol=1e-9, atol=1e-11)
+
+
+@pytest.mark.parametrize("line", [
+    # the force methods the JAX package's binary step runs as
+    # stress_divergence
+    "fe_force_method no_force", "fe_force_method relaxation_symmetric",
+    "viscosity_model eyring",
+    # the binary colloids
+    "colloid_init input_one", "colloid_init from_file",
+    # moving and slip walls of the binary fluid (the JAX package reads
+    # neither), the open boundary without halo walls
+    "boundary_speed_top 0.01", "boundary_walls_slip_fraction_top 0.5_0_0",
+    "lb_bc_open 1", "tpu_shard on", "freq_measure 10",
+    "default_io_grid 2_1_1"])
 def test_unported_binary_keys_raise(line):
     with pytest.raises(NotImplementedError, match=line.split()[0]):
         run_text(BINARY_FUSED_INPUT + line + "\n", out=io.StringIO(),
@@ -882,6 +910,21 @@ freq_statistics 2
 """}
 
 
+# the binary fluid's boundary and noise routes: halo walls with the
+# 27-point wetting stencil (gwall rides as state03), and symmetric_noise
+# with the LB's fluctuations (the KISS states of phi and rho as state03
+# and state04, bitwise across)
+BINARY_RESTART = {
+    "binary-walls-27pt": (BINARY_FUSED_INPUT.replace(
+        "3d_7pt_fluid", "3d_27pt_solid") + "boundary_walls 0_0_1\n",
+        ["dist", "phi", "vel", "state03"]),
+    "binary-kiss-noise": (BINARY_FUSED_INPUT.replace(
+        "free_energy symmetric", "free_energy symmetric_noise")
+        + "temperature 0.00002\nisothermal_fluctuations on\n"
+          "fd_phi_fluctuations 1\n",
+        ["dist", "phi", "vel", "state03", "state04"])}
+
+
 def _steps(log, after, last):
     """The statistics floats of a log after the line `after`, up to
     'Completed cycle <last>'."""
@@ -916,7 +959,7 @@ def _write_init(directory, recs):
 
 
 @pytest.mark.parametrize("name", list(RESTART_INPUTS) + list(FUSED_RESTART)
-                         + list(COLLOID_RESTART))
+                         + list(COLLOID_RESTART) + list(BINARY_RESTART))
 def test_restart_across_packages(name, tmp_path):
     """The unfused LC route (the repaired checkpoint: the gradient leaves
     state03 and state04 ride as the JAX package's do) and the unfused
@@ -934,9 +977,14 @@ def test_restart_across_packages(name, tmp_path):
         text = f"tpu_fused on\n{FUSED_RESTART[name]}"
     elif name in COLLOID_RESTART:
         text = COLLOID_RESTART[name]
+    elif name in BINARY_RESTART:
+        text = f"tpu_fused off\n{BINARY_RESTART[name][0]}"
     else:
         text = f"tpu_fused off\n{RESTART_INPUTS[name]}"
-    atol = 1e-13 if name in FUSED_RESTART else 2e-15
+    # the fused and unfused routes round differently, and so do the
+    # packages' whole-lattice sums of the walls' momentum (gwall)
+    atol = (1e-13 if name in FUSED_RESTART or name == "binary-walls-27pt"
+            else 2e-15)
     base = (text.replace("N_cycles 4", "N_cycles 7")
             .replace("freq_statistics 2", "freq_statistics 1"))
     ds, dx = tmp_path / "straight", tmp_path / "shared"
@@ -955,7 +1003,9 @@ def test_restart_across_packages(name, tmp_path):
     steps = base.replace("N_cycles 7", "N_cycles 3")
     run_text(at(dx, steps) + f"config_at_end yes\nio_directory {dx}\n",
              out=io.StringIO(), device="cpu")
-    assert {"state03-00000003", "state04-00000003"} <= set(os.listdir(dx))
+    tail = (BINARY_RESTART[name][1][3:] if name in BINARY_RESTART
+            else ["state03", "state04"])
+    assert {f"{n}-00000003" for n in tail} <= set(os.listdir(dx))
     jout = io.StringIO()
     jsys = jrun_text(at(dx, steps) + f"N_start 3\nconfig_at_end yes\n"
                      f"io_directory {dx}\n", out=jout)
@@ -970,6 +1020,8 @@ def test_restart_across_packages(name, tmp_path):
         names = ["dist"] + [f"state{i:02d}" for i in range(1, 9)]
         assert ((dx / "config.cds00000006.001-001").read_bytes()
                 == (ds / "config.cds00000006.001-001").read_bytes())
+    elif name in BINARY_RESTART:
+        names = BINARY_RESTART[name][1]
     else:
         names = ["dist", "phi" if "binary" in name else "q", "vel",
                  "state03", "state04"]

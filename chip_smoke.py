@@ -197,7 +197,31 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      through run_text ([phi] total conserved, the [walls] row where walls
      exist), ms a step (CUDA events), CUDA kernels a step and their device
      time (torch.profiler), and one step under CUDA's sync debug mode
-     "error"; their reference statistics launch the stats_ref scans.
+     "error"; their reference statistics launch the stats_ref scans;
+ 31. the other free energies' routes (MORE_FE_ROUTES: Brazovskii,
+     periodic and sheared with the fourth-order LE fields, surfactant,
+     ternary with phi grad mu, between walls with the 27-point ternary
+     wetting stencil, two-field `hydrodynamics off`, the polar gel with
+     and without hydrodynamics, symmetric_lb with 27-point gradients,
+     between walls, with planes and with the LB's KISS noise, and
+     fe_electro_symmetric with a contrast) on the card against the CPU,
+     3 chained steps from a random 16x16x32 state in f64 and f32 (TOL;
+     the electrolyte's f32 leaves at TOL's rtol of their largest
+     magnitude, f32's own rounding of its SOR; the KISS states bitwise);
+     one input of each family
+     (MORE_FE_INPUTS) in f64 through run_text on both (rtol 1e-9, atol
+     1e-11, the lines equal but the floats); a walled ternary restart on
+     the card that prints the straight log as text;
+ 32. at full width in f32 (MORE_FE_CELLS): Brazovskii, surfactant,
+     ternary and the polar gel at 128^3, symmetric_lb at 256^3 and
+     fe_electro_symmetric at 64^3, each for 20 cycles through run_text
+     (its conserved totals held, summed from the state in float64: the
+     mass, phi, psi, the electrolyte's species), ms a step (CUDA
+     events), CUDA kernels a step and their device time
+     (torch.profiler), and one step under CUDA's sync debug mode:
+     "error", or for fe_electro_symmetric "warn", its host
+     synchronisations counted against the SOR's read-backs (one every 5
+     iterations).
 
 Bounds: `bound_ms` is the larger of the bytes the function must move
 (each input read once, each output written once) over the H100 SXM's
@@ -4086,6 +4110,475 @@ def phase30(card):
     return res, paths
 
 
+MORE_FE_SIZE = (16, 16, 32)
+MORE_FE_KT = 2e-5
+# the JAX package's test parameters (tests/test_more_fe.py,
+# tests/test_binary_lb.py, tests/test_electro_symmetric.py)
+BRAZ = dict(a=-5e-4, b=5e-4, kappa=-6e-4, c=7.6e-4)
+SURF = dict(a=-0.0208333, b=0.0208333, kappa=0.12, kt=0.00056587,
+            epsilon=0.03, beta=0.0, w=0.0)
+TERN = dict(alpha=1.0, kappa1=0.01, kappa2=0.02, kappa3=0.05, h1=0.001,
+            h2=-0.001, h3=-0.0025)
+POLAR = dict(a=-0.1, b=0.1, kappa1=0.01, lambda_=0.1, zeta=0.001)
+MORE_FE_ROUTES = (
+    "brazovskii", "brazovskii le 5pt d4", "surfactant", "ternary phi_gradmu",
+    "ternary walls 3d_ternary_solid", "surfactant hydrodynamics off",
+    "polar", "polar hydrodynamics off", "symmetric_lb 27pt",
+    "symmetric_lb walls 27pt solid", "symmetric_lb le 27pt",
+    "symmetric_lb kiss", "electro_symm contrast")
+
+
+def more_fe_route(name, dtype, device, size=MORE_FE_SIZE):
+    """(step, state) of a MORE_FE_ROUTES route at `size` on `device`, the
+    state from numpy seeds (f perturbed about rest, u random), so the card
+    and the CPU start from the same bits."""
+    import numpy as np
+
+    from ludwig_tpu_torch import (binary, binary_le, binary_lb, electro_symm,
+                                  polar, two_field)
+    from ludwig_tpu_torch.electro import ElectroConfig
+    from ludwig_tpu_torch.fe.brazovskii import BrazovskiiFE
+    from ludwig_tpu_torch.fe.electro_symmetric import ElectroSymmetricFE
+    from ludwig_tpu_torch.fe.polar_active import PolarActiveFE
+    from ludwig_tpu_torch.fe.surfactant import SurfactantFE
+    from ludwig_tpu_torch.fe.ternary import TernaryFE
+    from ludwig_tpu_torch.noise import NoiseConfig
+    from ludwig_tpu_torch.noise_kiss import kiss_init
+    from ludwig_tpu_torch.ops.le_ref import le_fields_2d5pt_d4, le_gradient
+    from ludwig_tpu_torch.ops.lees_edwards import LeesEdwardsConfig
+    from ludwig_tpu_torch.ops.solid_stencil import ternary_solid_ops
+    from ludwig_tpu_torch.ops.walls import WallSpec
+    rng = np.random.default_rng(31)
+    nz = (NoiseConfig(kt=MORE_FE_KT, rho=True) if "kiss" in name else None)
+    lb = LBConfig(size=size, nvel=19, eta_shear=0.1, dtype=dtype,
+                  device=device, noise=nz)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=lb.tdtype, device=device)
+
+    w = np.asarray(lb.model.wv)[:, None, None, None]
+    f0 = t(w * (1.0 + 0.05 * rng.standard_normal((19,) + size)))
+    u0 = t(0.01 * rng.standard_normal((3,) + size))
+    le = LeesEdwardsConfig(nplanes=2, uy=0.04, nx=size[0])
+    zeros3 = torch.zeros((3,), dtype=lb.tdtype, device=device)
+    if name.startswith("brazovskii"):
+        cfg = binary.BinaryConfig(lb=lb, fe=BrazovskiiFE(**BRAZ),
+                                  mobility=0.05, advection_order=2)
+        phi = t(0.05 * rng.standard_normal(size))
+        if " le " in name:
+            step = binary_le.make_binary_le_step(
+                binary_le.BinaryLEConfig(binary=cfg, le=le), keep_grads=True)
+            return step, (f0, phi, u0) + le_fields_2d5pt_d4(phi, le, 0)[:2]
+        return binary.make_binary_step(cfg), (f0, phi, u0)
+    if name.startswith(("surfactant", "ternary")):
+        fe = (SurfactantFE(**SURF) if name.startswith("surfactant")
+              else TernaryFE(**TERN))
+        cfg = two_field.TwoFieldConfig(
+            lb=lb, fe=fe, mobilities=(0.15, 0.1), advection_order=2,
+            hydrodynamics="off" not in name,
+            force_method=("phi_gradmu" if name.startswith("ternary")
+                          else "stress_divergence"))
+        state = (f0, t(0.3 * rng.standard_normal(size)),
+                 t(0.3 + 0.1 * rng.random(size)), u0)
+        ws = ops = None
+        if "walls" in name:
+            ws = WallSpec(walls=(False, True, False))
+            a2 = fe.alpha * fe.alpha
+            hrka = ((-fe.h1 / fe.kappa1 + fe.h2 / fe.kappa2) / a2,
+                    (-fe.h3 / fe.kappa3) / a2)
+            ops = tuple(ternary_solid_ops(size, h, walls=ws.walls,
+                                          device=device) for h in hrka)
+            state = state + (zeros3,)
+        return two_field.make_two_field_step(cfg, wallspec=ws,
+                                             solid_ops=ops), state
+    if name.startswith("polar"):
+        cfg = polar.PolarConfig(lb=lb, fe=PolarActiveFE(**POLAR), gamma=0.3,
+                                swim=0.02, advection_order=2,
+                                hydrodynamics="off" not in name)
+        p0 = (polar.polar_init_aster(size)
+              + 0.05 * rng.standard_normal((3,) + size))
+        return polar.make_polar_step(cfg), (f0, t(p0), u0)
+    if name.startswith("symmetric_lb"):
+        gradient = ("3d_27pt_solid" if "solid" in name else "3d_27pt_fluid"
+                    if "27pt" in name else "3d_7pt_fluid")
+        cfg = binary_lb.BinaryLBConfig(lb=lb, fe=FE, mobility=0.15,
+                                       gradient=gradient)
+        g = 0.02 * rng.standard_normal((19,) + size)
+        g[0] += 0.3 * rng.standard_normal(size)
+        state = (f0, t(g), u0)
+        ws = lec = None
+        if "walls" in name:
+            ws = WallSpec(walls=(False, False, True))
+            state = state + (zeros3,)
+        if nz is not None:
+            state = state + (kiss_init(0, size, device=device),)
+        if " le " in name:
+            lec = le
+            phi = binary_lb.g_moments(state[1], lb.model)[0]
+            state = state + le_gradient(phi, le, 0, gradient)
+        return binary_lb.make_binary_lb_step(cfg, wallspec=ws, le=lec), state
+    # the coupled electrolyte across a tanh interface with a contrast;
+    # tolerances no solve reaches, so both devices run max_its iterations
+    ek = ElectroConfig(valency=(1, -1), diffusivity=(0.01, 0.02),
+                       epsilon=200.0, beta=3.0e4, rel_tol=1e-30,
+                       abs_tol=1e-30, max_its=30, multisteps=2)
+    cfg = electro_symm.ElectroSymmConfig(
+        lb=lb, ek=ek, mobility=0.1,
+        fe=ElectroSymmetricFE(symm=FE, electro=ek, epsilon1=300.0,
+                              epsilon2=100.0, deltamu=(0.5, -0.5)))
+    phi = np.tanh((np.arange(size[0]) - 0.5 * size[0]) / 2.0)[:, None, None] \
+        * np.ones(size)
+    rho = 0.01 + 0.001 * rng.standard_normal((2,) + size)
+    state = (f0, t(phi), t(1e-3 * rng.standard_normal(size)), t(rho), u0)
+    return electro_symm.make_electro_symm_step(cfg), state
+
+
+def hold_more_fe_states(what, a, b, walls=None, scaled=False):
+    """The card's state a against the CPU's b: float leaves within TOL,
+    the KISS states (int64) bitwise, a walls' momentum (a (3,) leaf where
+    there are halo walls, summed in another order on the card) at TOL's
+    rtol of its terms' summed size; returns the max |diff| of the fields.
+    `scaled` holds float32 leaves at TOL's rtol of the leaf's largest
+    magnitude instead: the electrolyte's psi after 30 SOR iterations a
+    step carries the card's expf (an ulp from the CPU's) at f32's own
+    rounding of psi (4.1e-7 against f64 on the CPU, max |psi| 0.46)."""
+    worst = 0.0
+    for k, (x, y) in enumerate(zip(a, b)):
+        x = x.cpu()
+        if y.dtype == torch.int64:
+            if not torch.equal(x, y):
+                raise AssertionError(f"{what}: KISS state {k} differs")
+            continue
+        if walls is not None and tuple(y.shape) == (3,):
+            check_gwall(f"{what} gwall", x, y, y.dtype,
+                        wall_scale(b[0], walls, 3))
+            continue
+        tol = TOL[y.dtype]
+        if scaled and y.dtype == torch.float32:
+            tol = dict(rtol=0.0, atol=tol["rtol"] * float(y.abs().max()))
+        if not torch.allclose(x, y, **tol):
+            raise AssertionError(f"{what}: leaf {k} differs by "
+                                 f"{max_err(x, y):.3e} beyond {tol}")
+        worst = max(worst, max_err(x, y))
+    return worst
+
+
+NUMBER = re.compile(r"[-+]?\d+(?:\.\d*)?(?:[eE][-+]?\d+)?")
+MORE_FE_TAGS = ("[rho]", "[phi]", "[fe", "[total", "[fluid", "[walls",
+                "[minimum", "[maximum", "[eqipart", "[measd", "[psi]",
+                "[elc]", "[Px ]", "[Py ]", "[Pz ]", "[surf/fl/tot]",
+                "[rho/phi/psi]", "SOR residual")
+
+
+def more_fe_floats(log):
+    """(words, floats) of the statistics lines of a log: the words with the
+    numbers blanked, and the numbers (the [phi] format glues a pair where
+    the second is negative)."""
+    body = log[log.index("\nInitial conditions."):log.index("\nTimer")]
+    words, vals = [], []
+    for line in body.splitlines():
+        if line.startswith(MORE_FE_TAGS + ("Free energies", "SOR ")):
+            tag, sep, rest = line.rpartition("]")
+            words.append(" ".join((tag + sep + NUMBER.sub(" # ", rest))
+                                  .split()))
+            if line.startswith(MORE_FE_TAGS):
+                vals += [float(v) for v in NUMBER.findall(rest)]
+    return words, torch.tensor(vals, dtype=torch.float64)
+
+
+MORE_FE_BASE = """
+N_cycles 4
+freq_statistics 2
+size 8_8_16
+viscosity 0.1
+dtype float64
+"""
+SYMM_KEYS = "A -0.00625\nB 0.00625\nK 0.004\n"
+# one input of each family (tests/test_torch_more_fe_cli.py's, 4 cycles)
+MORE_FE_INPUTS = {
+    "brazovskii": MORE_FE_BASE + "free_energy brazovskii\nA -0.0005\n"
+    "B 0.0005\nK -0.0006\nC 0.00076\nmobility 0.05\n"
+    "fd_advection_scheme_order 2\nnoise 0.01\nrandom_seed 7\n",
+    "surfactant": MORE_FE_BASE + "free_energy surfactant\n"
+    "surf_A -0.0208333\nsurf_B 0.0208333\nsurf_kappa 0.12\n"
+    "surf_kT 0.00056587\nsurf_epsilon 0.03\nsurf_beta 0.01\n"
+    "surf_psi0 0.05\nsurf_mobility_phi 0.15\nsurf_mobility_psi 0.1\n"
+    "noise 0.05\n",
+    "ternary_tee_walls": MORE_FE_BASE.replace("size 8_8_16", "size 16_16_1")
+    + "free_energy ternary\nternary_alpha 1.0\nternary_kappa1 0.01\n"
+    "ternary_kappa2 0.02\nternary_kappa3 0.05\nternary_mobility_phi 0.15\n"
+    "ternary_mobility_psi 0.1\nternary_initialisation 2d_tee\n"
+    "fd_gradient_calculation 2d_ternary_solid\nboundary_walls 0_1_0\n"
+    "ternary_h1 0.001\nternary_h2 -0.002\n",
+    "symmetric_lb_walls": MORE_FE_BASE + "free_energy symmetric_lb\n"
+    + SYMM_KEYS + "mobility 0.15\nnoise 0.1\nboundary_walls 0_0_1\n"
+    "fd_gradient_calculation 3d_27pt_solid\n",
+    "symmetric_lb_le_kiss": MORE_FE_BASE.replace("size 8_8_16",
+                                                 "size 16_8_16")
+    + "free_energy symmetric_lb\n" + SYMM_KEYS + "mobility 0.15\n"
+    "N_LE_plane 2\nLE_plane_vel 0.01\ntemperature 0.00002\n"
+    "isothermal_fluctuations on\n",
+    "polar_active": MORE_FE_BASE + "free_energy polar_active\n"
+    "polar_active_a -0.1\npolar_active_b 0.1\npolar_active_k 0.01\n"
+    "polar_active_zeta 0.001\npolar_active_lambda 0.1\n"
+    "leslie_ericksen_gamma 0.3\nfd_advection_scheme_order 2\n",
+    "fe_electro_symmetric": MORE_FE_BASE.replace("size 8_8_16",
+                                                 "size 16_4_4")
+    + "free_energy fe_electro_symmetric\n" + SYMM_KEYS + "mobility 0.05\n"
+    "phi_initialisation block_X\nphi_init_block_dimension 6\n"
+    "electrokinetics_epsilon1 4.4e3\nelectrokinetics_epsilon2 2.2e3\n"
+    "electrosymmetric_delta_mu0 0.1\nelectrosymmetric_delta_mu1 -0.1\n"
+    "temperature 3.33333333333e-5\nelectrokinetics_init gouy_chapman\n"
+    "electrokinetics_init_rho_el 1.04e-3\n"
+    "electrokinetics_init_sigma 3.125e-2\nelectrokinetics_rel_tol 1e-3\n"
+    "electrokinetics_maxits 300\n",
+}
+
+
+def phase31():
+    phase("31 the other free energies on the card vs the CPU")
+    import tempfile
+    worst = 0.0
+    for name in MORE_FE_ROUTES:
+        for dtype in ("float64", "float32"):
+            got = {}
+            for device in ("cuda", "cpu"):
+                step, state = more_fe_route(name, dtype, device)
+                for t in range(1, 4):
+                    state, _ = step(state, t)
+                got[device] = state
+            walls = ((False, True, False) if name.startswith("ternary walls")
+                     else (False, False, True) if "walls" in name else None)
+            err = hold_more_fe_states(f"{name} {dtype}", got["cuda"],
+                                      got["cpu"], walls,
+                                      scaled=name.startswith("electro"))
+            if dtype == "float64":
+                worst = max(worst, err)
+            tol = ("1e-5 of each leaf's max magnitude"
+                   if name.startswith("electro") and dtype == "float32"
+                   else TOL[getattr(torch, dtype)])
+            print(f"{name} {dtype}: 3 steps at 16x16x32 on the card against "
+                  f"the CPU within {tol}, max |diff| "
+                  f"{err:.3e}" + (", KISS states bitwise" if "kiss" in name
+                                  else ""))
+    counts = {}
+    for name, text in MORE_FE_INPUTS.items():
+        logs = {}
+        for device in ("cuda", "cpu"):
+            _cuda.launches.reset()
+            out = io.StringIO()
+            run_text(text, out=out, device=device)
+            logs[device] = out.getvalue()
+            if device == "cuda":
+                counts[f"{name} f64 8x8x16"] = stat_scan_counts()
+        (wa, a), (wb, b) = (more_fe_floats(logs[k]) for k in ("cuda", "cpu"))
+        if (wa != wb or a.numel() == 0
+                or not torch.allclose(a, b, rtol=1e-9, atol=1e-11)):
+            raise AssertionError(f"input {name}: the card's log differs "
+                                 "from the CPU's")
+        print(f"input {name} f64 through run_text: {a.numel()} floats on the "
+              f"card agree with the CPU's (rtol 1e-9, atol 1e-11), max "
+              f"|diff| {float((a - b).abs().max()):.3e}")
+    with tempfile.TemporaryDirectory() as d:
+        # a restart on the card: steps 3-4 of the walled ternary fluid from
+        # the step-2 checkpoint (gwall rides) print the straight run's log
+        text = (MORE_FE_INPUTS["ternary_tee_walls"].replace(
+            "freq_statistics 2", "freq_statistics 1") + f"io_directory {d}\n")
+        straight, rest = io.StringIO(), io.StringIO()
+        run_text(text, out=straight, device="cuda")
+        run_text(text.replace("N_cycles 4", "N_cycles 2")
+                 + "config_at_end yes\n", out=io.StringIO(), device="cuda")
+        run_text(text.replace("N_cycles 4", "N_cycles 2") + "N_start 2\n",
+                 out=rest, device="cuda")
+        want = straight.getvalue()
+        want = want[want.index("\n", want.index("Completed cycle 2\n")) + 1:]
+        got = rest.getvalue()
+        got = got[got.index("\n", got.index("Starting time step loop.")) + 1:]
+        if want.split("\nTimer")[0] != got.split("\nTimer")[0]:
+            raise AssertionError("ternary walls restart at 2: the restarted "
+                                 "log is not the straight log")
+    print("ternary walls f64 on the card: the restart from step 2 prints the "
+          "straight log's steps 3-4 as text")
+    return worst, counts
+
+
+MORE_FE_CYCLES = 20
+MORE_FE_128 = f"""
+N_cycles {MORE_FE_CYCLES}
+freq_statistics {MORE_FE_CYCLES}
+size 128_128_128
+viscosity 0.1
+dtype float32
+"""
+# the six full-width cells: each family's JAX test parameters at the
+# reference benchmarks' 128^3 (symmetric_lb at the binary benchmark's
+# 256^3, fe_electro_symmetric at 64^3).  The surfactant's mobilities are
+# 0.05: the explicit CH update needs M (|A| k^2 + kappa k^4) < 2 at the
+# 7-point stencil's largest k^2 = 12, and M 0.15 with kappa 0.12 grows
+# the grid-scale mode 1.55x a step from the spinodal noise
+MORE_FE_CELLS = {
+    "brazovskii 128^3": MORE_FE_128 + "free_energy brazovskii\n"
+    "A -0.0005\nB 0.0005\nK -0.0006\nC 0.00076\nmobility 0.05\n"
+    "fd_advection_scheme_order 2\nphi_initialisation spinodal\n"
+    "noise 0.01\n",
+    "surfactant 128^3": MORE_FE_128 + "free_energy surfactant\n"
+    "surf_A -0.0208333\nsurf_B 0.0208333\nsurf_kappa 0.12\n"
+    "surf_kT 0.00056587\nsurf_epsilon 0.03\nsurf_psi0 0.01\n"
+    "surf_mobility_phi 0.05\nsurf_mobility_psi 0.05\n"
+    "fd_advection_scheme_order 2\nphi_initialisation spinodal\n"
+    "noise 0.05\n",
+    "ternary 128^3": MORE_FE_128 + "free_energy ternary\n"
+    "ternary_alpha 1.0\nternary_kappa1 0.01\nternary_kappa2 0.02\n"
+    "ternary_kappa3 0.05\nternary_mobility_phi 0.15\n"
+    "ternary_mobility_psi 0.1\nternary_initialisation 2d_double_emulsion\n"
+    "fe_force_method phi_gradmu\n",
+    "symmetric_lb 256^3": MORE_FE_128.replace("size 128_128_128",
+                                              "size 256_256_256")
+    .replace("viscosity 0.1", "viscosity 0.00625") + "free_energy "
+    "symmetric_lb\n" + SYMM_KEYS + "mobility 0.15\n"
+    "fd_gradient_calculation 3d_27pt_fluid\nphi_initialisation spinodal\n",
+    "polar_active 128^3": MORE_FE_128 + "free_energy polar_active\n"
+    "polar_active_a -0.1\npolar_active_b 0.1\npolar_active_k 0.01\n"
+    "polar_active_zeta 0.001\npolar_active_lambda 0.1\n"
+    "leslie_ericksen_gamma 0.3\n",
+    "fe_electro_symmetric 64^3": MORE_FE_128.replace(
+        "size 128_128_128", "size 64_64_64") + "freq_psi_resid 1\n"
+    "free_energy fe_electro_symmetric\n" + SYMM_KEYS + "mobility 0.05\n"
+    "phi_initialisation block_X\nphi_init_block_dimension 32\n"
+    "electrokinetics_z0 1\nelectrokinetics_z1 -1\nelectrokinetics_d0 0.01\n"
+    "electrokinetics_d1 0.01\nelectrokinetics_eunit 1.0\n"
+    "electrokinetics_epsilon1 4.4e3\nelectrokinetics_epsilon2 2.2e3\n"
+    f"electrokinetics_init gouy_chapman\n"
+    f"electrokinetics_init_rho_el {ELEC_RHO_EL}\n"
+    f"electrokinetics_init_sigma {ELEC_SIGMA}\n"
+    "electrokinetics_solver_type sor\nelectrokinetics_rel_tol 1e-8\n"
+    "electrokinetics_abs_tol 1e-15\nelectrokinetics_maxits 1000\n",
+}
+# the conserved totals of each cell's state: the mass (f), the order
+# parameters (phi; psi of a two-field run; symmetric_lb's g, whose sum is
+# phi's) and the electrolyte's species (their sum weighted by the
+# valencies is the charge); leaf index -> name
+CONSERVED = {"brazovskii": {0: "mass", 1: "phi"},
+             "surfactant": {0: "mass", 1: "phi", 2: "psi"},
+             "ternary": {0: "mass", 1: "phi", 2: "psi"},
+             "symmetric_lb": {0: "mass", 1: "phi"},
+             "polar_active": {0: "mass"},
+             "fe_electro_symmetric": {0: "mass", 1: "phi", 3: "species"}}
+
+
+def state_totals(state, family):
+    """{name: (float64 total, float64 sum of magnitudes)} of a state's
+    conserved leaves (per species for the electrolyte), on the device."""
+    out = {}
+    for k, name in CONSERVED[family].items():
+        x = state[k].double()
+        dims = tuple(range(1, x.dim())) if name == "species" else None
+        out[name] = ((x.sum(dim=dims), x.abs().sum(dim=dims)) if dims
+                     else (x.sum(), x.abs().sum()))
+    return out
+
+
+def phase32(card):
+    phase(f"32 the other free energies at full width f32 on {card}")
+    import warnings
+
+    from ludwig_tpu_torch.ludwig import build_system
+    from ludwig_tpu_torch.runtime import RunTime
+    res, paths = {}, {}
+    for label, text in MORE_FE_CELLS.items():
+        family = label.split()[0]
+        start = state_totals(build_system(RunTime(text), "cuda").state,
+                             family)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.launches.reset()
+        log = io.StringIO()
+        t0 = time.perf_counter()
+        sys_ = run_text(text, out=log, device="cuda")
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        paths[label] = stat_scan_counts()
+        out = log.getvalue()
+        if f"Completed cycle {MORE_FE_CYCLES}" not in out:
+            raise AssertionError(f"{label}: cycles incomplete")
+        if not all(torch.isfinite(x).all() for x in sys_.state
+                   if x.is_floating_point()):
+            raise AssertionError(f"{label}: the state is not finite")
+        # the totals of the state, summed in float64 on the device (the
+        # printed [rho] and species totals are float32 site-order sums,
+        # off by up to ~1e-4 of a 128^3 total): float32's rounding of the
+        # updates leaves a drift, held within 1e-5 of the sum of |x|
+        totals = {}
+        for name, (t1, a1) in state_totals(sys_.state, family).items():
+            t0, a0 = start[name]
+            tol = 1e-5 * torch.maximum(a0, a1)
+            if not bool(((t1 - t0).abs() <= tol).all()):
+                raise AssertionError(f"{label}: {name} total "
+                                     f"{t0.tolist()} -> {t1.tolist()} not "
+                                     f"conserved within {tol.tolist()}")
+            totals[name] = (t0.tolist(), t1.tolist())
+        nsite = math.prod(sys_.lb_cfg.size)
+        sor = [int(n) for n in re.findall(
+            r"SOR residual\s+\S+ at (\d+) iter", out)]
+        del sys_
+        # the step alone: ms (CUDA events), kernels and device time
+        # (torch.profiler), one step under the sync debug mode
+        sys_ = build_system(RunTime(text), "cuda")
+        holder = {"s": sys_.state, "t": 1}
+
+        def run():
+            holder["s"], holder["aux"] = sys_.step_fn(holder["s"],
+                                                      holder["t"])
+            holder["t"] += 1
+
+        ms = time_ms(run, 3 if family == "fe_electro_symmetric" else 5,
+                     warm=2)
+        kernels, dev_ms, top = post_profile(run, reps=1)
+        torch.cuda.synchronize()
+        # the electrolyte's SOR reads its convergence test back every 5
+        # iterations: those read-backs, and nothing else, synchronise
+        mode = "warn" if family == "fe_electro_symmetric" else "error"
+        torch.cuda.set_sync_debug_mode(mode)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        syncs = len(caught)
+        if mode == "warn":
+            # the last iteration's index k: read-backs at 4, 9, .., up to
+            # the first past k, or every 5 of max_its
+            k = int(holder["aux"][1][0])
+            max_its = sys_.electro_cfg.ek.max_its
+            want = min(k // 5 + 1, max_its // 5)
+            if syncs != want:
+                raise AssertionError(f"{label}: {syncs} host syncs in a "
+                                     f"step, the SOR's read-backs are {want}")
+        nsite = math.prod(sys_.lb_cfg.size)
+        res[label] = {"ms": ms, "mlups": nsite / (ms * 1e3),
+                      "kernels": kernels, "device_ms": dev_ms,
+                      "host_syncs": syncs, "run_text_s": wall_s,
+                      "peak_gb": peak_gb,
+                      "totals": totals, "sor_iterations": sor,
+                      "top": [(k[:60], c, round(t, 4)) for k, c, t in top]}
+        print(f"{label} f32: {ms:.3f} ms a step (CUDA events), "
+              f"{nsite / (ms * 1e3):.1f} MLUPS, {kernels} CUDA kernels a "
+              f"step, {dev_ms} ms of them on the device (torch.profiler, 1 "
+              f"step); one step under the sync debug mode '{mode}': "
+              f"{syncs} host syncs; run_text x {MORE_FE_CYCLES} cycles "
+              f"{wall_s:.2f} s, peak {peak_gb:.2f} GB, totals {totals}"
+              + (f", SOR iterations {sor}" if sor else "")
+              + f", scans {paths[label]} [{card}]")
+        for key, count, k_ms in top[:3]:
+            print(f"    {k_ms:.4f} ms device, {count:.0f} a step: "
+                  f"{key[:90]}")
+        del sys_, holder
+    return res, paths
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -4178,6 +4671,11 @@ def main():
     binary_cells, binary_paths = phase30(card)
     by_path.update(binary_paths)
     timed["momentum_total_ref"]["binary_cells"] = binary_cells
+    more_fe_worst, more_fe_counts = phase31()
+    by_path.update(more_fe_counts)
+    more_fe_cells, more_fe_paths = phase32(card)
+    by_path.update(more_fe_paths)
+    timed["momentum_total_ref"]["more_fe_cells"] = more_fe_cells
     for name in STAT_SCANS:
         worst[name] = 0.0        # held bitwise in phases 19 and 21
     print(f"all phases passed ({time.perf_counter() - _T0:.1f} s)")
@@ -4246,6 +4744,11 @@ def main():
             # launch the scans)
             kernels[-1].update(binary_cells=t["binary_cells"],
                                binary_routes_f64_max_abs_diff=binary_worst)
+        if "more_fe_cells" in t:  # phase 32: the other free energies'
+            # cells (PyTorch routes; their statistics launch the scans)
+            kernels[-1].update(
+                more_fe_cells=t["more_fe_cells"],
+                more_fe_routes_f64_max_abs_diff=more_fe_worst)
         if "wall_step_ms" in t:   # the wall and LE steps around the kernel
             kernels[-1].update({k: t[k] for k in (
                 "wall_step_ms", "wall_post_ms", "le_step_ms", "le_post_ms",

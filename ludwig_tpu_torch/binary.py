@@ -28,7 +28,7 @@ from ludwig_tpu_torch import noise as noise_mod
 from ludwig_tpu_torch import noise_kiss
 from ludwig_tpu_torch.dynamics.cahn_hilliard import (CahnHilliardParams,
                                                      cahn_hilliard_update)
-from ludwig_tpu_torch.fe.symmetric import SymmetricFE
+from ludwig_tpu_torch.fe.brazovskii import BrazovskiiFE
 from ludwig_tpu_torch.lb import LBConfig, _noise_terms, initial_rest
 from ludwig_tpu_torch.ops.advect import (_up, advective_fluxes,
                                          blocked_faces, flux_divergence)
@@ -52,15 +52,17 @@ SOLID_GRADIENTS = ("3d_7pt_solid", "3d_27pt_solid")
 
 @dataclasses.dataclass(frozen=True)
 class BinaryConfig:
-    """Static configuration for a symmetric binary-fluid run (the JAX
-    package's fields).  wetting: (C, H) for the solid stencils, floats
+    """Static configuration for a symmetric (or Brazovskii) binary-fluid
+    run (the JAX package's fields).  fe: fe.symmetric.SymmetricFE or
+    fe.brazovskii.BrazovskiiFE, whose fields add the fourth-order
+    gradients (fourth_order).  wetting: (C, H) for the solid stencils, floats
     or (X, Y, Z) tensors of per-site map data; visc_model e.g.
     visc.ViscArrhenius; gradmu_ex the external chemical-potential
     gradient (ref: physics grad_mu key): F = -phi grad_mu on the fluid,
     -M grad_mu on the CH flux."""
 
     lb: LBConfig
-    fe: SymmetricFE
+    fe: object
     mobility: float = 1.0
     advection_order: int = 1
     gradient: str = GRADIENT
@@ -83,21 +85,33 @@ class BinaryConfig:
 
     @property
     def fourth_order(self) -> bool:
-        return False
+        return isinstance(self.fe, BrazovskiiFE)
 
 
-def fe_fields(phi, gradient: str = GRADIENT, solid_ops=None):
+def fe_fields(phi, gradient: str = GRADIENT, fourth_order: bool = False,
+              solid_ops=None):
     """Order parameter + gradients dict shared by mu/stress/stats.
-    solid_ops overrides the stencils with wetting-aware ones
-    (binary_solid_ops; one pass for both where it has ``both``)."""
+
+    fourth_order adds grad(del^2 phi) and del^4 phi, a second pass of the
+    same stencils over delsq (Brazovskii; the reference's ngrad = 4 path,
+    ref: field_grad.h:24-34).  solid_ops overrides the stencils with
+    wetting-aware ones (binary_solid_ops; one pass for both where it has
+    ``both``)."""
     if solid_ops is not None and hasattr(solid_ops, "both"):
-        grad, delsq = solid_ops.both(phi)
-        return {"phi": phi, "grad_phi": grad, "delsq_phi": delsq}
-    # the symmetric phi is created WITH the LE object (ludwig.c:1185,1268)
-    # -> the LE-parameterised tomita delsq
-    grad, delsq = solid_ops if solid_ops is not None \
-        else gradient_ops(gradient, le_field=True)
-    return {"phi": phi, "grad_phi": grad(phi), "delsq_phi": delsq(phi)}
+        both = solid_ops.both
+    else:
+        # the symmetric / Brazovskii phi is created WITH the LE object
+        # (ludwig.c:1185,1268) -> the LE-parameterised tomita delsq
+        grad, delsq = solid_ops if solid_ops is not None \
+            else gradient_ops(gradient, le_field=True)
+
+        def both(x):
+            return grad(x), delsq(x)
+    g, d2 = both(phi)
+    out = {"phi": phi, "grad_phi": g, "delsq_phi": d2}
+    if fourth_order:
+        out["grad_delsq_phi"], out["delsq_delsq_phi"] = both(d2)
+    return out
 
 
 def binary_solid_ops(cfg: BinaryConfig, solid=None, wallspec=None):
@@ -171,7 +185,8 @@ def make_binary_step(cfg: BinaryConfig, solid=None, wallspec=None,
 
     def step(state, t=0):
         f, phi, u = state[0], state[1], state[2]
-        fields = fe_fields(phi, cfg.gradient, solid_ops=solid_ops)
+        fields = fe_fields(phi, cfg.gradient, cfg.fourth_order,
+                           solid_ops=solid_ops)
         mu = cfg.fe.mu(fields)
 
         nstate_rho = state[-1] if kiss_rho else None

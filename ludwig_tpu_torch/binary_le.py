@@ -20,8 +20,10 @@ Two forms, both written over all planes at once (ops/le_ref.py):
 
 The 7- and 27-point gradients and advection orders 1-5 run on the
 unfused step, with the LB's KISS fluctuations where they are on (the
-state then carries the per-site KISS state after u).  The Brazovskii
-free energy of the JAX step is not ported yet and raises, naming it.
+state then carries the per-site KISS state after u), and so does the
+Brazovskii free energy, whose chemical potential and stress read the
+fourth-order LE fields (le_ref.le_fields_2d5pt_d4, or _27pt_d4 for the
+27-point stencil, as the JAX step chooses).
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ from ludwig_tpu_torch.lb import _noise_terms, kiss_on
 from ludwig_tpu_torch.ops.collide import collide
 from ludwig_tpu_torch.ops.le_ref import (ADV_STENCIL, LEContext, col_grad7,
                                          face_slab, le_buffer_fields,
-                                         le_face_u, le_force_cols,
+                                         le_face_u, le_fields_27pt_d4,
+                                         le_fields_2d5pt_d4, le_force_cols,
                                          le_gradient, le_stress_force,
                                          replace_col, sample_linear,
                                          slab_neighbours, upwind_face)
@@ -50,11 +53,10 @@ class BinaryLEConfig:
 
 
 def _check(cfg: BinaryLEConfig):
-    fe = cfg.binary.fe
-    if type(fe).__name__ == "BrazovskiiFE":
-        raise NotImplementedError(
-            "the sheared Brazovskii free energy (fourth-order LE fields) is "
-            "not ported yet, see ROADMAP")
+    if cfg.binary.fourth_order:
+        raise ValueError("the fused LE column fix takes the symmetric free "
+                         "energy only (the sheared Brazovskii fluid runs "
+                         "make_binary_le_step)")
 
 
 def le_cahn_hilliard(phi, mu, u, ctx: LEContext, mobility: float,
@@ -121,8 +123,9 @@ def make_binary_le_step(cfg: BinaryLEConfig, keep_grads: bool = False):
     and ghost noise, ref: collision.c noise branch); keep_grads carries
     the LE-aware gradients of the step's pre-update phi at the tail of
     the state, for the statistics and the checkpoint (the reference's
-    stale-gradient convention)."""
-    _check(cfg)
+    stale-gradient convention).  The Brazovskii free energy's chemical
+    potential and stress take the fourth-order LE fields (its buffer
+    columns carry them too)."""
     bcfg = cfg.binary
     params = bcfg.lb.collision_params()
     model = bcfg.lb.model
@@ -130,31 +133,39 @@ def make_binary_le_step(cfg: BinaryLEConfig, keep_grads: bool = False):
     fe = bcfg.fe
     gradient = bcfg.gradient
     kiss_rho = kiss_on(bcfg.lb)
+    braz = bcfg.fourth_order
+    d4_fields = (le_fields_27pt_d4 if gradient == "3d_27pt_fluid"
+                 else le_fields_2d5pt_d4)
 
-    def mu_of(phi0, delsq0):
-        return fe.mu({"phi": phi0, "delsq_phi": delsq0})
+    def mu_of(phi0, grad0, delsq0, gd2=None, d4=None):
+        return fe.mu({"phi": phi0, "delsq_phi": delsq0,
+                      "delsq_delsq_phi": d4})
 
-    def pth_of(phi0, grad0, delsq0):
+    def pth_of(phi0, grad0, delsq0, gd2=None, d4=None):
         return fe.stress({"phi": phi0, "grad_phi": grad0,
-                          "delsq_phi": delsq0})
+                          "delsq_phi": delsq0, "grad_delsq_phi": gd2,
+                          "delsq_delsq_phi": d4})
 
     def step(state, t=0):
         f, phi, u = state[:3]
         ctx = LEContext(le, t, phi)
-        grad, delsq = le_gradient(phi, le, t, gradient)
-        mu = mu_of(phi, delsq)
-        pth = pth_of(phi, grad, delsq)
-        # the buffer-frame columns: looking up from the lower frame
-        # (above each plane), looking down from the upper one
-        pb1, grad_b1, dsq_b1 = le_buffer_fields(phi, ctx, True, gradient)
-        pd0, grad_d0, dsq_d0 = le_buffer_fields(phi, ctx, False, gradient)
+        if braz:
+            grad, delsq, gd2, d4, bufs = d4_fields(phi, le, t)
+            own = (phi, grad, delsq, gd2, d4)
+            b1, d0 = bufs["b1"], bufs["d0"]
+        else:
+            grad, delsq = le_gradient(phi, le, t, gradient)
+            own = (phi, grad, delsq)
+            # the buffer-frame columns: looking up from the lower frame
+            # (above each plane), looking down from the upper one
+            b1 = le_buffer_fields(phi, ctx, True, gradient)
+            d0 = le_buffer_fields(phi, ctx, False, gradient)
 
-        phi_new = le_cahn_hilliard(phi, mu, u, ctx, bcfg.mobility,
-                                   bcfg.advection_order, mu_of(pb1, dsq_b1),
-                                   mu_of(pd0, dsq_d0))
+        phi_new = le_cahn_hilliard(phi, mu_of(*own), u, ctx, bcfg.mobility,
+                                   bcfg.advection_order, mu_of(*b1),
+                                   mu_of(*d0))
         area = float(phi.shape[1] * phi.shape[2])
-        force = le_stress_force(pth, pth_of(pb1, grad_b1, dsq_b1),
-                                pth_of(pd0, grad_d0, dsq_d0), ctx,
+        force = le_stress_force(pth_of(*own), pth_of(*b1), pth_of(*d0), ctx,
                                 area).to(f.dtype)
 
         if kiss_rho:

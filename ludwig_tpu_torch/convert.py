@@ -15,18 +15,27 @@ import numpy as np
 import torch
 
 from ludwig_tpu_torch.binary import GRADIENT, BinaryConfig
+from ludwig_tpu_torch.binary_lb import BinaryLBConfig
 from ludwig_tpu_torch.colloids import ColloidState
 from ludwig_tpu_torch.electro import ElectroConfig
 from ludwig_tpu_torch.electro_sim import ElectroSimConfig
+from ludwig_tpu_torch.electro_symm import ElectroSymmConfig
 from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE
+from ludwig_tpu_torch.fe.brazovskii import BrazovskiiFE
+from ludwig_tpu_torch.fe.electro_symmetric import ElectroSymmetricFE
 from ludwig_tpu_torch.fe.lc_droplet import LCDropletFE
+from ludwig_tpu_torch.fe.polar_active import PolarActiveFE
+from ludwig_tpu_torch.fe.surfactant import SurfactantFE
 from ludwig_tpu_torch.fe.symmetric import SymmetricFE
+from ludwig_tpu_torch.fe.ternary import TernaryFE
 from ludwig_tpu_torch.lc import LCConfig
 from ludwig_tpu_torch.lc_droplet import LCDropletConfig
 from ludwig_tpu_torch.lb import DTYPES, LBConfig
 from ludwig_tpu_torch.noise import NoiseConfig
 from ludwig_tpu_torch.ops.collide import RelaxationScheme
 from ludwig_tpu_torch.ops.fused import FusedNoise
+from ludwig_tpu_torch.polar import PolarConfig
+from ludwig_tpu_torch.two_field import TwoFieldConfig
 from ludwig_tpu_torch.visc import ViscArrhenius
 
 # pad widths of the JAX package's fused binary, LC and droplet states
@@ -132,14 +141,12 @@ def binary_params_from_jax(bcfg_fields: dict, device="cuda") -> BinaryConfig:
     method, external chemical-potential gradient, "visc_model" an
     Arrhenius model's eta_minus, eta_plus and phistar (or None) and the
     wetting (C, H), floats or per-site arrays (tensors on `device` in the
-    lattice's dtype).  The Brazovskii free energy (a fourth coefficient
-    c) and the threefry noise stream are not ported and raise."""
+    lattice's dtype).  A free energy with a fourth coefficient c is the
+    Brazovskii one.  The threefry noise stream is not ported and raises."""
     fields = dict(bcfg_fields)
     fe = _fields_of(fields.pop("fe"))
-    if set(fe) - {"a", "b", "kappa"}:
-        raise NotImplementedError(
-            f"BinaryConfig.fe with fields {sorted(fe)} (the Brazovskii free "
-            "energy) is not ported yet, see ROADMAP")
+    fe = (BrazovskiiFE(**fe) if set(fe) == {"a", "b", "kappa", "c"}
+          else SymmetricFE(**fe))
     lb = _lb_from_jax(fields.pop("lb"), device)
     visc = fields.get("visc_model")
     if visc is not None:
@@ -151,17 +158,91 @@ def binary_params_from_jax(bcfg_fields: dict, device="cuda") -> BinaryConfig:
         for w in wet)
     if "gradmu_ex" in fields:
         fields["gradmu_ex"] = tuple(float(g) for g in fields["gradmu_ex"])
-    return BinaryConfig(lb=lb, fe=SymmetricFE(**fe), **fields)
+    return BinaryConfig(lb=lb, fe=fe, **fields)
 
 
-def binary_state_leaves_from_jax(state, device, dtype):
-    """The JAX package's unfused binary state (f, phi, u[, gwall][,
-    nstate_phi][, nstate_rho]) - or any state whose leaves are unpadded
-    - as the port's: the KISS states (uint32) as the port's int64 words,
-    the other leaves in `dtype`."""
+def state_leaves_from_jax(state, device, dtype):
+    """A JAX state whose leaves are unpadded as the port's: the KISS
+    states (uint32) as the port's int64 words, the other leaves in
+    `dtype`.  That is every unfused state: the binary fluid's (f, phi,
+    u[, gwall][, nstate_phi][, nstate_rho]), the two-field fluids' (f,
+    phi, psi, u[, gwall]), symmetric_lb's (f, g, u[, gwall][, nstate][,
+    grad, delsq]), the polar gel's (f, p, u) and fe_electro_symmetric's
+    (f, phi, psi, rho_k, u)."""
     return tuple(noise_state_from_jax(a, device)
                  if np.asarray(a).dtype == np.uint32
                  else _tensor(np.asarray(a), device, dtype) for a in state)
+
+
+
+def two_field_params_from_jax(tcfg_fields: dict,
+                              device="cuda") -> TwoFieldConfig:
+    """TwoFieldConfig from the fields of a ludwig_tpu TwoFieldConfig, for
+    example ``dataclasses.asdict(tcfg)``: "lb" the LBConfig's fields, "fe"
+    the surfactant free energy's (a, b, kappa, kt, epsilon, beta, w) or
+    the ternary one's (alpha, kappa1..3, h1..3), a dict or an object with
+    those attributes, then the two mobilities, the advection order, the
+    stencil, the hydrodynamics switch and the force method."""
+    fields = dict(tcfg_fields)
+    fe = _fields_of(fields.pop("fe"))
+    fe = TernaryFE(**fe) if "alpha" in fe else SurfactantFE(**fe)
+    fields["mobilities"] = tuple(float(m) for m in fields["mobilities"])
+    return TwoFieldConfig(lb=_lb_from_jax(fields.pop("lb"), device), fe=fe,
+                          **fields)
+
+
+def binary_lb_params_from_jax(l2cfg_fields: dict,
+                              device="cuda") -> BinaryLBConfig:
+    """BinaryLBConfig (symmetric_lb) from the fields of a ludwig_tpu
+    BinaryLBConfig, for example ``dataclasses.asdict(l2cfg)``: "lb" the
+    LBConfig's fields (its noise a NoiseConfig's), "fe" the symmetric
+    free energy's a, b and kappa, the mobility and the stencil."""
+    fields = dict(l2cfg_fields)
+    fe = SymmetricFE(**_fields_of(fields.pop("fe")))
+    return BinaryLBConfig(lb=_lb_from_jax(fields.pop("lb"), device), fe=fe,
+                          **fields)
+
+
+def polar_params_from_jax(pcfg_fields: dict, device="cuda") -> PolarConfig:
+    """PolarConfig from the fields of a ludwig_tpu PolarConfig, for
+    example ``dataclasses.asdict(pcfg)``: "lb" the LBConfig's fields, "fe"
+    the polar active free energy's (a, b, kappa1, delta, lambda_, zeta),
+    the rotational mobility gamma, the swimming speed, the advection
+    order, the stencil and the hydrodynamics switch."""
+    fields = dict(pcfg_fields)
+    fe = PolarActiveFE(**_fields_of(fields.pop("fe")))
+    return PolarConfig(lb=_lb_from_jax(fields.pop("lb"), device), fe=fe,
+                       **fields)
+
+
+def _electro_config(ek) -> ElectroConfig:
+    ek = _fields_of(ek)
+    for key in ("valency", "diffusivity"):
+        ek[key] = tuple(ek[key])
+    return ElectroConfig(**ek)
+
+
+def electro_symm_params_from_jax(escfg_fields: dict,
+                                 device="cuda") -> ElectroSymmConfig:
+    """ElectroSymmConfig (fe_electro_symmetric) from the fields of a
+    ludwig_tpu ElectroSymmConfig, for example ``dataclasses.asdict(
+    escfg)``: "lb" the LBConfig's fields, "ek" the ElectroConfig's, "fe"
+    the coupled free energy's (its "symm" the symmetric free energy's,
+    "electro" an ElectroConfig's, the two permittivities and deltamu),
+    then the mobility, the advection order, the stencil, the external
+    field, the hydrodynamics switch and the force method."""
+    fields = dict(escfg_fields)
+    fe = _fields_of(fields.pop("fe"))
+    fe = ElectroSymmetricFE(
+        symm=SymmetricFE(**_fields_of(fe["symm"])),
+        electro=_electro_config(fe["electro"]),
+        epsilon1=float(fe["epsilon1"]), epsilon2=float(fe["epsilon2"]),
+        deltamu=tuple(float(d) for d in fe["deltamu"]))
+    if "e0" in fields:
+        fields["e0"] = tuple(float(v) for v in fields["e0"])
+    return ElectroSymmConfig(lb=_lb_from_jax(fields.pop("lb"), device),
+                             ek=_electro_config(fields.pop("ek")), fe=fe,
+                             **fields)
 
 
 def lc_state_from_jax(fpad, qpad, u, device, dtype):
@@ -269,15 +350,13 @@ def electro_params_from_jax(ecfg_fields: dict,
     external field, the hydrodynamics switch and the NP stencil.  The
     port's step is periodic: `periodic` must be all True."""
     fields = dict(ecfg_fields)
-    ek = _fields_of(fields.pop("ek"))
-    for key in ("valency", "diffusivity"):
-        ek[key] = tuple(ek[key])
+    ek = _electro_config(fields.pop("ek"))
     _take_inactive(fields, {"periodic": (True, True, True)},
                    "ElectroSimConfig")
     if "e0" in fields:
         fields["e0"] = tuple(float(v) for v in fields["e0"])
     return ElectroSimConfig(lb=_lb_from_jax(fields.pop("lb"), device),
-                            ek=ElectroConfig(**ek), **fields)
+                            ek=ek, **fields)
 
 
 def _unpad_fused(f: np.ndarray, size) -> np.ndarray:
@@ -344,7 +423,7 @@ def _le_state(state, unpad, nfields, device, dtype):
     gradient leaves and all, as it is."""
     if np.shape(state[0])[1:] != np.shape(state[1 + nfields])[1:]:
         return unpad(*state, device, dtype)
-    return binary_state_leaves_from_jax(state, device, dtype)
+    return state_leaves_from_jax(state, device, dtype)
 
 
 def binary_le_state_from_jax(state, device, dtype):

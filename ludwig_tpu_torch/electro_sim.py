@@ -205,16 +205,19 @@ def gradmu_force(psi, rho, cfg: ElectroSimConfig, psi_up, psi_dn,
 # -- Nernst-Planck (reference d3q7 link fluxes, face formulation) ------------
 
 def np_step(rho, psi, u, fluid, cfg: ElectroSimConfig, psi_up, psi_dn,
-            dt: float):
+            dt: float, mu_ex=None):
     """One NP sub-step, dt = 1/multisteps (ref: nernst_planck.c:349-520,
     np_advective_fluxes, np_no_flux_boundary, nernst_planck_update_d3qx).
 
     Fluxes live on the +axis faces: F_a(i) is the flux from site i to
     i+1 along axis a.  Both link directions of the reference collapse
     onto these faces by antisymmetry; the divergence is the face-flux
-    difference.  A face is active only when both ends are fluid.  The
-    excess chemical potential (mu_ex) of the JAX function belongs to
-    `fe_electro_symmetric`, which is not ported yet."""
+    difference.  A face is active only when both ends are fluid.
+
+    mu_ex: optional per-species excess (solvation) chemical potential
+    fields in kT units, added to the reduced link potential as mu =
+    mu_ex/e + z psi (ref: nernst_planck_fluxes_d3qx with
+    fe->func->mu_solv; fe_electro_symmetric's fe_es_mu_ion_solv)."""
     ek = cfg.ek
     zero = torch.zeros((), dtype=rho.dtype, device=rho.device)
     face_mask = [torch.logical_and(fluid, torch.roll(fluid, -1, ax))
@@ -225,9 +228,14 @@ def np_step(rho, psi, u, fluid, cfg: ElectroSimConfig, psi_up, psi_dn,
         d = float(ek.diffusivity[k])
         nk_ = rho[k]
         mu = z * psi
+        if mu_ex is not None:
+            mu = mu + mu_ex[k] / ek.e
         div = 0.0
         for ax in range(3):
-            dmu = z * psi_up(psi, ax) - mu
+            mu1 = z * psi_up(psi, ax)
+            if mu_ex is not None:
+                mu1 = mu1 + torch.roll(mu_ex[k], -1, ax) / ek.e
+            dmu = mu1 - mu
             b0 = torch.exp(-dmu)
             b1 = torch.exp(dmu)
             n1 = torch.roll(nk_, -1, ax)

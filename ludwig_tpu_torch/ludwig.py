@@ -1,7 +1,7 @@
 """Top-level orchestration: run a simulation from a reference-format
 input file.
 
-PyTorch port of five slices of ludwig_tpu/ludwig.py (ref:
+PyTorch port of ludwig_tpu/ludwig.py (ref:
 src/ludwig.c:443 ludwig_run, src/main.c:30-46): the plain single fluid
 (`free_energy none`, with isothermal fluctuations, halo or in-lattice
 plane walls - moving or with slip -, the open boundary, Lees-Edwards
@@ -18,7 +18,11 @@ hydrodynamics-on route the JAX package's fused path accepts, periodic
 or with Lees-Edwards planes (lc.py, lc_droplet.py and their fused
 steps), and
 electrokinetics without colloids (`free_energy fe_electro`: Gouy-Chapman
-walls, liquid junction or a uniform electrolyte).  It parses the same
+walls, liquid junction or a uniform electrolyte), and the other free
+energies, unfused: `brazovskii` (binary.py with the fourth-order fields,
+binary_le.py), `surfactant` and `ternary` (two_field.py), `symmetric_lb`
+without colloids (binary_lb.py), `polar_active` (polar.py) and
+`fe_electro_symmetric` (electro_symm.py).  It parses the same
 key-value input, builds the system, runs the time loop on a device (the
 GPU unless the caller asks for the CPU), writes the statistics blocks in
 the reference's formats and the same checkpoint and field files
@@ -70,6 +74,9 @@ from ludwig_tpu_torch.binary import (GRADIENT, BinaryConfig,
                                      initial_binary, make_binary_open_step,
                                      make_binary_step, open_x_scalar_ops)
 from ludwig_tpu_torch.binary_le import BinaryLEConfig, make_binary_le_step
+from ludwig_tpu_torch.binary_lb import (BinaryLBConfig, binary_lb_solid_ops,
+                                        g_moments, initial_binary_lb,
+                                        make_binary_lb_step)
 from ludwig_tpu_torch import electro_sim, interactions, lc, lc_droplet
 from ludwig_tpu_torch.colloids import (ColloidParams, ColloidState, TYPES,
                                        build_map, make_colloid_step,
@@ -78,10 +85,18 @@ from ludwig_tpu_torch.ewald import ewald_sum
 from ludwig_tpu_torch.io.colloid_io import (default_state, read_colloid_file,
                                             write_colloid_file)
 from ludwig_tpu_torch.electro import ElectroConfig, fe_electro_fed, rho_elec
+from ludwig_tpu_torch.electro_symm import (ElectroSymmConfig,
+                                           initial_electro_symm,
+                                           make_electro_symm_step)
 from ludwig_tpu_torch.fe import lc_init
 from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE
+from ludwig_tpu_torch.fe.brazovskii import BrazovskiiFE
+from ludwig_tpu_torch.fe.electro_symmetric import ElectroSymmetricFE
 from ludwig_tpu_torch.fe.lc_droplet import LCDropletFE
+from ludwig_tpu_torch.fe.polar_active import PolarActiveFE
+from ludwig_tpu_torch.fe.surfactant import SurfactantFE
 from ludwig_tpu_torch.fe.symmetric import SymmetricFE
+from ludwig_tpu_torch.fe.ternary import TernaryFE
 from ludwig_tpu_torch.io import read_state, write_state
 from ludwig_tpu_torch.io.map_file import GEOMETRIES, read_map
 from ludwig_tpu_torch.io.ref_format import write_ref_field
@@ -90,6 +105,9 @@ from ludwig_tpu_torch.lb import (LBConfig, hydro_fields, initial_from_hydro,
                                  make_wall_step, solid_mask)
 from ludwig_tpu_torch.noise import NoiseConfig, var_bulk, var_eta, var_ghost
 from ludwig_tpu_torch.noise_kiss import kiss_init
+from ludwig_tpu_torch.polar import (PolarConfig, initial_polar,
+                                    make_polar_step, polar_fields,
+                                    polar_init_aster)
 from ludwig_tpu_torch.ops.collide import RelaxationScheme
 from ludwig_tpu_torch.ops.fused import (FusedNoise, fused_step,
                                         make_fused_le_step,
@@ -104,10 +122,11 @@ from ludwig_tpu_torch.ops.fused_droplet import (initial_fused_droplet,
 from ludwig_tpu_torch.ops.fused_lc import (initial_fused_lc,
                                            make_fused_lc_le_step,
                                            make_fused_lc_step)
-from ludwig_tpu_torch.ops.le_ref import le_gradient
+from ludwig_tpu_torch.ops.le_ref import le_fields_2d5pt_d4, le_gradient
 from ludwig_tpu_torch.ops.lees_edwards import (LeesEdwardsConfig,
                                                le_init_shear_profile)
 from ludwig_tpu_torch.ops.open_bc import OpenBCConfig
+from ludwig_tpu_torch.ops.solid_stencil import ternary_solid_ops
 from ludwig_tpu_torch.ops.stencil import delsq_7pt, grad_7pt
 from ludwig_tpu_torch.ops.walls import WallSpec
 from ludwig_tpu_torch.ref_rng import RanSerial, patches_ref, spinodal_ref
@@ -116,6 +135,9 @@ from ludwig_tpu_torch.stats_extra import (AhydroCalibration,
                                           RheologyAccumulator,
                                           interact_stats_lines)
 from ludwig_tpu_torch.subgrid import make_subgrid_step
+from ludwig_tpu_torch.two_field import (TwoFieldConfig, initial_two_field,
+                                        make_two_field_step,
+                                        ternary_surface_fe, two_fields)
 from ludwig_tpu_torch.visc import ViscArrhenius
 
 
@@ -246,11 +268,75 @@ COLLOID_KEYS = frozenset((
     "magnetic_b0", "colloid_io_freq", "calibration"))
 COLLOID_PREFIXES = ("colloid_one_", "colloid_two_", "colloid_three_")
 
+# the phi initialisations (_phi_init) and the in-lattice solids (walls
+# kept as solid planes, porous media) the other families read
+PHI_INIT_KEYS = frozenset((
+    "phi_initialisation", "phi0", "random_seed", "noise",
+    "phi_init_drop_radius", "phi_init_drop_amplitude",
+    "phi_init_drop_centred", "phi_init_block_dimension",
+    "phi_init_patch_size", "phi_init_patch_vol", "phi_init_width"))
+SOLID_KEYS = frozenset((
+    "boundary_walls", "porous_media_file", "porous_media_ndata",
+    "porous_media_type", "porous_media_format", "porous_media_init",
+    "porous_media_acell"))
+
+# free_energy brazovskii: the binary fluid's unfused step with in-lattice
+# solids, or sheared by Lees-Edwards planes
+BRAZOVSKII_KEYS = frozenset((
+    "A", "B", "K", "C", "mobility", "fd_advection_scheme_order",
+    "fd_gradient_calculation", "LE_oscillation_period")) | PHI_INIT_KEYS \
+    | SOLID_KEYS | LE_KEYS
+
+# free_energy surfactant and ternary (two_field.py): in-lattice solids, or
+# halo walls with the ternary wetting stencils
+TWO_FIELD_KEYS = frozenset((
+    "mobility", "fd_advection_scheme_order", "fd_gradient_calculation",
+    "fe_force_method", "psi_initialisation", "psi_initialisation_psi0")) \
+    | PHI_INIT_KEYS | SOLID_KEYS
+SURFACTANT_KEYS = TWO_FIELD_KEYS | frozenset((
+    "surf_A", "surf_B", "surf_kappa", "surf_kT", "surf_epsilon", "surf_beta",
+    "surf_W", "surf_mobility_phi", "surf_mobility_psi", "surf_psi0"))
+TERNARY_KEYS = TWO_FIELD_KEYS | frozenset((
+    "ternary_alpha", "ternary_kappa1", "ternary_kappa2", "ternary_kappa3",
+    "ternary_h1", "ternary_h2", "ternary_mobility_phi",
+    "ternary_mobility_psi", "ternary_psi0", "ternary_initialisation",
+    "2d_double_emulsion_xf1", "2d_double_emulsion_xf2",
+    "2d_double_emulsion_xf3", "2d_double_emulsion_yf1",
+    "2d_double_emulsion_yf2", "ternary_2d_tee_xf1",
+    "tarnary_2d_tee_yf1"))   # (sic: the key the JAX package reads)
+
+# free_energy symmetric_lb without colloids (binary_lb.py): halo walls,
+# Lees-Edwards planes and the LB's KISS fluctuations
+SYMMETRIC_LB_KEYS = frozenset((
+    "A", "B", "K", "symmetric_a", "symmetric_b", "symmetric_kappa",
+    "mobility", "fd_gradient_calculation", "boundary_walls",
+    "LE_oscillation_period", "temperature", "isothermal_fluctuations",
+    "lb_fluctuations")) | PHI_INIT_KEYS | LE_KEYS
+
+# free_energy polar_active (polar.py): the aster, in-lattice solids
+POLAR_KEYS = frozenset((
+    "polar_active_a", "polar_active_b", "polar_active_k", "polar_active_dk",
+    "polar_active_lambda", "polar_active_zeta", "leslie_ericksen_gamma",
+    "leslie_ericksen_swim", "fd_advection_scheme_order",
+    "fd_gradient_calculation", "polar_active_initialisation")) | SOLID_KEYS
+
+# free_energy fe_electro_symmetric (electro_symm.py): the electrolyte's
+# keys, the symmetric free energy's and the coupling's
+ELECTRO_SYMM_KEYS = ELECTRO_KEYS | PHI_INIT_KEYS | frozenset((
+    "A", "B", "K", "symmetric_a", "symmetric_b", "symmetric_kappa",
+    "mobility", "fd_advection_scheme_order", "fd_gradient_calculation",
+    "fe_force_method", "electrokinetics_epsilon1", "electrokinetics_epsilon2",
+    "electrosymmetric_delta_mu0", "electrosymmetric_delta_mu1"))
+
 # free energy -> the keys it reads beside SLICE_KEYS
 FREE_ENERGIES = {"none": NOISE_KEYS | BOUNDARY_KEYS | COLLOID_KEYS,
                  "symmetric": BINARY_KEYS, "symmetric_noise": BINARY_KEYS,
                  "lc_blue_phase": LC_KEYS, "lc_droplet": DROPLET_KEYS,
-                 "fe_electro": ELECTRO_KEYS}
+                 "fe_electro": ELECTRO_KEYS, "brazovskii": BRAZOVSKII_KEYS,
+                 "surfactant": SURFACTANT_KEYS, "ternary": TERNARY_KEYS,
+                 "symmetric_lb": SYMMETRIC_LB_KEYS,
+                 "polar_active": POLAR_KEYS,
+                 "fe_electro_symmetric": ELECTRO_SYMM_KEYS}
 
 # keys of features outside the slices, accepted while they leave them off
 def _no_colloids(v: str) -> bool:
@@ -345,9 +431,18 @@ class System:
     grad_leaves: Optional[object] = None
     # the binary fluid's (grad, delsq) stencils for its statistics where
     # they are not the configuration's fluid ones: the wetting-aware
-    # solid stencils the step shares, or the open boundary's
+    # solid stencils the step shares, or the open boundary's; the two
+    # ternary wetting stencils of a two-field run
     fe_ops: Optional[object] = None
     n_start: int = 0                         # the step a restart reads
+    # the other free energies: surfactant and ternary (f, phi, psi, u[,
+    # gwall]); symmetric_lb (f, g, u[, gwall][, nstate][, grad, delsq]);
+    # the polar gel (f, p, u); fe_electro_symmetric (f, phi, psi, rho_k,
+    # u) beside its electro_cfg
+    two_field_cfg: Optional[TwoFieldConfig] = None
+    lb2_cfg: Optional[BinaryLBConfig] = None
+    polar_cfg: Optional[PolarConfig] = None
+    es_cfg: Optional[ElectroSymmConfig] = None
 
     @property
     def fluid_mask(self) -> Optional[torch.Tensor]:
@@ -364,11 +459,13 @@ class System:
     @property
     def n_fields(self) -> int:
         """The order-parameter leaves after f: phi (binary), Q (liquid
-        crystal), phi and Q (droplet); u follows them, then the kept
+        crystal), phi and Q (droplet), phi and psi (two-field), g
+        (symmetric_lb), P (polar); u follows them, then the kept
         gradients."""
-        if self.droplet_cfg is not None:
+        if self.droplet_cfg is not None or self.two_field_cfg is not None:
             return 2
-        return int(self.binary_cfg is not None or self.lc_cfg is not None)
+        return int(self.binary_cfg is not None or self.lc_cfg is not None
+                   or self.lb2_cfg is not None or self.polar_cfg is not None)
 
     @property
     def has_kiss(self) -> bool:
@@ -456,9 +553,13 @@ def _symm_fe(rt: RunTime) -> SymmetricFE:
                        kappa=rt.double_required("K"))
 
 
-def _phi_init(rt: RunTime, size, fe: SymmetricFE) -> np.ndarray:
+def _phi_init(rt: RunTime, size, fe=None) -> np.ndarray:
     """phi initialisation modes, on the host (ref: src/phi_rt.c /
-    field_phi_init.c)."""
+    field_phi_init.c).  fe gives the interface width xi0 of the drop and
+    block modes; without one (the Brazovskii and ternary free energies)
+    the phi_init_width key does."""
+    if fe is None:
+        fe = argparse.Namespace(xi0=rt.double("phi_init_width", 1.0))
     mode = rt.string("phi_initialisation", "spinodal")
     phi0 = rt.double("phi0", 0.0)
     seed = rt.int("random_seed", 13)
@@ -664,12 +765,11 @@ def _droplet_q_init(rt: RunTime, size, fe: BluePhaseFE) -> np.ndarray:
     raise ValueError(f"lc_q_initialisation '{mode}' for droplet")
 
 
-def _electro_system(rt: RunTime, lb_cfg: LBConfig) -> System:
-    """The `free_energy fe_electro` system without colloids (ref: the
-    fe_electro branch of ludwig_tpu build_system, ludwig.py:1348-1465):
-    the electrolyte's parameters, the initial psi and charge densities
-    (the Gouy-Chapman walls become the solid mask), the counter-charge
-    that makes the fluid neutral, and make_electro_step."""
+def _electrolyte(rt: RunTime, lb_cfg: LBConfig):
+    """(ElectroSimConfig, psi0, rho_k, boundary) of an electrokinetic
+    input (ludwig_tpu ludwig.py:1348-1386): the electrolyte's parameters,
+    the initial psi and charge densities, the counter-charge that makes
+    the fluid neutral, and the Gouy-Chapman walls' mask (or None)."""
     size = lb_cfg.size
     kt = rt.double("temperature", 1.0 / 3.0e4)
     ek = ElectroConfig(
@@ -706,6 +806,15 @@ def _electro_system(rt: RunTime, lb_cfg: LBConfig) -> System:
         e0=tuple(rt.double_vector("electric_e0", (0.0, 0.0, 0.0))),
         hydrodynamics=rt.switch("hydrodynamics", True),
         stencil=rt.int("electrokinetics_solver_stencil", 7))
+    return ecfg, psi0, rho_k, boundary
+
+
+def _electro_system(rt: RunTime, lb_cfg: LBConfig) -> System:
+    """The `free_energy fe_electro` system without colloids (ref: the
+    fe_electro branch of ludwig_tpu build_system, ludwig.py:1348-1465):
+    the electrolyte (the Gouy-Chapman walls become the solid mask) and
+    make_electro_step."""
+    ecfg, psi0, rho_k, boundary = _electrolyte(rt, lb_cfg)
     solid = (None if boundary is None
              else torch.as_tensor(boundary, device=lb_cfg.device))
     state = electro_sim.initial_electro(ecfg, _distribution_init(rt, lb_cfg),
@@ -716,10 +825,42 @@ def _electro_system(rt: RunTime, lb_cfg: LBConfig) -> System:
                   hydro_on=ecfg.hydrodynamics, electro_cfg=ecfg, solid=solid)
 
 
+def _electro_symm_system(rt: RunTime, lb_cfg: LBConfig) -> System:
+    """The fe_electro_symmetric branch of ludwig_tpu build_system
+    (ludwig.py:1424-1456): the electrolyte, its permittivity the mean of
+    epsilon1 and epsilon2, the coupled free energy, phi from
+    phi_initialisation, and make_electro_symm_step.  As there, the step
+    keeps no solid: the Gouy-Chapman walls only set the initial charge."""
+    ecfg, psi0, rho_k, _boundary = _electrolyte(rt, lb_cfg)
+    ek = ecfg.ek
+    eps1 = rt.double("electrokinetics_epsilon1", ek.epsilon)
+    eps2 = rt.double("electrokinetics_epsilon2", ek.epsilon)
+    ek = dataclasses.replace(ek, epsilon=0.5 * (eps1 + eps2))
+    fe = ElectroSymmetricFE(
+        symm=_symm_fe(rt), electro=ek, epsilon1=eps1, epsilon2=eps2,
+        deltamu=(rt.double("electrosymmetric_delta_mu0", 0.0),
+                 rt.double("electrosymmetric_delta_mu1", 0.0)))
+    method = rt.string("fe_force_method", "stress_divergence")
+    if method not in _FORCE_METHODS:
+        raise ValueError(f"fe_force_method '{method}' not recognised")
+    escfg = ElectroSymmConfig(
+        lb=lb_cfg, ek=ek, fe=fe, mobility=rt.double("mobility", 1.0),
+        advection_order=rt.int("fd_advection_scheme_order", 1),
+        gradient=rt.string("fd_gradient_calculation", GRADIENT),
+        e0=ecfg.e0, hydrodynamics=ecfg.hydrodynamics, force_method=method)
+    state = initial_electro_symm(escfg, _distribution_init(rt, lb_cfg),
+                                 _phi_init(rt, lb_cfg.size, fe.symm), psi0,
+                                 rho_k)
+    return System(rt=rt, lb_cfg=lb_cfg, state=state,
+                  step_fn=make_electro_symm_step(escfg),
+                  hydro_on=escfg.hydrodynamics,
+                  electro_cfg=dataclasses.replace(ecfg, ek=ek), es_cfg=escfg)
+
+
 def _noise_config(rt: RunTime) -> Optional[NoiseConfig]:
-    """Isothermal fluctuations of the plain fluid (ref: temperature +
-    isothermal_fluctuations keys; ludwig_tpu ludwig.py:603-617): None
-    unless temperature > 0 and the fluctuations are on."""
+    """Isothermal fluctuations of the plain fluid and symmetric_lb (ref:
+    temperature + isothermal_fluctuations keys; ludwig_tpu ludwig.py:
+    603-617): None unless temperature > 0 and the fluctuations are on."""
     kt = rt.double("temperature", 0.0)
     if kt <= 0.0:
         return None
@@ -1017,6 +1158,214 @@ def _droplet_le_system(rt, lb_cfg, dcfg, le, phi0, q0) -> System:
                   droplet_cfg=dcfg, le_cfg=le)
 
 
+def _brazovskii_system(rt: RunTime, lb_cfg: LBConfig) -> System:
+    """The brazovskii branch of ludwig_tpu build_system (ludwig.py:
+    679-727): the binary fluid's unfused step with the fourth-order
+    fields and in-lattice solids (walls kept as solid planes, porous
+    media), or, with Lees-Edwards planes, the sheared step carrying the
+    LE gradients (the JAX package starts them from the 5-point
+    fourth-order form for every stencil)."""
+    size = lb_cfg.size
+    fe = BrazovskiiFE(a=rt.double_required("A"), b=rt.double_required("B"),
+                      kappa=rt.double_required("K"),
+                      c=rt.double_required("C"))
+    bcfg = BinaryConfig(
+        lb=lb_cfg, fe=fe, mobility=rt.double("mobility", 1.0),
+        advection_order=rt.int("fd_advection_scheme_order", 1),
+        gradient=rt.string("fd_gradient_calculation", GRADIENT),
+        hydrodynamics=rt.switch("hydrodynamics", True))
+    phi0 = _phi_init(rt, size)
+    le = _le_config(rt, size, oscillation=True)
+    if le is not None:
+        phi, = _tensors(lb_cfg, phi0)
+        u = torch.zeros((3,) + size, dtype=lb_cfg.tdtype,
+                        device=lb_cfg.device)
+        grads = le_fields_2d5pt_d4(phi, le, 0)[:2]
+        return System(rt=rt, lb_cfg=lb_cfg,
+                      state=(_le_f0(rt, lb_cfg, le), phi, u) + grads,
+                      step_fn=make_binary_le_step(
+                          BinaryLEConfig(binary=bcfg, le=le),
+                          keep_grads=True),
+                      binary_cfg=bcfg, le_cfg=le, keep_grads=True)
+    solid = solid_mask(lb_cfg, _porous(rt, size))
+    ops = binary_solid_ops(bcfg, solid=solid)
+    return System(rt=rt, lb_cfg=lb_cfg, state=initial_binary(bcfg, phi0),
+                  step_fn=make_binary_step(bcfg, solid=solid, solid_ops=ops),
+                  binary_cfg=bcfg, solid=solid, fe_ops=ops)
+
+
+def _ternary_init(rt: RunTime, size):
+    """(phi0, psi0) of a ternary_initialisation (ref:
+    src/fe_ternary_rt.c:102-160, src/field_ternary_init.c; components
+    c1 = (phi +1, psi 0), c2 = (-1, 0), c3 = (0, 1)), or None; on the
+    host, as ludwig_tpu ludwig.py:261-291 makes them."""
+    mode = rt.string("ternary_initialisation", "")
+    nx, ny = size[0], size[1]
+    x = np.arange(1, nx + 1, dtype=np.float64)[:, None, None] + np.zeros(size)
+    y = np.arange(1, ny + 1, dtype=np.float64)[None, :, None] + np.zeros(size)
+    if mode == "2d_double_emulsion":
+        x1 = rt.double("2d_double_emulsion_xf1", 0.2) * nx
+        x2 = rt.double("2d_double_emulsion_xf2", 0.5) * nx
+        x3 = rt.double("2d_double_emulsion_xf3", 0.8) * nx
+        y1 = rt.double("2d_double_emulsion_yf1", 0.3) * ny
+        y2 = rt.double("2d_double_emulsion_yf2", 0.7) * ny
+        iny = (y1 < y) & (y < y2)
+        c1 = (x1 < x) & (x < x2) & iny
+        c2 = (x2 <= x) & (x < x3) & iny
+        return (np.where(c1, 1.0, np.where(c2, -1.0, 0.0)),
+                np.where(c1 | c2, 0.0, 1.0))
+    if mode == "2d_tee":
+        x1 = rt.double("ternary_2d_tee_xf1", 0.50) * nx
+        y1 = rt.double("tarnary_2d_tee_yf1", 0.33) * ny   # (sic)
+        c3 = y < y1
+        c1 = ~c3 & (x < x1)
+        return (np.where(c3, 0.0, np.where(c1, 1.0, -1.0)),
+                np.where(c3, 1.0, 0.0))
+    return None
+
+
+def _two_field_system(rt: RunTime, lb_cfg: LBConfig, fe_name: str) -> System:
+    """The surfactant and ternary branch of ludwig_tpu build_system
+    (ludwig.py:729-829): the free energy and its two mobilities, the
+    initial (phi, psi), and make_two_field_step with in-lattice solids
+    or, under a *ternary_solid stencil, the ternary wetting stencils
+    beside halo walls or porous media (hrka from (h1, h2, h3))."""
+    size = lb_cfg.size
+    m0 = rt.double("mobility", 1.0)
+    if fe_name == "surfactant":
+        fe = SurfactantFE(a=rt.double_required("surf_A"),
+                          b=rt.double_required("surf_B"),
+                          kappa=rt.double_required("surf_kappa"),
+                          kt=rt.double_required("surf_kT"),
+                          epsilon=rt.double_required("surf_epsilon"),
+                          beta=rt.double("surf_beta", 0.0),
+                          w=rt.double("surf_W", 0.0))
+        mob = (rt.double("surf_mobility_phi", m0),
+               rt.double("surf_mobility_psi", m0))
+        psi0_mean = rt.double("surf_psi0", 0.01)
+    else:
+        h1, h2 = rt.double("ternary_h1", 0.0), rt.double("ternary_h2", 0.0)
+        k1, k2 = (rt.double_required("ternary_kappa1"),
+                  rt.double_required("ternary_kappa2"))
+        k3 = rt.double_required("ternary_kappa3")
+        fe = TernaryFE(alpha=rt.double_required("ternary_alpha"),
+                       kappa1=k1, kappa2=k2, kappa3=k3, h1=h1, h2=h2,
+                       h3=-k3 * (h1 / k1 + h2 / k2))
+        mob = (rt.double("ternary_mobility_phi", m0),
+               rt.double("ternary_mobility_psi", m0))
+        psi0_mean = rt.double("ternary_psi0", 0.0)
+    method = rt.string("fe_force_method", "phi_gradmu" if fe_name == "ternary"
+                       else "stress_divergence")
+    if method not in _FORCE_METHODS:
+        raise ValueError(f"fe_force_method '{method}' not recognised")
+    tcfg = TwoFieldConfig(
+        lb=lb_cfg, fe=fe, mobilities=mob,
+        advection_order=rt.int("fd_advection_scheme_order", 1),
+        gradient=rt.string("fd_gradient_calculation", GRADIENT),
+        hydrodynamics=rt.switch("hydrodynamics", True), force_method=method)
+    tinit = _ternary_init(rt, size) if fe_name == "ternary" else None
+    if tinit is not None:
+        phi0, psi0 = tinit
+    else:
+        phi0 = _phi_init(rt, size, fe if fe_name == "surfactant" else None)
+        if rt.string("psi_initialisation", "") == "uniform":
+            # (ref: field_psi_init_rt.c:46-57)
+            psi0_mean = rt.double_required("psi_initialisation_psi0")
+        psi0 = np.full(size, psi0_mean)
+    porous = _porous(rt, size)
+    solid = solid_mask(lb_cfg, porous)
+    ws, ops = None, None
+    if tcfg.gradient.endswith("ternary_solid"):
+        # Semprebon wetting gradients hrka (Eq. 24-26; ref:
+        # gradient_2d_ternary_solid.c:104-106)
+        a2 = fe.alpha * fe.alpha
+        hrka = ((-fe.h1 / fe.kappa1 + fe.h2 / fe.kappa2) / a2,
+                (-fe.h3 / fe.kappa3) / a2)
+        two_d = tcfg.gradient.startswith("2d")
+        if any(lb_cfg.walls) and porous is None:
+            # halo walls: no stored solid sites
+            ws = WallSpec(walls=lb_cfg.walls)
+            lb_cfg = dataclasses.replace(lb_cfg, walls=(False,) * 3)
+            tcfg = dataclasses.replace(tcfg, lb=lb_cfg)
+            solid = None
+        fluid = None if solid is None else torch.logical_not(solid)
+        # with no solid anywhere they reduce to the fluid stencil of the
+        # same shape (ref: serial-tern-st2.inp)
+        wet = solid is not None or ws is not None
+        ops = tuple(ternary_solid_ops(
+            size, hrka[n] if wet else 0.0, fluid=fluid,
+            walls=ws.walls if ws is not None else (False,) * 3,
+            two_d=two_d, device=lb_cfg.device) for n in range(2))
+    return System(rt=rt, lb_cfg=lb_cfg,
+                  state=initial_two_field(tcfg, phi0, psi0,
+                                          walls=ws is not None),
+                  step_fn=make_two_field_step(tcfg, solid=solid, wallspec=ws,
+                                              solid_ops=ops),
+                  two_field_cfg=tcfg, solid=solid, wallspec=ws, fe_ops=ops)
+
+
+def _binary_lb_system(rt: RunTime, lb_cfg: LBConfig) -> System:
+    """The symmetric_lb branch of ludwig_tpu build_system without
+    colloids (ludwig.py:831-880): 27-point gradients by default (the
+    solid 27-point stencil reduces to the fluid one without walls, and
+    is kept beside halo walls), halo walls, Lees-Edwards planes and the
+    LB's KISS fluctuations."""
+    size = lb_cfg.size
+    gradient = rt.string("fd_gradient_calculation", "3d_27pt_fluid")
+    walls = lb_cfg.walls
+    if gradient == "3d_27pt_solid" and not any(walls):
+        # no solid sites: the fluid 27-point stencil (ref:
+        # gradient_3d_27pt_solid.c:5-7)
+        gradient = "3d_27pt_fluid"
+    ws = None
+    if any(walls):
+        ws = WallSpec(walls=walls)
+        lb_cfg = dataclasses.replace(lb_cfg, walls=(False,) * 3)
+    l2cfg = BinaryLBConfig(lb=lb_cfg, fe=_symm_fe(rt),
+                           mobility=rt.double("mobility", 0.15),
+                           gradient=gradient)
+    phi0 = _phi_init(rt, size, l2cfg.fe)
+    state = initial_binary_lb(l2cfg, phi0, walls=ws is not None)
+    le = _le_config(rt, size, oscillation=True)
+    if le is not None:
+        if rt.switch("LE_init_profile", False):
+            state = (le_init_shear_profile(lb_cfg, le),) + state[1:]
+        phi, = _tensors(lb_cfg, phi0)
+        state = state + le_gradient(phi, le, 0, gradient)
+    return System(rt=rt, lb_cfg=lb_cfg, state=state,
+                  step_fn=make_binary_lb_step(l2cfg, wallspec=ws, le=le),
+                  lb2_cfg=l2cfg, wallspec=ws, le_cfg=le,
+                  keep_grads=le is not None,
+                  fe_ops=binary_lb_solid_ops(l2cfg, ws))
+
+
+def _polar_system(rt: RunTime, lb_cfg: LBConfig) -> System:
+    """The polar_active branch of ludwig_tpu build_system (ludwig.py:
+    1028-1053): the aster (the JAX package takes no other
+    initialisation) and make_polar_step with in-lattice solids."""
+    size = lb_cfg.size
+    fe = PolarActiveFE(a=rt.double_required("polar_active_a"),
+                       b=rt.double_required("polar_active_b"),
+                       kappa1=rt.double_required("polar_active_k"),
+                       delta=rt.double("polar_active_dk", 0.0),
+                       lambda_=rt.double("polar_active_lambda", 0.0),
+                       zeta=rt.double("polar_active_zeta", 0.0))
+    pcfg = PolarConfig(
+        lb=lb_cfg, fe=fe, gamma=rt.double("leslie_ericksen_gamma", 0.3),
+        swim=rt.double("leslie_ericksen_swim", 0.0),
+        advection_order=rt.int("fd_advection_scheme_order", 1),
+        gradient=rt.string("fd_gradient_calculation", GRADIENT),
+        hydrodynamics=rt.switch("hydrodynamics", True))
+    mode = rt.string("polar_active_initialisation", "aster")
+    if mode != "aster":
+        raise ValueError(f"polar init '{mode}' not implemented")
+    solid = solid_mask(lb_cfg, _porous(rt, size))
+    return System(rt=rt, lb_cfg=lb_cfg,
+                  state=initial_polar(pcfg, polar_init_aster(size)),
+                  step_fn=make_polar_step(pcfg, solid=solid),
+                  polar_cfg=pcfg, solid=solid)
+
+
 def build_system(rt: RunTime, device="cuda") -> System:
     """The system of an input on `device` (the GPU unless the caller
     asks for the CPU)."""
@@ -1041,7 +1390,9 @@ def build_system(rt: RunTime, device="cuda") -> System:
                       rho0=rho0, scheme=_relaxation(rt),
                       ghost_modes_on=ghosts, force_global=force,
                       walls=walls, dtype=dtype, device=device,
-                      noise=_noise_config(rt) if fe_name == "none" else None)
+                      noise=(_noise_config(rt)
+                             if fe_name in ("none", "symmetric_lb")
+                             else None))
     if fe_name in ("symmetric", "symmetric_noise"):
         return _binary_system(rt, dataclasses.replace(
             lb_cfg, noise=_binary_noise(rt, fe_name)), fe_name)
@@ -1083,6 +1434,16 @@ def build_system(rt: RunTime, device="cuda") -> System:
                       droplet_cfg=dcfg)
     if fe_name == "fe_electro":
         return _electro_system(rt, lb_cfg)
+    if fe_name == "fe_electro_symmetric":
+        return _electro_symm_system(rt, lb_cfg)
+    if fe_name == "brazovskii":
+        return _brazovskii_system(rt, lb_cfg)
+    if fe_name in ("surfactant", "ternary"):
+        return _two_field_system(rt, lb_cfg, fe_name)
+    if fe_name == "symmetric_lb":
+        return _binary_lb_system(rt, lb_cfg)
+    if fe_name == "polar_active":
+        return _polar_system(rt, lb_cfg)
     colloids = _parse_colloids(rt, size, rho0, eta, lb_cfg)
     if colloids is not None:
         return _colloid_system(rt, lb_cfg, colloids)
@@ -1581,6 +1942,8 @@ def _make_stats_fn(sys_: System, reference: bool):
     lcfg = sys_.lc_cfg
     dcfg = sys_.droplet_cfg
     ecfg = sys_.electro_cfg
+    escfg, tcfg = sys_.es_cfg, sys_.two_field_cfg
+    l2cfg, pcfg = sys_.lb2_cfg, sys_.polar_cfg
     nz = sys_.lb_cfg.noise
     mask = sys_.fluid_mask
     order_stats = stats.field_stats_ref if reference else stats.field_stats
@@ -1634,12 +1997,16 @@ def _make_stats_fn(sys_: System, reference: bool):
         res["umm"] = stats.velocity_minmax(u, mask)
         if sys_.wallspec is not None:
             # halo walls: gwall rides the state, (f, gwall[, nstate]) or
-            # the binary fluid's (f, phi, u, gwall, ...)
-            res["gwall"] = state[3] if bcfg is not None else state[1]
+            # after u: the binary fluid's and symmetric_lb's (f, phi|g, u,
+            # gwall, ...), the two-field fluids' (f, phi, psi, u, gwall)
+            res["gwall"] = state[1 + sys_.n_fields + int(sys_.n_fields > 0)]
         if ecfg is not None:
             # ludwig_tpu ludwig.py:2127-2161 (an electrokinetic run always
             # prints the reference statistics): site-order totals
-            psi, rhok, gwall = state[1], state[2], state[4]
+            if escfg is not None:
+                phi, psi, rhok, gwall = state[1], state[2], state[3], None
+            else:
+                psi, rhok, gwall = state[1], state[2], state[4]
 
             def tmm(x):
                 return stats.seq_sum(x), torch.min(x), torch.max(x)
@@ -1647,13 +2014,74 @@ def _make_stats_fn(sys_: System, reference: bool):
             res["psi3"] = tmm(psi)
             res["rhok"] = [tmm(rhok[k]) for k in range(ecfg.ek.nk)]
             res["elc"] = tmm(rho_elec(rhok, ecfg.ek))
-            fed = fe_electro_fed(rhok, ecfg.ek, psi)
+            if escfg is not None:
+                # the coupled run: [phi], and the coupled fed with the
+                # gradients of the phi before the step
+                res["phi"] = stats.field_stats_ref(phi)
+                fields = fe_fields(phi if prev is None else prev[0],
+                                   escfg.gradient)
+                fields["phi"] = phi
+                fed = escfg.fe.fed_coupled(fields, rhok, psi)
+            else:
+                fed = fe_electro_fed(rhok, ecfg.ek, psi)
             fluid = (torch.mean(fed) if mask is None
                      else torch.sum(torch.where(mask, fed, 0.0))
                      / torch.sum(mask))
             res["fed"] = (torch.mean(fed), fluid)
-            if mask is not None:
+            if mask is not None and gwall is not None:
                 res["gwall"] = gwall
+        if tcfg is not None:
+            # ludwig_tpu ludwig.py:2224-2261: both fields, the fed of the
+            # updated fields with the pre-step gradients; the ternary
+            # surface terms beside walls
+            phi, psi = state[1], state[2]
+            res["phi"] = stats.field_stats_ref(phi, mask)
+            res["psi"] = stats.field_stats_ref(psi, mask)
+            src = (phi, psi) if prev is None else prev
+            fields = two_fields(src[0], src[1], tcfg.gradient,
+                                solid_ops=sys_.fe_ops)
+            fields["phi"], fields["psi"] = phi, psi
+            fed = tcfg.fe.fed(fields)
+            if mask is None:
+                res["fed"] = (torch.mean(fed), torch.mean(fed))
+                res["fe_sum"] = torch.sum(fed)
+            else:
+                fsum = torch.sum(torch.where(mask, fed, 0.0))
+                res["fed"] = (torch.mean(torch.where(mask, fed, 0.0)),
+                              fsum / torch.sum(mask))
+                res["fe_sum"] = fsum
+            if sys_.wallspec is not None and isinstance(tcfg.fe, TernaryFE):
+                res["tern_surf"] = ternary_surface_fe(phi, psi, tcfg.fe,
+                                                      sys_.wallspec.walls)
+        if l2cfg is not None:
+            # ludwig_tpu ludwig.py:2164-2192: phi of the g distribution,
+            # the fed with the pre-step gradients (LE runs carry them)
+            phi = g_moments(state[1], model)[0]
+            res["phi"] = stats.field_stats_ref(phi, klein=False)
+            if sys_.le_cfg is not None:
+                fields = {"phi": phi, "grad_phi": state[-2],
+                          "delsq_phi": state[-1]}
+            else:
+                src = phi if prev is None else g_moments(prev[0], model)[0]
+                fields = fe_fields(src, l2cfg.gradient,
+                                   solid_ops=sys_.fe_ops)
+                fields["phi"] = phi
+            fed = l2cfg.fe.fed(fields)
+            res["fed"] = (torch.mean(fed), torch.mean(fed))
+            if sys_.wallspec is not None:
+                res["fe_sum_v"] = (stats.seq_sum(fed), float(fed.numel()))
+        if pcfg is not None:
+            # ludwig_tpu ludwig.py:2262-2271
+            p = state[1]
+            res["pvec"] = [stats.field_stats_ref(p[a], mask)
+                           for a in range(3)]
+            fields = polar_fields(p if prev is None else prev[0],
+                                  pcfg.gradient)
+            fields["p"] = p
+            fed = pcfg.fe.fed(fields)
+            m = (torch.mean(fed) if mask is None
+                 else torch.sum(torch.where(mask, fed, 0.0)) / torch.sum(mask))
+            res["fed"] = (m, m)
         if bcfg is not None:
             # [phi] of the updated phi (the reference route's shifted
             # two-pass sums); [fed] with the reference's stale-gradient
@@ -1773,18 +2201,28 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
             out.write(f"[{tag}] {float(tot):14.7e} {float(mn):14.7e} "
                       f"{float(mx):14.7e}\n")
 
+        if "phi" in res:
+            # fe_electro_symmetric: [phi] precedes the psi block (ref:
+            # serial-elec-do1.log:127)
+            out.write(stats.format_phi_line("phi", *res["phi"]))
         line("psi", *res["psi3"])
         for r in res["rhok"]:
             line("rho", *r)
         line("elc", *res["elc"])
-    # [phi], then [Qxx]..[Qyz], then [fed] or [fe] (ref: ludwig_tpu
-    # ludwig.py:2496-2500 for the droplet, which has all but [fe])
-    if "phi" in res:
+    # [phi] (both fields of a two-field run are labelled [phi], ref:
+    # phi_stats.c:94), then [Qxx]..[Qyz] or [Px ]..[Pz ], then [fed] or
+    # [fe] (ref: ludwig_tpu ludwig.py:2437-2500)
+    if "phi" in res and not sys_.is_electro:
         out.write(stats.format_phi_line("phi", *res["phi"]))
+    if "psi" in res:
+        out.write(stats.format_phi_line("phi", *res["psi"]))
     if "q5" in res:
         for name, q_stats in zip(("Qxx", "Qxy", "Qxz", "Qyy", "Qyz"),
                                  res["q5"]):
             out.write(stats.format_phi_line(name, *q_stats))
+    if "pvec" in res:
+        for name, p_stats in zip(("Px ", "Py ", "Pz "), res["pvec"]):
+            out.write(stats.format_phi_line(name, *p_stats))
     if "fe_sum_v" in res:
         # walls present (ref: ludwig_tpu ludwig.py:2455-2460;
         # stats_free_energy.c:103-105)
@@ -1792,6 +2230,18 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
         out.write("\nFree energies - timestep f v f/v f_s1 fs_s2 \n")
         out.write(f"[fe] {int(tstep):14d} {fsum:17.10e} {vol:17.10e} "
                   f"{fsum / vol:17.10e} {0.0:17.10e} {0.0:17.10e}\n")
+    elif "fe_sum" in res and isinstance(sys_.two_field_cfg.fe, TernaryFE):
+        # ref: fe_ternary_stats.c:80-100 (ludwig_tpu ludwig.py:2470-2490)
+        fl = float(res["fe_sum"])
+        out.write("\nFree energies\n")
+        fr = fp = fs = 0.0
+        if "tern_surf" in res:
+            fr, fp, fs = (float(v) for v in res["tern_surf"])
+            out.write(f"[rho/phi/psi]  {int(tstep):9d} {fr:17.10e} "
+                      f"{fp:17.10e} {fs:17.10e}\n")
+        fes = fr + fp + fs
+        out.write(f"[surf/fl/tot]  {int(tstep):9d} {fes:17.10e} "
+                  f"{fl:17.10e} {fl + fes:17.10e}\n")
     elif "fed" in res:
         out.write(stats.format_fed_block(tstep, *res["fed"]))
     if "fe_lc" in res:
@@ -1826,30 +2276,37 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
     out.flush()
 
 
-def _sor_report(sor, multisteps: int, out):
+def _sor_report(sor, multisteps: int, out, heterogeneous: bool = False):
     """The three lines of the SOR solver's report (ref: psi_sor.c:263-292
-    prints the 0-based iteration index)."""
+    prints the 0-based iteration index); `heterogeneous` for the
+    variable-permittivity solver of fe_electro_symmetric."""
     n, rnorm, which = (v.item() for v in sor)
     kind = "absolute" if int(which) == 0 else "relative"
-    out.write(f"\nSOR solver converged to {kind} tolerance\n")
+    name = "SOR (heterogeneous) solver" if heterogeneous else "SOR solver"
+    out.write(f"\n{name} converged to {kind} tolerance\n")
     out.write(f"SOR residual {float(rnorm):14.7e} at {int(n)} iterations\n")
     out.write(f"{multisteps} multisteps\n")
 
 
 def _field_names(sys_: System, nleaves: Optional[int] = None):
     """The checkpoint's names for the state's leaves, in order: dist,
-    then phi (binary), q (liquid crystal), vel (binary, liquid crystal,
-    droplet), then state<i> (ludwig_tpu ludwig.py:2890-2901 and
+    then phi (binary), phi and psi (two-field), q (liquid crystal), vel
+    (binary, two-field, liquid crystal, droplet), then state<i> (the
+    symmetric_lb, polar and fe_electro_symmetric leaves after dist
+    among them; ludwig_tpu ludwig.py:2888-2901 and
     :2938-2950): the kept gradients of the unfused LC and sheared
     binary and LC routes are state03 and state04, as the JAX package
     writes them."""
     names = ["dist"]
     if sys_.binary_cfg is not None:
         names.append("phi")
+    if sys_.two_field_cfg is not None:
+        names += ["phi", "psi"]
     if sys_.lc_cfg is not None:
         names.append("q")
     if (sys_.binary_cfg is not None or sys_.lc_cfg is not None
-            or sys_.droplet_cfg is not None):
+            or sys_.droplet_cfg is not None
+            or sys_.two_field_cfg is not None):
         names.append("vel")
     return [names[i] if i < len(names) else f"state{i:02d}"
             for i in range(len(sys_.state) if nleaves is None else nleaves)]
@@ -1987,7 +2444,9 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
     periodic = tuple(rt.int_vector("periodicity", (1, 1, 1)))
     le_meta = (None if sys_.le_cfg is None
                else (sys_.le_cfg.nplanes, sys_.le_cfg.uy))
-    has_phi = sys_.binary_cfg is not None or sys_.droplet_cfg is not None
+    has_phi = (sys_.binary_cfg is not None or sys_.droplet_cfg is not None
+               or sys_.two_field_cfg is not None or sys_.lb2_cfg is not None)
+    psi_at = 2 if sys_.es_cfg is not None else 1   # psi, then rho
     # the shear observables (ludwig_tpu ludwig.py:2803-2830)
     freq_shear_meas = rt.int("freq_shear_measurement", 0)
     freq_shear_io = rt.int("freq_shear_output", 0)
@@ -2068,8 +2527,10 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
                 sys_.state, _rho = sys_.step_fn(sys_.state, t)
             u = sys_.state[1 + nfld]    # u follows the order parameters
         elif sys_.is_electro:
+            if sys_.es_cfg is not None:
+                prev = sys_.state[1:2]      # the pre-step phi
             sys_.state, (_none, sor) = sys_.step_fn(sys_.state, t)
-            u = sys_.state[3]
+            u = sys_.state[psi_at + 2]
         elif sys_.fused_mode == "plain":
             sys_.state = (sys_.step_fn(sys_.state[0], t),)
             u = None      # derived from f at statistics steps
@@ -2096,7 +2557,9 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
             report_particle_block(sys_, res, out=out)
             _acc("stats", time.time() - ts0)
         if sor_freq and t % sor_freq == 0:
-            _sor_report(sor, sys_.electro_cfg.ek.multisteps, out)
+            _sor_report(sor, sys_.electro_cfg.ek.multisteps, out,
+                        heterogeneous=(sys_.es_cfg is not None
+                                       and sys_.es_cfg.fe.gamma != 0.0))
         # configuration dumps and the output lines come BEFORE the
         # statistics block of the same step (ref: ludwig.c:866-948)
         if is_config:
@@ -2148,13 +2611,16 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
                 # droplet write phi (ludwig_tpu ludwig.py:2866-2880)
                 if sys_.lc_cfg is not None:
                     write_field("q", t, sys_.state[1])
+                elif sys_.lb2_cfg is not None:
+                    write_field("phi", t, g_moments(sys_.state[1],
+                                                    sys_.lb_cfg.model)[0])
                 elif has_phi:
                     write_field("phi", t, sys_.state[1])
             if vel_out:
                 write_field("vel", t, u)
             if freq_psi and t % freq_psi == 0:
-                write_field("psi", t, sys_.state[1])
-                write_field("rho", t, sys_.state[2])
+                write_field("psi", t, sys_.state[psi_at])
+                write_field("rho", t, sys_.state[psi_at + 1])
             _acc("fldio", time.time() - ts0)
 
     if ahydro is not None:
@@ -2202,8 +2668,10 @@ def main(argv=None):
         prog="python -m ludwig_tpu_torch",
         description="Run a lattice Boltzmann input file (plain fluid, "
                     "with or without colloids, symmetric binary fluid, "
-                    "blue-phase liquid crystal, "
-                    "liquid-crystal droplet or electrokinetics).")
+                    "blue-phase liquid crystal, liquid-crystal droplet, "
+                    "electrokinetics, or the Brazovskii, surfactant, "
+                    "ternary, symmetric_lb, polar active and "
+                    "electro-symmetric free energies).")
     ap.add_argument("input", nargs="?", default="input",
                     help="input file (default: ./input)")
     ap.add_argument("--device", default="cuda",

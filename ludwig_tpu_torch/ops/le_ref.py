@@ -23,8 +23,8 @@ pass reads what an earlier pass wrote (the stress flux at the plane
 face), every plane's writes land before the next pass reads.
 
 The displacement is computed on the device from the step counter: no
-host sync.  The fourth-order (Brazovskii) forms of the JAX module wait
-for that free energy and raise.
+host sync.  The fourth-order (Brazovskii) forms take two passes of the
+5- or 27-point operator, the second over the first's Laplacian.
 """
 
 from __future__ import annotations
@@ -38,7 +38,6 @@ from ludwig_tpu_torch.ops.lees_edwards import (LeesEdwardsConfig, _t,
 from ludwig_tpu_torch.ops.stencil import dab_7pt, grad27_terms, roll3
 
 GRADIENT = "3d_7pt_fluid"
-LE_GRADIENTS = (GRADIENT, "3d_27pt_fluid")
 
 
 def _rolled(col: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
@@ -211,12 +210,6 @@ def le_force_cols(pth6: torch.Tensor, pth_b1: torch.Tensor,
         fza = 0.5 * (p[2] + torch.roll(p[2], -1, -1))
         rows.append(-(fea[1:5] - west + yz_div(fya, fza)))
     return torch.stack(rows)
-
-
-def _not_7pt(gradient: str):
-    return NotImplementedError(
-        f"the Lees-Edwards form of gradient '{gradient}' is not ported yet "
-        f"(have {LE_GRADIENTS}), see ROADMAP")
 
 
 def le_gradient(phi: torch.Tensor, cfg: LeesEdwardsConfig, t,
@@ -493,11 +486,97 @@ def le_gradient_27pt(phi: torch.Tensor, cfg: LeesEdwardsConfig, t):
     return grad, d2
 
 
-def le_fields_2d5pt_d4(*_args, **_kwargs):
-    """The fourth-order 5-point LE fields (Brazovskii in 2-D)."""
-    raise _not_7pt("2d_5pt_fluid (fourth order)")
+def _op5(pm1, p0, pp1):
+    """5-point gradient (z component zero) and Laplacian of columns p0
+    (..., Y, Z) from their x neighbours (ref: gradient_2d_5pt_fluid.c
+    operator body)."""
+    yp, ym = _colroll(p0, 1, 0), _colroll(p0, -1, 0)
+    d2 = pp1 + pm1 + yp + ym - 4.0 * p0
+    return (torch.stack([0.5 * (pp1 - pm1), 0.5 * (yp - ym),
+                         torch.zeros_like(p0)]), d2)
 
 
-def le_fields_27pt_d4(*_args, **_kwargs):
-    """The fourth-order 27-point LE fields (Brazovskii in 3-D)."""
-    raise _not_7pt("3d_27pt_fluid (fourth order)")
+def _full5(phi):
+    """The periodic 5-point gradient and Laplacian of a whole field."""
+    ax = phi.dim() - 3
+    xp, xm = torch.roll(phi, -1, ax), torch.roll(phi, 1, ax)
+    yp, ym = torch.roll(phi, -1, ax + 1), torch.roll(phi, 1, ax + 1)
+    return (torch.stack([0.5 * (xp - xm), 0.5 * (yp - ym),
+                         torch.zeros_like(phi)]),
+            xp + xm + yp + ym - 4.0 * phi)
+
+
+def _op27(pm1, p0, pp1):
+    """27-point gradient and Laplacian of columns p0 from their x-neighbour
+    columns (ref: gradient_3d_27pt_fluid.c stencil body with icm1/icp1
+    resolved to explicit columns)."""
+    gx, gy, gz, d2 = grad27_terms(_col_fetch({-1: pm1, 0: p0, 1: pp1}), p0)
+    return torch.stack([gx, gy, gz]), d2
+
+
+def _full27(phi):
+    """The periodic 27-point gradient and Laplacian of a whole field."""
+    ax = phi.dim() - 3
+    cache = {}
+
+    def v(dx, dy_, dz_):
+        key = (dx, dy_, dz_)
+        if key not in cache:
+            cache[key] = roll3(phi, (-dx, -dy_, -dz_), first_axis=ax)
+        return cache[key]
+
+    gx, gy, gz, d2 = grad27_terms(v, phi)
+    return torch.stack([gx, gy, gz]), d2
+
+
+def _le_fields_d4(phi: torch.Tensor, cfg: LeesEdwardsConfig, t, op, full):
+    """Two LE-aware passes of one stencil (op on columns, full on the
+    whole field): the level-2 fields of phi, then the same operator over
+    delsq, reading the buffer-column delsq of the first pass through the
+    buffer chain (ref: grad_*_fluid_d2, then _d4, each with its _le
+    pass).  The chain is anchored at the real column: the -x neighbour of
+    the first buffer column above a plane is the undisplaced plane
+    column (lees_edw_ic_to_buff(le, ic, 0) == ic)."""
+    ctx = LEContext(cfg, t, phi)
+    ax = phi.dim() - 3
+    grad, d2 = full(phi)
+    b1, b2, b3 = (ctx.col_field(phi, d, True) for d in (1, 2, 3))
+    d0, dm1, dm2 = (ctx.col_field(phi, d, False) for d in (0, -1, -2))
+
+    g_c, d2_c = op(ctx.col(phi, -1), ctx.col(phi, 0), b1)
+    g_b1, d2_b1 = op(ctx.col(phi, 0), b1, b2)
+    d2_b2 = op(b1, b2, b3)[1]
+    g_cu, d2_cu = op(d0, ctx.col(phi, 1), ctx.col(phi, 2))
+    g_d0, d2_d0 = op(dm1, d0, ctx.col(phi, 1))
+    d2_dm1 = op(dm2, dm1, d0)[1]
+    grad = ctx.put(ctx.put(grad, 1 + ax, 0, g_c), 1 + ax, 1, g_cu)
+    d2 = ctx.put(ctx.put(d2, ax, 0, d2_c), ax, 1, d2_cu)
+
+    gd2, d4 = full(d2)
+    g4_c, d4_c = op(ctx.col(d2, -1), ctx.col(d2, 0), d2_b1)
+    g4_b1, d4_b1 = op(ctx.col(d2, 0), d2_b1, d2_b2)
+    g4_cu, d4_cu = op(d2_d0, ctx.col(d2, 1), ctx.col(d2, 2))
+    g4_d0, d4_d0 = op(d2_dm1, d2_d0, ctx.col(d2, 1))
+    gd2 = ctx.put(ctx.put(gd2, 1 + ax, 0, g4_c), 1 + ax, 1, g4_cu)
+    d4 = ctx.put(ctx.put(d4, ax, 0, d4_c), ax, 1, d4_cu)
+    bufs = {"b1": (b1, g_b1, d2_b1, g4_b1, d4_b1),
+            "d0": (d0, g_d0, d2_d0, g4_d0, d4_d0)}
+    return grad, d2, gd2, d4, bufs
+
+
+def le_fields_2d5pt_d4(phi: torch.Tensor, cfg: LeesEdwardsConfig, t):
+    """Level-4 LE fields of the 2d_5pt stencil (Brazovskii; the JAX
+    package's sheared step takes it for every stencil but 3d_27pt_fluid):
+    (grad, delsq, grad_delsq, delsq_delsq, bufs), bufs["b1"] / ["d0"] the
+    (phi, grad, delsq, grad_delsq, delsq_delsq) at the first buffer
+    column above / below every plane, (..., P, Y, Z) (what the plane-face
+    chemical potential and stress need; ref: gradient_2d_5pt_fluid.c
+    grad_2d_5pt_fluid_d2 at nextra = 2, then _d4 at nextra = 1)."""
+    return _le_fields_d4(phi, cfg, t, _op5, _full5)
+
+
+def le_fields_27pt_d4(phi: torch.Tensor, cfg: LeesEdwardsConfig, t):
+    """Level-4 LE fields of the 3d_27pt stencil (Brazovskii in 3-D; ref:
+    gradient_3d_27pt_fluid.c grad_3d_27pt_fluid_d2 / _d4 and
+    grad_3d_27pt_fluid_le), laid out as le_fields_2d5pt_d4's."""
+    return _le_fields_d4(phi, cfg, t, _op27, _full27)

@@ -1,9 +1,16 @@
 """Solid-aware order-parameter gradients (wetting boundary conditions).
 
-PyTorch port of ``solid27_scalar_ops`` of ludwig_tpu/ops/solid_stencil.py:
-the 27-point predictor-corrector stencil of Desplat et al. with the
-wetting condition gradt = -(C phi_b + H)/kappa on links into solid (ref:
-src/gradient_3d_27pt_solid.c:286-307).  Each of the 26 neighbour
+PyTorch port of ludwig_tpu/ops/solid_stencil.py:
+
+* ``solid27_scalar_ops`` - the 27-point predictor-corrector stencil of
+  Desplat et al. with the wetting condition gradt = -(C phi_b + H)/kappa
+  on links into solid (ref: src/gradient_3d_27pt_solid.c:286-307);
+* ``ternary_solid_ops`` - the Semprebon ternary wetting variants with a
+  constant prescribed gradient per component: 2-D 9-point D2Q9-weighted
+  (ref: src/gradient_2d_ternary_solid.c:210-240) and 3-D 27-point
+  count-normalised (ref: src/gradient_3d_ternary_solid.c:230-300).
+
+Each of the 26 (or 8) neighbour
 fetches is a roll, solidness a boolean mask per direction, and the
 per-direction link values reduce with the reference's normalisers, in
 the JAX module's order.  Walls live in the halo (no stored solid sites):
@@ -11,8 +18,7 @@ a crossing of a walled face is flagged through edge masks.
 
 The masks, the per-axis link counts and the per-site wetting data seen
 from each neighbour are made once, on the device, when the stencil is
-built; a call makes no host copy.  The ternary variants of the JAX
-module wait for the ternary free energy.
+built; a call makes no host copy.
 """
 
 from __future__ import annotations
@@ -28,6 +34,12 @@ from ludwig_tpu_torch.ops.stencil import roll3
 BS_CV = [(dx, dy, dz)
          for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1)
          if not (dx == 0 and dy == 0 and dz == 0)]
+
+# 2-D 9-point set + D2Q9 weights (gradient_2d_ternary_solid.c:44-53)
+BS_CV_2D = [(-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 1),
+            (1, -1), (1, 0), (1, 1)]
+W_2D = [1.0 / 36.0, 4.0 / 36.0, 1.0 / 36.0, 4.0 / 36.0, 4.0 / 36.0,
+        1.0 / 36.0, 4.0 / 36.0, 1.0 / 36.0]
 
 
 def _wall_cross_mask(size, cv, walls) -> Optional[np.ndarray]:
@@ -174,3 +186,86 @@ def solid27_scalar_ops(size, fluid=None,
     symmetric free energy.  device: where the masks live (fluid's
     device by default, else the CPU)."""
     return Solid27Ops(size, fluid, walls, rkappa, c, h, device)
+
+
+class TernarySolidOps:
+    """(grad, delsq) for one ternary component with the constant wetting
+    gradient hrk on links into solid; unpacks as that pair, and
+    ``both(phi)`` gives the two from one pass over the links.
+
+    2-D: D2Q9-weighted sums, gradn = sum 3 w cv dphi, delsq = sum 6 w
+    dphi (ref: gradient_2d_ternary_solid.c:214-236).  3-D: the
+    count-normalised 27-point sums of solid27 with dphi = hrk at solid
+    links (ref: gradient_3d_ternary_solid.c:236-300)."""
+
+    def __init__(self, size, hrk: float, fluid=None,
+                 walls: Tuple[bool, bool, bool] = (False,) * 3,
+                 two_d: bool = False, device=None):
+        if device is None:
+            device = fluid.device if fluid is not None else "cpu"
+        size = tuple(int(n) for n in size)
+        self.two_d = two_d
+        self.dirs = BS_CV_2D if two_d else BS_CV
+        self.masks = _link_masks(size, fluid, walls, self.dirs, device)
+        self.hrk = float(hrk)
+
+    def _vals(self, phi):
+        hrk = torch.full((), self.hrk, dtype=phi.dtype, device=phi.device)
+        out = []
+        for p, cv in enumerate(self.dirs):
+            cv3 = tuple(cv) + (0,) * (3 - len(cv))
+            nb = roll3(phi, tuple(-v for v in cv3))
+            out.append(torch.where(self.masks[p], nb - phi, hrk))
+        return out
+
+    def _grad(self, v, phi):
+        if self.two_d:
+            gx = 0.0
+            gy = 0.0
+            for p, cv in enumerate(BS_CV_2D):
+                if cv[0]:
+                    gx = gx + 3.0 * W_2D[p] * float(cv[0]) * v[p]
+                if cv[1]:
+                    gy = gy + 3.0 * W_2D[p] * float(cv[1]) * v[p]
+            return torch.stack([gx, gy, torch.zeros_like(phi)])
+        comps = []
+        for a in range(3):
+            acc = 0.0
+            for p, cv in enumerate(BS_CV):
+                if cv[a]:
+                    acc = acc + v[p] * float(cv[a])
+            comps.append((1.0 / 18.0) * acc)
+        return torch.stack(comps)
+
+    def _delsq(self, v):
+        acc = 0.0
+        if self.two_d:
+            for p in range(8):
+                acc = acc + 6.0 * W_2D[p] * v[p]
+            return acc
+        for p in range(26):
+            acc = acc + v[p]
+        return (1.0 / 9.0) * acc
+
+    def grad(self, phi):
+        return self._grad(self._vals(phi), phi)
+
+    def delsq(self, phi):
+        return self._delsq(self._vals(phi))
+
+    def both(self, phi):
+        v = self._vals(phi)
+        return self._grad(v, phi), self._delsq(v)
+
+    def __iter__(self):
+        return iter((self.grad, self.delsq))
+
+
+def ternary_solid_ops(size, hrk: float, fluid=None,
+                      walls: Tuple[bool, bool, bool] = (False,) * 3,
+                      two_d: bool = False, device=None) -> TernarySolidOps:
+    """(grad, delsq) for one ternary component with constant wetting
+    gradient hrk at solid links (TernarySolidOps); fluid: (X, Y, Z) bool
+    tensor (True = fluid) or None; device: where the masks live (fluid's
+    device by default, else the CPU)."""
+    return TernarySolidOps(size, hrk, fluid, walls, two_d, device)

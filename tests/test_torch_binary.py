@@ -28,6 +28,7 @@ from ludwig_tpu.runtime import RunTime as JRunTime
 from ludwig_tpu_torch import binary, ludwig, ref_rng
 from ludwig_tpu_torch.convert import binary_params_from_jax
 from ludwig_tpu_torch.dynamics import cahn_hilliard as ch
+from ludwig_tpu_torch.fe.brazovskii import BrazovskiiFE
 from ludwig_tpu_torch.fe.symmetric import SymmetricFE
 from ludwig_tpu_torch.ops import advect, force, stencil
 from ludwig_tpu_torch.runtime import RunTime
@@ -189,20 +190,30 @@ def _refused(jcfg, name):
     return dataclasses.replace(jcfg, force_method=name)
 
 
-@pytest.mark.parametrize("name", [
-    "brazovskii", "threefry_rho", "threefry_phi", "no_force",
-    "phi_gradmu_correction", "relaxation_symmetric"])
+FORCE_REFUSED = ("no_force", "phi_gradmu_correction", "relaxation_symmetric",
+                 "relaxation_antisymmetric")
+
+
+@pytest.mark.parametrize("name", (
+    "brazovskii", "threefry_rho", "threefry_phi") + FORCE_REFUSED)
 def test_binary_config_refuses_what_is_not_ported(name):
     """A JAX BinaryConfig using a feature the port has not taken over (the
-    Brazovskii free energy, the threefry noise stream, the force methods
-    the JAX binary step runs as stress_divergence) is refused when
-    carried across, and so is the port's own config for such a force
-    method."""
+    threefry noise stream, the force methods the JAX binary step runs as
+    stress_divergence) is refused when carried across, and so is the
+    port's own config for such a force method.  The Brazovskii free
+    energy is ported: it crosses as the port's BrazovskiiFE, with the
+    fourth-order fields on."""
     jcfg, tcfg = _bcfgs(2)
+    fields = dataclasses.asdict(_refused(jcfg, name))
+    if name == "brazovskii":
+        got = binary_params_from_jax(fields, device="cpu")
+        assert got.fe == BrazovskiiFE(a=-6.25e-3, b=6.25e-3, kappa=4e-3,
+                                      c=1e-3)
+        assert got.fourth_order and not tcfg.fourth_order
+        return
     with pytest.raises(NotImplementedError):
-        binary_params_from_jax(dataclasses.asdict(_refused(jcfg, name)),
-                               device="cpu")
-    if name in ("no_force", "phi_gradmu_correction", "relaxation_symmetric"):
+        binary_params_from_jax(fields, device="cpu")
+    if name in FORCE_REFUSED:
         with pytest.raises(NotImplementedError):
             dataclasses.replace(tcfg, force_method=name)
 

@@ -7,7 +7,7 @@ beside walls) and binary_le.make_binary_le_step (27-point gradients,
 advection order 3, the LB's KISS noise) from the same state made from a
 numpy seed, in float64.  The configuration crosses through
 convert.binary_params_from_jax and the state through
-convert.binary_state_leaves_from_jax.
+convert.state_leaves_from_jax.
 
 The JAX steps run eagerly (the jitted functions' __wrapped__), which
 skips XLA's compiles of each variant.  Tolerances: rtol 1e-10 / atol
@@ -33,7 +33,7 @@ from ludwig_tpu.ops.walls import WallSpec as JWalls
 from ludwig_tpu.visc import ViscArrhenius as JVisc
 from ludwig_tpu_torch import binary, binary_le
 from ludwig_tpu_torch.convert import (binary_params_from_jax,
-                                      binary_state_leaves_from_jax)
+                                      state_leaves_from_jax)
 from ludwig_tpu_torch.ops import lees_edwards as tle
 from ludwig_tpu_torch.ops.open_bc import OpenBCConfig
 from ludwig_tpu_torch.ops.walls import WallSpec
@@ -140,7 +140,7 @@ def test_binary_route_matches_jax(route):
         kw_j["solid"] = jnp.asarray(solid)
         kw_t["solid"] = torch.as_tensor(solid)
     js = _start(jcfg, walls)
-    ts = binary_state_leaves_from_jax(js, "cpu", torch.float64)
+    ts = state_leaves_from_jax(js, "cpu", torch.float64)
     jstep = _eager(jbinary.make_binary_step(jcfg, **kw_j))
     tstep = binary.make_binary_step(tcfg, **kw_t)
     nz = lbchanges.get("noise")
@@ -168,7 +168,7 @@ def test_initial_binary_noise_states_match_jax():
 def test_binary_open_step_matches_jax(walls):
     jcfg, tcfg = _cfgs(dict(advection_order=2), {})
     js = _start(jcfg, True)
-    ts = binary_state_leaves_from_jax(js, "cpu", torch.float64)
+    ts = state_leaves_from_jax(js, "cpu", torch.float64)
     obc = dict(u0=(1e-3, 0.0, 0.0), rho0=1.0)
     jstep = _eager(jbinary.make_binary_open_step(jcfg, JWalls(walls=walls),
                                                  JOpen(**obc), -0.8))
@@ -200,7 +200,7 @@ def test_binary_le_27pt_matches_jax(noise):
     tstep = binary_le.make_binary_le_step(binary_le.BinaryLEConfig(
         binary=tcfg, le=tle.LeesEdwardsConfig(**le)))
     js = _start(jcfg, False, size)
-    ts = binary_state_leaves_from_jax(js, "cpu", torch.float64)
+    ts = state_leaves_from_jax(js, "cpu", torch.float64)
     for t in range(1, 4):
         js, _ = jstep(js, t)
         ts, _ = tstep(ts, t)

@@ -26,6 +26,7 @@ from test_ludwig_run import (BINARY_FUSED_INPUT, BINARY_LE_FUSED_INPUT,
                              LC_LE_FUSED_INPUT, LE_FUSED_INPUT,
                              PLAIN_FUSED_INPUT, PLAIN_INPUT,
                              WALL_FUSED_INPUT, WALLS_INPUT, _stat_floats)
+from test_torch_more_fe_cli import INPUTS as MORE_FE_INPUTS
 
 
 def _logs(jax_text, port_text):
@@ -318,8 +319,7 @@ def test_plain_cli_matches_jax():
 
 
 @pytest.mark.parametrize("line", [
-    "free_energy brazovskii", "free_energy fe_electro_symmetric",
-    "lc_noise on",
+    "lc_redshift_update 1", "calibration_sigma on", "lc_noise on",
     # the plain fluid's walls, planes, restarts, periodicity and shear
     # observables are read since they are ported, and so are the colloids'
     # keys; the sigma measurement, sharding, several I/O groups and the
@@ -356,7 +356,9 @@ def test_cli_runs_without_jax(tmp_path):
     (fused) inputs: all run, and neither JAX nor ludwig_tpu is imported,
     the boundary, I/O and shear modules included; and the two-particle
     colloid input, with the colloid, interaction, Ewald and subgrid
-    modules."""
+    modules; and one input of each of the other free energies
+    (brazovskii, surfactant, ternary, symmetric_lb, polar_active,
+    fe_electro_symmetric)."""
     inp, inp_binary = tmp_path / "input", tmp_path / "input_binary"
     inp_lc, inp_drop = tmp_path / "input_lc", tmp_path / "input_droplet"
     inp_elec = tmp_path / "input_electro"
@@ -379,13 +381,19 @@ def test_cli_runs_without_jax(tmp_path):
     inp_col = tmp_path / "input_colloids"
     inp_col.write_text(COLLOID_INPUTS["input_two"]
                        + f"io_directory {tmp_path}\n")
+    # one input of each of the other free energies
+    more_fe = []
+    for name in ("brazovskii", "surfactant", "ternary_double_emulsion",
+                 "symmetric_lb", "polar_active", "fe_electro_symmetric"):
+        more_fe.append(tmp_path / f"input_{name}")
+        more_fe[-1].write_text(MORE_FE_INPUTS[name])
     probe = textwrap.dedent(f"""
         import runpy, sys
         for path in ({str(inp)!r}, {str(inp_binary)!r}, {str(inp_lc)!r},
                      {str(inp_drop)!r}, {str(inp_elec)!r},
                      {str(inp_noise)!r}, {str(inp_wall)!r},
                      {str(inp_le)!r}, {str(inp_col)!r}) + {
-                     tuple(str(p) for p in sheared)!r}:
+                     tuple(str(p) for p in sheared + more_fe)!r}:
             sys.argv = ["ludwig_tpu_torch", path, "--device", "cpu"]
             runpy.run_module("ludwig_tpu_torch", run_name="__main__")
         import ludwig_tpu_torch.ops._cuda, ludwig_tpu_torch.convert
@@ -414,12 +422,17 @@ def test_cli_runs_without_jax(tmp_path):
     # LC and droplet runs, plain and sheared
     assert res.stdout.count("[Qyz]") == 3 + 3 + 3 + 3
     assert (tmp_path / "str-00000004.dat").exists()
-    assert res.stdout.count("[elc]") == 3 and "[walls   ]" in res.stdout
+    # fe_electro, then fe_electro_symmetric
+    assert res.stdout.count("[elc]") == 3 + 3 and "[walls   ]" in res.stdout
+    assert "SOR (heterogeneous) solver" in res.stdout
+    assert res.stdout.count("[Pz ]") == 3            # the polar gel
+    assert res.stdout.count("[surf/fl/tot]") == 3    # the ternary fluid
     assert res.stdout.count("[measd/kT]") == 1     # the noise input
     assert res.stdout.count("[walls   ]") == 3 + 3    # electro, walls
     assert "Writing rho/velocity output at step 6!" in res.stdout
     assert (tmp_path / "vel-00000006.001-001").exists()
-    assert res.stdout.count("Completed cycle 6") == 3   # electro, walls, LE
+    # electro, walls, LE and the six other free energies
+    assert res.stdout.count("Completed cycle 6") == 3 + 6
     assert "[colloids]" in res.stdout and "Particle statistics:" in res.stdout
     assert (tmp_path / "config.cds00000004.001-001").exists()
     assert "NO_JAX_OK" in res.stdout

@@ -214,14 +214,30 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      the card that prints the straight log as text;
  32. at full width in f32 (MORE_FE_CELLS): Brazovskii, surfactant,
      ternary and the polar gel at 128^3, symmetric_lb at 256^3 and
-     fe_electro_symmetric at 64^3, each for 20 cycles through run_text
+     fe_electro_symmetric at 64^3, each for 20 cycles (the last for 8)
+     through run_text
      (its conserved totals held, summed from the state in float64: the
      mass, phi, psi, the electrolyte's species), ms a step (CUDA
      events), CUDA kernels a step and their device time
      (torch.profiler), and one step under CUDA's sync debug mode:
      "error", or for fe_electro_symmetric "warn", its host
      synchronisations counted against the SOR's read-backs (one every 5
-     iterations).
+     iterations);
+ 33. the blue phase's unfused routes (LC_ROUTES: halo walls on each axis
+     with the s7 anchoring kinds normal, planar and fixed, the 'two'
+     style, porous solids under 3d_7pt_solid, the dynamic redshift, the
+     electric field, hydrodynamics off, advection orders 3-5, colloids
+     periodic and beside a wall) on the card against the CPU, 3 chained
+     steps from a random 16x16x32 state in f64 and f32 (TOL); one input
+     of each kind (LC_INPUTS) in f64 through run_text on both (rtol 1e-9,
+     atol 1e-11, every line the same but its numbers); a walled LC
+     restart on the card that prints the straight log as text;
+ 34. at 128^3 f32 (LC_CELLS): the blue-phase benchmark between walls on z
+     with s7 normal anchoring, a nematic holding 8 particles of radius
+     7.25 (rebuild steps timed apart), the benchmark with the dynamic
+     redshift (printed each cycle), each for 20 cycles through run_text,
+     ms a step (CUDA events), CUDA kernels a step and their device time
+     (torch.profiler), one step under CUDA's sync debug mode "error".
 
 Bounds: `bound_ms` is the larger of the bytes the function must move
 (each input read once, each output written once) over the H100 SXM's
@@ -4441,8 +4457,12 @@ MORE_FE_CELLS = {
     "polar_active_a -0.1\npolar_active_b 0.1\npolar_active_k 0.01\n"
     "polar_active_zeta 0.001\npolar_active_lambda 0.1\n"
     "leslie_ericksen_gamma 0.3\n",
+    # 8 cycles, not 20: its 1000 SOR iterations a step take ~1.6 s, and
+    # the script keeps to half its time limit with phases 33-34
     "fe_electro_symmetric 64^3": MORE_FE_128.replace(
-        "size 128_128_128", "size 64_64_64") + "freq_psi_resid 1\n"
+        "size 128_128_128", "size 64_64_64").replace(
+        f"N_cycles {MORE_FE_CYCLES}\nfreq_statistics {MORE_FE_CYCLES}",
+        "N_cycles 8\nfreq_statistics 8") + "freq_psi_resid 1\n"
     "free_energy fe_electro_symmetric\n" + SYMM_KEYS + "mobility 0.05\n"
     "phi_initialisation block_X\nphi_init_block_dimension 32\n"
     "electrokinetics_z0 1\nelectrokinetics_z1 -1\nelectrokinetics_d0 0.01\n"
@@ -4500,7 +4520,8 @@ def phase32(card):
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         paths[label] = stat_scan_counts()
         out = log.getvalue()
-        if f"Completed cycle {MORE_FE_CYCLES}" not in out:
+        ncycles = int(re.search(r"N_cycles (\d+)", text).group(1))
+        if f"Completed cycle {ncycles}" not in out:
             raise AssertionError(f"{label}: cycles incomplete")
         if not all(torch.isfinite(x).all() for x in sys_.state
                    if x.is_floating_point()):
@@ -4568,7 +4589,7 @@ def phase32(card):
               f"{nsite / (ms * 1e3):.1f} MLUPS, {kernels} CUDA kernels a "
               f"step, {dev_ms} ms of them on the device (torch.profiler, 1 "
               f"step); one step under the sync debug mode '{mode}': "
-              f"{syncs} host syncs; run_text x {MORE_FE_CYCLES} cycles "
+              f"{syncs} host syncs; run_text x {ncycles} cycles "
               f"{wall_s:.2f} s, peak {peak_gb:.2f} GB, totals {totals}"
               + (f", SOR iterations {sor}" if sor else "")
               + f", scans {paths[label]} [{card}]")
@@ -4576,6 +4597,401 @@ def phase32(card):
             print(f"    {k_ms:.4f} ms device, {count:.0f} a step: "
                   f"{key[:90]}")
         del sys_, holder
+    return res, paths
+
+
+LC_ROUTE_SIZE = (16, 16, 32)
+# the blue phase's unfused routes (lc.make_lc_step, lc_colloid): halo walls
+# on each axis with the s7 anchoring kinds, the 'two' style, porous solids
+# under 3d_7pt_solid, the dynamic redshift, the electric field,
+# hydrodynamics off, advection orders 3-5, colloids periodic and beside a
+# wall
+LC_ROUTES = ("walls x s7 normal", "walls y s7 planar", "walls z s7 fixed",
+             "walls z two planar", "porous two normal", "redshift",
+             "electric field", "hydrodynamics off walls z s7 normal",
+             "order 3", "order 4", "order 5", "colloids",
+             "colloids walls z s7 normal")
+LC_EFIELD = dict(epsilon=41.4 / (12.0 * math.pi), e0=(0.0, 0.003, 0.01))
+
+
+def lc_route(name, dtype, device, size=LC_ROUTE_SIZE):
+    """(step, state) of an LC_ROUTES route at `size` on `device`: Q the O8M
+    start with noise on it, f perturbed about rest, u random, from numpy
+    seeds, so the card and the CPU start from the same bits."""
+    import numpy as np
+
+    from ludwig_tpu_torch import lc, lc_colloid
+    from ludwig_tpu_torch.colloids import ColloidParams
+    from ludwig_tpu_torch.io.map_file import GEOMETRIES
+    from ludwig_tpu_torch.ops.lc_anchor import AnchoringParams
+    from ludwig_tpu_torch.ops.walls import WallSpec
+
+    rng = np.random.default_rng(33)
+    words = name.split()
+    fe = BluePhaseFE(**LC_FE, **(LC_EFIELD if name == "electric field"
+                                 else {}))
+    walls = None
+    if "walls" in words:
+        ax = "xyz".index(words[words.index("walls") + 1])
+        walls = tuple(a == ax for a in range(3))
+    style = next((w for w in ("s7", "two") if w in words),
+                 "s7" if words[0] == "colloids" else None)
+    kind = next((w for w in ("normal", "planar", "fixed") if w in words),
+                "normal")
+    anch = None
+    if style is not None:
+        anch = AnchoringParams(
+            kappa0=fe.kappa0, kappa1=fe.kappa1, q0=fe.q0,
+            amplitude=fe.amplitude0, wall=kind, wall_w1=0.01,
+            wall_w2=0.002 if kind == "planar" else 0.0,
+            wall_nfix=(0.0, 0.6, 0.8), coll="normal", coll_w1=0.01,
+            method=style)
+    cfg = lc.LCConfig(
+        lb=LBConfig(size=size, nvel=19, eta_shear=0.1, dtype=dtype,
+                    device=device), fe=fe, gamma=LC_GAMMA,
+        advection_order=int(words[1]) if words[0] == "order" else 1,
+        gradient={"s7": "s7_anchoring", "two": "3d_7pt_solid",
+                  None: "3d_7pt_fluid"}[style],
+        hydrodynamics=not name.startswith("hydrodynamics off"),
+        wallspec=None if walls is None else WallSpec(walls=walls),
+        anchoring=anch, redshift_update=name == "redshift", keep_grads=True)
+    q0 = (lc_init_o8m(size, LC_FE["q0"], -0.2)
+          + 0.02 * rng.standard_normal((5,) + size))
+    f = 1.0 / 19.0 + 1e-3 * rng.standard_normal((19,) + size)
+    f = torch.as_tensor(f, dtype=getattr(torch, dtype), device=device)
+    u = torch.as_tensor(0.01 * rng.standard_normal((3,) + size),
+                        dtype=getattr(torch, dtype), device=device)
+    if words[0] == "colloids":
+        cp = ColloidParams(a0=(2.3, 2.3), ah=(2.3, 2.3),
+                           gravity=(0.0, 0.0, -1e-4))
+        R0 = np.array([[4.2, 7.1, 9.6], [11.3, 8.6, 21.7]])
+        V0 = 0.01 * rng.standard_normal((2, 3))
+        state = list(lc_colloid.initial_lc_colloid(cfg, cp, q0, R0, V0))
+        state[0], state[8] = f, u
+        return (lc_colloid.make_lc_colloid_step(cfg, cp, rebuild_freq=2),
+                tuple(state))
+    solid = None
+    if words[0] == "porous":
+        solid = torch.as_tensor(GEOMETRIES["simple_cubic"](size, 8) != 0,
+                                device=device)
+    state = lc.initial_lc(cfg, q0)
+    return (lc.make_lc_step(cfg, solid=solid), (f, state[1], u) + state[3:])
+
+
+LC_TAGS = MORE_FE_TAGS + ("[Qxx]", "[Qxy]", "[Qxz]", "[Qyy]", "[Qyz]",
+                          "[colloids]")
+
+
+def lc_log(log):
+    """(words, floats) of a log from 'Initial conditions.' to the timer
+    table: every line with its numbers blanked, and the numbers of the
+    statistics rows."""
+    body = log[log.index("\nInitial conditions."):log.index("\nTimer")]
+    words, vals = [], []
+    for line in body.splitlines():
+        words.append(" ".join(NUMBER.sub(" # ", line).split()))
+        if line.startswith(LC_TAGS):
+            vals += [float(v) for v in NUMBER.findall(line.split("]", 1)[1])]
+    return words, torch.tensor(vals, dtype=torch.float64)
+
+
+LC_SMALL = """
+N_cycles 4
+freq_statistics 2
+size 8_8_16
+viscosity 0.1
+dtype float64
+free_energy lc_blue_phase
+lc_a0 0.01
+lc_gamma 3.0
+lc_q0 0.19635
+lc_kappa0 0.000648456
+lc_kappa1 0.000648456
+lc_xi 0.7
+lc_Gamma 0.5
+lc_q_initialisation o8m
+lc_q_init_amplitude -0.2
+"""
+LC_WALL_S7 = ("boundary_walls 0_0_1\nfd_gradient_calculation s7_anchoring\n"
+              "lc_wall_anchoring normal\nlc_wall_anchoring_w1 0.01\n")
+LC_COLLOID_KEYS = """fd_gradient_calculation s7_anchoring
+lc_coll_anchoring normal
+lc_coll_anchoring_w1 0.01
+colloid_init input_two
+colloid_one_a0 2.3
+colloid_one_ah 2.3
+colloid_one_r 4.0_6.5_6.5
+colloid_one_v 0.01_0.0_0.0
+colloid_two_a0 2.3
+colloid_two_ah 2.3
+colloid_two_r 9.5_6.5_7.0
+colloid_gravity 0.0_0.0_-0.0001
+"""
+# one input of each kind (tests/test_torch_cli.py's), in float64
+LC_INPUTS = {
+    "walls s7 normal": LC_SMALL + LC_WALL_S7,
+    "walls two planar": LC_SMALL + "boundary_walls 1_0_0\n"
+    "fd_gradient_calculation 3d_7pt_solid\nlc_anchoring_method two\n"
+    "lc_wall_anchoring planar\nlc_anchoring_strength 0.01\n"
+    "lc_anchoring_strength_2 0.002\n",
+    "porous 3d_7pt_solid": LC_SMALL + "porous_media_init simple_cubic\n"
+    "porous_media_acell 4\nfd_gradient_calculation 3d_7pt_solid\n"
+    "lc_anchoring_method two\nlc_wall_anchoring normal\n"
+    "lc_anchoring_strength 0.01\n",
+    "redshift": LC_SMALL + "lc_redshift_update 1\n",
+    "electric field": LC_SMALL + "electric_e0 0.0_0.0_0.01\n"
+    "lc_dielectric_anisotropy 41.4\n",
+    "hydrodynamics off": LC_SMALL + LC_WALL_S7 + "hydrodynamics off\n",
+    "order 3": LC_SMALL + "fd_advection_scheme_order 3\n",
+    "random rectangle": LC_SMALL + "lc_q_init_rectangle_min 2_2_3\n"
+    "lc_q_init_rectangle_max 5_6_9\n",
+    "colloids": LC_SMALL.replace("size 8_8_16", "size 12_12_12")
+    + LC_COLLOID_KEYS,
+    "colloids walls": LC_SMALL.replace("size 8_8_16", "size 12_12_12")
+    + LC_COLLOID_KEYS + "boundary_walls 0_0_1\nlc_wall_anchoring normal\n"
+    "lc_wall_anchoring_w1 0.01\n",
+}
+
+
+def phase33():
+    phase("33 the blue phase's walls, anchoring, solids, colloids and "
+          "options on the card vs the CPU")
+    import tempfile
+    worst = 0.0
+    for name in LC_ROUTES:
+        for dtype in ("float64", "float32"):
+            got = {}
+            for device in ("cuda", "cpu"):
+                step, state = lc_route(name, dtype, device)
+                for t in range(3):
+                    state, _ = step(state, t)
+                got[device] = state
+            m = re.search(r"walls (\w)", name)
+            walls = (None if m is None
+                     else tuple(a == "xyz".index(m.group(1))
+                                for a in range(3)))
+            err = hold_more_fe_states(f"{name} {dtype}", got["cuda"],
+                                      got["cpu"], walls)
+            if dtype == "float64":
+                worst = max(worst, err)
+            print(f"LC {name} {dtype}: 3 steps at 16x16x32 on the card "
+                  f"against the CPU within {TOL[getattr(torch, dtype)]}, "
+                  f"max |diff| {err:.3e}")
+    counts = {}
+    for name, text in LC_INPUTS.items():
+        logs = {}
+        for device in ("cuda", "cpu"):
+            _cuda.launches.reset()
+            out = io.StringIO()
+            sys_ = run_text(text, out=out, device=device)
+            logs[device] = out.getvalue()
+            if device == "cuda":
+                counts[f"lc {name} f64"] = stat_scan_counts()
+                if sys_.fused_mode is not None:
+                    raise AssertionError(f"LC input {name}: fused route")
+        (wa, a), (wb, b) = (lc_log(logs[k]) for k in ("cuda", "cpu"))
+        if (wa != wb or a.numel() == 0
+                or not torch.allclose(a, b, rtol=1e-9, atol=1e-11)):
+            raise AssertionError(f"LC input {name}: the card's log differs "
+                                 "from the CPU's")
+        print(f"LC input {name} f64 through run_text: {len(wa)} lines the "
+              f"same but their numbers, {a.numel()} floats on the card "
+              f"agree with the CPU's (rtol 1e-9, atol 1e-11), max |diff| "
+              f"{float((a - b).abs().max()):.3e}")
+    with tempfile.TemporaryDirectory() as d:
+        # a restart on the card: steps 3-4 of the walled blue phase from
+        # the step-2 checkpoint (gwall and the kept gradients ride) print
+        # the straight run's log
+        text = (LC_INPUTS["walls s7 normal"].replace(
+            "freq_statistics 2", "freq_statistics 1") + f"io_directory {d}\n")
+        straight, rest = io.StringIO(), io.StringIO()
+        run_text(text, out=straight, device="cuda")
+        run_text(text.replace("N_cycles 4", "N_cycles 2")
+                 + "config_at_end yes\n", out=io.StringIO(), device="cuda")
+        run_text(text.replace("N_cycles 4", "N_cycles 2") + "N_start 2\n",
+                 out=rest, device="cuda")
+        want = straight.getvalue()
+        want = want[want.index("\n", want.index("Completed cycle 2\n")) + 1:]
+        got = rest.getvalue()
+        got = got[got.index("\n", got.index("Starting time step loop.")) + 1:]
+        if want.split("\nTimer")[0] != got.split("\nTimer")[0]:
+            raise AssertionError("LC walls restart at 2: the restarted log "
+                                 "is not the straight log")
+    print("LC walls s7 f64 on the card: the restart from step 2 prints the "
+          "straight log's steps 3-4 as text")
+    return worst, counts
+
+
+LC_CELL_CYCLES = 20
+LC_128 = (lc_input((128, 128, 128), "float32")
+          .replace(f"N_cycles {LC_CYCLES}", f"N_cycles {LC_CELL_CYCLES}")
+          .replace("freq_statistics 10", f"freq_statistics {LC_CELL_CYCLES}"))
+# the three full-width cells: the blue-phase benchmark between walls on z
+# with normal anchoring, a nematic holding 8 particles of radius 7.25 on a
+# 2x2x2 lattice (rebuilt every step), and the benchmark with the dynamic
+# redshift (its [fe] row, with the redshift, printed every cycle)
+LC_CELLS = {
+    "lc-walls": LC_128 + LC_WALL_S7,
+    "lc-colloids": LC_128.replace("lc_q_initialisation o8m",
+                                  "lc_q_initialisation nematic")
+    .replace("lc_q_init_amplitude -0.2\n", "lc_init_nematic 1.0_0.0_0.0\n")
+    .replace("colloid_init no_colloids\n", "")
+    + "fd_gradient_calculation s7_anchoring\nlc_coll_anchoring normal\n"
+    "lc_coll_anchoring_w1 0.01\ncolloid_init from_file\n"
+    "colloid_file_stub @DIR@/config.cds\ncolloid_rebuild_freq 1\n",
+    "lc-redshift": LC_128.replace(f"freq_statistics {LC_CELL_CYCLES}",
+                                  "freq_statistics 1")
+    + "lc_redshift_update 1\n",
+}
+
+
+def lattice_colloids(directory, n=2, a0=7.25, L=128):
+    """config.cds.init in `directory`: n^3 particles of radius a0 at rest
+    on a simple cubic lattice filling an L^3 box (1-based centres)."""
+    import os
+
+    from ludwig_tpu_torch.io.colloid_io import (default_state,
+                                                write_colloid_file)
+    recs = []
+    for i in range(n ** 3):
+        rec = default_state()
+        rec["index"] = i + 1
+        rec["a0"] = rec["ah"] = a0
+        idx = ((i // (n * n)) % n, (i // n) % n, i % n)
+        rec["r"] = [0.5 + (k + 0.5) * L / n for k in idx]
+        rec["m"] = [1.0, 0.0, 0.0]
+        recs.append(rec)
+    write_colloid_file(os.path.join(directory, "config.cds.init"), recs)
+
+
+def matvec_cost(run):
+    """The walled step's ms and device time with the anchoring's 12- and
+    18-unknown solves summed in float64 (ops/lc_anchor._matvec) and in
+    the field's dtype, two rounds each in turn: {"float64" | "field
+    dtype": [(ms, device ms), ...]}."""
+    from ludwig_tpu_torch.ops import lc_anchor
+
+    def same_dtype(m, b):
+        x = m.to(b.dtype) @ b.reshape(b.shape[0], -1)
+        return x.reshape((m.shape[0],) + b.shape[1:])
+
+    f64 = lc_anchor._matvec
+    out = {"float64": [], "field dtype": []}
+    try:
+        for _ in range(2):
+            for k, fn in (("float64", f64), ("field dtype", same_dtype)):
+                lc_anchor._matvec = fn
+                out[k].append((time_ms(run, 5, warm=2),
+                               post_profile(run, 1)[1]))
+    finally:
+        lc_anchor._matvec = f64
+    for k, rows in out.items():
+        for ms, dev in rows:
+            print(f"    anchoring solves in {k}: {ms:.3f} ms a step (CUDA "
+                  f"events), {dev} ms on the device (torch.profiler)")
+    return out
+
+
+def phase34(card):
+    phase(f"34 the blue phase's walls, colloids and redshift at full width "
+          f"f32 on {card}")
+    import tempfile
+    import warnings
+
+    from ludwig_tpu_torch.ludwig import build_system
+    from ludwig_tpu_torch.runtime import RunTime
+    res, paths = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        lattice_colloids(d)
+        for label, text in LC_CELLS.items():
+            text = text.replace("@DIR@", d)
+            start = build_system(RunTime(text), "cuda").state[0].double().sum()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _cuda.launches.reset()
+            log = io.StringIO()
+            t0 = time.perf_counter()
+            sys_ = run_text(text, out=log, device="cuda")
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            paths[label] = stat_scan_counts()
+            out = log.getvalue()
+            if f"Completed cycle {LC_CELL_CYCLES}" not in out:
+                raise AssertionError(f"{label}: cycles incomplete")
+            if sys_.fused_mode is not None:
+                raise AssertionError(f"{label}: not the unfused route")
+            if not all(torch.isfinite(x).all() for x in sys_.state
+                       if x.is_floating_point()):
+                raise AssertionError(f"{label}: the state is not finite")
+            extra = {}
+            if label != "lc-colloids":
+                # the fluid's mass, summed from the state in float64: the
+                # walls bounce back, the periodic lattice keeps it
+                mass = float(sys_.state[0].double().sum())
+                if abs(mass - float(start)) > 1e-5 * float(start):
+                    raise AssertionError(f"{label}: mass {float(start)} -> "
+                                         f"{mass}")
+                extra["mass"] = (float(start), mass)
+            if label == "lc-redshift":
+                extra["redshift"] = [float(ln.split()[-1]) for ln in
+                                     out.splitlines()
+                                     if ln.startswith("[fe]")][1:]
+                if len(extra["redshift"]) != LC_CELL_CYCLES:
+                    raise AssertionError(f"{label}: redshift rows missing")
+            if label == "lc-walls":
+                extra["fe"] = [ln for ln in out.splitlines()
+                               if ln.startswith("[fe]")][-1]
+            del sys_
+            # the step alone: ms (CUDA events), kernels and device time
+            # (torch.profiler), one step under the sync debug mode "error";
+            # the colloid cell's rebuild steps apart from the others
+            sys_ = build_system(RunTime(text), "cuda")
+            modes = ((True, False) if label == "lc-colloids" else (None,))
+            for rebuild in modes:
+                holder = {"s": sys_.state, "t": 1}
+
+                def run():
+                    kw = {} if rebuild is None else {"rebuild": rebuild}
+                    holder["s"], _aux = sys_.step_fn(holder["s"],
+                                                     holder["t"], **kw)
+                    holder["t"] += 1
+
+                ms = time_ms(run, 5, warm=2)
+                kernels, dev_ms, top = post_profile(run, reps=1)
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    with warnings.catch_warnings(record=True) as caught:
+                        warnings.simplefilter("always")
+                        run()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                key = label + {None: "", True: " rebuild",
+                               False: " no rebuild"}[rebuild]
+                nsite = math.prod(sys_.lb_cfg.size)
+                res[key] = {"ms": ms, "mlups": nsite / (ms * 1e3),
+                            "kernels": kernels, "device_ms": dev_ms,
+                            "host_syncs": len(caught),
+                            "run_text_s": wall_s, "peak_gb": peak_gb,
+                            "top": [(k[:60], c, round(t, 4))
+                                    for k, c, t in top], **extra}
+                print(f"{key} 128^3 f32: {ms:.3f} ms a step (CUDA events), "
+                      f"{nsite / (ms * 1e3):.1f} MLUPS, {kernels} CUDA "
+                      f"kernels a step, {dev_ms} ms of them on the device "
+                      f"(torch.profiler, 1 step); one step under the sync "
+                      f"debug mode 'error': {len(caught)} host syncs; "
+                      f"run_text x {LC_CELL_CYCLES} cycles {wall_s:.2f} s, "
+                      f"peak {peak_gb:.2f} GB, scans {paths[label]} [{card}]")
+                for k, v in extra.items():
+                    print(f"    {k}: {v}")
+                for name, count, k_ms in top[:3]:
+                    print(f"    {k_ms:.4f} ms device, {count:.0f} a step: "
+                          f"{name[:90]}")
+                if label == "lc-walls":
+                    res[key]["matvec_in_field_dtype"] = matvec_cost(run)
+            del sys_, holder
     return res, paths
 
 
@@ -4676,6 +5092,11 @@ def main():
     more_fe_cells, more_fe_paths = phase32(card)
     by_path.update(more_fe_paths)
     timed["momentum_total_ref"]["more_fe_cells"] = more_fe_cells
+    lc_worst, lc_counts = phase33()
+    by_path.update(lc_counts)
+    lc_cells, lc_paths = phase34(card)
+    by_path.update(lc_paths)
+    timed["momentum_total_ref"]["lc_cells"] = lc_cells
     for name in STAT_SCANS:
         worst[name] = 0.0        # held bitwise in phases 19 and 21
     print(f"all phases passed ({time.perf_counter() - _T0:.1f} s)")
@@ -4749,6 +5170,10 @@ def main():
             kernels[-1].update(
                 more_fe_cells=t["more_fe_cells"],
                 more_fe_routes_f64_max_abs_diff=more_fe_worst)
+        if "lc_cells" in t:  # phase 34: the blue phase's cells (PyTorch
+            # routes; their statistics launch the scans)
+            kernels[-1].update(lc_cells=t["lc_cells"],
+                               lc_routes_f64_max_abs_diff=lc_worst)
         if "wall_step_ms" in t:   # the wall and LE steps around the kernel
             kernels[-1].update({k: t[k] for k in (
                 "wall_step_ms", "wall_post_ms", "le_step_ms", "le_post_ms",

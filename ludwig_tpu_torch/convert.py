@@ -10,11 +10,12 @@ asks for the CPU.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
-from ludwig_tpu_torch.binary import GRADIENT, BinaryConfig
+from ludwig_tpu_torch.binary import BinaryConfig
 from ludwig_tpu_torch.binary_lb import BinaryLBConfig
 from ludwig_tpu_torch.colloids import ColloidState
 from ludwig_tpu_torch.electro import ElectroConfig
@@ -34,6 +35,8 @@ from ludwig_tpu_torch.lb import DTYPES, LBConfig
 from ludwig_tpu_torch.noise import NoiseConfig
 from ludwig_tpu_torch.ops.collide import RelaxationScheme
 from ludwig_tpu_torch.ops.fused import FusedNoise
+from ludwig_tpu_torch.ops.lc_anchor import AnchoringParams
+from ludwig_tpu_torch.ops.walls import WallSpec
 from ludwig_tpu_torch.polar import PolarConfig
 from ludwig_tpu_torch.two_field import TwoFieldConfig
 from ludwig_tpu_torch.visc import ViscArrhenius
@@ -267,32 +270,63 @@ def _fields_of(x) -> dict:
     return {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
 
 
-def _blue_phase_from_jax(fe) -> BluePhaseFE:
+def _blue_phase_from_jax(fe, efield: bool = True) -> BluePhaseFE:
+    """The blue-phase free energy; the droplet's (efield False) takes no
+    electric field."""
     fe = _fields_of(fe)
-    _take_inactive(fe, {"zeta2": 0.0, "epsilon": 0.0,
-                        "e0": (0.0, 0.0, 0.0)}, "BluePhaseFE")
+    inactive = {"zeta2": 0.0}
+    if not efield:
+        inactive.update(epsilon=0.0, e0=(0.0, 0.0, 0.0))
+    _take_inactive(fe, inactive, "BluePhaseFE")
+    if efield:
+        fe["e0"] = tuple(float(v) for v in fe.get("e0", (0.0, 0.0, 0.0)))
     return BluePhaseFE(**fe)
+
+
+def _tuples(d: dict) -> dict:
+    """A dataclass's fields with its lists as tuples (dataclasses.asdict
+    keeps tuples, a JSON round trip does not)."""
+    return {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
+
+
+def _wallspec_from_jax(ws) -> Optional[WallSpec]:
+    return None if ws is None else WallSpec(**_tuples(_fields_of(ws)))
+
+
+def _anchoring_from_jax(anch) -> Optional[AnchoringParams]:
+    return None if anch is None else AnchoringParams(
+        **_tuples(_fields_of(anch)))
 
 
 def lc_params_from_jax(lcfg_fields: dict, device="cuda") -> LCConfig:
     """LCConfig from the fields of a ludwig_tpu LCConfig, for example
     ``dataclasses.asdict(lcfg)``: "lb" the LBConfig's fields, "fe" the
-    blue-phase free energy's (a dict or an object with those
-    attributes), the rotational mobility and the advection order.
-    Fields of features the port has not taken over must be at their
-    inactive defaults."""
+    blue-phase free energy's (the electric field's epsilon and e0
+    included), the rotational mobility, the advection order, the stencil,
+    hydrodynamics, the walls, the anchoring, the redshift update and
+    keep_grads (a dict or an object with those attributes each).  The
+    noise (noise_kt > 0) is not ported and raises; its seed is dropped."""
     fields = dict(lcfg_fields)
     fe = _blue_phase_from_jax(fields.pop("fe"))
-    _take_inactive(fields, {"gradient": GRADIENT, "hydrodynamics": True,
-                            "wallspec": None, "anchoring": None,
-                            "redshift_update": False, "noise_kt": 0.0},
-                   "LCConfig")
-    # the port's run loop carries the pre-step Q for the statistics
-    # itself, and the noise seed matters only with noise
-    for key in ("keep_grads", "noise_seed"):
-        fields.pop(key, None)
+    _take_inactive(fields, {"noise_kt": 0.0}, "LCConfig")
+    fields.pop("noise_seed", None)
+    fields["wallspec"] = _wallspec_from_jax(fields.get("wallspec"))
+    fields["anchoring"] = _anchoring_from_jax(fields.get("anchoring"))
     return LCConfig(lb=_lb_from_jax(fields.pop("lb"), device), fe=fe,
                     **fields)
+
+
+def lc_colloid_state_from_jax(state, device="cuda", dtype=None) -> tuple:
+    """The JAX package's LC colloid state (f, R, V, W, dr, Rmap, M, q5, u,
+    grad_q, delsq_q[, gwall]) (ludwig_tpu lc_colloid.py:99), its leaves as
+    numpy arrays, as the port's tuple of the same leaves in `dtype`
+    (default: f's)."""
+    leaves = [np.asarray(x) for x in state]
+    if len(leaves) not in (11, 12):
+        raise ValueError(f"an LC colloid state has 11 or 12 leaves, not "
+                         f"{len(leaves)}")
+    dtype = dtype or str(leaves[0].dtype)
+    return tuple(_tensor(a, device, dtype) for a in leaves)
 
 
 def droplet_state_from_jax(fpad, ppad, qpad, u, device, dtype):
@@ -323,7 +357,8 @@ def droplet_params_from_jax(dcfg_fields: dict,
     fe = _fields_of(fields.pop("fe"))
     symm = _fields_of(fe.pop("symm"))
     symm = SymmetricFE(**{k: symm[k] for k in ("a", "b", "kappa")})
-    fe = LCDropletFE(symm=symm, lc=_blue_phase_from_jax(fe.pop("lc")), **fe)
+    fe = LCDropletFE(symm=symm, lc=_blue_phase_from_jax(fe.pop("lc"),
+                                                          efield=False), **fe)
     return LCDropletConfig(lb=_lb_from_jax(fields.pop("lb"), device), fe=fe,
                            **fields)
 

@@ -1,7 +1,6 @@
 """Beris-Edwards Q-tensor dynamics.
 
-PyTorch port of the periodic part of
-ludwig_tpu/dynamics/beris_edwards.py (ref:
+PyTorch port of ludwig_tpu/dynamics/beris_edwards.py (ref:
 src/blue_phase_beris_edwards.c:304-470 beris_edw_update_host):
 
   dQ/dt + div(u Q) = Gamma H + S(W, Q)
@@ -12,13 +11,17 @@ src/blue_phase_beris_edwards.c:304-470 beris_edw_update_host):
 with W_ab = d_b u_a (central differences, trace removed,
 ref: src/hydro.c hydro_u_gradient_tensor), D/Omega its symmetric and
 antisymmetric parts, and the advective term in conservative face-flux
-form (same upwind schemes as the scalar order parameter).  Walls, solid
-sites and the noise term of the JAX module are not ported yet.
+form (same upwind schemes as the scalar order parameter).  Halo walls
+(the wall velocity in the gradient tensor, no flux through the wall
+faces), solid sites (no flux through their faces, no update there) and
+`hydrodynamics off` (u None: relaxation only) follow the JAX module; its
+noise term (lc_noise) is not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -45,9 +48,10 @@ def remove_trace(w):
             for a in range(3)]
 
 
-def velocity_gradient_tensor(u: torch.Tensor):
+def velocity_gradient_tensor(u: torch.Tensor, wallspec=None):
     """w[a][b] = d_b u_a, central differences, traceless
-    (ref: hydro.c hydro_u_gradient_tensor)."""
+    (ref: hydro.c hydro_u_gradient_tensor).  With walls the off-edge
+    neighbour velocity is the wall velocity."""
     def d(comp, ax):
         s_up = [0, 0, 0]
         s_up[ax] = -1
@@ -56,7 +60,11 @@ def velocity_gradient_tensor(u: torch.Tensor):
         return 0.5 * (roll3(u[comp], tuple(s_up)) -
                       roll3(u[comp], tuple(s_dn)))
 
-    return remove_trace([[d(a, b) for b in range(3)] for a in range(3)])
+    w = [[d(a, b) for b in range(3)] for a in range(3)]
+    if wallspec is not None and wallspec.any:
+        from ludwig_tpu_torch.ops.walls import wall_velocity_gradient_fix
+        w = wall_velocity_gradient_fix(w, u, wallspec)
+    return remove_trace(w)
 
 
 def corotation(q33, w, xi):
@@ -82,28 +90,53 @@ def corotation(q33, w, xi):
     return s
 
 
-def corotation_term(q33, u: torch.Tensor, xi: float):
+def corotation_term(q33, u: torch.Tensor, xi: float, wallspec=None):
     """S(W, Q) as a 3x3 list of tensors."""
-    return corotation(q33, velocity_gradient_tensor(u), xi)
+    return corotation(q33, velocity_gradient_tensor(u, wallspec), xi)
 
 
-def beris_edwards_update(q5: torch.Tensor, h33, u: torch.Tensor,
-                         params: BerisEdwardsParams) -> torch.Tensor:
+def beris_edwards_update(q5: torch.Tensor, h33, u: Optional[torch.Tensor],
+                         params: BerisEdwardsParams,
+                         fluid_mask: Optional[torch.Tensor] = None,
+                         wallspec=None,
+                         solid=None) -> torch.Tensor:
     """One forward-Euler BE step; returns updated q5 (5, X, Y, Z).
 
-    h33 is the molecular field as a 3x3 list (from the free energy).
+    h33 is the molecular field as a 3x3 list (from the free energy).  u
+    None is `hydrodynamics off`: no corotation, no advection.  With
+    halo walls (wallspec) the wall faces carry no flux and the gradient
+    tensor takes the walls' velocity; `solid` (the (X, Y, Z) mask, or its
+    advect.blocked_faces) blocks the faces of solid sites; sites outside
+    fluid_mask keep their Q.
     """
     g = params.gamma
     rhs5 = [g * h33[0][0], g * h33[0][1], g * h33[0][2],
             g * h33[1][1], g * h33[1][2]]
 
-    q33 = q5_to_q33(q5)
-    s = corotation_term(q33, u, params.xi)
-    s5 = [s[0][0], s[0][1], s[0][2], s[1][1], s[1][2]]
-    rhs5 = [r + si for r, si in zip(rhs5, s5)]
-    # conservative advection of each component
-    for n in range(5):
-        fluxes = advective_fluxes(u, q5[n], params.advection_order)
-        rhs5[n] = rhs5[n] - flux_divergence(fluxes)
+    if u is not None:
+        q33 = q5_to_q33(q5)
+        s = corotation_term(q33, u, params.xi, wallspec)
+        s5 = [s[0][0], s[0][1], s[0][2], s[1][1], s[1][2]]
+        rhs5 = [r + si for r, si in zip(rhs5, s5)]
+        walled = wallspec is not None and wallspec.any
+        if walled:
+            from ludwig_tpu_torch.ops.walls import no_flux_at_walls
+        if solid is not None:
+            from ludwig_tpu_torch.ops.advect import (blocked_faces,
+                                                     no_flux_at_solid)
+            if isinstance(solid, torch.Tensor):
+                solid = blocked_faces(solid)
+        # conservative advection of each component
+        for n in range(5):
+            fluxes = advective_fluxes(u, q5[n], params.advection_order)
+            if walled:
+                fluxes = no_flux_at_walls(fluxes, wallspec)
+            if solid is not None:
+                fluxes = no_flux_at_solid(fluxes, solid)
+            rhs5[n] = rhs5[n] - flux_divergence(fluxes)
 
-    return q5 + torch.stack(rhs5)
+    dq = torch.stack(rhs5)
+    if fluid_mask is not None:
+        dq = torch.where(fluid_mask[None], dq,
+                         torch.zeros((), dtype=dq.dtype, device=dq.device))
+    return q5 + dq

@@ -6,6 +6,7 @@ fe_lc_compute_fed :309, fe_lc_compute_h :~700, fe_lc_compute_stress
 
   f = A0/2 (1 - gamma/3) Q^2 - A0 gamma/3 Q^3 + A0 gamma/4 (Q^2)^2
     + kappa0/2 (d_b Q_ab)^2 + kappa1/2 (eps_acd d_c Q_db + 2 q0 Q_ab)^2
+    - epsilon E_a Q_ab E_b
 
 with redshifted elastic constants (q0 -> q0/r, kappa -> kappa r^2).
 
@@ -15,14 +16,19 @@ tensors ((5, X, Y, Z) fields, or lists of them) in the twins and the
 unfused step, symbols in ops/_cuda.py, which traces the same text into
 the CUDA kernel's per-site code.  The order of the terms is the JAX
 package's, so float64 results agree with it to the last bits.  The
-electric-field term, `redshift_compute` and `surface_fs` of the JAX
-module are not ported yet.
+electric-field terms sit behind a static test of the parameters, so with
+no field the traced kernel text is that of the field-free energy.
+`redshift_compute` (the dynamic redshift) and `surface_fs` (the anchoring
+surface energy of the statistics) work on tensors only.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Tuple
+
+import torch
 
 # component order (ref: QXX..QYZ)
 XX, XY, XZ, YY, YZ = range(5)
@@ -57,7 +63,10 @@ def dq_tensor(grad_q5):
 @dataclasses.dataclass(frozen=True)
 class BluePhaseFE:
     """Parameters (ref: fe_lc_param_t; input keys lc_a0, lc_gamma, lc_q0,
-    lc_kappa0, lc_kappa1, lc_xi, lc_init_redshift, lc_active_zeta0/1)."""
+    lc_kappa0, lc_kappa1, lc_xi, lc_init_redshift, lc_active_zeta0/1,
+    lc_dielectric_anisotropy / (12 pi) as epsilon, electric_e0).  The
+    redshift may be a 0-d tensor: the dynamic redshift carried in a
+    step's state."""
 
     a0: float
     gamma: float
@@ -68,6 +77,19 @@ class BluePhaseFE:
     redshift: float = 1.0
     zeta0: float = 0.0       # active stress (isotropic)
     zeta1: float = 0.0       # active stress ~ Q
+    epsilon: float = 0.0     # dielectric anisotropy (includes 1/12pi)
+    e0: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+
+    @property
+    def has_efield(self) -> bool:
+        """The static test the electric-field terms sit behind."""
+        return bool(any(self.e0) and self.epsilon)
+
+    def efield_fed(self, q):
+        """E_a Q_ab E_b of a 3x3 Q (the fed's electric term is -epsilon
+        times it)."""
+        return sum(self.e0[a] * q[a][b] * self.e0[b]
+                   for a in range(3) for b in range(3))
 
     @property
     def amplitude0(self) -> float:
@@ -119,7 +141,10 @@ class BluePhaseFE:
         dq = dq_tensor(fields["grad_q"])
         q0, k0, k1 = self._rr
         dq0, dq1 = self._grad_sums(q, dq, q0)
-        return self._bulk(q) + 0.5 * k0 * dq0 + 0.5 * k1 * dq1
+        out = self._bulk(q) + 0.5 * k0 * dq0 + 0.5 * k1 * dq1
+        if self.has_efield:
+            out = out - self.epsilon * self.efield_fed(q)
+        return out
 
     def fed_bulk_grad(self, fields):
         """(bulk, gradient) free energy densities for the LC statistics
@@ -129,6 +154,39 @@ class BluePhaseFE:
         q0, k0, k1 = self._rr
         dq0, dq1 = self._grad_sums(q, dq, q0)
         return self._bulk(q), 0.5 * k0 * dq0 + 0.5 * k1 * dq1
+
+    def surface_fs(self, qs, nhat, anchor: str, w1: float, w2: float,
+                   nfix=(0.0, 1.0, 0.0)):
+        """Anchoring surface free energy density at one boundary face,
+        f_s = w1/2 (Q-Q0)^2 + w2/2 sum_ab (Qt_ab^2 - S0^2)^2
+        (ref: fe_lc_stats.c blue_phase_fs, colloids_q_boundary).
+
+        qs: 3x3 list of tensors; nhat: the outward normal (3 floats or
+        tensors)."""
+        amp = self.amplitude0
+        s0 = 1.5 * amp
+        nh = nfix if anchor == "fixed" else nhat
+        if anchor in ("normal", "fixed"):
+            q0b = [[0.5 * amp * (3.0 * nh[a] * nh[b] - float(a == b))
+                    for b in range(3)] for a in range(3)]
+        elif anchor == "planar":
+            qt = [[qs[a][b] + (0.5 * amp if a == b else 0.0)
+                   for b in range(3)] for a in range(3)]
+            q0b = [[sum((float(a == g) - nhat[a] * nhat[g]) * qt[g][h]
+                        * (float(h == b) - nhat[h] * nhat[b])
+                        for g in range(3) for h in range(3))
+                    - (0.5 * amp if a == b else 0.0)
+                    for b in range(3)] for a in range(3)]
+        else:
+            q0b = [[0.0 * qs[0][0] for _ in range(3)] for _ in range(3)]
+        f1 = sum((qs[a][b] - q0b[a][b]) ** 2
+                 for a in range(3) for b in range(3))
+        f2 = 0.0
+        for a in range(3):
+            for b in range(3):
+                qt = qs[a][b] + (0.5 * amp if a == b else 0.0)
+                f2 = f2 + (qt * qt - s0 * s0) ** 2
+        return 0.5 * w1 * f1 + 0.5 * w2 * f2
 
     def molecular_field(self, fields):
         """h[a][b] 3x3 list of values (ref: fe_lc_compute_h)."""
@@ -175,6 +233,14 @@ class BluePhaseFE:
                 if a == b:
                     val = val + 4.0 * r3 * k1 * q0 * eq
                 h[a][b] = val
+
+        if self.has_efield:
+            e2t = sum(v * v for v in self.e0)
+            for a in range(3):
+                for b in range(3):
+                    h[a][b] = h[a][b] + self.epsilon * (
+                        self.e0[a] * self.e0[b]
+                        - (r3 * e2t if a == b else 0.0))
         return h
 
     def stress(self, fields, h=None):
@@ -321,3 +387,52 @@ class BluePhaseFE:
                 row.append(val + self.zeta1 * q[a][b])
             rows.append(row)
         return rows
+
+
+def redshift_compute(fe: BluePhaseFE, fields, redshift_old: torch.Tensor):
+    """The redshift that minimises the gradient free energy of the current
+    Q (ref: blue_phase.c:1443 fe_lc_redshift_compute, input key
+    lc_redshift_update), with kappa(r) = kappa r^2 and q0(r) = q0 / r and
+    the UNREDSHIFTED parameters:
+
+      r_new = -egrad_linear / (2 egrad_square)
+
+    egrad_linear = sum_sites 2 q0 kappa1 sum_ab Q_ab e_agd d_g Q_db
+    egrad_square = sum_sites (kappa1 |dQ|^2 - kappa1 dQ:dQ^T
+                              + kappa0 (div Q)^2) / 2
+
+    It keeps redshift_old (a 0-d tensor) where the square term vanishes
+    or |r_new| < 1e-11.  Two whole-lattice sums on the device, in float64
+    whatever Q's dtype, as the reference sums them (a float32 sum's
+    rounding depends on the device's order); nothing is read back to the
+    host."""
+    q = q5_to_q33(fields["q"])
+    dq = dq_tensor(fields["grad_q"])  # dq[c][a][b] = d_c Q_ab
+
+    dq0 = 0.0
+    for a in range(3):
+        s = sum(dq[b][a][b] for b in range(3))
+        dq0 = dq0 + s * s
+    dq1 = 0.0
+    dq2 = 0.0
+    dq3 = 0.0
+    for a in range(3):
+        for b in range(3):
+            for g in range(3):
+                dq1 = dq1 + dq[g][a][b] * dq[g][a][b]
+                dq2 = dq2 + dq[a][b][g] * dq[b][a][g]
+            s = 0.0
+            for g in range(3):
+                for d in range(3):
+                    e = eps(a, g, d)
+                    if e:
+                        s = s + e * dq[g][d][b]
+            dq3 = dq3 + q[a][b] * s
+    f64 = torch.float64
+    e0 = torch.sum(2.0 * fe.q0 * fe.kappa1 * dq3, dtype=f64)
+    e1 = torch.sum(0.5 * (fe.kappa1 * dq1 - fe.kappa1 * dq2
+                          + fe.kappa0 * dq0), dtype=f64)
+    nonzero = e1 != 0.0
+    rnew = torch.where(nonzero, -0.5 * e0 / torch.where(nonzero, e1, 1.0),
+                       redshift_old.to(f64)).to(redshift_old.dtype)
+    return torch.where(torch.abs(rnew) < 1e-11, redshift_old, rnew)

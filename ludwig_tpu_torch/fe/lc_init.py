@@ -5,8 +5,8 @@ src/blue_phase_init.c: blue_phase_O8M_init :59 (BPI),
 blue_phase_O2_init (BPII), blue_phase_twist_init :763 (cholesteric),
 blue_phase_nematic_init, blue_phase_random_q_init), selected by the
 input key lc_q_initialisation.  The caller moves the field to the device.
-`lc_init_random_rectangle` (it draws from the per-site KISS noise stream)
-is not ported yet.
+`lc_init_random_rectangle` draws from the per-site KISS stream of
+noise_kiss.py, stepped on the CPU.
 """
 
 from __future__ import annotations
@@ -107,6 +107,32 @@ def lc_init_twist(size, q0, amplitude0, axis=0):
     else:
         n = (np.cos(q0 * c), np.sin(q0 * c), zero)
     return q_uniaxial(amplitude0, n)
+
+
+def lc_init_random_rectangle(size, q5_base, rmin, rmax, seed=13):
+    """Superpose a rectangle of random uniaxial Q (fixed a0 = 0.01) on
+    an existing field, drawn from the site-seeded KISS stream with the
+    DEFAULT_SEED (ref: blue_phase_random_q_rectangle; two
+    noise_uniform_double_reap per site, uniform = kiss/UINT_MAX).  rmin,
+    rmax: the 1-based corners, inclusive."""
+    from ludwig_tpu_torch.noise_kiss import _uniform, kiss_init
+
+    st = kiss_init(seed, tuple(size), device="cpu")
+    st, u1 = _uniform(st)
+    st, u2 = _uniform(st)
+    ruint = 1.0 / 4294967295.0
+    ran1 = u1.numpy().astype(np.float64) * ruint
+    ran2 = u2.numpy().astype(np.float64) * ruint
+    phase1 = 2.0 * np.pi * (0.5 - ran1)
+    phase2 = np.arccos(2.0 * ran2 - 1.0)
+    n = (np.cos(phase1) * np.sin(phase2),
+         np.sin(phase1) * np.sin(phase2),
+         np.cos(phase2))
+    qr = q_uniaxial(0.01, n)
+    X, Y, Z = _coords(size)
+    mask = ((X >= rmin[0]) & (X <= rmax[0]) & (Y >= rmin[1])
+            & (Y <= rmax[1]) & (Z >= rmin[2]) & (Z <= rmax[2]))
+    return np.where(mask[None], qr, q5_base)
 
 
 def lc_init_nematic(size, amplitude0, director=(1.0, 0.0, 0.0)):

@@ -1,24 +1,31 @@
 """Liquid-crystal (Q-tensor) simulation: blue phase + Beris-Edwards + LB.
 
-PyTorch port of the periodic, hydrodynamics-on branch of ludwig_tpu/lc.py
-(ref: src/ludwig.c q-tensor branch: field_grad(q) -> force via stress
-divergence (+ active stress) -> beris_edwards -> collide -> stream), the
-reference's headline benchmark configuration.  The state is the tuple
-(f, q5, u); a step runs eagerly on the state's device.  This is the
-unfused step (the CLI's `tpu_fused off` route) and the reference the
-fused step of ops/fused_lc.py is tested against.
+PyTorch port of ludwig_tpu/lc.py (ref: src/ludwig.c q-tensor branch:
+field_grad(q) -> redshift -> force via stress divergence (+ active
+stress) -> beris_edwards -> collide -> stream), the reference's headline
+benchmark configuration.  A step runs eagerly on the state's device.
+make_lc_step is the unfused step (the CLI's `tpu_fused off` route, and
+every input the JAX package's fused gate refuses) and the reference the
+fused step of ops/fused_lc.py is tested against.  Its state is the JAX
+package's: (f, q5, u[, gwall][, redshift][, grad_q, delsq_q]).
+
+The unfused step takes every option of the JAX module but the noise
+(lc_noise): halo walls with their momentum account (gwall) and the
+anchoring gradients (ops/lc_anchor.py, `3d_7pt_solid` and
+`s7_anchoring`), in-lattice porous solids, the dynamic redshift carried in
+the state, the electric field (fe/blue_phase.py), `hydrodynamics off`,
+the other gradient stencils and advection orders 1-5.
 
 Under Lees-Edwards shear, make_lc_le_step is the whole sheared step and
 make_lc_le_column_fix the column work around the fused kernels
 (ops/fused_lc.make_fused_lc_le_step), both over all planes at once
-(ops/le_ref.py).  Walls, anchoring gradients, the dynamic redshift, the
-noise term, the electric field, `hydrodynamics off` and LC colloids are
-not ported yet (ROADMAP, slice 4).
+(ops/le_ref.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -26,10 +33,12 @@ import torch
 from ludwig_tpu_torch.dynamics.beris_edwards import (BerisEdwardsParams,
                                                      beris_edwards_update,
                                                      corotation, remove_trace)
-from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE, q5_to_q33, q33_to_q5
+from ludwig_tpu_torch.fe.blue_phase import (BluePhaseFE, q5_to_q33,
+                                            q33_to_q5, redshift_compute)
 from ludwig_tpu_torch.lb import LBConfig, initial_rest
 from ludwig_tpu_torch.ops.collide import collide
 from ludwig_tpu_torch.ops.force import stress_divergence_force
+from ludwig_tpu_torch.ops.lc_anchor import AnchoringParams, anchoring_gradient
 from ludwig_tpu_torch.ops.le_ref import (LEContext, col_grad7,
                                          le_advective_fluxes,
                                          le_buffer_fields,
@@ -38,40 +47,75 @@ from ludwig_tpu_torch.ops.le_ref import (LEContext, col_grad7,
                                          slab_neighbours)
 from ludwig_tpu_torch.ops.lees_edwards import apply_lb_le
 from ludwig_tpu_torch.ops.stencil import gradient_ops
-from ludwig_tpu_torch.ops.stream import stream
+from ludwig_tpu_torch.ops.stream import stream, stream_bounce_back
+from ludwig_tpu_torch.ops.walls import (WallSpec,
+                                        stress_divergence_force_walls,
+                                        wall_bounce_back)
 
-GRADIENT = "3d_7pt_fluid"      # the stencil of the ported LC slice
-ORDERS = (1, 2)                # the ported advection orders
+GRADIENT = "3d_7pt_fluid"      # the stencil of the fused kernels
+ORDERS = (1, 2, 3, 4, 5)       # the advection orders (ops/advect.py)
+SOLID_GRADIENTS = ("3d_7pt_solid", "s7_anchoring")
 
 
 @dataclasses.dataclass(frozen=True)
 class LCConfig:
-    """Static configuration of a blue-phase run: periodic, 7-point
-    gradients, hydrodynamics on.  The JAX package's walls, anchoring,
-    redshift update, noise and `hydrodynamics off` are not ported yet
-    (ROADMAP, slice 4)."""
+    """Static configuration of a blue-phase run (ludwig_tpu lc.py:40):
+    the stencil, the advection order, hydrodynamics on or off, halo walls
+    and the anchoring of the solid stencils, the dynamic redshift, and
+    keep_grads, which carries the gradients of the step's pre-update Q
+    at the tail of the state.  The noise (noise_kt > 0, lc_noise) is not
+    ported and is refused."""
 
     lb: LBConfig
     fe: BluePhaseFE
     gamma: float = 0.1            # rotational mobility (lc_Gamma)
     advection_order: int = 1
+    gradient: str = GRADIENT
+    hydrodynamics: bool = True
+    wallspec: Optional[WallSpec] = None
+    anchoring: Optional[AnchoringParams] = None
+    # dynamic redshift recompute each step (ref: blue_phase.c:1443
+    # fe_lc_redshift_compute, input key lc_redshift_update)
+    redshift_update: bool = False
+    noise_kt: float = 0.0
+    keep_grads: bool = False
 
     def __post_init__(self):
         if self.advection_order not in ORDERS:
+            raise ValueError(
+                f"advection order {self.advection_order} (have {ORDERS})")
+        if self.noise_kt != 0.0:
             raise NotImplementedError(
-                f"advection order {self.advection_order} is not ported "
-                f"yet (have {ORDERS}), see ROADMAP")
+                "the Q-tensor noise (lc_noise, noise_kt > 0) is not ported "
+                "yet, see ROADMAP")
+        if self.gradient in SOLID_GRADIENTS and self.anchoring is None:
+            raise ValueError(f"gradient '{self.gradient}' needs anchoring")
+
+    @property
+    def has_walls(self) -> bool:
+        return self.wallspec is not None and self.wallspec.any
+
+    @property
+    def walls(self):
+        return self.wallspec.walls if self.has_walls else (False,) * 3
 
 
-def lc_fields(q5, gradient: str = GRADIENT):
-    """Q and its gradients, the dict the free energy's methods take.  The
-    LC slice takes the 7-point stencil only."""
-    if gradient != GRADIENT:
-        raise NotImplementedError(
-            f"gradient '{gradient}' of the liquid crystal is not ported yet "
-            f"(have '{GRADIENT}'), see ROADMAP")
-    g, d = gradient_ops(gradient)
-    return {"q": q5, "grad_q": g(q5), "delsq_q": d(q5)}
+def lc_fields(q5, gradient: str = GRADIENT, anchoring=None,
+              walls=(False,) * 3, status=None, pid=None, R=None, phi=None):
+    """Q and its gradients, the dict the free energy's methods take: the
+    anchoring gradients of ops/lc_anchor.py for the solid stencils (with
+    halo walls, a status map, colloid normals from pid and R and the phi
+    scaling), else the named fluid stencil."""
+    if gradient in SOLID_GRADIENTS:
+        if status is None:
+            status = torch.zeros(q5.shape[1:], dtype=torch.int32,
+                                 device=q5.device)
+        grad, delsq = anchoring_gradient(q5, anchoring, status, walls=walls,
+                                         pid=pid, R=R, phi=phi)
+    else:
+        g, d = gradient_ops(gradient)
+        grad, delsq = g(q5), d(q5)
+    return {"q": q5, "grad_q": grad, "delsq_q": delsq}
 
 
 def stack33(rows) -> torch.Tensor:
@@ -79,12 +123,23 @@ def stack33(rows) -> torch.Tensor:
     return torch.stack([torch.stack(row) for row in rows])
 
 
-def _lc_force(cfg: LCConfig, fields, h, dtype):
-    pth = stack33(cfg.fe.stress(fields, h=h))
-    sa = cfg.fe.active_stress(fields)
+def lc_stress(fe: BluePhaseFE, fields, h) -> torch.Tensor:
+    """The thermodynamic stress (3, 3, ...) with the active part."""
+    pth = stack33(fe.stress(fields, h=h))
+    sa = fe.active_stress(fields)
     if sa is not None:
         pth = pth + stack33(sa)
-    return stress_divergence_force(pth).to(dtype)
+    return pth
+
+
+def _lc_force(cfg: LCConfig, fields, h, dtype):
+    """(force, fwall): the stress-divergence force, one-sided at halo
+    walls, and the momentum the walls take (None without walls)."""
+    pth = lc_stress(cfg.fe, fields, h)
+    if cfg.has_walls:
+        force, fwall = stress_divergence_force_walls(pth, cfg.wallspec)
+        return force.to(dtype), fwall
+    return stress_divergence_force(pth).to(dtype), None
 
 
 def _s5_corotation(q33, w, xi):
@@ -94,27 +149,77 @@ def _s5_corotation(q33, w, xi):
     return q33_to_q5(corotation(q33, remove_trace(w), xi))
 
 
-def make_lc_step(cfg: LCConfig, keep_grads: bool = False):
-    """Step: ((f, q5, u[, grad_q, delsq_q]), t=0) -> ((f', q5', u'[,
-    grad_q, delsq_q]), rho).  keep_grads carries the gradients of the
-    step's pre-update Q at the tail of the state, as the JAX package's
-    unfused route does (its LCConfig.keep_grads), for the statistics and
-    the checkpoint."""
+def make_lc_step(cfg: LCConfig, solid=None):
+    """Step: ((f, q5, u[, gwall][, redshift][, grad_q, delsq_q]), t=0) ->
+    (state', rho) (ludwig_tpu lc.py:122).  cfg.keep_grads carries the
+    gradients of the step's pre-update Q at the tail, as the JAX
+    package's unfused route does, for the statistics and the checkpoint.
+    With walls the state carries gwall, the momentum given to the walls
+    (the stress' one-sided fluxes and the bounce-back transfer); with the
+    redshift update the redshift (a 0-d tensor, recomputed on the device
+    each step).  `solid` (porous media): no
+    update, collision or flux at solid sites, bounce-back on their links.
+    As in the JAX package, the anchoring gradient is evaluated with no
+    status map, so porous solids do not anchor Q (its lc.py:148)."""
     params = cfg.lb.collision_params()
     model = cfg.lb.model
     be = BerisEdwardsParams(gamma=cfg.gamma, xi=cfg.fe.xi,
                             advection_order=cfg.advection_order)
+    fluid = None if solid is None else ~solid
+    walls3 = cfg.walls
+    if cfg.has_walls:
+        from ludwig_tpu_torch.stats import momentum_total
 
     def step(state, t=0):
         del t
         f, q5, u = state[:3]
-        fields = lc_fields(q5)
-        h = cfg.fe.molecular_field(fields)
-        force = _lc_force(cfg, fields, h, f.dtype)
-        q5 = beris_edwards_update(q5, h, u, be)
-        f, rho, u_new = collide(f, params, force=force)
-        out = (stream(f, model), q5, u_new)
-        if keep_grads:
+        k = 3
+        gwall = rs = None
+        if cfg.has_walls:
+            gwall = state[k]
+            k += 1
+        if cfg.redshift_update:
+            rs = state[k]
+        fields = lc_fields(q5, cfg.gradient, anchoring=cfg.anchoring,
+                           walls=walls3)
+        fe = cfg.fe
+        if cfg.redshift_update:
+            rs = redshift_compute(cfg.fe, fields, rs)
+            fe = dataclasses.replace(cfg.fe, redshift=rs)
+        h = fe.molecular_field(fields)
+        if cfg.hydrodynamics:
+            force, fwall = _lc_force(dataclasses.replace(cfg, fe=fe), fields,
+                                     h, f.dtype)
+            q5 = beris_edwards_update(q5, h, u, be, fluid_mask=fluid,
+                                      wallspec=cfg.wallspec)
+            f, rho, u_new = collide(f, params, force=force,
+                                    fluid_mask=fluid)
+            if cfg.has_walls:
+                f_new = stream(f, model)
+                g_pre = momentum_total(f_new, model)
+                f_new, _, _ = wall_bounce_back(f_new, f, model, cfg.wallspec,
+                                               rho0=cfg.lb.rho0)
+                # the walls gain exactly what the fluid lost in the
+                # bounce-back (the reference's kahan fnet is the true
+                # per-link sum, identical to this difference)
+                gbb = g_pre - momentum_total(f_new, model)
+                gwall = gwall + fwall + gbb
+                f = f_new
+            elif solid is not None:
+                f = stream_bounce_back(f, model, solid=solid,
+                                       rho0=cfg.lb.rho0)
+            else:
+                f = stream(f, model)
+        else:
+            q5 = beris_edwards_update(q5, h, None, be, fluid_mask=fluid)
+            rho = torch.ones_like(q5[0])
+            u_new = u
+        out = (f, q5, u_new)
+        if cfg.has_walls:
+            out = out + (gwall,)
+        if cfg.redshift_update:
+            out = out + (rs,)
+        if cfg.keep_grads:
             out = out + (fields["grad_q"], fields["delsq_q"])
         return out, rho
 
@@ -299,20 +404,57 @@ def make_lc_nstep(cfg: LCConfig):
     return nstep
 
 
-def initial_lc(cfg: LCConfig, q0_field: np.ndarray, keep_grads: bool = False):
-    """(f at rest, q5, u = 0[, grad_q, delsq_q]) on the configuration's
-    device; keep_grads adds Q's gradients, as make_lc_step(keep_grads)
-    carries them."""
+def initial_lc(cfg: LCConfig, q0_field: np.ndarray):
+    """(f at rest, q5, u = 0[, gwall = 0][, redshift][, grad_q, delsq_q])
+    on the configuration's device (ludwig_tpu lc.py:466); cfg.keep_grads
+    adds Q's gradients, as make_lc_step carries them."""
     lb = cfg.lb
     f = initial_rest(lb)
     q5 = torch.as_tensor(q0_field, dtype=lb.tdtype,
                          device=lb.device).contiguous()
     u = torch.zeros((3,) + tuple(lb.size), dtype=lb.tdtype, device=lb.device)
-    if keep_grads:
-        fields = lc_fields(q5)
-        return (f, q5, u, fields["grad_q"], fields["delsq_q"])
-    return (f, q5, u)
+    state = (f, q5, u)
+    if cfg.has_walls:
+        state = state + (torch.zeros((3,), dtype=lb.tdtype,
+                                     device=lb.device),)
+    if cfg.redshift_update:
+        state = state + (torch.full((), float(cfg.fe.redshift),
+                                    dtype=lb.tdtype, device=lb.device),)
+    if cfg.keep_grads:
+        fields = lc_fields(q5, cfg.gradient, anchoring=cfg.anchoring,
+                           walls=cfg.walls)
+        state = state + (fields["grad_q"], fields["delsq_q"])
+    return state
 
 
 def total_free_energy(cfg: LCConfig, q5) -> float:
-    return float(torch.sum(cfg.fe.fed(lc_fields(q5))))
+    return float(torch.sum(cfg.fe.fed(lc_fields(
+        q5, cfg.gradient, anchoring=cfg.anchoring, walls=cfg.walls))))
+
+
+def lc_surface_fe(cfg: LCConfig, q5):
+    """(f_s1, f_s2): the anchoring surface free energies summed over the
+    lower and upper wall faces (ref: fe_lc_stats.c fe_lc_wallx/y/z), 0-d
+    tensors."""
+    anch = cfg.anchoring
+    fs1 = fs2 = torch.zeros((), dtype=q5.dtype, device=q5.device)
+    for ax in range(3):
+        if not cfg.walls[ax]:
+            continue
+        # the reference RESETS fs[0]/fs[1] inside each of fe_lc_wallx/y/z,
+        # so with walls in several directions only the last direction's
+        # surface term survives (ref: fe_lc_stats.c fe_lc_wall{x,y,z}:
+        # fs[0]=fs[1]=0.0 at entry)
+        fs1 = fs2 = torch.zeros((), dtype=q5.dtype, device=q5.device)
+        for side in (0, 1):
+            qs5 = q5.select(1 + ax, 0 if side == 0 else q5.shape[1 + ax] - 1)
+            dn = [0.0, 0.0, 0.0]
+            dn[ax] = 1.0 if side == 0 else -1.0
+            fes = cfg.fe.surface_fs(q5_to_q33(qs5), dn, anch.wall,
+                                    anch.wall_w1, anch.wall_w2,
+                                    nfix=anch.wall_nfix)
+            if side == 0:
+                fs1 = fs1 + torch.sum(fes)
+            else:
+                fs2 = fs2 + torch.sum(fes)
+    return fs1, fs2

@@ -12,11 +12,15 @@ binary branch but colloids - halo walls and the open boundary, porous
 media with wetting, its stencils, advection orders, force methods,
 viscosity model, noise and Lees-Edwards planes; binary.py,
 binary_le.py and the fused step), the blue-phase liquid crystal
-(`free_energy lc_blue_phase`) and the liquid-crystal droplet
-(`free_energy lc_droplet`), those two on the stress-divergence,
-hydrodynamics-on route the JAX package's fused path accepts, periodic
-or with Lees-Edwards planes (lc.py, lc_droplet.py and their fused
-steps), and
+(`free_energy lc_blue_phase`: every route of the JAX package's branch
+but the Q noise - halo walls with the anchoring stencils, porous solids,
+resolved colloids, the dynamic redshift, the electric field,
+`hydrodynamics off`, advection orders 1-5, the random rectangle and
+Lees-Edwards planes; lc.py, lc_colloid.py and the fused step), the
+liquid-crystal droplet (`free_energy lc_droplet`, on the
+stress-divergence, hydrodynamics-on route the JAX package's fused path
+accepts, periodic or with Lees-Edwards planes: lc_droplet.py and its
+fused step), and
 electrokinetics without colloids (`free_energy fe_electro`: Gouy-Chapman
 walls, liquid junction or a uniform electrolyte), and the other free
 energies, unfused: `brazovskii` (binary.py with the fourth-order fields,
@@ -77,7 +81,8 @@ from ludwig_tpu_torch.binary_le import BinaryLEConfig, make_binary_le_step
 from ludwig_tpu_torch.binary_lb import (BinaryLBConfig, binary_lb_solid_ops,
                                         g_moments, initial_binary_lb,
                                         make_binary_lb_step)
-from ludwig_tpu_torch import electro_sim, interactions, lc, lc_droplet
+from ludwig_tpu_torch import (electro_sim, interactions, lc, lc_colloid,
+                              lc_droplet)
 from ludwig_tpu_torch.colloids import (ColloidParams, ColloidState, TYPES,
                                        build_map, make_colloid_step,
                                        total_colloid_momentum)
@@ -122,6 +127,7 @@ from ludwig_tpu_torch.ops.fused_droplet import (initial_fused_droplet,
 from ludwig_tpu_torch.ops.fused_lc import (initial_fused_lc,
                                            make_fused_lc_le_step,
                                            make_fused_lc_step)
+from ludwig_tpu_torch.ops.lc_anchor import AnchoringParams
 from ludwig_tpu_torch.ops.le_ref import le_fields_2d5pt_d4, le_gradient
 from ludwig_tpu_torch.ops.lees_edwards import (LeesEdwardsConfig,
                                                le_init_shear_profile)
@@ -189,15 +195,27 @@ BINARY_KEYS = frozenset((
     "porous_media_acell", "temperature", "isothermal_fluctuations",
     "lb_fluctuations", "fd_phi_fluctuations")) | LE_KEYS
 
-# keys the liquid-crystal slice reads (free_energy lc_blue_phase only)
+# keys the liquid crystal reads (free_energy lc_blue_phase only): the
+# free energy with its electric field, the dynamic redshift, the anchoring
+# of the solid stencils in both styles, the Q initialisations and the
+# random rectangle; halo walls, porous media (SOLID_KEYS), Lees-Edwards
+# planes and resolved colloids (COLLOID_KEYS and COLLOID_PREFIXES, defined
+# below, join them in FREE_ENERGIES).  The Q noise (lc_noise) stays
+# refused with the inactive keys.
 LC_KEYS = frozenset((
     "lc_a0", "lc_gamma", "lc_q0", "lc_kappa0", "lc_kappa1", "lc_xi",
     "lc_Gamma", "lc_init_redshift", "lc_activity", "lc_active_zeta0",
     "lc_active_zeta", "lc_active_zeta1", "lc_q_initialisation",
     "lc_q_init_amplitude", "lc_q_init_euler_angles", "lc_init_nematic",
+    "lc_q_init_rectangle_min", "lc_q_init_rectangle_max",
     "fd_advection_scheme_order", "fd_gradient_calculation",
-    # read by features that are off here (the electric field, the noise)
-    "lc_dielectric_anisotropy", "random_seed")) | LE_KEYS
+    "lc_dielectric_anisotropy", "electric_e0", "lc_redshift_update",
+    "lc_anchoring_method", "lc_wall_anchoring", "lc_coll_anchoring",
+    "lc_anchoring_strength", "lc_anchoring_strength_2",
+    "lc_anchoring_strength_colloid", "lc_anchoring_strength_wall",
+    "lc_wall_anchoring_w1", "lc_wall_anchoring_w2", "lc_coll_anchoring_w1",
+    "lc_coll_anchoring_w2", "lc_wall_fixed_orientation",
+    "random_seed")) | LE_KEYS
 
 # keys the droplet slice reads (free_energy lc_droplet only)
 DROPLET_KEYS = frozenset((
@@ -331,7 +349,8 @@ ELECTRO_SYMM_KEYS = ELECTRO_KEYS | PHI_INIT_KEYS | frozenset((
 # free energy -> the keys it reads beside SLICE_KEYS
 FREE_ENERGIES = {"none": NOISE_KEYS | BOUNDARY_KEYS | COLLOID_KEYS,
                  "symmetric": BINARY_KEYS, "symmetric_noise": BINARY_KEYS,
-                 "lc_blue_phase": LC_KEYS, "lc_droplet": DROPLET_KEYS,
+                 "lc_blue_phase": LC_KEYS | SOLID_KEYS | COLLOID_KEYS,
+                 "lc_droplet": DROPLET_KEYS,
                  "fe_electro": ELECTRO_KEYS, "brazovskii": BRAZOVSKII_KEYS,
                  "surfactant": SURFACTANT_KEYS, "ternary": TERNARY_KEYS,
                  "symmetric_lb": SYMMETRIC_LB_KEYS,
@@ -382,7 +401,8 @@ def _check_keys(rt: RunTime):
     for key in rt.unused_keys():
         if key in SLICE_KEYS or key in FREE_ENERGIES[fe_name]:
             continue
-        if fe_name == "none" and key.startswith(COLLOID_PREFIXES):
+        if (fe_name in ("none", "lc_blue_phase")
+                and key.startswith(COLLOID_PREFIXES)):
             continue
         # default_io_grid, <name>_io_grid: one I/O group only (the JAX
         # package's sharded writer, io/sharded.py, is not ported)
@@ -402,8 +422,9 @@ class System:
     # (f,) or, with the KISS noise stream, (f, nstate); halo walls (f,
     # gwall[, nstate]); binary (f, phi, u[, gwall][, nstate_phi][,
     # nstate_rho]) or, sheared, (f, phi, u[, nstate][, grad, delsq]); LC
-    # (f, q5, u); droplet (f, phi, q5, u); electrokinetics (f, psi, rho,
-    # u, gwall)
+    # (f, q5, u[, gwall][, redshift][, grad, delsq]) or, with colloids,
+    # (f, R, V, W, dr, Rmap, M, q5, u, grad, delsq[, gwall]); droplet (f,
+    # phi, q5, u); electrokinetics (f, psi, rho, u, gwall)
     state: tuple
     step_fn: object
     # 'plain': fused collide+stream; 'wall', 'le': the same with the wall
@@ -650,9 +671,19 @@ def _binary_config(rt: RunTime, lb_cfg: LBConfig,
         visc_model=visc_model, wetting=wetting)
 
 
-def _blue_phase_fe(rt: RunTime, active: bool) -> BluePhaseFE:
+def _blue_phase_fe(rt: RunTime, active: bool,
+                   efield: bool = False) -> BluePhaseFE:
     """The blue-phase free energy's parameters (ref: blue_phase_rt.c), the
-    active stress's zetas only where `active`."""
+    active stress's zetas only where `active`, the electric field where
+    `efield` (the liquid crystal's, not the droplet's): the raw
+    anisotropy over 12 pi, as the free energy carries it (ref:
+    blue_phase.c:252; ludwig_tpu ludwig.py:1193-1197)."""
+    if efield:
+        return dataclasses.replace(
+            _blue_phase_fe(rt, active),
+            epsilon=rt.double("lc_dielectric_anisotropy", 0.0)
+            / (12.0 * np.pi),
+            e0=tuple(rt.double_vector("electric_e0", (0.0, 0.0, 0.0))))
     return BluePhaseFE(
         a0=rt.double_required("lc_a0"),
         gamma=rt.double_required("lc_gamma"),
@@ -666,29 +697,103 @@ def _blue_phase_fe(rt: RunTime, active: bool) -> BluePhaseFE:
                rt.double("lc_active_zeta1", 0.0)) if active else 0.0)
 
 
-def _lc_config(rt: RunTime, lb_cfg: LBConfig) -> lc.LCConfig:
-    """The `free_energy lc_blue_phase` configuration (ref: the
-    lc_blue_phase branch of ludwig_tpu build_system), limited to the
-    periodic, 7-point, hydrodynamics-on blue phase; noise, redshift
-    update and electric field are refused with the other inactive keys
-    (INACTIVE).  Anything else raises naming its key."""
-    fe = _blue_phase_fe(rt, active=rt.switch("lc_activity", False))
+def _lc_anchoring_params(rt: RunTime, fe: BluePhaseFE) -> AnchoringParams:
+    """The anchoring keys in both styles, 'two' (the older one) and 's7'
+    (ludwig_tpu ludwig.py:294-330; ref: src/blue_phase_rt.c:192-380)."""
+    method = rt.string("lc_anchoring_method", "s7")
+    nfix = rt.double_vector("lc_wall_fixed_orientation", (0.0, 1.0, 0.0))
+    nrm = np.sqrt(sum(c * c for c in nfix)) or 1.0
+    nfix = tuple(c / nrm for c in nfix)
+    if method == "two":
+        coll = rt.string("lc_coll_anchoring", "none")
+        wall = rt.string("lc_wall_anchoring", coll)
+        w1 = rt.double("lc_anchoring_strength", 0.0)
+        w2 = rt.double("lc_anchoring_strength_2", 0.0)
+        w1_wall, w2_wall = w1, (w2 if wall == "planar" else 0.0)
+        w1_coll, w2_coll = w1, w2
+        if coll in ("normal", "fixed"):
+            w2_coll = 0.0
+        wc = rt.double("lc_anchoring_strength_colloid", None)
+        if wc is not None:
+            w1_coll = wc
+            w2_coll = wc if coll == "planar" else 0.0
+        ww = rt.double("lc_anchoring_strength_wall", None)
+        if ww is not None:
+            w1_wall = ww
+            w2_wall = ww if wall == "planar" else 0.0
+    else:
+        wall = rt.string("lc_wall_anchoring", "none")
+        coll = rt.string("lc_coll_anchoring", "none")
+        w1_wall = rt.double("lc_wall_anchoring_w1", 0.0)
+        w2_wall = rt.double("lc_wall_anchoring_w2", 0.0)
+        w1_coll = rt.double("lc_coll_anchoring_w1", 0.0)
+        w2_coll = rt.double("lc_coll_anchoring_w2", 0.0)
+    return AnchoringParams(
+        kappa0=fe.kappa0, kappa1=fe.kappa1, q0=fe.q0,
+        amplitude=fe.amplitude0,
+        wall=wall, wall_w1=w1_wall, wall_w2=w2_wall, wall_nfix=nfix,
+        coll=coll, coll_w1=w1_coll, coll_w2=w2_coll,
+        method="s7" if method == "s7" else "two")
+
+
+def _lc_config(rt: RunTime, lb_cfg: LBConfig):
+    """(LCConfig, lb_cfg) of a `free_energy lc_blue_phase` input
+    (ludwig_tpu ludwig.py:1180-1214): the free energy with its electric
+    field, the stencil (the solid ones with the anchoring keys), the
+    advection order, hydrodynamics, the dynamic redshift (keep_grads is
+    set where the unfused route is built); halo walls become the
+    configuration's WallSpec and leave every stored site fluid."""
+    fe = _blue_phase_fe(rt, active=rt.switch("lc_activity", False),
+                        efield=True)
     gradient = rt.string("fd_gradient_calculation", lc.GRADIENT)
+    wallspec = None
+    if any(lb_cfg.walls):
+        # LC walls live in the halo: all sites stay fluid
+        wallspec = WallSpec(walls=lb_cfg.walls)
+        lb_cfg = dataclasses.replace(lb_cfg, walls=(False,) * 3)
+    anchoring = (_lc_anchoring_params(rt, fe)
+                 if gradient in lc.SOLID_GRADIENTS else None)
+    if wallspec is not None and anchoring is None:
+        # the walls' surface terms of the statistics read the anchoring:
+        # the JAX package's run fails here
+        raise _not_ported("boundary_walls", rt.string("boundary_walls")
+                          + f" with fd_gradient_calculation {gradient} (the "
+                          "walls need 3d_7pt_solid or s7_anchoring)")
     order = rt.int("fd_advection_scheme_order", 1)
-    if gradient != lc.GRADIENT:
-        raise _not_ported("fd_gradient_calculation", gradient)
     if order not in lc.ORDERS:
-        raise _not_ported("fd_advection_scheme_order", order)
-    if not rt.switch("hydrodynamics", True):
-        raise _not_ported("hydrodynamics", rt.string("hydrodynamics"))
-    return lc.LCConfig(lb=lb_cfg, fe=fe, gamma=rt.double("lc_Gamma", 0.1),
-                       advection_order=order)
+        raise ValueError(f"fd_advection_scheme_order {order}")
+    return lc.LCConfig(
+        lb=lb_cfg, fe=fe, gamma=rt.double("lc_Gamma", 0.1),
+        advection_order=order, gradient=gradient,
+        hydrodynamics=rt.switch("hydrodynamics", True), wallspec=wallspec,
+        anchoring=anchoring,
+        redshift_update=rt.switch("lc_redshift_update", False)), lb_cfg
+
+
+def _lc_fused_ok(lcfg: lc.LCConfig, solid) -> bool:
+    """The JAX package's fused LC gate (ludwig.py:1321-1326; the sheared
+    one, :1267-1275, adds the plane spacing): no solid, no walls, order-1
+    advection, the 7-point fluid stencil, no redshift update, no noise,
+    hydrodynamics on, no electric field (e0 zero, whatever epsilon)."""
+    return (solid is None and lcfg.wallspec is None
+            and lcfg.advection_order == 1 and lcfg.gradient == lc.GRADIENT
+            and not lcfg.redshift_update and lcfg.noise_kt == 0.0
+            and lcfg.hydrodynamics and not any(lcfg.fe.e0))
 
 
 def _q_init(rt: RunTime, size, fe: BluePhaseFE) -> np.ndarray:
     """lc_q_initialisation modes, on the host (ref: blue_phase_rt.c /
-    fe/lc_init.py); the random rectangle (lc_q_init_rectangle_min/max)
-    is not ported yet, its keys are refused."""
+    fe/lc_init.py), then the random rectangle where both its corners
+    (lc_q_init_rectangle_min/max) are given."""
+    q5 = _q_init_mode(rt, size, fe)
+    rect_min = rt.int_vector("lc_q_init_rectangle_min", None)
+    rect_max = rt.int_vector("lc_q_init_rectangle_max", None)
+    if rect_min is not None and rect_max is not None:
+        q5 = lc_init.lc_init_random_rectangle(size, q5, rect_min, rect_max)
+    return q5
+
+
+def _q_init_mode(rt: RunTime, size, fe: BluePhaseFE) -> np.ndarray:
     mode = rt.string("lc_q_initialisation", "nematic")
     amp = rt.double("lc_q_init_amplitude", fe.amplitude0)
     euler = tuple(rt.double_vector("lc_q_init_euler_angles",
@@ -1114,16 +1219,29 @@ def _binary_le_system(rt, lb_cfg, bcfg, le, phi0) -> System:
                   binary_cfg=bcfg, le_cfg=le, keep_grads=keep)
 
 
-def _lc_le_system(rt, lb_cfg, lcfg, le, q0) -> System:
+def _lc_le_system(rt, lb_cfg, lcfg, le, q0, solid) -> System:
     """The sheared blue phase (ludwig_tpu ludwig.py:1255-1305): the fused
-    K1 + column fix + K2 + LE post-pass where `tpu_fused` asks, the
-    advection is order 1 and the planes are 6 columns apart, else the
-    unfused step carrying the LE gradients."""
+    K1 + column fix + K2 + LE post-pass where `tpu_fused` asks, the JAX
+    package's fused gate admits the configuration and the planes are 6
+    columns apart, else the unfused step carrying the LE gradients.  As
+    there, the sheared step has no solid (porous media are not read), is
+    the same with hydrodynamics off (only the velocity output goes) and
+    takes the electric field and orders 1-5.  Halo walls, the solid
+    stencils and the redshift update beside planes, on which the JAX
+    package's run fails, raise naming their keys, and so does a stencil
+    other than the 7-point one."""
+    for bad, key in ((lcfg.has_walls, "boundary_walls"),
+                     (lcfg.gradient != lc.GRADIENT,
+                      "fd_gradient_calculation"),
+                     (lcfg.redshift_update, "lc_redshift_update")):
+        if bad:
+            raise _not_ported(key, rt.string(key) + " beside Lees-Edwards "
+                              "planes")
     f = _le_f0(rt, lb_cfg, le)
     q5, = _tensors(lb_cfg, q0)
     u = torch.zeros((3,) + lb_cfg.size, dtype=lb_cfg.tdtype,
                     device=lb_cfg.device)
-    if (_fused_request(rt) and lcfg.advection_order == 1
+    if (_fused_request(rt) and _lc_fused_ok(lcfg, solid)
             and lb_cfg.size[0] >= 6 * le.nplanes):
         return System(rt=rt, lb_cfg=lb_cfg, state=(f, q5, u),
                       step_fn=make_fused_lc_le_step(lcfg, le),
@@ -1397,25 +1515,7 @@ def build_system(rt: RunTime, device="cuda") -> System:
         return _binary_system(rt, dataclasses.replace(
             lb_cfg, noise=_binary_noise(rt, fe_name)), fe_name)
     if fe_name == "lc_blue_phase":
-        lcfg = _lc_config(rt, lb_cfg)
-        q0 = _q_init(rt, size, lcfg.fe)
-        le = _le_config(rt, size)
-        if le is not None:
-            return _lc_le_system(rt, lb_cfg, lcfg, le, q0)
-        # as in the JAX package, the two fused kernels (K1, K2) take the
-        # order-1 upwind scheme only; order 2 runs the unfused step
-        if _fused_request(rt) and lcfg.advection_order == 1:
-            return System(rt=rt, lb_cfg=lb_cfg,
-                          state=initial_fused_lc(lcfg, q0),
-                          step_fn=make_fused_lc_step(lcfg),
-                          fused_mode="lc", lc_cfg=lcfg,
-                          grad_leaves=_grad_leaves(rt, lb_cfg,
-                                                   "lc_blue_phase", None))
-        keep = _keeps_grads("lc_blue_phase", None)
-        return System(rt=rt, lb_cfg=lb_cfg,
-                      state=lc.initial_lc(lcfg, q0, keep_grads=keep),
-                      step_fn=lc.make_lc_step(lcfg, keep_grads=keep),
-                      lc_cfg=lcfg, keep_grads=keep)
+        return _lc_system(rt, lb_cfg)
     if fe_name == "lc_droplet":
         dcfg = _droplet_config(rt, lb_cfg)
         phi0 = _phi_init(rt, size, dcfg.fe.symm)
@@ -1448,6 +1548,64 @@ def build_system(rt: RunTime, device="cuda") -> System:
     if colloids is not None:
         return _colloid_system(rt, lb_cfg, colloids)
     return _plain_system(rt, lb_cfg)
+
+
+def _lc_system(rt: RunTime, lb_cfg: LBConfig) -> System:
+    """The lc_blue_phase branch of ludwig_tpu build_system (ludwig.py:
+    1180-1346), gate for gate: Lees-Edwards planes (_lc_le_system), then
+    resolved colloids (_lc_colloid_system), then the two fused kernels
+    (K1, K2) where `tpu_fused` asks and the JAX package's fused gate
+    admits the configuration (_lc_fused_ok; its plan and dtype conditions
+    set only which statistics print), else the unfused step with halo
+    walls, porous solids, the redshift and the rest.  As there, halo
+    walls drop porous media, and the state of the unfused step keeps the
+    gradients of the step's pre-update Q."""
+    size = lb_cfg.size
+    porous = _porous(rt, size)
+    lcfg, lb_cfg = _lc_config(rt, lb_cfg)
+    q0 = _q_init(rt, size, lcfg.fe)
+    solid = None if lcfg.has_walls else solid_mask(lb_cfg, porous)
+    le = _le_config(rt, size)
+    if le is not None:
+        return _lc_le_system(rt, lb_cfg, lcfg, le, q0, solid)
+    col = _parse_colloids(rt, size, lb_cfg.rho0, lb_cfg.eta_shear, lb_cfg)
+    if col is not None:
+        return _lc_colloid_system(rt, lb_cfg, lcfg, q0, col)
+    if _fused_request(rt) and _lc_fused_ok(lcfg, solid):
+        return System(rt=rt, lb_cfg=lb_cfg,
+                      state=initial_fused_lc(lcfg, q0),
+                      step_fn=make_fused_lc_step(lcfg),
+                      fused_mode="lc", lc_cfg=lcfg,
+                      grad_leaves=_grad_leaves(rt, lb_cfg,
+                                               "lc_blue_phase", None))
+    lcfg = dataclasses.replace(lcfg, keep_grads=True)
+    return System(rt=rt, lb_cfg=lb_cfg, state=lc.initial_lc(lcfg, q0),
+                  step_fn=lc.make_lc_step(lcfg, solid=solid), lc_cfg=lcfg,
+                  keep_grads=True, solid=solid)
+
+
+def _lc_colloid_system(rt: RunTime, lb_cfg: LBConfig, lcfg: lc.LCConfig,
+                       q0, col: dict) -> System:
+    """The liquid crystal with resolved colloids (ludwig_tpu ludwig.py:
+    1306-1320): lc_colloid.make_lc_colloid_step with the pair, bond and
+    other particle forces of force_fn (the JAX LC route reads the wall
+    forces, the wall lubrication and the torques and applies none of
+    them, and neither does the port).  The particles need the anchoring
+    stencils; subgrid particles are not ported here."""
+    cp = col["params"]
+    if cp.types and any(tp == "subgrid" for tp in cp.types):
+        raise _not_ported("colloid_init", rt.string("colloid_init")
+                          + " with subgrid particles in the liquid crystal")
+    if lcfg.anchoring is None:
+        raise _not_ported("fd_gradient_calculation", lcfg.gradient
+                          + " beside colloids (the colloid map needs "
+                          "3d_7pt_solid or s7_anchoring)")
+    state = lc_colloid.initial_lc_colloid(lcfg, cp, q0, col["R"], col["V"])
+    step = lc_colloid.make_lc_colloid_step(
+        lcfg, cp, rebuild_freq=rt.int("colloid_rebuild_freq", 1),
+        force_fn=col["force_fn"])
+    return System(rt=rt, lb_cfg=lb_cfg, state=state, step_fn=step,
+                  lc_cfg=lcfg, colloid_params=cp)
 
 
 def _porous(rt: RunTime, size) -> Optional[np.ndarray]:
@@ -1910,27 +2068,49 @@ def _colloid_system(rt: RunTime, lb_cfg: LBConfig, col: dict) -> System:
                   wallspec=ws, colloid_params=cp)
 
 
-def _colloid_fluid(sys_: System, R: torch.Tensor):
-    """The fluid mask of the particles at R, by the map builder the JAX
+def _colloid_map(sys_: System, R: torch.Tensor):
+    """(pid, inside) of the particles at R, by the map builder the JAX
     package's statistics use (n > 4: build_map_fast; ludwig_tpu
-    ludwig.py:1911-1917); None for subgrid particles."""
+    ludwig.py:1911-1917)."""
+    cp = sys_.colloid_params
+    return build_map(R, cp, sys_.lb_cfg.size,
+                     "window" if cp.n > 4 else "min_image")
+
+
+def _colloid_fluid(sys_: System, R: torch.Tensor):
+    """The fluid mask of the particles at R (_colloid_map); None for
+    subgrid particles."""
     if sys_.subgrid:
         return None
-    cp = sys_.colloid_params
-    _pid, inside = build_map(R, cp, sys_.lb_cfg.size,
-                             "window" if cp.n > 4 else "min_image")
-    return ~inside
+    return ~_colloid_map(sys_, R)[1]
+
+
+def _lc_efield_adjust(fe: BluePhaseFE, q5, coswt: float):
+    """The fed adjustment that scales the electric term by coswt^2 (the
+    full fed carries coswt == 1; ref: blue_phase.c:387-389; ludwig_tpu
+    ludwig.py:1773-1782): the initial statistics (coswt 0) leave the
+    field's energy out, as the reference's uncommitted parameters do."""
+    if not fe.has_efield:
+        return 0.0
+    return (1.0 - coswt * coswt) * fe.epsilon * fe.efield_fed(
+        lc.q5_to_q33(q5))
 
 
 def _make_stats_fn(sys_: System, reference: bool):
-    """compute(state, u, prev=None, tstep=0) -> {rho, g, umm} and, for the binary
+    """compute(state, u, prev=None, tstep=0, coswt=1.0) -> {rho, g, umm}
+    and, for the binary
     fluid, {phi, fed}, for the liquid crystal {q5, fe_lc}, for the
     droplet {phi, q5, fed}, for electrokinetics {psi3, rhok, elc, fed}
     and, with solid sites, {gwall}; {ktstats} with fluctuations.  rho, g
     and umm are over the fluid sites; with halo walls {gwall} too.
     `prev` is the order-parameter state before the last step: (phi,),
     (q5,) or the droplet's (phi, q5); tstep the step just taken, which
-    the Lees-Edwards gradients of a sheared binary or LC run read.
+    the Lees-Edwards gradients of a sheared binary or LC run read;
+    coswt the electric field's phase as the statistics see it: 0 at the
+    initial statistics, 1 in the loop (_lc_efield_adjust).  The liquid
+    crystal's [fe] row carries the surface terms f_s1 fs_s2 beside halo
+    walls and, with colloids, f_s and the area of the particles' surface
+    (fe_lc_coll).
 
     `reference` selects the JAX package's reference-ordered statistics
     (ludwig.py _make_stats_fn: rho_stats_ref, momentum_total_ref, the
@@ -1967,7 +2147,7 @@ def _make_stats_fn(sys_: System, reference: bool):
             return fl["grad_phi"], fl["delsq_phi"]
         return grad_7pt(src), delsq_7pt(src)
 
-    def compute(state, u, prev=None, tstep=0):
+    def compute(state, u, prev=None, tstep=0, coswt=1.0):
         f = state[0]
         if sys_.is_colloid:
             # the fluid sites of the particles' current map, the colloids'
@@ -1986,6 +2166,28 @@ def _make_stats_fn(sys_: System, reference: bool):
                 res["gwall"] = state.gwall
             vstat = prev[0] if prev else V
             res["vcol"] = (torch.amin(vstat, dim=0), torch.amax(vstat, dim=0))
+            if lcfg is not None:
+                # LC + colloids (ludwig_tpu ludwig.py:2031-2062): Q over
+                # the fluid sites, the fed with the step's gradients summed
+                # in site order, the walls' surface terms or the
+                # particles' (ref: fe_lc_stats.c fe_lc_colloid)
+                pid, inside = _colloid_map(sys_, state[1])
+                q5 = state[7]
+                res["q5"] = [stats.field_stats_ref(q5[n], fl)
+                             for n in range(5)]
+                fields = {"q": q5, "grad_q": state[9], "delsq_q": state[10]}
+                fed = lcfg.fe.fed(fields) + _lc_efield_adjust(lcfg.fe, q5,
+                                                              coswt)
+                ftot = stats.seq_sum(fed, fl)
+                vol = torch.sum(fl.to(fed.dtype))
+                if lcfg.has_walls:
+                    res["fe_lc"] = (ftot, vol) + lc.lc_surface_fe(lcfg, q5)
+                    res["gwall"] = state[11]
+                else:
+                    res["fe_lc_coll"] = (ftot, vol) + (
+                        lc_colloid.lc_colloid_surface_fe(
+                            lcfg.fe, lcfg.anchoring, q5, pid, inside,
+                            state[5], sys_.lb_cfg.size))
             return res
         if reference:
             res = {"rho": stats.rho_stats_ref(f, model, mask),
@@ -2110,16 +2312,35 @@ def _make_stats_fn(sys_: System, reference: bool):
                 # stats_free_energy.c:103-105)
                 res["fe_sum_v"] = (fsum, vol)
         if lcfg is not None:
-            # the same convention for [fe]: gradients of the Q before
-            # the step, the updated Q in place of Q
+            # the same convention for [fe]: gradients of the Q before the
+            # step (the unfused route's kept ones), the updated Q in place
+            # of Q; the redshift the state carries; the walls' surface
+            # terms (ludwig_tpu ludwig.py:2291-2343)
             q5 = state[1]
-            res["q5"] = [order_stats(q5[n]) for n in range(5)]
+            res["q5"] = [stats.field_stats_ref(q5[n], mask) if reference
+                         else stats.field_stats(q5[n]) for n in range(5)]
             grad, delsq = grads(state, prev, tstep)
             fields = {"q": q5, "grad_q": grad, "delsq_q": delsq}
-            bulk, grad = lcfg.fe.fed_bulk_grad(fields)
-            res["fe_lc"] = (torch.sum(lcfg.fe.fed(fields)),
-                            float(q5[0].numel()), torch.sum(bulk),
-                            torch.sum(grad))
+            fe = lcfg.fe
+            if lcfg.redshift_update:
+                res["redshift"] = state[-3 if sys_.keep_grads else -1]
+                fe = dataclasses.replace(fe, redshift=res["redshift"])
+            fed = fe.fed(fields) + _lc_efield_adjust(fe, q5, coswt)
+            if mask is None:
+                ftot = torch.sum(fed)
+                vol = float(fed.numel())
+            else:
+                ftot = torch.sum(torch.where(mask, fed, 0.0))
+                vol = torch.sum(mask).to(fed.dtype)
+            if lcfg.has_walls:
+                res["fe_lc"] = (ftot, vol) + lc.lc_surface_fe(lcfg, q5)
+                res["gwall"] = state[3]
+            else:
+                bulk, grad = fe.fed_bulk_grad(fields)
+                if mask is not None:
+                    bulk = torch.where(mask, bulk, 0.0)
+                    grad = torch.where(mask, grad, 0.0)
+                res["fe_lc"] = (ftot, vol, torch.sum(bulk), torch.sum(grad))
         if dcfg is not None:
             # [phi], [Qxx]..[Qyz] of the updated fields; [fed] with the
             # gradients of the pre-step phi and Q, the updated fields in
@@ -2193,7 +2414,7 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
     ludwig.c:961).  `res`: the statistics already computed (a colloid
     run prints its particle block from them first)."""
     if res is None:
-        res = stats_fn(sys_.state, u, prev, tstep)
+        res = stats_fn(sys_.state, u, prev, tstep, 1.0 if in_loop else 0.0)
     out.write(stats.format_rho_block(*res["rho"]))
     if sys_.is_electro:
         # ref: ludwig_tpu ludwig.py:2410-2434
@@ -2244,9 +2465,28 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
                   f"{fl:17.10e} {fl + fes:17.10e}\n")
     elif "fed" in res:
         out.write(stats.format_fed_block(tstep, *res["fed"]))
-    if "fe_lc" in res:
-        out.write(stats.format_fe_lc_block(tstep, *res["fe_lc"],
-                                           sys_.lc_cfg.fe.redshift))
+    if "fe_lc_coll" in res:
+        # ncolloid > 0 (ref: fe_lc_stats.c:120-140; ludwig_tpu ludwig.py:
+        # 2501-2520): the particles' surface term and area
+        ftot, vol, fs, area = (float(v) for v in res["fe_lc_coll"])
+        out.write("\nFree energies - timestep f v f/v f_s a f_s/a\n")
+        row = f"[fe] {int(tstep):14d} {ftot:17.10e} {vol:17.10e} " \
+              f"{ftot / vol:17.10e} {fs:17.10e}"
+        if area > 0.0:
+            row += f" {area:17.10e} {fs / area:17.10e}"
+        out.write(row + "\n")
+    elif "fe_lc" in res:
+        rs = float(res.get("redshift", sys_.lc_cfg.fe.redshift))
+        if sys_.lc_cfg.has_walls:
+            # the walls' surface terms (ludwig_tpu ludwig.py:2539-2545)
+            ftot, vol, fs1, fs2 = (float(v) for v in res["fe_lc"])
+            out.write("\nFree energies - timestep f v f/v f_s1 fs_s2 "
+                      "redshift\n")
+            out.write(f"[fe] {int(tstep):14d} {ftot:17.10e} {vol:17.10e} "
+                      f"{ftot / vol:17.10e} {fs1:17.10e} {fs2:17.10e} "
+                      f"{rs:17.10e}\n")
+        else:
+            out.write(stats.format_fe_lc_block(tstep, *res["fe_lc"], rs))
     g = res["g"]
     if "gc" in res:
         # (ref: ludwig_tpu ludwig.py:2560-2578) total = fluid + colloids

@@ -32,8 +32,8 @@ from __future__ import annotations
 import torch
 
 from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE, q5_to_q33, q33_to_q5
-from ludwig_tpu_torch.lc import (LCConfig, _s5_corotation, initial_lc,
-                                 make_lc_le_column_fix)
+from ludwig_tpu_torch.lc import (GRADIENT, LCConfig, _s5_corotation,
+                                 initial_lc, make_lc_le_column_fix)
 from ludwig_tpu_torch.ops import _cuda
 from ludwig_tpu_torch.ops.fused import fused_force_step
 from ludwig_tpu_torch.ops.lees_edwards import make_le_post
@@ -153,6 +153,21 @@ def lc_q_force_step(q5: torch.Tensor, u: torch.Tensor, fe: BluePhaseFE,
     raise ValueError(f"no lc_q_force_step for device {q5.device}")
 
 
+def _check_fused(lcfg: LCConfig):
+    """The kernels take what the JAX package's fused gate admits: order-1
+    advection, the 7-point fluid stencil, hydrodynamics on, no walls, no
+    redshift update and no electric field."""
+    if lcfg.advection_order != 1:
+        raise ValueError("the fused LC step has order-1 advection only, "
+                         f"got order {lcfg.advection_order}")
+    if (lcfg.gradient != GRADIENT or lcfg.has_walls
+            or not lcfg.hydrodynamics or lcfg.redshift_update
+            or any(lcfg.fe.e0)):
+        raise ValueError("the fused LC step takes the periodic 7-point, "
+                         "hydrodynamics-on blue phase with a fixed redshift "
+                         "and no electric field")
+
+
 def make_fused_lc_step(lcfg: LCConfig):
     """Fused LC step: state (f, q5, u) -> state, K1 then K2.
 
@@ -160,9 +175,7 @@ def make_fused_lc_step(lcfg: LCConfig):
     hydrodynamics on: the blue-phase benchmark configuration.  The
     sheared variant is make_fused_lc_le_step; the sharded one of the JAX
     package is not ported."""
-    if lcfg.advection_order != 1:
-        raise ValueError("the fused LC step has order-1 advection only, "
-                         f"got order {lcfg.advection_order}")
+    _check_fused(lcfg)
     model = lcfg.lb.model
     params = lcfg.lb.collision_params()
 
@@ -187,6 +200,7 @@ def make_fused_lc_le_step(lcfg: LCConfig, le):
     ops/lees_edwards.apply_le_fused reprojects and displaces the
     crossing populations of K2's output."""
 
+    _check_fused(lcfg)
     model = lcfg.lb.model
     params = lcfg.lb.collision_params()
     fix = make_lc_le_column_fix(lcfg, le)

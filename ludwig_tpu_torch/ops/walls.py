@@ -18,8 +18,8 @@ reduction.
 The JAX package forms the bounce-back values from float64 numpy
 constants, so a float32 state receives `float32(f* - corr)` evaluated in
 double; the port does the same.  The binary fluid's wall helpers
-(no_flux_at_walls, stress_divergence_force_walls) are ported with it;
-the liquid crystal's wall_velocity_gradient_fix waits for the LC walls.
+(no_flux_at_walls, stress_divergence_force_walls) and the liquid
+crystal's wall_velocity_gradient_fix are here too.
 The index masks and constants a step needs are made once per lattice
 and device, so a step on the card copies nothing from the host.
 """
@@ -400,3 +400,28 @@ def stress_divergence_force_walls(pth: torch.Tensor, spec: WallSpec):
         comps.append(-acc)
     force = torch.stack(comps)
     return force, -torch.sum(force, dim=(1, 2, 3))
+
+
+def wall_velocity_gradient_fix(w, u: torch.Tensor, spec: WallSpec):
+    """The central-difference velocity gradient tensor w[a][b] (a 3x3 list
+    of tensors) with the wall planes' off-edge neighbour velocity taken as
+    the wall's (ref: wall.c wall_set_wall_velocities; halo u = uw).
+    Returns a new list; the walled axes' entries are new tensors."""
+    if not spec.any:
+        return w
+    w = [list(row) for row in w]
+    for ax in range(3):
+        if not spec.walls[ax]:
+            continue
+        n = u.shape[1 + ax]
+        lo, hi, lo2, hi2 = ([slice(None)] * 3 for _ in range(4))
+        lo[ax], hi[ax], lo2[ax], hi2[ax] = 0, n - 1, 1, n - 2
+        lo, hi, lo2, hi2 = tuple(lo), tuple(hi), tuple(lo2), tuple(hi2)
+        for a in range(3):
+            ub = float(spec.ubot[a])
+            ut = float(spec.utop[a])
+            wa = w[a][ax].clone()
+            wa[lo] = 0.5 * (u[a][lo2] - ub)
+            wa[hi] = 0.5 * (ut - u[a][hi2])
+            w[a][ax] = wa
+    return w

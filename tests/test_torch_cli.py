@@ -149,16 +149,110 @@ def test_lc_cli_order_2_runs_unfused():
                                rtol=1e-9, atol=1e-11)
 
 
-@pytest.mark.parametrize("line", [
-    "lc_noise on", "lc_redshift_update on",
-    "fd_gradient_calculation s7_anchoring", "electric_e0 0.0_0.0_0.01",
+# the blue-phase keys the port refused until it took over the rest of the
+# liquid crystal: each now runs its input on the JAX package's route and
+# prints the JAX package's log (the anchoring inputs between walls on z)
+WALL_S7 = ("boundary_walls 0_0_1\nfd_gradient_calculation s7_anchoring\n"
+           "lc_wall_anchoring normal\nlc_wall_anchoring_w1 0.01")
+NOW_PORTED_LC = [
+    "lc_redshift_update 1", WALL_S7,
+    "electric_e0 0.0_0.0_0.01\nlc_dielectric_anisotropy 41.4",
     "fd_advection_scheme_order 3", "hydrodynamics off",
-    "lc_q_init_rectangle_min 1_1_1", "lc_anchoring_method two",
-    "boundary_walls 1_0_0",
+    "lc_q_init_rectangle_min 2_2_3\nlc_q_init_rectangle_max 5_6_9",
+    "boundary_walls 0_0_1\nfd_gradient_calculation 3d_7pt_solid\n"
+    "lc_anchoring_method two\nlc_wall_anchoring planar\n"
+    "lc_anchoring_strength 0.01\nlc_anchoring_strength_2 0.002",
+    "boundary_walls 1_0_0\nfd_gradient_calculation s7_anchoring\n"
+    "lc_wall_anchoring fixed\nlc_wall_anchoring_w1 0.01\n"
+    "lc_wall_fixed_orientation 0_1_1",
+    # porous solids with the 'two' stencil (which, as in the JAX package,
+    # does not see them)
+    "porous_media_init simple_cubic\nporous_media_acell 4\n"
+    "fd_gradient_calculation 3d_7pt_solid\nlc_anchoring_method two\n"
+    "lc_wall_anchoring normal\nlc_anchoring_strength 0.01"]
+
+
+# the liquid crystal with two resolved particles (12^3, normal anchoring
+# on their surface); between walls on z it is the restart case below
+LC_COLLOIDS = """
+N_cycles 4
+size 12_12_12
+viscosity 0.1
+free_energy lc_blue_phase
+lc_a0 0.01
+lc_gamma 3.0
+lc_q0 0.19635
+lc_kappa0 0.000648456
+lc_kappa1 0.000648456
+lc_xi 0.7
+lc_Gamma 0.5
+lc_q_initialisation nematic
+lc_init_nematic 1.0_0.0_0.0
+freq_statistics 2
+fd_gradient_calculation s7_anchoring
+lc_coll_anchoring normal
+lc_coll_anchoring_w1 0.01
+colloid_init input_two
+colloid_one_a0 2.3
+colloid_one_ah 2.3
+colloid_one_r 4.0_6.5_6.5
+colloid_one_v 0.01_0.0_0.0
+colloid_two_a0 2.3
+colloid_two_ah 2.3
+colloid_two_r 9.5_6.5_7.0
+colloid_gravity 0.0_0.0_-0.0001
+"""
+LC_COLLOIDS_WALLS = LC_COLLOIDS + """boundary_walls 0_0_1
+lc_wall_anchoring normal
+lc_wall_anchoring_w1 0.01
+"""
+
+
+@pytest.mark.parametrize("line", NOW_PORTED_LC,
+                         ids=lambda ln: ln.replace("\n", " ")[:40])
+def test_lc_keys_now_ported_match_jax(line):
+    """Where the fused kernels are asked for (the port's `tpu_fused on`,
+    the JAX package's `interpret` on the CPU), both packages'
+    build_system take the same route: the JAX package's fused gate
+    refuses each of these but the random rectangle.  The logs come from
+    `tpu_fused off` (the same unfused route but for the rectangle, which
+    then skips the JAX package's interpret-mode kernels): the same lines,
+    their floats at rtol 1e-9 / atol 1e-11."""
+    from ludwig_tpu import ludwig as jl
+    from ludwig_tpu.runtime import RunTime as JRunTime
+    from ludwig_tpu_torch import ludwig as tl
+    from ludwig_tpu_torch.runtime import RunTime
+    from test_torch_more_fe_cli import log_lines
+    text = LC_FUSED_INPUT + line + "\n"
+    jsys = jl.build_system(JRunTime("tpu_fused interpret\n" + text))
+    tsys = tl.build_system(RunTime("tpu_fused on\n" + text), device="cpu")
+    assert jsys.fused_mode == tsys.fused_mode == (
+        "lc" if "rectangle" in line else None)
+    jlog, log, sys_ = _logs("tpu_fused off\n" + text,
+                            "tpu_fused off\n" + text)
+    assert sys_.lc_cfg is not None and sys_.fused_mode is None
+    (wj, fj), (wt, ft) = log_lines(jlog), log_lines(log)
+    assert wt == wj and ft.size == fj.size > 0
+    np.testing.assert_allclose(ft, fj, rtol=1e-9, atol=1e-11)
+    if "boundary_walls" in line:
+        assert log.count("[walls   ]") == 3
+        assert log.count("f v f/v f_s1 fs_s2 redshift") == 3
+    if "hydrodynamics off" in line:
+        assert "[minimum ]" not in log
+
+
+@pytest.mark.parametrize("line", [
+    "lc_noise on",
     # the planes are ported; their oscillation the LC does not read
-    "LE_oscillation_period 100", "isothermal_fluctuations on"])
+    "LE_oscillation_period 100", "isothermal_fluctuations on",
+    # beside planes, where the JAX package's run fails
+    "N_LE_plane 1\nLE_plane_vel 0.01\nlc_redshift_update 1",
+    "N_LE_plane 1\nLE_plane_vel 0.01\nboundary_walls 0_0_1",
+    # walls with a fluid stencil: no anchoring for the walls' surface term
+    "boundary_walls 1_0_0"])
 def test_unported_lc_keys_raise(line):
-    with pytest.raises(NotImplementedError, match=line.split()[0]):
+    key = line.split("\n")[-1].split()[0]
+    with pytest.raises(NotImplementedError, match=key):
         run_text("tpu_fused on\n" + LC_FUSED_INPUT + line + "\n",
                  out=io.StringIO(), device="cpu")
 
@@ -938,11 +1032,35 @@ BINARY_RESTART = {
         ["dist", "phi", "vel", "state03", "state04"])}
 
 
+# the liquid crystal's new state leaves: gwall (walls), the redshift, the
+# particles between walls (f, R, V, W, dr, Rmap, M, q5, u, grad, delsq,
+# gwall, named as the JAX package names an LC state's first leaves); the packages' whole-lattice
+# sums (gwall, the redshift) and the particles' link sums round
+# differently: 1e-13 on the states
+LC_RESTART = {
+    "lc-walls": (LC_FUSED_INPUT + WALL_S7 + "\n",
+                 ["dist", "q", "vel", "state03", "state04", "state05"]),
+    "lc-redshift": (LC_FUSED_INPUT + "lc_redshift_update 1\n",
+                    ["dist", "q", "vel", "state03", "state04", "state05"]),
+    "lc-colloids-walls": (
+        LC_COLLOIDS_WALLS.replace("size 12_12_12", "size 10_10_10")
+        .replace("colloid_two_r 9.5_6.5_7.0", "colloid_two_r 8.0_5.5_6.0"),
+        ["dist", "q", "vel"] + [f"state{i:02d}" for i in range(3, 12)])}
+
+
 def _steps(log, after, last):
-    """The statistics floats of a log after the line `after`, up to
-    'Completed cycle <last>'."""
+    """The statistics numbers of a log after the line `after`, up to
+    'Completed cycle <last>': _stat_floats' tokens, where a token glues a
+    pair (the [Q..] rows print a negative second float with no space)
+    split in two."""
     tail = log[log.index(after):]
-    return _stat_floats(tail[:tail.index(f"Completed cycle {last}\n")])
+    tail = tail[:tail.index(f"Completed cycle {last}\n")]
+    return np.array([
+        float(v) for line in tail.splitlines()
+        if line.startswith(("[rho]", "[phi]", "[Q", "[fe", "[total",
+                            "[fluid", "[minimum", "[maximum"))
+        for tok in line.split() if re.match(r"^-?\d", tok)
+        for v in re.findall(r"-?\d+(?:\.\d*)?(?:e[-+]?\d+)?", tok)])
 
 
 def _colloid_records(n, seed=1, a0=2.3):
@@ -972,7 +1090,8 @@ def _write_init(directory, recs):
 
 
 @pytest.mark.parametrize("name", list(RESTART_INPUTS) + list(FUSED_RESTART)
-                         + list(COLLOID_RESTART) + list(BINARY_RESTART))
+                         + list(COLLOID_RESTART) + list(BINARY_RESTART)
+                         + list(LC_RESTART))
 def test_restart_across_packages(name, tmp_path):
     """The unfused LC route (the repaired checkpoint: the gradient leaves
     state03 and state04 ride as the JAX package's do) and the unfused
@@ -992,12 +1111,14 @@ def test_restart_across_packages(name, tmp_path):
         text = COLLOID_RESTART[name]
     elif name in BINARY_RESTART:
         text = f"tpu_fused off\n{BINARY_RESTART[name][0]}"
+    elif name in LC_RESTART:
+        text = LC_RESTART[name][0]
     else:
         text = f"tpu_fused off\n{RESTART_INPUTS[name]}"
     # the fused and unfused routes round differently, and so do the
     # packages' whole-lattice sums of the walls' momentum (gwall)
-    atol = (1e-13 if name in FUSED_RESTART or name == "binary-walls-27pt"
-            else 2e-15)
+    atol = (1e-13 if name in FUSED_RESTART or name in LC_RESTART
+            or name == "binary-walls-27pt" else 2e-15)
     base = (text.replace("N_cycles 4", "N_cycles 7")
             .replace("freq_statistics 2", "freq_statistics 1"))
     ds, dx = tmp_path / "straight", tmp_path / "shared"
@@ -1017,6 +1138,7 @@ def test_restart_across_packages(name, tmp_path):
     run_text(at(dx, steps) + f"config_at_end yes\nio_directory {dx}\n",
              out=io.StringIO(), device="cpu")
     tail = (BINARY_RESTART[name][1][3:] if name in BINARY_RESTART
+            else LC_RESTART[name][1][3:] if name in LC_RESTART
             else ["state03", "state04"])
     assert {f"{n}-00000003" for n in tail} <= set(os.listdir(dx))
     jout = io.StringIO()
@@ -1035,6 +1157,18 @@ def test_restart_across_packages(name, tmp_path):
                 == (ds / "config.cds00000006.001-001").read_bytes())
     elif name in BINARY_RESTART:
         names = BINARY_RESTART[name][1]
+    elif name in LC_RESTART:
+        names = LC_RESTART[name][1]
+        if name == "lc-colloids-walls":
+            # the records agree to the states' tolerance (the reference's
+            # ASCII digits may differ in the last place)
+            from ludwig_tpu_torch.io.colloid_io import read_colloid_file
+            a, b = (read_colloid_file(str(d / "config.cds00000006.001-001"))
+                    for d in (dx, ds))
+            for ra, rb in zip(a, b):
+                for key in ("r", "v", "w", "dr"):
+                    np.testing.assert_allclose(ra[key], rb[key], rtol=0,
+                                               atol=atol)
     else:
         names = ["dist", "phi" if "binary" in name else "q", "vel",
                  "state03", "state04"]
@@ -1134,6 +1268,7 @@ bond_fene_k 0.001
 bond_fene_r0 5.0
 """,
 }
+COLLOID_INPUTS["lc_colloids"] = LC_COLLOIDS + "colloid_io_freq 2\n"
 FLOAT = re.compile(r"^[-+]?\d+\.\d*(e[-+]\d+)?$")
 
 
@@ -1181,13 +1316,27 @@ def test_colloid_cli_matches_jax(name, tmp_path):
         assert "Number of measurements:              0" in b.getvalue()
     cds = sorted(p.name for p in dj.glob("config.cds0*"))
     assert cds == sorted(p.name for p in dt.glob("config.cds0*"))
-    assert bool(cds) == (name in ("input_two", "from_file"))
+    assert bool(cds) == (name in ("input_two", "from_file", "lc_colloids"))
+    if name.startswith("lc_"):
+        # the particles' surface row
+        assert b.getvalue().count("f v f/v f_s a f_s/a") == 3
     for p in cds:
-        assert (dj / p).read_bytes() == (dt / p).read_bytes()
+        if not name.startswith("lc_"):
+            assert (dj / p).read_bytes() == (dt / p).read_bytes()
+            continue
+        # the LC route's link sums round in another order than the JAX
+        # package's (its remove/replace seeds per image): the records'
+        # 16-digit floats agree as the log's do
+        from ludwig_tpu_torch.io.colloid_io import read_colloid_file
+        for ra, rb in zip(read_colloid_file(str(dt / p)),
+                          read_colloid_file(str(dj / p))):
+            for key in ra:
+                np.testing.assert_allclose(ra[key], rb[key], rtol=1e-9,
+                                           atol=1e-11)
 
 
 @pytest.mark.parametrize("line", [
-    "free_energy symmetric", "free_energy lc_blue_phase",
+    "free_energy symmetric", "free_energy lc_droplet",
     "isothermal_fluctuations on\ntemperature 0.0001",
     "porous_media_init simple_cubic\nporous_media_acell 8",
     "N_LE_plane 2\nLE_plane_vel 0.01"])

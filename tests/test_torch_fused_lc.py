@@ -126,15 +126,34 @@ def test_convert_round_trip():
     assert all(x.is_contiguous() for x in ts)
     with pytest.raises(ValueError):
         lc_state_from_jax(fpad, qpad[:, :-1], u, "cpu", "float64")
-    for field, value in (("redshift_update", True), ("noise_kt", 1e-4),
+    # the LC options are carried; the noise alone is refused
+    from ludwig_tpu.ops.lc_anchor import AnchoringParams as JAnch
+    from ludwig_tpu.ops.walls import WallSpec as JWallSpec
+    anch = JAnch(kappa0=0.01, kappa1=0.01, q0=0.2, amplitude=0.3,
+                 wall="planar", wall_w1=0.01, wall_w2=0.002, method="s7")
+    for field, value in (("redshift_update", True),
                          ("hydrodynamics", False),
+                         ("advection_order", 3),
+                         ("wallspec", JWallSpec(walls=(False, True, False))),
                          ("gradient", "s7_anchoring")):
-        bad = dataclasses.asdict(dataclasses.replace(jcfg, **{field: value}))
-        with pytest.raises(NotImplementedError, match=field):
-            lc_params_from_jax(bad, device="cpu")
-    bad = dataclasses.asdict(jcfg)
-    bad["fe"]["e0"] = (0.0, 0.0, 0.01)
-    with pytest.raises(NotImplementedError, match="e0"):
+        extra = {"anchoring": anch} if field == "gradient" else {}
+        got = lc_params_from_jax(dataclasses.asdict(dataclasses.replace(
+            jcfg, **{field: value}, **extra)), device="cpu")
+        want = getattr(dataclasses.replace(jcfg, **{field: value}), field)
+        if field == "wallspec":
+            assert got.wallspec.walls == (False, True, False)
+        else:
+            assert getattr(got, field) == want
+        if extra:
+            assert dataclasses.asdict(got.anchoring) == dataclasses.asdict(
+                anch)
+    efield = dataclasses.asdict(jcfg)
+    efield["fe"]["e0"] = (0.0, 0.0, 0.01)
+    efield["fe"]["epsilon"] = 0.5 / (12.0 * np.pi)
+    got = lc_params_from_jax(efield, device="cpu")
+    assert got.fe.e0 == (0.0, 0.0, 0.01) and got.fe.has_efield
+    bad = dataclasses.asdict(dataclasses.replace(jcfg, noise_kt=1e-4))
+    with pytest.raises(NotImplementedError, match="noise_kt"):
         lc_params_from_jax(bad, device="cpu")
 
 

@@ -182,16 +182,24 @@ def _threefry_noise():
 
 
 def _lc_27pt():
+    """The liquid crystal's other fluid stencils (lc_fields takes every
+    stencil the JAX package's does)."""
+    from ludwig_tpu import lc as jlc
     from ludwig_tpu_torch.lc import lc_fields
-    lc_fields(torch.zeros((5,) + N), "3d_27pt_fluid")
+    q = _rand((5,) + N, 6)
+    want = jlc.lc_fields(jnp.asarray(q), "3d_27pt_fluid")
+    got = lc_fields(torch.as_tensor(q), "3d_27pt_fluid")
+    for key in ("grad_q", "delsq_q"):
+        close(got[key], want[key])
 
 
-# the fourth-order (Brazovskii) forms are ported: held to the JAX
-# package's; the rest are still refused, naming what is not ported
+# the fourth-order (Brazovskii) forms and the liquid crystal's 27-point
+# stencil are ported: held to the JAX package's; the rest are still
+# refused, naming what is not ported
 PARITY = {"brazovskii-step": _brazovskii_step,
           "27pt-d4": _d4("le_fields_27pt_d4"),
-          "2d5pt-d4": _d4("le_fields_2d5pt_d4")}
-REFUSED = {"threefry-noise": _threefry_noise, "lc-27pt": _lc_27pt}
+          "2d5pt-d4": _d4("le_fields_2d5pt_d4"), "lc-27pt": _lc_27pt}
+REFUSED = {"threefry-noise": _threefry_noise}
 
 
 @pytest.mark.parametrize("case", ["brazovskii-step", "threefry-noise",

@@ -410,3 +410,41 @@ def test_headers_unchanged_with_noise_off(which):
     else:
         text = getattr(_cuda, f"generate_{which}_header")()
     assert hashlib.sha256(text.encode()).hexdigest() == HEADER_SHA256[which]
+
+
+# sha256 of the generated LC K1 and droplet K1 headers at the commit
+# before the blue phase's electric field, surface energy and dynamic
+# redshift were ported: with no field (e0 zero) their text is unchanged
+PARENT_K1_SHA256 = {
+    "lc": "c7b8c0d6c8b4ef0d1294ccc6922bbdc491ec66af178fef4c764bce4fbebdd542",
+    "droplet":
+        "720db9e806d5e70029e4ecb0e5988dad6108a2cad339fe8eee3c90a60f8e63ba",
+}
+
+
+@pytest.mark.parametrize("which", sorted(PARENT_K1_SHA256))
+def test_k1_headers_unchanged_with_e0_zero(which):
+    """The LC and droplet K1 headers byte for byte, and the traced level-1
+    text of a free energy with a dielectric anisotropy but e0 zero equal
+    to the field-free one's: the electric-field terms sit behind the
+    static `any(e0) and epsilon` test."""
+    import dataclasses
+    import hashlib
+
+    from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE
+    from ludwig_tpu_torch.ops import fused_lc
+
+    text = getattr(_cuda, f"generate_{which}_header")()
+    assert (hashlib.sha256(text.encode()).hexdigest()
+            == PARENT_K1_SHA256[which])
+    base = {k: _cuda._Const.named(k) for k in _cuda.LC_BASE}
+    fe = BluePhaseFE(**{k: base[k] for k in _cuda.LC_BASE
+                        if k != "be_gamma"})
+    lines = []
+    for f in (fe, dataclasses.replace(fe, epsilon=_cuda._Const.named("eps"),
+                                      e0=(0.0, 0.0, 0.0))):
+        tr = _cuda._Trace({}, skip_exact=True)
+        h, pth = fused_lc._level1(
+            lambda *a: tr.load(f"Q({', '.join(str(x) for x in a)})"), f)
+        lines.append(tr.lines + [v.name for row in h + pth for v in row])
+    assert lines[0] == lines[1]

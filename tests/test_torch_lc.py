@@ -25,6 +25,7 @@ from ludwig_tpu_torch.dynamics import beris_edwards as be
 from ludwig_tpu_torch.fe import lc_init
 from ludwig_tpu_torch.fe.blue_phase import BluePhaseFE
 from ludwig_tpu_torch.lb import LBConfig
+from ludwig_tpu_torch.ops.lc_anchor import AnchoringParams
 
 N = (8, 8, 16)
 FE = dict(a0=0.01, gamma=3.0, q0=0.19635, kappa0=0.000648456,
@@ -134,10 +135,27 @@ def test_lc_step_matches_jax(order):
 
 
 def test_lc_config_refuses_what_is_not_ported():
+    """The options of the JAX package's LCConfig are ported and carried:
+    advection orders 3-5, the solid stencils with their anchoring, the
+    redshift update; the noise alone is refused."""
     lb = LBConfig(size=N, nvel=19, eta_shear=0.1, device="cpu")
+    for order in (3, 4, 5):
+        cfg = lc.LCConfig(lb=lb, fe=BluePhaseFE(**FE), advection_order=order)
+        assert cfg.advection_order == order
+    anch = AnchoringParams(kappa0=FE["kappa0"], kappa1=FE["kappa1"],
+                           q0=FE["q0"], amplitude=0.3, wall="normal",
+                           wall_w1=0.01, method="s7")
+    q = torch.as_tensor(_q5(9))
+    fields = lc.lc_fields(q, "s7_anchoring", anchoring=anch)
+    # no solid anywhere: the plain 7-point stencil
+    plain = lc.lc_fields(q)
+    np.testing.assert_allclose(fields["grad_q"].numpy(),
+                               plain["grad_q"].numpy(), rtol=1e-12,
+                               atol=1e-14)
+    cfg = lc.LCConfig(lb=lb, fe=BluePhaseFE(**FE), redshift_update=True,
+                      gradient="s7_anchoring", anchoring=anch,
+                      hydrodynamics=False)
+    assert cfg.redshift_update and not cfg.hydrodynamics
+    assert cfg.anchoring == anch
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lc.LCConfig(lb=lb, fe=BluePhaseFE(**FE), advection_order=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lc.lc_fields(torch.zeros((5,) + N), "s7_anchoring")
-    with pytest.raises(TypeError):
-        lc.LCConfig(lb=lb, fe=BluePhaseFE(**FE), redshift_update=True)
+        lc.LCConfig(lb=lb, fe=BluePhaseFE(**FE), noise_kt=1e-4)

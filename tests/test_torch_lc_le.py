@@ -128,12 +128,13 @@ def test_lc_step_keeps_the_gradients_jax_keeps():
     starts the tail with Q's own gradients."""
     jc, tc, jlecfg, _ = configs()
     jc = dataclasses.replace(jc, keep_grads=True)
+    tc = dataclasses.replace(tc, keep_grads=True)
     _f, q5, _u = start(jc, jlecfg)
     js = jlc.initial_lc(jc, q5)
-    ts = lc.initial_lc(tc, q5, keep_grads=True)
+    ts = lc.initial_lc(tc, q5)
     assert len(ts) == len(js) == 5
     jstep = eager(jlc.make_lc_step(jc))
-    tstep = lc.make_lc_step(tc, keep_grads=True)
+    tstep = lc.make_lc_step(tc)
     for t in range(1, 3):
         js, _ = jstep(js, t)
         ts, _ = tstep(ts, t)

@@ -237,7 +237,26 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      7.25 (rebuild steps timed apart), the benchmark with the dynamic
      redshift (printed each cycle), each for 20 cycles through run_text,
      ms a step (CUDA events), CUDA kernels a step and their device time
-     (torch.profiler), one step under CUDA's sync debug mode "error".
+     (torch.profiler), one step under CUDA's sync debug mode "error";
+ 35. the colloids of the binary fluid, symmetric_lb and the electrolyte
+     and the repaired LC colloid route (FAMILY_ROUTES: two wetting
+     particles between walls and five periodic ones in each binary
+     family, one charged particle under both force methods, the LC
+     colloids periodic and beside a wall) on the card against the CPU, 3
+     chained steps from a random 16x16x32 state in f64 and f32 (TOL; the
+     electrolyte's f32 leaves at TOL's rtol of their largest magnitude,
+     the charge the put-back leaves at TOL's rtol of the particle's);
+     each family's input (FAMILY_INPUTS) in f64 through run_text on both
+     (rtol 1e-9, atol 1e-11, every line the same but its numbers);
+ 36. at full width in f32 (FAMILY_CELLS): 1000 particles of radius 4 at
+     random in the spinodal binary fluid and in symmetric_lb at 128^3
+     (rebuilt every step, the segment-sum route), one charged particle
+     of radius 4 in a uniform electrolyte at 64^3 with a field on x (the
+     reference SOR), each for FAMILY_CELL_CYCLES cycles through run_text,
+     ms a step with rebuild steps apart (CUDA events), CUDA kernels a
+     step and their device time (torch.profiler), one step under CUDA's
+     sync debug mode: "error" for the binary cells, "warn" for the
+     electrolyte, its host syncs counted against the SOR's read-backs.
 
 Bounds: `bound_ms` is the larger of the bytes the function must move
 (each input read once, each output written once) over the H100 SXM's
@@ -4995,6 +5014,379 @@ def phase34(card):
     return res, paths
 
 
+FAMILY_SIZE = (16, 16, 32)
+FAMILY_FE = SymmetricFE(a=-0.0625, b=0.0625, kappa=0.04)
+# the colloid routes of the binary families and the electrolyte, and the
+# repaired LC colloid route (phase 33's lc_route)
+FAMILY_ROUTES = ("binary two walls z wetting", "binary five",
+                 "symmetric_lb two walls z wetting", "symmetric_lb five",
+                 "electro gradmu", "electro divstress", "lc colloids",
+                 "lc colloids walls z s7 normal")
+
+
+def family_route(name, dtype, device, size=FAMILY_SIZE):
+    """(step, state) of a FAMILY_ROUTES route at `size` on `device`, from
+    numpy seeds (the card and the CPU start from the same bits)."""
+    import numpy as np
+
+    from ludwig_tpu_torch import binary_colloid, binary_lb, electro_colloid
+    from ludwig_tpu_torch.binary import BinaryConfig
+    from ludwig_tpu_torch.colloids import ColloidParams
+    from ludwig_tpu_torch.electro import ElectroConfig
+    from ludwig_tpu_torch.electro_sim import ElectroSimConfig
+    from ludwig_tpu_torch.ops.walls import WallSpec
+
+    if name.startswith("lc "):
+        return lc_route(name[3:], dtype, device, size)
+    rng = np.random.default_rng(35)
+    words = name.split()
+    lb = LBConfig(size=size, nvel=19, eta_shear=0.1, dtype=dtype,
+                  device=device)
+    tdt = getattr(torch, dtype)
+    if words[0] == "electro":
+        ecfg = ElectroSimConfig(lb=lb, ek=ElectroConfig(
+            valency=(1, -1), diffusivity=(0.01, 0.0095), beta=3.0e4,
+            epsilon=3.3e3, rel_tol=1e-6, abs_tol=1e-9, max_its=200),
+            e0=(2e-5, 0.0, 0.0))
+        cp = ColloidParams(a0=(2.3,), ah=(2.3,))
+        rho = 1e-3 + 1e-4 * rng.random((2,) + size)
+        R0 = np.array([[6.3, 7.6, 14.2]])
+        V0 = np.array([[0.03, -0.02, 0.01]])
+        state = list(electro_colloid.initial_electro_colloid(
+            ecfg, cp, np.zeros(size), rho, R0, V0))
+        state[4] = state[2].clone()            # a move at once
+        q = torch.as_tensor([[5.0, 0.0]], dtype=tdt, device=device)
+        method = ("stress_divergence" if words[1] == "divstress"
+                  else "phi_gradmu_correction")
+        return (electro_colloid.make_electro_colloid_step(
+            ecfg, cp, q, rebuild_freq=2, force_method=method), tuple(state))
+    walled = "walls" in words
+    ws = WallSpec(walls=(False, False, True)) if walled else None
+    wet = (-0.002, 0.001) if "wetting" in words else (0.0, 0.0)
+    if words[1] == "two":
+        cp = ColloidParams(a0=(2.3, 2.3), ah=(2.3, 2.3),
+                           gravity=(0.0, 0.0, -1e-4))
+        R0 = np.array([[4.2, 7.1, 9.6], [11.3, 8.6, 21.7]])
+    else:
+        cp = ColloidParams(a0=(1.8,) * 5, ah=(1.8,) * 5)
+        R0 = np.array([[3.5, 3.5, 4.0], [12.5, 4.5, 11.6], [4.2, 12.6, 19.5],
+                       [12.8, 12.4, 27.3], [8.0, 7.7, 24.9]])
+    V0 = 0.01 * rng.standard_normal((cp.n, 3))
+    phi0 = 0.2 * np.tanh(rng.standard_normal(size))
+    if words[0] == "binary":
+        cfg = BinaryConfig(lb=lb, fe=FAMILY_FE, mobility=0.15, wetting=wet)
+        state = binary_colloid.initial_binary_colloid(
+            cfg, cp, phi0, R0, V0, dr0=V0, walls=walled)
+        step = binary_colloid.make_binary_colloid_step(
+            cfg, cp, rebuild_freq=2, phi_ref=0.01, wallspec=ws)
+    else:
+        cfg = binary_lb.BinaryLBConfig(lb=lb, fe=FAMILY_FE, mobility=0.15,
+                                       gradient="3d_27pt_solid")
+        state = binary_lb.initial_binary_lb_colloid(
+            cfg, cp, phi0, R0, V0, dr0=V0, walls=walled)
+        step = binary_lb.make_binary_lb_colloid_step(
+            cfg, cp, rebuild_freq=2, phi_ref=0.01, wetting=wet, wallspec=ws)
+    f = 1.0 / 19.0 + 1e-3 * rng.standard_normal((19,) + size)
+    state = (torch.as_tensor(f, dtype=tdt, device=device),) + state[1:]
+    return step, state
+
+
+FAMILY_SMALL = """
+N_cycles 4
+size 12_12_12
+viscosity 0.1
+freq_statistics 2
+"""
+FAMILY_BINARY_KEYS = """A -0.0625
+B 0.0625
+K 0.04
+mobility 0.15
+phi_initialisation spinodal
+noise 0.05
+random_seed 13
+colloid_init input_two
+colloid_one_a0 2.3
+colloid_one_ah 2.3
+colloid_one_r 4.0_6.5_6.5
+colloid_one_v 0.01_0.0_0.0
+colloid_two_a0 2.3
+colloid_two_ah 2.3
+colloid_two_r 9.5_6.5_7.0
+colloid_one_c -0.002
+colloid_one_h 0.001
+colloid_gravity 0.0_0.0_-0.0001
+"""
+FAMILY_ELECTRO_KEYS = """free_energy fe_electro
+electrokinetics_d0 0.01
+electrokinetics_d1 0.01
+electrokinetics_epsilon 3300.0
+temperature 3.33333333333333333e-5
+electrokinetics_init uniform
+electrokinetics_init_rho_el 0.001
+electrokinetics_rel_tol 1e-06
+electrokinetics_abs_tol 1e-07
+electrokinetics_maxits 500
+electric_e0 0.00002_0.0_0.0
+colloid_init input_one
+colloid_one_a0 2.3
+colloid_one_ah 2.3
+colloid_one_r 6.25_6.6_6.3
+colloid_one_v 0.05_0.0_0.0
+colloid_one_q0 5.0
+"""
+# one input of each family (tests/test_torch_cli.py's), in float64
+FAMILY_INPUTS = {
+    "binary walls": FAMILY_SMALL + FAMILY_BINARY_KEYS
+    + "free_energy symmetric\nboundary_walls 0_0_1\n",
+    "symmetric_lb": FAMILY_SMALL + FAMILY_BINARY_KEYS
+    + "free_energy symmetric_lb\nfd_gradient_calculation 3d_7pt_fluid\n",
+    "electro": FAMILY_SMALL + FAMILY_ELECTRO_KEYS,
+}
+FAMILY_TAGS = LC_TAGS + ("[psi_zeta]", "[colloids]")
+
+
+def family_log(log):
+    """lc_log over the families' statistics rows too."""
+    body = log[log.index("\nInitial conditions."):log.index("\nTimer")]
+    words, vals = [], []
+    for line in body.splitlines():
+        words.append(" ".join(NUMBER.sub(" # ", line).split()))
+        if line.startswith(FAMILY_TAGS):
+            rest = line.split("]", 1)[1] if "]" in line else line[12:]
+            vals += [float(v) for v in NUMBER.findall(rest)]
+    return words, torch.tensor(vals, dtype=torch.float64)
+
+
+def phase35():
+    phase("35 the binary, symmetric_lb and electrolyte colloids and the "
+          "repaired LC colloid route on the card vs the CPU")
+    worst = 0.0
+    for name in FAMILY_ROUTES:
+        for dtype in ("float64", "float32"):
+            got = {}
+            for device in ("cuda", "cpu"):
+                step, state = family_route(name, dtype, device)
+                for t in range(3):
+                    state, _ = step(state, t)
+                got[device] = state
+            walls = (False, False, True) if "walls" in name else None
+            a, b = got["cuda"], got["cpu"]
+            if name.startswith("electro"):
+                # deltaq: the charge the put-back left, a difference of
+                # sums of the particle's charge 5: held at TOL's rtol of 5
+                dq_tol = TOL[b[10].dtype]["rtol"] * 5.0
+                if not torch.allclose(a[10].cpu(), b[10], rtol=0.0,
+                                      atol=dq_tol):
+                    raise AssertionError(f"{name} {dtype}: deltaq differs "
+                                         f"by {max_err(a[10].cpu(), b[10])}")
+                a, b = a[:10], b[:10]
+            err = hold_more_fe_states(f"{name} {dtype}", a, b, walls,
+                                      scaled=name.startswith("electro"))
+            if dtype == "float64":
+                worst = max(worst, err)
+            print(f"colloids {name} {dtype}: 3 steps at 16x16x32 on the "
+                  f"card against the CPU within {TOL[getattr(torch, dtype)]}"
+                  f", max |diff| {err:.3e}")
+    counts = {}
+    for name, text in FAMILY_INPUTS.items():
+        logs = {}
+        for device in ("cuda", "cpu"):
+            _cuda.launches.reset()
+            out = io.StringIO()
+            run_text(text, out=out, device=device)
+            logs[device] = out.getvalue()
+            if device == "cuda":
+                counts[f"colloids {name} f64"] = stat_scan_counts()
+        (wa, a), (wb, b) = (family_log(logs[k]) for k in ("cuda", "cpu"))
+        if (wa != wb or a.numel() == 0
+                or not torch.allclose(a, b, rtol=1e-9, atol=1e-11)):
+            raise AssertionError(f"colloid input {name}: the card's log "
+                                 "differs from the CPU's")
+        print(f"colloid input {name} f64 through run_text: {len(wa)} lines "
+              f"the same but their numbers, {a.numel()} floats on the card "
+              f"agree with the CPU's (rtol 1e-9, atol 1e-11), max |diff| "
+              f"{float((a - b).abs().max()):.3e}")
+    return worst, counts
+
+
+FAMILY_CELL_CYCLES = 20
+
+
+def random_colloids(directory, n=1000, a0=4.0, L=128, seed=36):
+    """config.cds.init in `directory`: n particles of radius a0 at rest,
+    placed at random in an L^3 periodic box without overlap (a gap of one
+    site), from a numpy seed (1-based centres)."""
+    import os
+
+    import numpy as np
+
+    from ludwig_tpu_torch.io.colloid_io import (default_state,
+                                                write_colloid_file)
+    rng = np.random.default_rng(seed)
+    pos = np.zeros((0, 3))
+    while len(pos) < n:
+        r = rng.uniform(0.0, L, 3)
+        d = pos - r
+        d -= L * np.round(d / L)
+        if len(pos) == 0 or np.min(np.sum(d * d, axis=1)) > (2 * a0 + 1) ** 2:
+            pos = np.vstack([pos, r])
+    recs = []
+    for i, r in enumerate(pos):
+        rec = default_state()
+        rec["index"] = i + 1
+        rec["a0"] = rec["ah"] = a0
+        rec["r"] = [0.5 + float(c) for c in r]
+        rec["m"] = [1.0, 0.0, 0.0]
+        recs.append(rec)
+    write_colloid_file(os.path.join(directory, "config.cds.init"), recs)
+
+
+FAMILY_128 = (BINARY_INPUT.replace("size 256_256_256", "size 128_128_128")
+              .replace("tpu_fused on\n", "")
+              .replace(f"N_cycles {BINARY_CYCLES}",
+                       f"N_cycles {FAMILY_CELL_CYCLES}")
+              .replace("freq_statistics 10",
+                       f"freq_statistics {FAMILY_CELL_CYCLES}")
+              + "colloid_init from_file\ncolloid_file_stub @DIR@/config.cds\n"
+              "colloid_rebuild_freq 1\ncolloid_one_c 0.0\ncolloid_one_h 0.0\n")
+# the three full-width cells: 1000 particles of radius 4 at random (12.8%
+# by volume) in the spinodal binary fluid and in symmetric_lb at 128^3
+# (bijels, Pickering emulsions), and one charged particle of radius 4 in
+# the Gouy-Chapman bench's uniform electrolyte at 64^3 without its walls,
+# a field on x (electrophoresis)
+FAMILY_CELLS = {
+    "binary-colloids 128^3": FAMILY_128,
+    "binary-lb-colloids 128^3": FAMILY_128.replace(
+        "free_energy symmetric", "free_energy symmetric_lb")
+    .replace("fd_advection_scheme_order 2\n", ""),
+    "electro-colloid 64^3": f"""
+dtype float32
+N_cycles {FAMILY_CELL_CYCLES}
+freq_statistics {FAMILY_CELL_CYCLES}
+size 64_64_64
+viscosity 0.1
+free_energy fe_electro
+electrokinetics_z0 1
+electrokinetics_z1 -1
+electrokinetics_d0 0.01
+electrokinetics_d1 0.01
+electrokinetics_eunit 1.0
+electrokinetics_epsilon 3300.0
+temperature 3.33333333333333333e-5
+electrokinetics_init uniform
+electrokinetics_init_rho_el {ELEC_RHO_EL}
+electrokinetics_solver_type sor
+electrokinetics_rel_tol 1e-8
+electrokinetics_abs_tol 1e-15
+electrokinetics_maxits 10000
+electric_e0 0.0001_0.0_0.0
+colloid_init input_one
+colloid_one_a0 4.0
+colloid_one_ah 4.0
+colloid_one_r 32.5_32.5_32.5
+colloid_one_q0 10.0
+colloid_rebuild_freq 1
+""",
+}
+
+
+def phase36(card):
+    phase(f"36 the binary, symmetric_lb and electrolyte colloids at full "
+          f"width f32 on {card}")
+    import tempfile
+    import warnings
+
+    from ludwig_tpu_torch.ludwig import build_system
+    from ludwig_tpu_torch.runtime import RunTime
+    res, paths = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        random_colloids(d)
+        for label, text in FAMILY_CELLS.items():
+            text = text.replace("@DIR@", d)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _cuda.launches.reset()
+            log = io.StringIO()
+            t0 = time.perf_counter()
+            sys_ = run_text(text, out=log, device="cuda")
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            paths[label] = {**stat_scan_counts(),
+                            "chain_sums": _cuda.launches.chain_sums}
+            out = log.getvalue()
+            if f"Completed cycle {FAMILY_CELL_CYCLES}" not in out:
+                raise AssertionError(f"{label}: cycles incomplete")
+            if not all(torch.isfinite(x).all() for x in sys_.state
+                       if x.is_floating_point()):
+                raise AssertionError(f"{label}: the state is not finite")
+            electro = label.startswith("electro")
+            fe_rows = [ln for ln in out.splitlines() if ln.startswith("[fe]")]
+            extra = {"fe": fe_rows[-1],
+                     "colloid_v_max": [ln for ln in out.splitlines()
+                                       if ln.startswith("[maximum ]")][-2]}
+            if electro:
+                extra["psi_zeta"] = [ln for ln in out.splitlines()
+                                     if ln.startswith("[psi_zeta]")][-1]
+            del sys_
+            # the step alone: ms (CUDA events), kernels and device time
+            # (torch.profiler), rebuild steps apart from the others, one
+            # step under the sync debug mode
+            sys_ = build_system(RunTime(text), "cuda")
+            for rebuild in (True, False):
+                holder = {"s": sys_.state, "t": 1}
+
+                def run():
+                    holder["s"], holder["aux"] = sys_.step_fn(
+                        holder["s"], holder["t"], rebuild=rebuild)
+                    holder["t"] += 1
+
+                ms = time_ms(run, 5, warm=2)
+                kernels, dev_ms, top = post_profile(run, reps=1)
+                torch.cuda.synchronize()
+                mode = "warn" if electro else "error"
+                torch.cuda.set_sync_debug_mode(mode)
+                try:
+                    with warnings.catch_warnings(record=True) as caught:
+                        warnings.simplefilter("always")
+                        run()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                torch.cuda.synchronize()
+                syncs = len(caught)
+                if electro:
+                    # the SOR's read-backs: every 5 iterations from the first
+                    k = int(holder["aux"][2][0])
+                    max_its = sys_.electro_cfg.ek.max_its
+                    want = min(k // 5 + 1, max_its // 5)
+                    if syncs != want:
+                        raise AssertionError(
+                            f"{label}: {syncs} host syncs in a step, the "
+                            f"SOR's read-backs are {want}")
+                key = f"{label} {'rebuild' if rebuild else 'no rebuild'}"
+                nsite = math.prod(sys_.lb_cfg.size)
+                res[key] = {"ms": ms, "mlups": nsite / (ms * 1e3),
+                            "kernels": kernels, "device_ms": dev_ms,
+                            "host_syncs": syncs, "run_text_s": wall_s,
+                            "peak_gb": peak_gb,
+                            "top": [(k_[:60], c, round(t, 4))
+                                    for k_, c, t in top], **extra}
+                print(f"{key} f32: {ms:.3f} ms a step (CUDA events), "
+                      f"{nsite / (ms * 1e3):.1f} MLUPS, {kernels} CUDA "
+                      f"kernels a step, {dev_ms} ms of them on the device "
+                      f"(torch.profiler, 1 step); one step under the sync "
+                      f"debug mode '{mode}': {syncs} host syncs; run_text x "
+                      f"{FAMILY_CELL_CYCLES} cycles {wall_s:.2f} s, peak "
+                      f"{peak_gb:.2f} GB, launches {paths[label]} [{card}]")
+                for k_, v in extra.items():
+                    print(f"    {k_}: {v}")
+                for name, count, k_ms in top[:3]:
+                    print(f"    {k_ms:.4f} ms device, {count:.0f} a step: "
+                          f"{name[:90]}")
+            del sys_, holder
+    return res, paths
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -5097,6 +5489,12 @@ def main():
     lc_cells, lc_paths = phase34(card)
     by_path.update(lc_paths)
     timed["momentum_total_ref"]["lc_cells"] = lc_cells
+    family_worst, family_counts = phase35()
+    by_path.update(family_counts)
+    family_cells, family_paths = phase36(card)
+    by_path.update(family_paths)
+    timed["chain_sums"]["family_colloid_cells"] = family_cells
+    worst["chain_sums"] = max(worst["chain_sums"], family_worst)
     for name in STAT_SCANS:
         worst[name] = 0.0        # held bitwise in phases 19 and 21
     print(f"all phases passed ({time.perf_counter() - _T0:.1f} s)")
@@ -5160,6 +5558,10 @@ def main():
         if "suspensions" in t:  # phase 28: the colloid cells (no kernel
             # of theirs: their float32 route is PyTorch)
             kernels[-1].update(suspensions=t["suspensions"])
+        if "family_colloid_cells" in t:  # phase 36: the other families'
+            # colloid cells (PyTorch; the electrolyte's reference-order
+            # sums launch chain_sums)
+            kernels[-1].update(family_colloid_cells=t["family_colloid_cells"])
         if "binary_cells" in t:  # phase 30: the binary boundary cells (no
             # kernel of theirs: their route is PyTorch; their statistics
             # launch the scans)

@@ -27,9 +27,11 @@ float64)`.
   N + 1 bins, whatever N, so that a step's launches do not grow with N.
 
 Positions are 0-based lattice coordinates (the reference's 1-based ones
-minus 1).  Not ported: the KISS fluctuations beside colloids and the
-remove/replace no-donor fallback of walls (the step never passes walls to
-the remove/replace; ludwig_tpu colloids.py:1223).
+minus 1).  The remove/replace has the JAX package's two forms: the
+per-image seeds this module's step takes, and the image-free sums with
+the walls' no-donor fallback that the other families' colloid steps take
+(lc_colloid.py, binary_colloid.py, binary_lb.py, electro_colloid.py).
+Not ported: the KISS fluctuations beside colloids.
 """
 
 from __future__ import annotations
@@ -506,10 +508,13 @@ def ordered_reduce(R, a0, size, Ds, nt, make_terms, seeds=None,
     return _xyz_tree(part) if consolidate else part
 
 
-def rr_replacement_field(f, inside_old, model: LatticeModel):
+def rr_replacement_field(f, inside_old, model: LatticeModel, size,
+                         walls=(False, False, False)):
     """(newf, wsum): the wv-weighted average over the neighbours that were
     fluid before the update, with the reference's reciprocal-multiply
-    normalisation (ref: build_replace_fluid :832-940)."""
+    normalisation (ref: build_replace_fluid :832-940).  A neighbour
+    across a walled face is MAP_BOUNDARY in the reference and left out
+    (ref: build_replace_order_parameter status check)."""
     fluid_old = ~inside_old
     wsum = 0.0
     newf = torch.zeros_like(f)
@@ -517,10 +522,36 @@ def rr_replacement_field(f, inside_old, model: LatticeModel):
         shift = tuple(-int(v) for v in model.cv[p])
         w = float(model.wv[p])
         m = roll3(fluid_old, shift).to(f.dtype)
+        cross = _walled_faces(model, tuple(size), walls, p) if any(walls) \
+            else None
+        if cross is not None:
+            m = m * (~_on_device(cross, f.device)).to(f.dtype)
         wsum = wsum + w * m
         newf = newf + (w * m[None]) * roll3(f, shift, first_axis=1)
     rw = 1.0 / torch.where(wsum > 0.0, wsum, torch.ones_like(wsum))
     return newf * rw[None], wsum
+
+
+def rr_no_donor(f, newf, wsum, R, V, W, pid_old, inside_old,
+                model: LatticeModel, size, rho0: float = 1.0):
+    """newf with the sites that have no old fluid neighbour (wsum <= 0,
+    beside a wall) reprojected at (rho0, the solid-body velocity of their
+    old owner), the polynomial term for term as the JAX package's
+    (ludwig_tpu colloids.py:452-483; ref: build.c build_replace_fluid
+    nweight == 0 -> build_replace_fluid_local)."""
+    ub = solid_body_u(R, V, W, pid_old, inside_old, size)
+    cv = np.asarray(model.cv, np.float64)
+    feq = []
+    for p in range(model.nvel):
+        w = float(model.wv[p])
+        udotc = cv[p][0] * ub[0] + cv[p][1] * ub[1] + cv[p][2] * ub[2]
+        sdotq = 0.0
+        for ia in range(3):
+            for ib in range(3):
+                qab = float(cv[p][ia] * cv[p][ib]) - CS2 * (ia == ib)
+                sdotq = sdotq + (qab * ub[ia]) * ub[ib]
+        feq.append(w * (rho0 + RCS2 * udotc + 0.5 * RCS2 * RCS2 * sdotq))
+    return torch.where((wsum <= 0.0)[None], torch.stack(feq), newf)
 
 
 def rr_moments(f, newf, model: LatticeModel):
@@ -548,25 +579,141 @@ def rr_moments(f, newf, model: LatticeModel):
     return rho_f, torch.stack(g_f), rho_n, torch.stack(gneg)
 
 
+def site_order_sums(R, a0, size, nt: int, make_terms,
+                    like=None) -> torch.Tensor:
+    """(N, nt) per-particle sums over the whole lattice in site order (x,
+    y, z ascending), each from 0, of terms that vanish outside a window
+    of half-width ceil(max a0) + 3 around the particle: the sum a
+    sequential reduction of the masked lattice gives, read from the
+    windows alone, the same on every device (the JAX package's jnp.sum
+    reduces in XLA's order: the two agree to rounding).  A window's
+    sites are taken in ascending lattice order, so that the sites left
+    out, whose terms are exact zeros, change nothing.  R may be an int,
+    the number of particles, each then summed over the whole lattice.
+
+    make_terms(nidx (B,), flat (B, K)) -> (B, nt, K): the terms of the
+    particles nidx at the flat site indices flat, in the dtype and on the
+    device of `like` (R by default)."""
+    whole = isinstance(R, int)
+    N = R if whole else R.shape[0]
+    like = R if like is None else like
+    dev, dt = like.device, like.dtype
+    h = max(size) if whole else int(math.ceil(float(np.max(a0)))) + 3
+    idx = []
+    for a in range(3):
+        n_a = int(size[a])
+        if 2 * h + 1 >= n_a:
+            idx.append(torch.arange(n_a, device=dev)[None].expand(N, n_a))
+        else:
+            start = torch.floor(R[:, a]).to(torch.int64) - h
+            idx.append(torch.remainder(
+                start[:, None] + torch.arange(2 * h + 1, device=dev)[None],
+                n_a))
+    flat = ((idx[0][:, :, None, None] * size[1] + idx[1][:, None, :, None])
+            * size[2] + idx[2][:, None, None, :]).reshape(N, -1)
+    flat = torch.sort(flat, dim=1)[0]
+    chunk = max(1, (1 << 23) // (nt * flat.shape[1]))
+    out = []
+    for s0 in range(0, N, chunk):
+        nidx = torch.arange(s0, min(N, s0 + chunk), device=dev)
+        seq = make_terms(nidx, flat[nidx]).permute(0, 2, 1).contiguous()
+        out.append(chain_sums(seq, torch.zeros((nidx.shape[0], nt),
+                                               dtype=dt, device=dev)))
+    return torch.cat(out)
+
+
+def particle_site_sums(masks_pids, values, n_part: int, like):
+    """(N, len(values)) per-particle lattice sums in site order: entry
+    (n, j) sums values[j] over the sites where masks_pids[j] = (mask,
+    pid) has pid == n, from 0 (the JAX package's jnp.sum(m * x) with m
+    the particle's masked sites)."""
+    flat = [(m.reshape(-1), p.reshape(-1), x.reshape(-1))
+            for (m, p), x in zip(masks_pids, values)]
+
+    def terms(nidx, sites):
+        nn = nidx[:, None]
+        return torch.stack([(mf[sites] & (pf[sites] == nn)).to(like.dtype)
+                            * xf[sites] for mf, pf, xf in flat], dim=1)
+
+    return site_order_sums(n_part, 0.0, tuple(values[0].shape), len(flat),
+                           terms, like=like)
+
+
+def face_links(inside, pid):
+    """[(mask, owner)] of the six faces (x+, x-, y+, ...): the fluid sites
+    with a particle site one step away along the face, and that site's
+    owner (the links of the reference's conservation put-backs)."""
+    out = []
+    for ax in range(3):
+        for sgn in (+1, -1):
+            sh = [0, 0, 0]
+            sh[ax] = -sgn
+            out.append((~inside & roll3(inside, tuple(sh)),
+                        roll3(pid, tuple(sh))))
+    return out
+
+
 def remove_replace(f, R, inside_old, pid_old, inside_new, pid_new,
                    model: LatticeModel, params: ColloidParams, size,
-                   rho0: float = 1.0):
+                   rho0: float = 1.0, V=None, W=None,
+                   walls=(False, False, False), per_image: bool = False):
     """Fluid removal and replacement where particles moved, in the
     reference order (ref: build.c build_remove_fluid :735-770,
-    build_replace_fluid :832-940; ludwig_tpu colloids.py:420 with
-    per_image, colloids_fast.py:656): covered sites give the particle
-    their momentum and mass deficit, uncovered sites get the average of
-    their old fluid neighbours and the particle pays for it.
+    build_replace_fluid :832-940; ludwig_tpu colloids.py:420): covered
+    sites give the particle their momentum and mass deficit, uncovered
+    sites get the average of their old fluid neighbours and the particle
+    pays for it.  Beside halo walls (`walls`) a neighbour across a wall
+    is no donor, and an uncovered site with none takes the equilibrium
+    at rho0 and its old owner's solid-body velocity (V, W needed then).
 
-    Returns (f with the uncovered sites replaced, seeds (N, 8, 7)): per
-    particle and periodic image the rows [deltam, f0 x3, t0 x3] summed in
-    the reference's site order, which seed the BBL's pass-1 sums."""
+    Returns (f with the uncovered sites replaced, deltam (N,), f0c (N,
+    3), t0c (N, 3)), the JAX package's image-free sums: per particle
+    dm = -sum(cov (rho - rho0)) + sum(unc (rho_new - rho0)) and the
+    momentum and torque likewise, each sum over the lattice in site
+    order (site_order_sums), the covered and uncovered ones apart, then
+    added.  With per_image (the plain fluid's route) it returns (f, seeds
+    (N, 8, 7)) instead: per particle and periodic image the rows
+    [deltam, f0 x3, t0 x3] summed in the reference's site order, which
+    seed the BBL's pass-1 sums."""
     covered = inside_new & ~inside_old
     uncovered = inside_old & ~inside_new
-    newf, _wsum = rr_replacement_field(f, inside_old, model)
+    newf, wsum = rr_replacement_field(f, inside_old, model, size, walls)
+    if any(walls):
+        newf = rr_no_donor(f, newf, wsum, R, V, W, pid_old, inside_old,
+                           model, size, rho0)
     rho_f, g_f, rho_n, gneg = rr_moments(f, newf, model)
+    f = torch.where(uncovered[None], newf, f)
     L = _ftensor(size, R)
     zero = torch.zeros((), dtype=f.dtype, device=f.device)
+    if not per_image:
+        dt = f.dtype
+        coords = site_coords(size, dt, f.device).reshape(3, -1)
+        rf, rn = (rho_f - rho0).reshape(-1), (rho_n - rho0).reshape(-1)
+        gf, gn = g_f.reshape(3, -1), gneg.reshape(3, -1)
+        cov_i, unc_i = covered.reshape(-1), uncovered.reshape(-1)
+        pn, po = pid_new.reshape(-1), pid_old.reshape(-1)
+
+        def terms(nidx, flat):
+            nn = nidx[:, None]
+            cov = (cov_i[flat] & (pn[flat] == nn)).to(dt)
+            unc = (unc_i[flat] & (po[flat] == nn)).to(dt)
+            d = _min_image(coords[:, flat] - R[nidx].T[:, :, None],
+                           L[:, None, None])
+
+            def rbx(ga, mask):
+                return [mask * (d[1] * ga[2] - d[2] * ga[1]),
+                        mask * (d[2] * ga[0] - d[0] * ga[2]),
+                        mask * (d[0] * ga[1] - d[1] * ga[0])]
+            gfc, gnc = gf[:, flat], gn[:, flat]
+            rows = [cov * rf[flat], unc * rn[flat]]
+            rows += [cov * gfc[a] for a in range(3)]
+            rows += [unc * gnc[a] for a in range(3)]
+            rows += rbx(gfc, cov) + rbx(gnc, unc)
+            return torch.stack(rows, dim=1)
+
+        s = site_order_sums(R, params.a0, size, 14, terms)
+        return (f, -s[:, 0] + s[:, 1], s[:, 2:5] + s[:, 5:8],
+                s[:, 8:11] + s[:, 11:14])
     Ds = cube_extent(size, np.max(params.a0))
 
     def terms(nidx, Rn, cube, cc):
@@ -594,7 +741,7 @@ def remove_replace(f, R, inside_old, pid_old, inside_new, pid_new,
 
     seeds = ordered_reduce(R, params.a0, size, Ds, 7, terms,
                            consolidate=False)
-    return torch.where(uncovered[None], newf, f), seeds
+    return f, seeds
 
 
 @functools.lru_cache(maxsize=8)
@@ -670,16 +817,18 @@ def _active_arrays(params: ColloidParams, like: torch.Tensor):
 
 def bbl_step(f, R, V, W, model: LatticeModel, params: ColloidParams, size,
              pid, inside, ext_force=None, ext_torque=None, rho0: float = 1.0,
-             rr_seeds=None, M=None, wall_drag=None,
-             walls=(False, False, False)):
+             deltam=None, f0_corr=None, t0_corr=None, M=None,
+             wall_drag=None, walls=(False, False, False), rr_seeds=None):
     """Bounce-back on links with the implicit velocity update, every link
     sum in the reference's order (ludwig_tpu colloids.py:575 bbl_step, and
     colloids_fast.py:847 bbl_step_exact, which it matches bitwise):
     squirmer slip and the active mass conservation, solid-solid and
     colloid-wall virtual links, the wall lubrication drag on the
     translational diagonal.  (pid, inside) is the map of R (the positions
-    at the last rebuild); rr_seeds (N, 8, 7) the remove/replace seeds of
-    a rebuild step.
+    at the last rebuild).  A rebuild step's remove/replace terms come as
+    deltam (N,), f0_corr, t0_corr (N, 3) (the image-free form, seeding
+    the real copy's pass-1 sums) or as rr_seeds (N, 8, 7) (the per-image
+    form), which supersedes them.
 
     Returns (f after the BBL, V, W, M rotated by the new W, the momentum
     the colloid-wall links give the walls (3,))."""
@@ -752,6 +901,8 @@ def bbl_step(f, R, V, W, model: LatticeModel, params: ColloidParams, size,
     # build partials consolidated by the structure tree
     if rr_seeds is not None:
         dmn = _xyz_tree(rr_seeds[:, :, 0:1])[:, 0] * rsumw
+    elif deltam is not None:
+        dmn = deltam * rsumw
     else:
         dmn = torch.zeros((N,), dtype=dt, device=dev)
 
@@ -803,6 +954,12 @@ def bbl_step(f, R, V, W, model: LatticeModel, params: ColloidParams, size,
     if rr_seeds is not None:
         seed_b = torch.zeros((N, 8, 28), dtype=dt, device=dev)
         seed_b[:, :, 0:6] = rr_seeds[:, :, 1:7]
+    elif f0_corr is not None or t0_corr is not None:
+        seed_b = torch.zeros((N, 28), dtype=dt, device=dev)
+        if f0_corr is not None:
+            seed_b[:, 0:3] = f0_corr
+        if t0_corr is not None:
+            seed_b[:, 3:6] = t0_corr
     else:
         seed_b = None
     red_b = ordered_reduce(R, params.a0, size, Ds, 28, terms_b, seed_b)
@@ -1032,7 +1189,7 @@ def make_colloid_step(cfg: LBConfig, params: ColloidParams,
             else:
                 f, rr_seeds = remove_replace(
                     f, R, inside_old, pid_old, inside, pid, model, params,
-                    size, rho0=cfg.rho0)
+                    size, rho0=cfg.rho0, per_image=True)
         else:
             pid, inside = state.pmap
         # interior sites track the solid-body velocity (ref: bbl pass0)

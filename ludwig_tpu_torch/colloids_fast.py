@@ -1,9 +1,13 @@
 """Suspension-scale colloid BBL: the segment-sum route.
 
-PyTorch port of the single-fluid part of ludwig_tpu/colloids_fast.py:
-remove_replace_fast (:287) and the
-bounce-back of bbl_step_mxu (:964-1280, squirmer slip and colloid-wall
-virtual links included).  Every per-particle link sum is a segment sum of
+PyTorch port of ludwig_tpu/colloids_fast.py: remove_replace_fast (:287),
+the bounce-back of bbl_step_mxu (:964-1280, squirmer slip and
+colloid-wall virtual links included; it also stands for the plain
+segment-sum bbl_step_fast, :102, which the binary and symmetric_lb
+colloid steps take), and the helpers of the other families' colloid
+steps: colloid_fe_force_fast (:261), phi_remove_replace_conserve_fast
+(:354), _nowall_keep (:410), g_bbl_fast (:424), g_remove_replace_fast
+(:504).  Every per-particle link sum is a segment sum of
 per-site columns into the particles' bins (scatter_add_), so a step costs
 O(nvel) lattice passes and a fixed number of launches whatever N; on the
 TPU the same sums are a one-hot matmul (seg_cols_mxu), since its scatters
@@ -29,11 +33,12 @@ import torch
 from ludwig_tpu_torch.colloids import (RCS2, ColloidParams, _active_arrays,
                                        _ftensor, _lengths, _min_image,
                                        _on_device,
-                                       _squirm, _walled_faces, link_tables,
-                                       rotate_vector, rr_replacement_field,
-                                       site_coords, solve6)
+                                       _squirm, _walled_faces, face_links,
+                                       link_tables,
+                                       rotate_vector, site_coords, solve6)
 from ludwig_tpu_torch.lattice import LatticeModel
 from ludwig_tpu_torch.ops.collide import unrolled_matvec
+from ludwig_tpu_torch.ops.stencil import roll3
 
 # bins that take the sites belonging to no particle: spread so that the
 # GPU's atomic additions of their zeros do not queue on one address
@@ -51,10 +56,13 @@ def _bins(mask: torch.Tensor, pid: torch.Tensor, n: int) -> torch.Tensor:
 
 def segment_sums(cols: torch.Tensor, ids: torch.Tensor, n: int):
     """(C, n) sums over the sites of the columns cols (C, S) by segment
-    ids (S,) (values >= n are dropped): one scatter_add_."""
+    ids (S,), or (C, S) one row for each column (values >= n are
+    dropped): one scatter_add_."""
     out = torch.zeros((cols.shape[0], n + SPARE_BINS), dtype=cols.dtype,
                       device=cols.device)
-    out.scatter_add_(1, ids[None].expand(cols.shape[0], -1), cols)
+    if ids.dim() == 1:
+        ids = ids[None].expand(cols.shape[0], -1)
+    out.scatter_add_(1, ids, cols)
     return out[:, :n]
 
 
@@ -68,7 +76,18 @@ def remove_replace_fast(f, R, inside_old, pid_old, inside_new, pid_new,
     dt = f.dtype
     covered = inside_new & ~inside_old
     uncovered = inside_old & ~inside_new
-    newf, _ = rr_replacement_field(f, inside_old, model)
+    # the replacement average divided by the weight sum, as the JAX
+    # function has it (the per-particle route multiplies by its reciprocal)
+    fluid_old = ~inside_old
+    wsum = 0.0
+    newf = torch.zeros_like(f)
+    for p in range(1, model.nvel):
+        shift = tuple(-int(v) for v in model.cv[p])
+        w = float(model.wv[p])
+        m = roll3(fluid_old, shift).to(dt)
+        wsum = wsum + w * m
+        newf = newf + (w * m[None]) * roll3(f, shift, first_axis=1)
+    newf = newf / torch.clamp(wsum, min=1e-30)[None]
     cvt = model.cv.T.astype(np.float64)
     rho_f = sum(f[q] for q in range(model.nvel))
     g_f = unrolled_matvec(cvt, [f[q] for q in range(model.nvel)])
@@ -261,3 +280,210 @@ def bbl_step_seg(f, R, V, W, model: LatticeModel, params: ColloidParams,
         fout[1:] = fout[1:] + torch.gather(dma, 1, plus)
     fout[rev] = torch.where(mjb, val, fout[rev])
     return fout.reshape(f.shape), Vn, Wn, Mn, gw
+
+
+# -- the N > 4 helpers of the other families' colloid steps ----------------------
+
+def colloid_fe_force_fast(pth, pid, inside, model: LatticeModel,
+                          n_part: int):
+    """Segment-sum binary_colloid.colloid_fe_force (ludwig_tpu
+    colloids_fast.py:261): (N, 3) reaction force from the stress pth at
+    the |c| = 1 fluid links, in pth's dtype.  The link of fluid site i
+    toward particle site j = i + c is counted at j, so that one
+    segmentation (the owner of j) serves the six directions; their sums
+    are added in the JAX package's direction order.  No wall exclusion,
+    as there."""
+    dev, dt = pth.device, pth.dtype
+    S = inside.numel()
+    Q = model.nvel - 1
+    minus = link_tables(tuple(inside.shape), model.nvel, str(dev))[1]
+    ins = inside.reshape(-1)
+    fluid = ~ins
+    dirs = [(k, int(np.argmax(np.abs(model.cv[k + 1]))),
+             float(model.cv[k + 1][int(np.argmax(np.abs(model.cv[k + 1])))]))
+            for k in range(Q) if int(np.sum(np.abs(model.cv[k + 1]))) == 1]
+    p2 = pth.reshape(3, 3, S)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    cols = []
+    for k, ax, _sgn in dirs:
+        i = minus[k]                       # the fluid end j - c
+        m = ins & fluid[i]
+        cols += [torch.where(m, p2[a, ax][i], zero) for a in range(3)]
+    red = segment_sums(torch.stack(cols), _bins(ins, pid, n_part), n_part)
+    out = torch.zeros((3, n_part), dtype=dt, device=dev)
+    for d, (_k, _ax, sgn) in enumerate(dirs):
+        out = out + sgn * red[3 * d:3 * d + 3]
+    return out.T
+
+
+def phi_remove_replace_conserve_fast(phi, inside_old, inside_new, pid_old,
+                                     pid_new, model: LatticeModel,
+                                     n_part: int, phi0: float = 0.0,
+                                     conserve: bool = True):
+    """Segment-sum binary_colloid.phi_remove_replace_conserve (ludwig_tpu
+    colloids_fast.py:354): the removed and interpolated order parameter
+    summed per particle, put back in equal shares on the |c| = 1 fluid
+    link sites of the new map (none of it without `conserve`).  No
+    walls, as there."""
+    dt = phi.dtype
+    newly_solid = ~inside_old & inside_new
+    newly_fluid = inside_old & ~inside_new
+    was_fluid = (~inside_old).to(dt)
+    one = torch.ones((), dtype=dt, device=phi.device)
+    zero = torch.zeros((), dtype=dt, device=phi.device)
+    dphi = segment_sums((newly_solid.to(dt) * (phi - phi0)).reshape(1, -1),
+                        _bins(newly_solid, pid_new, n_part), n_part)[0]
+    num = torch.zeros_like(phi)
+    den = torch.zeros_like(phi)
+    for p in range(1, model.nvel):
+        sh = tuple(-int(v) for v in model.cv[p])
+        wf = roll3(was_fluid, sh)
+        w = float(model.wv[p])
+        num = num + w * wf * roll3(phi, sh)
+        den = den + w * wf
+    avg = num / torch.where(den > 0.0, den, one)
+    phi = torch.where(newly_fluid & (den > 0.0), avg, phi)
+    dphi = dphi - segment_sums(
+        (newly_fluid.to(dt) * (phi - phi0)).reshape(1, -1),
+        _bins(newly_fluid, pid_old, n_part), n_part)[0]
+    if not conserve:
+        return phi
+    masks = [(m, _bins(m, p, n_part)) for m, p in face_links(inside_new,
+                                                              pid_new)]
+    saf = torch.zeros((n_part,), dtype=dt, device=phi.device)
+    for m, ids in masks:
+        saf = saf + segment_sums(m.to(dt).reshape(1, -1), ids, n_part)[0]
+    share = torch.where(saf > 0.0, dphi / torch.where(saf > 0.0, saf, one),
+                        zero)
+    share_pad = torch.cat([share, torch.zeros((SPARE_BINS,), dtype=dt,
+                                              device=phi.device)])
+    for m, ids in masks:
+        phi = phi + torch.where(m, share_pad[ids].reshape(phi.shape), zero)
+    return phi
+
+
+def _nowall_keep(size, c, walls) -> np.ndarray:
+    """Static mask: False at the sites whose neighbour along c lies across
+    a wall plane (the roll wraps, but no such link exists in the
+    reference's map; ludwig_tpu colloids_fast.py:410)."""
+    keep = np.ones(tuple(size), bool)
+    for ax in range(3):
+        cax = int(c[ax])
+        if walls[ax] and cax != 0:
+            sel = [slice(None)] * 3
+            sel[ax] = size[ax] - 1 if cax > 0 else 0
+            keep[tuple(sel)] = False
+    return keep
+
+
+def _keep_all(model: LatticeModel, size, walls, device):
+    """(Q, S) bool: _nowall_keep of every velocity q >= 1, made once."""
+    return _on_device(np.stack([
+        _nowall_keep(size, model.cv[q], walls).reshape(-1)
+        for q in range(1, model.nvel)]), device)
+
+
+def g_bbl_fast(g, phi, R, Vn, Wn, model: LatticeModel,
+               params: ColloidParams, size, deltaphi, sumw=None,
+               walls=(False, False, False), pid_inside=None):
+    """The order parameter's bounce-back on links (ndist == 2; ludwig_tpu
+    colloids_fast.py:424; ref: bbl.c pass2 ndist > 1 branch): per fluid
+    link dg = phi(i) (2 rcs2 w (V + W x rb).c); the particle's deficit
+    takes dg and the bounced value gives back the stored deficit spread
+    over the link weights.  (pid, inside) the map of R (built with the
+    window arithmetic when not given).  Returns (g', the fresh deficit
+    (N,), which the statistics add to the phi total)."""
+    N = params.n
+    nvel = model.nvel
+    Q = nvel - 1
+    dev, dt = g.device, g.dtype
+    S = int(np.prod(size))
+    if pid_inside is None:
+        from ludwig_tpu_torch.colloids import build_map
+        pid_inside = build_map(R, params, size, "window")
+    pid, inside = pid_inside
+    plus, minus = link_tables(tuple(size), nvel, str(dev))
+    ins = inside.reshape(-1)
+    pidf = pid.reshape(-1)
+    m = (~ins)[None] & ins[plus]                                  # (Q, S)
+    if any(walls):
+        m = m & _keep_all(model, size, walls, dev)
+    pid_n = pidf[plus].to(torch.int64)
+    ids = torch.where(m, pid_n, N + torch.remainder(
+        torch.arange(S, device=dev), SPARE_BINS)[None])
+    wq = _ftensor(np.asarray(model.wv[1:], np.float64), g)
+    cq_np = np.asarray(model.cv[1:], np.float64)
+    if sumw is None:
+        cnt = segment_sums(m.to(dt), ids, N)                      # (Q, N)
+        sumw = torch.zeros((N,), dtype=dt, device=dev)
+        for k in range(Q):
+            sumw = sumw + wq[k] * cnt[k]
+    dgtm1 = deltaphi / torch.clamp(sumw, min=1e-30)
+    pad = torch.zeros((1,), dtype=dt, device=dev)
+    dgtm1_p = torch.cat([dgtm1, pad])
+    Vp = torch.cat([Vn, pad.expand(1, 3)])
+    Wp = torch.cat([Wn, pad.expand(1, 3)])
+    own = torch.clamp(pid_n, 0, N - 1)
+    ownp = torch.where(m, pid_n, N)
+    coords = site_coords(size, dt, dev).reshape(3, 1, S)
+    d = _min_image(coords - torch.movedim(R[own], -1, 0),
+                   _lengths(size, g, 2))
+    rb = [d[a] + _ftensor(0.5 * cq_np[:, a], g)[:, None] for a in range(3)]
+    Vo = torch.movedim(Vp[ownp], -1, 0)
+    Wo = torch.movedim(Wp[ownp], -1, 0)
+    wxrb = [Wo[1] * rb[2] - Wo[2] * rb[1],
+            Wo[2] * rb[0] - Wo[0] * rb[2],
+            Wo[0] * rb[1] - Wo[1] * rb[0]]
+    vdotc = 0.0
+    for a in range(3):
+        vdotc = vdotc + (Vo[a] + wxrb[a]) * _ftensor(cq_np[:, a], g)[:, None]
+    vdotc = _ftensor(6.0 * np.asarray(model.wv[1:], np.float64), g)[:, None] \
+        * vdotc
+    dg = phi.reshape(1, S) * vdotc
+    zero = torch.zeros((), dtype=dt, device=dev)
+    new_deficit = segment_sums(torch.where(m, dg, zero), ids, N).sum(dim=0)
+    g1 = g.reshape(nvel, S)
+    val = torch.where(m, g1[1:] - (dg - wq[:, None] * dgtm1_p[ownp]), zero)
+    rev = _on_device(np.asarray(model.reverse[1:], np.int64), dev)
+    gout = g1.clone()
+    gout[rev] = torch.where(torch.gather(m, 1, minus),
+                            torch.gather(val, 1, minus), g1[rev])
+    return gout.reshape(g.shape), new_deficit
+
+
+def g_remove_replace_fast(g, inside_old, inside_new, pid_old, pid_new,
+                          model: LatticeModel, n_part: int,
+                          phi0: float = 0.0, walls=(False, False, False)):
+    """The order-parameter distribution over a change of shape (ndist ==
+    2; ludwig_tpu colloids_fast.py:504; ref: build.c
+    build_remove_order_parameter / build_replace_order_parameter): g at a
+    newly fluid site becomes the wv-weighted average of its neighbours
+    that were fluid (a neighbour across a wall is none), and stays as it
+    is where there is none; the particle's deficit takes the removed and
+    gives the created order parameter.  Returns (g', ddeficit (N,))."""
+    dt = g.dtype
+    size = tuple(inside_old.shape)
+    newly_solid = ~inside_old & inside_new
+    newly_fluid = inside_old & ~inside_new
+    was_fluid = (~inside_old).to(dt)
+    phi_g = sum(g[p] for p in range(model.nvel))
+    dd = segment_sums((newly_solid.to(dt) * (phi_g - phi0)).reshape(1, -1),
+                      _bins(newly_solid, pid_new, n_part), n_part)[0]
+    wsum = 0.0
+    newg = torch.zeros_like(g)
+    for p in range(1, model.nvel):
+        sh = tuple(-int(v) for v in model.cv[p])
+        w = float(model.wv[p])
+        mw = roll3(was_fluid, sh)
+        if any(walls):
+            mw = mw * _on_device(_nowall_keep(size, model.cv[p], walls),
+                                 g.device).to(dt)
+        wsum = wsum + w * mw
+        newg = newg + w * mw[None] * roll3(g, sh, first_axis=1)
+    newg = newg / torch.clamp(wsum, min=1e-30)[None]
+    g = torch.where((newly_fluid & (wsum > 0.0))[None], newg, g)
+    phi_new = sum(g[p] for p in range(model.nvel))
+    dd = dd - segment_sums(
+        (newly_fluid.to(dt) * (phi_new - phi0)).reshape(1, -1),
+        _bins(newly_fluid, pid_old, n_part), n_part)[0]
+    return g, dd

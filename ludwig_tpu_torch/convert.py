@@ -17,7 +17,7 @@ import torch
 
 from ludwig_tpu_torch.binary import BinaryConfig
 from ludwig_tpu_torch.binary_lb import BinaryLBConfig
-from ludwig_tpu_torch.colloids import ColloidState
+from ludwig_tpu_torch.colloids import ColloidParams, ColloidState
 from ludwig_tpu_torch.electro import ElectroConfig
 from ludwig_tpu_torch.electro_sim import ElectroSimConfig
 from ludwig_tpu_torch.electro_symm import ElectroSymmConfig
@@ -327,6 +327,61 @@ def lc_colloid_state_from_jax(state, device="cuda", dtype=None) -> tuple:
                          f"{len(leaves)}")
     dtype = dtype or str(leaves[0].dtype)
     return tuple(_tensor(a, device, dtype) for a in leaves)
+
+
+def _colloid_tuple_from_jax(state, lengths, what, device, dtype):
+    leaves = [np.asarray(x) for x in state]
+    if len(leaves) not in lengths:
+        raise ValueError(f"{what} has {' or '.join(map(str, lengths))} "
+                         f"leaves, not {len(leaves)}")
+    dtype = dtype or str(leaves[0].dtype)
+    return tuple(_tensor(a, device, dtype) for a in leaves)
+
+
+def binary_colloid_state_from_jax(state, device="cuda", dtype=None) -> tuple:
+    """The JAX package's binary colloid state (f, R, V, W, dr, Rmap, M,
+    phi, u, grad_phi, delsq_phi[, gwall]) (ludwig_tpu
+    binary_colloid.py:157), its leaves as numpy arrays, as the port's
+    tuple in `dtype` (default: f's)."""
+    return _colloid_tuple_from_jax(state, (11, 12), "a binary colloid state",
+                                   device, dtype)
+
+
+def binary_lb_colloid_state_from_jax(state, device="cuda",
+                                     dtype=None) -> tuple:
+    """The JAX package's symmetric_lb colloid state (f, R, V, W, dr, Rmap,
+    M, g, u, dphi, grad, delsq[, gwall]) (ludwig_tpu binary_lb.py:197) as
+    the port's tuple in `dtype` (default: f's)."""
+    return _colloid_tuple_from_jax(state, (12, 13),
+                                   "a symmetric_lb colloid state", device,
+                                   dtype)
+
+
+def electro_colloid_state_from_jax(state, device="cuda",
+                                   dtype=None) -> tuple:
+    """The JAX package's electrolyte colloid state (f, R, V, W, dr, Rmap,
+    M, psi, rho, u, deltaq) (ludwig_tpu electro_colloid.py:208) as the
+    port's tuple in `dtype` (default: f's)."""
+    return _colloid_tuple_from_jax(state, (11,), "an electro colloid state",
+                                   device, dtype)
+
+
+def colloid_params_from_jax(cp_fields: dict) -> ColloidParams:
+    """ColloidParams from the fields of a ludwig_tpu ColloidParams, for
+    example ``dataclasses.asdict(cp)``, every sequence as tuples."""
+    def deep(v):
+        return tuple(deep(x) for x in v) if isinstance(v, (list, tuple)) \
+            else v
+    return ColloidParams(**{k: deep(v) for k, v in dict(cp_fields).items()})
+
+
+def colloid_charges_from_jax(q_coll, device="cuda",
+                             dtype="float64") -> torch.Tensor:
+    """The particles' input charges (N, 2) (colloid_*_q0, q1; the JAX
+    package's System.colloid_charge and make_electro_colloid_step's
+    q_coll) as the tensor the port's electrolyte step takes."""
+    return _tensor(np.asarray(q_coll, np.float64).reshape(-1, 2), device,
+                   dtype)
 
 
 def droplet_state_from_jax(fpad, ppad, qpad, u, device, dtype):

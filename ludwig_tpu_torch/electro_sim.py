@@ -178,7 +178,7 @@ def poisson_sor_ref(psi0: torch.Tensor, rho_el: torch.Tensor,
         return p
     dev = psi0.device
     which = torch.where(rnorm1 < cfg.abs_tol, 0, 1).to(torch.int32)
-    return (p, torch.tensor(n, dtype=torch.int32, device=dev), rnorm1,
+    return (p, torch.full((), n, dtype=torch.int32, device=dev), rnorm1,
             which)
 
 

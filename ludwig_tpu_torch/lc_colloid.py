@@ -11,9 +11,9 @@ follow src/fe_lc_stats.c fe_lc_colloid / blue_phase_fs).
 
 The state is the JAX package's tuple (f, R, V, W, dr, Rmap, M, q5, u,
 grad_q, delsq_q[, gwall]).  The particles run on the colloid core of
-colloids.py: its map builder, remove/replace and the bounce-back in the
-reference's link order (bbl_step, the route the JAX module takes for
-every N).  A step reads nothing back to the host.
+colloids.py: its map, the image-free remove/replace and the
+bounce-back in the reference's link order (bbl_step, the route the JAX
+module takes for every N).  A step reads nothing back to the host.
 """
 
 from __future__ import annotations
@@ -146,14 +146,16 @@ def make_lc_colloid_step(lcfg: LCConfig, params: ColloidParams,
         dt = f.dtype
         fxm = params.fixedr_mask(R.dtype, R.device)
         R = position_update(R, dr if fxm is None else fxm * dr, size)
-        rr_seeds = None
+        deltam = f0c = t0c = None
         if rebuild:
             pid_old, inside_old = bmap(Rmap)
             Rmap = R
             pid, inside = bmap(R)
-            f, rr_seeds = remove_replace(f, R, inside_old, pid_old, inside,
-                                         pid, model, params, size,
-                                         rho0=cfg.rho0)
+            # the image-free sums, as the JAX step takes them (it passes
+            # no walls to the remove/replace)
+            f, deltam, f0c, t0c = remove_replace(
+                f, R, inside_old, pid_old, inside, pid, model, params, size,
+                rho0=cfg.rho0)
             q5 = q_replace_newly_fluid(q5, inside_old, inside, model)
         else:
             pid, inside = bmap(Rmap)
@@ -182,7 +184,7 @@ def make_lc_colloid_step(lcfg: LCConfig, params: ColloidParams,
         force = stress_divergence_force_map(pth, fluid,
                                             wallspec=wallspec).to(dt)
         fe_part = colloid_fe_force(pth, pid, inside, model, params.n,
-                                   walls=walls3)
+                                   walls=walls3, R=Rmap, a0=max(params.a0))
         if has_walls:
             # the walls absorb what the stress injects into fluid and
             # particles (ref: pth_force_wall_kernel -> wall fnet)
@@ -212,8 +214,9 @@ def make_lc_colloid_step(lcfg: LCConfig, params: ColloidParams,
         Vold = V
         f, V, W, Msw, gwbb = bbl_step(f, Rmap, V, W, model, params, size,
                                       pid, inside, ext_force=ext,
-                                      rho0=cfg.rho0, rr_seeds=rr_seeds,
-                                      M=Msw, walls=walls3)
+                                      rho0=cfg.rho0, deltam=deltam,
+                                      f0_corr=f0c, t0_corr=t0c, M=Msw,
+                                      walls=walls3)
         dr = 0.5 * (Vold + V)
         f_post = f
         f = stream(f, model)

@@ -8,10 +8,10 @@ plane walls - moving or with slip -, the open boundary, Lees-Edwards
 planes and porous media, or with resolved or subgrid colloids:
 colloids.py, colloids_fast.py, subgrid.py), the symmetric binary fluid (`free_energy
 symmetric` and `symmetric_noise`: every route of the JAX package's
-binary branch but colloids - halo walls and the open boundary, porous
-media with wetting, its stencils, advection orders, force methods,
-viscosity model, noise and Lees-Edwards planes; binary.py,
-binary_le.py and the fused step), the blue-phase liquid crystal
+binary branch - halo walls and the open boundary, porous media with
+wetting, its stencils, advection orders, force methods, viscosity
+model, noise and Lees-Edwards planes; binary.py, binary_le.py and the
+fused step; `symmetric` with resolved colloids, binary_colloid.py), the blue-phase liquid crystal
 (`free_energy lc_blue_phase`: every route of the JAX package's branch
 but the Q noise - halo walls with the anchoring stencils, porous solids,
 resolved colloids, the dynamic redshift, the electric field,
@@ -21,11 +21,12 @@ liquid-crystal droplet (`free_energy lc_droplet`, on the
 stress-divergence, hydrodynamics-on route the JAX package's fused path
 accepts, periodic or with Lees-Edwards planes: lc_droplet.py and its
 fused step), and
-electrokinetics without colloids (`free_energy fe_electro`: Gouy-Chapman
-walls, liquid junction or a uniform electrolyte), and the other free
-energies, unfused: `brazovskii` (binary.py with the fourth-order fields,
-binary_le.py), `surfactant` and `ternary` (two_field.py), `symmetric_lb`
-without colloids (binary_lb.py), `polar_active` (polar.py) and
+electrokinetics (`free_energy fe_electro`: Gouy-Chapman walls, liquid
+junction or a uniform electrolyte; charged resolved colloids,
+electro_colloid.py), and the other free energies, unfused: `brazovskii`
+(binary.py with the fourth-order fields, binary_le.py), `surfactant` and
+`ternary` (two_field.py), `symmetric_lb` with or without resolved
+colloids (binary_lb.py), `polar_active` (polar.py) and
 `fe_electro_symmetric` (electro_symm.py).  It parses the same
 key-value input, builds the system, runs the time loop on a device (the
 GPU unless the caller asks for the CPU), writes the statistics blocks in
@@ -56,7 +57,7 @@ unfused route, its plain reductions on its fused routes.
 Every input key outside the slices raises NotImplementedError naming the
 key, unless it is set to its inactive default (`boundary_walls 0_0_0`
 for the families without walls, `colloid_init no_colloids` for those
-other than the plain fluid, `default_io_grid 1_1_1`, ...).  The input header of the
+without a colloid route, `default_io_grid 1_1_1`, ...).  The input header of the
 reference log (fulllog.InitLog in the JAX package) is not ported yet.
 """
 
@@ -80,9 +81,11 @@ from ludwig_tpu_torch.binary import (GRADIENT, BinaryConfig,
 from ludwig_tpu_torch.binary_le import BinaryLEConfig, make_binary_le_step
 from ludwig_tpu_torch.binary_lb import (BinaryLBConfig, binary_lb_solid_ops,
                                         g_moments, initial_binary_lb,
+                                        initial_binary_lb_colloid,
+                                        make_binary_lb_colloid_step,
                                         make_binary_lb_step)
-from ludwig_tpu_torch import (electro_sim, interactions, lc, lc_colloid,
-                              lc_droplet)
+from ludwig_tpu_torch import (binary_colloid, electro_colloid, electro_sim,
+                              interactions, lc, lc_colloid, lc_droplet)
 from ludwig_tpu_torch.colloids import (ColloidParams, ColloidState, TYPES,
                                        build_map, make_colloid_step,
                                        total_colloid_momentum)
@@ -132,7 +135,8 @@ from ludwig_tpu_torch.ops.le_ref import le_fields_2d5pt_d4, le_gradient
 from ludwig_tpu_torch.ops.lees_edwards import (LeesEdwardsConfig,
                                                le_init_shear_profile)
 from ludwig_tpu_torch.ops.open_bc import OpenBCConfig
-from ludwig_tpu_torch.ops.solid_stencil import ternary_solid_ops
+from ludwig_tpu_torch.ops.solid_stencil import (solid27_scalar_ops,
+                                                ternary_solid_ops)
 from ludwig_tpu_torch.ops.stencil import delsq_7pt, grad_7pt
 from ludwig_tpu_torch.ops.walls import WallSpec
 from ludwig_tpu_torch.ref_rng import RanSerial, patches_ref, spinodal_ref
@@ -263,8 +267,9 @@ BOUNDARY_KEYS = frozenset((
     "porous_media_file", "porous_media_ndata", "porous_media_type",
     "porous_media_format", "porous_media_init", "porous_media_acell"))
 
-# keys the plain fluid reads for resolved or subgrid colloids (free_energy
-# none only): placement, the particles' keys colloid_one_* ... three_*
+# keys the colloid routes read (the plain fluid's resolved or subgrid
+# colloids, and the resolved ones of the binary fluid, symmetric_lb, the
+# electrolyte and the liquid crystal): placement, the particles' keys colloid_one_* ... three_*
 # (COLLOID_PREFIXES), interactions, walls around the suspension, the
 # dipolar Ewald sum and the colloid I/O
 COLLOID_KEYS = frozenset((
@@ -348,14 +353,22 @@ ELECTRO_SYMM_KEYS = ELECTRO_KEYS | PHI_INIT_KEYS | frozenset((
 
 # free energy -> the keys it reads beside SLICE_KEYS
 FREE_ENERGIES = {"none": NOISE_KEYS | BOUNDARY_KEYS | COLLOID_KEYS,
-                 "symmetric": BINARY_KEYS, "symmetric_noise": BINARY_KEYS,
+                 "symmetric": BINARY_KEYS | COLLOID_KEYS,
+                 "symmetric_noise": BINARY_KEYS,
                  "lc_blue_phase": LC_KEYS | SOLID_KEYS | COLLOID_KEYS,
                  "lc_droplet": DROPLET_KEYS,
-                 "fe_electro": ELECTRO_KEYS, "brazovskii": BRAZOVSKII_KEYS,
+                 "fe_electro": ELECTRO_KEYS | COLLOID_KEYS | frozenset((
+                     "fe_force_method",)),
+                 "brazovskii": BRAZOVSKII_KEYS,
                  "surfactant": SURFACTANT_KEYS, "ternary": TERNARY_KEYS,
-                 "symmetric_lb": SYMMETRIC_LB_KEYS,
+                 "symmetric_lb": SYMMETRIC_LB_KEYS | COLLOID_KEYS,
                  "polar_active": POLAR_KEYS,
                  "fe_electro_symmetric": ELECTRO_SYMM_KEYS}
+
+# the families with resolved colloids (their keys, COLLOID_PREFIXES too)
+COLLOID_FAMILIES = ("none", "lc_blue_phase", "symmetric", "symmetric_lb",
+                    "fe_electro")
+
 
 # keys of features outside the slices, accepted while they leave them off
 def _no_colloids(v: str) -> bool:
@@ -366,7 +379,7 @@ def _no_colloids(v: str) -> bool:
 
 INACTIVE = {
     "viscosity_model": lambda v: v == "newtonian",
-    # colloids of the families other than the plain fluid
+    # colloids of the families without a colloid route
     "colloid_init": _no_colloids,
     "boundary_walls": _zeros,
     "temperature": _zeros,
@@ -401,7 +414,7 @@ def _check_keys(rt: RunTime):
     for key in rt.unused_keys():
         if key in SLICE_KEYS or key in FREE_ENERGIES[fe_name]:
             continue
-        if (fe_name in ("none", "lc_blue_phase")
+        if (fe_name in COLLOID_FAMILIES
                 and key.startswith(COLLOID_PREFIXES)):
             continue
         # default_io_grid, <name>_io_grid: one I/O group only (the JAX
@@ -446,6 +459,9 @@ class System:
     # ColloidState, or the subgrid (f, R, V)
     colloid_params: Optional[ColloidParams] = None
     subgrid: bool = False
+    # the electrolyte's particles: their input charges (N, 2) on the
+    # device; the state (f, R, V, W, dr, Rmap, M, psi, rho, u, deltaq)
+    colloid_charge: Optional[torch.Tensor] = None
     # a fused route where the JAX package's route keeps the gradients:
     # (field, t) -> (grad, delsq) of the pre-update field of step t, the
     # checkpoint's state03 / state04 (_grad_leaves)
@@ -1511,6 +1527,14 @@ def build_system(rt: RunTime, device="cuda") -> System:
                       noise=(_noise_config(rt)
                              if fe_name in ("none", "symmetric_lb")
                              else None))
+    if fe_name in ("symmetric", "symmetric_lb", "fe_electro"):
+        # resolved colloids of these families (ludwig_tpu ludwig.py:
+        # 1392-1423, 1465-1558): the colloid route takes the input
+        bin_cfg = (dataclasses.replace(lb_cfg, noise=_binary_noise(rt, fe_name))
+                   if fe_name == "symmetric" else lb_cfg)
+        col = _parse_colloids(rt, size, rho0, eta, bin_cfg)
+        if col is not None:
+            return _family_colloid_system(rt, bin_cfg, fe_name, col)
     if fe_name in ("symmetric", "symmetric_noise"):
         return _binary_system(rt, dataclasses.replace(
             lb_cfg, noise=_binary_noise(rt, fe_name)), fe_name)
@@ -1606,6 +1630,88 @@ def _lc_colloid_system(rt: RunTime, lb_cfg: LBConfig, lcfg: lc.LCConfig,
         force_fn=col["force_fn"])
     return System(rt=rt, lb_cfg=lb_cfg, state=state, step_fn=step,
                   lc_cfg=lcfg, colloid_params=cp)
+
+
+def _family_colloid_system(rt: RunTime, lb_cfg: LBConfig, fe_name: str,
+                           col: dict) -> System:
+    """Resolved colloids in the binary fluid (`free_energy symmetric`),
+    symmetric_lb and the electrolyte (`fe_electro`), gate for gate with
+    ludwig_tpu ludwig.py:1392-1423 and :1465-1558: the 27-point solid
+    stencil with the particles' uniform wetting colloid_one_c / _h by
+    default, halo walls around the binary suspensions, the put-back of
+    the removed phi from the v0.12 logs on (_log_vintage); the
+    electrolyte's particles carry their charges colloid_*_q0 / q1, set
+    on their volume before the counter-charge makes the fluid neutral
+    (ref: ludwig.c:420-424), and take the Maxwell stress by default
+    (fe_force_method).  The pair, bond and driving forces of force_fn
+    apply; the wall forces, the wall lubrication and the torques are read
+    and not applied, as in the JAX package."""
+    cp = col["params"]
+    if cp.types and any(tp == "subgrid" for tp in cp.types):
+        raise _not_ported("colloid_init", rt.string("colloid_init")
+                          + f" with subgrid particles in free_energy "
+                          f"{fe_name}")
+    size = lb_cfg.size
+    rebuild = rt.int("colloid_rebuild_freq", 1)
+    wet = (rt.double("colloid_one_c", 0.0), rt.double("colloid_one_h", 0.0))
+    ws = None
+    if fe_name != "fe_electro" and any(lb_cfg.walls):
+        ws = WallSpec(walls=lb_cfg.walls)
+        lb_cfg = dataclasses.replace(lb_cfg, walls=(False,) * 3)
+    if fe_name == "symmetric":
+        fe = _symm_fe(rt)
+        bcfg = BinaryConfig(
+            lb=lb_cfg, fe=fe, mobility=rt.double("mobility", 1.0),
+            advection_order=rt.int("fd_advection_scheme_order", 1),
+            gradient=rt.string("fd_gradient_calculation", "3d_27pt_solid"),
+            wetting=wet)
+        state = binary_colloid.initial_binary_colloid(
+            bcfg, cp, _phi_init(rt, size, fe), col["R"], col["V"],
+            W0=col["W"], dr0=col["dr"], walls=ws is not None)
+        step = binary_colloid.make_binary_colloid_step(
+            bcfg, cp, rebuild_freq=rebuild, force_fn=col["force_fn"],
+            phi_ref=rt.double("phi0", 0.0), wallspec=ws,
+            conserve_phi=rt.int("_log_vintage", 9999) >= 12)
+        return System(rt=rt, lb_cfg=lb_cfg, state=state, step_fn=step,
+                      binary_cfg=bcfg, colloid_params=cp, wallspec=ws)
+    if fe_name == "symmetric_lb":
+        fe = _symm_fe(rt)
+        l2cfg = BinaryLBConfig(
+            lb=lb_cfg, fe=fe, mobility=rt.double("mobility", 0.15),
+            gradient=rt.string("fd_gradient_calculation", "3d_27pt_solid"))
+        state = initial_binary_lb_colloid(
+            l2cfg, cp, _phi_init(rt, size, fe), col["R"], col["V"],
+            W0=col["W"], dr0=col["dr"], walls=ws is not None)
+        step = make_binary_lb_colloid_step(
+            l2cfg, cp, rebuild_freq=rebuild, force_fn=col["force_fn"],
+            phi_ref=rt.double("phi0", 0.0), wetting=wet, wallspec=ws)
+        return System(rt=rt, lb_cfg=lb_cfg, state=state, step_fn=step,
+                      lb2_cfg=l2cfg, colloid_params=cp, wallspec=ws)
+    ecfg, psi0, rho_k, _boundary = _electrolyte(rt, lb_cfg)
+    qq = torch.as_tensor(np.array(col["q"], np.float64).reshape(-1, 2),
+                         dtype=lb_cfg.tdtype, device=lb_cfg.device)
+    R0 = torch.as_tensor(np.array(col["R"], np.float64).reshape(-1, 3),
+                         dtype=lb_cfg.tdtype, device=lb_cfg.device)
+    pid, inside = build_map(R0, cp, size)
+    zeros = torch.zeros((cp.n, ecfg.ek.nk), dtype=lb_cfg.tdtype,
+                        device=lb_cfg.device)
+    rho_j = electro_colloid.colloid_rho_set(
+        torch.as_tensor(rho_k, dtype=lb_cfg.tdtype, device=lb_cfg.device),
+        inside, pid, qq, zeros, ecfg.ek.nk)
+    rho_k = electro_sim.electroneutral(rho_j.cpu().numpy(),
+                                       ecfg.ek.valency,
+                                       inside.cpu().numpy())
+    method = rt.string("fe_force_method", "stress_divergence")
+    if method not in _FORCE_METHODS:
+        raise ValueError(f"fe_force_method '{method}' not recognised")
+    state = electro_colloid.initial_electro_colloid(ecfg, cp, psi0, rho_k,
+                                                    col["R"], col["V"])
+    step = electro_colloid.make_electro_colloid_step(
+        ecfg, cp, qq, rebuild_freq=rebuild, force_fn=col["force_fn"],
+        force_method=method)
+    return System(rt=rt, lb_cfg=lb_cfg, state=state, step_fn=step,
+                  electro_cfg=ecfg, colloid_params=cp, colloid_charge=qq,
+                  hydro_on=ecfg.hydrodynamics)
 
 
 def _porous(rt: RunTime, size) -> Optional[np.ndarray]:
@@ -1766,16 +1872,16 @@ def _plain_system(rt: RunTime, lb_cfg: LBConfig) -> System:
 
 def _parse_colloids(rt: RunTime, size, rho0: float, eta: float,
                     lb_cfg: LBConfig):
-    """The colloid_* keys of a `free_energy none` input (ludwig_tpu
-    ludwig.py:334-592; ref: colloids_rt.c colloids_init_rt, interaction.c
-    interact_compute): None when no particles are placed, else a dict of
-    the ColloidParams, the initial R, V, W, dr (0-based), the subgrid
-    particles' al and the force and torque callbacks (pair, bond, angle,
-    lubrication, driving and dipolar terms, the magnetic torque)."""
+    """The colloid_* keys of an input (ludwig_tpu ludwig.py:334-592; ref:
+    colloids_rt.c colloids_init_rt, interaction.c interact_compute): None
+    when no particles are placed, else a dict of the ColloidParams, the
+    initial R, V, W, dr (0-based), the subgrid particles' al, the charges
+    q (N, 2) (q0, q1) and the force and torque callbacks (pair, bond,
+    angle, lubrication, driving and dipolar terms, the magnetic torque)."""
     cinit = rt.string("colloid_init", "none")
     if _no_colloids(cinit):
         return None
-    a0, ah, rr, vv, b1, b2, mm, typ, al = ([] for _ in range(9))
+    a0, ah, rr, vv, b1, b2, mm, typ, al, qq = ([] for _ in range(10))
     ss, drs, ws, fixedr, bonds, angles, itypes = ([] for _ in range(7))
     if cinit == "input_random":
         # serial random placement (ref: colloids_init.c:82-123, ran.c's
@@ -1825,6 +1931,7 @@ def _parse_colloids(rt: RunTime, size, rho0: float, eta: float,
             typ.append({0: "default", 1: "active", 2: "subgrid"}.get(
                 rec["type"], "default"))
             ss.append(tuple(rec.get("s", (0.0, 0.0, 0.0))))
+            qq.append((rec.get("q0", 0.0), rec.get("q1", 0.0)))
             fx = rec.get("isfixedr", 0)
             fxv = rec.get("isfixedrxyz", [fx, fx, fx])
             fixedr.append(tuple(fxv) if not (fx and not any(fxv))
@@ -1853,8 +1960,8 @@ def _parse_colloids(rt: RunTime, size, rho0: float, eta: float,
             mm.append(tuple(c / nrm for c in mv))
             typ.append(rt.string(key + "type", "default"))
             itypes.append(rt.int(key + "interact_type", 0))
-            rt.double(key + "q0", 0.0)       # the charges serve fe_electro
-            rt.double(key + "q1", 0.0)
+            # the charges (free_energy fe_electro)
+            qq.append((rt.double(key + "q0", 0.0), rt.double(key + "q1", 0.0)))
             fx = rt.int(key + "isfixedr", 0)
             fixedr.append(tuple(rt.int_vector(key + "isfixedrxyz",
                                               (fx, fx, fx))))
@@ -1937,8 +2044,10 @@ def _parse_colloids(rt: RunTime, size, rho0: float, eta: float,
             return tq + (_p(R, V) if _p is not None else 0.0)
 
     zeros = [(0.0, 0.0, 0.0)] * nc
+    # random placement reads no charges: uncharged particles
     return dict(params=cparams, R=rr, V=vv, W=ws or zeros, dr=drs or zeros,
-                al=al, force_fn=force_fn, torque_fn=torque_fn)
+                al=al, force_fn=force_fn, torque_fn=torque_fn,
+                q=qq or [(0.0, 0.0)] * nc)
 
 
 def _force_terms(rt: RunTime, lb_cfg: LBConfig, size, eta: float,
@@ -2147,6 +2256,64 @@ def _make_stats_fn(sys_: System, reference: bool):
             return fl["grad_phi"], fl["delsq_phi"]
         return grad_7pt(src), delsq_7pt(src)
 
+    def family_colloid_stats(state, fl, coswt):
+        """The binary fluid's, symmetric_lb's and the electrolyte's rows
+        beside their particles (ludwig_tpu ludwig.py:1962-2086): [phi]
+        over the fluid sites (symmetric_lb: phi of g with the particles'
+        deficit added before the mean and variance), the electrolyte's
+        psi, rho and elc with the particles' charge set on their volume
+        first and [psi_zeta] for one particle, and the fluid's free
+        energy f v (fe_colloid) with the step's kept gradients, computed
+        afresh at the initial statistics (coswt 0)."""
+        out = {}
+        size = sys_.lb_cfg.size
+        walls = (sys_.wallspec.walls if sys_.wallspec is not None
+                 else (False,) * 3)
+        if ecfg is not None:
+            ek = ecfg.ek
+            pid, inside = _colloid_map(sys_, state[1])
+            psi = state[7]
+            rhok = electro_colloid.colloid_rho_set(
+                state[8], inside, pid, sys_.colloid_charge, state[10], ek.nk)
+
+            def tmm(x):
+                return stats.seq_sum(x), torch.min(x), torch.max(x)
+
+            out["psi3"] = tmm(psi)
+            out["rhok"] = [tmm(rhok[k]) for k in range(ek.nk)]
+            out["elc"] = tmm(rho_elec(rhok, ek))
+            fed = fe_electro_fed(rhok, ek, psi)
+            if sys_.colloid_params.n == 1:
+                out["psi_zeta"] = electro_colloid.zeta_potential(psi, fl,
+                                                                 inside)
+        else:
+            fe = (bcfg or l2cfg).fe
+            if bcfg is not None:
+                phi = state[7]
+                out["phi"] = stats.field_stats_ref(phi, fl, klein="kahan")
+                wet = bcfg.wetting
+            else:
+                phi = g_moments(state[7], model)[0]
+                tot, mean, var, mn, mx = stats.field_stats_ref(
+                    phi, fl, klein="klein")
+                tot2 = tot + torch.sum(state[9])
+                mean2 = tot2 / torch.sum(fl.to(phi.dtype))
+                out["phi"] = (tot2, mean2, (var + mean * mean)
+                              - mean2 * mean2, mn, mx)
+                wet = (0.0, 0.0)     # the initial stats' stencil: no wetting
+            if coswt == 0.0:
+                grad, delsq = solid27_scalar_ops(
+                    size, fluid=fl, rkappa=1.0 / fe.kappa, c=wet[0],
+                    h=wet[1], walls=walls).both(phi)
+            else:
+                grad, delsq = state[9 + int(l2cfg is not None)], \
+                    state[10 + int(l2cfg is not None)]
+            fed = fe.fed({"phi": phi, "grad_phi": grad, "delsq_phi": delsq})
+        zero = torch.zeros((), dtype=fed.dtype, device=fed.device)
+        out["fe_colloid"] = (torch.sum(torch.where(fl, fed, zero)),
+                             torch.sum(fl.to(fed.dtype)))
+        return out
+
     def compute(state, u, prev=None, tstep=0, coswt=1.0):
         f = state[0]
         if sys_.is_colloid:
@@ -2163,7 +2330,9 @@ def _make_stats_fn(sys_: System, reference: bool):
                           else total_colloid_momentum(V, sys_.colloid_params)),
                    "umm": stats.velocity_minmax(u, fl)}
             if sys_.wallspec is not None:
-                res["gwall"] = state.gwall
+                # the binary and symmetric_lb tuples carry gwall last
+                res["gwall"] = (state.gwall if isinstance(state, ColloidState)
+                                else state[-1])
             vstat = prev[0] if prev else V
             res["vcol"] = (torch.amin(vstat, dim=0), torch.amax(vstat, dim=0))
             if lcfg is not None:
@@ -2188,6 +2357,8 @@ def _make_stats_fn(sys_: System, reference: bool):
                         lc_colloid.lc_colloid_surface_fe(
                             lcfg.fe, lcfg.anchoring, q5, pid, inside,
                             state[5], sys_.lb_cfg.size))
+            if bcfg is not None or l2cfg is not None or ecfg is not None:
+                res.update(family_colloid_stats(state, fl, coswt))
             return res
         if reference:
             res = {"rho": stats.rho_stats_ref(f, model, mask),
@@ -2430,6 +2601,9 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
         for r in res["rhok"]:
             line("rho", *r)
         line("elc", *res["elc"])
+        if "psi_zeta" in res:
+            # one particle (ref: ludwig_tpu ludwig.py:2422-2427)
+            out.write(f"[psi_zeta] {float(res['psi_zeta']):14.7e}\n")
     # [phi] (both fields of a two-field run are labelled [phi], ref:
     # phi_stats.c:94), then [Qxx]..[Qyz] or [Px ]..[Pz ], then [fed] or
     # [fe] (ref: ludwig_tpu ludwig.py:2437-2500)
@@ -2444,7 +2618,19 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
     if "pvec" in res:
         for name, p_stats in zip(("Px ", "Py ", "Pz "), res["pvec"]):
             out.write(stats.format_phi_line(name, *p_stats))
-    if "fe_sum_v" in res:
+    if "fe_colloid" in res:
+        # ncolloid > 0, no area: the walls' header beside halo walls (ref:
+        # stats_free_energy.c:103-124; ludwig_tpu ludwig.py:2429-2455)
+        fsum, vol = (float(v) for v in res["fe_colloid"])
+        if sys_.wallspec is not None:
+            out.write("\nFree energies - timestep f v f/v f_s1 fs_s2 \n")
+            out.write(f"[fe] {int(tstep):14d} {fsum:17.10e} {vol:17.10e} "
+                      f"{fsum / vol:17.10e} {0.0:17.10e} {0.0:17.10e}\n")
+        else:
+            out.write("\nFree energies - timestep f v f/v f_s a f_s/a\n")
+            out.write(f"[fe] {int(tstep):14d} {fsum:17.10e} {vol:17.10e} "
+                      f"{fsum / vol:17.10e} {0.0:17.10e}\n")
+    elif "fe_sum_v" in res:
         # walls present (ref: ludwig_tpu ludwig.py:2455-2460;
         # stats_free_energy.c:103-105)
         fsum, vol = (float(v) for v in res["fe_sum_v"])
@@ -2617,6 +2803,9 @@ def write_colloid_config(sys_: System, directory: str, step: int) -> None:
         M = np.asarray(cp.m, np.float64).reshape(-1, 3)
     else:
         W, dr, M = (sys_.state[i].detach().cpu().numpy() for i in (3, 4, 6))
+    if sys_.colloid_charge is not None:
+        qq = sys_.colloid_charge.detach().cpu().numpy()
+        dq = sys_.state[10].detach().cpu().numpy()
     recs = []
     for n in range(cp.n):
         rec = default_state()
@@ -2629,6 +2818,10 @@ def write_colloid_config(sys_: System, directory: str, step: int) -> None:
         rec["m"] = [float(c) for c in M[n]]
         rec["b1"], rec["b2"] = cp.b1[n], cp.b2[n]
         rec["type"] = TYPES.get(cp.types[n], 0) if cp.types else 0
+        if sys_.colloid_charge is not None:
+            # the electrolyte's particles (ludwig_tpu ludwig.py:2927-2932)
+            rec["q0"], rec["q1"] = (float(v) for v in qq[n])
+            rec["deltaq0"], rec["deltaq1"] = (float(v) for v in dq[n])
         recs.append(rec)
     os.makedirs(directory, exist_ok=True)
     write_colloid_file(os.path.join(directory,
@@ -2640,9 +2833,10 @@ def _rheo_pth(sys_: System) -> Optional[torch.Tensor]:
     from plain-stencil gradients of the current phi (ref:
     fe->func->stress in stats_rheology_stress_profile_accumulate;
     ludwig_tpu ludwig.py:2822-2828); None (zeros) for the other families,
-    as the JAX package reports them."""
+    as the JAX package reports them (and for the binary fluid beside
+    colloids)."""
     bcfg = sys_.binary_cfg
-    if bcfg is None:
+    if bcfg is None or sys_.is_colloid:
         return None
     ops = (binary_solid_ops(bcfg, solid=sys_.solid, wallspec=sys_.wallspec)
            if isinstance(sys_.fe_ops, OpenXScalarOps) else sys_.fe_ops)
@@ -2686,7 +2880,11 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
                else (sys_.le_cfg.nplanes, sys_.le_cfg.uy))
     has_phi = (sys_.binary_cfg is not None or sys_.droplet_cfg is not None
                or sys_.two_field_cfg is not None or sys_.lb2_cfg is not None)
-    psi_at = 2 if sys_.es_cfg is not None else 1   # psi, then rho
+    # psi, then rho: after f, after phi, or after the particles' leaves
+    psi_at = (7 if sys_.is_colloid else 2 if sys_.es_cfg is not None
+              else 1)
+    # the order parameter's leaf: after f, or after the particles' leaves
+    op_at = 7 if sys_.is_colloid else 1
     # the shear observables (ludwig_tpu ludwig.py:2803-2830)
     freq_shear_meas = rt.int("freq_shear_measurement", 0)
     freq_shear_io = rt.int("freq_shear_output", 0)
@@ -2749,7 +2947,10 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
         if sys_.is_colloid:
             # the velocities before the step feed the particle block
             prev = (sys_.state[2],)
-            sys_.state, (_rho, u) = sys_.step_fn(sys_.state, t)
+            sys_.state, aux = sys_.step_fn(sys_.state, t)
+            u = aux[1]
+            if sys_.is_electro:
+                sor = aux[2]     # the electrolyte's SOR report
             if ahydro is not None and ahydro.wants(t):
                 # the particle's velocity less the fluid sites' mean
                 # (ref: stats_ahydro_measure)
@@ -2849,13 +3050,16 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
             if freq_phi and t % freq_phi == 0:
                 # the liquid crystal writes q; the binary fluid and the
                 # droplet write phi (ludwig_tpu ludwig.py:2866-2880)
+                # (the JAX package writes the particles' R leaf as the
+                # symmetric_lb colloids' phi, and as psi beside charged
+                # particles: the port writes the fields)
                 if sys_.lc_cfg is not None:
-                    write_field("q", t, sys_.state[1])
+                    write_field("q", t, sys_.state[op_at])
                 elif sys_.lb2_cfg is not None:
-                    write_field("phi", t, g_moments(sys_.state[1],
+                    write_field("phi", t, g_moments(sys_.state[op_at],
                                                     sys_.lb_cfg.model)[0])
                 elif has_phi:
-                    write_field("phi", t, sys_.state[1])
+                    write_field("phi", t, sys_.state[op_at])
             if vel_out:
                 write_field("vel", t, u)
             if freq_psi and t % freq_psi == 0:

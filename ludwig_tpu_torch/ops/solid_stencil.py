@@ -23,6 +23,8 @@ built; a call makes no host copy.
 
 from __future__ import annotations
 
+import functools
+
 from typing import Optional, Tuple
 
 import numpy as np
@@ -66,11 +68,20 @@ def _link_masks(size, fluid, walls, dirs, device):
             nb = roll3(fluid, tuple(-v for v in cv3)).to(device)
         else:
             nb = torch.ones(size, dtype=torch.bool, device=device)
-        wc = _wall_cross_mask(size, cv3, walls)
-        if wc is not None:
-            nb = nb & torch.as_tensor(~wc, device=device)
+        keep = _wall_keep(tuple(size), cv3, tuple(walls), str(device))
+        if keep is not None:
+            nb = nb & keep
         masks.append(nb)
     return masks
+
+
+@functools.lru_cache(maxsize=256)
+def _wall_keep(size, cv3, walls, device) -> Optional[torch.Tensor]:
+    """~_wall_cross_mask on `device`, made once (the colloid steps build
+    their stencil every step, and a copy from the host would make the
+    host wait for the card)."""
+    wc = _wall_cross_mask(size, cv3, walls)
+    return None if wc is None else torch.as_tensor(~wc, device=device)
 
 
 class Solid27Ops:

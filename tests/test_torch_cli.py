@@ -103,8 +103,12 @@ def test_binary_keys_now_ported_match_jax(line):
     # stress_divergence
     "fe_force_method no_force", "fe_force_method relaxation_symmetric",
     "viscosity_model eyring",
-    # the binary colloids
-    "colloid_init input_one", "colloid_init from_file",
+    # the binary colloids beside Lees-Edwards planes and with the LB's
+    # fluctuations
+    "N_LE_plane 2\nLE_plane_vel 0.01\ncolloid_init input_one\n"
+    "colloid_one_a0 2.3",
+    "isothermal_fluctuations on\ntemperature 0.0001\n"
+    "colloid_init input_one\ncolloid_one_a0 2.3",
     # moving and slip walls of the binary fluid (the JAX package reads
     # neither), the open boundary without halo walls
     "boundary_speed_top 0.01", "boundary_walls_slip_fraction_top 0.5_0_0",
@@ -361,7 +365,10 @@ def test_electro_cli_matches_jax(solver):
 
 
 @pytest.mark.parametrize("line", [
-    "colloid_init input_one", "colloid_one_a0 2.3",
+    # subgrid particles in the electrolyte; colloids beside planes
+    "colloid_init input_one\ncolloid_one_a0 2.3\ncolloid_one_type subgrid",
+    "N_LE_plane 2\nLE_plane_vel 0.01\ncolloid_init input_one\n"
+    "colloid_one_a0 2.3",
     # freq_psi is written now; a psi file over several I/O groups is not
     "psi_io_grid 2_1_1",
     "psi_io_format BINARY",
@@ -1048,6 +1055,14 @@ LC_RESTART = {
         ["dist", "q", "vel"] + [f"state{i:02d}" for i in range(3, 12)])}
 
 
+# the binary fluid's colloids between walls on z (f, R, V, W, dr, Rmap, M,
+# phi, u, grad, delsq, gwall; the first leaves named as the JAX package
+# names a binary state's): the link and whole-lattice sums round in each
+# package's order, 1e-13 on the states (the input is defined below)
+FAMILY_RESTART = {"binary-colloids-walls": ["dist", "phi", "vel"]
+                  + [f"state{i:02d}" for i in range(3, 12)]}
+
+
 def _steps(log, after, last):
     """The statistics numbers of a log after the line `after`, up to
     'Completed cycle <last>': _stat_floats' tokens, where a token glues a
@@ -1091,7 +1106,7 @@ def _write_init(directory, recs):
 
 @pytest.mark.parametrize("name", list(RESTART_INPUTS) + list(FUSED_RESTART)
                          + list(COLLOID_RESTART) + list(BINARY_RESTART)
-                         + list(LC_RESTART))
+                         + list(LC_RESTART) + list(FAMILY_RESTART))
 def test_restart_across_packages(name, tmp_path):
     """The unfused LC route (the repaired checkpoint: the gradient leaves
     state03 and state04 ride as the JAX package's do) and the unfused
@@ -1113,12 +1128,15 @@ def test_restart_across_packages(name, tmp_path):
         text = f"tpu_fused off\n{BINARY_RESTART[name][0]}"
     elif name in LC_RESTART:
         text = LC_RESTART[name][0]
+    elif name in FAMILY_RESTART:
+        text = COLLOID_INPUTS["binary"].replace("freq_config 4\n", "")
     else:
         text = f"tpu_fused off\n{RESTART_INPUTS[name]}"
     # the fused and unfused routes round differently, and so do the
     # packages' whole-lattice sums of the walls' momentum (gwall)
     atol = (1e-13 if name in FUSED_RESTART or name in LC_RESTART
-            or name == "binary-walls-27pt" else 2e-15)
+            or name in FAMILY_RESTART or name == "binary-walls-27pt"
+            else 2e-15)
     base = (text.replace("N_cycles 4", "N_cycles 7")
             .replace("freq_statistics 2", "freq_statistics 1"))
     ds, dx = tmp_path / "straight", tmp_path / "shared"
@@ -1139,6 +1157,7 @@ def test_restart_across_packages(name, tmp_path):
              out=io.StringIO(), device="cpu")
     tail = (BINARY_RESTART[name][1][3:] if name in BINARY_RESTART
             else LC_RESTART[name][1][3:] if name in LC_RESTART
+            else FAMILY_RESTART[name][3:] if name in FAMILY_RESTART
             else ["state03", "state04"])
     assert {f"{n}-00000003" for n in tail} <= set(os.listdir(dx))
     jout = io.StringIO()
@@ -1157,9 +1176,10 @@ def test_restart_across_packages(name, tmp_path):
                 == (ds / "config.cds00000006.001-001").read_bytes())
     elif name in BINARY_RESTART:
         names = BINARY_RESTART[name][1]
-    elif name in LC_RESTART:
-        names = LC_RESTART[name][1]
-        if name == "lc-colloids-walls":
+    elif name in LC_RESTART or name in FAMILY_RESTART:
+        names = (LC_RESTART[name][1] if name in LC_RESTART
+                 else FAMILY_RESTART[name])
+        if name in ("lc-colloids-walls", "binary-colloids-walls"):
             # the records agree to the states' tolerance (the reference's
             # ASCII digits may differ in the last place)
             from ludwig_tpu_torch.io.colloid_io import read_colloid_file
@@ -1269,6 +1289,65 @@ bond_fene_r0 5.0
 """,
 }
 COLLOID_INPUTS["lc_colloids"] = LC_COLLOIDS + "colloid_io_freq 2\n"
+# the other families' colloids (12^3, f64): two wetting particles in a
+# spinodal binary fluid between walls on z; the same particles in
+# symmetric_lb (7-point gradients, periodic); one charged particle in a
+# uniform electrolyte with a field on x (the SOR's reference route, the
+# Maxwell stress); each writes config.cds at step 4
+FAMILY_COLLOIDS = """
+N_cycles 4
+size 12_12_12
+viscosity 0.1
+A -0.0625
+B 0.0625
+K 0.04
+mobility 0.15
+phi_initialisation spinodal
+noise 0.05
+random_seed 13
+colloid_init input_two
+colloid_one_a0 2.3
+colloid_one_ah 2.3
+colloid_one_r 4.0_6.5_6.5
+colloid_one_v 0.01_0.0_0.0
+colloid_two_a0 2.3
+colloid_two_ah 2.3
+colloid_two_r 9.5_6.5_7.0
+colloid_one_c -0.002
+colloid_one_h 0.001
+colloid_gravity 0.0_0.0_-0.0001
+freq_statistics 2
+freq_config 4
+"""
+COLLOID_INPUTS["binary"] = (FAMILY_COLLOIDS + "free_energy symmetric\n"
+                            "boundary_walls 0_0_1\n")
+COLLOID_INPUTS["symmetric_lb"] = (FAMILY_COLLOIDS
+                                  + "free_energy symmetric_lb\n"
+                                  "fd_gradient_calculation 3d_7pt_fluid\n")
+COLLOID_INPUTS["electro"] = """
+N_cycles 4
+size 12_12_12
+viscosity 0.1
+free_energy fe_electro
+electrokinetics_d0 0.01
+electrokinetics_d1 0.01
+electrokinetics_epsilon 3300.0
+temperature 3.33333333333333333e-5
+electrokinetics_init uniform
+electrokinetics_init_rho_el 0.001
+electrokinetics_rel_tol 1e-06
+electrokinetics_abs_tol 1e-07
+electrokinetics_maxits 500
+electric_e0 0.00002_0.0_0.0
+colloid_init input_one
+colloid_one_a0 2.3
+colloid_one_ah 2.3
+colloid_one_r 6.25_6.6_6.3
+colloid_one_v 0.05_0.0_0.0
+colloid_one_q0 5.0
+freq_statistics 2
+freq_config 4
+"""
 FLOAT = re.compile(r"^[-+]?\d+\.\d*(e[-+]\d+)?$")
 
 
@@ -1289,8 +1368,11 @@ def _colloid_log(log):
 def test_colloid_cli_matches_jax(name, tmp_path):
     """The port's log of each colloid input against ludwig_tpu.run_text's:
     the same lines (particle statistics, the [colloids] and [walls] rows,
-    the colloid I/O lines), their floats at rtol 1e-9 / atol 1e-11; the
-    config.cds files of both byte-identical."""
+    the colloid I/O lines, the families' [phi], [fe], [psi_zeta] and SOR
+    rows), their floats at rtol 1e-9 / atol 1e-11; the plain fluid's
+    config.cds files byte-identical, the other families' records at rtol
+    1e-13 / atol 1e-15 (their step's whole-lattice and link sums run in
+    each package's order)."""
     dj, dt = tmp_path / "jax", tmp_path / "port"
     dj.mkdir(), dt.mkdir()
     if name == "from_file":
@@ -1316,34 +1398,45 @@ def test_colloid_cli_matches_jax(name, tmp_path):
         assert "Number of measurements:              0" in b.getvalue()
     cds = sorted(p.name for p in dj.glob("config.cds0*"))
     assert cds == sorted(p.name for p in dt.glob("config.cds0*"))
-    assert bool(cds) == (name in ("input_two", "from_file", "lc_colloids"))
+    families = ("lc_colloids", "binary", "symmetric_lb", "electro")
+    assert bool(cds) == (name in ("input_two", "from_file") + families)
     if name.startswith("lc_"):
         # the particles' surface row
         assert b.getvalue().count("f v f/v f_s a f_s/a") == 3
+    if name in ("binary", "symmetric_lb"):
+        assert b.getvalue().count("[phi]") == 3
+        assert b.getvalue().count("[fe]") == 3
+    if name == "electro":
+        assert b.getvalue().count("[psi_zeta]") == 3
+        assert b.getvalue().count("SOR solver converged") == 2
     for p in cds:
-        if not name.startswith("lc_"):
+        if name not in families:
             assert (dj / p).read_bytes() == (dt / p).read_bytes()
             continue
-        # the LC route's link sums round in another order than the JAX
-        # package's (its remove/replace seeds per image): the records'
-        # 16-digit floats agree as the log's do
+        # the image-free remove/replace sums run in site order, the JAX
+        # package's jnp.sum in XLA's; the reaction force and the walls'
+        # account likewise: the records agree to a few hundred ulps of
+        # their largest values
         from ludwig_tpu_torch.io.colloid_io import read_colloid_file
-        for ra, rb in zip(read_colloid_file(str(dt / p)),
-                          read_colloid_file(str(dj / p))):
+        recs = read_colloid_file(str(dt / p))
+        for ra, rb in zip(recs, read_colloid_file(str(dj / p))):
             for key in ra:
-                np.testing.assert_allclose(ra[key], rb[key], rtol=1e-9,
-                                           atol=1e-11)
+                np.testing.assert_allclose(ra[key], rb[key], rtol=1e-13,
+                                           atol=1e-15)
+        if name == "electro":
+            assert recs[0]["q0"] == 5.0 and recs[0]["deltaq0"] != 0.0
 
 
 @pytest.mark.parametrize("line", [
-    "free_energy symmetric", "free_energy lc_droplet",
+    "free_energy symmetric_noise", "free_energy lc_droplet",
     "isothermal_fluctuations on\ntemperature 0.0001",
     "porous_media_init simple_cubic\nporous_media_acell 8",
     "N_LE_plane 2\nLE_plane_vel 0.01"])
 def test_colloids_beside_unported_features_raise(line):
-    """Colloids of the other families, with fluctuations, beside porous
-    media or Lees-Edwards planes raise NotImplementedError naming the
-    key."""
+    """Colloids of the families without a colloid route (the JAX
+    package's symmetric_noise branch drops them), with fluctuations,
+    beside porous media or Lees-Edwards planes raise NotImplementedError
+    naming the key."""
     key = "colloid_init" if line.startswith("free_energy") else \
         line.split()[0]
     text = COLLOID_INPUTS["input_two"] + line + "\n"

@@ -110,7 +110,8 @@ def test_remove_replace_per_image_bitwise(moved):
     po, io_, pn, in_ = (T(x) for x in moved["maps"])
     f1, seeds = tc.remove_replace(T(moved["f"]), T(moved["R2"]), io_, po,
                                   in_, pn, MODEL,
-                                  tc.ColloidParams(**moved["kw"]), SIZE)
+                                  tc.ColloidParams(**moved["kw"]), SIZE,
+                                  per_image=True)
     assert_bitwise(moved["f1"], f1)
     assert_bitwise(moved["seeds"], seeds)
 

@@ -256,7 +256,27 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      ms a step with rebuild steps apart (CUDA events), CUDA kernels a
      step and their device time (torch.profiler), one step under CUDA's
      sync debug mode: "error" for the binary cells, "warn" for the
-     electrolyte, its host syncs counted against the SOR's read-backs.
+     electrolyte, its host syncs counted against the SOR's read-backs;
+ 37. D2Q9 on the one-step kernels (fused_lb_q9): fused_step with and
+     without fluctuations against the twins, 3 chained steps at 64x64x1
+     and 128x96x1, M10 and BGK (TRT is not defined for D2Q9), f64 and f32
+     (TOL), both back-transform forms; the n-step and force kernels
+     refuse D2Q9 by name (as the JAX package's do: no fallback); then
+     both kernels at 4096x4096x1 f32 against their bound and the device
+     copy of the state;
+ 38. the full log on the card: the 256^3 main input with `tpu_timer_detail
+     on` (its "Collide+stream" probe a fused_step launch), the 4096x4096x1
+     f32 Kelvin-Helmholtz shear layer (KH_INPUT, D2Q9, 20 cycles, ms a
+     step) and a fluctuating one at 1024x1024x1 (fused_step_noise), each
+     log's input header equal as text to the port's on the CPU (built
+     there, not stepped), [rho] conserved, the kernel launched once a
+     cycle and four times for the probe; then one small input per family
+     (LOG_INPUTS) in f64 on the card and on the CPU: the headers equal as
+     text, the lines to the timer table the same with their numbers
+     within rtol 1e-9 / atol 1e-11 (as phase 17 holds the electrolyte:
+     its cancelling [psi] and [elc] totals to 1e-12 x sites x the largest
+     value, its SOR residual not compared), every log ending with
+     "Ludwig finished normally.".
 
 Bounds: `bound_ms` is the larger of the bytes the function must move
 (each input read once, each output written once) over the H100 SXM's
@@ -264,10 +284,11 @@ published 3.35 TB/s and its arithmetic over 67 TFLOP/s f32 (NVIDIA's
 data sheet, dense, 700 W); `copy_bound_ms` puts the same bytes
 over the device copy bandwidth measured in this run.
 
-The second-to-last line is the kernels' JSON record (ms and plain_ms per
-lattice step, CUDA events; fused_step also carries phase 24's wall and
-LE step and post-pass times), the last line {"ok": true, "device":
-{...}}.
+The kernels' JSON record comes before the card's line (ms and plain_ms
+per lattice step, CUDA events; fused_step also carries phase 24's wall
+and LE step and post-pass times and phase 38's cells; fused_step_q9 and
+fused_step_noise_q9 are the D2Q9 library's kernels at 4096x4096x1), the
+last line is {"ok": true, "device": {...}}.
 There is no CPU path.
 """
 
@@ -5387,6 +5408,313 @@ def phase36(card):
     return res, paths
 
 
+# -- the two-dimensional fluid: D2Q9 on the one-step kernels -----------------
+
+Q9_SCHEMES = ("m10", "bgk")      # TRT is not defined for D2Q9 (ref asserts)
+Q9_SHAPES = ((64, 64, 1), (128, 96, 1))
+Q9_SIZE = (4096, 4096, 1)        # the timed lattice: 2 x 604 MB of state
+
+
+def phase37(card, gen):
+    """D2Q9 on fused_lb_q9: fused_step and its fluctuating variant against
+    their twins, 3 chained steps, f64 and f32, both back-transform forms;
+    the n-step and force kernels refuse D2Q9 by name, as the JAX package's
+    do; then each kernel at 4096x4096x1 f32 against its bound and the
+    device copy of the state."""
+    phase(f"37 D2Q9 kernels vs plain twins and timed at 4096x4096x1 f32 on "
+          f"{card}")
+    worst = {"fused_step": 0.0, "fused_step_noise": 0.0}
+    for size in Q9_SHAPES:
+        for scheme in Q9_SCHEMES:
+            for dtype in ("float64", "float32"):
+                cfg, params, noise = noise_params(
+                    9, RelaxationScheme(scheme), dtype, size,
+                    force=(1e-4, -2e-4, 0.0))
+                model = cfg.model
+                f0 = rand_state(cfg, gen)
+                for delta in (True, False):
+                    a = b = f0
+                    for _ in range(3):
+                        a = fused.fused_step(a, model, params, delta=delta)
+                        b = fused._fused_step_plain(b, model, params, delta)
+                    what = (f"fused_step D2Q9 {size} {scheme} {dtype} "
+                            f"delta={delta}")
+                    err = check_close(what, a, b, cfg.tdtype)
+                    worst["fused_step"] = max(worst["fused_step"], err)
+                    a = b = f0
+                    for t in range(NOISE_STEP0, NOISE_STEP0 + 3):
+                        a = fused.fused_step(a, model, params, noise=noise,
+                                             t=t, delta=delta)
+                        b = fused._fused_step_plain(b, model, params, delta,
+                                                    noise, t)
+                    nerr = check_close(f"{what} noise", a, b, cfg.tdtype)
+                    worst["fused_step_noise"] = max(
+                        worst["fused_step_noise"], nerr)
+                    print(f"{what} max_abs_err {err:.3e}, with noise "
+                          f"{nerr:.3e}")
+    # refused by name on the card: no fallback to a twin
+    cfg = LBConfig(size=Q9_SHAPES[0], nvel=9, dtype="float32", device="cuda")
+    f0 = rand_state(cfg, gen)
+    force = torch.zeros((3,) + cfg.size, dtype=cfg.tdtype, device="cuda")
+    for name, call in (
+            ("fusedn_step", lambda: fused.fusedn_step(
+                f0, cfg.model, cfg.collision_params(), 2)),
+            ("fused_force_step", lambda: fused.fused_force_step(
+                f0, force, cfg.model, cfg.collision_params()))):
+        try:
+            call()
+        except NotImplementedError as e:
+            print(f"{name} D2Q9 refused: {e}")
+        else:
+            raise AssertionError(f"{name} ran D2Q9 on the card")
+
+    cfg, params, noise = noise_params(9, RelaxationScheme.M10, "float32",
+                                      Q9_SIZE, 0.1, (0.0, 0.0, 0.0))
+    model = cfg.model
+    nsite = Q9_SIZE[0] * Q9_SIZE[1] * Q9_SIZE[2]
+    f0 = rand_state(cfg, gen, amp=0.01)
+    nbytes = 2 * f0.numel() * f0.element_size()
+    dst = torch.empty_like(f0)
+    copy_ms = time_ms(lambda: dst.copy_(f0), 20)
+    del dst
+    print(f"device copy of the D2Q9 state: {copy_ms:.4f} ms = "
+          f"{nbytes / (copy_ms * 1e9):.3f} TB/s read+write [{card}]")
+    t = NOISE_STEP0
+    res = {}
+    for name, run, twin in (
+            ("fused_step", lambda: fused.fused_step(f0, model, params),
+             lambda: fused._fused_step_plain(f0, model, params, True)),
+            ("fused_step_noise", lambda: fused.fused_step(
+                f0, model, params, noise=noise, t=t),
+             lambda: fused._fused_step_plain(f0, model, params, True, noise,
+                                             t))):
+        err = check_close(f"{name} D2Q9 {Q9_SIZE}", run(), twin(),
+                          cfg.tdtype)
+        ms = min(time_ms(run, 20) for _ in range(2))
+        twin_ms = time_ms(twin, 2, warm=1)
+        nops = nsite * _cuda.site_ops(name, nvel=9)
+        b_ms, b_by = bound(nbytes, nops)
+        cb_ms = copy_ms
+        print(f"{name} D2Q9 {Q9_SIZE[0]}x{Q9_SIZE[1]}x{Q9_SIZE[2]} f32: "
+              f"kernel {ms:.4f} ms, twin {twin_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}; {nbytes / nsite:.0f} B/site, "
+              f"{nops / nsite:.0f} op/site), {100 * b_ms / ms:.1f}% of it, "
+              f"copy bound {cb_ms:.4f} ms ({100 * cb_ms / ms:.1f}%), "
+              f"max_abs_err vs twin {err:.3e}, "
+              f"{nsite / (ms * 1e3):.1f} MLUPS [{card}]")
+        res[name] = dict(ms=ms, plain_ms=twin_ms, max_abs_err=max(
+            err, worst[name]), nbytes=nbytes, nops=nops, copy_ms=cb_ms)
+    return res
+
+
+# -- the full log: headers, probes and the 2-D fluid through run_text --------
+
+KH_SIZE = (4096, 4096, 1)
+KH_CYCLES = 20
+KH_KEYS = """lb_nvel 9
+free_energy none
+viscosity 0.1
+distribution_initialisation 2d_kelvin_helmholtz
+2d_kelvin_helmholtz_u0 0.04
+2d_kelvin_helmholtz_delta 0.05
+2d_kelvin_helmholtz_kappa 80.0
+"""
+KH_INPUT = (f"size {KH_SIZE[0]}_{KH_SIZE[1]}_{KH_SIZE[2]}\ntpu_fused on\n"
+            f"dtype float32\nN_cycles {KH_CYCLES}\n"
+            f"freq_statistics {KH_CYCLES}\ntpu_timer_detail on\n" + KH_KEYS)
+# the fluctuating shear layer: fused_step_noise's path
+KH_NOISE_INPUT = ("size 1024_1024_1\ntpu_fused on\ndtype float32\n"
+                  "N_cycles 10\nfreq_statistics 10\n" + KH_KEYS + NOISE_KEYS)
+# one small input per family in float64, run on the card and on the CPU
+LOG_INPUTS = {
+    "none": "tpu_fused off\ndtype float64\n" + BOUNDARY_INPUTS["wall"],
+    "none le": "tpu_fused on\ndtype float64\n" + BOUNDARY_INPUTS["le"],
+    "none porous": "dtype float64\n" + BOUNDARY_INPUTS["porous"],
+    "d2q9": "size 64_48_1\ntpu_fused on\ndtype float64\nN_cycles 4\n"
+            "freq_statistics 2\n" + KH_KEYS,
+    "symmetric": (BINARY_INPUT.replace("dtype float32", "dtype float64")
+                  .replace("size 256_256_256", "size 16_16_32")
+                  .replace(f"N_cycles {BINARY_CYCLES}", "N_cycles 4")
+                  .replace("freq_statistics 10", "freq_statistics 2")),
+    "lc_blue_phase": LC_SMALL,
+    "lc_droplet": drop_input((16, 16, 32), "float64").replace(
+        f"N_cycles {DROP_CYCLES}", "N_cycles 4").replace(
+        "freq_statistics 10", "freq_statistics 2"),
+    # the Gouy-Chapman input at 16x4x4 (its f64 route is the reference
+    # one); the families' colloid inputs are phase 35's
+    "fe_electro": elec_input((16, 4, 4), "float64").replace(
+        f"N_cycles {ELEC_CYCLES}", "N_cycles 4").replace(
+        "freq_statistics 10", "freq_statistics 2"),
+    "symmetric_lb": MORE_FE_INPUTS["symmetric_lb_walls"],
+    "brazovskii": MORE_FE_INPUTS["brazovskii"],
+    "surfactant": MORE_FE_INPUTS["surfactant"],
+    "ternary": MORE_FE_INPUTS["ternary_tee_walls"],
+    "polar_active": MORE_FE_INPUTS["polar_active"],
+    "fe_electro_symmetric": MORE_FE_INPUTS["fe_electro_symmetric"],
+}
+FINISH = "Ludwig finished normally."
+
+
+def log_header(log):
+    """A log's input header, up to and including "Initial conditions."."""
+    return log[:log.index("\nInitial conditions.\n") + 21]
+
+
+def cpu_header(text):
+    """The input header the port writes for `text` on the CPU, without
+    stepping: the system built there and its InitLog (fulllog.py)."""
+    from ludwig_tpu_torch import ludwig as tl
+    from ludwig_tpu_torch.fulllog import InitLog
+    from ludwig_tpu_torch.runtime import RunTime
+    rt = RunTime(text)
+    sys_ = tl.build_system(rt, device="cpu")
+    sys_.hydro_on = rt.switch("hydrodynamics", True)
+    buf = io.StringIO()
+    InitLog(rt, sys_, buf).emit()
+    return buf.getvalue()
+
+
+def log_body_close(a, b, what):
+    """The logs' lines from "Initial conditions." to the timer table:
+    the same words, and their numbers within rtol 1e-9 / atol 1e-11, as
+    phase 17 holds the electrolyte: a [psi] or [elc] total, which
+    cancels to ~0, within 1e-12 x sites x the largest value, the SOR
+    report's iterations equal and its residual (a rounding-level sum
+    once converged) not compared.  Returns the number of floats held and
+    their largest difference."""
+    def body(log):
+        log = log[log.index("\nInitial conditions."):
+                  log.index("\nTimer resolution")]
+        words, vals, loose = [], [], []
+        for line in log.splitlines():
+            if line.startswith("SOR residual"):
+                words.append(" ".join(NUMBER.sub(" # ", line, count=1)
+                                      .split()))
+                continue
+            words.append(" ".join(NUMBER.sub(" # ", line).split()))
+            nums = [float(v) for v in NUMBER.findall(line)]
+            vals += nums
+            loose += [line.startswith(("[psi]", "[elc]")) and i == 0
+                      for i in range(len(nums))]
+        return (words, torch.tensor(vals, dtype=torch.float64),
+                torch.tensor(loose, dtype=torch.bool))
+    (wa, va, la), (wb, vb, _) = body(a), body(b)
+    if wa != wb or va.numel() != vb.numel():
+        bad = next((x, y) for x, y in zip(wa + [""], wb + [""]) if x != y)
+        raise AssertionError(f"{what}: the lines of the card's log are not "
+                             f"the CPU's: {bad}")
+    nsite = math.prod(int(v) for v in re.search(
+        r"System size:\s+(\d+) (\d+) (\d+)", a).groups())
+    scale = 1e-12 * nsite * float(vb.abs().max()) if vb.numel() else 0.0
+    if not (torch.allclose(va[~la], vb[~la], rtol=1e-9, atol=1e-11)
+            and torch.allclose(va[la], vb[la], rtol=0.0, atol=scale)):
+        k = int(torch.argmax((va - vb).abs()))
+        raise AssertionError(f"{what}: the card's statistics differ from "
+                             f"the CPU's beyond the tolerance: "
+                             f"{float(va[k])!r} against {float(vb[k])!r}")
+    return va.numel(), max_err(va, vb) if va.numel() else 0.0
+
+
+def probe_rows(log):
+    """{row: seconds} of the timer-detail probes after the timer table."""
+    return {ln.split(":")[0].strip(): float(ln.split()[-2])
+            for ln in log.splitlines() if ln.endswith("(probe)")}
+
+
+def phase38(card):
+    """The full log on the card: the 256^3 main input with the timer
+    probes, the 4096x4096x1 Kelvin-Helmholtz shear layer on fused_lb_q9
+    (20 cycles, ms a step) and a fluctuating one, then one small input
+    per family in float64 on the card and on the CPU: headers equal as
+    text, statistics within rtol 1e-9 / atol 1e-11, each log ending with
+    "Ludwig finished normally."."""
+    phase(f"38 the full log on the card: headers, probes and the 2-D fluid "
+          f"on {card}")
+    counts, cells = {}, {}
+    for name, text, kernel, cycles in (
+            ("main 256^3 timer detail", MAIN_INPUT + "tpu_timer_detail on\n",
+             "fused_step", MAIN_CYCLES),
+            ("kh 4096x4096x1", KH_INPUT, "fused_step", KH_CYCLES),
+            ("kh noise 1024x1024x1", KH_NOISE_INPUT, "fused_step_noise",
+             10)):
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        _cuda.launches.reset()
+        t0 = time.perf_counter()
+        sys_ = run_text(text, out=out, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = getattr(_cuda.launches, kernel)
+        counts[name] = {kernel: n}
+        log = out.getvalue()
+        rows = probe_rows(log)
+        nprobe = 4 if rows else 0     # a warm-up call and three timed
+        if n != cycles + nprobe:
+            raise AssertionError(f"{name}: {kernel} launched {n} times for "
+                                 f"{cycles} cycles and {nprobe} probes")
+        if not log.rstrip().endswith(FINISH):
+            raise AssertionError(f"{name}: the log does not end with "
+                                 f"{FINISH!r}")
+        if log_header(log) != cpu_header(text):
+            raise AssertionError(f"{name}: the card's input header is not "
+                                 "the CPU's")
+        nsite = math.prod(sys_.lb_cfg.size)
+        totals = [float(v) for v in re.findall(r"\[rho\]\s+(\S+)", log)]
+        if not totals or not all(abs(t - nsite) <= 1e-5 * nsite
+                                 for t in totals):
+            raise AssertionError(f"{name}: [rho] totals {totals} != {nsite}")
+        if re.search(r"(?i)\b-?(nan|inf)\b", log):
+            raise AssertionError(f"{name}: a statistic is not finite")
+        line = (f"{name}: run_text {wall:.2f} s, {kernel} x {n}, header "
+                f"equal to the CPU's, [rho] {totals}")
+        if rows:
+            line += ", probes " + ", ".join(f"{k} {1e3 * v:.4f} ms"
+                                            for k, v in rows.items())
+        if name.startswith("kh 4096"):
+            if sys_.lb_cfg.nvel != 9 or sys_.fused_mode != "plain":
+                raise AssertionError(f"{name}: not the fused D2Q9 route")
+            f = sys_.state[0]
+            ms = min(time_ms(lambda: sys_.step_fn(f, 1), 20)
+                     for _ in range(2))
+            # the row's last column: seconds a cycle to 1e-6
+            loop = re.search(r"Time step loop:(?:\s+\S+){3}\s+(\S+)",
+                             log).group(1)
+            cells[name] = dict(ms_step=ms, run_text_s=wall,
+                               loop_s_per_cycle=float(loop),
+                               probe_ms={k: 1e3 * v
+                                         for k, v in rows.items()})
+            line += (f", step {ms:.4f} ms = {nsite / (ms * 1e3):.1f} MLUPS, "
+                     f"the timer's loop {float(loop):.4f} s a cycle")
+        elif rows:
+            cells[name] = dict(run_text_s=wall, probe_ms={
+                k: 1e3 * v for k, v in rows.items()})
+        print(line + f" [{card}]")
+        if "Collide+stream" not in rows and kernel == "fused_step":
+            raise AssertionError(f"{name}: no Collide+stream probe row")
+        del sys_
+        torch.cuda.empty_cache()
+    worst = 0.0
+    for name, text in LOG_INPUTS.items():
+        logs = {}
+        for device in ("cuda", "cpu"):
+            out = io.StringIO()
+            run_text(text, out=out, device=device)
+            logs[device] = out.getvalue()
+        if log_header(logs["cuda"]) != log_header(logs["cpu"]):
+            raise AssertionError(f"{name}: the card's input header is not "
+                                 "the CPU's")
+        nval, err = log_body_close(logs["cuda"], logs["cpu"], name)
+        for device, log in logs.items():
+            if not log.rstrip().endswith(FINISH):
+                raise AssertionError(f"{name} on {device}: the log does not "
+                                     f"end with {FINISH!r}")
+        worst = max(worst, err)
+        print(f"{name} f64: header of {log_header(logs['cuda']).count(chr(10))}"
+              f" lines equal to the CPU's, {nval} floats within rtol 1e-9 "
+              f"(max |diff| {err:.3e})")
+    return counts, cells, worst
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -5495,6 +5823,15 @@ def main():
     by_path.update(family_paths)
     timed["chain_sums"]["family_colloid_cells"] = family_cells
     worst["chain_sums"] = max(worst["chain_sums"], family_worst)
+    q9 = phase37(card, gen)
+    log_counts, log_cells, log_worst = phase38(card)
+    # the D2Q9 kernels' launches: the two-dimensional paths of phase 38
+    q9_paths = {path: c for path, c in log_counts.items()
+                if path.startswith("kh")}
+    by_path.update({path: c for path, c in log_counts.items()
+                    if path not in q9_paths})
+    timed["fused_step"]["log_cells"] = log_cells
+    timed["fused_step"]["log_inputs_f64_max_abs_diff"] = log_worst
     for name in STAT_SCANS:
         worst[name] = 0.0        # held bitwise in phases 19 and 21
     print(f"all phases passed ({time.perf_counter() - _T0:.1f} s)")
@@ -5576,6 +5913,10 @@ def main():
             # routes; their statistics launch the scans)
             kernels[-1].update(lc_cells=t["lc_cells"],
                                lc_routes_f64_max_abs_diff=lc_worst)
+        if "log_cells" in t:    # phase 38: the full log's runs
+            kernels[-1].update(log_cells=t["log_cells"],
+                               log_inputs_f64_max_abs_diff=t[
+                                   "log_inputs_f64_max_abs_diff"])
         if "wall_step_ms" in t:   # the wall and LE steps around the kernel
             kernels[-1].update({k: t[k] for k in (
                 "wall_step_ms", "wall_post_ms", "le_step_ms", "le_post_ms",
@@ -5583,6 +5924,22 @@ def main():
                 "wall_post_kernels", "wall_post_device_ms",
                 "le_post_kernels", "le_post_device_ms",
                 "wall_step_device_ms", "le_step_device_ms")})
+    # the D2Q9 library fused_lb_q9 (phase 37), timed at 4096x4096x1 f32
+    for name, replaces in (
+            ("fused_step", "ludwig_tpu/ops/fused.py:429 (D2Q9)"),
+            ("fused_step_noise",
+             "ludwig_tpu/ops/fused.py:429 (FusedNoise, D2Q9)")):
+        t = q9[name]
+        bound_ms, bound_by = bound(t["nbytes"], t["nops"])
+        paths = {path: c[name] for path, c in q9_paths.items()
+                 if name in c}
+        kernels.append({
+            "name": f"{name}_q9", "route": "cuda", "source": SOURCE,
+            "replaces": replaces, "launches": sum(paths.values()),
+            "launches_by_path": paths, "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "copy_bound_ms": t["copy_ms"], "size": list(Q9_SIZE)})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

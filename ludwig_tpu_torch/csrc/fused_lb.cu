@@ -1,4 +1,5 @@
-// Fused collide + stream kernels for Hopper (sm_90a), D3Q15/19/27, f32/f64.
+// Fused collide + stream kernels for Hopper (sm_90a), D3Q15/19/27 and
+// D2Q9, f32/f64.
 //
 // Replaces the Pallas TPU kernels of ludwig_tpu/ops/fused.py:
 //   fused_step_kernel        <- _fused_kernel  (ops/fused.py:429), one step;
@@ -250,6 +251,10 @@ fused_step_kernel(const T* __restrict__ fin, T* __restrict__ fout, int X,
   lb_collide<T, DELTA, PROJ, NOISE>(f, dev, p, emit);
 }
 
+// The force kernels take the three-dimensional velocity sets only, as
+// the TPU kernel does (its u has three components): a D2Q9 header sets
+// LB_NO_FORCE and has no lb_collide_force_*.
+#ifndef LB_NO_FORCE
 template <typename T, int PROJ>
 __global__ void __launch_bounds__(kThreads)
 fused_force_step_kernel(const T* __restrict__ fin,
@@ -355,6 +360,8 @@ fused_force_step_solid_kernel(const T* __restrict__ fin,
     if (threadIdx.x == 0) part[a * gridDim.x + blockIdx.x] = b;
   }
 }
+
+#endif  // LB_NO_FORCE
 
 // threads a block of the n-step kernel at most: f32 within 128
 // registers, f64 (~144 registers for the collision) within 255
@@ -530,6 +537,7 @@ static int launch_step(const void* fin, void* fout, int X, int Y, int Z,
   return static_cast<int>(cudaGetLastError());
 }
 
+#ifndef LB_NO_FORCE
 template <typename T, int PROJ>
 static int launch_force_step(const void* fin, const void* force, void* fout,
                              void* uout, int X, int Y, int Z,
@@ -562,6 +570,7 @@ static int launch_force_step_solid(const void* fin, const void* force,
       static_cast<const T*>(part), blocks, 3, T(-2), static_cast<T*>(gw));
   return static_cast<int>(cudaGetLastError());
 }
+#endif  // LB_NO_FORCE
 
 template <typename T, int DELTA, int PROJ>
 static int launch_stepn(const void* fin, void* fout, int X, int Y, int Z,
@@ -647,6 +656,9 @@ int lb_fused_force_step(int is_f64, int proj, const void* fin,
                         const void* force, void* fout, void* uout, int X,
                         int Y, int Z, const double* par, void* stream,
                         int device) {
+#ifdef LB_NO_FORCE
+  return static_cast<int>(cudaErrorNotSupported);
+#else
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -660,6 +672,7 @@ int lb_fused_force_step(int is_f64, int proj, const void* fin,
                                             par, s)
               : launch_force_step<float, 0>(fin, force, fout, uout, X, Y, Z,
                                             par, s);
+#endif
 }
 
 int lb_force_step_blocks(long long nsite) {
@@ -671,6 +684,9 @@ int lb_fused_force_step_solid(int is_f64, int proj, const void* fin,
                               void* fout, void* uout, void* part, void* gw,
                               int X, int Y, int Z, const double* par,
                               void* stream, int device) {
+#ifdef LB_NO_FORCE
+  return static_cast<int>(cudaErrorNotSupported);
+#else
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -687,6 +703,7 @@ int lb_fused_force_step_solid(int is_f64, int proj, const void* fin,
               : launch_force_step_solid<float, 0>(fin, force, solid, fout,
                                                   uout, part, gw, X, Y, Z,
                                                   par, s);
+#endif
 }
 
 }  // extern "C"

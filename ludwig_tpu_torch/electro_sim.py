@@ -425,7 +425,9 @@ def make_electro_step(cfg: ElectroSimConfig,
     on_kernels = f32 and kernel_supported(cfg.e0)
     use_fsor = on_kernels and cfg.ek.solver != "fft"
     use_fnp = on_kernels and cfg.stencil not in (19, 27)
-    use_flb = f32 and cfg.hydrodynamics
+    # the force kernel takes the three-dimensional sets (the JAX route
+    # collides a Z = 1 lattice unfused: its fused gate needs Z % 128 == 0)
+    use_flb = f32 and cfg.hydrodynamics and model.ndim == 3
 
     def step(state, t=0):
         del t

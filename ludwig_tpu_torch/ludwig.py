@@ -54,11 +54,23 @@ The statistics follow the JAX package's rule (reference_statistics):
 its reference-ordered scans wherever its build_system would take the
 unfused route, its plain reductions on its fused routes.
 
-Every input key outside the slices raises NotImplementedError naming the
-key, unless it is set to its inactive default (`boundary_walls 0_0_0`
-for the families without walls, `colloid_init no_colloids` for those
-without a colloid route, `default_io_grid 1_1_1`, ...).  The input header of the
-reference log (fulllog.InitLog in the JAX package) is not ported yet.
+The log is the JAX package's whole reference log: the input header
+(fulllog.InitLog), the statistics, the timer table (with
+`tpu_timer_detail`, each phase of the step launched alone), the unused
+keys and "Ludwig finished normally.".  The harness's hint keys (a
+leading `_`, utils/golden.py) select the formats of older log vintages
+where the JAX package reads them.  `freq_measure` writes the colloids'
+output and, with `calibration_sigma`, the binary fluid's surface-tension
+calibration of a drop (stats_extra.SigmaCalibration);
+`stats_vel_print_vol_flux yes` adds the [vol flux] row.
+
+An input key the JAX package honours and the port cannot, here, raises
+NotImplementedError naming the key, unless it is set to its inactive
+default (`boundary_walls 0_0_0` for the families without walls,
+`colloid_init no_colloids` for those without a colloid route,
+`default_io_grid 1_1_1`, ...; JAX_KEYS, _check_keys).  Any other key
+runs: the log's tail reports it if nothing read it, as the JAX
+package's does.
 """
 
 from __future__ import annotations
@@ -120,11 +132,13 @@ from ludwig_tpu_torch.ops.collide import RelaxationScheme
 from ludwig_tpu_torch.ops.fused import (FusedNoise, fused_step,
                                         make_fused_le_step,
                                         make_fused_wall_step)
-from ludwig_tpu_torch.ops.fused_binary import (fused_binary_ok,
+from ludwig_tpu_torch.ops.fused_binary import (binary_phi_force_step,
+                                               fused_binary_ok,
                                                initial_fused_binary,
                                                make_fused_binary_le_step,
                                                make_fused_binary_step)
-from ludwig_tpu_torch.ops.fused_droplet import (initial_fused_droplet,
+from ludwig_tpu_torch.ops.fused_droplet import (droplet_phi_q_force_step,
+                                                initial_fused_droplet,
                                                 make_fused_droplet_le_step,
                                                 make_fused_droplet_step)
 from ludwig_tpu_torch.ops.fused_lc import (initial_fused_lc,
@@ -141,7 +155,8 @@ from ludwig_tpu_torch.ops.stencil import delsq_7pt, grad_7pt
 from ludwig_tpu_torch.ops.walls import WallSpec
 from ludwig_tpu_torch.ref_rng import RanSerial, patches_ref, spinodal_ref
 from ludwig_tpu_torch.runtime import RunTime
-from ludwig_tpu_torch.stats_extra import (AhydroCalibration,
+from ludwig_tpu_torch.fulllog import InitLog
+from ludwig_tpu_torch.stats_extra import (AhydroCalibration, SigmaCalibration,
                                           RheologyAccumulator,
                                           interact_stats_lines)
 from ludwig_tpu_torch.subgrid import make_subgrid_step
@@ -172,7 +187,13 @@ SLICE_KEYS = frozenset((
     # field files' metadata), the shear observables (str-%08d.dat)
     "periodicity", "io_directory", "N_start", "config_at_end",
     "freq_config", "freq_phi", "freq_vel", "freq_shear_measurement",
-    "freq_shear_output"))
+    "freq_shear_output",
+    # the measurements (the binary families' surface-tension calibration,
+    # the colloids' output), the volume flux line, the timer probes; the
+    # decomposition hint is a no-op on one device, as in the JAX package
+    # without tpu_shard
+    "freq_measure", "calibration_sigma", "stats_vel_print_vol_flux",
+    "tpu_timer_detail", "grid"))
 
 # Lees-Edwards planes of the binary, LC and droplet families (the plain
 # fluid reads N_LE_plane and LE_plane_vel with its boundaries)
@@ -392,9 +413,23 @@ INACTIVE = {
     "lb_bc_open": _off,
     "tpu_shard": _off,
     "freq_psi": _zeros,
-    "freq_measure": _zeros,
     "colloid_io_freq": _zeros,
 }
+
+# every input key the JAX package's modules read (its rt.* calls outside
+# fulllog.py, whose reads only print the input header), beside the
+# particles' keys (COLLOID_PREFIXES) and the I/O grids (<name>_io_grid):
+# a key among them that the port does not honour for the input's free
+# energy is refused by name; any other key runs, and the log's tail
+# reports it if nothing read it, as the JAX package's does
+JAX_KEYS = (SLICE_KEYS | frozenset().union(*FREE_ENERGIES.values())
+            | frozenset(INACTIVE)
+            | frozenset(("free_energy", "default_io_grid")))
+
+
+def _jax_reads(key: str) -> bool:
+    return (key in JAX_KEYS or key.startswith(COLLOID_PREFIXES)
+            or key.endswith("_io_grid"))
 
 
 def _one_io_group(v: str) -> bool:
@@ -407,7 +442,10 @@ def _not_ported(key: str, value):
 
 
 def _check_keys(rt: RunTime):
-    """Raise on any key the slices cannot honour."""
+    """Raise on any key the JAX package honours and the port cannot, here
+    for this free energy (its inactive values apart); accept the rest.
+    The values are peeked at: which keys the run reads, and so which the
+    log reports as unused, is the code's business."""
     fe_name = rt.string("free_energy", "none")
     if fe_name not in FREE_ENERGIES:
         raise _not_ported("free_energy", fe_name)
@@ -417,11 +455,13 @@ def _check_keys(rt: RunTime):
         if (fe_name in COLLOID_FAMILIES
                 and key.startswith(COLLOID_PREFIXES)):
             continue
+        if not _jax_reads(key):
+            continue
         # default_io_grid, <name>_io_grid: one I/O group only (the JAX
         # package's sharded writer, io/sharded.py, is not ported)
         check = (INACTIVE.get(key) if not key.endswith("_io_grid")
                  else _one_io_group)
-        value = rt.string(key)
+        value = rt.peek(key)
         if check is None or not check(value):
             raise _not_ported(key, value)
 
@@ -472,6 +512,7 @@ class System:
     # ternary wetting stencils of a two-field run
     fe_ops: Optional[object] = None
     n_start: int = 0                         # the step a restart reads
+    vol_flux: bool = False                   # stats_vel_print_vol_flux
     # the other free energies: surfactant and ternary (f, phi, psi, u[,
     # gwall]); symmetric_lb (f, g, u[, gwall][, nstate][, grad, delsq]);
     # the polar gel (f, p, u); fe_electro_symmetric (f, phi, psi, rho_k,
@@ -484,6 +525,32 @@ class System:
     @property
     def fluid_mask(self) -> Optional[torch.Tensor]:
         return None if self.solid is None else torch.logical_not(self.solid)
+
+    # the families, as the JAX package's System names them (its
+    # ludwig.py:81-112); the input header (fulllog.py) reads them
+    @property
+    def is_binary(self) -> bool:
+        return self.binary_cfg is not None
+
+    @property
+    def is_lc(self) -> bool:
+        return self.lc_cfg is not None
+
+    @property
+    def is_two_field(self) -> bool:
+        return self.two_field_cfg is not None
+
+    @property
+    def is_droplet(self) -> bool:
+        return self.droplet_cfg is not None
+
+    @property
+    def is_polar(self) -> bool:
+        return self.polar_cfg is not None
+
+    @property
+    def is_binary_lb(self) -> bool:
+        return self.lb2_cfg is not None
 
     @property
     def is_electro(self) -> bool:
@@ -2323,8 +2390,14 @@ def _make_stats_fn(sys_: System, reference: bool):
             # ludwig.py:1908-1960)
             fl = _colloid_fluid(sys_, state[1])
             V = state[2]
+            # logs before v0.7 sum the momentum plainly in rank order
+            # (ludwig_tpu ludwig.py:1925-1944)
+            vintage = sys_.rt.int("_log_vintage", 9999)
             res = {"rho": stats.rho_stats_ref(f, model, fl),
-                   "g": stats.momentum_total_ref(f, model, fl),
+                   "g": (stats.momentum_total_seq(f, model, fl, blocks=(
+                       sys_.rt.int_vector("_mpi_grid", (1, 1, 1))))
+                         if vintage < 7
+                         else stats.momentum_total_ref(f, model, fl)),
                    "gc": (torch.zeros((3,), dtype=f.dtype, device=f.device)
                           if sys_.subgrid
                           else total_colloid_momentum(V, sys_.colloid_params)),
@@ -2360,7 +2433,14 @@ def _make_stats_fn(sys_: System, reference: bool):
             if bcfg is not None or l2cfg is not None or ecfg is not None:
                 res.update(family_colloid_stats(state, fl, coswt))
             return res
-        if reference:
+        if reference and sys_.rt.int("_log_vintage", 9999) < 12:
+            # logs before v0.12 (the Kahan rewrite) sum plainly, in the
+            # rank order of their run (ludwig_tpu ludwig.py:2107-2116)
+            blocks = tuple(sys_.rt.int_vector("_mpi_grid", (1, 1, 1)))
+            res = {"rho": stats.rho_stats_ref(f, model, mask, blocks=blocks),
+                   "g": stats.momentum_total_seq(f, model, mask,
+                                                 blocks=blocks)}
+        elif reference:
             res = {"rho": stats.rho_stats_ref(f, model, mask),
                    "g": stats.momentum_total_ref(f, model, mask)}
         else:   # the JAX package's fused routes have no solid sites
@@ -2368,6 +2448,10 @@ def _make_stats_fn(sys_: System, reference: bool):
             res = {"rho": stats.field_stats(rho),
                    "g": stats.momentum_total_plain(f, model)}
         res["umm"] = stats.velocity_minmax(u, mask)
+        if reference and sys_.vol_flux:
+            # the [vol flux] line (ludwig_tpu ludwig.py:2124-2126)
+            um = u if mask is None else torch.where(mask[None], u, 0.0)
+            res["uflux"] = torch.sum(um, dim=(1, 2, 3))
         if sys_.wallspec is not None:
             # halo walls: gwall rides the state, (f, gwall[, nstate]) or
             # after u: the binary fluid's and symmetric_lb's (f, phi|g, u,
@@ -2601,8 +2685,10 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
         for r in res["rhok"]:
             line("rho", *r)
         line("elc", *res["elc"])
-        if "psi_zeta" in res:
-            # one particle (ref: ludwig_tpu ludwig.py:2422-2427)
+        if "psi_zeta" in res and (
+                in_loop or sys_.rt.int("_log_vintage", 99) >= 7):
+            # one particle; in the initial block too from v0.7 on (ref:
+            # ludwig_tpu ludwig.py:2422-2427)
             out.write(f"[psi_zeta] {float(res['psi_zeta']):14.7e}\n")
     # [phi] (both fields of a two-field run are labelled [phi], ref:
     # phi_stats.c:94), then [Qxx]..[Qyz] or [Px ]..[Pz ], then [fed] or
@@ -2611,9 +2697,17 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
         out.write(stats.format_phi_line("phi", *res["phi"]))
     if "psi" in res:
         out.write(stats.format_phi_line("phi", *res["psi"]))
+    # a log whose hint says its initial block has no free energy: the
+    # binary fluid's rows (not the walls' one) and the LC's go
+    # (ludwig_tpu ludwig.py:2443, 2465, 2509, 2531)
+    skip_fe = not (in_loop or sys_.rt.int("_t0_fe", 1) == 1)
+    # the blue phase's Q rows of some older logs are labelled [phi] (a
+    # hint sniffed from the log; ludwig_tpu ludwig.py:2503-2508)
     if "q5" in res:
-        for name, q_stats in zip(("Qxx", "Qxy", "Qxz", "Qyy", "Qyz"),
-                                 res["q5"]):
+        names = (("phi",) * 5 if sys_.is_lc
+                 and sys_.rt.string("_q_labels", "q") == "phi"
+                 else ("Qxx", "Qxy", "Qxz", "Qyy", "Qyz"))
+        for name, q_stats in zip(names, res["q5"]):
             out.write(stats.format_phi_line(name, *q_stats))
     if "pvec" in res:
         for name, p_stats in zip(("Px ", "Py ", "Pz "), res["pvec"]):
@@ -2622,7 +2716,9 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
         # ncolloid > 0, no area: the walls' header beside halo walls (ref:
         # stats_free_energy.c:103-124; ludwig_tpu ludwig.py:2429-2455)
         fsum, vol = (float(v) for v in res["fe_colloid"])
-        if sys_.wallspec is not None:
+        if skip_fe and not sys_.is_electro:
+            pass
+        elif sys_.wallspec is not None:
             out.write("\nFree energies - timestep f v f/v f_s1 fs_s2 \n")
             out.write(f"[fe] {int(tstep):14d} {fsum:17.10e} {vol:17.10e} "
                       f"{fsum / vol:17.10e} {0.0:17.10e} {0.0:17.10e}\n")
@@ -2649,9 +2745,10 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
         fes = fr + fp + fs
         out.write(f"[surf/fl/tot]  {int(tstep):9d} {fes:17.10e} "
                   f"{fl:17.10e} {fl + fes:17.10e}\n")
-    elif "fed" in res:
+    elif "fed" in res and not (skip_fe and (sys_.is_binary
+                                            or sys_.is_binary_lb)):
         out.write(stats.format_fed_block(tstep, *res["fed"]))
-    if "fe_lc_coll" in res:
+    if "fe_lc_coll" in res and not skip_fe:
         # ncolloid > 0 (ref: fe_lc_stats.c:120-140; ludwig_tpu ludwig.py:
         # 2501-2520): the particles' surface term and area
         ftot, vol, fs, area = (float(v) for v in res["fe_lc_coll"])
@@ -2661,9 +2758,14 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
         if area > 0.0:
             row += f" {area:17.10e} {fs / area:17.10e}"
         out.write(row + "\n")
-    elif "fe_lc" in res:
+    elif "fe_lc" in res and not skip_fe:
         rs = float(res.get("redshift", sys_.lc_cfg.fe.redshift))
-        if sys_.lc_cfg.has_walls:
+        if sys_.rt.int("_fed_block", 0):
+            # the generic density block of the earliest LC logs (a hint;
+            # ludwig_tpu ludwig.py:2534-2538)
+            ftot, vol = (float(v) for v in res["fe_lc"][:2])
+            out.write(stats.format_fed_block(tstep, ftot / vol, ftot / vol))
+        elif sys_.lc_cfg.has_walls:
             # the walls' surface terms (ludwig_tpu ludwig.py:2539-2545)
             ftot, vol, fs1, fs2 = (float(v) for v in res["fe_lc"])
             out.write("\nFree energies - timestep f v f/v f_s1 fs_s2 "
@@ -2689,6 +2791,10 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
         out.write(stats.format_momentum_block(g, g))
     if with_velocity:
         out.write(stats.format_velocity_block(*res["umm"]))
+        if "uflux" in res:
+            fx = res["uflux"].tolist()
+            out.write(f"[vol flux] {fx[0]:14.7e} {fx[1]:14.7e} "
+                      f"{fx[2]:14.7e}\n")
     if "ktstats" in res and in_loop:
         # ref: collision.c:1103-1110 lb_collision_stats_kt
         gx, gy, gz = (float(v) for v in res["ktstats"])
@@ -2702,15 +2808,23 @@ def report_statistics(sys_: System, tstep: int, u, stats_fn,
     out.flush()
 
 
-def _sor_report(sor, multisteps: int, out, heterogeneous: bool = False):
+def _sor_report(sor, multisteps: int, out, heterogeneous: bool = False,
+                nsites: Optional[int] = None):
     """The three lines of the SOR solver's report (ref: psi_sor.c:263-292
     prints the 0-based iteration index); `heterogeneous` for the
-    variable-permittivity solver of fe_electro_symmetric."""
+    variable-permittivity solver of fe_electro_symmetric; with `nsites`
+    the residual per site of the logs up to v0.7 (ludwig_tpu ludwig.py:
+    3171-3176)."""
     n, rnorm, which = (v.item() for v in sor)
     kind = "absolute" if int(which) == 0 else "relative"
     name = "SOR (heterogeneous) solver" if heterogeneous else "SOR solver"
     out.write(f"\n{name} converged to {kind} tolerance\n")
-    out.write(f"SOR residual {float(rnorm):14.7e} at {int(n)} iterations\n")
+    if nsites is not None:
+        out.write(f"SOR residual per site  {float(rnorm) / nsites:14.7e} "
+                  f"at {int(n)} iterations\n")
+    else:
+        out.write(f"SOR residual {float(rnorm):14.7e} at {int(n)} "
+                  "iterations\n")
     out.write(f"{multisteps} multisteps\n")
 
 
@@ -2856,7 +2970,12 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
     t0 = time.time()
     sys_ = build_system(rt, device)
     sys_.hydro_on = rt.switch("hydrodynamics", True)
+    sys_.vol_flux = rt.string("stats_vel_print_vol_flux", "no") == "yes"
+    rt.switch("tpu_shard", False)       # refused when on (INACTIVE)
     size = sys_.lb_cfg.size
+    # the input header (fulllog.py), written after the set-up below has
+    # read its keys and registered the calibrations' banners
+    initlog = InitLog(rt, sys_, out)
     ncycles = rt.int("N_cycles", 0)
     freq = rt.int("freq_statistics", max(ncycles, 1))
     stats_fn = _make_stats_fn(sys_, reference_statistics(sys_))
@@ -2890,8 +3009,23 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
     freq_shear_io = rt.int("freq_shear_output", 0)
     rheo = (RheologyAccumulator(size, sys_.lb_cfg.device)
             if freq_shear_meas or freq_shear_io else None)
+    # the measurements (ludwig_tpu ludwig.py:2803, 2830-2845): the
+    # colloids' output and, for the binary fluid, the surface-tension
+    # calibration of a drop that replaces the initial phi
+    freq_measure = rt.int("freq_measure", 0)
+    sigma_cal = None
+    if (rt.switch("calibration_sigma", False)
+            and sys_.binary_cfg is not None and not sys_.is_colloid):
+        bcfg = sys_.binary_cfg
+        sigma_cal = SigmaCalibration(bcfg.fe, size, bcfg.mobility)
+        phi0 = torch.as_tensor(sigma_cal.init_phi(np.float64),
+                               dtype=sys_.state[1].dtype,
+                               device=sys_.state[1].device)
+        sys_.state = (sys_.state[0], phi0) + tuple(sys_.state[2:])
+        initlog.sigma_cal = sigma_cal
     has_q = sys_.lc_cfg is not None or sys_.droplet_cfg is not None
     tend = sys_.n_start + ncycles
+    cfg_style = rt.string("_cfg_end_style", "inloop")
 
     def write_field(name, step, arr):
         write_ref_field(iodir, name, step, arr, periodic=periodic,
@@ -2903,16 +3037,16 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
         print(f"Restart from step {sys_.n_start}", file=sys.stderr)
 
     # the hydrodynamic-radius calibration of one particle (ludwig_tpu
-    # ludwig.py:3076-3100; ref: stats_calibration.c); its banner stands in
-    # the JAX package's input header
+    # ludwig.py:3076-3100; ref: stats_calibration.c); the header writes
+    # its banner
     ahydro = None
     cp = sys_.colloid_params
     if rt.switch("calibration", False) and cp is not None and cp.n == 1:
         ahydro = AhydroCalibration(max(cp.ah), cp.a0[0], sys_.lb_cfg.eta_shear,
                                    sys_.lb_cfg.rho0, cp.rho0, size,
                                    cp.gravity)
-        ahydro.banner(out)
-    out.write("\nInitial conditions.\n")
+        initlog.ahydro = ahydro
+    initlog.emit()      # ends with "Initial conditions."
     u = torch.zeros((3,) + size, dtype=sys_.lb_cfg.tdtype,
                     device=sys_.lb_cfg.device)
     report_statistics(sys_, sys_.n_start, u, stats_fn, with_velocity=False,
@@ -2938,12 +3072,19 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
         prev = None
         res = None
         nfld = sys_.n_fields
+        # config_at_end writes at the last step in the loop, or after
+        # it in the style of a log's era (the _cfg_end_style hint;
+        # ludwig_tpu ludwig.py:3180-3185, 3452-3472)
+        end_config = config_at_end and t == tend
         is_config = ((freq_config and t % freq_config == 0)
-                     or (config_at_end and t == tend))
+                     or (end_config and cfg_style == "inloop"))
         # the pre-update field's gradients a fused route's checkpoint
         # carries where the JAX package's route keeps them
         extra = (sys_.grad_leaves(sys_.state[1], t)
-                 if is_config and sys_.grad_leaves is not None else ())
+                 if (is_config or end_config)
+                 and sys_.grad_leaves is not None else ())
+        if end_config:
+            end_extra = extra
         if sys_.is_colloid:
             # the velocities before the step feed the particle block
             prev = (sys_.state[2],)
@@ -3000,7 +3141,10 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
         if sor_freq and t % sor_freq == 0:
             _sor_report(sor, sys_.electro_cfg.ek.multisteps, out,
                         heterogeneous=(sys_.es_cfg is not None
-                                       and sys_.es_cfg.fe.gamma != 0.0))
+                                       and sys_.es_cfg.fe.gamma != 0.0),
+                        nsites=(int(np.prod(size))
+                                if rt.int("_log_vintage", 99) <= 7
+                                else None))
         # configuration dumps and the output lines come BEFORE the
         # statistics block of the same step (ref: ludwig.c:866-948)
         if is_config:
@@ -3008,8 +3152,9 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
             out.write(f"Writing distribution output at step {t}!\n")
             write_checkpoint(sys_, iodir, t, extra)
             _acc("cfgio", time.time() - ts0)
-        if sys_.is_colloid and (is_config or (freq_colloid_io and
-                                              t % freq_colloid_io == 0)):
+        if sys_.is_colloid and (
+                is_config or (freq_colloid_io and t % freq_colloid_io == 0)
+                or (freq_measure and t % freq_measure == 0)):
             # (ludwig_tpu ludwig.py:3186-3204; ref: ludwig.c:875-884)
             ts0 = time.time()
             out.write(f"Writing colloid output at step {t}!\n")
@@ -3028,6 +3173,14 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
             out.write(f"Writing psi file at step {t}!\n")
         if sys_.hydro_on and (vel_out or is_config):
             out.write(f"Writing rho/velocity output at step {t}!\n")
+        if sigma_cal is not None and freq_measure and t % freq_measure == 0:
+            # (ref: ludwig.c:920-923 stats_sigma_measure)
+            radius, xifit, sig = sigma_cal.measure(
+                sys_.state[1], _binary_fields(sys_, sys_.state[1]))
+            out.write("\nSurface tension calibration - radius xi0 "
+                      "surface tension\n")
+            out.write(f"[sigma] {t:14d} {radius:14.7e} {xifit:14.7e} "
+                      f"{sig:14.7e}\n")
         if freq_shear_meas and t % freq_shear_meas == 0:
             # (ref: ludwig.c:925-929, stats_rheology accumulate)
             rheo.accumulate(sys_.state[0], sys_.lb_cfg.model,
@@ -3067,6 +3220,18 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
                 write_field("rho", t, sys_.state[psi_at + 1])
             _acc("fldio", time.time() - ts0)
 
+    if config_at_end and ncycles > 0 and cfg_style != "inloop":
+        if cfg_style == "after":
+            if has_phi:
+                out.write(f"Writing phi file at step {tend}!\n")
+            if has_q:
+                out.write(f"Writing q file at step {tend}!\n")
+            if sys_.is_electro:
+                out.write(f"Writing psi file at step {tend}!\n")
+            if sys_.hydro_on:
+                out.write(f"Writing rho/velocity output at step {tend}!\n")
+        write_checkpoint(sys_, iodir, tend, end_extra)
+
     if ahydro is not None:
         ahydro.report(out)
 
@@ -3074,6 +3239,7 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
     # device work of a step lands in the next section that synchronises
     total = time.time() - t0
     per_step = (total - t_init) / max(ncycles, 1)
+    out.write("\nTimer resolution: 1e-09 second\n")
     out.write("\nTimer statistics\n")
     out.write("             Section:       tmin       tmax      total\n")
     out.write(f"               Total: {total:10.3f} {total:10.3f} "
@@ -3084,22 +3250,108 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
               f"{total - t_init:10.3f} {per_step:10.6f} "
               f"({max(ncycles, 1)} calls)\n")
     for key, label in (("step", "Step dispatch"), ("stats", "Statistics"),
-                       ("cfgio", "Config output"), ("fldio", "Field output")):
+                       ("cfgio", "Configuration IO"),
+                       ("fldio", "Field output")):
         tot, tmin, tmax, ncall = sect[key]
         if ncall:
             out.write(f"{label:>20s}: {tmin:10.3f} {tmax:10.3f} "
                       f"{tot:10.3f} {tot / ncall:10.6f} ({ncall} calls)\n")
-    if sys_.is_colloid and not sys_.subgrid:
-        # one map build at the final positions (ludwig_tpu ludwig.py:
-        # 3594-3600)
-        ts0 = time.time()
-        _colloid_fluid(sys_, sys_.state[1]).sum().item()
-        tm = time.time() - ts0
-        out.write(f"{'Colloid map build':>20s}: {tm:10.3f} {tm:10.3f} "
-                  f"{tm:10.3f} {tm:10.6f} (1 call)\n")
-    out.write("Ludwig finished normally.\n")
+    if rt.switch("tpu_timer_detail", False) and ncycles > 0:
+        # the phases of a step, each launched alone on the final state
+        # (ludwig_tpu ludwig.py:3500-3508)
+        for name, dt_ in timer_detail(sys_):
+            out.write(f"{name:>20s}: {dt_:10.3f} {dt_:10.3f} "
+                      f"{dt_:10.3f} {dt_:10.6f} (probe)\n")
+    initlog.tail()      # the unused keys, "Ludwig finished normally."
     out.flush()
     return sys_
+
+
+def _binary_fields(sys_: System, phi: torch.Tensor) -> dict:
+    """phi and its gradients for the host-side free-energy measurements
+    (ludwig_tpu ludwig.py:2814-2820), on the step's stencils."""
+    bcfg = sys_.binary_cfg
+    ops = (binary_solid_ops(bcfg, solid=sys_.solid, wallspec=sys_.wallspec)
+           if isinstance(sys_.fe_ops, OpenXScalarOps) else sys_.fe_ops)
+    return fe_fields(phi, bcfg.gradient, bcfg.fourth_order, ops)
+
+
+def _takes_f(sys_: System) -> bool:
+    """The step takes and returns f alone: the fused plain step, and the
+    periodic plain fluid's unfused one ((f, rho, u))."""
+    return sys_.fused_mode == "plain" or (
+        sys_.fused_mode is None and not sys_.is_colloid
+        and not sys_.n_fields and not sys_.is_electro and not sys_.has_kiss
+        and sys_.wallspec is None)
+
+
+def _probe_seconds(fn, device: torch.device, reps: int = 3) -> float:
+    """The least time of reps calls of fn after a warm-up call: CUDA
+    events on a GPU, the host clock on the CPU."""
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        if device.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            best = min(best, 1e-3 * start.elapsed_time(end))
+        else:
+            ts0 = time.perf_counter()
+            fn()
+            best = min(best, time.perf_counter() - ts0)
+    return best
+
+
+def timer_detail(sys_: System, reps: int = 3) -> list:
+    """[(row, seconds a call)]: the phases of the step of each route,
+    each launched alone on the current state (ludwig_tpu ludwig.py:
+    3513-3618, the same rows): the fused plain, wall and Lees-Edwards
+    routes' kernel ("Collide+stream"), the binary and droplet K1
+    ("Phi+force kernel", "Phi+Q+force kernel"), the electrolyte's SOR
+    solve ("Poisson (SOR)"), the colloid map ("Colloid map build"), and
+    the whole step ("Full step").  The port keeps no padded state, so the
+    JAX package's "Pad refresh" row has no counterpart."""
+    st = sys_.state
+    dev = torch.device(sys_.lb_cfg.device)
+    model = sys_.lb_cfg.model
+    params = sys_.lb_cfg.collision_params()
+    rows = []
+
+    def probe(name, fn):
+        rows.append((name, _probe_seconds(fn, dev, reps)))
+
+    def full_step():
+        return sys_.step_fn(st[0] if _takes_f(sys_) else st, 1)
+
+    if sys_.fused_mode in ("plain", "wall", "le"):
+        probe("Collide+stream", lambda: fused_step(st[0], model, params))
+        return rows
+    if sys_.fused_mode == "binary":
+        bcfg = sys_.binary_cfg
+        probe("Phi+force kernel", lambda: binary_phi_force_step(
+            st[1], st[2], bcfg.fe, bcfg.mobility, bcfg.advection_order))
+    elif sys_.fused_mode == "droplet":
+        dcfg = sys_.droplet_cfg
+        probe("Phi+Q+force kernel", lambda: droplet_phi_q_force_step(
+            st[1], st[2], st[3], dcfg.fe, dcfg.gamma, dcfg.mobility,
+            dcfg.advection_order))
+    elif sys_.fused_mode is None and sys_.is_electro and not sys_.is_colloid:
+        ek = sys_.electro_cfg.ek
+        off = 1 if sys_.es_cfg is not None else 0
+        psi, rhok = st[1 + off], st[2 + off]
+        up, dn = electro_sim.make_psi_neighbours(
+            sys_.lb_cfg.size, sys_.electro_cfg.e0, sys_.lb_cfg.dtype,
+            sys_.lb_cfg.device)
+        probe("Poisson (SOR)", lambda: electro_sim.poisson_sor_ref(
+            psi, rho_elec(rhok, ek), ek, up, dn))
+    elif sys_.is_colloid and not sys_.subgrid:
+        probe("Colloid map build", lambda: _colloid_map(sys_, st[1]))
+    probe("Full step", full_step)
+    return rows
 
 
 def run(path: str = "input", out=sys.stdout, device="cuda") -> System:

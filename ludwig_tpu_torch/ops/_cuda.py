@@ -65,7 +65,7 @@ BUILD_DIR = PKG_DIR / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
-KERNEL_NVELS = (15, 19, 27)
+KERNEL_NVELS = (9, 15, 19, 27)
 # integer operations of the fluctuations' counter hash (csrc/fused_lb.cu
 # lb_site_deviates): the site's key (3 products, a product by t, 4
 # xors), then per deviate (6 + nghost of them) a xor with the mode's
@@ -322,17 +322,23 @@ def _collide_force_source(nvel: int, projected: bool) -> str:
 
 def generate_header(nvel: int) -> str:
     """lb_generated.h for one velocity set; the fluctuating collisions
-    (lb_collide_noise_*) come last, after the noiseless functions."""
+    (lb_collide_noise_*) come last, after the noiseless functions.  The
+    force collisions (lb_collide_force_*) exist for the three-dimensional
+    sets only: a D2Q9 header defines LB_NO_FORCE and has the one-step
+    collisions with and without fluctuations, as the TPU kernels take
+    D2Q9 there only."""
     model = lb_model(nvel)
-    parts = [f"// Generated by ludwig_tpu_torch/ops/_cuda.py for D3Q{nvel}"
-             " from lattice.py; do not edit.",
+    has_force = model.ndim == 3
+    parts = [f"// Generated by ludwig_tpu_torch/ops/_cuda.py for "
+             f"D{model.ndim}Q{nvel} from lattice.py; do not edit.",
              "#pragma once",
              f"#define LB_NVEL {nvel}",
-             f"#define LB_NGHOST {nvel - model.nhydro}", ""]
+             f"#define LB_NGHOST {nvel - model.nhydro}"]
+    parts += [""] if has_force else ["#define LB_NO_FORCE", ""]
     for delta in (False, True):
         for projected in (False, True):
             parts.append(_collide_source(nvel, delta, projected))
-    for projected in (False, True):
+    for projected in (False, True) if has_force else ():
         parts.append(_collide_force_source(nvel, projected))
     parts.append(_antipode_source(model))
     for delta in (False, True):

@@ -2,8 +2,9 @@
 
 PyTorch port of ludwig_tpu/ops/fused.py.  The TPU kernels
 ``_fused_kernel`` (with and without its in-kernel fluctuations,
-FusedNoise), ``_fusedn_kernel`` and ``_fused_force_kernel`` (with and
-without its solid variant) become the hand-written CUDA kernels of
+FusedNoise; D2Q9, D3Q15, D3Q19, D3Q27), ``_fusedn_kernel`` and
+``_fused_force_kernel`` (with and without its solid variant; the
+three-dimensional sets) become the hand-written CUDA kernels of
 ``csrc/fused_lb.cu``; their plain PyTorch twins live here.
 Every public function takes the twin for a tensor on the CPU, launches
 the kernel for a tensor on a CUDA device, and raises on anything else.
@@ -416,7 +417,11 @@ def fusedn_step(f: torch.Tensor, model: LatticeModel,
                 plan: FusedPlan = FusedPlan(),
                 delta: bool = False) -> torch.Tensor:
     """n fused collide+stream steps in one pass (temporal blocking);
-    equal to n fused_step calls with the same `delta`."""
+    equal to n fused_step calls with the same `delta`.  On a CUDA device
+    the velocity set is three-dimensional: the JAX package's
+    _fusedn_kernel needs Z % 128 == 0 on hardware, which no D2Q9 lattice
+    (Z = 1) meets, and no entry point of it runs D2Q9 n-step; the CPU
+    twin takes any set."""
     if not 1 <= nsteps <= NSTEPS_MAX:
         raise ValueError(f"nsteps must be in [1, {NSTEPS_MAX}] "
                          f"(got {nsteps})")
@@ -426,6 +431,11 @@ def fusedn_step(f: torch.Tensor, model: LatticeModel,
     if f.device.type == "cpu":
         return _fusedn_step_plain(f, model, params, nsteps, plan, delta)
     if f.device.type == "cuda":
+        if model.ndim != 3:
+            raise NotImplementedError(
+                "fusedn_step on a CUDA device takes D3Q15/19/27 only: the "
+                "JAX package's _fusedn_kernel does not run D2Q9 on its "
+                "hardware")
         return _cuda.fusedn_step(f, model, params, nsteps, plan, delta)
     raise ValueError(f"no fusedn_step for device {f.device}")
 
@@ -503,8 +513,16 @@ def fused_force_step(f: torch.Tensor, force: torch.Tensor,
     stream_bounce_back), and the call returns (f', u, gw) with gw (3,)
     the momentum the links handed to the walls (ops.stream.
     wall_momentum_transfer).  u is computed at solid sites too; only its
-    fluid sites mean anything."""
+    fluid sites mean anything.
+
+    The velocity set is three-dimensional: the JAX package's
+    _fused_force_kernel stores three velocity components and stops on
+    D2Q9, so D2Q9 raises here on every device."""
     _check_state(f, model)
+    if model.ndim != 3:
+        raise NotImplementedError(
+            "fused_force_step takes D3Q15/19/27 only: the JAX package's "
+            "_fused_force_kernel does not run D2Q9")
     _check_force(force, f)
     if solid is not None:
         if (tuple(solid.shape) != tuple(f.shape[1:])

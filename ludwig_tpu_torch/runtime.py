@@ -45,6 +45,11 @@ class RunTime:
     def has_key(self, key: str) -> bool:
         return key in self._kv
 
+    def peek(self, key: str) -> Optional[str]:
+        """The value, without marking the key used (the input check reads
+        a key's value before the code that consumes it)."""
+        return self._kv.get(key)
+
     def string(self, key: str, default: Optional[str] = None) -> Optional[str]:
         if key in self._kv:
             self._used.add(key)

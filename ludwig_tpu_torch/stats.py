@@ -165,16 +165,52 @@ def field_stats_ref(x: torch.Tensor, fluid_mask=None, klein="klein"):
     return (total, mean, sq / n - mean * mean) + _min_max(x, fluid_mask)
 
 
-def rho_stats_ref(f: torch.Tensor, model: LatticeModel, fluid_mask=None):
+def _rank_blocks(x: torch.Tensor, blocks):
+    """(nranks, sites of a rank) view of a lattice field (X, Y, Z) in
+    the order an MPI run of decomposition `blocks` = (gx, gy, gz) visits
+    it: cart-rank (row-major) order, then each rank's local site
+    order."""
+    gx, gy, gz = blocks
+    X, Y, Z = x.shape
+    r6 = x.reshape(gx, X // gx, gy, Y // gy, gz, Z // gz)
+    return r6.permute(0, 2, 4, 1, 3, 5).reshape(gx * gy * gz, -1)
+
+
+def _blocked(blocks) -> bool:
+    return blocks is not None and tuple(blocks) != (1, 1, 1)
+
+
+def _rank_scans(x: torch.Tensor, fluid_mask, mode: int, name: str, blocks):
+    """_scan's (total, second sum) in the order of a decomposed run:
+    each rank's partial sums over its own sites, then the partials added
+    in cart-rank order from zero (the MPI_Reduce of the reference's
+    parallel run; ludwig_tpu/stats.py rho_stats_ref, blocks)."""
+    xs = _rank_blocks(x, blocks)
+    ms = None if fluid_mask is None else _rank_blocks(fluid_mask, blocks)
+    total = sq = torch.zeros((), dtype=x.dtype, device=x.device)
+    for r in range(xs.shape[0]):
+        t, q = _scan(xs[r], None if ms is None else ms[r], mode, name)
+        total, sq = total + t, sq + q
+    return total, sq
+
+
+def rho_stats_ref(f: torch.Tensor, model: LatticeModel, fluid_mask=None,
+                  blocks=None):
     """Reference-exact density stats: rho summed over the velocities in
     order, then sequential site-order naive sums and var = E[rho^2] -
     E[rho]^2 (ref: stats_distribution.c:62-115).  The variance suffers
     catastrophic cancellation (rho ~ 1), so its last digits are set by
-    the exact summation ORDER."""
+    the exact summation ORDER.  `blocks`: the MPI decomposition (gx, gy,
+    gz) of the run whose log is reproduced, whose ranks sum their own
+    sites and combine in rank order (_rank_scans)."""
     rho = f[0]
     for p in range(1, model.nvel):
         rho = rho + f[p]
-    total, sumsq = _scan(rho, fluid_mask, RHO, "rho_stats_ref")
+    if _blocked(blocks):
+        total, sumsq = _rank_scans(rho, fluid_mask, RHO, "rho_stats_ref",
+                                   blocks)
+    else:
+        total, sumsq = _scan(rho, fluid_mask, RHO, "rho_stats_ref")
     n = _count(rho, fluid_mask)
     mean = total / n
     return (total, mean, sumsq / n - mean * mean) + _min_max(rho,
@@ -279,6 +315,35 @@ def momentum_total_plain(f: torch.Tensor, model: LatticeModel):
             acc = t if acc is None else acc + t
         comps.append(torch.zeros((), dtype=f.dtype, device=f.device)
                      if acc is None else torch.sum(acc))  # 2-D: no z links
+    return torch.stack(comps)
+
+
+def momentum_total_seq(f: torch.Tensor, model: LatticeModel,
+                       fluid_mask=None, blocks=None):
+    """(3,) total momentum by a plain (uncompensated) site-order sum of
+    each site's p-order fold of f_p c_pa, masked sites adding 0: the
+    pre-v0.12 reference accumulation (stats_distribution.c before its
+    Kahan rewrite), which the logs of older vintages carry in their
+    near-zero totals (ludwig_tpu/stats.py momentum_total_plain).
+    `blocks` as rho_stats_ref's."""
+    cv = np.asarray(model.cv, np.float64)
+    comps = []
+    for a in range(3):
+        acc = None
+        for p in range(model.nvel):
+            cpa = float(cv[p][a])
+            if cpa == 0.0:
+                continue
+            t = cpa * f[p]
+            acc = t if acc is None else acc + t
+        if acc is None:       # 2-D models: no z links
+            acc = torch.zeros_like(f[0])
+        if fluid_mask is not None:
+            acc = torch.where(fluid_mask, acc, 0.0)
+        if _blocked(blocks):
+            comps.append(_rank_scans(acc, None, SEQ, "seq_sum", blocks)[0])
+        else:
+            comps.append(_scan(acc, None, SEQ, "seq_sum")[0])
     return torch.stack(comps)
 
 

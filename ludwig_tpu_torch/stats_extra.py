@@ -1,8 +1,12 @@
-"""Shear observables, the particle statistics' interaction lines and the
-hydrodynamic-radius calibration.
+"""Shear observables, the particle statistics' interaction lines, the
+hydrodynamic-radius and surface-tension calibrations and the other
+specialised observables.
 
-PyTorch port of RheologyAccumulator, interact_stats_lines and
-AhydroCalibration of ludwig_tpu/stats_extra.py (the last two numpy only).  The mean-stress xz section (ref:
+PyTorch port of ludwig_tpu/stats_extra.py: RheologyAccumulator,
+interact_stats_lines and AhydroCalibration (the last two numpy only),
+measure_sigma, rheology_profiles, shear_stress_mean, TurbulentStats and
+SigmaCalibration (ref: stats_sigma.c, stats_rheology.c,
+stats_turbulent.c).  The mean-stress xz section (ref:
 stats_rheology.c:54-55 NSTAT2, :332-425
 stats_rheology_stress_profile_accumulate, stats_rheology_stress_section),
 switched on by the input keys freq_shear_measurement and
@@ -18,6 +22,183 @@ import numpy as np
 import torch
 
 TRIU = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+
+
+def measure_sigma(fe, fields, axis: int = 0) -> float:
+    """Surface tension from the excess free-energy density across a flat
+    interface normal to `axis` (ref: stats_sigma.c method: integrate
+    fed - fed_bulk through the interface; assumes two interfaces in a
+    periodic box, returns the per-interface value)."""
+    fed = fe.fed(fields)
+    # bulk value = free energy of the pure phases (minimum of the bulk
+    # potential): fed(phi*) with zero gradients
+    phi_star = fe.phi_star
+    fbulk = 0.5 * fe.a * phi_star ** 2 + 0.25 * fe.b * phi_star ** 4
+    other = tuple(a for a in range(3) if a != axis)
+    excess = torch.mean(fed - fbulk, dim=other)
+    return 0.5 * float(torch.sum(excess))
+
+
+def rheology_profiles(u: torch.Tensor, pth: torch.Tensor, axis: int = 0):
+    """Mean velocity (3, L) and stress (3, 3, L) profiles along `axis`
+    (ref: stats_rheology.c: mean over the perpendicular directions)."""
+    uprof = torch.mean(u, dim=tuple(a + 1 for a in range(3) if a != axis))
+    sprof = torch.mean(pth, dim=tuple(a + 2 for a in range(3) if a != axis))
+    return uprof, sprof
+
+
+def shear_stress_mean(f: torch.Tensor, model) -> float:
+    """Volume-mean deviatoric S_xy from the distributions
+    (ref: stats_rheology mean stress)."""
+    cv = model.cv
+    sxy = 0.0
+    for p in range(model.nvel):
+        cxy = float(cv[p][0] * cv[p][1])
+        if cxy:
+            sxy = sxy + cxy * f[p]
+    return float(torch.mean(sxy))
+
+
+class TurbulentStats:
+    """Time-averaged velocity profile over the y direction
+    (ref: src/stats_turbulent.c: ubar accumulate / zero / output).
+
+    ubar holds the running sum of u over every (x, z) column, on the
+    host in float64; output normalises by (time_counter * Ly) and writes
+    the reference's ascii profile (one line per (x, z): ic kc ubar_x
+    ubar_y ubar_z, 1-based coordinates)."""
+
+    def __init__(self, size):
+        self.size = tuple(size)
+        self.ubar = np.zeros((size[0], size[2], 3))
+        self.time_counter = 0
+
+    def accumulate(self, u: torch.Tensor):
+        ua = u.detach().cpu().numpy()       # (3, X, Y, Z)
+        self.ubar += np.moveaxis(ua.sum(axis=2), 0, -1)
+        self.time_counter += 1
+
+    def zero(self):
+        self.ubar[:] = 0.0
+        self.time_counter = 0
+
+    def output(self, path: str):
+        norm = 1.0 / (max(self.time_counter, 1) * self.size[1])
+        with open(path, "w") as fh:
+            for ic in range(self.size[0]):
+                for kc in range(self.size[2]):
+                    v = self.ubar[ic, kc] * norm
+                    fh.write(f"{ic + 1:4d} {kc + 1:4d} "
+                             f"{v[0]:14.7e} {v[1]:14.7e} "
+                             f"{v[2]:14.7e}\n")
+
+
+class SigmaCalibration:
+    """Surface-tension calibration via a droplet (ref: stats_sigma.c).
+
+    Initialises phi as a drop of radius L/4 and width 2 xi0 at the box
+    centre; measure() recovers the drop centre (mean of phi < 0 sites),
+    radius (mean distance of sign-change crossings over the 26-site
+    neighbourhood), interfacial width (best tanh fit over a binned
+    radial profile, NFITMAX grid) and surface tension (excess free
+    energy over the site minimum / drop area).  The measurement runs on
+    the host in float64 numpy, as the JAX package's does, on phi and the
+    free-energy density copied from the device.
+    """
+
+    NBIN, NFITMAX, XIINIT, XIPROFILE = 128, 2000, 2.0, 10.0
+
+    def __init__(self, fe, size, mobility):
+        self.fe = fe
+        self.size = tuple(size)
+        self.xi0 = float(np.sqrt(-2.0 * fe.kappa / fe.a))
+        self.radius = 0.25 * size[0]
+        self.phistar = float(np.sqrt(-fe.a / fe.b))
+        self.diffusivity = -mobility / fe.a
+        self.tdiff = (self.XIINIT * self.xi0) ** 2 / self.diffusivity
+
+    def banner(self, out):
+        out.write("\nSurface tension calibration via droplet initialised\n")
+        out.write("---------------------------------------------------\n")
+        out.write(f"Drop radius:     {self.radius:14.7e}\n")
+        out.write(f"Cahn number:     {self.xi0 / self.radius:14.7e}\n")
+        out.write(f"Diffusivity:     {self.diffusivity:14.7e}\n")
+        out.write(f"Diffusion time:  {self.tdiff:14.7e}\n")
+
+    def init_phi(self, dtype):
+        """phi = phistar tanh((r - r0)/xi) on global site coords i+1
+        (ref: field_phi_init_drop, is_centred = 0), a numpy array."""
+        nx, ny, nz = self.size
+        x = np.arange(1, nx + 1) - 0.5 * nx
+        y = np.arange(1, ny + 1) - 0.5 * ny
+        z = np.arange(1, nz + 1) - 0.5 * nz
+        r = np.sqrt(x[:, None, None] ** 2 + y[None, :, None] ** 2
+                    + z[None, None, :] ** 2)
+        rxi = 1.0 / (self.XIINIT * self.xi0)
+        return (self.phistar * np.tanh(rxi * (r - self.radius))).astype(dtype)
+
+    def measure(self, phi, fields):
+        """(radius, xi0 fit, sigma) of the drop in phi, whose free-energy
+        fields are `fields` (binary.fe_fields)."""
+        phin = torch.as_tensor(phi).detach().cpu().numpy().astype(np.float64)
+        nx, ny, nz = self.size
+        gx = np.arange(1, nx + 1, dtype=np.float64)
+        gy = np.arange(1, ny + 1, dtype=np.float64)
+        gz = np.arange(1, nz + 1, dtype=np.float64)
+        neg = phin <= 0.0
+        nneg = neg.sum()
+        centre = np.array([
+            (neg * gx[:, None, None]).sum() / nneg,
+            (neg * gy[None, :, None]).sum() / nneg,
+            (neg * gz[None, None, :]).sum() / nneg])
+        # radius: interpolated sign-change crossings over 26 neighbours
+        rsum = 0.0
+        rcount = 0.0
+        inside = phin < 0.0
+        for dx in (-1, 0, 1):
+            for dy in (-1, 0, 1):
+                for dz in (-1, 0, 1):
+                    if dx == 0 and dy == 0 and dz == 0:
+                        continue
+                    phi1 = np.roll(phin, (-dx, -dy, -dz), (0, 1, 2))
+                    m = inside & (phi1 > 0.0)
+                    if not m.any():
+                        continue
+                    frac = phin[m] / (phin[m] - phi1[m])
+                    ii, jj, kk = np.nonzero(m)
+                    rx = gx[ii] + frac * dx - centre[0]
+                    ry = gy[jj] + frac * dy - centre[1]
+                    rz = gz[kk] + frac * dz - centre[2]
+                    rsum += np.sqrt(rx ** 2 + ry ** 2 + rz ** 2).sum()
+                    rcount += m.sum()
+        radius = rsum / rcount
+        # xi: binned radial profile + best tanh fit
+        rmin = radius - self.XIPROFILE * self.xi0
+        rmax = radius + self.XIPROFILE * self.xi0
+        dr = (rmax - rmin) / self.NBIN
+        r0 = np.sqrt((gx[:, None, None] - centre[0]) ** 2
+                     + (gy[None, :, None] - centre[1]) ** 2
+                     + (gz[None, None, :] - centre[2]) ** 2)
+        nb = np.floor((r0 - rmin) / dr).astype(np.int64)
+        ok = (nb >= 0) & (nb < self.NBIN)
+        phir = np.bincount(nb[ok], weights=phin[ok], minlength=self.NBIN)
+        nphi = np.bincount(nb[ok], minlength=self.NBIN)
+        has = nphi > 0
+        phir[has] = phir[has] / nphi[has]
+        rbin = rmin + (np.arange(self.NBIN) + 0.5) * dr
+        xifits = 2.0 * (np.arange(self.NFITMAX) + 1) * self.xi0 \
+            / self.NFITMAX
+        prof = np.tanh((rbin[None, :] - radius) / xifits[:, None])
+        cost = (((phir[None, :] - prof) ** 2) * has[None, :]).sum(axis=1)
+        xi0fit = float(xifits[int(np.argmin(cost))])
+        # sigma: excess free energy density over the minimum
+        fed = self.fe.fed(fields).detach().cpu().numpy().astype(np.float64)
+        excess = (fed - fed.min()).sum()
+        if nz == 1:
+            sigma = excess / (2.0 * np.pi * radius)
+        else:
+            sigma = excess / (4.0 * np.pi * radius * radius)
+        return radius, xi0fit, sigma
 
 
 def _hasimoto(a: float, length: float) -> float:

@@ -112,7 +112,7 @@ def test_binary_keys_now_ported_match_jax(line):
     # moving and slip walls of the binary fluid (the JAX package reads
     # neither), the open boundary without halo walls
     "boundary_speed_top 0.01", "boundary_walls_slip_fraction_top 0.5_0_0",
-    "lb_bc_open 1", "tpu_shard on", "freq_measure 10",
+    "lb_bc_open 1", "tpu_shard on", "lc_a0 0.01",
     "default_io_grid 2_1_1"])
 def test_unported_binary_keys_raise(line):
     with pytest.raises(NotImplementedError, match=line.split()[0]):
@@ -282,7 +282,7 @@ def test_droplet_cli_matches_jax(fused):
 @pytest.mark.parametrize("line", [
     "fe_force_method relaxation_antisymmetric",
     "fd_gradient_calculation 3d_27pt_fluid", "fd_advection_scheme_order 3",
-    "hydrodynamics off", "freq_measure 10", "boundary_walls 0_0_1",
+    "hydrodynamics off", "electric_e0 0.01_0_0", "boundary_walls 0_0_1",
     "porous_media_file capillary", "lc_noise on", "temperature 0.001",
     "lc_activity yes", "lb_fluctuations on"])
 def test_unported_droplet_keys_raise(line):
@@ -371,7 +371,7 @@ def test_electro_cli_matches_jax(solver):
     "colloid_one_a0 2.3",
     # freq_psi is written now; a psi file over several I/O groups is not
     "psi_io_grid 2_1_1",
-    "psi_io_format BINARY",
+    "lc_noise on",
     "isothermal_fluctuations on", "boundary_walls 0_0_1",
     "porous_media_file capillary"])
 def test_unported_electro_keys_raise(line):
@@ -420,13 +420,15 @@ def test_plain_cli_matches_jax():
 
 
 @pytest.mark.parametrize("line", [
-    "lc_redshift_update 1", "calibration_sigma on", "lc_noise on",
+    "lc_redshift_update 1", "mobility 0.1", "lc_noise on",
     # the plain fluid's walls, planes, restarts, periodicity and shear
     # observables are read since they are ported, and so are the colloids'
-    # keys; the sigma measurement, sharding, several I/O groups and the
-    # viscosity models are not
-    "lc_a0 0.01", "freq_measure 10", "tpu_shard on",
-    "default_io_grid 2_1_1", "bogus_key_xyz 42", "viscosity_model arrhenius"])
+    # keys and the measurements; sharding, several I/O groups, the
+    # viscosity models and other families' keys are not (a key the JAX
+    # package does not read runs: tests/test_torch_fulllog.py)
+    "lc_a0 0.01", "surf_A -0.02", "tpu_shard on",
+    "default_io_grid 2_1_1", "ternary_alpha 1.0",
+    "viscosity_model arrhenius"])
 def test_unported_keys_raise(line):
     with pytest.raises(NotImplementedError, match=line.split()[0]):
         run_text(PLAIN_INPUT + line + "\n", out=io.StringIO(), device="cpu")

@@ -166,8 +166,20 @@ def test_header_declares_the_model():
         assert f"void lb_collide_force_p{d}(" in h
     # the projected absolute form carries no ghost rate at all
     assert "p.g[" not in "\n".join(_body(h, False, True))
+    assert "LB_NO_FORCE" not in h and "for D3Q19 " in h
+    # D2Q9: the one-step collisions with and without fluctuations, no
+    # force collision (the TPU force kernel takes 3-D sets only)
+    h9 = _cuda.generate_header(9)
+    assert "#define LB_NVEL 9" in h9 and "#define LB_NGHOST 3" in h9
+    assert "#define LB_NO_FORCE" in h9 and "for D2Q9 " in h9
+    assert "lb_collide_force" not in h9
+    for d in (0, 1):
+        for p in (0, 1):
+            assert f"void lb_collide_d{d}_p{p}(" in h9
+            assert f"void lb_collide_noise_d{d}_p{p}(" in h9
+    assert "fused_lb_q9" in _cuda._jobs()
     with pytest.raises(ValueError):
-        _cuda.build(("fused_lb_q9",))     # no kernel for D2Q9
+        _cuda.build(("fused_lb_q11",))    # no such velocity set
 
 
 @pytest.mark.parametrize("nvel", [15, 19, 27])

@@ -276,7 +276,22 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      within rtol 1e-9 / atol 1e-11 (as phase 17 holds the electrolyte:
      its cancelling [psi] and [elc] totals to 1e-12 x sites x the largest
      value, its SOR residual not compared), every log ending with
-     "Ludwig finished normally.".
+     "Ludwig finished normally.";
+ 39. the threefry stream (noise.discrete_deviates) on the card bitwise the
+     CPU's for 3 seeds x 2 steps at 5 x 128^3, and its time there; the
+     128^3 f32 blue phase with `lc_noise 1` (the unfused route) for 20
+     cycles through run_text: ms a step beside lc_noise 0, CUDA kernels a
+     step and their device time, host syncs a step, Q symmetric and
+     traceless; a 16^3 f64 input with `lc_noise 1` and
+     `isothermal_fluctuations on`, the card's log against the CPU's as in
+     phase 38;
+ 40. phase 28's 64^3 N=1000 suspension with the LB's KISS stream: ms a
+     rebuild step and another, kernels and device time, both steps under
+     the sync debug mode "error"; the repository's 30 subgrid particles
+     with their Langevin kicks (host LCG words) and Brazovskii at 128^3
+     with the LB noise through run_text; 16^3 colloids, the subgrid input
+     and Brazovskii in f64, the card's logs against the CPU's; each run's
+     kT statistics over the input temperature.
 
 Bounds: `bound_ms` is the larger of the bytes the function must move
 (each input read once, each output written once) over the H100 SXM's
@@ -287,7 +302,8 @@ over the device copy bandwidth measured in this run.
 The kernels' JSON record comes before the card's line (ms and plain_ms
 per lattice step, CUDA events; fused_step also carries phase 24's wall
 and LE step and post-pass times and phase 38's cells; fused_step_q9 and
-fused_step_noise_q9 are the D2Q9 library's kernels at 4096x4096x1), the
+fused_step_noise_q9 are the D2Q9 library's kernels at 4096x4096x1;
+fused_step_noise carries phases 39-40 as "fluctuations"), the
 last line is {"ok": true, "device": {...}}.
 There is no CPU path.
 """
@@ -5715,6 +5731,296 @@ def phase38(card):
     return counts, cells, worst
 
 
+# -- the fluctuations of every family (phases 39-40) -------------------------
+
+STREAM_SHAPE = (5, 128, 128, 128)
+STREAM_SEEDS = (0, 13, 8361235)
+LC_NOISE_KEYS = "temperature 0.0001\nlc_noise 1\nrandom_seed 17\n"
+LC_NOISE_128 = LC_128.replace("tpu_fused on\n", "") + LC_NOISE_KEYS
+LC_NOISE_SMALL = (LC_SMALL.replace("size 8_8_16", "size 16_16_16")
+                  + LC_NOISE_KEYS + "isothermal_fluctuations on\n")
+NOISE_SMALL = {
+    "lc lc_noise isothermal 16^3": LC_NOISE_SMALL,
+    "colloids input_two 16^3": "dtype float64\n"
+    + COLLOID_INPUTS["input_two"] + NOISE_KEYS,
+    "subgrid 24x8x16": "dtype float64\n" + COLLOID_INPUTS["subgrid"]
+    + NOISE_KEYS,
+    "brazovskii 8x8x16": MORE_FE_INPUTS["brazovskii"] + NOISE_KEYS,
+}
+BRAZ_NOISE_128 = MORE_FE_CELLS["brazovskii 128^3"] + NOISE_KEYS
+
+
+def kt_ratio(log):
+    """The last [measd/kT] row's measured kT over the input's (the row
+    prints the sum over the dimensions and kT times their number)."""
+    rows = [ln.split() for ln in log.splitlines()
+            if ln.startswith("[measd/kT]")]
+    if not rows:
+        raise AssertionError("no [measd/kT] row in the log")
+    return float(rows[-1][1]) / float(rows[-1][2])
+
+
+def card_vs_cpu_log(name, text):
+    """text run on the card and on the CPU: the headers equal as text,
+    the statistics within rtol 1e-9 / atol 1e-11 (log_body_close), both
+    ending normally.  Returns (floats held, max |diff|, the card's log)."""
+    logs = {}
+    for device in ("cuda", "cpu"):
+        out = io.StringIO()
+        run_text(text, out=out, device=device)
+        logs[device] = out.getvalue()
+        if not logs[device].rstrip().endswith(FINISH):
+            raise AssertionError(f"{name} on {device}: the log does not end "
+                                 f"with {FINISH!r}")
+    if log_header(logs["cuda"]) != log_header(logs["cpu"]):
+        raise AssertionError(f"{name}: the card's input header is not the "
+                             "CPU's")
+    nval, err = log_body_close(logs["cuda"], logs["cpu"], name)
+    return nval, err, logs["cuda"]
+
+
+def step_cost(sys_, rebuild=None, reps=5):
+    """(ms a step by CUDA events, CUDA kernels a step, device ms a step by
+    torch.profiler, host syncs of one step under the sync debug mode
+    'error') of sys_'s step from its state."""
+    import warnings
+    holder = {"s": sys_.state, "t": 1}
+
+    def run():
+        kw = {} if rebuild is None else {"rebuild": rebuild}
+        holder["s"], _aux = sys_.step_fn(holder["s"], holder["t"], **kw)
+        holder["t"] += 1
+
+    ms = time_ms(run, reps, warm=2)
+    kernels, dev_ms, _top = post_profile(run, reps=1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return ms, kernels, dev_ms, len(caught)
+
+
+def phase39(card):
+    """The threefry stream on the card bitwise the CPU's and its time at
+    5 x 128^3; the 128^3 f32 blue phase with the Q noise through
+    run_text; a 16^3 f64 input with the Q noise and the kT statistics,
+    the card's log against the CPU's."""
+    phase(f"39 the threefry stream and the fluctuating liquid crystal on "
+          f"{card}")
+    from ludwig_tpu_torch import noise as tnoise
+    from ludwig_tpu_torch.ludwig import build_system
+    from ludwig_tpu_torch.runtime import RunTime
+    res, paths = {}, {}
+    shape = STREAM_SHAPE[1:]
+    for seed in STREAM_SEEDS:
+        for step in (0, 1):
+            a = tnoise.discrete_deviates(seed, step, STREAM_SHAPE[0], shape,
+                                         torch.float32, device="cuda")
+            b = tnoise.discrete_deviates(seed, step, STREAM_SHAPE[0], shape,
+                                         torch.float32, device="cpu")
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"threefry seed {seed} step {step}: "
+                                     "the card's deviates are not the CPU's")
+    ms = min(time_ms(lambda: tnoise.discrete_deviates(
+        13, 5, STREAM_SHAPE[0], shape, torch.float32, device="cuda"), 5)
+        for _ in range(2))
+    n = math.prod(STREAM_SHAPE)
+    # the int64 passes: 2 words read and written each of 7 operations a
+    # round, 20 rounds; the floor of one output word written
+    res["stream"] = dict(shape=list(STREAM_SHAPE), ms=ms,
+                         passes_bound_ms=1e3 * 20 * 7 * 2 * 8 * n
+                         / PEAK_BYTES_PER_S,
+                         write_bound_ms=1e3 * 4 * n / PEAK_BYTES_PER_S)
+    print(f"threefry: 3 seeds x 2 steps at {STREAM_SHAPE} bitwise the "
+          f"CPU's; discrete_deviates {ms:.3f} ms (CUDA events; its int64 "
+          f"passes move at least {res['stream']['passes_bound_ms']:.3f} ms "
+          f"of bytes, the output alone "
+          f"{res['stream']['write_bound_ms']:.4f} ms) [{card}]")
+
+    # the 128^3 f32 blue phase with the Q noise, 20 cycles of run_text
+    log = io.StringIO()
+    torch.cuda.synchronize()
+    _cuda.launches.reset()
+    t0 = time.perf_counter()
+    sys_ = run_text(LC_NOISE_128, out=log, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    paths["lc noise 128^3 f32"] = stat_scan_counts()
+    out = log.getvalue()
+    if (f"Completed cycle {LC_CELL_CYCLES}" not in out
+            or "LC fluctuations:           =  on" not in out):
+        raise AssertionError("lc noise 128^3: log incomplete")
+    if sys_.fused_mode is not None or sys_.lc_cfg.noise_kt != 1e-4:
+        raise AssertionError("lc noise 128^3: not the unfused noisy route")
+    q5 = sys_.state[1]
+    if not bool(torch.isfinite(q5).all()):
+        raise AssertionError("lc noise 128^3: Q is not finite")
+    # the full tensor of the noisy Q: symmetric, traceless to f32 rounding
+    from ludwig_tpu_torch.fe.blue_phase import q5_to_q33
+    q33 = q5_to_q33(q5)
+    asym = max(float((q33[a][b] - q33[b][a]).abs().max())
+               for a in range(3) for b in range(3))
+    trace = float((q33[0][0] + q33[1][1] + q33[2][2]).abs().max())
+    qmax = float(q5.abs().max())
+    if asym > 0.0 or trace > 4 * torch.finfo(q5.dtype).eps * qmax:
+        raise AssertionError(f"lc noise 128^3: Q asymmetric by {asym} or "
+                             f"with trace {trace}")
+    del sys_
+    sys_ = build_system(RunTime(LC_NOISE_128), "cuda")
+    ms, kernels, dev_ms, syncs = step_cost(sys_)
+    quiet = build_system(RunTime(LC_NOISE_128.replace("lc_noise 1",
+                                                      "lc_noise 0")), "cuda")
+    ms0 = step_cost(quiet)[0]
+    nsite = math.prod(sys_.lb_cfg.size)
+    res["lc noise 128^3"] = dict(ms=ms, ms_without_noise=ms0,
+                                 mlups=nsite / (ms * 1e3), kernels=kernels,
+                                 device_ms=dev_ms, host_syncs=syncs,
+                                 run_text_s=wall, trace=trace)
+    print(f"lc noise 128^3 f32 (lc_noise 1, unfused): {ms:.3f} ms a step "
+          f"(CUDA events; {ms0:.3f} ms with lc_noise 0), "
+          f"{nsite / (ms * 1e3):.1f} MLUPS, {kernels} CUDA kernels a step, "
+          f"{dev_ms} ms of them on the device (torch.profiler); {syncs} "
+          f"host syncs a step; run_text x {LC_CELL_CYCLES} cycles "
+          f"{wall:.2f} s; |Q_ab - Q_ba| {asym}, |trace Q| {trace:.3e} of max "
+          f"|Q| {qmax:.4f} [{card}]")
+    del sys_, quiet
+    torch.cuda.empty_cache()
+    name = "lc lc_noise isothermal 16^3"
+    nval, err, log = card_vs_cpu_log(name, NOISE_SMALL[name])
+    res[name] = dict(floats=nval, max_abs_diff=err, kt_ratio=kt_ratio(log))
+    print(f"{name} f64: header equal to the CPU's, {nval} floats within "
+          f"rtol 1e-9 (max |diff| {err:.3e}); kT measured / input "
+          f"{res[name]['kt_ratio']:.6f}")
+    return res, paths
+
+
+def noisy_suspension(device):
+    """phase 28's 64^3 N=1000 suspension with the LB's KISS stream on."""
+    from ludwig_tpu_torch.colloids import ColloidParams, make_colloid_step
+    from ludwig_tpu_torch.noise import NoiseConfig
+    _, state, _, _ = suspension(False, device)
+    cfg = LBConfig(size=SUSPENSION_SIZE, nvel=19, eta_shear=0.1,
+                   dtype="float32", device=device,
+                   noise=NoiseConfig(kt=2e-5, rho=True))
+    params = ColloidParams(a0=(2.3,) * SUSPENSION_N,
+                           ah=(2.3,) * SUSPENSION_N)
+    return make_colloid_step(cfg, params, rebuild_freq=1), state
+
+
+def phase40(card):
+    """The 64^3 N=1000 suspension with the LB's KISS stream: ms a step on
+    rebuild steps and others, kernels and device time, no host
+    synchronisation; the repository's 30 subgrid particles with their
+    Langevin kicks and Brazovskii at 128^3 with the LB noise through
+    run_text, then the same costs and host syncs of a step of each (the
+    log's timer table printed beside them); one small f64 input of each,
+    the card's log against the CPU's; the kT statistics' ratio to the
+    input temperature."""
+    phase(f"40 fluctuating colloids, subgrid particles and Brazovskii on "
+          f"{card}")
+    from types import SimpleNamespace
+    from ludwig_tpu_torch.ludwig import build_system
+    from ludwig_tpu_torch.runtime import RunTime
+    res, paths = {}, {}
+    step, state = noisy_suspension("cuda")
+    # step_cost's view of the colloid step: its state, and a step_fn that
+    # keeps the last state it made
+    susp = SimpleNamespace(state=step.prepare(state))
+
+    def step_fn(s, t, rebuild=None):
+        susp.last, aux = step(s, t, rebuild=rebuild)
+        return susp.last, aux
+
+    susp.step_fn = step_fn
+    if susp.state.noise is None or step.route != "segment":
+        raise AssertionError("noisy suspension: no KISS state or not the "
+                             "segment-sum route")
+    out = {"route": step.route}
+    for rebuild in (True, False):
+        _cuda.launches.reset()
+        ms, kernels, dev_ms, syncs = step_cost(susp, rebuild=rebuild,
+                                               reps=10)
+        if _cuda.launches.chain_sums:
+            raise AssertionError("noisy suspension: the float32 route "
+                                 "launched chain_sums")
+        if syncs:
+            raise AssertionError(f"noisy suspension: {syncs} host syncs")
+        key = "rebuild" if rebuild else "no_rebuild"
+        out[key] = dict(ms=ms, kernels=kernels, device_ms=dev_ms,
+                        host_syncs=syncs)
+        print(f"suspension 64^3 N={SUSPENSION_N} f32 with the KISS noise, "
+              f"{key} step: {ms:.4f} ms (CUDA events, 10 steps after 2); "
+              f"{kernels} CUDA kernels a step, {dev_ms} ms of device time "
+              f"(torch.profiler); {syncs} host syncs under CUDA's sync "
+              f"debug mode 'error' [{card}]")
+    if not bool(torch.isfinite(susp.last.f).all()):
+        raise AssertionError("noisy suspension: non-finite distributions")
+    res["suspension noise 64^3"] = out
+    del step, state, susp
+    torch.cuda.empty_cache()
+
+    for name, text, cycles in (
+            ("subgrid 30 24x8x16 f32", "dtype float32\n"
+             + COLLOID_INPUTS["subgrid"].replace("N_cycles 4", "N_cycles 20")
+             .replace("freq_statistics 2", "freq_statistics 10")
+             + NOISE_KEYS, 20),
+            ("brazovskii noise 128^3 f32", BRAZ_NOISE_128, MORE_FE_CYCLES)):
+        log = io.StringIO()
+        torch.cuda.synchronize()
+        _cuda.launches.reset()
+        t0 = time.perf_counter()
+        sys_ = run_text(text, out=log, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        paths[name] = stat_scan_counts()
+        lg = log.getvalue()
+        if f"Completed cycle {cycles}" not in lg:
+            raise AssertionError(f"{name}: cycles incomplete")
+        # the log's timer table: host clocks, which see the device's work
+        # only where the host waits for it
+        table = lg[lg.index("Timer statistics"):].split("\n\n")[0]
+        for line in table.splitlines()[2:]:
+            print(f"{name} log timer: {line.strip()}")
+        ratio = kt_ratio(lg)
+        cell = dict(run_text_s=wall, kt_ratio=ratio)
+        if name.startswith("subgrid"):
+            rngs = sys_.state[-1]
+            if rngs.device.type != "cpu" or rngs.numel() != 30:
+                raise AssertionError(f"{name}: the LCG states are not the "
+                                     "30 particles' host words")
+        del sys_
+        sys_ = build_system(RunTime(text), "cuda")
+        ms, kernels, dev_ms, syncs = step_cost(sys_)
+        cell.update(ms=ms, kernels=kernels, device_ms=dev_ms,
+                    host_syncs=syncs)
+        print(f"{name}: {ms:.3f} ms a step (CUDA events), {kernels} "
+              f"CUDA kernels a step, {dev_ms} ms of them on the device "
+              f"(torch.profiler), {syncs} host syncs [{card}]")
+        res[name] = cell
+        print(f"{name}: run_text {cycles} cycles {wall:.2f} s (host clock, "
+              f"initialisation included); kT measured / input {ratio:.6f} "
+              f"[{card}]")
+        del sys_
+        torch.cuda.empty_cache()
+    worst = 0.0
+    for name, text in NOISE_SMALL.items():
+        if name.startswith("lc"):
+            continue                # phase 39's
+        nval, err, log = card_vs_cpu_log(name, text)
+        worst = max(worst, err)
+        res[name] = dict(floats=nval, max_abs_diff=err,
+                         kt_ratio=kt_ratio(log))
+        print(f"{name} f64: header equal to the CPU's, {nval} floats within "
+              f"rtol 1e-9 (max |diff| {err:.3e}); kT measured / input "
+              f"{res[name]['kt_ratio']:.6f}")
+    return res, paths, worst
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -5832,6 +6138,13 @@ def main():
                     if path not in q9_paths})
     timed["fused_step"]["log_cells"] = log_cells
     timed["fused_step"]["log_inputs_f64_max_abs_diff"] = log_worst
+    lc_noise, lc_noise_paths = phase39(card)
+    by_path.update(lc_noise_paths)
+    colloid_noise, colloid_noise_paths, noise_worst = phase40(card)
+    by_path.update(colloid_noise_paths)
+    timed["fused_step_noise"]["fluctuations"] = {
+        **lc_noise, **colloid_noise,
+        "small_inputs_f64_max_abs_diff": noise_worst}
     for name in STAT_SCANS:
         worst[name] = 0.0        # held bitwise in phases 19 and 21
     print(f"all phases passed ({time.perf_counter() - _T0:.1f} s)")
@@ -5913,6 +6226,10 @@ def main():
             # routes; their statistics launch the scans)
             kernels[-1].update(lc_cells=t["lc_cells"],
                                lc_routes_f64_max_abs_diff=lc_worst)
+        if "fluctuations" in t:  # phases 39-40: the threefry stream, the
+            # Q noise, the fluctuating colloids, subgrid particles and
+            # Brazovskii (PyTorch routes, no kernel of their own)
+            kernels[-1].update(fluctuations=t["fluctuations"])
         if "log_cells" in t:    # phase 38: the full log's runs
             kernels[-1].update(log_cells=t["log_cells"],
                                log_inputs_f64_max_abs_diff=t[

@@ -173,10 +173,6 @@ def make_binary_step(cfg: BinaryConfig, solid=None, wallspec=None,
     wall_u = (cfg.lb.wall_u if any(v != 0.0 for v in cfg.lb.wall_u)
               else None)
     nz = cfg.lb.noise
-    if nz is not None and not nz.kiss:
-        raise NotImplementedError(
-            "the binary fluid's threefry noise stream (NoiseConfig(kiss="
-            "False)) is not ported, see ROADMAP")
     if solid_ops is None:
         solid_ops = binary_solid_ops(cfg, solid=solid, wallspec=wallspec)
     kiss_phi, kiss_rho = _kiss(cfg)
@@ -195,10 +191,14 @@ def make_binary_step(cfg: BinaryConfig, solid=None, wallspec=None,
         if kiss_phi:
             nstate_phi, r3 = noise_kiss.reap(nstate_phi, 3, lbcfg.tdtype)
             rflux = noise_mod.ch_flux_from_deviates(r3, nz.kt, cfg.mobility)
+        elif nz is not None and nz.phi:
+            rflux = noise_mod.ch_random_flux(
+                nz.seed, t, lbcfg.size, nz.kt, cfg.mobility,
+                dtype=lbcfg.tdtype, device=lbcfg.device)
 
         def lb_noise():
             if not kiss_rho:
-                return None, None, nstate_rho
+                return _noise_terms(lbcfg, params, t) + (nstate_rho,)
             return _noise_terms(lbcfg, params, t, nstate=nstate_rho)
 
         def pack(*core):

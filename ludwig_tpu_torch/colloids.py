@@ -31,7 +31,9 @@ minus 1).  The remove/replace has the JAX package's two forms: the
 per-image seeds this module's step takes, and the image-free sums with
 the walls' no-donor fallback that the other families' colloid steps take
 (lc_colloid.py, binary_colloid.py, binary_lb.py, electro_colloid.py).
-Not ported: the KISS fluctuations beside colloids.
+With isothermal fluctuations the collision draws the LB noise at the
+fluid sites: the per-site KISS stream (ColloidState.noise) on both routes,
+or the stateless threefry stream with NoiseConfig(kiss=False).
 """
 
 from __future__ import annotations
@@ -44,8 +46,9 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ludwig_tpu_torch import noise_kiss
 from ludwig_tpu_torch.lattice import CS2, LatticeModel
-from ludwig_tpu_torch.lb import LBConfig
+from ludwig_tpu_torch.lb import LBConfig, _noise_terms, kiss_on
 from ludwig_tpu_torch.ops import _cuda
 from ludwig_tpu_torch.ops.collide import collide
 from ludwig_tpu_torch.ops.stencil import roll3
@@ -121,7 +124,7 @@ class ColloidState(NamedTuple):
     dr: torch.Tensor       # deferred position update (ref: bbl.c:912)
     Rmap: torch.Tensor     # positions at the last map/link rebuild
     M: torch.Tensor        # swimming directions (N, 3)
-    noise: Optional[torch.Tensor] = None   # not ported: always None
+    noise: Optional[torch.Tensor] = None   # the KISS state (4, X, Y, Z)
     gwall: Optional[torch.Tensor] = None   # accumulated wall momentum
     # (pid, inside) of Rmap: the map is a pure function of Rmap, so the
     # step carries it instead of rebuilding it
@@ -1147,12 +1150,12 @@ def make_colloid_step(cfg: LBConfig, params: ColloidParams,
 
     force_fn(R, V) / torque_fn(R, V) -> (N, 3): the pair, bond, wall,
     driving and dipolar terms at the moved positions.  step.prepare
-    normalises a state (gwall, the map cache).  The float32 segment-sum
-    route reads nothing back to the host."""
-    if cfg.noise is not None:
-        raise NotImplementedError(
-            "colloids with isothermal fluctuations are not ported yet, "
-            "see ROADMAP")
+    normalises a state (gwall, the KISS state, the map cache).  With
+    isothermal fluctuations the collision draws the per-site KISS stream
+    (state.noise) at the fluid sites only, the solid sites' state frozen
+    and their deviates zero (ref: collision.c noise branch), or, with
+    NoiseConfig(kiss=False), the stateless threefry stream.  The float32
+    segment-sum route reads nothing back to the host."""
     model = cfg.model
     cparams = cfg.collision_params()
     size = tuple(cfg.size)
@@ -1165,6 +1168,7 @@ def make_colloid_step(cfg: LBConfig, params: ColloidParams,
         from ludwig_tpu_torch.colloids_fast import (bbl_step_seg,
                                                     remove_replace_fast)
     gravity_on = any(v != 0.0 for v in params.gravity)
+    kiss_rho = kiss_on(cfg)
 
     def bmap(R_):
         return build_map(R_, params, size, arith)
@@ -1203,7 +1207,14 @@ def make_colloid_step(cfg: LBConfig, params: ColloidParams,
             nfluid = torch.sum(fluid.to(dt))
             fb = (-grav) * (1.0 / nfluid) * float(params.n)
             force = fb[:, None, None, None].expand((3,) + size)
-        f, rho, u = collide(f, cparams, force=force, fluid_mask=fluid)
+        nstate = state.noise if kiss_rho else None
+        if kiss_rho:
+            shat, ghat, nstate = _noise_terms(cfg, cparams, t, nstate=nstate,
+                                              fluid=fluid)
+        else:
+            shat, ghat = _noise_terms(cfg, cparams, t)
+        f, rho, u = collide(f, cparams, force=force, fluid_mask=fluid,
+                            shat=shat, ghat=ghat)
         # 3. BBL with the implicit velocity update
         ext = grav[None].expand(params.n, 3)
         if force_fn is not None:
@@ -1249,14 +1260,18 @@ def make_colloid_step(cfg: LBConfig, params: ColloidParams,
             f, _, gwb = wall_bounce_back(f, f_post, model, wallspec,
                                          rho0=cfg.rho0, fluid=fluid)
             gwall = gwall + gwb.to(dt)
-        return ColloidState(f, R, V, W, dr, Rmap, Msw, gwall=gwall,
-                            pmap=(pid, inside)), (rho, u)
+        return ColloidState(f, R, V, W, dr, Rmap, Msw, noise=nstate,
+                            gwall=gwall, pmap=(pid, inside)), (rho, u)
 
     def prepare(state) -> ColloidState:
-        """The full ColloidState of a state: the walls' momentum and the
-        map of Rmap where they are missing."""
+        """The full ColloidState of a state: the KISS state (default
+        seeded, as the reference's noise_init(obj, 0)), the walls'
+        momentum and the map of Rmap where they are missing."""
         if not isinstance(state, ColloidState):
             state = ColloidState(*state)
+        if kiss_rho and state.noise is None:
+            state = state._replace(noise=noise_kiss.kiss_init(
+                0, size, device=state.f.device))
         if has_walls and state.gwall is None:
             state = state._replace(gwall=torch.zeros(
                 (3,), dtype=state.f.dtype, device=state.f.device))

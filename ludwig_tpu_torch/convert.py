@@ -145,7 +145,7 @@ def binary_params_from_jax(bcfg_fields: dict, device="cuda") -> BinaryConfig:
     Arrhenius model's eta_minus, eta_plus and phistar (or None) and the
     wetting (C, H), floats or per-site arrays (tensors on `device` in the
     lattice's dtype).  A free energy with a fourth coefficient c is the
-    Brazovskii one.  The threefry noise stream is not ported and raises."""
+    Brazovskii one."""
     fields = dict(bcfg_fields)
     fe = _fields_of(fields.pop("fe"))
     fe = (BrazovskiiFE(**fe) if set(fe) == {"a", "b", "kappa", "c"}
@@ -303,13 +303,11 @@ def lc_params_from_jax(lcfg_fields: dict, device="cuda") -> LCConfig:
     ``dataclasses.asdict(lcfg)``: "lb" the LBConfig's fields, "fe" the
     blue-phase free energy's (the electric field's epsilon and e0
     included), the rotational mobility, the advection order, the stencil,
-    hydrodynamics, the walls, the anchoring, the redshift update and
-    keep_grads (a dict or an object with those attributes each).  The
-    noise (noise_kt > 0) is not ported and raises; its seed is dropped."""
+    hydrodynamics, the walls, the anchoring, the redshift update, the Q
+    noise (noise_kt, noise_seed) and keep_grads (a dict or an object with
+    those attributes each)."""
     fields = dict(lcfg_fields)
     fe = _blue_phase_from_jax(fields.pop("fe"))
-    _take_inactive(fields, {"noise_kt": 0.0}, "LCConfig")
-    fields.pop("noise_seed", None)
     fields["wallspec"] = _wallspec_from_jax(fields.get("wallspec"))
     fields["anchoring"] = _anchoring_from_jax(fields.get("anchoring"))
     return LCConfig(lb=_lb_from_jax(fields.pop("lb"), device), fe=fe,
@@ -493,15 +491,15 @@ def colloid_state_from_jax(state, device="cuda", dtype=None):
     """The JAX package's ColloidState (its leaves as numpy arrays, in its
     field order: f, R, V, W, dr, Rmap, M, noise, gwall, pmap) as the
     port's, in `dtype` (default: f's).  The map cache pmap is dropped:
-    the step's prepare rebuilds it from Rmap.  A KISS noise state beside
-    colloids is not ported."""
+    the step's prepare rebuilds it from Rmap.  A KISS noise state (uint32
+    words) crosses as the port's int64 words."""
     leaves = [np.asarray(x) for x in state[:7]]
-    if len(state) > 7 and state[7] is not None:
-        raise ValueError("colloids with isothermal fluctuations are not "
-                         "ported")
     dtype = dtype or str(leaves[0].dtype)
+    nstate = state[7] if len(state) > 7 else None
     gwall = state[8] if len(state) > 8 else None
     return ColloidState(*(_tensor(a, device, dtype) for a in leaves),
+                        noise=None if nstate is None
+                        else noise_state_from_jax(nstate, device),
                         gwall=None if gwall is None
                         else _tensor(np.asarray(gwall), device, dtype))
 

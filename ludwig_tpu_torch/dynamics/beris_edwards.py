@@ -3,7 +3,7 @@
 PyTorch port of ludwig_tpu/dynamics/beris_edwards.py (ref:
 src/blue_phase_beris_edwards.c:304-470 beris_edw_update_host):
 
-  dQ/dt + div(u Q) = Gamma H + S(W, Q)
+  dQ/dt + div(u Q) = Gamma H + S(W, Q) (+ noise)
 
   S = (xi D + Omega)(Q + I/3) + (Q + I/3)(xi D - Omega)
       - 2 xi (Q + I/3) Tr(Q W)
@@ -14,8 +14,8 @@ antisymmetric parts, and the advective term in conservative face-flux
 form (same upwind schemes as the scalar order parameter).  Halo walls
 (the wall velocity in the gradient tensor, no flux through the wall
 faces), solid sites (no flux through their faces, no update there) and
-`hydrodynamics off` (u None: relaxation only) follow the JAX module; its
-noise term (lc_noise) is not ported.
+`hydrodynamics off` (u None: relaxation only) and the fluctuating noise
+term (lc_noise, noise.qab_noise5) follow the JAX module.
 """
 
 from __future__ import annotations
@@ -98,6 +98,7 @@ def corotation_term(q33, u: torch.Tensor, xi: float, wallspec=None):
 def beris_edwards_update(q5: torch.Tensor, h33, u: Optional[torch.Tensor],
                          params: BerisEdwardsParams,
                          fluid_mask: Optional[torch.Tensor] = None,
+                         noise5: Optional[torch.Tensor] = None,
                          wallspec=None,
                          solid=None) -> torch.Tensor:
     """One forward-Euler BE step; returns updated q5 (5, X, Y, Z).
@@ -107,7 +108,8 @@ def beris_edwards_update(q5: torch.Tensor, h33, u: Optional[torch.Tensor],
     halo walls (wallspec) the wall faces carry no flux and the gradient
     tensor takes the walls' velocity; `solid` (the (X, Y, Z) mask, or its
     advect.blocked_faces) blocks the faces of solid sites; sites outside
-    fluid_mask keep their Q.
+    fluid_mask keep their Q.  noise5 (5, X, Y, Z), the fluctuating term
+    of noise.qab_noise5, joins the right-hand side.
     """
     g = params.gamma
     rhs5 = [g * h33[0][0], g * h33[0][1], g * h33[0][2],
@@ -134,6 +136,9 @@ def beris_edwards_update(q5: torch.Tensor, h33, u: Optional[torch.Tensor],
             if solid is not None:
                 fluxes = no_flux_at_solid(fluxes, solid)
             rhs5[n] = rhs5[n] - flux_divergence(fluxes)
+
+    if noise5 is not None:
+        rhs5 = [r + noise5[n] for n, r in enumerate(rhs5)]
 
     dq = torch.stack(rhs5)
     if fluid_mask is not None:

@@ -5,7 +5,9 @@ src/model.c, src/ludwig.c:530-970).  The state is one distribution tensor
 f (nvel, NX, NY, NZ) on an explicit device; a step is collide ->
 [Lees-Edwards] -> stream(+bounce-back) [-> open boundary], run eagerly.
 With isothermal fluctuations (``LBConfig.noise``) the per-site KISS99
-state rides beside f and a step maps (f, nstate) to (f', nstate').
+state rides beside f and a step maps (f, nstate) to (f', nstate'); with
+NoiseConfig(kiss=False), and in the n-step loop, the stateless threefry
+stream draws the noise and no state rides.
 Halo plane walls (make_wall_step) carry the walls' momentum beside f.
 """
 
@@ -114,17 +116,24 @@ def _noise_terms(cfg: LBConfig, params, t, nstate=None, fluid=None):
     third element.  fluid: bool mask - the reference reaps only at
     MAP_FLUID sites (ref: collision.c noise branch), so the state at
     solid sites does not advance and their deviates are zero.  Without
-    a state the JAX package draws its stateless threefry stream, which
-    is not ported: that raises."""
+    a state the terms come from the stateless threefry stream keyed on
+    (seed, t), the ghosts' under seed + 7919, as in the JAX package."""
     nz = cfg.noise
     if nz is None or not nz.rho:
         return (None, None) if nstate is None else (None, None, nstate)
-    if nstate is None:
-        raise NotImplementedError(
-            "fluctuations without a KISS state use the JAX package's "
-            "threefry stream, which is not ported; see ROADMAP")
     ve = noise_mod.var_eta(1.0 / params.rtau_shear, nz.kt)
     vb = noise_mod.var_bulk(1.0 / params.rtau_bulk, nz.kt)
+    if nstate is None:
+        shat = noise_mod.fluctuating_stress(
+            nz.seed, t, cfg.size, ve, vb, ndim=cfg.model.ndim,
+            dtype=cfg.tdtype, device=cfg.device)
+        ghat = None
+        if cfg.ghost_modes_on:
+            vg = noise_mod.var_ghost(cfg.model, params.rtau_ghost, nz.kt)
+            ghat = noise_mod.ghost_noise(nz.seed + 7919, t, cfg.size,
+                                         cfg.model, vg, dtype=cfg.tdtype,
+                                         device=cfg.device)
+        return shat, ghat
     zero = torch.zeros((), dtype=cfg.tdtype, device=nstate.device)
 
     def reap(st, n):
@@ -233,13 +242,11 @@ def make_wall_step(cfg: LBConfig, wallspec, force_field=None,
 def make_nstep(cfg: LBConfig, solid=None, force_field=None, le=None,
                open_bc=None):
     """n steps in a loop: nstep(f, n, t0=0) -> f.  With fluctuations the
-    JAX package's n-step loop draws the threefry stream, which is not
-    ported: that raises."""
-    if cfg.noise is not None and cfg.noise.rho:
-        raise NotImplementedError(
-            "make_nstep with fluctuations draws the JAX package's threefry "
-            "stream, which is not ported; step the KISS state with "
-            "make_step, see ROADMAP")
+    steps draw the stateless threefry stream whatever cfg.noise.kiss
+    says, as the JAX package's n-step scan does: no KISS state rides."""
+    if kiss_on(cfg):
+        cfg = dataclasses.replace(
+            cfg, noise=dataclasses.replace(cfg.noise, kiss=False))
     step = make_step(cfg, solid=solid, force_field=force_field, le=le,
                      open_bc=open_bc)
 

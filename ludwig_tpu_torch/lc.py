@@ -9,12 +9,15 @@ every input the JAX package's fused gate refuses) and the reference the
 fused step of ops/fused_lc.py is tested against.  Its state is the JAX
 package's: (f, q5, u[, gwall][, redshift][, grad_q, delsq_q]).
 
-The unfused step takes every option of the JAX module but the noise
-(lc_noise): halo walls with their momentum account (gwall) and the
-anchoring gradients (ops/lc_anchor.py, `3d_7pt_solid` and
-`s7_anchoring`), in-lattice porous solids, the dynamic redshift carried in
-the state, the electric field (fe/blue_phase.py), `hydrodynamics off`,
-the other gradient stencils and advection orders 1-5.
+The unfused step takes every option of the JAX module: halo walls with
+their momentum account (gwall) and the anchoring gradients
+(ops/lc_anchor.py, `3d_7pt_solid` and `s7_anchoring`), in-lattice porous
+solids, the dynamic redshift carried in the state, the electric field
+(fe/blue_phase.py), `hydrodynamics off`, the other gradient stencils,
+advection orders 1-5 and the fluctuating Q noise (lc_noise: noise_kt,
+five threefry deviates a site, noise.qab_noise5).  As in the JAX package
+the sheared and colloid steps, and the fused kernels' gate, leave the Q
+noise out.
 
 Under Lees-Edwards shear, make_lc_le_step is the whole sheared step and
 make_lc_le_column_fix the column work around the fused kernels
@@ -36,6 +39,7 @@ from ludwig_tpu_torch.dynamics.beris_edwards import (BerisEdwardsParams,
 from ludwig_tpu_torch.fe.blue_phase import (BluePhaseFE, q5_to_q33,
                                             q33_to_q5, redshift_compute)
 from ludwig_tpu_torch.lb import LBConfig, initial_rest
+from ludwig_tpu_torch.noise import qab_noise5
 from ludwig_tpu_torch.ops.collide import collide
 from ludwig_tpu_torch.ops.force import stress_divergence_force
 from ludwig_tpu_torch.ops.lc_anchor import AnchoringParams, anchoring_gradient
@@ -63,8 +67,9 @@ class LCConfig:
     the stencil, the advection order, hydrodynamics on or off, halo walls
     and the anchoring of the solid stencils, the dynamic redshift, and
     keep_grads, which carries the gradients of the step's pre-update Q
-    at the tail of the state.  The noise (noise_kt > 0, lc_noise) is not
-    ported and is refused."""
+    at the tail of the state, and the fluctuating Q noise (noise_kt > 0,
+    lc_noise + temperature) drawn from the threefry stream under
+    noise_seed."""
 
     lb: LBConfig
     fe: BluePhaseFE
@@ -77,17 +82,16 @@ class LCConfig:
     # dynamic redshift recompute each step (ref: blue_phase.c:1443
     # fe_lc_redshift_compute, input key lc_redshift_update)
     redshift_update: bool = False
+    # fluctuating Q dynamics (ref: blue_phase_beris_edwards.c noise
+    # branch; input keys lc_noise + temperature); 0 = off
     noise_kt: float = 0.0
+    noise_seed: int = 8361235
     keep_grads: bool = False
 
     def __post_init__(self):
         if self.advection_order not in ORDERS:
             raise ValueError(
                 f"advection order {self.advection_order} (have {ORDERS})")
-        if self.noise_kt != 0.0:
-            raise NotImplementedError(
-                "the Q-tensor noise (lc_noise, noise_kt > 0) is not ported "
-                "yet, see ROADMAP")
         if self.gradient in SOLID_GRADIENTS and self.anchoring is None:
             raise ValueError(f"gradient '{self.gradient}' needs anchoring")
 
@@ -171,7 +175,6 @@ def make_lc_step(cfg: LCConfig, solid=None):
         from ludwig_tpu_torch.stats import momentum_total
 
     def step(state, t=0):
-        del t
         f, q5, u = state[:3]
         k = 3
         gwall = rs = None
@@ -187,11 +190,16 @@ def make_lc_step(cfg: LCConfig, solid=None):
             rs = redshift_compute(cfg.fe, fields, rs)
             fe = dataclasses.replace(cfg.fe, redshift=rs)
         h = fe.molecular_field(fields)
+        noise5 = None
+        if cfg.noise_kt > 0.0:
+            noise5 = qab_noise5(cfg.noise_seed, t, cfg.lb.size,
+                                cfg.noise_kt, cfg.gamma, dtype=q5.dtype,
+                                device=q5.device)
         if cfg.hydrodynamics:
             force, fwall = _lc_force(dataclasses.replace(cfg, fe=fe), fields,
                                      h, f.dtype)
             q5 = beris_edwards_update(q5, h, u, be, fluid_mask=fluid,
-                                      wallspec=cfg.wallspec)
+                                      noise5=noise5, wallspec=cfg.wallspec)
             f, rho, u_new = collide(f, params, force=force,
                                     fluid_mask=fluid)
             if cfg.has_walls:
@@ -211,7 +219,8 @@ def make_lc_step(cfg: LCConfig, solid=None):
             else:
                 f = stream(f, model)
         else:
-            q5 = beris_edwards_update(q5, h, None, be, fluid_mask=fluid)
+            q5 = beris_edwards_update(q5, h, None, be, fluid_mask=fluid,
+                                      noise5=noise5)
             rho = torch.ones_like(q5[0])
             u_new = u
         out = (f, q5, u_new)

@@ -12,11 +12,12 @@ binary branch - halo walls and the open boundary, porous media with
 wetting, its stencils, advection orders, force methods, viscosity
 model, noise and Lees-Edwards planes; binary.py, binary_le.py and the
 fused step; `symmetric` with resolved colloids, binary_colloid.py), the blue-phase liquid crystal
-(`free_energy lc_blue_phase`: every route of the JAX package's branch
-but the Q noise - halo walls with the anchoring stencils, porous solids,
-resolved colloids, the dynamic redshift, the electric field,
-`hydrodynamics off`, advection orders 1-5, the random rectangle and
-Lees-Edwards planes; lc.py, lc_colloid.py and the fused step), the
+(`free_energy lc_blue_phase`: every route of the JAX package's branch -
+halo walls with the anchoring stencils, porous solids, resolved
+colloids, the dynamic redshift, the electric field, `hydrodynamics off`,
+advection orders 1-5, the random rectangle, the Q noise (`lc_noise 1`,
+the unfused step) and Lees-Edwards planes; lc.py, lc_colloid.py and the
+fused step), the
 liquid-crystal droplet (`free_energy lc_droplet`, on the
 stress-divergence, hydrodynamics-on route the JAX package's fused path
 accepts, periodic or with Lees-Edwards planes: lc_droplet.py and its
@@ -63,6 +64,18 @@ where the JAX package reads them.  `freq_measure` writes the colloids'
 output and, with `calibration_sigma`, the binary fluid's surface-tension
 calibration of a drop (stats_extra.SigmaCalibration);
 `stats_vel_print_vol_flux yes` adds the [vol flux] row.
+
+The fluctuation keys (`temperature`, `isothermal_fluctuations` /
+`lb_fluctuations`, `random_seed`) build the LB noise of every family, as
+the JAX package's do (_noise_config): the plain fluid (its fused or KISS
+steps, the colloids' KISS stream at the fluid sites, the subgrid
+particles' Langevin kicks from their LCG words), the binary fluid,
+Brazovskii and symmetric_lb draw it; the other families' steps, and the
+colloid steps of the binary, symmetric_lb, electrolyte and LC families,
+draw none, as in the JAX package, and print the kT statistics.
+`lc_noise 1` with `temperature` draws the Q noise of the liquid
+crystal's unfused step (lc.LCConfig.noise_kt); `lc_noise on`, on which
+the JAX package's log header fails, raises.
 
 An input key the JAX package honours and the port cannot, here, raises
 NotImplementedError naming the key, unless it is set to its inactive
@@ -193,7 +206,13 @@ SLICE_KEYS = frozenset((
     # decomposition hint is a no-op on one device, as in the JAX package
     # without tpu_shard
     "freq_measure", "calibration_sigma", "stats_vel_print_vol_flux",
-    "tpu_timer_detail", "grid"))
+    "tpu_timer_detail", "grid",
+    # the fluctuations, which every family reads as the JAX package does
+    # (its ludwig.py:603-617): the LB noise where its step draws it, the
+    # kT statistics wherever it is on; the Q noise (lc_noise) is the
+    # liquid crystal's and ignored elsewhere
+    "temperature", "isothermal_fluctuations", "lb_fluctuations",
+    "random_seed", "lc_noise"))
 
 # Lees-Edwards planes of the binary, LC and droplet families (the plain
 # fluid reads N_LE_plane and LE_plane_vel with its boundaries)
@@ -202,8 +221,8 @@ LE_KEYS = frozenset(("N_LE_plane", "LE_plane_vel", "LE_init_profile"))
 # keys the binary fluid reads (free_energy symmetric and symmetric_noise):
 # its stencils, advection orders, force methods and grad_mu, the
 # viscosity model, halo walls and the open boundary beside them, porous
-# media with their wetting data, the fluctuations of phi and of the LB,
-# and Lees-Edwards planes
+# media with their wetting data, the fluctuations of phi, and
+# Lees-Edwards planes
 BINARY_KEYS = frozenset((
     "A", "B", "K", "symmetric_a", "symmetric_b", "symmetric_kappa",
     "mobility", "fd_advection_scheme_order", "fd_gradient_calculation",
@@ -217,16 +236,14 @@ BINARY_KEYS = frozenset((
     "lb_bc_inflow_rhou_u0", "lb_bc_outflow_rhou_rho0",
     "phi_bc_inflow_fixed_phib", "porous_media_file", "porous_media_ndata",
     "porous_media_type", "porous_media_format", "porous_media_init",
-    "porous_media_acell", "temperature", "isothermal_fluctuations",
-    "lb_fluctuations", "fd_phi_fluctuations")) | LE_KEYS
+    "porous_media_acell", "fd_phi_fluctuations")) | LE_KEYS
 
 # keys the liquid crystal reads (free_energy lc_blue_phase only): the
 # free energy with its electric field, the dynamic redshift, the anchoring
 # of the solid stencils in both styles, the Q initialisations and the
 # random rectangle; halo walls, porous media (SOLID_KEYS), Lees-Edwards
 # planes and resolved colloids (COLLOID_KEYS and COLLOID_PREFIXES, defined
-# below, join them in FREE_ENERGIES).  The Q noise (lc_noise) stays
-# refused with the inactive keys.
+# below, join them in FREE_ENERGIES).
 LC_KEYS = frozenset((
     "lc_a0", "lc_gamma", "lc_q0", "lc_kappa0", "lc_kappa1", "lc_xi",
     "lc_Gamma", "lc_init_redshift", "lc_activity", "lc_active_zeta0",
@@ -239,8 +256,7 @@ LC_KEYS = frozenset((
     "lc_anchoring_strength", "lc_anchoring_strength_2",
     "lc_anchoring_strength_colloid", "lc_anchoring_strength_wall",
     "lc_wall_anchoring_w1", "lc_wall_anchoring_w2", "lc_coll_anchoring_w1",
-    "lc_coll_anchoring_w2", "lc_wall_fixed_orientation",
-    "random_seed")) | LE_KEYS
+    "lc_coll_anchoring_w2", "lc_wall_fixed_orientation")) | LE_KEYS
 
 # keys the droplet slice reads (free_energy lc_droplet only)
 DROPLET_KEYS = frozenset((
@@ -255,11 +271,11 @@ DROPLET_KEYS = frozenset((
     "fd_gradient_calculation", "fe_force_method")) | LE_KEYS
 
 # keys the electrokinetic slice reads (free_energy fe_electro only);
-# temperature is the electrolyte's kT here, and the LB noise it would
-# drive stays off (isothermal_fluctuations is refused with the inactive
-# keys)
+# temperature (SLICE_KEYS) is the electrolyte's kT here and, with
+# isothermal_fluctuations, the kT of the statistics (the step draws no LB
+# noise, as in the JAX package)
 ELECTRO_KEYS = frozenset((
-    "temperature", "electrokinetics_z0", "electrokinetics_z1",
+    "electrokinetics_z0", "electrokinetics_z1",
     "electrokinetics_d0", "electrokinetics_d1", "electrokinetics_eunit",
     "electrokinetics_epsilon", "electrokinetics_solver_type",
     "electrokinetics_rel_tol", "electrokinetics_abs_tol",
@@ -268,12 +284,6 @@ ELECTRO_KEYS = frozenset((
     "electrokinetics_init", "electrokinetics_init_rho_el",
     "electrokinetics_init_sigma", "electrokinetics_init_delta_el",
     "freq_psi_resid", "freq_psi"))
-
-# keys the plain fluid reads for isothermal fluctuations (free_energy
-# none only; the other families refuse the noise keys while they are on)
-NOISE_KEYS = frozenset((
-    "temperature", "isothermal_fluctuations", "lb_fluctuations",
-    "random_seed"))
 
 # keys the plain fluid reads for its boundaries (free_energy none only;
 # the other families refuse walls, Lees-Edwards planes and porous media
@@ -349,13 +359,12 @@ TERNARY_KEYS = TWO_FIELD_KEYS | frozenset((
     "2d_double_emulsion_yf2", "ternary_2d_tee_xf1",
     "tarnary_2d_tee_yf1"))   # (sic: the key the JAX package reads)
 
-# free_energy symmetric_lb without colloids (binary_lb.py): halo walls,
-# Lees-Edwards planes and the LB's KISS fluctuations
+# free_energy symmetric_lb (binary_lb.py): halo walls and Lees-Edwards
+# planes
 SYMMETRIC_LB_KEYS = frozenset((
     "A", "B", "K", "symmetric_a", "symmetric_b", "symmetric_kappa",
     "mobility", "fd_gradient_calculation", "boundary_walls",
-    "LE_oscillation_period", "temperature", "isothermal_fluctuations",
-    "lb_fluctuations")) | PHI_INIT_KEYS | LE_KEYS
+    "LE_oscillation_period")) | PHI_INIT_KEYS | LE_KEYS
 
 # free_energy polar_active (polar.py): the aster, in-lattice solids
 POLAR_KEYS = frozenset((
@@ -373,7 +382,7 @@ ELECTRO_SYMM_KEYS = ELECTRO_KEYS | PHI_INIT_KEYS | frozenset((
     "electrosymmetric_delta_mu0", "electrosymmetric_delta_mu1"))
 
 # free energy -> the keys it reads beside SLICE_KEYS
-FREE_ENERGIES = {"none": NOISE_KEYS | BOUNDARY_KEYS | COLLOID_KEYS,
+FREE_ENERGIES = {"none": BOUNDARY_KEYS | COLLOID_KEYS,
                  "symmetric": BINARY_KEYS | COLLOID_KEYS,
                  "symmetric_noise": BINARY_KEYS,
                  "lc_blue_phase": LC_KEYS | SOLID_KEYS | COLLOID_KEYS,
@@ -403,12 +412,8 @@ INACTIVE = {
     # colloids of the families without a colloid route
     "colloid_init": _no_colloids,
     "boundary_walls": _zeros,
-    "temperature": _zeros,
-    "isothermal_fluctuations": _off,
-    "lc_noise": _off,
     "lc_redshift_update": _off,
     "electric_e0": _zeros,
-    "lb_fluctuations": _off,
     "N_LE_plane": _zeros,
     "lb_bc_open": _off,
     "tpu_shard": _off,
@@ -821,9 +826,11 @@ def _lc_anchoring_params(rt: RunTime, fe: BluePhaseFE) -> AnchoringParams:
 
 def _lc_config(rt: RunTime, lb_cfg: LBConfig):
     """(LCConfig, lb_cfg) of a `free_energy lc_blue_phase` input
-    (ludwig_tpu ludwig.py:1180-1214): the free energy with its electric
+    (ludwig_tpu ludwig.py:1180-1219): the free energy with its electric
     field, the stencil (the solid ones with the anchoring keys), the
-    advection order, hydrodynamics, the dynamic redshift (keep_grads is
+    advection order, hydrodynamics, the dynamic redshift, the Q noise
+    (lc_noise 1 with temperature; a value that is not an integer, which
+    the JAX package's log header fails on, raises) (keep_grads is
     set where the unfused route is built); halo walls become the
     configuration's WallSpec and leave every stored site fluid."""
     fe = _blue_phase_fe(rt, active=rt.switch("lc_activity", False),
@@ -845,12 +852,23 @@ def _lc_config(rt: RunTime, lb_cfg: LBConfig):
     order = rt.int("fd_advection_scheme_order", 1)
     if order not in lc.ORDERS:
         raise ValueError(f"fd_advection_scheme_order {order}")
+    noise = rt.string("lc_noise")
+    if noise is not None:
+        try:
+            int(noise)
+        except ValueError:
+            # the log header reads it as an integer (ref: the C reference
+            # reads lc_noise as one): the JAX package's run fails here
+            raise _not_ported("lc_noise", noise + " (write lc_noise 0|1)")
     return lc.LCConfig(
         lb=lb_cfg, fe=fe, gamma=rt.double("lc_Gamma", 0.1),
         advection_order=order, gradient=gradient,
         hydrodynamics=rt.switch("hydrodynamics", True), wallspec=wallspec,
         anchoring=anchoring,
-        redshift_update=rt.switch("lc_redshift_update", False)), lb_cfg
+        redshift_update=rt.switch("lc_redshift_update", False),
+        noise_kt=(rt.double("temperature", 0.0)
+                  if rt.switch("lc_noise", False) else 0.0),
+        noise_seed=rt.int("random_seed", 8361235)), lb_cfg
 
 
 def _lc_fused_ok(lcfg: lc.LCConfig, solid) -> bool:
@@ -1045,18 +1063,24 @@ def _electro_symm_system(rt: RunTime, lb_cfg: LBConfig) -> System:
                   electro_cfg=dataclasses.replace(ecfg, ek=ek), es_cfg=escfg)
 
 
-def _noise_config(rt: RunTime) -> Optional[NoiseConfig]:
-    """Isothermal fluctuations of the plain fluid and symmetric_lb (ref:
-    temperature + isothermal_fluctuations keys; ludwig_tpu ludwig.py:
-    603-617): None unless temperature > 0 and the fluctuations are on."""
+def _noise_config(rt: RunTime, fe_name: str) -> Optional[NoiseConfig]:
+    """The fluctuations of every family (ref: temperature +
+    isothermal_fluctuations keys; ludwig_tpu ludwig.py:603-617): with
+    temperature > 0, the LB's isothermal fluctuations and, under
+    symmetric_noise with fd_phi_fluctuations on, the CH flux noise; None
+    when neither is on.  Both draw the per-site KISS streams where a
+    family's step draws; the others run noiseless and print the kT
+    statistics, as the JAX package's do."""
     kt = rt.double("temperature", 0.0)
     if kt <= 0.0:
         return None
-    on = rt.switch("isothermal_fluctuations",
-                   rt.switch("lb_fluctuations", False))
-    if not on:
-        return None
-    return NoiseConfig(kt=kt, seed=rt.int("random_seed", 8361235), rho=True)
+    nz = NoiseConfig(
+        kt=kt, seed=rt.int("random_seed", 8361235),
+        rho=rt.switch("isothermal_fluctuations",
+                      rt.switch("lb_fluctuations", False)),
+        phi=(fe_name == "symmetric_noise"
+             and rt.int("fd_phi_fluctuations", 0) != 0))
+    return nz if (nz.rho or nz.phi) else None
 
 
 def _has_fused_plan(size) -> bool:
@@ -1176,23 +1200,6 @@ def _tensors(lb_cfg: LBConfig, *arrays):
     return tuple(torch.as_tensor(a, dtype=lb_cfg.tdtype,
                                  device=lb_cfg.device).contiguous()
                  for a in arrays)
-
-
-def _binary_noise(rt: RunTime, fe_name: str) -> Optional[NoiseConfig]:
-    """The binary fluid's fluctuations (ludwig_tpu ludwig.py:604-617):
-    with temperature > 0, the LB's isothermal fluctuations and, under
-    symmetric_noise with fd_phi_fluctuations on, the CH flux noise; None
-    when neither is on.  Both draw the per-site KISS streams."""
-    kt = rt.double("temperature", 0.0)
-    if kt <= 0.0:
-        return None
-    nz = NoiseConfig(
-        kt=kt, seed=rt.int("random_seed", 8361235),
-        rho=rt.switch("isothermal_fluctuations",
-                      rt.switch("lb_fluctuations", False)),
-        phi=(fe_name == "symmetric_noise"
-             and rt.int("fd_phi_fluctuations", 0) != 0))
-    return nz if (nz.rho or nz.phi) else None
 
 
 def _binary_system(rt: RunTime, lb_cfg: LBConfig, fe_name: str) -> System:
@@ -1343,13 +1350,15 @@ def _droplet_le_system(rt, lb_cfg, dcfg, le, phi0, q0) -> System:
     """The sheared LC droplet (ludwig_tpu ludwig.py:1099-1151; walls and
     porous media beside planes are refused with their keys): the fused
     K1 + column fix + mean subtraction + K2 + LE post-pass where
-    `tpu_fused` asks, the advection is order 1 and the planes are 8
-    columns apart, else the unfused step."""
+    `tpu_fused` asks, the advection is order 1, the planes are 8 columns
+    apart and the LB's fluctuations are off (the JAX package's gate; the
+    droplet's steps draw no LB noise), else the unfused step."""
     f = _le_f0(rt, lb_cfg, le)
     phi, q5 = _tensors(lb_cfg, phi0, q0)
     u = torch.zeros((3,) + lb_cfg.size, dtype=lb_cfg.tdtype,
                     device=lb_cfg.device)
     if (_fused_request(rt) and dcfg.advection_order == 1
+            and lb_cfg.noise is None
             and lb_cfg.size[0] >= 8 * le.nplanes):
         return System(rt=rt, lb_cfg=lb_cfg, state=(f, phi, q5, u),
                       step_fn=make_fused_droplet_le_step(dcfg, le),
@@ -1365,7 +1374,8 @@ def _brazovskii_system(rt: RunTime, lb_cfg: LBConfig) -> System:
     fields and in-lattice solids (walls kept as solid planes, porous
     media), or, with Lees-Edwards planes, the sheared step carrying the
     LE gradients (the JAX package starts them from the 5-point
-    fourth-order form for every stencil)."""
+    fourth-order form for every stencil); both draw the LB's KISS stream
+    with isothermal fluctuations on."""
     size = lb_cfg.size
     fe = BrazovskiiFE(a=rt.double_required("A"), b=rt.double_required("B"),
                       kappa=rt.double_required("K"),
@@ -1382,8 +1392,12 @@ def _brazovskii_system(rt: RunTime, lb_cfg: LBConfig) -> System:
         u = torch.zeros((3,) + size, dtype=lb_cfg.tdtype,
                         device=lb_cfg.device)
         grads = le_fields_2d5pt_d4(phi, le, 0)[:2]
+        # the LB's KISS state after u where the fluctuations are on (the
+        # sheared step draws it; ludwig_tpu ludwig.py:716-718)
+        kiss = ((kiss_init(0, size, device=lb_cfg.device),)
+                if kiss_on(lb_cfg) else ())
         return System(rt=rt, lb_cfg=lb_cfg,
-                      state=(_le_f0(rt, lb_cfg, le), phi, u) + grads,
+                      state=(_le_f0(rt, lb_cfg, le), phi, u) + kiss + grads,
                       step_fn=make_binary_le_step(
                           BinaryLEConfig(binary=bcfg, le=le),
                           keep_grads=True),
@@ -1591,20 +1605,15 @@ def build_system(rt: RunTime, device="cuda") -> System:
                       rho0=rho0, scheme=_relaxation(rt),
                       ghost_modes_on=ghosts, force_global=force,
                       walls=walls, dtype=dtype, device=device,
-                      noise=(_noise_config(rt)
-                             if fe_name in ("none", "symmetric_lb")
-                             else None))
+                      noise=_noise_config(rt, fe_name))
     if fe_name in ("symmetric", "symmetric_lb", "fe_electro"):
         # resolved colloids of these families (ludwig_tpu ludwig.py:
         # 1392-1423, 1465-1558): the colloid route takes the input
-        bin_cfg = (dataclasses.replace(lb_cfg, noise=_binary_noise(rt, fe_name))
-                   if fe_name == "symmetric" else lb_cfg)
-        col = _parse_colloids(rt, size, rho0, eta, bin_cfg)
+        col = _parse_colloids(rt, size, rho0, eta, lb_cfg)
         if col is not None:
-            return _family_colloid_system(rt, bin_cfg, fe_name, col)
+            return _family_colloid_system(rt, lb_cfg, fe_name, col)
     if fe_name in ("symmetric", "symmetric_noise"):
-        return _binary_system(rt, dataclasses.replace(
-            lb_cfg, noise=_binary_noise(rt, fe_name)), fe_name)
+        return _binary_system(rt, lb_cfg, fe_name)
     if fe_name == "lc_blue_phase":
         return _lc_system(rt, lb_cfg)
     if fe_name == "lc_droplet":
@@ -1614,7 +1623,9 @@ def build_system(rt: RunTime, device="cuda") -> System:
         le = _le_config(rt, size)
         if le is not None:
             return _droplet_le_system(rt, lb_cfg, dcfg, le, phi0, q0)
-        if _fused_request(rt):
+        # the JAX package's fused gate refuses the LB's fluctuations
+        # (ludwig.py:1152-1156), which the droplet's steps do not draw
+        if _fused_request(rt) and lb_cfg.noise is None:
             return System(rt=rt, lb_cfg=lb_cfg,
                           state=initial_fused_droplet(dcfg, phi0, q0),
                           step_fn=make_fused_droplet_step(dcfg),
@@ -1943,13 +1954,16 @@ def _parse_colloids(rt: RunTime, size, rho0: float, eta: float,
     colloids_rt.c colloids_init_rt, interaction.c interact_compute): None
     when no particles are placed, else a dict of the ColloidParams, the
     initial R, V, W, dr (0-based), the subgrid particles' al, the charges
-    q (N, 2) (q0, q1) and the force and torque callbacks (pair, bond,
-    angle, lubrication, driving and dipolar terms, the magnetic torque)."""
+    q (N, 2) (q0, q1), the particles' LCG seeds rngs (a configuration
+    file's rng words, else 1 + index; ludwig_tpu ludwig.py:415, 577-578)
+    and the force and torque callbacks (pair, bond, angle, lubrication,
+    driving and dipolar terms, the magnetic torque)."""
     cinit = rt.string("colloid_init", "none")
     if _no_colloids(cinit):
         return None
     a0, ah, rr, vv, b1, b2, mm, typ, al, qq = ([] for _ in range(10))
-    ss, drs, ws, fixedr, bonds, angles, itypes = ([] for _ in range(7))
+    ss, drs, ws, fixedr, bonds, angles, itypes, rngs = (
+        [] for _ in range(8))
     if cinit == "input_random":
         # serial random placement (ref: colloids_init.c:82-123, ran.c's
         # serial stream seeded by random_seed; 1-based positions there)
@@ -1999,6 +2013,7 @@ def _parse_colloids(rt: RunTime, size, rho0: float, eta: float,
                 rec["type"], "default"))
             ss.append(tuple(rec.get("s", (0.0, 0.0, 0.0))))
             qq.append((rec.get("q0", 0.0), rec.get("q1", 0.0)))
+            rngs.append(rec.get("rng", 1 + ni))
             fx = rec.get("isfixedr", 0)
             fxv = rec.get("isfixedrxyz", [fx, fx, fx])
             fixedr.append(tuple(fxv) if not (fx and not any(fxv))
@@ -2043,11 +2058,6 @@ def _parse_colloids(rt: RunTime, size, rho0: float, eta: float,
                 # angle_cosine.c:161-167)
                 angles.append((mybonds[0], ni, mybonds[1]))
     nc = len(rr)
-    if lb_cfg.noise is not None:
-        raise _not_ported("isothermal_fluctuations",
-                          rt.string("isothermal_fluctuations",
-                                    rt.string("lb_fluctuations", "on"))
-                          + " beside colloids")
     for key, on in (("porous_media_file", rt.has_key("porous_media_file")),
                     ("porous_media_init", rt.has_key("porous_media_init")),
                     ("N_LE_plane", rt.int("N_LE_plane", 0) > 0),
@@ -2114,7 +2124,8 @@ def _parse_colloids(rt: RunTime, size, rho0: float, eta: float,
     # random placement reads no charges: uncharged particles
     return dict(params=cparams, R=rr, V=vv, W=ws or zeros, dr=drs or zeros,
                 al=al, force_fn=force_fn, torque_fn=torque_fn,
-                q=qq or [(0.0, 0.0)] * nc)
+                q=qq or [(0.0, 0.0)] * nc,
+                rngs=rngs + [1 + i for i in range(len(rngs), nc)])
 
 
 def _force_terms(rt: RunTime, lb_cfg: LBConfig, size, eta: float,
@@ -2212,15 +2223,26 @@ def _colloid_system(rt: RunTime, lb_cfg: LBConfig, col: dict) -> System:
 
     f = _distribution_init(rt, lb_cfg)
     R0 = t(col["R"])
+    nz = lb_cfg.noise
     if cp.types and all(tp == "subgrid" for tp in cp.types):
-        return System(rt=rt, lb_cfg=lb_cfg, state=(f, R0, t(col["V"])),
+        # with fluctuations the KISS state, then the particles' LCG
+        # states (a host tensor: the kicks are drawn there)
+        state = (f, R0, t(col["V"]))
+        if kiss_on(lb_cfg):
+            state = state + (kiss_init(0, lb_cfg.size, device=dev),)
+        if nz is not None and nz.rho:
+            state = state + (torch.tensor(col["rngs"], dtype=torch.int64),)
+        return System(rt=rt, lb_cfg=lb_cfg, state=state,
                       step_fn=make_subgrid_step(lb_cfg, cp, col["al"],
                                                 force_fn=col["force_fn"]),
                       colloid_params=cp, subgrid=True)
     # from_file configurations carry the angular velocity and the deferred
-    # move dr: the first update moves each particle by it
+    # move dr: the first update moves each particle by it; with
+    # fluctuations the KISS state rides (ludwig_tpu ludwig.py:1570-1572)
     state = ColloidState(f, R0, t(col["V"]), t(col["W"]), t(col["dr"]),
-                         R0.clone(), t(cp.m))
+                         R0.clone(), t(cp.m),
+                         noise=(kiss_init(0, lb_cfg.size, device=dev)
+                                if kiss_on(lb_cfg) else None))
     ws, wall_ss = None, None
     lubr_rc = lubr_dh = (0.0,) * 3
     if any(lb_cfg.walls):
@@ -2270,6 +2292,20 @@ def _lc_efield_adjust(fe: BluePhaseFE, q5, coswt: float):
         return 0.0
     return (1.0 - coswt * coswt) * fe.epsilon * fe.efield_fed(
         lc.q5_to_q33(q5))
+
+
+def _kt_stats(f: torch.Tensor, model, mask) -> tuple:
+    """The temperature statistics, sum g_a^2 / rho over the sites of mask
+    (every site where it is None) over their count, a site of rho == 0
+    counting 0 (ref: collision.c:1030-1110 lb_collision_stats_kt;
+    ludwig_tpu ludwig.py:2344-2359)."""
+    rho_f, g_f = hydro_fields(f, model)
+    w = 1.0 if mask is None else mask.to(f.dtype)
+    nfl = (torch.tensor(float(rho_f.numel()), dtype=f.dtype, device=f.device)
+           if mask is None else torch.sum(w))
+    rho_s = torch.where(rho_f == 0.0, 1.0, rho_f)
+    return tuple(torch.sum(w * g_f[a] * g_f[a] / rho_s) / nfl
+                 for a in range(3))
 
 
 def _make_stats_fn(sys_: System, reference: bool):
@@ -2432,6 +2468,10 @@ def _make_stats_fn(sys_: System, reference: bool):
                             state[5], sys_.lb_cfg.size))
             if bcfg is not None or l2cfg is not None or ecfg is not None:
                 res.update(family_colloid_stats(state, fl, coswt))
+            if nz is not None and nz.rho:
+                # over the fluid sites of the particles' map, every site
+                # beside subgrid particles (ludwig_tpu ludwig.py:2086-2106)
+                res["ktstats"] = _kt_stats(f, model, fl)
             return res
         if reference and sys_.rt.int("_log_vintage", 9999) < 12:
             # logs before v0.12 (the Kahan rewrite) sum plainly, in the
@@ -2614,17 +2654,10 @@ def _make_stats_fn(sys_: System, reference: bool):
             # lb_collision_stats_kt; ludwig_tpu ludwig.py:1813-1817 on the
             # fused route, :2344-2359 with the rho == 0 guard on the
             # reference one)
-            rho_f, g_f = hydro_fields(f, model)
             if reference:
-                w = 1.0 if mask is None else mask.to(f.dtype)
-                nfl = (torch.tensor(float(rho_f.numel()), dtype=f.dtype,
-                                    device=f.device)
-                       if mask is None else torch.sum(w))
-                rho_s = torch.where(rho_f == 0.0, 1.0, rho_f)
-                res["ktstats"] = tuple(
-                    torch.sum(w * g_f[a] * g_f[a] / rho_s) / nfl
-                    for a in range(3))
+                res["ktstats"] = _kt_stats(f, model, mask)
             else:
+                rho_f, g_f = hydro_fields(f, model)
                 res["ktstats"] = tuple(torch.mean(g_f[a] * g_f[a] / rho_f)
                                        for a in range(3))
         return res
@@ -2854,13 +2887,13 @@ def _field_names(sys_: System, nleaves: Optional[int] = None):
 
 def _state_leaves(state) -> list:
     """The leaves of a state in the JAX package's pytree order: a
-    ColloidState's seven arrays, gwall where there are walls, then the
-    map (pid, inside) it carries after a step."""
+    ColloidState's seven arrays, the KISS state where there is noise,
+    gwall where there are walls, then the map (pid, inside) it carries
+    after a step."""
     if not isinstance(state, ColloidState):
         return list(state)
     leaves = list(state[:7])
-    if state.gwall is not None:
-        leaves.append(state.gwall)
+    leaves += [x for x in (state.noise, state.gwall) if x is not None]
     return leaves + list(state.pmap or ())
 
 
@@ -2902,8 +2935,11 @@ def read_checkpoint(sys_: System, directory: str, step: int) -> tuple:
         leaves.append(torch.as_tensor(a, dtype=x.dtype, device=x.device))
     if isinstance(sys_.state, ColloidState):
         # the map is rebuilt from Rmap (the step's prepare)
-        return ColloidState(*leaves[:7], gwall=(leaves[7] if len(leaves) > 7
-                                                else None))
+        rest = iter(leaves[7:])
+        return ColloidState(
+            *leaves[:7],
+            noise=next(rest) if sys_.state.noise is not None else None,
+            gwall=next(rest) if sys_.state.gwall is not None else None)
     return tuple(leaves)
 
 

@@ -198,13 +198,19 @@ FORCE_REFUSED = ("no_force", "phi_gradmu_correction", "relaxation_symmetric",
     "brazovskii", "threefry_rho", "threefry_phi") + FORCE_REFUSED)
 def test_binary_config_refuses_what_is_not_ported(name):
     """A JAX BinaryConfig using a feature the port has not taken over (the
-    threefry noise stream, the force methods the JAX binary step runs as
-    stress_divergence) is refused when carried across, and so is the
-    port's own config for such a force method.  The Brazovskii free
-    energy is ported: it crosses as the port's BrazovskiiFE, with the
-    fourth-order fields on."""
+    force methods the JAX binary step runs as stress_divergence) is
+    refused when carried across, and so is the port's own config for such
+    a force method.  The Brazovskii free energy is ported: it crosses as
+    the port's BrazovskiiFE, with the fourth-order fields on; so is the
+    threefry noise stream, which crosses as NoiseConfig(kiss=False)."""
     jcfg, tcfg = _bcfgs(2)
     fields = dataclasses.asdict(_refused(jcfg, name))
+    if name.startswith("threefry"):
+        nz = binary_params_from_jax(fields, device="cpu").lb.noise
+        assert not nz.kiss and nz.kt == 1e-5
+        assert (nz.rho, nz.phi) == (name != "threefry_phi",
+                                    name != "threefry_rho")
+        return
     if name == "brazovskii":
         got = binary_params_from_jax(fields, device="cpu")
         assert got.fe == BrazovskiiFE(a=-6.25e-3, b=6.25e-3, kappa=4e-3,

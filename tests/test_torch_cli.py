@@ -103,11 +103,10 @@ def test_binary_keys_now_ported_match_jax(line):
     # stress_divergence
     "fe_force_method no_force", "fe_force_method relaxation_symmetric",
     "viscosity_model eyring",
-    # the binary colloids beside Lees-Edwards planes and with the LB's
-    # fluctuations
+    # the binary colloids beside Lees-Edwards planes and porous media
     "N_LE_plane 2\nLE_plane_vel 0.01\ncolloid_init input_one\n"
     "colloid_one_a0 2.3",
-    "isothermal_fluctuations on\ntemperature 0.0001\n"
+    "porous_media_init simple_cubic\nporous_media_acell 8\n"
     "colloid_init input_one\ncolloid_one_a0 2.3",
     # moving and slip walls of the binary fluid (the JAX package reads
     # neither), the open boundary without halo walls
@@ -248,7 +247,7 @@ def test_lc_keys_now_ported_match_jax(line):
 @pytest.mark.parametrize("line", [
     "lc_noise on",
     # the planes are ported; their oscillation the LC does not read
-    "LE_oscillation_period 100", "isothermal_fluctuations on",
+    "LE_oscillation_period 100", "lb_bc_open on",
     # beside planes, where the JAX package's run fails
     "N_LE_plane 1\nLE_plane_vel 0.01\nlc_redshift_update 1",
     "N_LE_plane 1\nLE_plane_vel 0.01\nboundary_walls 0_0_1",
@@ -283,8 +282,8 @@ def test_droplet_cli_matches_jax(fused):
     "fe_force_method relaxation_antisymmetric",
     "fd_gradient_calculation 3d_27pt_fluid", "fd_advection_scheme_order 3",
     "hydrodynamics off", "electric_e0 0.01_0_0", "boundary_walls 0_0_1",
-    "porous_media_file capillary", "lc_noise on", "temperature 0.001",
-    "lc_activity yes", "lb_fluctuations on"])
+    "porous_media_file capillary", "tpu_shard on", "freq_psi 2",
+    "lc_activity yes", "default_io_grid 2_1_1"])
 def test_unported_droplet_keys_raise(line):
     with pytest.raises(NotImplementedError, match=line.split()[0]):
         run_text("tpu_fused on\n" + DROPLET_FUSED_INPUT + line + "\n",
@@ -371,8 +370,8 @@ def test_electro_cli_matches_jax(solver):
     "colloid_one_a0 2.3",
     # freq_psi is written now; a psi file over several I/O groups is not
     "psi_io_grid 2_1_1",
-    "lc_noise on",
-    "isothermal_fluctuations on", "boundary_walls 0_0_1",
+    "tpu_shard on",
+    "lc_redshift_update 1", "boundary_walls 0_0_1",
     "porous_media_file capillary"])
 def test_unported_electro_keys_raise(line):
     with pytest.raises(NotImplementedError, match=line.split()[0]):
@@ -420,7 +419,7 @@ def test_plain_cli_matches_jax():
 
 
 @pytest.mark.parametrize("line", [
-    "lc_redshift_update 1", "mobility 0.1", "lc_noise on",
+    "lc_redshift_update 1", "mobility 0.1", "freq_psi 2",
     # the plain fluid's walls, planes, restarts, periodicity and shear
     # observables are read since they are ported, and so are the colloids'
     # keys and the measurements; sharding, several I/O groups, the
@@ -1431,14 +1430,14 @@ def test_colloid_cli_matches_jax(name, tmp_path):
 
 @pytest.mark.parametrize("line", [
     "free_energy symmetric_noise", "free_energy lc_droplet",
-    "isothermal_fluctuations on\ntemperature 0.0001",
+    "lb_bc_open on",
     "porous_media_init simple_cubic\nporous_media_acell 8",
     "N_LE_plane 2\nLE_plane_vel 0.01"])
 def test_colloids_beside_unported_features_raise(line):
     """Colloids of the families without a colloid route (the JAX
-    package's symmetric_noise branch drops them), with fluctuations,
-    beside porous media or Lees-Edwards planes raise NotImplementedError
-    naming the key."""
+    package's symmetric_noise branch drops them), beside the open
+    boundary, porous media or Lees-Edwards planes raise
+    NotImplementedError naming the key."""
     key = "colloid_init" if line.startswith("free_energy") else \
         line.split()[0]
     text = COLLOID_INPUTS["input_two"] + line + "\n"

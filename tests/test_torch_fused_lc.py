@@ -152,9 +152,10 @@ def test_convert_round_trip():
     efield["fe"]["epsilon"] = 0.5 / (12.0 * np.pi)
     got = lc_params_from_jax(efield, device="cpu")
     assert got.fe.e0 == (0.0, 0.0, 0.01) and got.fe.has_efield
-    bad = dataclasses.asdict(dataclasses.replace(jcfg, noise_kt=1e-4))
-    with pytest.raises(NotImplementedError, match="noise_kt"):
-        lc_params_from_jax(bad, device="cpu")
+    noisy = dataclasses.asdict(dataclasses.replace(jcfg, noise_kt=1e-4,
+                                                   noise_seed=7))
+    got = lc_params_from_jax(noisy, device="cpu")
+    assert (got.noise_kt, got.noise_seed) == (1e-4, 7)
 
 
 def test_fused_lc_rejects_what_it_cannot_run():

@@ -177,8 +177,15 @@ def _d4(form):
 
 
 def _threefry_noise():
-    from ludwig_tpu_torch.noise import NoiseConfig
-    NoiseConfig(kt=1e-5, rho=True, kiss=False)
+    """The threefry stream, once refused here, is ported: the deviates of
+    a (16, 8, 16) draw are the JAX package's."""
+    from ludwig_tpu import noise as jnoise
+    from ludwig_tpu_torch import noise as tnoise
+    assert not tnoise.NoiseConfig(kt=1e-5, rho=True, kiss=False).kiss
+    want = jnoise.discrete_deviates(8361235, 3, 2, N, jnp.float64)
+    got = tnoise.discrete_deviates(8361235, 3, 2, N, torch.float64,
+                                   device="cpu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def _lc_27pt():
@@ -193,13 +200,14 @@ def _lc_27pt():
         close(got[key], want[key])
 
 
-# the fourth-order (Brazovskii) forms and the liquid crystal's 27-point
-# stencil are ported: held to the JAX package's; the rest are still
-# refused, naming what is not ported
+# the fourth-order (Brazovskii) forms, the liquid crystal's 27-point
+# stencil and the threefry noise are ported: held to the JAX package's;
+# anything still refused would raise, naming what is not ported
 PARITY = {"brazovskii-step": _brazovskii_step,
           "27pt-d4": _d4("le_fields_27pt_d4"),
-          "2d5pt-d4": _d4("le_fields_2d5pt_d4"), "lc-27pt": _lc_27pt}
-REFUSED = {"threefry-noise": _threefry_noise}
+          "2d5pt-d4": _d4("le_fields_2d5pt_d4"), "lc-27pt": _lc_27pt,
+          "threefry-noise": _threefry_noise}
+REFUSED = {}
 
 
 @pytest.mark.parametrize("case", ["brazovskii-step", "threefry-noise",

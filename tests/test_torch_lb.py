@@ -123,22 +123,22 @@ def test_convert_round_trip():
 
 
 def test_port_refuses_unported_features():
-    # the JAX package's stateless threefry noise stream
-    with pytest.raises(NotImplementedError, match="threefry"):
-        tlb.LBConfig(size=SIZE, noise=NoiseConfig(kt=1e-5, rho=True,
-                                                  kiss=False))
+    # the JAX package's stateless threefry noise stream is ported
+    # (tests/test_torch_threefry.py): its configuration is taken
+    assert not tlb.LBConfig(size=SIZE, noise=NoiseConfig(
+        kt=1e-5, rho=True, kiss=False)).noise.kiss
     with pytest.raises(TypeError):
         tlb.LBConfig(size=SIZE, noise=object())
     cfg = tlb.LBConfig(size=SIZE, device="cpu")
     assert tlb.LBConfig(size=SIZE).device == "cuda"   # the card by default
-    # the n-step loop and a step without a KISS state would draw the
-    # threefry stream (Lees-Edwards planes and open boundaries, refused
-    # here before, are ported: test_torch_lees_edwards.py,
-    # test_torch_open_bc.py)
+    # the n-step loop and a step without a KISS state draw the threefry
+    # stream, as the JAX package's do (Lees-Edwards planes and open
+    # boundaries, refused here before, are ported too:
+    # test_torch_lees_edwards.py, test_torch_open_bc.py)
     noisy = dataclasses.replace(cfg, noise=NoiseConfig(kt=1e-5, rho=True))
-    with pytest.raises(NotImplementedError, match="threefry"):
-        tlb.make_nstep(noisy)
-    with pytest.raises(NotImplementedError, match="threefry"):
-        tlb._noise_terms(noisy, noisy.collision_params(), 0)
+    shat, ghat = tlb._noise_terms(noisy, noisy.collision_params(), 0)
+    assert shat.shape == (3, 3) + SIZE and ghat.shape == (19,) + SIZE
+    f = tlb.make_nstep(noisy)(tlb.initial_rest(noisy), 1)
+    assert f.shape == (19,) + SIZE and bool(torch.isfinite(f).all())
     with pytest.raises(ValueError):
         tlb.LBConfig(size=SIZE, dtype="bfloat16")

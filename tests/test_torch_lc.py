@@ -137,7 +137,8 @@ def test_lc_step_matches_jax(order):
 def test_lc_config_refuses_what_is_not_ported():
     """The options of the JAX package's LCConfig are ported and carried:
     advection orders 3-5, the solid stencils with their anchoring, the
-    redshift update; the noise alone is refused."""
+    redshift update and the Q noise (noise_kt, noise_seed); nothing is
+    refused any more."""
     lb = LBConfig(size=N, nvel=19, eta_shear=0.1, device="cpu")
     for order in (3, 4, 5):
         cfg = lc.LCConfig(lb=lb, fe=BluePhaseFE(**FE), advection_order=order)
@@ -157,5 +158,6 @@ def test_lc_config_refuses_what_is_not_ported():
                       hydrodynamics=False)
     assert cfg.redshift_update and not cfg.hydrodynamics
     assert cfg.anchoring == anch
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lc.LCConfig(lb=lb, fe=BluePhaseFE(**FE), noise_kt=1e-4)
+    cfg = lc.LCConfig(lb=lb, fe=BluePhaseFE(**FE), noise_kt=1e-4,
+                      noise_seed=7)
+    assert (cfg.noise_kt, cfg.noise_seed) == (1e-4, 7)

@@ -222,10 +222,16 @@ def test_converter_round_trip():
 
 
 def test_threefry_routes_raise():
-    with pytest.raises(NotImplementedError, match="threefry"):
-        tnoise.NoiseConfig(kt=KT, rho=True, kiss=False)
-    _jcfg, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="threefry"):
-        tlb.make_nstep(tcfg)
-    with pytest.raises(NotImplementedError, match="threefry"):
-        tlb._noise_terms(tcfg, tcfg.collision_params(), 0)
+    """The routes that draw the stateless threefry stream, once refused,
+    run: NoiseConfig(kiss=False) is taken, and _noise_terms without a KISS
+    state returns the JAX package's threefry terms (stress, then the
+    ghosts under seed + 7919)."""
+    assert not tnoise.NoiseConfig(kt=KT, rho=True, kiss=False).kiss
+    jcfg, tcfg = _cfgs()
+    for t in (0, 5):
+        jsh, jgh = jlb._noise_terms(jcfg, jcfg.collision_params(), t)
+        tsh, tgh = tlb._noise_terms(tcfg, tcfg.collision_params(), t)
+        np.testing.assert_allclose(tsh.numpy(), np.asarray(jsh),
+                                   rtol=1e-15, atol=0)
+        np.testing.assert_allclose(tgh.numpy(), np.asarray(jgh),
+                                   rtol=1e-15, atol=0)

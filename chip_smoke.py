@@ -291,7 +291,28 @@ Phases (each prints its own lines; any failure raises and exits non-zero):
      with their Langevin kicks (host LCG words) and Brazovskii at 128^3
      with the LB noise through run_text; 16^3 colloids, the subgrid input
      and Brazovskii in f64, the card's logs against the CPU's; each run's
-     kT statistics over the input temperature.
+     kT statistics over the input temperature;
+ 41. the droplet between walls on z with `fe_force_method
+     relaxation_antisymmetric`, the droplet in a simple-cubic porous
+     medium with the 27-point stencil and order-3 advection, and the
+     Gouy-Chapman electrolyte in porous media, in f64 through run_text on
+     the card and on the CPU (the logs held as in phase 38); np_gradmu
+     and the solid fused_force_step at f32 on porous masks (the charged
+     walls with a simple-cubic map, and with 8% of the sites at random)
+     at 64^3 and 128^3 against their twins by phase 16's rules; the
+     droplet input on the card with `default_io_grid 2_2_1` and
+     `phi_io_grid 1_1_4`: each recombined set bitwise the single file
+     of the same run with one I/O group;
+ 42. at full width f32, 20 cycles through run_text: the 128^3 droplet
+     between walls with the relaxation force, the 128^3 droplet in a
+     simple-cubic porous medium (acell 16), and the 128^3 Gouy-Chapman
+     electrolyte in the same medium (the three kernels launched once a
+     cycle); ms a step (CUDA events), CUDA kernels a step and their
+     device time (torch.profiler), host syncs a step (none for the
+     droplet); sor_solve, np_gradmu and the solid K2 timed on the porous
+     state beside the plain Gouy-Chapman state's, and the plain cell's
+     step; a 128^3 q dump from the card as one file and as the 2_2_2
+     subfile set (host clock).
 
 Bounds: `bound_ms` is the larger of the bytes the function must move
 (each input read once, each output written once) over the H100 SXM's
@@ -303,7 +324,8 @@ The kernels' JSON record comes before the card's line (ms and plain_ms
 per lattice step, CUDA events; fused_step also carries phase 24's wall
 and LE step and post-pass times and phase 38's cells; fused_step_q9 and
 fused_step_noise_q9 are the D2Q9 library's kernels at 4096x4096x1;
-fused_step_noise carries phases 39-40 as "fluctuations"), the
+fused_step_noise carries phases 39-40 as "fluctuations",
+fused_force_step_solid phases 41-42 as "options"), the
 last line is {"ok": true, "device": {...}}.
 There is no CPU path.
 """
@@ -312,6 +334,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -1786,31 +1809,107 @@ def np_raw(cfg):
             [-float(d) * 0.5 for d in ek.diffusivity], 1.0 / (ek.beta * ek.e))
 
 
-def hold_k2_solid(what, a, b, f0, solid):
+def _block_sum_nodes2(v):
+    """(sum, sum of squared partial sums) of reduce.cuh's block_sum_all
+    over the last axis of v (..., 256): the warp shuffle-down trees, then
+    the eight warps' results in order."""
+    v = v.reshape(v.shape[:-1] + (8, 32)).clone()
+    nodes2 = torch.zeros(v.shape[:-2], dtype=v.dtype, device=v.device)
+    o = 16
+    while o:
+        v[..., :o] += v[..., o:2 * o]
+        nodes2 += v[..., :o].square().sum((-1, -2))
+        o //= 2
+    warps = v[..., 0].cumsum(-1)
+    return warps[..., -1], nodes2 + warps[..., 1:].square().sum(-1)
+
+
+def wall_momentum_exact(fp, solid, model, lam=6.0):
+    """(gw, limit): the momentum that the solid collide+stream handed to
+    the walls, summed exactly (math.fsum) from its output fp, and per
+    axis the rounding limit of fused_force_step_solid_kernel's sum of the
+    same terms, both float64.  A fluid site x whose neighbour x + c_q is
+    solid holds its bounced value v in fp[anti(q)], and that link gives
+    the walls 2 c_q v.  The kernel adds a site's terms, then 256 sites
+    a block (block_sum_all), then the block partials, each thread every
+    256th in order before a last block_sum_all.  Its error is the sum of
+    its partial sums s_k times rounding errors below u = eps / 2; taken
+    as independent and of mean zero, it stays under lam u sqrt(sum s_k^2)
+    but with probability 2 exp(-lam^2 / 2), 3e-8 at lam 6 (Hoeffding).
+    The partial sums are taken from this sum in float64, those inside a
+    site at the most that the site's terms can make."""
+    import math
+    cvs = [tuple(int(c) for c in model.cv[q]) for q in range(model.nvel)]
+    fluid = torch.logical_not(solid)
+    f64 = dict(dtype=torch.float64, device=fp.device)
+    site = torch.zeros((3,) + tuple(solid.shape), **f64)
+    size, count = torch.zeros_like(site), torch.zeros_like(site)
+    terms = ([], [], [])
+    for q, c in enumerate(cvs):
+        if not any(c):
+            continue
+        live = torch.logical_and(
+            fluid, torch.roll(solid, shifts=tuple(-k for k in c),
+                              dims=(0, 1, 2)))
+        v = 2.0 * fp[cvs.index(tuple(-k for k in c))].double() * live
+        for ax, k in enumerate(c):
+            if k:
+                site[ax] += k * v
+                size[ax] += v.abs()
+                count[ax] += live
+                terms[ax].append(k * v[live])
+    gw = [math.fsum(torch.cat(t).cpu().tolist()) for t in terms]
+    site, size, count = (x.reshape(3, -1) for x in (site, size, count))
+    nodes2 = ((count - 1).clamp(min=0) * size.square()).sum(-1)
+    nblock = -(-site.shape[1] // 256)
+    pad = torch.zeros((3, nblock * 256), **f64)
+    pad[:, :site.shape[1]] = site
+    part, n2 = _block_sum_nodes2(pad.reshape(3, nblock, 256))
+    nodes2 += n2.sum(-1)
+    pad = torch.zeros((3, -(-nblock // 256) * 256), **f64)
+    pad[:, :nblock] = part
+    runs = pad.reshape(3, -1, 256).cumsum(1)   # thread t: every 256th
+    nodes2 += runs[:, 1:].square().sum((1, 2))
+    nodes2 += _block_sum_nodes2(runs[:, -1])[1]
+    u = torch.finfo(fp.dtype).eps / 2.0
+    return torch.tensor(gw, **f64), lam * u * nodes2.sqrt()
+
+
+def hold_k2_solid(what, a, b, model, solid):
     """The solid collide+stream's (f', u, gw) held to its twin's: f' and
-    u on fluid sites by check_close, and bitwise in float64; gw, a sum
-    over the live links in another order, within 2 eps of the sum of
-    |f0|.  Returns the max_abs_err of f' and u."""
-    dtype = f0.dtype
+    u on fluid sites by check_close, and bitwise in float64; gw, axis by
+    axis, to the exact sum of the link terms in the kernel's f' within
+    the rounding limit of the kernel's order of summation
+    (wall_momentum_exact), and the twin's gw, summed in torch.sum's order,
+    printed beside it.  Returns the max_abs_err of f' and u."""
+    dtype = a[0].dtype
     fl3 = torch.logical_not(solid)[None]
     err_f = check_close(f"fused_force_step_solid {what} f", a[0], b[0],
                         dtype)
     ua, ub = a[1] * fl3, b[1] * fl3
     err_u = check_close(f"fused_force_step_solid {what} u", ua, ub, dtype)
-    gw_tol = torch.finfo(dtype).eps * 2.0 * float(f0.abs().sum())
-    err_g = max_err(a[2], b[2])
     if dtype == torch.float64 and not (torch.equal(a[0], b[0])
                                        and torch.equal(ua, ub)):
         raise AssertionError(f"fused_force_step_solid {what}: not bitwise "
                              "its twin")
-    if err_g > gw_tol:
-        raise AssertionError(f"fused_force_step_solid {what} gw err "
-                             f"{err_g:.3e} > {gw_tol:.3e}")
+    ref, tol = wall_momentum_exact(a[0], solid, model)
+    err = (a[2].double() - ref).abs()
+    if not bool((err <= tol).all()):
+        raise AssertionError(
+            f"fused_force_step_solid {what} gw {a[2].tolist()} against the "
+            f"exact sum {ref.tolist()}: err {err.tolist()} beyond "
+            f"{tol.tolist()}")
+    twin = (b[2].double() - wall_momentum_exact(b[0], solid, model)[0]).abs()
+
+    def e3(x):
+        return [float(f"{v:.3e}") for v in x.tolist()]
     print(f"fused_force_step_solid {what}: f' bitwise "
           f"{torch.equal(a[0], b[0])} (max_abs_err {err_f:.3e}), u on fluid "
           f"sites bitwise {torch.equal(ua, ub)}, gw "
-          f"{[round(v, 9) for v in a[2].tolist()]} err {err_g:.3e} "
-          f"(tolerance {gw_tol:.3e})")
+          f"{[round(v, 9) for v in a[2].tolist()]}, exact "
+          f"{[round(v, 9) for v in ref.tolist()]}: err {e3(err)}, tolerance "
+          f"{e3(tol)}, tolerance / |gw| {e3(tol / ref.abs())}; the twin's "
+          f"err {e3(twin)}, kernel - twin {max_err(a[2], b[2]):.3e}")
     return max(err_f, err_u)
 
 
@@ -1925,7 +2024,7 @@ def phase16(gen):
                 f"{size} {dtype}",
                 fused.fused_force_step(f0, frc, model, params, solid=solid),
                 fused._fused_force_step_plain(f0, frc, model, params, solid),
-                f0, solid)
+                model, solid)
             worst["fused_force_step_solid"] = max(
                 worst["fused_force_step_solid"], err)
     # three chained electrokinetic steps: in float32 the step the CLI runs
@@ -2281,7 +2380,7 @@ def phase18(card, gen, copy_ms, copy_bytes):
             f"{size[0]}^3 main-path state",
             fused.fused_force_step(f, frc, model, params, solid=solid),
             fused._fused_force_step_plain(f, frc, model, params, solid),
-            f, solid)
+            model, solid)
         res_size["fused_force_step_solid"] = report(
             "fused_force_step_solid (K2, D3Q19 M10)",
             time_ms(lambda: fused.fused_force_step(f, frc, model, params,
@@ -6021,6 +6120,257 @@ def phase40(card):
     return res, paths, worst
 
 
+# phase 41: the droplet's solids and options and the porous electrolyte,
+# small f64 inputs on the card against the CPU (the droplet input of
+# tests/test_ludwig_run.py:165-192 at 8x8x16; the Gouy-Chapman input at
+# 16x8x8)
+POROUS_KEYS = "porous_media_init simple_cubic\nporous_media_acell {}\n"
+DROP_WALLS_KEYS = ("boundary_walls 0_0_1\n"
+                   "fe_force_method relaxation_antisymmetric\n")
+DROP_POROUS_KEYS = ("fd_gradient_calculation 3d_27pt_fluid\n"
+                    "fd_advection_scheme_order 3\n" + POROUS_KEYS.format(4))
+
+
+def small_input(text):
+    return (text.replace("N_cycles 20", "N_cycles 4")
+            .replace("freq_statistics 10", "freq_statistics 2"))
+
+
+OPTION_SMALL = {
+    "droplet walls relaxation_antisymmetric 8x8x16":
+        small_input(drop_input((8, 8, 16), "float64")) + DROP_WALLS_KEYS,
+    "droplet porous 27pt order 3 8x8x16":
+        small_input(drop_input((8, 8, 16), "float64").replace(
+            "fd_gradient_calculation 3d_7pt_fluid\n", "").replace(
+            "fd_advection_scheme_order 1\n", "")) + DROP_POROUS_KEYS,
+    "electro porous 16x8x8": small_input(elec_input((16, 8, 8), "float64"))
+    + POROUS_KEYS.format(4),
+}
+# phase 42: the same options at full width, f32, 20 cycles
+OPTION_CELLS = {
+    "droplet walls relaxation_antisymmetric 128^3":
+        drop_input(DROP_SIZE, "float32") + DROP_WALLS_KEYS,
+    "droplet porous 128^3": drop_input(DROP_SIZE, "float32")
+    + POROUS_KEYS.format(16),
+    "electro porous 128^3": elec_input(ELEC_SIZE, "float32")
+    + POROUS_KEYS.format(16),
+}
+
+
+def porous_masks(size, gen):
+    """{name: solid}: the Gouy-Chapman walls on x joined with a
+    simple-cubic porous map (acell 8) and with 8% of the sites at random,
+    on the card."""
+    from ludwig_tpu_torch.io.map_file import GEOMETRIES
+    planes = torch.zeros(size, dtype=torch.bool, device="cuda")
+    planes[0] = planes[-1] = True
+    cubic = torch.as_tensor(GEOMETRIES["simple_cubic"](size, 8) != 0,
+                            device="cuda")
+    scattered = torch.rand(size, generator=gen, device="cuda") < 0.08
+    return {"simple cubic": planes | cubic, "scattered 8%": planes | scattered}
+
+
+def phase41(gen):
+    """The droplet between walls with the relaxation force, the droplet in
+    porous media with the 27-point stencil and order 3, and the porous
+    Gouy-Chapman electrolyte in f64 on the card against the CPU; the NP
+    and solid collide+stream kernels held to their twins at f32 on porous
+    masks; an I/O-grid set written on the card recombined bitwise into
+    the single file of the same field."""
+    phase("41 the droplet's solids and options, the porous electrolyte and "
+          "I/O-grid sets on the card vs the CPU")
+    import tempfile
+
+    from ludwig_tpu_torch.io import read_subfile_set
+    from ludwig_tpu_torch.io.ref_format import read_ref_field
+    res = {}
+    for name, text in OPTION_SMALL.items():
+        nval, err, _log = card_vs_cpu_log(name, text)
+        res[name] = dict(floats=nval, max_abs_diff=err)
+        print(f"{name} f64: header equal to the CPU's, {nval} floats within "
+              f"rtol 1e-9 (max |diff| {err:.3e})")
+    worst = {"np_gradmu": 0.0, "fused_force_step_solid": 0.0}
+    for size in ((64, 64, 64), ELEC_SIZE):
+        cfg = elec_cfg(size, "float32", **SOR_TEST_EK)
+        psi, rho, u, _planes = rand_elec(size, cfg.lb.tdtype, gen)
+        routes = elec_routes(cfg, dt=0.5)
+        model, params = cfg.lb.model, cfg.lb.collision_params()
+        f0 = rand_state(cfg.lb, gen)
+        frc = (1e-4 * torch.randn((3,) + size, generator=gen,
+                                  dtype=cfg.lb.tdtype, device="cuda")
+               ).contiguous()
+        for mask, solid in porous_masks(size, gen).items():
+            fluid = torch.logical_not(solid)
+            what = f"{size} float32 {mask} ({float(solid.float().mean()):.3f}"\
+                   " solid)"
+            err = hold_np(what, routes["kernel"][1](psi, rho, u, fluid),
+                          routes["twin"][1](psi, rho, u, fluid))
+            worst["np_gradmu"] = max(worst["np_gradmu"], err)
+            err = hold_k2_solid(
+                what,
+                fused.fused_force_step(f0, frc, model, params, solid=solid),
+                fused._fused_force_step_plain(f0, frc, model, params, solid),
+                model, solid)
+            worst["fused_force_step_solid"] = max(
+                worst["fused_force_step_solid"], err)
+    # the droplet input on the card with default_io_grid 2_2_1 and a
+    # phi_io_grid 1_1_4 override, and again with the single I/O group:
+    # each recombined set is, bitwise, the single file of its field
+    text = (small_input(drop_input((8, 8, 16), "float32"))
+            + "freq_phi 4\nfreq_vel 4\n")
+    with tempfile.TemporaryDirectory() as d:
+        sets, whole = os.path.join(d, "sets"), os.path.join(d, "whole")
+        for where, keys in ((sets, "default_io_grid 2_2_1\n"
+                                   "phi_io_grid 1_1_4\n"), (whole, "")):
+            os.makedirs(where)
+            run_text(text + keys + f"io_directory {where}\n",
+                     out=io.StringIO(), device="cuda")
+        for name, ncomp in (("phi", 1), ("vel", 3)):
+            files = sorted(f for f in os.listdir(sets)
+                           if f.startswith(f"{name}-00000004."))
+            a = read_subfile_set(sets, name, 4)
+            b = read_ref_field(os.path.join(whole,
+                                            f"{name}-00000004.001-001"),
+                               (8, 8, 16), ncomp)
+            if not (a.shape == b.shape and (a == b).all()):
+                raise AssertionError(f"{name}: the I/O-grid set is not the "
+                                     "single file's values")
+            print(f"{name}: {len(files)} subfiles {files[0]} .. {files[-1]}"
+                  " recombine bitwise into the 1_1_1 file of the same run")
+            res[f"io grid {name}"] = dict(subfiles=len(files))
+    return res, worst
+
+
+def electro_kernel_times(sys_):
+    """ms of sor_solve, np_gradmu and the solid K2 (CUDA events, 20
+    launches after 2) on the state and solid of an electrolyte system."""
+    from ludwig_tpu_torch.electro import rho_elec
+    cfg, solid = sys_.electro_cfg, sys_.solid
+    f, psi, rho, u, _gw = sys_.state
+    model, params = cfg.lb.model, cfg.lb.collision_params()
+    fluid = torch.logical_not(solid)
+    rel = rho_elec(rho, cfg.ek)
+    raw, fsum = fe.np_gradmu_fused(psi, rho, u, fluid, cfg, 1.0)[1:]
+    frc = (raw - (fsum / float(psi.numel()))[:, None, None, None]
+           ).contiguous()
+    return {
+        "sor_solve": time_ms(lambda: fe.sor_solve_fused(psi, rel, cfg.ek),
+                             20),
+        "np_gradmu": time_ms(lambda: fe.np_gradmu_fused(psi, rho, u, fluid,
+                                                        cfg, 1.0), 20),
+        "fused_force_step_solid": time_ms(lambda: fused.fused_force_step(
+            f, frc, model, params, solid=solid), 20)}
+
+
+def phase42(card):
+    """The droplet between walls with the relaxation force and in porous
+    media, and the porous Gouy-Chapman electrolyte, at full width f32:
+    20 cycles of each through run_text, ms a step, CUDA kernels a step and
+    their device time, host syncs; the electrolyte's kernels on its
+    porous state beside the plain Gouy-Chapman state's; a 128^3 q dump
+    as an I/O-grid set 2_2_2 against the single file."""
+    phase(f"42 the droplet's solids and the porous electrolyte at full "
+          f"width f32 on {card}")
+    import tempfile
+
+    from ludwig_tpu_torch.io import read_subfile_set, write_sharded
+    from ludwig_tpu_torch.io.ref_format import write_ref_field
+    from ludwig_tpu_torch.ludwig import build_system
+    from ludwig_tpu_torch.runtime import RunTime
+    res, paths = {}, {}
+    electro = ("sor_solve", "np_gradmu", "fused_force_step_solid")
+    for name, text in OPTION_CELLS.items():
+        log = io.StringIO()
+        torch.cuda.synchronize()
+        _cuda.launches.reset()
+        t0 = time.perf_counter()
+        sys_ = run_text(text, out=log, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = stat_scan_counts()
+        if sys_.is_electro:
+            counts.update({k: getattr(_cuda.launches, k) for k in electro})
+            bad = {k: counts[k] for k in electro if counts[k] != ELEC_CYCLES}
+            if bad:
+                raise AssertionError(f"{name}: launches {bad} for "
+                                     f"{ELEC_CYCLES} cycles")
+        elif _cuda.launches.droplet_phi_q_force_step:
+            raise AssertionError(f"{name}: the fused droplet kernel ran "
+                                 "beside a solid")
+        paths[name] = counts
+        out = log.getvalue()
+        cycles = ELEC_CYCLES if sys_.is_electro else DROP_CYCLES
+        if (f"Completed cycle {cycles}" not in out
+                or sys_.solid is None or sys_.fused_mode is not None):
+            raise AssertionError(f"{name}: incomplete, or not the unfused "
+                                 "route with a solid")
+        if not all(bool(torch.isfinite(x).all()) for x in sys_.state):
+            raise AssertionError(f"{name}: non-finite state")
+        cell = dict(run_text_s=wall,
+                    solid_fraction=float(sys_.solid.float().mean()))
+        if sys_.is_electro:
+            cell["kernels_porous"] = electro_kernel_times(sys_)
+        del sys_
+        torch.cuda.empty_cache()
+        sys_ = build_system(RunTime(text), "cuda")
+        ms, kernels, dev_ms, syncs = step_cost(sys_)
+        if syncs and not sys_.is_electro:
+            raise AssertionError(f"{name}: {syncs} host syncs a step")
+        cell.update(ms=ms, kernels=kernels, device_ms=dev_ms,
+                    host_syncs=syncs)
+        print(f"{name}: {ms:.3f} ms a step (CUDA events), {kernels} CUDA "
+              f"kernels a step, {dev_ms} ms of them on the device "
+              f"(torch.profiler), {syncs} host syncs; run_text "
+              f"{cycles} cycles {wall:.2f} s; solid "
+              f"{cell['solid_fraction']:.3f} of the sites [{card}]")
+        res[name] = cell
+        del sys_
+        torch.cuda.empty_cache()
+    # the plain Gouy-Chapman cell's step and kernels in the same call
+    plain = build_system(RunTime(elec_input(ELEC_SIZE, "float32")), "cuda")
+    for t in range(2):
+        plain.state = plain.step_fn(plain.state, t)[0]
+    plain_k = electro_kernel_times(plain)
+    plain_ms, plain_kern, plain_dev, plain_syncs = step_cost(plain)
+    del plain
+    torch.cuda.empty_cache()
+    porous = res["electro porous 128^3"]
+    res["electro plain 128^3"] = dict(ms=plain_ms, kernels=plain_kern,
+                                      device_ms=plain_dev,
+                                      host_syncs=plain_syncs,
+                                      kernels_plain=plain_k)
+    print(f"electro 128^3 a step: porous {porous['ms']:.3f} ms, plain "
+          f"Gouy-Chapman {plain_ms:.3f} ms ({plain_kern} CUDA kernels, "
+          f"{plain_dev} ms on the device, {plain_syncs} host syncs) [{card}]")
+    for k in electro:
+        print(f"{k} 128^3: porous state {porous['kernels_porous'][k]:.4f} ms,"
+              f" plain Gouy-Chapman state {plain_k[k]:.4f} ms [{card}]")
+    # a 128^3 q dump (5 doubles a site, from the card) as one file and as
+    # the 2_2_2 set, in turns
+    q = torch.randn((5,) + DROP_SIZE, generator=torch.Generator(
+        device="cuda").manual_seed(42), device="cuda")
+    dump = {"1_1_1": [], "2_2_2": []}
+    with tempfile.TemporaryDirectory() as d:
+        for rep in range(3):
+            for grid in dump:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if grid == "1_1_1":
+                    write_ref_field(d, "q", rep, q)
+                else:
+                    write_sharded(d, "q", rep, q, grid=(2, 2, 2))
+                dump[grid].append(time.perf_counter() - t0)
+        back = read_subfile_set(d, "q", 2)
+        if not (back == q.double().cpu().numpy()).all():
+            raise AssertionError("q 2_2_2: the set is not the field")
+    res["q dump 128^3"] = {g: min(v) for g, v in dump.items()}
+    print(f"q dump 128^3 (84 MB of doubles, from the card, host clock, "
+          f"least of 3): 1_1_1 {res['q dump 128^3']['1_1_1']:.3f} s, "
+          f"2_2_2 (8 subfiles + metadata) "
+          f"{res['q dump 128^3']['2_2_2']:.3f} s [{card}]")
+    return res, paths
+
+
 def main():
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA GPU; none is visible")
@@ -6147,6 +6497,13 @@ def main():
         "small_inputs_f64_max_abs_diff": noise_worst}
     for name in STAT_SCANS:
         worst[name] = 0.0        # held bitwise in phases 19 and 21
+    option_small, option_worst = phase41(gen)
+    for name, err in option_worst.items():
+        worst[name] = max(worst[name], err)
+    option_cells, option_paths = phase42(card)
+    by_path.update(option_paths)
+    timed["fused_force_step_solid"]["options"] = {**option_small,
+                                                  **option_cells}
     print(f"all phases passed ({time.perf_counter() - _T0:.1f} s)")
 
     kernels = []
@@ -6226,6 +6583,9 @@ def main():
             # routes; their statistics launch the scans)
             kernels[-1].update(lc_cells=t["lc_cells"],
                                lc_routes_f64_max_abs_diff=lc_worst)
+        if "options" in t:  # phases 41-42: the droplet's solids and
+            # options, the porous electrolyte, the I/O-grid sets
+            kernels[-1].update(options=t["options"])
         if "fluctuations" in t:  # phases 39-40: the threefry stream, the
             # Q noise, the fluctuating colloids, subgrid particles and
             # Brazovskii (PyTorch routes, no kernel of their own)

@@ -12,9 +12,10 @@ arithmetic on "values" (whole tensors in the twins and the unfused step,
 symbols in ops/_cuda.py, which traces the same text into the droplet
 kernel), in the JAX package's term order, so float64 results agree with
 it to the last bits.  A square is written x * x where the JAX text has
-x ** 2 (XLA's integer power is that product).  The symmetric and
-antisymmetric stresses of `fe_force_method relaxation_antisymmetric`
-(`stress_symm`, `stress_anti`) are not ported yet (ROADMAP, slice 5).
+x ** 2 (XLA's integer power is that product).  `stress_symm` and
+`stress_anti` split the qh stress for `fe_force_method
+relaxation_antisymmetric`: the collision relaxes the symmetric part, the
+antisymmetric one is divergence-forced.
 """
 
 from __future__ import annotations
@@ -119,6 +120,48 @@ class LCDropletFE:
                 if self.zeta0 or self.zeta1:
                     v = v + fphi * (-(r3 * self.zeta0 if a == b else 0.0)
                                     - self.zeta1 * q[a][b])
+                row.append(-v)
+            rows.append(row)
+        return rows
+
+    def stress_symm(self, fields, h=None):
+        """Symmetric part of the qh stress with the active term, a 3x3
+        list (ref: lc_droplet.c fe_lc_droplet_str_symm)."""
+        phi = fields["phi"]
+        q = q5_to_q33(fields["q"])
+        if h is None:
+            h = self.molecular_field(fields)
+        xi = self.lc.xi
+        r3 = 1.0 / 3.0
+        qh = sum(q[a][b] * h[a][b] for a in range(3) for b in range(3))
+        fphi = 0.5 * (1.0 + phi)
+        rows = []
+        for a in range(3):
+            row = []
+            for b in range(3):
+                v = 2.0 * xi * (q[a][b] + (r3 if a == b else 0.0)) * qh
+                for c in range(3):
+                    v = v - xi * h[a][c] * (q[b][c] + (r3 if b == c else 0.0))
+                    v = v - xi * (q[a][c] + (r3 if a == c else 0.0)) * h[b][c]
+                if self.zeta0 or self.zeta1:
+                    v = v + fphi * (-(r3 * self.zeta0 if a == b else 0.0)
+                                    - self.zeta1 * q[a][b])
+                row.append(-v)
+            rows.append(row)
+        return rows
+
+    def stress_anti(self, fields, h=None):
+        """Antisymmetric qh stress -(q_ac h_bc - h_ac q_bc), a 3x3 list
+        (ref: lc_droplet.c fe_lc_droplet_str_anti)."""
+        q = q5_to_q33(fields["q"])
+        if h is None:
+            h = self.molecular_field(fields)
+        rows = []
+        for a in range(3):
+            row = []
+            for b in range(3):
+                v = sum(q[a][c] * h[b][c] - h[a][c] * q[b][c]
+                        for c in range(3))
                 row.append(-v)
             rows.append(row)
         return rows

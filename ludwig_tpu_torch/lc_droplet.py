@@ -1,20 +1,26 @@
 """Liquid-crystal droplet simulation: coupled (phi, Q) + LB.
 
-PyTorch port of the periodic, stress-divergence branch of
-ludwig_tpu/lc_droplet_sim.py (ref: src/ludwig.c:693-742: body force +
-momentum correction, then the divergence of the qh stress; phi via
-Cahn-Hilliard, Q via Beris-Edwards, both with the coupled free energy).
-The state is the tuple (f, phi, q5, u); a step runs eagerly on the
-state's device.  This is the unfused step (the CLI's `tpu_fused off`
-route) and the reference the fused step of ops/fused_droplet.py is held
-to.
+PyTorch port of ludwig_tpu/lc_droplet_sim.py (ref: src/ludwig.c:693-742:
+body force + momentum correction, then the divergence of the qh stress;
+phi via Cahn-Hilliard, Q via Beris-Edwards, both with the coupled free
+energy).  The state is the tuple (f, phi, q5, u); a step runs eagerly on
+the state's device.  This is the unfused step (the CLI's `tpu_fused off`
+route, and the route of every option the fused gate refuses) and the
+reference the fused step of ops/fused_droplet.py is held to.
+
+The step takes in-lattice solids (walls kept as solid planes, porous
+media: no update, collision or flux at solid sites, bounce-back on their
+links), every fluid stencil of ops/stencil.GRADIENTS (dab stays 7-point),
+advection orders 1-5, and `fe_force_method relaxation_antisymmetric`
+(only the antisymmetric stress is divergence-forced; the collision relaxes
+the symmetric one).  As in the JAX package, the gradients see no solid.
 
 Under Lees-Edwards shear, make_droplet_le_step is the whole sheared step
 and make_droplet_le_column_fix the column work around the fused kernel
 (ops/fused_droplet.make_fused_droplet_le_step), both over all planes at
-once (ops/le_ref.py).  Solids and walls, `fe_force_method
-relaxation_antisymmetric`, the other gradient stencils and advection
-orders 3 and up are not ported yet (ROADMAP, slice 5).
+once (ops/le_ref.py).  The sheared step takes the 7- and 27-point
+stencils (the others take the 7-point form, as the JAX package's
+le_gradient does) and orders 1-5, and always forces the whole qh stress.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from ludwig_tpu_torch.fe.lc_droplet import LCDropletFE
 from ludwig_tpu_torch.lb import LBConfig, initial_rest
 from ludwig_tpu_torch.lc import (_h5, _s5_corotation, col_advection, col_w,
                                  le_beris_edwards, stack33)
+from ludwig_tpu_torch.ops.advect import blocked_faces
 from ludwig_tpu_torch.ops.collide import collide
 from ludwig_tpu_torch.ops.force import stress_divergence_force
 from ludwig_tpu_torch.ops.le_ref import (LEContext, col_grad7, dab_from_cols,
@@ -43,19 +50,22 @@ from ludwig_tpu_torch.ops.le_ref import (LEContext, col_grad7, dab_from_cols,
                                          le_stress_force, replace_col,
                                          sample_linear, slab_neighbours)
 from ludwig_tpu_torch.ops.lees_edwards import apply_lb_le
-from ludwig_tpu_torch.ops.stencil import dab_7pt, gradient_ops
-from ludwig_tpu_torch.ops.stream import stream
+from ludwig_tpu_torch.ops.stencil import GRADIENTS, dab_7pt, gradient_ops
+from ludwig_tpu_torch.ops.stream import stream, stream_bounce_back
 
-GRADIENT = "3d_7pt_fluid"      # the stencil of the ported droplet slice
-ORDERS = (1, 2)                # the ported advection orders
+GRADIENT = "3d_7pt_fluid"      # the stencil of the fused kernels
+ORDERS = (1, 2, 3, 4, 5)       # the advection orders
 FORCE_METHOD = "stress_divergence"
+# the force methods the droplet's step runs as written (the JAX package
+# runs the other recognised ones as stress_divergence)
+FORCE_METHODS = (FORCE_METHOD, "relaxation_antisymmetric")
 
 
 @dataclasses.dataclass(frozen=True)
 class LCDropletConfig:
-    """Static configuration of a droplet run: periodic, no solid, 7-point
-    gradients, stress-divergence force.  Anything else raises, naming
-    the field."""
+    """Static configuration of a droplet run.  A stencil or an order the
+    JAX package does not have raises ValueError, a force method it runs as
+    stress_divergence NotImplementedError, naming the field."""
 
     lb: LBConfig
     fe: LCDropletFE
@@ -67,40 +77,39 @@ class LCDropletConfig:
 
     def __post_init__(self):
         if self.advection_order not in ORDERS:
+            raise ValueError(
+                f"advection_order {self.advection_order} (have {ORDERS})")
+        if self.gradient not in GRADIENTS:
+            raise ValueError(f"gradient '{self.gradient}' (have {GRADIENTS})")
+        if self.force_method not in FORCE_METHODS:
             raise NotImplementedError(
-                f"advection_order {self.advection_order} is not ported "
-                f"yet (have {ORDERS}), see ROADMAP")
-        if self.gradient != GRADIENT:
-            raise NotImplementedError(
-                f"gradient '{self.gradient}' is not ported yet (have "
-                f"'{GRADIENT}'), see ROADMAP")
-        if self.force_method != FORCE_METHOD:
-            raise NotImplementedError(
-                f"force_method '{self.force_method}' is not ported yet "
-                f"(have '{FORCE_METHOD}'), see ROADMAP")
+                f"force_method '{self.force_method}' is run as "
+                f"'{FORCE_METHOD}' by the JAX package's droplet step (have "
+                f"{FORCE_METHODS})")
 
 
 def droplet_fields(phi, q5, gradient: str = GRADIENT):
-    """phi, Q and their gradients, the dict the free energy's methods
-    take.  The droplet slice takes the 7-point stencil only."""
-    if gradient != GRADIENT:
-        raise NotImplementedError(
-            f"gradient '{gradient}' of the droplet is not ported yet (have "
-            f"'{GRADIENT}'), see ROADMAP")
+    """phi, Q and their gradients by the named stencil, dab by the 7-point
+    one: the dict the free energy's methods take."""
     grad, delsq = gradient_ops(gradient)
     return {"phi": phi, "grad_phi": grad(phi), "delsq_phi": delsq(phi),
             "dab_phi": dab_7pt(phi),
             "q": q5, "grad_q": grad(q5), "delsq_q": delsq(q5)}
 
 
-def make_droplet_step(cfg: LCDropletConfig):
-    """Step: ((f, phi, q5, u), t=0) -> ((f', phi', q5', u'), rho)."""
+def make_droplet_step(cfg: LCDropletConfig, solid=None):
+    """Step: ((f, phi, q5, u), t=0) -> ((f', phi', q5', u'), rho)
+    (ludwig_tpu lc_droplet_sim.py:49-110).  `solid`: the (X, Y, Z) bool
+    mask of in-lattice solids, or None."""
     params = cfg.lb.collision_params()
     model = cfg.lb.model
     ch = CahnHilliardParams(mobility=cfg.mobility,
                             advection_order=cfg.advection_order)
     be = BerisEdwardsParams(gamma=cfg.gamma, xi=cfg.fe.lc.xi,
                             advection_order=cfg.advection_order)
+    fluid = None if solid is None else ~solid
+    faces = None if solid is None else blocked_faces(solid)
+    relax_anti = cfg.force_method == "relaxation_antisymmetric"
 
     def step(state, t=0):
         del t
@@ -108,13 +117,17 @@ def make_droplet_step(cfg: LCDropletConfig):
         fields = droplet_fields(phi, q5, cfg.gradient)
         mu = cfg.fe.mu(fields)
         h = cfg.fe.molecular_field(fields)
-        # corrected body force + divergence of the qh stress
+        # corrected body force + divergence of the qh stress; with
+        # relaxation_antisymmetric of its antisymmetric part only, the
+        # symmetric part relaxing in the collision (ref: phi_force.c:101,
+        # collision.c:413)
+        stress = (cfg.fe.stress_anti(fields, h) if relax_anti
+                  else cfg.fe.stress_qh(fields, h))
         force = cfg.fe.body_force(fields, mu, h)
-        force = force + stress_divergence_force(
-            stack33(cfg.fe.stress_qh(fields, h)))
+        force = force + stress_divergence_force(stack33(stress))
         force = force.to(f.dtype)
 
-        phi = cahn_hilliard_update(phi, mu, u, ch)
+        phi = cahn_hilliard_update(phi, mu, u, ch, solid=faces)
         # the reference updates phi first; the Beris-Edwards molecular
         # field then sees gamma(phi_new) with the (stale) gradients of the
         # pre-update fields (ref: ludwig.c order phi_cahn_hilliard ->
@@ -122,16 +135,26 @@ def make_droplet_step(cfg: LCDropletConfig):
         fields_be = dict(fields)
         fields_be["phi"] = phi
         q5 = beris_edwards_update(q5, cfg.fe.molecular_field(fields_be), u,
-                                  be)
-        f, rho, u_new = collide(f, params, force=force)
-        return (stream(f, model), phi, q5, u_new), rho
+                                  be, fluid_mask=fluid)
+        seq_extra = None
+        if relax_anti:
+            # the collision's symmetric stress: the updated phi and Q with
+            # the pre-update gradients (ref: collision.c:417)
+            fields_c = dict(fields)
+            fields_c["phi"] = phi
+            fields_c["q"] = q5
+            seq_extra = stack33(cfg.fe.stress_symm(fields_c))
+        f, rho, u_new = collide(f, params, force=force, fluid_mask=fluid,
+                                seq_extra=seq_extra)
+        f = stream_bounce_back(f, model, solid=solid, rho0=cfg.lb.rho0)
+        return (f, phi, q5, u_new), rho
 
     return step
 
 
-def make_droplet_nstep(cfg: LCDropletConfig):
+def make_droplet_nstep(cfg: LCDropletConfig, solid=None):
     """nstep(state, n, t0=0): n chained steps."""
-    step = make_droplet_step(cfg)
+    step = make_droplet_step(cfg, solid)
 
     def nstep(state, n, t0=0):
         for t in range(t0, t0 + n):
@@ -146,12 +169,12 @@ def _flds(phi, gp, dp, dab, q5, gq, dq):
             "q": q5, "grad_q": gq, "delsq_q": dq}
 
 
-def _buffer_flds(phi, q5, ctx: LEContext, up: bool):
+def _buffer_flds(phi, q5, ctx: LEContext, up: bool, gradient=GRADIENT):
     """The droplet's fields at the buffer column above (up) or below each
-    plane: the displaced columns with gradients and dab through the
-    buffer chains."""
-    pb, gp, dp = le_buffer_fields(phi, ctx, up)
-    qb, gq, dq = le_buffer_fields(q5, ctx, up)
+    plane: the displaced columns with gradients (by `gradient`) and dab
+    through the buffer chains."""
+    pb, gp, dp = le_buffer_fields(phi, ctx, up, gradient)
+    qb, gq, dq = le_buffer_fields(q5, ctx, up, gradient)
     return _flds(pb, gp, dp, le_buffer_dab(phi, ctx, up), qb, gq, dq)
 
 
@@ -163,16 +186,25 @@ def make_droplet_le_step(cfg: LCDropletConfig, le):
     flux method for LE planes'), phi by Cahn-Hilliard with LE advection
     and the plane flux averaging, Q by Beris-Edwards with LE advection
     and LE velocity gradients, the LB reproject + displace.  The state
-    carries no gradients, as the JAX package's CLI route runs it."""
+    carries no gradients, as the JAX package's CLI route runs it.  The
+    gradients take cfg.gradient as ops/le_ref.le_gradient does (the
+    27-point stencil, else the 7-point one); the whole qh stress is
+    forced, so relaxation_antisymmetric, which the JAX package's sheared
+    step runs as stress_divergence, raises."""
+    if cfg.force_method != FORCE_METHOD:
+        raise NotImplementedError(
+            f"fe_force_method '{cfg.force_method}' beside Lees-Edwards planes "
+            f"(the JAX package's sheared droplet runs '{FORCE_METHOD}')")
     params = cfg.lb.collision_params()
     model = cfg.lb.model
     fe = cfg.fe
+    gradient = cfg.gradient
 
     def step(state, t=0):
         f, phi, q5, u = state
         ctx = LEContext(le, t, phi)
-        grad_p, delsq_p = le_gradient(phi, le, t)
-        grad_q, delsq_q = le_gradient(q5, le, t)
+        grad_p, delsq_p = le_gradient(phi, le, t, gradient)
+        grad_q, delsq_q = le_gradient(q5, le, t, gradient)
         fields = _flds(phi, grad_p, delsq_p, le_dab_7pt(phi, le, t), q5,
                        grad_q, delsq_q)
         mu = fe.mu(fields)
@@ -181,8 +213,8 @@ def make_droplet_le_step(cfg: LCDropletConfig, le):
         # droplet stress's two-sided plane fluxes
         force = fe.body_force(fields, mu, h)
         pth = stack33(fe.stress_qh(fields, h))
-        fb1 = _buffer_flds(phi, q5, ctx, True)
-        fd0 = _buffer_flds(phi, q5, ctx, False)
+        fb1 = _buffer_flds(phi, q5, ctx, True, gradient)
+        fd0 = _buffer_flds(phi, q5, ctx, False, gradient)
         phi_new = le_cahn_hilliard(phi, mu, u, ctx, cfg.mobility,
                                    cfg.advection_order, fe.mu(fb1),
                                    fe.mu(fd0))

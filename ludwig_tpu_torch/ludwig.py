@@ -80,8 +80,8 @@ the JAX package's log header fails, raises.
 An input key the JAX package honours and the port cannot, here, raises
 NotImplementedError naming the key, unless it is set to its inactive
 default (`boundary_walls 0_0_0` for the families without walls,
-`colloid_init no_colloids` for those without a colloid route,
-`default_io_grid 1_1_1`, ...; JAX_KEYS, _check_keys).  Any other key
+`colloid_init no_colloids` for those without a colloid route, ...;
+JAX_KEYS, _check_keys).  Any other key
 runs: the log's tail reports it if nothing read it, as the JAX
 package's does.
 """
@@ -130,7 +130,7 @@ from ludwig_tpu_torch.fe.polar_active import PolarActiveFE
 from ludwig_tpu_torch.fe.surfactant import SurfactantFE
 from ludwig_tpu_torch.fe.symmetric import SymmetricFE
 from ludwig_tpu_torch.fe.ternary import TernaryFE
-from ludwig_tpu_torch.io import read_state, write_state
+from ludwig_tpu_torch.io import read_state, write_sharded, write_state
 from ludwig_tpu_torch.io.map_file import GEOMETRIES, read_map
 from ludwig_tpu_torch.io.ref_format import write_ref_field
 from ludwig_tpu_torch.lb import (LBConfig, hydro_fields, initial_from_hydro,
@@ -151,6 +151,7 @@ from ludwig_tpu_torch.ops.fused_binary import (binary_phi_force_step,
                                                make_fused_binary_le_step,
                                                make_fused_binary_step)
 from ludwig_tpu_torch.ops.fused_droplet import (droplet_phi_q_force_step,
+                                                fused_droplet_ok,
                                                 initial_fused_droplet,
                                                 make_fused_droplet_le_step,
                                                 make_fused_droplet_step)
@@ -386,8 +387,9 @@ FREE_ENERGIES = {"none": BOUNDARY_KEYS | COLLOID_KEYS,
                  "symmetric": BINARY_KEYS | COLLOID_KEYS,
                  "symmetric_noise": BINARY_KEYS,
                  "lc_blue_phase": LC_KEYS | SOLID_KEYS | COLLOID_KEYS,
-                 "lc_droplet": DROPLET_KEYS,
-                 "fe_electro": ELECTRO_KEYS | COLLOID_KEYS | frozenset((
+                 "lc_droplet": DROPLET_KEYS | SOLID_KEYS,
+                 "fe_electro": ELECTRO_KEYS | SOLID_KEYS | COLLOID_KEYS
+                 | frozenset((
                      "fe_force_method",)),
                  "brazovskii": BRAZOVSKII_KEYS,
                  "surfactant": SURFACTANT_KEYS, "ternary": TERNARY_KEYS,
@@ -437,10 +439,6 @@ def _jax_reads(key: str) -> bool:
             or key.endswith("_io_grid"))
 
 
-def _one_io_group(v: str) -> bool:
-    return [int(x) for x in v.split("_")] == [1, 1, 1]
-
-
 def _not_ported(key: str, value):
     return NotImplementedError(
         f"input key '{key}' (value '{value}') is not ported yet, see ROADMAP")
@@ -460,12 +458,9 @@ def _check_keys(rt: RunTime):
         if (fe_name in COLLOID_FAMILIES
                 and key.startswith(COLLOID_PREFIXES)):
             continue
-        if not _jax_reads(key):
+        if not _jax_reads(key) or key.endswith("_io_grid"):
             continue
-        # default_io_grid, <name>_io_grid: one I/O group only (the JAX
-        # package's sharded writer, io/sharded.py, is not ported)
-        check = (INACTIVE.get(key) if not key.endswith("_io_grid")
-                 else _one_io_group)
+        check = INACTIVE.get(key)
         value = rt.peek(key)
         if check is None or not check(value):
             raise _not_ported(key, value)
@@ -924,10 +919,13 @@ def _q_init_mode(rt: RunTime, size, fe: BluePhaseFE) -> np.ndarray:
 def _droplet_config(rt: RunTime,
                     lb_cfg: LBConfig) -> lc_droplet.LCDropletConfig:
     """The `free_energy lc_droplet` configuration (ref: the lc_droplet
-    branch of ludwig_tpu build_system, ludwig.py:1055-1080), limited to
-    what the JAX package's fused route accepts: periodic, no solid or
-    walls, stress-divergence force, 7-point gradients, advection order 1
-    or 2, hydrodynamics on.  Anything else raises naming its key."""
+    branch of ludwig_tpu build_system, ludwig.py:1055-1080): every fluid
+    stencil, advection orders 1-5 (LCDropletConfig raises ValueError on
+    others, as the JAX package's step does), the stress-divergence force
+    or relaxation_antisymmetric.  The other recognised force methods, which
+    the JAX package's droplet step runs as stress_divergence, and
+    `hydrodynamics off`, which its step ignores while its log drops the
+    velocity, raise naming their keys."""
     fe = LCDropletFE(symm=_symm_fe(rt), lc=_blue_phase_fe(rt, active=False),
                      gamma0=rt.double_required("lc_droplet_gamma"),
                      delta=rt.double_required("lc_droplet_delta"),
@@ -935,17 +933,51 @@ def _droplet_config(rt: RunTime,
     gradient = rt.string("fd_gradient_calculation", lc_droplet.GRADIENT)
     order = rt.int("fd_advection_scheme_order", 1)
     method = rt.string("fe_force_method", lc_droplet.FORCE_METHOD)
-    if gradient != lc_droplet.GRADIENT:
-        raise _not_ported("fd_gradient_calculation", gradient)
-    if order not in lc_droplet.ORDERS:
-        raise _not_ported("fd_advection_scheme_order", order)
-    if method != lc_droplet.FORCE_METHOD:
+    if method not in _FORCE_METHODS:
+        raise ValueError(f"fe_force_method '{method}' not recognised")
+    if method not in lc_droplet.FORCE_METHODS:
         raise _not_ported("fe_force_method", method)
     if not rt.switch("hydrodynamics", True):
         raise _not_ported("hydrodynamics", rt.string("hydrodynamics"))
     return lc_droplet.LCDropletConfig(
         lb=lb_cfg, fe=fe, mobility=rt.double("mobility", 0.05),
-        gamma=rt.double("lc_Gamma", 0.5), advection_order=order)
+        gamma=rt.double("lc_Gamma", 0.5), advection_order=order,
+        gradient=gradient, force_method=method)
+
+
+def _droplet_system(rt: RunTime, lb_cfg: LBConfig) -> System:
+    """The lc_droplet branch of ludwig_tpu build_system (ludwig.py:
+    1055-1178), gate for gate: the solid is the walls as solid planes
+    and the porous media; Lees-Edwards planes beside them raise
+    ValueError, as there; the fused K1 + mean + K2 route where `tpu_fused`
+    asks and there is no solid, wall or LB noise and fused_droplet_ok
+    holds, else the unfused step with the solid."""
+    size = lb_cfg.size
+    dcfg = _droplet_config(rt, lb_cfg)
+    phi0 = _phi_init(rt, size, dcfg.fe.symm)
+    q0 = _droplet_q_init(rt, size, dcfg.fe.lc)
+    porous = _porous(rt, size)
+    le = _le_config(rt, size)
+    if le is not None:
+        if porous is not None or any(lb_cfg.walls):
+            key = ("boundary_walls" if any(lb_cfg.walls) else
+                   "porous_media_file" if rt.has_key("porous_media_file")
+                   else "porous_media_init")
+            raise ValueError(f"{key} ({rt.string(key)}): lc_droplet + "
+                             "Lees-Edwards does not compose with "
+                             "walls/porous media")
+        return _droplet_le_system(rt, lb_cfg, dcfg, le, phi0, q0)
+    solid = solid_mask(lb_cfg, porous)
+    if (_fused_request(rt) and solid is None and lb_cfg.noise is None
+            and fused_droplet_ok(dcfg)):
+        return System(rt=rt, lb_cfg=lb_cfg,
+                      state=initial_fused_droplet(dcfg, phi0, q0),
+                      step_fn=make_fused_droplet_step(dcfg),
+                      fused_mode="droplet", droplet_cfg=dcfg)
+    return System(rt=rt, lb_cfg=lb_cfg,
+                  state=lc_droplet.initial_droplet(dcfg, phi0, q0),
+                  step_fn=lc_droplet.make_droplet_step(dcfg, solid=solid),
+                  droplet_cfg=dcfg, solid=solid)
 
 
 def _droplet_q_init(rt: RunTime, size, fe: BluePhaseFE) -> np.ndarray:
@@ -971,11 +1003,14 @@ def _droplet_q_init(rt: RunTime, size, fe: BluePhaseFE) -> np.ndarray:
     raise ValueError(f"lc_q_initialisation '{mode}' for droplet")
 
 
-def _electrolyte(rt: RunTime, lb_cfg: LBConfig):
-    """(ElectroSimConfig, psi0, rho_k, boundary) of an electrokinetic
-    input (ludwig_tpu ludwig.py:1348-1386): the electrolyte's parameters,
-    the initial psi and charge densities, the counter-charge that makes
-    the fluid neutral, and the Gouy-Chapman walls' mask (or None)."""
+def _electrolyte(rt: RunTime, lb_cfg: LBConfig,
+                 solid: Optional[torch.Tensor] = None):
+    """(ElectroSimConfig, psi0, rho_k, solid) of an electrokinetic input
+    (ludwig_tpu ludwig.py:1348-1386): the electrolyte's parameters, the
+    initial psi and charge densities, the solid (the in-lattice `solid`,
+    walls and porous media, joined with the Gouy-Chapman walls; None
+    without either) and the counter-charge that makes its fluid
+    neutral."""
     size = lb_cfg.size
     kt = rt.double("temperature", 1.0 / 3.0e4)
     ek = ElectroConfig(
@@ -1006,23 +1041,28 @@ def _electrolyte(rt: RunTime, lb_cfg: LBConfig):
         psi0, rho_k = electro_sim.init_uniform(size, rho_el)
     else:
         raise ValueError(f"electrokinetics_init '{mode}'")
-    rho_k = electro_sim.electroneutral(rho_k, ek.valency, boundary)
+    if boundary is not None:
+        boundary = torch.as_tensor(boundary, device=lb_cfg.device)
+        solid = (boundary if solid is None
+                 else torch.logical_or(solid, boundary))
+    rho_k = electro_sim.electroneutral(
+        rho_k, ek.valency, None if solid is None else solid.cpu().numpy())
     ecfg = electro_sim.ElectroSimConfig(
         lb=lb_cfg, ek=ek,
         e0=tuple(rt.double_vector("electric_e0", (0.0, 0.0, 0.0))),
         hydrodynamics=rt.switch("hydrodynamics", True),
         stencil=rt.int("electrokinetics_solver_stencil", 7))
-    return ecfg, psi0, rho_k, boundary
+    return ecfg, psi0, rho_k, solid
 
 
 def _electro_system(rt: RunTime, lb_cfg: LBConfig) -> System:
     """The `free_energy fe_electro` system without colloids (ref: the
     fe_electro branch of ludwig_tpu build_system, ludwig.py:1348-1465):
-    the electrolyte (the Gouy-Chapman walls become the solid mask) and
-    make_electro_step."""
-    ecfg, psi0, rho_k, boundary = _electrolyte(rt, lb_cfg)
-    solid = (None if boundary is None
-             else torch.as_tensor(boundary, device=lb_cfg.device))
+    the electrolyte and make_electro_step over the solid, the walls as
+    solid planes and the porous media joined with the Gouy-Chapman
+    walls."""
+    ecfg, psi0, rho_k, solid = _electrolyte(
+        rt, lb_cfg, solid_mask(lb_cfg, _porous(rt, lb_cfg.size)))
     state = electro_sim.initial_electro(ecfg, _distribution_init(rt, lb_cfg),
                                         psi0, rho_k)
     return System(rt=rt, lb_cfg=lb_cfg, state=state,
@@ -1037,7 +1077,7 @@ def _electro_symm_system(rt: RunTime, lb_cfg: LBConfig) -> System:
     epsilon1 and epsilon2, the coupled free energy, phi from
     phi_initialisation, and make_electro_symm_step.  As there, the step
     keeps no solid: the Gouy-Chapman walls only set the initial charge."""
-    ecfg, psi0, rho_k, _boundary = _electrolyte(rt, lb_cfg)
+    ecfg, psi0, rho_k, _solid = _electrolyte(rt, lb_cfg)
     ek = ecfg.ek
     eps1 = rt.double("electrokinetics_epsilon1", ek.epsilon)
     eps2 = rt.double("electrokinetics_epsilon2", ek.epsilon)
@@ -1350,15 +1390,19 @@ def _droplet_le_system(rt, lb_cfg, dcfg, le, phi0, q0) -> System:
     """The sheared LC droplet (ludwig_tpu ludwig.py:1099-1151; walls and
     porous media beside planes are refused with their keys): the fused
     K1 + column fix + mean subtraction + K2 + LE post-pass where
-    `tpu_fused` asks, the advection is order 1, the planes are 8 columns
-    apart and the LB's fluctuations are off (the JAX package's gate; the
-    droplet's steps draw no LB noise), else the unfused step."""
+    `tpu_fused` asks, the advection is order 1, the stencil 7-point, the
+    force stress_divergence, the planes are 8 columns apart and the LB's
+    fluctuations are off (the JAX package's gate; the droplet's steps
+    draw no LB noise), else the unfused step, which takes the stencil
+    and the order.  relaxation_antisymmetric, which the JAX package's
+    sheared step runs as stress_divergence, raises naming its key
+    (lc_droplet.make_droplet_le_step)."""
     f = _le_f0(rt, lb_cfg, le)
     phi, q5 = _tensors(lb_cfg, phi0, q0)
     u = torch.zeros((3,) + lb_cfg.size, dtype=lb_cfg.tdtype,
                     device=lb_cfg.device)
     if (_fused_request(rt) and dcfg.advection_order == 1
-            and lb_cfg.noise is None
+            and fused_droplet_ok(dcfg) and lb_cfg.noise is None
             and lb_cfg.size[0] >= 8 * le.nplanes):
         return System(rt=rt, lb_cfg=lb_cfg, state=(f, phi, q5, u),
                       step_fn=make_fused_droplet_le_step(dcfg, le),
@@ -1617,23 +1661,7 @@ def build_system(rt: RunTime, device="cuda") -> System:
     if fe_name == "lc_blue_phase":
         return _lc_system(rt, lb_cfg)
     if fe_name == "lc_droplet":
-        dcfg = _droplet_config(rt, lb_cfg)
-        phi0 = _phi_init(rt, size, dcfg.fe.symm)
-        q0 = _droplet_q_init(rt, size, dcfg.fe.lc)
-        le = _le_config(rt, size)
-        if le is not None:
-            return _droplet_le_system(rt, lb_cfg, dcfg, le, phi0, q0)
-        # the JAX package's fused gate refuses the LB's fluctuations
-        # (ludwig.py:1152-1156), which the droplet's steps do not draw
-        if _fused_request(rt) and lb_cfg.noise is None:
-            return System(rt=rt, lb_cfg=lb_cfg,
-                          state=initial_fused_droplet(dcfg, phi0, q0),
-                          step_fn=make_fused_droplet_step(dcfg),
-                          fused_mode="droplet", droplet_cfg=dcfg)
-        return System(rt=rt, lb_cfg=lb_cfg,
-                      state=lc_droplet.initial_droplet(dcfg, phi0, q0),
-                      step_fn=lc_droplet.make_droplet_step(dcfg),
-                      droplet_cfg=dcfg)
+        return _droplet_system(rt, lb_cfg)
     if fe_name == "fe_electro":
         return _electro_system(rt, lb_cfg)
     if fe_name == "fe_electro_symmetric":
@@ -1765,7 +1793,10 @@ def _family_colloid_system(rt: RunTime, lb_cfg: LBConfig, fe_name: str,
             phi_ref=rt.double("phi0", 0.0), wetting=wet, wallspec=ws)
         return System(rt=rt, lb_cfg=lb_cfg, state=state, step_fn=step,
                       lb2_cfg=l2cfg, colloid_params=cp, wallspec=ws)
-    ecfg, psi0, rho_k, _boundary = _electrolyte(rt, lb_cfg)
+    if any(lb_cfg.walls):
+        raise _not_ported("boundary_walls", rt.string("boundary_walls")
+                          + " beside charged colloids")
+    ecfg, psi0, rho_k, _solid = _electrolyte(rt, lb_cfg)
     qq = torch.as_tensor(np.array(col["q"], np.float64).reshape(-1, 2),
                          dtype=lb_cfg.tdtype, device=lb_cfg.device)
     R0 = torch.as_tensor(np.array(col["R"], np.float64).reshape(-1, 3),
@@ -2338,7 +2369,6 @@ def _make_stats_fn(sys_: System, reference: bool):
     l2cfg, pcfg = sys_.lb2_cfg, sys_.polar_cfg
     nz = sys_.lb_cfg.noise
     mask = sys_.fluid_mask
-    order_stats = stats.field_stats_ref if reference else stats.field_stats
 
     def grads(state, prev, tstep):
         """(grad, delsq) of the order parameter before the step, with
@@ -2639,16 +2669,27 @@ def _make_stats_fn(sys_: System, reference: bool):
         if dcfg is not None:
             # [phi], [Qxx]..[Qyz] of the updated fields; [fed] with the
             # gradients of the pre-step phi and Q, the updated fields in
-            # their place
+            # their place; over the fluid sites beside a solid (ludwig_tpu
+            # ludwig.py:2273-2290)
             phi, q5 = state[1], state[2]
-            res["phi"] = order_stats(phi)
-            res["q5"] = [order_stats(q5[n]) for n in range(5)]
+            if reference:
+                res["phi"] = stats.field_stats_ref(phi, mask)
+                res["q5"] = [stats.field_stats_ref(q5[n], mask)
+                             for n in range(5)]
+            else:
+                res["phi"] = stats.field_stats(phi)
+                res["q5"] = [stats.field_stats(q5[n]) for n in range(5)]
             fields = lc_droplet.droplet_fields(
-                *((phi, q5) if prev is None else prev))
+                *((phi, q5) if prev is None else prev), dcfg.gradient)
             fields["phi"] = phi
             fields["q"] = q5
-            m = torch.mean(dcfg.fe.fed(fields))
-            res["fed"] = (m, m)
+            fed = dcfg.fe.fed(fields)
+            if mask is None:
+                m = torch.mean(fed)
+                res["fed"] = (m, m)
+            else:
+                fm = torch.where(mask, fed, 0.0)
+                res["fed"] = (torch.mean(fm), torch.sum(fm) / torch.sum(mask))
         if nz is not None and nz.rho:
             # the temperature statistics (ref: collision.c:1030-1110
             # lb_collision_stats_kt; ludwig_tpu ludwig.py:1813-1817 on the
@@ -3063,9 +3104,19 @@ def run_text(text: str, out=sys.stdout, device="cuda") -> System:
     tend = sys_.n_start + ncycles
     cfg_style = rt.string("_cfg_end_style", "inloop")
 
+    # the I/O grid (ref: io_info_args_rt.c:55-57, "<name>_io_grid"
+    # overriding "default_io_grid"): other than 1_1_1 writes the field as
+    # a subfile set (io/sharded.py), each file with its metadata
+    io_grid_default = tuple(rt.int_vector("default_io_grid", (1, 1, 1)))
+
     def write_field(name, step, arr):
-        write_ref_field(iodir, name, step, arr, periodic=periodic,
-                        le=le_meta)
+        grid = tuple(rt.int_vector(f"{name}_io_grid", io_grid_default))
+        if grid != (1, 1, 1):
+            write_sharded(iodir, name, step, arr, grid=grid,
+                          periodic=periodic, le=le_meta)
+        else:
+            write_ref_field(iodir, name, step, arr, periodic=periodic,
+                            le=le_meta)
 
     if sys_.n_start > 0:
         sys_.state = read_checkpoint(sys_, iodir, sys_.n_start)

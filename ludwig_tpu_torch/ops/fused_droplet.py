@@ -41,8 +41,8 @@ import torch
 
 from ludwig_tpu_torch.fe.blue_phase import q5_to_q33
 from ludwig_tpu_torch.lc import _s5_corotation
-from ludwig_tpu_torch.lc_droplet import (ORDERS, LCDropletConfig,
-                                         initial_droplet,
+from ludwig_tpu_torch.lc_droplet import (FORCE_METHOD, GRADIENT,
+                                         LCDropletConfig, initial_droplet,
                                          make_droplet_le_column_fix)
 from ludwig_tpu_torch.ops import _cuda
 from ludwig_tpu_torch.ops.force import correct_momentum
@@ -203,6 +203,25 @@ def _droplet_plain(phi, q5, u, fe, be_gamma: float, mobility: float,
     return phinew, torch.stack(qnew), torch.stack(force)
 
 
+ORDERS = (1, 2)     # the advection orders the fused kernel takes
+
+
+def fused_droplet_ok(dcfg: LCDropletConfig) -> bool:
+    """Whether the kernels run this configuration (the JAX package's fused
+    gate, ludwig.py:1153-1156, less its solid and noise conditions): the
+    7-point stencil, the stress-divergence force, order 1 or 2."""
+    return (dcfg.gradient == GRADIENT and dcfg.force_method == FORCE_METHOD
+            and dcfg.advection_order in ORDERS)
+
+
+def _require_fused(dcfg: LCDropletConfig):
+    if not fused_droplet_ok(dcfg):
+        raise ValueError(
+            f"fused droplet: gradient '{dcfg.gradient}', force method "
+            f"'{dcfg.force_method}', order {dcfg.advection_order} (have "
+            f"'{GRADIENT}', '{FORCE_METHOD}', {ORDERS})")
+
+
 def _check_fields(phi, q5, u, order: int):
     if order not in ORDERS:
         raise ValueError(f"fused droplet: advection order {order} "
@@ -243,9 +262,10 @@ def make_fused_droplet_step(dcfg: LCDropletConfig):
     subtraction, then K2.
 
     Periodic fluid, 7-point gradients, stress-divergence force, advection
-    order 1 or 2 (what LCDropletConfig admits).  The sheared variant is
-    make_fused_droplet_le_step; the sharded one of the JAX package is not
-    ported."""
+    order 1 or 2 (fused_droplet_ok; anything else raises).  The sheared
+    variant is make_fused_droplet_le_step; the sharded one of the JAX
+    package is not ported."""
+    _require_fused(dcfg)
     model = dcfg.lb.model
     params = dcfg.lb.collision_params()
 
@@ -274,7 +294,7 @@ def make_fused_droplet_le_step(dcfg: LCDropletConfig, le):
     the fix: the LE flux divergence sums to its round-off after the
     per-plane mean fix), K2 runs, and ops/lees_edwards.apply_le_fused
     reprojects and displaces the crossing populations of its output."""
-
+    _require_fused(dcfg)
     model = dcfg.lb.model
     params = dcfg.lb.collision_params()
     fix = make_droplet_le_column_fix(dcfg, le)

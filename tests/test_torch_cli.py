@@ -112,7 +112,8 @@ def test_binary_keys_now_ported_match_jax(line):
     # neither), the open boundary without halo walls
     "boundary_speed_top 0.01", "boundary_walls_slip_fraction_top 0.5_0_0",
     "lb_bc_open 1", "tpu_shard on", "lc_a0 0.01",
-    "default_io_grid 2_1_1"])
+    # a psi file outside the electrolytes
+    "freq_psi 2"])
 def test_unported_binary_keys_raise(line):
     with pytest.raises(NotImplementedError, match=line.split()[0]):
         run_text(BINARY_FUSED_INPUT + line + "\n", out=io.StringIO(),
@@ -279,11 +280,16 @@ def test_droplet_cli_matches_jax(fused):
 
 
 @pytest.mark.parametrize("line", [
-    "fe_force_method relaxation_antisymmetric",
-    "fd_gradient_calculation 3d_27pt_fluid", "fd_advection_scheme_order 3",
-    "hydrodynamics off", "electric_e0 0.01_0_0", "boundary_walls 0_0_1",
-    "porous_media_file capillary", "tpu_shard on", "freq_psi 2",
-    "lc_activity yes", "default_io_grid 2_1_1"])
+    # the relaxation force beside planes and the force methods the JAX
+    # package's droplet steps run as stress_divergence; hydrodynamics off,
+    # which its step ignores while its log drops the velocity
+    "fe_force_method relaxation_antisymmetric\nN_LE_plane 2\n"
+    "LE_plane_vel 0.04",
+    "fe_force_method phi_gradmu", "fe_force_method relaxation_symmetric",
+    "hydrodynamics off", "electric_e0 0.01_0_0",
+    # colloids (no droplet colloid route) and the open boundary
+    "colloid_init input_one\ncolloid_one_a0 2.3", "lb_bc_open 1",
+    "tpu_shard on", "freq_psi 2", "lc_activity yes", "lc_redshift_update 1"])
 def test_unported_droplet_keys_raise(line):
     with pytest.raises(NotImplementedError, match=line.split()[0]):
         run_text("tpu_fused on\n" + DROPLET_FUSED_INPUT + line + "\n",
@@ -368,11 +374,13 @@ def test_electro_cli_matches_jax(solver):
     "colloid_init input_one\ncolloid_one_a0 2.3\ncolloid_one_type subgrid",
     "N_LE_plane 2\nLE_plane_vel 0.01\ncolloid_init input_one\n"
     "colloid_one_a0 2.3",
-    # freq_psi is written now; a psi file over several I/O groups is not
-    "psi_io_grid 2_1_1",
-    "tpu_shard on",
-    "lc_redshift_update 1", "boundary_walls 0_0_1",
-    "porous_media_file capillary"])
+    # planes of the electrolyte
+    "N_LE_plane 2\nLE_plane_vel 0.01",
+    "tpu_shard on", "lc_redshift_update 1",
+    # walls and porous media beside charged colloids
+    "boundary_walls 0_1_0\ncolloid_init input_one\ncolloid_one_a0 2.3",
+    "porous_media_init simple_cubic\nporous_media_acell 4\n"
+    "colloid_init input_one\ncolloid_one_a0 2.3"])
 def test_unported_electro_keys_raise(line):
     with pytest.raises(NotImplementedError, match=line.split()[0]):
         run_text(ELECTRO_INPUT + line + "\n", out=io.StringIO(),
@@ -422,11 +430,11 @@ def test_plain_cli_matches_jax():
     "lc_redshift_update 1", "mobility 0.1", "freq_psi 2",
     # the plain fluid's walls, planes, restarts, periodicity and shear
     # observables are read since they are ported, and so are the colloids'
-    # keys and the measurements; sharding, several I/O groups, the
+    # keys and the measurements, and so are the I/O grids; sharding, the
     # viscosity models and other families' keys are not (a key the JAX
     # package does not read runs: tests/test_torch_fulllog.py)
     "lc_a0 0.01", "surf_A -0.02", "tpu_shard on",
-    "default_io_grid 2_1_1", "ternary_alpha 1.0",
+    "electric_e0 0.01_0_0", "ternary_alpha 1.0",
     "viscosity_model arrhenius"])
 def test_unported_keys_raise(line):
     with pytest.raises(NotImplementedError, match=line.split()[0]):

@@ -126,14 +126,24 @@ def test_droplet_step_matches_jax(order):
 
 
 def test_droplet_config_refuses_what_is_not_ported():
+    """An order or a stencil the JAX package does not have raises
+    ValueError, a force method its droplet step runs as stress_divergence
+    NotImplementedError, naming the field; the fused step refuses what its
+    kernels do not take."""
+    from ludwig_tpu_torch.ops.fused_droplet import make_fused_droplet_step
     _jcfg, tcfg = _cfgs(1)
+    for field, value, err in (("advection_order", 6, ValueError),
+                              ("gradient", "3d_7pt_solid", ValueError),
+                              ("force_method", "phi_gradmu",
+                               NotImplementedError)):
+        with pytest.raises(err, match=field):
+            dataclasses.replace(tcfg, **{field: value})
+    with pytest.raises(ValueError, match="3d_7pt_solid"):
+        lc_droplet.droplet_fields(torch.zeros(N), torch.zeros((5,) + N),
+                                  "3d_7pt_solid")
     for field, value in (("advection_order", 3),
                          ("gradient", "3d_27pt_fluid"),
                          ("force_method", "relaxation_antisymmetric")):
-        with pytest.raises(NotImplementedError, match=field):
-            dataclasses.replace(tcfg, **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lc_droplet.droplet_fields(torch.zeros(N), torch.zeros((5,) + N),
-                                  "3d_27pt_fluid")
-    with pytest.raises(TypeError):
-        lc_droplet.make_droplet_step(tcfg, solid=torch.zeros(N, dtype=bool))
+        with pytest.raises(ValueError, match="fused droplet"):
+            make_fused_droplet_step(dataclasses.replace(tcfg,
+                                                        **{field: value}))

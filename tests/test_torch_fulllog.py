@@ -177,7 +177,7 @@ def test_unread_keys_warn_as_jax(name):
 
 
 @pytest.mark.parametrize("line", ["lc_noise on", "tpu_shard on",
-                                  "default_io_grid 2_1_1"])
+                                  "electric_e0 0.01_0_0"])
 def test_honoured_keys_still_refused(line):
     text = ("tpu_fused on\n" + LC_FUSED_INPUT if line.startswith("lc_")
             else PLAIN_FUSED_INPUT)

@@ -152,11 +152,20 @@ def test_convert_round_trip():
     assert all(x.is_contiguous() for x in ts)
     with pytest.raises(ValueError):
         droplet_state_from_jax(fpad, ppad, qpad[:, :-1], u, "cpu", "float64")
+    # the unfused step's options cross; what the JAX droplet runs as
+    # stress_divergence, or does not have, raises naming the field
     for field, value in (("force_method", "relaxation_antisymmetric"),
                          ("gradient", "3d_27pt_fluid"),
                          ("advection_order", 3)):
+        ok = dataclasses.asdict(dataclasses.replace(jcfg, **{field: value}))
+        assert getattr(droplet_params_from_jax(ok, device="cpu"),
+                       field) == value
+    for field, value, err in (("force_method", "phi_gradmu",
+                               NotImplementedError),
+                              ("gradient", "3d_7pt_solid", ValueError),
+                              ("advection_order", 6, ValueError)):
         bad = dataclasses.asdict(dataclasses.replace(jcfg, **{field: value}))
-        with pytest.raises(NotImplementedError, match=field):
+        with pytest.raises(err, match=field):
             droplet_params_from_jax(bad, device="cpu")
     bad = dataclasses.asdict(jcfg)
     bad["fe"]["lc"]["e0"] = (0.0, 0.0, 0.01)
